@@ -1,0 +1,279 @@
+// CLAHE on Hopper: the three kernels of the NV12 CLAHE step.
+//
+//   K1 tile_hist_kernel   per-tile 256-bin histograms of the reflect-101
+//                         extended Y plane (optionally every rowstep-th row)
+//   K2 build_luts_kernel  OpenCV clip + redistribution, int32 inclusive scan,
+//                         LUT = clip(rint(cdf * lut_scale), 0, 255)
+//   K3 interp_kernel      bilinear blend of the four neighbouring tile LUTs,
+//                         in OpenCV's mul-then-add f32 order
+//
+// Each kernel computes exactly what its TPU kernel in
+// opencv_opencl_tpu/ops/pallas/natural.py computes, and what the plain
+// PyTorch versions in opencv_opencl_tpu_torch/ops/cuda/natural.py compute.
+// None follows the TPU kernel's structure: the one-hot and radix-16 MXU
+// dots, the bf16 LUT pack and the (8, 128) alignment padding answered TPU
+// constraints and have no counterpart here.
+//
+// Every launcher is extern "C", launches on the stream it is given, does
+// not synchronise, allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBins = 256;
+constexpr int kThreads = 256;
+
+// cv::borderInterpolate(BORDER_REFLECT_101) for an index past the end:
+// mirror without repeating the edge, periodic with period 2n-2 when the pad
+// exceeds the dimension (core/golden.py reflect101_indices).
+__device__ __forceinline__ int reflect101(int i, int n) {
+    if (i < n) return i;
+    if (n == 1) return 0;
+    const int period = 2 * n - 2;
+    const int j = i % period;
+    return j < n ? j : period - j;
+}
+
+// ----------------------------------------------------------------- K1 ----
+// Replaces natural.py tile_histograms_radix / _tile_hist_radix_kernel.
+// Bound: the read of the Y plane (8.3 MB per 4K frame) and one shared-memory
+// atomic per pixel.  A constant frame, which sends all 32 lanes of a warp to
+// one bin, measured no slower than random content on an H100, so the bins
+// are not replicated per warp.  Design: one block per (frame, tile, slice of
+// the tile's rows), so a 4K batch of 4 (256 tiles) still fills the 132 SMs;
+// each block counts into 256 int32 bins in shared memory and adds its
+// non-zero bins to the zeroed global (N, T, 256) histogram with one global
+// atomic each.  The extended frame is never materialised: padded positions
+// map to their source with reflect-101 index math.
+__global__ void __launch_bounds__(kThreads)
+tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
+                 long long frame_stride, long long row_stride,
+                 int tiles_x, int tile_h, int tile_w, int rowstep,
+                 int slices, int* __restrict__ out) {
+    __shared__ int bins[kBins];
+    for (int b = threadIdx.x; b < kBins; b += blockDim.x) bins[b] = 0;
+    __syncthreads();
+
+    const int num_tiles = gridDim.x / slices;
+    const int tile = blockIdx.x / slices;
+    const int slice = blockIdx.x % slices;
+    const int frame = blockIdx.y;
+    const int ty = tile / tiles_x;
+    const int tx = tile % tiles_x;
+
+    // sampled rows of this tile: ty*tile_h + k*rowstep, k in [k0, k1)
+    const int rows = tile_h / rowstep;
+    const int k0 = (int)((long long)rows * slice / slices);
+    const int k1 = (int)((long long)rows * (slice + 1) / slices);
+    const uint8_t* base = y + frame * frame_stride;
+    const int col0 = tx * tile_w;
+
+    // walk the (row, column) pairs of the slice with a running counter:
+    // no per-pixel division
+    int k = k0 + (int)threadIdx.x / tile_w;
+    int c = (int)threadIdx.x % tile_w;
+    const int step_rows = (int)blockDim.x / tile_w;
+    const int step_cols = (int)blockDim.x % tile_w;
+    while (k < k1) {
+        const int r = reflect101(ty * tile_h + k * rowstep, height);
+        const int x = reflect101(col0 + c, width);
+        atomicAdd(&bins[base[r * row_stride + x]], 1);
+        k += step_rows;
+        c += step_cols;
+        if (c >= tile_w) {
+            c -= tile_w;
+            ++k;
+        }
+    }
+    __syncthreads();
+
+    int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
+    for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
+        const int v = bins[b];
+        if (v) atomicAdd(&dst[b], v * rowstep);
+    }
+}
+
+// ----------------------------------------------------------------- K2 ----
+// Replaces natural.py build_lut_pack_pallas / _lut_pack_kernel (without its
+// bf16 interpolation pack: K3 reads the (T, 256) LUTs by direct index).
+// Bound: launch latency; the work is 256 integers per tile.  Design: one
+// block of 256 threads per (frame, tile), one thread per bin, integer
+// arithmetic up to the single f32 multiply of the scale; the excess is a
+// block reduction and the CDF an inclusive int32 warp-shuffle scan, both
+// exact in any order.
+__device__ __forceinline__ int warp_inclusive_scan(int v) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, s);
+        if (lane >= s) v += u;
+    }
+    return v;
+}
+
+__global__ void __launch_bounds__(kBins)
+build_luts_kernel(const int* __restrict__ hists, int clip, float lut_scale,
+                  uint8_t* __restrict__ luts) {
+    __shared__ int warp_sums[kBins / 32];
+    __shared__ int total;
+    const int bin = threadIdx.x;
+    const int lane = bin & 31;
+    const int warp = bin >> 5;
+    const long long row = (long long)blockIdx.x * kBins;
+    int h = hists[row + bin];
+
+    if (clip > 0) {
+        // ops/clahe.py _clip_histograms: the excess is shared as
+        // excess // 256 to every bin, the residual one count at a time with
+        // stride max(256 // residual, 1) from bin 0
+        int excess = h > clip ? h - clip : 0;
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+            excess += __shfl_xor_sync(0xffffffffu, excess, s);
+        if (lane == 0) warp_sums[warp] = excess;
+        __syncthreads();
+        if (bin == 0) {
+            int t = 0;
+            for (int w = 0; w < kBins / 32; ++w) t += warp_sums[w];
+            total = t;
+        }
+        __syncthreads();
+        const int clipped = total;
+        const int redist = clipped / kBins;
+        const int residual = clipped - kBins * redist;
+        const int step = max(kBins / max(residual, 1), 1);
+        const int bump = (bin % step == 0 && bin / step < residual) ? 1 : 0;
+        h = min(h, clip) + redist + bump;
+    }
+
+    int cdf = warp_inclusive_scan(h);
+    if (lane == 31) warp_sums[warp] = cdf;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) cdf += warp_sums[w];
+
+    // int -> f32 is exact below 2^24; one rounded f32 multiply, then
+    // round half to even like jnp.rint / cvRound
+    const int v = __float2int_rn(__fmul_rn(__int2float_rn(cdf), lut_scale));
+    luts[row + bin] = (uint8_t)min(max(v, 0), 255);
+}
+
+// ----------------------------------------------------------------- K3 ----
+// Replaces natural.py clahe_interpolate_natural (variant 2) /
+// _natural_interp_kernel_v2.  Bound: the read and write of the Y plane
+// (2 bytes per pixel) plus four LUT lookups per pixel.  Design: one block
+// per (band of rows, frame); the frame's LUTs are staged once per block in
+// shared memory when they fit (read through __ldg otherwise), so the four
+// lookups are shared-memory loads; threads walk the columns of each row for
+// coalesced access.  The blend is __fmul_rn/__fadd_rn throughout: nvcc
+// would otherwise contract a*b+c into an FMA and flip exact ties by 1 LSB.
+// Each pixel is read and then written by the same thread and depends only
+// on itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).
+__global__ void __launch_bounds__(kThreads)
+interp_kernel(const uint8_t* y, long long y_frame_stride,
+              long long y_row_stride, const uint8_t* __restrict__ luts,
+              int height, int width, int tiles_x, int num_tiles,
+              const int* __restrict__ ty1, const int* __restrict__ ty2,
+              const float* __restrict__ ya, const int* __restrict__ tx1,
+              const int* __restrict__ tx2, const float* __restrict__ xa,
+              uint8_t* out, long long out_frame_stride,
+              long long out_row_stride, int rows_per_block, int staged) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int frame = blockIdx.y;
+    const int lut_bytes = num_tiles * kBins;
+    const uint8_t* frame_luts = luts + (long long)frame * lut_bytes;
+    const uint8_t* lut = frame_luts;
+    if (staged) {
+        // lut_bytes is a multiple of 256 and the LUT tensor is contiguous,
+        // so every frame's LUTs start 16-byte aligned
+        const uint4* src = reinterpret_cast<const uint4*>(frame_luts);
+        uint4* dst = reinterpret_cast<uint4*>(smem);
+        for (int i = threadIdx.x; i < lut_bytes / 16; i += blockDim.x)
+            dst[i] = __ldg(&src[i]);
+        __syncthreads();
+        lut = smem;
+    }
+
+    const int r0 = blockIdx.x * rows_per_block;
+    const int r1 = min(r0 + rows_per_block, height);
+    for (int r = r0; r < r1; ++r) {
+        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
+        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
+        const int row_a = __ldg(&ty1[r]) * tiles_x;
+        const int row_b = __ldg(&ty2[r]) * tiles_x;
+        const float fy = __ldg(&ya[r]);
+        const float fy1 = __fsub_rn(1.0f, fy);
+        for (int c = threadIdx.x; c < width; c += blockDim.x) {
+            const int v = src_row[c];
+            const int ca = __ldg(&tx1[c]);
+            const int cb = __ldg(&tx2[c]);
+            const float fx = __ldg(&xa[c]);
+            const float fx1 = __fsub_rn(1.0f, fx);
+            float l11, l12, l21, l22;
+            if (staged) {
+                l11 = lut[(row_a + ca) * kBins + v];
+                l12 = lut[(row_a + cb) * kBins + v];
+                l21 = lut[(row_b + ca) * kBins + v];
+                l22 = lut[(row_b + cb) * kBins + v];
+            } else {
+                l11 = __ldg(&lut[(row_a + ca) * kBins + v]);
+                l12 = __ldg(&lut[(row_a + cb) * kBins + v]);
+                l21 = __ldg(&lut[(row_b + ca) * kBins + v]);
+                l22 = __ldg(&lut[(row_b + cb) * kBins + v]);
+            }
+            const float top = __fadd_rn(__fmul_rn(l11, fx1), __fmul_rn(l12, fx));
+            const float bot = __fadd_rn(__fmul_rn(l21, fx1), __fmul_rn(l22, fx));
+            const float res = __fadd_rn(__fmul_rn(top, fy1), __fmul_rn(bot, fy));
+            dst_row[c] = (uint8_t)min(max(__float2int_rn(res), 0), 255);
+        }
+    }
+}
+
+}  // namespace
+
+// Shared memory a block may use without opting in to more.
+constexpr int kStaticSmemLimit = 48 * 1024;
+
+extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
+                                int width, long long frame_stride,
+                                long long row_stride, int tiles_y,
+                                int tiles_x, int tile_h, int tile_w,
+                                int rowstep, int slices, int* out,
+                                void* stream) {
+    dim3 grid(tiles_y * tiles_x * slices, frames);
+    tile_hist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, height, width, frame_stride, row_stride, tiles_x, tile_h, tile_w,
+        rowstep, slices, out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int build_luts_launch(const int* hists, int rows, int clip,
+                                 float lut_scale, uint8_t* luts,
+                                 void* stream) {
+    build_luts_kernel<<<rows, kBins, 0, (cudaStream_t)stream>>>(
+        hists, clip, lut_scale, luts);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
+                             long long y_row_stride, const uint8_t* luts,
+                             int frames, int height, int width, int tiles_y,
+                             int tiles_x, const int* ty1, const int* ty2,
+                             const float* ya, const int* tx1, const int* tx2,
+                             const float* xa, uint8_t* out,
+                             long long out_frame_stride,
+                             long long out_row_stride, int rows_per_block,
+                             void* stream) {
+    const int num_tiles = tiles_y * tiles_x;
+    const int lut_bytes = num_tiles * kBins;
+    const int staged = lut_bytes <= kStaticSmemLimit ? 1 : 0;
+    dim3 grid((height + rows_per_block - 1) / rows_per_block, frames);
+    interp_kernel<<<grid, kThreads, staged ? lut_bytes : 0,
+                    (cudaStream_t)stream>>>(
+        y, y_frame_stride, y_row_stride, luts, height, width, tiles_x,
+        num_tiles, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
+        out_row_stride, rows_per_block, staged);
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,113 @@
+"""Build the package's CUDA kernels with nvcc at first use, load with ctypes.
+
+The sources are ``opencv_opencl_tpu_torch/csrc/*.cu`` (and the ``*.cuh``
+they include).  They compile to one shared library with a plain C
+interface for Hopper (``sm_90a``), named after a hash of the sources and
+the flags, in ``opencv_opencl_tpu_torch/_build/``: an edited source gets a
+new library, an unchanged one is reused.  A failed build raises with
+nvcc's output; nothing falls back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+__all__ = ["NVCC_FLAGS", "library_path", "load", "is_built"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# every pointer and the stream are c_void_p: ctypes would otherwise pass a
+# Python int as a 32-bit int and cut the address
+_SIGNATURES = {
+    "tile_hist_launch": (_P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                         _P, _P),
+    "build_luts_launch": (_P, _I, _I, ctypes.c_float, _P, _P),
+    "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                      _P, _P, _P, _LL, _LL, _I, _P),
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def _sources() -> tuple[list[str], list[str]]:
+    return (sorted(glob.glob(os.path.join(_CSRC, "*.cu"))),
+            sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))))
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + cuh:
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libnatural_{digest.hexdigest()[:16]}.so")
+
+
+def is_built() -> bool:
+    return os.path.exists(library_path())
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def _compile(out: str) -> None:
+    cu, _ = _sources()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    # build beside the target and rename: a concurrent loader never sees a
+    # half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if the sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _compile(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
