@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's NV12 CLAHE step on a CUDA card and check it.
+"""Drive the PyTorch port's NV12 steps on a CUDA card and check them.
 
 Run from the repository root, on a machine with one NVIDIA card:
 
@@ -9,20 +9,33 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 1. device   the card, and its name and power limit from nvidia-smi;
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``;
-3. kernels  K1, K2 and K3 against their plain PyTorch versions on the card,
-            exact, over 4K batches, odd and tiny geometries, a constant
-            frame, hist_rowstep=2 and several tile grids;
-4. golden   the CUDA path against the numpy golden model, 0 LSB;
-5. main     ``Enhancer`` (CLAHE clip 2.0, 8x8, chroma passthrough, 4K)
-            driven through ``runtime.feeder.FrameFeeder``: every output equal
-            to the plain path's, no processing errors, every kernel launched;
-6. timings  CUDA-event medians of the 4K batch-4 step and of each kernel
-            beside its plain version, the feeder's end-to-end rate, and
-            torch.profiler's device time per kernel over ten steps.
+3. kernels  every kernel against its plain PyTorch version on the card,
+            exact: K1, K2 and K3 over 4K batches, odd and tiny geometries,
+            a constant frame, hist_rowstep=2 and several tile grids; K4 in
+            place over a 4K NV12 batch with random and identity LUTs, at
+            1079x1919 and on a constant frame; K7 at 4K and 1080p on
+            structured, random and constant content in place over NV12 Y
+            rows, and against K3 followed by K1;
+4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
+            and histeq at 1080p, and streaming CLAHE over four 1080p frames
+            against golden's previous-frame LUT chain;
+5. main     three paths driven through the port's ``FrameFeeder`` at 4K
+            batch 4, 64 frames each, every output checked in sequence
+            order against the plain versions: ``Enhancer`` with histeq
+            (chroma gray), ``StreamingEnhancer`` (CLAHE clip 2.0, 8x8,
+            passthrough) and ``Enhancer`` with CLAHE (the same); the launch
+            counts are set to 0 before each path and read after it, and
+            every kernel must have been launched;
+6. timings  CUDA-event medians of the three 4K batch-4 steps and of each
+            kernel beside its plain version and, where one exists, the one
+            PyTorch call that computes the same function; the feeder's
+            end-to-end rates; torch.profiler's device time per kernel for
+            each step.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX:
-the oracles on the card are the plain versions and ``core/golden.py``.
+last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
+and nothing of the JAX package: the oracles on the card are the plain
+versions and the port's ``core/golden.py``.
 """
 
 from __future__ import annotations
@@ -37,39 +50,62 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from opencv_opencl_tpu.core import golden
-from opencv_opencl_tpu.core.frames import ChromaPolicy, FrameSpec
-from opencv_opencl_tpu.runtime.feeder import FrameFeeder
+from opencv_opencl_tpu_torch.core import golden
+from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer,
     EnhancerConfig,
+    StreamingEnhancer,
     build_enhance_fn,
+    build_streaming_clahe_fn,
+    initial_hists,
 )
 from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
-from opencv_opencl_tpu_torch.ops.cuda import _build, natural
+from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
+from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
+from opencv_opencl_tpu_torch.ops import histogram
+from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.runtime.feeder import FrameFeeder
 from opencv_opencl_tpu_torch.utils.envinfo import nvidia_smi_name_power
 
 WIDTH, HEIGHT, BATCH = 3840, 2160, 4
 CLIP, GRID = 2.0, (8, 8)
 FEEDER_FRAMES = 64
 DISTINCT_FRAMES = 8
-SOURCE = "opencv_opencl_tpu_torch/csrc/natural.cu"
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, and the
+# f32 rate outside the tensor cores, which bounds the kernels' arithmetic
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 KERNELS = (
-    # (name, wrapper, TPU entry function it replaces)
+    # (name, wrapper, source, TPU entry function it replaces)
     ("tile_hist_kernel", "tile_histograms",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:493"),
     ("build_luts_kernel", "build_luts",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:417"),
     ("interp_kernel", "clahe_interpolate",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:273"),
+    ("apply_lut_kernel", "apply_lut",
+     "opencv_opencl_tpu_torch/csrc/lut.cu",
+     "opencv_opencl_tpu/ops/pallas/lut_kernels.py:87"),
+    ("interp_hist_kernel", "clahe_interp_and_hist",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
+     "opencv_opencl_tpu/ops/pallas/experiments.py:212"),
 )
 
 
-def main_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
-    """The main path's step: CLAHE clip 2.0, 8x8 tiles, chroma passthrough."""
+def clahe_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
+    """The CLAHE steps: clip 2.0, 8x8 tiles, chroma passthrough."""
     return FrameSpec(width=w, height=h), EnhancerConfig(
         op="clahe", clip_limit=CLIP, tile_grid=GRID,
         chroma=ChromaPolicy.PASSTHROUGH)
+
+
+def histeq_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
+    """The histeq step: EnhancerConfig's defaults (histeq, chroma gray)."""
+    return FrameSpec(width=w, height=h), EnhancerConfig()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -100,6 +136,18 @@ def plain_step(frames: torch.Tensor, plan, rowstep: int = 1) -> torch.Tensor:
     hists = natural.tile_histograms_ref(frames, plan, rowstep)
     luts = natural.build_luts_ref(hists, plan.clip, plan.lut_scale)
     return natural.clahe_interpolate_ref(frames, luts, plan)
+
+
+def whole_frame_plan(h, w):
+    """K1's geometry for a whole-frame histogram (ops/histogram.hist256)."""
+    return clahe_ops.make_clahe_plan(h, w, 0.0, (1, 1))
+
+
+def plain_histeq(frames: torch.Tensor) -> torch.Tensor:
+    """The histeq step through the plain versions only."""
+    n, h, w = frames.shape
+    hists = natural.tile_histograms_ref(frames, whole_frame_plan(h, w))[:, 0]
+    return lut.apply_lut_ref(frames, histogram.equalize_lut(hists, h * w))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -146,8 +194,9 @@ def residual_edge_hists(plan) -> np.ndarray:
     return hists
 
 
-def phase_kernels(device, cases) -> dict[str, int]:
-    errs = {name: 0 for name, _, _ in KERNELS}
+def phase_clahe_kernels(device, cases) -> dict[str, int]:
+    """K1, K2 and K3 against their plain versions."""
+    errs = {"tile_hist_kernel": 0, "build_luts_kernel": 0, "interp_kernel": 0}
     for label, frames_np, h, clip, grid, rowstep in cases:
         batch = torch.from_numpy(frames_np).to(device)
         y = batch[:, :h]
@@ -175,8 +224,77 @@ def phase_kernels(device, cases) -> dict[str, int]:
         print(f"kernels {label}: K1 {e1} K2 {e2} K3 {e3} (max abs err)", flush=True)
         for name, e in zip(errs, (e1, e2, e3)):
             errs[name] = max(errs[name], e)
-    check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
     return errs
+
+
+def phase_lut_kernel(device, rng) -> int:
+    """K4 against its plain version: in place over the Y rows of a 4K NV12
+    batch with a random and with the identity LUT per frame, an odd
+    geometry, and a constant frame."""
+    four_k = nv12_batch(rng, BATCH, HEIGHT, WIDTH)
+    identity = np.tile(np.arange(256, dtype=np.uint8), (BATCH, 1))
+    cases = [
+        ("4k_b4_nv12_random_lut", four_k, HEIGHT,
+         rng.integers(0, 256, (BATCH, 256), dtype=np.uint8)),
+        ("4k_b4_nv12_identity_lut", four_k, HEIGHT, identity),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079,
+         rng.integers(0, 256, (2, 256), dtype=np.uint8)),
+        ("4k_constant", np.full((2, HEIGHT, WIDTH), 77, np.uint8), HEIGHT,
+         rng.integers(0, 256, (2, 256), dtype=np.uint8)),
+    ]
+    worst = 0
+    for label, frames_np, h, luts_np in cases:
+        batch = torch.from_numpy(frames_np).to(device)
+        y = batch[:, :h]
+        luts = torch.from_numpy(luts_np).to(device)
+        want = lut.apply_lut_ref(y, luts)
+        e = max_err(lut.apply_lut(y, luts), want)
+        inplace = batch.clone()
+        lut.apply_lut(inplace[:, :h], luts, out=inplace[:, :h])
+        e = max(e, max_err(inplace[:, :h], want), max_err(inplace[:, h:], batch[:, h:]))
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K4 {e} (max abs err)", flush=True)
+        worst = max(worst, e)
+    return worst
+
+
+def phase_fused_kernel(device, rng) -> int:
+    """K7 against its plain version and against K3 followed by K1, in place
+    over NV12 Y rows, with the LUTs of other frames (the previous ones)."""
+    cases = [
+        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
+        ("4k_b2_random_nv12", np.concatenate(
+            [random_y(rng, 2, HEIGHT, WIDTH),
+             random_y(rng, 2, HEIGHT // 2, WIDTH)], axis=1), HEIGHT, WIDTH),
+        ("4k_constant_nv12", np.full((1, HEIGHT * 3 // 2, WIDTH), 77, np.uint8),
+         HEIGHT, WIDTH),
+        ("1080p_b4_structured_nv12", nv12_batch(rng, BATCH, 1080, 1920), 1080, 1920),
+        ("1080p_b2_random_nv12", random_y(rng, 2, 1620, 1920), 1080, 1920),
+        ("1080p_constant_nv12", np.full((2, 1620, 1920), 200, np.uint8), 1080, 1920),
+    ]
+    worst = 0
+    for label, frames_np, h, w in cases:
+        batch = torch.from_numpy(frames_np).to(device)
+        y = batch[:, :h]
+        n = y.shape[0]
+        plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+        prev = torch.from_numpy(structured_y(rng, n, h, w)).to(device)
+        luts = natural.build_luts_ref(natural.tile_histograms_ref(prev, plan),
+                                      plan.clip, plan.lut_scale)
+        out_ref, hists_ref = natural.clahe_interp_and_hist_ref(y, luts, plan)
+        separate = natural.clahe_interpolate(y, luts, plan)
+        separate_h = natural.tile_histograms(y, plan)
+        inplace = batch.clone()
+        out, hists = natural.clahe_interp_and_hist(inplace[:, :h], luts, plan,
+                                                   out=inplace[:, :h])
+        e_plain = max(max_err(out, out_ref), max_err(hists, hists_ref),
+                      max_err(inplace[:, h:], batch[:, h:]))
+        e_k3k1 = max(max_err(out, separate), max_err(hists, separate_h))
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K7 {e_plain} vs plain, {e_k3k1} vs K3+K1 "
+              f"(max abs err)", flush=True)
+        worst = max(worst, e_plain, e_k3k1)
+    return worst
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -186,71 +304,142 @@ def phase_golden(device, rng, h=1080, w=1920) -> None:
     frames = structured_y(rng, 2, h, w)
     plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
     out = clahe_ops.clahe_apply(torch.from_numpy(frames).to(device), plan).cpu().numpy()
+    eq = histeq_ops.equalize_hist_batch(frames, device=device).cpu().numpy()
     for i, f in enumerate(frames):
         d = int(np.abs(out[i].astype(int) - golden.clahe(f, CLIP, GRID).astype(int)).max())
-        print(f"golden {h}x{w} frame {i}: max abs diff {d}", flush=True)
+        e = int(np.abs(eq[i].astype(int) - golden.equalize_hist(f).astype(int)).max())
+        print(f"golden {h}x{w} frame {i}: CLAHE max abs diff {d}, histeq {e}",
+              flush=True)
         check(d == 0, f"frame {i} differs from core.golden.clahe by {d}")
+        check(e == 0, f"frame {i} differs from core.golden.equalize_hist by {e}")
+
+    # streaming: frame i mapped with the LUTs of frame i-1, frame 0 with
+    # those of the stream-start histograms
+    spec, cfg = clahe_config(h, w)
+    nv12 = nv12_batch(rng, 4, h, w)
+    got = np.asarray(StreamingEnhancer(cfg, spec, device).process_batch(nv12))
+    start = natural.build_luts_ref(initial_hists(plan, "cpu")[None], plan.clip,
+                                   plan.lut_scale)[0].numpy()
+    for i in range(4):
+        if i == 0:
+            luts = start.reshape(plan.tiles_y, plan.tiles_x, 256)
+            th, tw = plan.tile_h, plan.tile_w
+        else:
+            luts, th, tw = golden.clahe_luts(nv12[i - 1, :h], CLIP, GRID)
+        want = golden.clahe_apply_luts(nv12[i, :h], luts, th, tw)
+        d = int(np.abs(got[i, :h].astype(int) - want.astype(int)).max())
+        print(f"golden streaming {h}x{w} frame {i}: max abs diff {d}", flush=True)
+        check(d == 0, f"streaming frame {i} differs from golden's chain by {d}")
+        check(np.array_equal(got[i, h:], nv12[i, h:]), "streaming chroma changed")
 
 
 # ------------------------------------------------------------- phase 5 ----
 
 
-def phase_main_path(device, rng, h=HEIGHT, w=WIDTH, batch=BATCH,
-                    n_frames=FEEDER_FRAMES) -> dict[str, int]:
-    """Drive the Enhancer through the FrameFeeder, checking every output;
-    returns the kernels' launch counts in this run."""
-
-    spec, cfg = main_config(h, w)
-    enhancer = Enhancer(cfg, spec, device=device)
-    frames = nv12_batch(rng, DISTINCT_FRAMES, h, w)
-    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
-    y_plain = plain_step(torch.from_numpy(frames[:, :h]).to(device), plan).cpu().numpy()
-    expected = np.concatenate([y_plain, frames[:, h:]], axis=1)
-
+def drive_feeder(process_batch, frames, expected, reset=None,
+                 batch=BATCH, n_frames=FEEDER_FRAMES) -> tuple[dict, dict]:
+    """Submit ``n_frames`` frames (``frames[k % len(frames)]``) through a
+    FrameFeeder and check every output against ``expected(k)`` in sequence
+    order; returns the launch counts of this run and the feeder's stats.
+    Every frame is queued before the feeder starts, so it takes full
+    batches."""
     results: list[tuple[int, bool]] = []
     lock = threading.Lock()
 
     def on_output(seq, frame, meta):
         with lock:
-            results.append((seq, bool(np.array_equal(frame, expected[meta]))))
+            results.append((seq, bool(np.array_equal(frame, expected(meta)))))
 
-    feeder = FrameFeeder(enhancer.process_batch, batch_size=batch, depth=2,
+    rows, w = frames.shape[1:]
+    feeder = FrameFeeder(process_batch, batch_size=batch, depth=2,
                          queue_capacity=2 * n_frames, on_output=on_output)
-    feeder.warmup((spec.buffer_rows, w))
-    natural.reset_launch_counts()
+    feeder.warmup((rows, w))
+    if reset is not None:
+        reset()
+    cuda_ops.reset_launch_counts()
+    for k in range(n_frames):
+        feeder.submit(frames[k % len(frames)], meta=k)
     feeder.start()
-    for i in range(n_frames):
-        feeder.submit(frames[i % DISTINCT_FRAMES], meta=i % DISTINCT_FRAMES)
     feeder.stop(drain=True)
-    counts = natural.launch_counts()
+    counts = cuda_ops.launch_counts()
     stats = feeder.stats
-
-    print(f"main path: {len(results)} outputs of {n_frames} submitted, "
-          f"stats {stats}, launches {counts}", flush=True)
     check(stats.get("processing_errors", 0) == 0,
           f"processing_errors {stats.get('processing_errors')}")
     check(len(results) == n_frames, f"{len(results)} outputs for {n_frames} frames")
     check([s for s, _ in results] == list(range(n_frames)), "outputs out of order")
     check(all(ok for _, ok in results),
           f"{sum(not ok for _, ok in results)} outputs differ from the plain path")
-    check(all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}")
-    return counts
+    return counts, stats
 
 
-def feeder_fps(device, rng, h=HEIGHT, w=WIDTH, batch=BATCH,
-               n_frames=FEEDER_FRAMES) -> float:
+def phase_main_paths(device, rng, h=HEIGHT, w=WIDTH) -> dict[str, dict[str, int]]:
+    """The three paths through the FrameFeeder; returns each path's launch
+    counts."""
+    frames = nv12_batch(rng, DISTINCT_FRAMES, h, w)
+    y = torch.from_numpy(frames[:, :h]).to(device)
+    per_path = {}
+
+    # histeq, chroma gray
+    spec, cfg = histeq_config(h, w)
+    gray = np.full((DISTINCT_FRAMES, h // 2, w), 128, np.uint8)
+    want = np.concatenate([plain_histeq(y).cpu().numpy(), gray], axis=1)
+    per_path["histeq"], stats = drive_feeder(
+        Enhancer(cfg, spec, device).process_batch, frames,
+        lambda k: want[k % DISTINCT_FRAMES])
+    print(f"main path histeq: stats {stats}, launches {per_path['histeq']}", flush=True)
+
+    # streaming CLAHE: frame k maps with the LUTs of frame k-1 (the frames
+    # repeat every DISTINCT_FRAMES), frame 0 with the stream-start ones
+    spec, cfg = clahe_config(h, w)
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    hists = natural.tile_histograms_ref(y, plan)
+    prev_hists = torch.cat([hists[-1:], hists[:-1]])
+    y_stream = natural.clahe_interpolate_ref(
+        y, natural.build_luts_ref(prev_hists, plan.clip, plan.lut_scale), plan)
+    want_stream = np.concatenate([y_stream.cpu().numpy(), frames[:, h:]], axis=1)
+    start = natural.build_luts_ref(initial_hists(plan, device)[None], plan.clip,
+                                   plan.lut_scale)
+    want_first = np.concatenate(
+        [natural.clahe_interpolate_ref(y[:1], start, plan).cpu().numpy()[0],
+         frames[0, h:]], axis=0)
+    streaming = StreamingEnhancer(cfg, spec, device)
+    per_path["streaming"], stats = drive_feeder(
+        streaming.process_batch, frames,
+        lambda k: want_first if k == 0 else want_stream[k % DISTINCT_FRAMES],
+        reset=streaming.reset)
+    print(f"main path streaming: stats {stats}, launches {per_path['streaming']}",
+          flush=True)
+
+    # CLAHE, chroma passthrough
+    spec, cfg = clahe_config(h, w)
+    want_clahe = np.concatenate([plain_step(y, plan).cpu().numpy(), frames[:, h:]],
+                                axis=1)
+    per_path["clahe"], stats = drive_feeder(
+        Enhancer(cfg, spec, device).process_batch, frames,
+        lambda k: want_clahe[k % DISTINCT_FRAMES])
+    print(f"main path clahe: stats {stats}, launches {per_path['clahe']}", flush=True)
+
+    check(per_path["histeq"]["tile_histograms"] > 0 and per_path["histeq"]["apply_lut"] > 0,
+          f"histeq path launched no K1 or K4: {per_path['histeq']}")
+    check(per_path["streaming"]["build_luts"] > 0
+          and per_path["streaming"]["clahe_interp_and_hist"] > 0,
+          f"streaming path launched no K2 or K7: {per_path['streaming']}")
+    check(all(per_path["clahe"][k] > 0 for k in
+              ("tile_histograms", "build_luts", "clahe_interpolate")),
+          f"CLAHE path launched no K1, K2 or K3: {per_path['clahe']}")
+    return per_path
+
+
+def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> float:
     """Frames per second through the FrameFeeder, host frames in and host
     frames out (H2D, the step, D2H and the feeder's own copies)."""
-
-    spec, cfg = main_config(h, w)
-    frames = nv12_batch(rng, DISTINCT_FRAMES, h, w)
-    feeder = FrameFeeder(Enhancer(cfg, spec, device=device).process_batch,
-                         batch_size=batch, depth=2, queue_capacity=2 * n_frames)
-    feeder.warmup((spec.buffer_rows, w))
+    feeder = FrameFeeder(process_batch, batch_size=batch, depth=2,
+                         queue_capacity=2 * n_frames)
+    feeder.warmup(frames.shape[1:])
     t0 = time.perf_counter()
     feeder.start()
     for i in range(n_frames):
-        feeder.submit(frames[i % DISTINCT_FRAMES])
+        feeder.submit(frames[i % len(frames)])
     feeder.stop(drain=True)
     elapsed = time.perf_counter() - t0
     stats = feeder.stats
@@ -262,8 +451,14 @@ def feeder_fps(device, rng, h=HEIGHT, w=WIDTH, batch=BATCH,
 # ------------------------------------------------------------- phase 6 ----
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+def time_ms(fn, reps: int = 30, warmup: int = 5, busy: bool = False) -> float:
+    """Median time of one call, from CUDA events around each call.
+
+    With ``busy=False`` the card is idle when the start event is recorded,
+    so the time includes the host's work up to each launch, as a caller of
+    the step pays it.  With ``busy=True`` the card first spins (about a
+    millisecond) while the host queues the start event, the call and the
+    end event behind it: the time is then the device's alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -271,6 +466,8 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -279,63 +476,148 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def phase_timings(device, rng, card: str) -> dict[str, tuple[float, float]]:
-    spec, cfg = main_config()
-    step = build_enhance_fn(cfg, spec, donate=True)
+def device_ms(fn) -> float:
+    return time_ms(fn, busy=True)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it: each
+    input read once and each output written once at the HBM rate, or the
+    operations at the f32 rate outside the tensor cores."""
+    byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= ops_ms else (ops_ms, "operations")
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def print_step(label: str, ms: float, dev_ms: float, card: str) -> None:
+    print(f"time {label} step 4K b{BATCH}: {ms:.4f} ms/batch, "
+          f"{ms / BATCH:.4f} ms/frame, {1e3 * BATCH / ms:.1f} fps; device alone "
+          f"{dev_ms:.4f} ms/batch, {1e3 * BATCH / dev_ms:.1f} fps [{card}]",
+          flush=True)
+
+
+def phase_timings(device, rng, card: str) -> dict[str, dict]:
+    """Every kernel at the main path's shapes beside its plain version and,
+    where one exists, the one PyTorch call that computes the same function;
+    and the three steps at 4K b4."""
     plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, CLIP, GRID)
     batch = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
     y = batch[:, :HEIGHT]
+    px = BATCH * HEIGHT * WIDTH
 
-    def plain():
-        y.copy_(plain_step(y, plan))
-
-    step_ms = time_ms(lambda: step(batch))
-    plain_step_ms = time_ms(plain)
-    print(f"time step 4K b{BATCH}: {step_ms:.4f} ms/batch, "
-          f"{step_ms / BATCH:.4f} ms/frame, {1e3 * BATCH / step_ms:.1f} fps "
-          f"(plain path {plain_step_ms / BATCH:.4f} ms/frame) [{card}]", flush=True)
+    for label, (spec, cfg) in (("clahe", clahe_config()),
+                               ("histeq", histeq_config())):
+        step = build_enhance_fn(cfg, spec, donate=True)
+        work = batch.clone()
+        print_step(label, time_ms(lambda: step(work)),
+                   device_ms(lambda: step(work)), card)
+    spec, cfg = clahe_config()
+    stream_fn, _ = build_streaming_clahe_fn(cfg, spec)
+    work = batch.clone()
+    state = initial_hists(plan, device)
+    print_step("streaming", time_ms(lambda: stream_fn(work, state)),
+               device_ms(lambda: stream_fn(work, state)), card)
+    plain_ms = device_ms(lambda: y.copy_(plain_step(y, plan)))
+    print(f"time plain CLAHE step 4K b{BATCH}: {plain_ms / BATCH:.4f} ms/frame "
+          f"[{card}]", flush=True)
 
     hists = natural.tile_histograms_ref(y, plan)
     luts = natural.build_luts_ref(hists, plan.clip, plan.lut_scale)
     out = torch.empty_like(y)
-    const = torch.full((BATCH, HEIGHT, WIDTH), 77, dtype=torch.uint8, device=device)
-    times = {
+    frame = y[:1]
+    frame_luts = luts[:1].contiguous()
+    frame_out = torch.empty_like(frame)
+    eq_luts = histogram.equalize_lut(natural.tile_histograms_ref(
+        y, whole_frame_plan(HEIGHT, WIDTH))[:, 0], HEIGHT * WIDTH)
+    y_flat = y.contiguous().view(BATCH, -1)
+    arrays = plan.device_arrays(device)
+    frame_px = HEIGHT * WIDTH
+    fx = {
+        # name: (kernel, plain version, library call or None, bytes, ops);
+        # ops are f32 operations, or one integer add per histogram count:
+        # 10 per pixel in the blend (three products-and-sums of two terms
+        # and 1 - xa), 4 per bin in the LUT build, none in the LUT map
         "tile_hist_kernel": (
-            time_ms(lambda: natural.tile_histograms(y, plan)),
-            time_ms(lambda: natural.tile_histograms_ref(y, plan))),
+            lambda: natural.tile_histograms(y, plan),
+            lambda: natural.tile_histograms_ref(y, plan), None,
+            px + nbytes(hists), px),
         "build_luts_kernel": (
-            time_ms(lambda: natural.build_luts(hists, plan.clip, plan.lut_scale)),
-            time_ms(lambda: natural.build_luts_ref(hists, plan.clip, plan.lut_scale))),
+            lambda: natural.build_luts(hists, plan.clip, plan.lut_scale),
+            lambda: natural.build_luts_ref(hists, plan.clip, plan.lut_scale), None,
+            nbytes(hists, luts), 4 * hists.numel()),
         "interp_kernel": (
-            time_ms(lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
-            time_ms(lambda: natural.clahe_interpolate_ref(y, luts, plan))),
+            lambda: natural.clahe_interpolate(y, luts, plan, out=out),
+            lambda: natural.clahe_interpolate_ref(y, luts, plan), None,
+            2 * px + nbytes(luts, *arrays), 10 * px),
+        "apply_lut_kernel": (
+            lambda: lut.apply_lut(y, eq_luts, out=out),
+            lambda: lut.apply_lut_ref(y, eq_luts),
+            lambda: torch.gather(eq_luts, 1, y_flat.long()),
+            2 * px + nbytes(eq_luts), 0),
+        "interp_hist_kernel": (
+            lambda: natural.clahe_interp_and_hist(frame, frame_luts, plan,
+                                                  out=frame_out),
+            lambda: natural.clahe_interp_and_hist_ref(frame, frame_luts, plan), None,
+            2 * frame_px + nbytes(frame_luts, *arrays) + plan.num_tiles * 256 * 4,
+            11 * frame_px),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"time {name} 4K b{BATCH}: {ms:.4f} ms (plain {plain_ms:.4f} ms) [{card}]",
-              flush=True)
-    const_ms = time_ms(lambda: natural.tile_histograms(const, plan))
-    print(f"time tile_hist_kernel 4K b{BATCH} constant frame: {const_ms:.4f} ms [{card}]",
-          flush=True)
+    times = {}
+    for name, (kernel, plain, library, moved, ops) in fx.items():
+        bound_ms, bound_by = bound(moved, ops)
+        times[name] = {
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library) if library is not None else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        t = times[name]
+        lib = f"{t['library_ms']:.4f} ms" if library is not None else "none"
+        print(f"time {name}: {t['ms']:.4f} ms on the device, "
+              f"{time_ms(kernel):.4f} ms a call from an idle card (plain "
+              f"{t['plain_ms']:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+              f"by {bound_by}) [{card}]", flush=True)
+
+    # K7 per frame against K3 then K1 on the same frame
+    k3k1_ms = device_ms(lambda: (natural.tile_histograms(frame, plan),
+                                 natural.clahe_interpolate(frame, frame_luts, plan,
+                                                           out=frame_out)))
+    print(f"time K3 + K1 per 4K frame: {k3k1_ms:.4f} ms on the device against K7 "
+          f"{times['interp_hist_kernel']['ms']:.4f} ms [{card}]", flush=True)
+    const = torch.full((BATCH, HEIGHT, WIDTH), 77, dtype=torch.uint8, device=device)
+    const_ms = device_ms(lambda: natural.tile_histograms(const, plan))
+    print(f"time tile_hist_kernel 4K b{BATCH} constant frame: {const_ms:.4f} ms "
+          f"[{card}]", flush=True)
     return times
 
 
 def phase_profile(device, rng) -> None:
-    """Device time by kernel over ten 4K batch-4 steps (torch.profiler)."""
-
-    spec, cfg = main_config()
-    step = build_enhance_fn(cfg, spec, donate=True)
+    """Device time by kernel over ten 4K batch-4 steps of each path
+    (torch.profiler)."""
     batch = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
-    step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            step(batch)
+    plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, CLIP, GRID)
+    spec, cfg = clahe_config()
+    clahe = build_enhance_fn(cfg, spec)
+    stream_fn, _ = build_streaming_clahe_fn(cfg, spec)
+    histeq = build_enhance_fn(*histeq_config()[::-1])
+    state = initial_hists(plan, device)
+    steps = {"clahe": lambda: clahe(batch), "histeq": lambda: histeq(batch),
+             "streaming": lambda: stream_fn(batch, state)}
+    for label, step in steps.items():
+        step()
         torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", 0.0)
-        if dev_us > 0:
-            print(f"profile {evt.key}: {evt.count} calls, "
-                  f"{dev_us / max(evt.count, 1):.2f} us device time per call", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total", 0.0)
+            if dev_us > 0:
+                print(f"profile {label} {evt.key}: {evt.count} calls, "
+                      f"{dev_us / max(evt.count, 1):.2f} us device time per call, "
+                      f"{dev_us / 10:.2f} us per step", flush=True)
 
 
 # ---------------------------------------------------------------- main ----
@@ -346,7 +628,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
               "a CUDA card", file=sys.stderr)
         return 1
-
 
     # phase 1: device
     device = torch.device("cuda", 0)
@@ -363,22 +644,39 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
 
+    # phase 3: kernels
     rng = np.random.default_rng(2024)
-    errs = phase_kernels(device, kernel_cases(rng))      # phase 3
-    phase_golden(device, rng)                             # phase 4
-    counts = phase_main_path(device, rng)                 # phase 5
-    times = phase_timings(device, rng, card)              # phase 6
-    e2e_fps = feeder_fps(device, rng)
-    print(f"time feeder end to end 4K b{BATCH} (H2D + step + D2H): "
-          f"{e2e_fps:.1f} fps over {FEEDER_FRAMES} frames [{card}]", flush=True)
+    errs = phase_clahe_kernels(device, kernel_cases(rng))
+    errs["apply_lut_kernel"] = phase_lut_kernel(device, rng)
+    errs["interp_hist_kernel"] = phase_fused_kernel(device, rng)
+    check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
+
+    phase_golden(device, rng)                              # phase 4
+    per_path = phase_main_paths(device, rng)               # phase 5
+    launches = {wrapper: sum(c[wrapper] for c in per_path.values())
+                for _, wrapper, _, _ in KERNELS}
+    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+
+    times = phase_timings(device, rng, card)               # phase 6
+    frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)
+    spec, cfg = clahe_config()
+    for label, process_batch in (
+            ("clahe", Enhancer(cfg, spec, device).process_batch),
+            ("histeq", Enhancer(*histeq_config()[::-1], device).process_batch),
+            ("streaming", StreamingEnhancer(cfg, spec, device).process_batch)):
+        fps = feeder_fps(process_batch, frames)
+        print(f"time feeder end to end {label} 4K b{BATCH} (H2D + step + D2H): "
+              f"{fps:.1f} fps over {FEEDER_FRAMES} frames [{card}]", flush=True)
     phase_profile(device, rng)
 
     check("jax" not in sys.modules, "jax was imported")
+    check(not any(m == "opencv_opencl_tpu" or m.startswith("opencv_opencl_tpu.")
+                  for m in sys.modules), "the JAX package was imported")
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-         "launches": counts[wrapper], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, wrapper, replaces in KERNELS
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[wrapper], "max_abs_err": errs[name],
+         **times[name]}
+        for name, wrapper, source, replaces in KERNELS
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,17 +2,21 @@
 
 The JAX package beside it is the reference: every function here is tested
 against its JAX counterpart on the same inputs, and through it against the
-numpy golden models (``opencv_opencl_tpu.core.golden``) and cv2.  The port
-imports no JAX.  From the JAX package it shares only the modules that
-import no JAX: ``core``, ``runtime``, ``metrics`` and ``native``.
+numpy golden models and cv2.  The port imports no JAX and nothing of the
+JAX package: the modules it needs that import no JAX (frame layouts, the
+golden models, counters, timing, the feeder, queues and resequencer) are
+copied into it under the same relative paths.
 
 Subpackages
 -----------
-ops       CLAHE on tensors; ``ops/cuda`` holds the hand-written Hopper
-          kernels (sources in ``csrc/``) beside their plain PyTorch versions
-models    the NV12 enhancement step and the ``Enhancer``
-runtime   the device-to-host handoff that lets ``runtime.FrameFeeder`` of
-          the JAX package drive the port unchanged
+core      frame layouts (``frames``) and the numpy golden models (``golden``)
+ops       histogram, equalizeHist and CLAHE on tensors; ``ops/cuda`` holds
+          the hand-written Hopper kernels' wrappers (sources in ``csrc/``)
+          beside their plain PyTorch versions
+models    the NV12 enhancement step, ``Enhancer`` and ``StreamingEnhancer``
+runtime   the frame feeder, queues and resequencer, and the device-to-host
+          handoff the feeder materialises
+metrics   streaming counters and timing
 utils     environment report (torch, CUDA, card, power limit, kernels)
 """
 

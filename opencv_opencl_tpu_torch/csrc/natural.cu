@@ -6,6 +6,9 @@
 //                         LUT = clip(rint(cdf * lut_scale), 0, 255)
 //   K3 interp_kernel      bilinear blend of the four neighbouring tile LUTs,
 //                         in OpenCV's mul-then-add f32 order
+//   K7 interp_hist_kernel K3's blend with the previous frame's LUTs plus
+//                         K1's histograms of the frame it reads, in one pass
+//                         (the streaming step, tile-divisible geometry)
 //
 // Each kernel computes exactly what its TPU kernel in
 // opencv_opencl_tpu/ops/pallas/natural.py computes, and what the plain
@@ -161,16 +164,54 @@ build_luts_kernel(const int* __restrict__ hists, int clip, float lut_scale,
 }
 
 // ----------------------------------------------------------------- K3 ----
+// One output pixel of the bilinear blend: the four LUT reads at value v
+// (from shared memory when staged, else through __ldg), then OpenCV's
+// mul-then-add order.  The blend is __fmul_rn/__fadd_rn throughout: nvcc
+// would otherwise contract a*b+c into an FMA and flip exact ties by 1 LSB.
+// K3 and K7 both map every pixel through this function.
+__device__ __forceinline__ uint8_t blend_pixel(const uint8_t* lut, int staged,
+                                               int row_a, int row_b, int ca,
+                                               int cb, int v, float fx,
+                                               float fy, float fy1) {
+    const float fx1 = __fsub_rn(1.0f, fx);
+    float l11, l12, l21, l22;
+    if (staged) {
+        l11 = lut[(row_a + ca) * kBins + v];
+        l12 = lut[(row_a + cb) * kBins + v];
+        l21 = lut[(row_b + ca) * kBins + v];
+        l22 = lut[(row_b + cb) * kBins + v];
+    } else {
+        l11 = __ldg(&lut[(row_a + ca) * kBins + v]);
+        l12 = __ldg(&lut[(row_a + cb) * kBins + v]);
+        l21 = __ldg(&lut[(row_b + ca) * kBins + v]);
+        l22 = __ldg(&lut[(row_b + cb) * kBins + v]);
+    }
+    const float top = __fadd_rn(__fmul_rn(l11, fx1), __fmul_rn(l12, fx));
+    const float bot = __fadd_rn(__fmul_rn(l21, fx1), __fmul_rn(l22, fx));
+    const float res = __fadd_rn(__fmul_rn(top, fy1), __fmul_rn(bot, fy));
+    return (uint8_t)min(max(__float2int_rn(res), 0), 255);
+}
+
+// Stage one frame's LUTs (lut_bytes, a multiple of 256) into shared memory
+// with 16-byte copies: the LUT tensor is contiguous, so every frame's LUTs
+// start 16-byte aligned.  The caller synchronises.
+__device__ __forceinline__ void stage_luts(uint8_t* dst, const uint8_t* src,
+                                           int lut_bytes) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < lut_bytes / 16; i += blockDim.x)
+        d[i] = __ldg(&s[i]);
+}
+
 // Replaces natural.py clahe_interpolate_natural (variant 2) /
 // _natural_interp_kernel_v2.  Bound: the read and write of the Y plane
 // (2 bytes per pixel) plus four LUT lookups per pixel.  Design: one block
 // per (band of rows, frame); the frame's LUTs are staged once per block in
 // shared memory when they fit (read through __ldg otherwise), so the four
 // lookups are shared-memory loads; threads walk the columns of each row for
-// coalesced access.  The blend is __fmul_rn/__fadd_rn throughout: nvcc
-// would otherwise contract a*b+c into an FMA and flip exact ties by 1 LSB.
-// Each pixel is read and then written by the same thread and depends only
-// on itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).
+// coalesced access.  Each pixel is read and then written by the same
+// thread and depends only on itself and the LUTs, so `out` may alias `y`
+// (the in-place NV12 step).
 __global__ void __launch_bounds__(kThreads)
 interp_kernel(const uint8_t* y, long long y_frame_stride,
               long long y_row_stride, const uint8_t* __restrict__ luts,
@@ -183,15 +224,9 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
     extern __shared__ __align__(16) uint8_t smem[];
     const int frame = blockIdx.y;
     const int lut_bytes = num_tiles * kBins;
-    const uint8_t* frame_luts = luts + (long long)frame * lut_bytes;
-    const uint8_t* lut = frame_luts;
+    const uint8_t* lut = luts + (long long)frame * lut_bytes;
     if (staged) {
-        // lut_bytes is a multiple of 256 and the LUT tensor is contiguous,
-        // so every frame's LUTs start 16-byte aligned
-        const uint4* src = reinterpret_cast<const uint4*>(frame_luts);
-        uint4* dst = reinterpret_cast<uint4*>(smem);
-        for (int i = threadIdx.x; i < lut_bytes / 16; i += blockDim.x)
-            dst[i] = __ldg(&src[i]);
+        stage_luts(smem, lut, lut_bytes);
         __syncthreads();
         lut = smem;
     }
@@ -206,28 +241,88 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
         const float fy = __ldg(&ya[r]);
         const float fy1 = __fsub_rn(1.0f, fy);
         for (int c = threadIdx.x; c < width; c += blockDim.x) {
-            const int v = src_row[c];
-            const int ca = __ldg(&tx1[c]);
-            const int cb = __ldg(&tx2[c]);
-            const float fx = __ldg(&xa[c]);
-            const float fx1 = __fsub_rn(1.0f, fx);
-            float l11, l12, l21, l22;
-            if (staged) {
-                l11 = lut[(row_a + ca) * kBins + v];
-                l12 = lut[(row_a + cb) * kBins + v];
-                l21 = lut[(row_b + ca) * kBins + v];
-                l22 = lut[(row_b + cb) * kBins + v];
-            } else {
-                l11 = __ldg(&lut[(row_a + ca) * kBins + v]);
-                l12 = __ldg(&lut[(row_a + cb) * kBins + v]);
-                l21 = __ldg(&lut[(row_b + ca) * kBins + v]);
-                l22 = __ldg(&lut[(row_b + cb) * kBins + v]);
-            }
-            const float top = __fadd_rn(__fmul_rn(l11, fx1), __fmul_rn(l12, fx));
-            const float bot = __fadd_rn(__fmul_rn(l21, fx1), __fmul_rn(l22, fx));
-            const float res = __fadd_rn(__fmul_rn(top, fy1), __fmul_rn(bot, fy));
-            dst_row[c] = (uint8_t)min(max(__float2int_rn(res), 0), 255);
+            dst_row[c] = blend_pixel(lut, staged, row_a, row_b,
+                                     __ldg(&tx1[c]), __ldg(&tx2[c]),
+                                     src_row[c], __ldg(&xa[c]), fy, fy1);
         }
+    }
+}
+
+// ----------------------------------------------------------------- K7 ----
+// Replaces experiments.py clahe_interp_and_hist_natural /
+// _natural_interp_hist_kernel: the streaming step maps frame N with the
+// LUTs built from frame N-1 and, in the same pass, counts frame N's tile
+// histograms, so the frame is read once for both outputs where K3 then K1
+// read it twice.  Bound: the read and write of the Y plane (2 bytes per
+// pixel; 16.6 MB per 4K frame).  Design: K3's blend (blend_pixel) with the
+// LUTs staged as K3 stages them.  The step launches it on one frame at a
+// time, so a block covers rows_per_block rows (a divisor of tile_h: all
+// of them lie in one tile row) of tiles_per_block tile columns, which
+// gives the grid several blocks per SM; the block keeps one shared-memory
+// 256-bin histogram per tile column it covers.  Threads walk each row tile
+// column by tile column (no per-pixel division), add the INPUT value to
+// that column's bins before the pixel is written (so `out` may alias `y`),
+// and at the end the block adds its non-zero bins to the zeroed
+// (N, T, 256) output with one global atomic each.  Tile-divisible geometry
+// only, the TPU kernel's contract: every row and column is real, so there
+// is no reflect-101 padding to count.
+__global__ void __launch_bounds__(kThreads)
+interp_hist_kernel(const uint8_t* y, long long y_frame_stride,
+                   long long y_row_stride, const uint8_t* __restrict__ luts,
+                   int tiles_x, int num_tiles, int tile_h, int tile_w,
+                   const int* __restrict__ ty1, const int* __restrict__ ty2,
+                   const float* __restrict__ ya, const int* __restrict__ tx1,
+                   const int* __restrict__ tx2, const float* __restrict__ xa,
+                   uint8_t* out, long long out_frame_stride,
+                   long long out_row_stride, int rows_per_block,
+                   int tiles_per_block, int staged, int* __restrict__ hists) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    // [tiles_per_block * 256 int32 bins][the frame's LUTs when staged]; the
+    // bins take a multiple of 1 KB, so the LUTs stay 16-byte aligned
+    int* bins = reinterpret_cast<int*>(smem);
+    const int hist_len = tiles_per_block * kBins;
+    const int frame = blockIdx.z;
+    const int t0 = blockIdx.y * tiles_per_block;
+    const int lut_bytes = num_tiles * kBins;
+    const uint8_t* lut = luts + (long long)frame * lut_bytes;
+    for (int i = threadIdx.x; i < hist_len; i += blockDim.x) bins[i] = 0;
+    if (staged) {
+        uint8_t* staged_luts = smem + hist_len * sizeof(int);
+        stage_luts(staged_luts, lut, lut_bytes);
+        lut = staged_luts;
+    }
+    __syncthreads();
+
+    const int r0 = blockIdx.x * rows_per_block;
+    for (int r = r0; r < r0 + rows_per_block; ++r) {
+        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
+        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
+        const int row_a = __ldg(&ty1[r]) * tiles_x;
+        const int row_b = __ldg(&ty2[r]) * tiles_x;
+        const float fy = __ldg(&ya[r]);
+        const float fy1 = __fsub_rn(1.0f, fy);
+        for (int t = 0; t < tiles_per_block; ++t) {
+            int* tile_bins = bins + t * kBins;
+            const int c1 = (t0 + t + 1) * tile_w;
+            for (int c = (t0 + t) * tile_w + threadIdx.x; c < c1;
+                 c += blockDim.x) {
+                const int v = src_row[c];
+                atomicAdd(&tile_bins[v], 1);
+                dst_row[c] = blend_pixel(lut, staged, row_a, row_b,
+                                         __ldg(&tx1[c]), __ldg(&tx2[c]), v,
+                                         __ldg(&xa[c]), fy, fy1);
+            }
+        }
+    }
+    __syncthreads();
+
+    // tiles are row-major, so the block's tiles_per_block histograms are
+    // contiguous in the output, in the order of `bins`
+    int* dst = hists + ((long long)frame * num_tiles
+                        + (long long)(r0 / tile_h) * tiles_x + t0) * kBins;
+    for (int i = threadIdx.x; i < hist_len; i += blockDim.x) {
+        const int v = bins[i];
+        if (v) atomicAdd(&dst[i], v);
     }
 }
 
@@ -275,5 +370,30 @@ extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
         y, y_frame_stride, y_row_stride, luts, height, width, tiles_x,
         num_tiles, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
         out_row_stride, rows_per_block, staged);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int interp_hist_launch(const uint8_t* y, long long y_frame_stride,
+                                  long long y_row_stride, const uint8_t* luts,
+                                  int frames, int height, int tiles_y,
+                                  int tiles_x, int tile_h, int tile_w,
+                                  const int* ty1, const int* ty2,
+                                  const float* ya, const int* tx1,
+                                  const int* tx2, const float* xa,
+                                  uint8_t* out, long long out_frame_stride,
+                                  long long out_row_stride,
+                                  int rows_per_block, int tiles_per_block,
+                                  int* hists, void* stream) {
+    const int num_tiles = tiles_y * tiles_x;
+    const int lut_bytes = num_tiles * kBins;
+    const int hist_bytes = tiles_per_block * kBins * (int)sizeof(int);
+    const int staged = hist_bytes + lut_bytes <= kStaticSmemLimit ? 1 : 0;
+    dim3 grid(height / rows_per_block, tiles_x / tiles_per_block, frames);
+    interp_hist_kernel<<<grid, kThreads,
+                         hist_bytes + (staged ? lut_bytes : 0),
+                         (cudaStream_t)stream>>>(
+        y, y_frame_stride, y_row_stride, luts, tiles_x, num_tiles, tile_h,
+        tile_w, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
+        out_row_stride, rows_per_block, tiles_per_block, staged, hists);
     return (int)cudaGetLastError();
 }

@@ -172,10 +172,12 @@ def clahe(
     y,
     clip_limit: float = 40.0,
     tile_grid: tuple[int, int] = (8, 8),
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """One-shot OpenCV-exact CLAHE of a tensor (or numpy array) (H, W) or
-    (N, H, W); the plan is cached per frame shape."""
-    y = torch.as_tensor(y)
+    (N, H, W), moved to ``device`` first; the plan is cached per frame
+    shape."""
+    y = torch.as_tensor(y).to(device)
     plan = make_clahe_plan(y.shape[-2], y.shape[-1], float(clip_limit),
                            tuple(tile_grid))
     return clahe_apply(y, plan)
@@ -183,15 +185,17 @@ def clahe(
 
 class CLAHE:
     """cv2.createCLAHE-shaped stateful wrapper: construct once, apply per
-    frame (the reference's reusable ``cv::Ptr<cv::CLAHE>``)."""
+    frame (the reference's reusable ``cv::Ptr<cv::CLAHE>``) on ``device``."""
 
     def __init__(self, clip_limit: float = 40.0,
-                 tile_grid_size: tuple[int, int] = (8, 8)):
+                 tile_grid_size: tuple[int, int] = (8, 8),
+                 device: str | torch.device = "cuda"):
         self.clip_limit = float(clip_limit)
         self.tile_grid_size = tuple(tile_grid_size)
+        self.device = torch.device(device)
 
     def apply(self, y):
-        return clahe(y, self.clip_limit, self.tile_grid_size)
+        return clahe(y, self.clip_limit, self.tile_grid_size, self.device)
 
     # cv2 API parity
     def setClipLimit(self, v: float) -> None:

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "build_luts_launch": (_P, _I, _I, ctypes.c_float, _P, _P),
     "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                       _P, _P, _P, _LL, _LL, _I, _P),
+    "interp_hist_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P),
+    "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -58,7 +61,7 @@ def library_path() -> str:
         digest.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(_BUILD_DIR, f"libnatural_{digest.hexdigest()[:16]}.so")
+    return os.path.join(_BUILD_DIR, f"libkernels_{digest.hexdigest()[:16]}.so")
 
 
 def is_built() -> bool:

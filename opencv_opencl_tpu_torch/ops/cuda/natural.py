@@ -10,6 +10,8 @@ tile_histograms     tile_histograms_ref  natural.tile_histograms_radix (K1)
 build_luts          build_luts_ref       natural.build_lut_pack_pallas (K2)
 clahe_interpolate   clahe_interpolate_   natural.clahe_interpolate_natural,
                     ref                  variant 2 (K3)
+clahe_interp_and_   clahe_interp_and_    experiments.clahe_interp_and_hist_
+hist                hist_ref             natural (K7)
 ==================  ===================  =====================================
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
@@ -17,7 +19,7 @@ CUDA tensor it launches its kernel on the current stream or raises; it
 never falls back.  Each wrapper counts its kernel launches in a plain
 integer attribute, ``<wrapper>.launches``.
 
-All three take a batch: frames are (N, H, W) uint8 with unit column
+All four take a batch: frames are (N, H, W) uint8 with unit column
 stride (rows and frames may be strided, so the Y rows of an NV12 batch go
 in without a copy); histograms are (N, T, 256) int32 and LUTs (N, T, 256)
 uint8, with T = tiles_y * tiles_x in row-major tile order.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from opencv_opencl_tpu.core.golden import reflect101_indices
+from opencv_opencl_tpu_torch.core.golden import reflect101_indices
 from opencv_opencl_tpu_torch.ops.cuda import _build
 
 __all__ = [
@@ -39,6 +41,9 @@ __all__ = [
     "build_luts_ref",
     "clahe_interpolate",
     "clahe_interpolate_ref",
+    "clahe_interp_and_hist",
+    "clahe_interp_and_hist_ref",
+    "fused_interp_hist_fits",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -49,6 +54,13 @@ _HIST_TARGET_BLOCKS = 8 * 132
 # K3 rows per block: the frame's LUTs are staged in shared memory once per
 # block, so a block covers several full rows
 _INTERP_ROWS_PER_BLOCK = 16
+# K7 runs on one frame at a time in the streaming step, so its blocks split
+# the frame's tile columns as well as its rows until the grid has about this
+# many blocks: 4 per SM of an H100's 132
+_FUSED_TARGET_BLOCKS = 4 * 132
+# a K7 block keeps one 256-bin int32 histogram per tile column it covers in
+# shared memory, within the 48 KB a block gets without opting in to more
+_FUSED_MAX_TILES_PER_BLOCK = 48
 
 
 # ------------------------------------------------------------ plain math ----
@@ -135,6 +147,13 @@ def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
     r2 = l21 * xa1 + l22 * xa
     res = r1 * ya1 + r2 * ya
     return torch.round(res).clamp(0, 255).to(torch.uint8)
+
+
+def clahe_interp_and_hist_ref(y: torch.Tensor, luts: torch.Tensor,
+                              plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`clahe_interp_and_hist`: the blend with the
+    given LUTs, and the tile histograms of the same frames."""
+    return clahe_interpolate_ref(y, luts, plan), tile_histograms_ref(y, plan)
 
 
 # -------------------------------------------------------------- wrappers ----
@@ -268,7 +287,82 @@ def clahe_interpolate(y: torch.Tensor, luts: torch.Tensor, plan,
     return out
 
 
-_WRAPPERS = (tile_histograms, build_luts, clahe_interpolate)
+def fused_interp_hist_fits(plan) -> bool:
+    """Whether :func:`clahe_interp_and_hist` takes this geometry: no
+    reflect-101 padding, the TPU kernel's contract."""
+    return not (plan.pad_bottom or plan.pad_right)
+
+
+def _fused_grid(plan, frames: int) -> tuple[int, int]:
+    """K7's (rows_per_block, tiles_per_block).  The rows are the largest
+    divisor of tile_h up to 16, so that no block straddles a tile row (15
+    for the 270 and 135 rows of 4K and 1080p); the tile columns are split
+    into the fewest equal groups that bring the grid to
+    ``_FUSED_TARGET_BLOCKS``."""
+    rows = max(d for d in range(1, min(plan.tile_h, 16) + 1)
+               if plan.tile_h % d == 0)
+    row_blocks = plan.height // rows * frames
+    for groups in range(1, plan.tiles_x + 1):
+        per_block = plan.tiles_x // groups
+        if (plan.tiles_x % groups == 0
+                and per_block <= _FUSED_MAX_TILES_PER_BLOCK
+                and row_blocks * groups >= _FUSED_TARGET_BLOCKS):
+            return rows, per_block
+    return rows, 1
+
+
+def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
+                          out: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streaming step's one pass over (N, H, W) uint8 frames: the
+    bilinear blend with ``luts`` (the previous frame's) and the (N, T, 256)
+    int32 tile histograms of ``y`` itself.  Tile-divisible geometry only
+    (see :func:`fused_interp_hist_fits`); raises otherwise.  ``out`` may
+    be ``y``: every pixel is counted before it is overwritten."""
+    _check_frames(y, plan)
+    _check(luts, "luts", torch.uint8, 3)
+    if not fused_interp_hist_fits(plan):
+        raise ValueError(
+            f"clahe_interp_and_hist needs tile-divisible geometry; got "
+            f"{plan.height}x{plan.width} on a {plan.tiles_x}x{plan.tiles_y} grid")
+    if tuple(luts.shape) != (y.shape[0], plan.num_tiles, 256):
+        raise ValueError(f"luts shape {tuple(luts.shape)} does not match "
+                         f"{y.shape[0]} frames of {plan.num_tiles} tiles")
+    if out is not None:
+        _check_frames(out, plan, "out")
+        if out.shape != y.shape or out.device != y.device:
+            raise ValueError("out must match y in shape and device")
+    if luts.device != y.device:
+        raise ValueError(f"luts on {luts.device}, frames on {y.device}")
+    if not _on_card(y):
+        res, hists = clahe_interp_and_hist_ref(y, luts, plan)
+        return (res if out is None else out.copy_(res)), hists
+    if not luts.is_contiguous():
+        raise ValueError("luts must be contiguous")
+    lib = _build.load()
+    n = y.shape[0]
+    if out is None:
+        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
+    hists = torch.zeros((n, plan.num_tiles, 256), dtype=torch.int32,
+                        device=y.device)
+    ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y.device)
+    rows, tiles_per_block = _fused_grid(plan, n)
+    if n:
+        with torch.cuda.device(y.device):
+            err = lib.interp_hist_launch(
+                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
+                plan.height, plan.tiles_y, plan.tiles_x, plan.tile_h,
+                plan.tile_w, ty1.data_ptr(), ty2.data_ptr(), ya.data_ptr(),
+                tx1.data_ptr(), tx2.data_ptr(), xa.data_ptr(), out.data_ptr(),
+                out.stride(0), out.stride(1), rows, tiles_per_block,
+                hists.data_ptr(), _stream(y.device))
+        _raise_on(err, "interp_hist_kernel")
+        clahe_interp_and_hist.launches += 1
+    return out, hists
+
+
+_WRAPPERS = (tile_histograms, build_luts, clahe_interpolate,
+             clahe_interp_and_hist)
 
 
 def reset_launch_counts() -> None:

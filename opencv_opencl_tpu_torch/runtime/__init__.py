@@ -1,5 +1,10 @@
-"""Runtime glue between the port and the shared ``opencv_opencl_tpu.runtime``."""
+"""The port's runtime: the frame feeder, leaky queues and resequencer (its
+own copies of ``opencv_opencl_tpu/runtime``), and the device-to-host
+handoff that the feeder materialises."""
 
+from opencv_opencl_tpu_torch.runtime.feeder import FrameFeeder
 from opencv_opencl_tpu_torch.runtime.handoff import DeviceBatch
+from opencv_opencl_tpu_torch.runtime.queues import Closed, LeakyQueue
+from opencv_opencl_tpu_torch.runtime.sequencer import Resequencer
 
-__all__ = ["DeviceBatch"]
+__all__ = ["FrameFeeder", "DeviceBatch", "Closed", "LeakyQueue", "Resequencer"]

@@ -1,0 +1,273 @@
+"""Host->device double-buffered frame feeder — the processing engine.
+
+The port's own copy of ``opencv_opencl_tpu/runtime/feeder.py``, without
+the C++ staging ring: ``native_staging`` raises ``NotImplementedError``
+until that ring is ported (ROADMAP.md Queue 1 item 10).  Everything else
+is the same code, so the same frames give the same outputs, order and
+stats.
+
+reference                                  here
+---------------------------------------   -----------------------------------
+appsink cb -> GAsyncQueue (O(1) ref)       submit() -> LeakyQueue
+1-8 worker threads pop + process           feeder thread batches frames and
+  (OpenCVequalHist.cpp:102-196)              dispatches the batch step
+ARM->FPGA DMA write/exec/read              H2D copy + kernel launches +
+  (OpenCLequalHist.cpp:346-365)              overlapped host readback
+ProcessedFrame re-order map (binary-only)  Resequencer
+appsrc push                                on_output callback
+
+Double buffering: kernel launches are asynchronous, so the feeder keeps up
+to ``depth`` batches in flight — while batch i runs on the device, batch
+i+1 is staged and dispatched; only then is batch i's result materialized
+to host memory (``np.asarray`` of what ``process_batch`` returned, a
+``runtime.handoff.DeviceBatch`` in the port).
+
+The ``workers`` knob of the reference CLIs (clamped to 8,
+``OpenCVequalHist.cpp:274-275``) maps to ``depth`` here.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+
+from opencv_opencl_tpu_torch.metrics.counters import FrameRateCounters
+from opencv_opencl_tpu_torch.metrics.timing import TimingStats
+from opencv_opencl_tpu_torch.runtime.queues import (
+    Closed,
+    LeakyQueue,
+    PriorityLeakyQueue,
+)
+from opencv_opencl_tpu_torch.runtime.sequencer import Resequencer
+
+__all__ = ["FrameFeeder"]
+
+_POP_TIMEOUT_S = 0.05  # the reference workers' 50 ms timeout pop
+
+
+class FrameFeeder:
+    """Streaming frame processor around a batch step.
+
+    Parameters
+    ----------
+    process_batch: callable mapping uint8 (N, rows, W) -> an array-like of
+        the same shape (e.g. ``Enhancer.process_batch``). N may vary per
+        call up to ``batch_size``.
+    batch_size: max frames fused into one device dispatch.
+    depth: in-flight batches (double buffering at 2; reference --workers).
+    queue_capacity: input LeakyQueue size (reference max-size-buffers=8).
+    on_output: called with (seq, np.uint8 frame, meta) in seq order.
+    native_staging: not ported; a truthy value raises NotImplementedError.
+    """
+
+    def __init__(
+        self,
+        process_batch: Callable,
+        batch_size: int = 4,
+        depth: int = 2,
+        queue_capacity: int = 8,
+        on_output: Callable[[int, np.ndarray, Any], None] | None = None,
+        counters: FrameRateCounters | None = None,
+        timing: TimingStats | None = None,
+        pad_batches: bool = True,
+        native_staging: bool | tuple[int, ...] = False,
+        priority_of: Callable | None = None,
+        on_drop_item: Callable | None = None,
+    ) -> None:
+        if native_staging:
+            raise NotImplementedError(
+                "native_staging (the C++ staging ring of opencv_opencl_tpu."
+                "native) is not ported to the PyTorch package yet: "
+                "ROADMAP.md Queue 1 item 10")
+        self.process_batch = process_batch
+        self.batch_size = max(1, batch_size)
+        self.depth = min(max(1, depth), 8)
+        self.on_output = on_output or (lambda seq, frame, meta: None)
+        self.counters = counters or FrameRateCounters()
+        self.timing = timing or TimingStats(label="feeder")
+        self.pad_batches = pad_batches
+
+        def _note_drop(item):
+            self.counters.count("dropped_overflow")
+            if on_drop_item is not None:
+                on_drop_item(item)
+
+        qkw = dict(max_size=queue_capacity, on_drop=_note_drop)
+        if priority_of is not None:
+            self._inq = PriorityLeakyQueue(priority_of=priority_of, **qkw)
+        else:
+            self._inq = LeakyQueue(**qkw)
+        self._seq = 0
+        self._seq_lock = threading.Lock()
+        self._out_seq = 0  # dense output ordering, assigned at dispatch
+        self._reseq = Resequencer(self._emit)
+        self._inflight: list[tuple] = []
+        # preallocated host staging buffers (one per in-flight batch + 1):
+        # no per-batch np.stack allocation — the analogue of the reference's
+        # pre-allocated per-worker CL buffers (OpenCLequalHist.cpp:175-192).
+        # A slot is recycled only once its batch retires, so it can never be
+        # rewritten while a (possibly zero-copy) transfer still reads it.
+        self._staging_free: list[np.ndarray] = []
+        self._staging_shape: tuple[int, ...] | None = None
+        self._thread: threading.Thread | None = None
+        self._stopping = threading.Event()
+
+    # ---- input side (any thread) ----
+
+    def submit(self, frame: np.ndarray, meta: Any = None) -> int:
+        """O(1) enqueue of one frame; returns its sequence number."""
+        with self._seq_lock:
+            seq = self._seq
+            self._seq += 1
+        self.counters.count("input_frames")
+        # a frame arriving after stop() (the appsink callback can race
+        # shutdown) degrades to a drop — never an exception in the caller
+        try:
+            self._inq.put((seq, np.asarray(frame), meta))
+        except Closed:
+            self.counters.count("dropped_overflow")
+        return seq
+
+    def queue_length(self) -> int:
+        return len(self._inq)
+
+    def _acquire_slot(self, frame_shape: tuple[int, ...]) -> np.ndarray:
+        shape = (self.batch_size, *frame_shape)
+        if self._staging_shape != shape:
+            self._staging_shape = shape
+            self._staging_free = [
+                np.empty(shape, np.uint8) for _ in range(self.depth + 2)
+            ]
+        return (self._staging_free.pop() if self._staging_free
+                else np.empty(shape, np.uint8))
+
+    # ---- output side (feeder thread) ----
+
+    def _emit(self, seq: int, item: tuple[np.ndarray, Any]) -> None:
+        frame, meta = item
+        self.counters.count("output_frames")
+        try:
+            self.on_output(seq, frame, meta)
+        except Exception:
+            self.counters.count("push_failures")
+
+    def _retire_oldest(self) -> None:
+        entries, device_out, t_dispatch, slot = self._inflight.pop(0)
+        t0 = time.perf_counter()
+        host = np.asarray(device_out)  # blocks until device done + D2H copy
+        mem_ms = (time.perf_counter() - t0) * 1e3
+        compute_ms = (t0 - t_dispatch) * 1e3
+        self.timing.record(compute_ms, mem_ms, compute_ms + mem_ms)
+        for i, (seq, meta) in enumerate(entries):
+            self._reseq.push(seq, (host[i], meta))
+        del device_out
+        if slot.shape == self._staging_shape:
+            # shape-tag check: a mid-stream frame-shape change resets the
+            # pool; stale-shape slots must not poison it
+            self._staging_free.append(slot)
+
+    def _stage(self, frames: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+        """Assemble a batch into a recycled staging buffer (alloc-free in
+        steady state).  Returns (batch_view, slot)."""
+        slot = self._acquire_slot(frames[0].shape)
+        for i, f in enumerate(frames):
+            np.copyto(slot[i], f)
+        if self.pad_batches and len(frames) < self.batch_size:
+            # keep the device shape static: pad with repeats of the last
+            for i in range(len(frames), self.batch_size):
+                np.copyto(slot[i], frames[-1])
+            return slot, slot
+        return slot[: len(frames)], slot
+
+    def _dispatch(self, items: list[tuple[int, np.ndarray, Any]]) -> None:
+        frames = [f for (_, f, _) in items]
+        n = len(frames)
+        batch, slot = self._stage(frames)
+        t_dispatch = time.perf_counter()
+        try:
+            out = self.process_batch(batch)
+        except Exception:
+            self.counters.count("processing_errors", n)
+            if slot.shape == self._staging_shape:
+                self._staging_free.append(slot)
+            return  # no output seqs consumed -> no resequencer gap
+        # dense output sequence assigned at dispatch (queue drops and
+        # processing errors therefore never create gaps the resequencer
+        # would stall on — the stream degrades to drops, never to stalls)
+        entries = [(self._out_seq + i, meta)
+                   for i, (_, _, meta) in enumerate(items)]
+        self._out_seq += len(items)
+        self._inflight.append((entries, out, t_dispatch, slot))
+        while len(self._inflight) >= self.depth:
+            self._retire_oldest()
+
+    def _run(self) -> None:
+        while True:
+            try:
+                got = self._inq.get_batch(self.batch_size,
+                                          timeout=_POP_TIMEOUT_S)
+            except TimeoutError:
+                if self._stopping.is_set():
+                    break
+                # idle: retire in-flight work so latency stays low
+                while self._inflight:
+                    self._retire_oldest()
+                continue
+            except Closed:
+                break
+            try:
+                self._dispatch(got)
+            except Exception:
+                # staging/assembly failures must not kill the feeder
+                # thread — count and keep streaming (drop semantics)
+                self.counters.count("processing_errors", len(got))
+        while self._inflight:
+            self._retire_oldest()
+        self._reseq.flush()
+
+    # ---- lifecycle ----
+
+    def start(self) -> "FrameFeeder":
+        if self._thread is not None:
+            raise RuntimeError("feeder already started")
+        self._stopping.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="torch-feeder")
+        self._thread.start()
+        return self
+
+    def stop(self, drain: bool = True, timeout: float = 600.0) -> None:
+        """Stop the feeder; with drain=True, process everything queued first.
+
+        ``timeout`` bounds the join — generous by default because the very
+        first dispatch may include the kernels' build (the reference's
+        equivalent one-time cost is the xclbin load).
+        """
+        if self._thread is None:
+            return
+        if not drain:
+            self._inq.clear()
+        self._stopping.set()
+        self._inq.close()  # queued frames still drain; get raises Closed after
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive():
+            self.counters.count("processing_errors")
+        self._thread = None
+
+    def warmup(self, frame_shape: tuple[int, ...]) -> None:
+        """Run the batch step once before streaming starts (builds the
+        kernels) — the analogue of the reference loading the FPGA bitstream
+        before PLAYING (OpenCLequalHist.cpp:106-140)."""
+        dummy = np.zeros((self.batch_size, *frame_shape), dtype=np.uint8)
+        np.asarray(self.process_batch(dummy))
+
+    @property
+    def stats(self) -> dict[str, int]:
+        s = self.counters.snapshot()
+        s["dropped_late"] = self._reseq.dropped_late
+        s["frames_lost"] = self._reseq.frames_lost
+        s["emitted"] = self._reseq.emitted
+        return s

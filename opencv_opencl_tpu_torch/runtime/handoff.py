@@ -6,7 +6,8 @@
 port's ``process_batch`` returns a :class:`DeviceBatch`: it starts the
 device-to-host copy into pinned memory on a side stream as soon as the
 batch is enqueued, and ``__array__`` waits for that copy only.  The
-feeder, the resequencer and the native staging ring run unchanged.
+port's copies of the JAX package's feeder and resequencer run on it
+unchanged.
 """
 
 from __future__ import annotations

@@ -102,11 +102,13 @@ def test_clahe_and_cv2_api_wrapper():
     import cv2
 
     y = np.random.default_rng(3).integers(0, 256, (2, 40, 60), dtype=np.uint8)
-    c = torch_clahe.CLAHE(3.0, (4, 4))
+    c = torch_clahe.CLAHE(3.0, (4, 4), device="cpu")
     c.setClipLimit(2.0)
     c.setTilesGridSize((5, 3))
     assert c.getClipLimit() == 2.0 and c.getTilesGridSize() == (5, 3)
     out = c.apply(torch.from_numpy(y)).numpy()
     for i in range(2):
         assert np.array_equal(out[i], cv2.createCLAHE(2.0, (5, 3)).apply(y[i]))
-    assert np.array_equal(torch_clahe.clahe(y[0], 2.0, (5, 3)).numpy(), out[0])
+    one = torch_clahe.clahe(y[0], 2.0, (5, 3), device="cpu")
+    assert one.device.type == "cpu"
+    assert np.array_equal(one.numpy(), out[0])

@@ -6,20 +6,23 @@ machine with a card and no JAX, run it without the JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
-outputs (K1 histograms, K2 LUTs, K3 frames) must equal the plain PyTorch
-versions on the same CUDA inputs exactly, and the whole step must equal
-``core.golden``.  Tolerance: 0.
+outputs (K1 histograms, K2 LUTs, K3 and K4 frames, K7 frames and
+histograms) must equal the plain PyTorch versions on the same CUDA inputs
+exactly, and the CLAHE, histeq and streaming steps must equal
+``core.golden`` and the same steps on the CPU.  Tolerance: 0.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from opencv_opencl_tpu.core import golden
-from opencv_opencl_tpu.core.frames import ChromaPolicy, FrameSpec
+from opencv_opencl_tpu_torch.core import golden
+from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.models import enhancer as torch_enhancer
 from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
-from opencv_opencl_tpu_torch.ops.cuda import _build, natural
+from opencv_opencl_tpu_torch.ops import histeq as torch_histeq
+from opencv_opencl_tpu_torch.ops import cuda as torch_cuda
+from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
 
 pytestmark = pytest.mark.cuda
 
@@ -102,7 +105,8 @@ def test_step_equals_golden_and_counts_launches(device):
     natural.reset_launch_counts()
     out = torch_clahe.clahe_apply(torch.from_numpy(frames).to(device), plan)
     assert natural.launch_counts() == {
-        "tile_histograms": 1, "build_luts": 1, "clahe_interpolate": 1}
+        "tile_histograms": 1, "build_luts": 1, "clahe_interpolate": 1,
+        "clahe_interp_and_hist": 0}
     for i, f in enumerate(frames):
         assert np.array_equal(out[i].cpu().numpy(), golden.clahe(f, 2.0, (8, 8)))
     assert _build.is_built()
@@ -128,3 +132,127 @@ def test_wrappers_raise_on_mixed_devices(device):
         natural.build_luts(torch.zeros((1, 256, 16), dtype=torch.int32,
                                        device=device).transpose(1, 2),
                            plan.clip, plan.lut_scale)
+
+
+# ------------------------------------------------------------------ K4 ----
+
+
+def _luts(seed, n, kind):
+    if kind == "identity":
+        return np.tile(np.arange(256, dtype=np.uint8), (n, 1))
+    return np.random.default_rng(seed).integers(0, 256, (n, 256), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("n,h,w,content,lut_kind", [
+    (2, 96, 128, "nv12", "random"),        # in place over NV12 Y rows
+    (2, 96, 128, "nv12", "identity"),
+    (1, 1079, 1919, "random", "random"),   # odd width: unaligned rows
+    (2, 64, 128, "constant", "random"),
+    (3, 5, 7, "random", "random"),         # shorter than one 16-byte unit
+])
+def test_apply_lut_equals_plain(device, n, h, w, content, lut_kind):
+    batch = torch.from_numpy(_frames(4, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    luts = torch.from_numpy(_luts(5, n, lut_kind)).to(device)
+    want = lut.apply_lut_ref(y, luts)
+    assert torch.equal(lut.apply_lut(y, luts), want)
+    inplace = batch.clone()
+    lut.apply_lut(inplace[:, :h], luts, out=inplace[:, :h])
+    assert torch.equal(inplace[:, :h], want)
+    assert torch.equal(inplace[:, h:], batch[:, h:])
+    # source and destination aligned differently: the byte path
+    shifted = torch.zeros((n, h, w + 1), dtype=torch.uint8, device=device)
+    shifted[:, :, 1:] = y
+    assert torch.equal(lut.apply_lut(shifted[:, :, 1:], luts), want)
+    torch.cuda.synchronize(device)
+
+
+def test_histeq_equals_golden_and_counts_launches(device):
+    frames = _frames(6, 2, 108, 192)
+    torch_cuda.reset_launch_counts()
+    out = torch_histeq.equalize_hist_batch(frames, device=device)
+    counts = torch_cuda.launch_counts()
+    assert counts["tile_histograms"] == 1 and counts["apply_lut"] == 1
+    for i, f in enumerate(frames):
+        assert np.array_equal(out[i].cpu().numpy(), golden.equalize_hist(f))
+    const = np.full((64, 96), 9, np.uint8)
+    assert np.array_equal(torch_histeq.equalize_hist(const, device).cpu().numpy(),
+                          const)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(hist_downsample=3),
+                                dict(use_ref_frame=True)])
+def test_histeq_step_on_card_equals_cpu(device, kw):
+    spec = FrameSpec(width=120, height=66)
+    cfg = torch_enhancer.EnhancerConfig(op="histeq", **kw)
+    batch = _frames(7, 3, spec.buffer_rows, spec.width)
+    on_card = np.asarray(torch_enhancer.Enhancer(cfg, spec, device).process_batch(batch))
+    on_cpu = np.asarray(torch_enhancer.Enhancer(cfg, spec, "cpu").process_batch(batch))
+    assert np.array_equal(on_card, on_cpu)
+
+
+# ------------------------------------------------------------------ K7 ----
+
+
+@pytest.mark.parametrize("n,h,w,grid,content", [
+    (2, 96, 128, (8, 8), "nv12"),          # in place over NV12 Y rows
+    (2, 64, 256, (4, 4), "random"),
+    (2, 80, 120, (5, 4), "random"),
+    (1, 1080, 1920, (8, 8), "random"),     # 15-row blocks
+    (2, 96, 128, (8, 8), "constant"),
+    (1, 64, 64, (16, 16), "random"),       # 256 tiles: LUTs read via __ldg
+])
+def test_interp_and_hist_equals_plain(device, n, h, w, grid, content):
+    batch = torch.from_numpy(_frames(8, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    # the previous frame's LUTs: those of other content
+    prev = torch.from_numpy(_frames(9, n, h, w)).to(device)
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(prev, plan),
+                                  plan.clip, plan.lut_scale)
+    out_ref, hists_ref = natural.clahe_interp_and_hist_ref(y, luts, plan)
+    out, hists = natural.clahe_interp_and_hist(y, luts, plan)
+    assert torch.equal(out, out_ref) and torch.equal(hists, hists_ref)
+    # K7 equals K3 followed by K1
+    assert torch.equal(out, natural.clahe_interpolate(y, luts, plan))
+    assert torch.equal(hists, natural.tile_histograms(y, plan))
+    inplace = batch.clone()
+    _, hists_in = natural.clahe_interp_and_hist(inplace[:, :h], luts, plan,
+                                                out=inplace[:, :h])
+    assert torch.equal(inplace[:, :h], out_ref) and torch.equal(hists_in, hists_ref)
+    assert torch.equal(inplace[:, h:], batch[:, h:])
+    torch.cuda.synchronize(device)
+
+
+def test_interp_and_hist_rejects_padded_geometry(device):
+    plan = torch_clahe.make_clahe_plan(66, 120, 2.0, (8, 8))
+    y = torch.zeros((1, 66, 120), dtype=torch.uint8, device=device)
+    luts = torch.zeros((1, plan.num_tiles, 256), dtype=torch.uint8, device=device)
+    with pytest.raises(ValueError, match="tile-divisible"):
+        natural.clahe_interp_and_hist(y, luts, plan)
+
+
+@pytest.mark.parametrize("spec,fused", [(FrameSpec(width=128, height=96), True),
+                                        (FrameSpec(width=120, height=66), False)])
+def test_streaming_on_card_equals_cpu_and_golden(device, spec, fused):
+    cfg = torch_enhancer.EnhancerConfig(op="clahe", clip_limit=2.0,
+                                        chroma=ChromaPolicy.PASSTHROUGH)
+    card = torch_enhancer.StreamingEnhancer(cfg, spec, device)
+    cpu = torch_enhancer.StreamingEnhancer(cfg, spec, "cpu")
+    h = spec.height
+    prev = None
+    torch_cuda.reset_launch_counts()
+    for b in range(2):
+        batch = _frames(10 + b, 3, spec.buffer_rows, spec.width)
+        got = np.asarray(card.process_batch(batch))
+        assert np.array_equal(got, np.asarray(cpu.process_batch(batch)))
+        for i in range(3):
+            if prev is not None:
+                luts, th, tw = golden.clahe_luts(prev, 2.0, (8, 8))
+                assert np.array_equal(
+                    got[i, :h], golden.clahe_apply_luts(batch[i, :h], luts, th, tw))
+            prev = batch[i, :h]
+    counts = torch_cuda.launch_counts()
+    assert counts["build_luts"] == 6
+    assert counts["clahe_interp_and_hist"] == (6 if fused else 0)
+    assert counts["clahe_interpolate"] == (0 if fused else 6)

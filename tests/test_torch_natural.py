@@ -221,12 +221,19 @@ def test_clahe_apply_equals_golden_and_cv2(h, w, clip, grid):
 
 
 def test_wrappers_launch_nothing_on_cpu():
-    natural.reset_launch_counts()
+    from opencv_opencl_tpu_torch.ops import cuda, histeq
+
+    cuda.reset_launch_counts()
     plan = torch_clahe.make_clahe_plan(32, 32, 2.0, (4, 4))
     y = torch.from_numpy(_frames(10, 1, 32, 32))
     torch_clahe.clahe_apply(y, plan)
-    assert natural.launch_counts() == {
-        "tile_histograms": 0, "build_luts": 0, "clahe_interpolate": 0}
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(y, plan),
+                                  plan.clip, plan.lut_scale)
+    natural.clahe_interp_and_hist(y, luts, plan)
+    histeq.equalize_hist_batch(y, device="cpu")
+    assert cuda.launch_counts() == {
+        "tile_histograms": 0, "build_luts": 0, "clahe_interpolate": 0,
+        "clahe_interp_and_hist": 0, "apply_lut": 0}
 
 
 def test_wrappers_reject_bad_inputs():
