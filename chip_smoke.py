@@ -15,22 +15,34 @@ Phases, each of which raises (exit code != 0) when it fails:
             place over a 4K NV12 batch with random and identity LUTs, at
             1079x1919 and on a constant frame; K7 at 4K and 1080p on
             structured, random and constant content in place over NV12 Y
-            rows, and against K3 followed by K1;
+            rows, and against K3 followed by K1; K2 with one clip per frame
+            in a device tensor; K6 at 4K b4, 1080p, 1919x1079 and on a
+            constant frame in place over NV12 Y rows, and against K3; K8
+            at 4K b4 on an 8x8 and a 1x1 grid, and against K1;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
-            and histeq at 1080p, and streaming CLAHE over four 1080p frames
-            against golden's previous-frame LUT chain;
+            (natural and cell-grid backends) and histeq at 1080p, streaming
+            CLAHE over four 1080p frames against golden's previous-frame
+            LUT chain, auto-CLAHE over four 1080p frames at the clips the
+            card chose, and a BGR round trip (CLAHE on Y, and NV12) against
+            the port's ``core/color.py``;
 5. main     three paths driven through the port's ``FrameFeeder`` at 4K
             batch 4, 64 frames each, every output checked in sequence
             order against the plain versions: ``Enhancer`` with histeq
             (chroma gray), ``StreamingEnhancer`` (CLAHE clip 2.0, 8x8,
-            passthrough) and ``Enhancer`` with CLAHE (the same); the launch
-            counts are set to 0 before each path and read after it, and
-            every kernel must have been launched;
-6. timings  CUDA-event medians of the three 4K batch-4 steps and of each
+            passthrough) and ``Enhancer`` with CLAHE (the same); then two
+            paths with no Enhancer, driven through their entry points on
+            16 4K batches of 4 held on the card: ``clahe_auto`` (flat to
+            rich content, four different clips) and ``clahe_apply`` with
+            ``backend="pallas"`` (clip 2.0, 8x8); the launch counts are set
+            to 0 before each path and read after it, and every kernel of a
+            path must have been launched (K8 lies on no path: its launches
+            are those of its phase-3 check);
+6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
-            PyTorch call that computes the same function; the feeder's
-            end-to-end rates; torch.profiler's device time per kernel for
-            each step.
+            PyTorch call that computes the same function; K6 beside K3, K8
+            beside K1 and K2 with a clip tensor beside K2 with an int, in
+            turns; the feeder's end-to-end rates; torch.profiler's device
+            time per kernel for each step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -50,6 +62,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.models.enhancer import (
@@ -60,7 +73,9 @@ from opencv_opencl_tpu_torch.models.enhancer import (
     build_streaming_clahe_fn,
     initial_hists,
 )
+from opencv_opencl_tpu_torch.ops import auto_clahe
 from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
+from opencv_opencl_tpu_torch.ops import color
 from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
 from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
 from opencv_opencl_tpu_torch.ops import histogram
@@ -93,7 +108,16 @@ KERNELS = (
     ("interp_hist_kernel", "clahe_interp_and_hist",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/experiments.py:212"),
+    ("interp_cells_kernel", "clahe_interpolate_cells",
+     "opencv_opencl_tpu_torch/csrc/lut.cu",
+     "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477"),
+    ("tile_hist_private_kernel", "tile_histograms_extended",
+     "opencv_opencl_tpu_torch/csrc/lut.cu",
+     "opencv_opencl_tpu/ops/pallas/lut_kernels.py:142"),
 )
+# K8 lies on no path (nor does its TPU kernel on any path of the JAX
+# package): its launches are those of its phase-3 check
+OFF_PATH = "tile_histograms_extended"
 
 
 def clahe_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
@@ -125,8 +149,22 @@ def structured_y(rng, n, h, w) -> np.ndarray:
     return np.clip(base[None] + noise, 0, 255).astype(np.uint8)
 
 
-def nv12_batch(rng, n, h, w) -> np.ndarray:
-    y = structured_y(rng, n, h, w)
+def ladder_y(rng, n, h, w) -> np.ndarray:
+    """Frames from flat to rich content (a flat field with faint noise, a
+    narrow normal, gradient plus noise, uniform random, repeating), so that
+    auto-CLAHE picks a different clip for each."""
+    kinds = [
+        lambda: rng.normal(100, 1.5, (h, w)),
+        lambda: rng.normal(128, 8, (h, w)),
+        lambda: structured_y(rng, 1, h, w)[0].astype(np.float64),
+        lambda: rng.integers(0, 256, (h, w)).astype(np.float64),
+    ]
+    return np.stack([np.clip(kinds[i % 4](), 0, 255).astype(np.uint8)
+                     for i in range(n)])
+
+
+def nv12_batch(rng, n, h, w, make_y=structured_y) -> np.ndarray:
+    y = make_y(rng, n, h, w)
     uv = rng.integers(0, 256, (n, h // 2, w), dtype=np.uint8)
     return np.concatenate([y, uv], axis=1)
 
@@ -148,6 +186,21 @@ def plain_histeq(frames: torch.Tensor) -> torch.Tensor:
     n, h, w = frames.shape
     hists = natural.tile_histograms_ref(frames, whole_frame_plan(h, w))[:, 0]
     return lut.apply_lut_ref(frames, histogram.equalize_lut(hists, h * w))
+
+
+def plain_auto(frames: torch.Tensor, grid=GRID) -> tuple[torch.Tensor, torch.Tensor]:
+    """The auto-CLAHE step through the plain versions only: its output and
+    its f32 clips."""
+    n, h, w = frames.shape
+    plan = clahe_ops.make_clahe_plan(h, w, 40.0, grid)
+    hist = natural.tile_histograms_ref(frames, whole_frame_plan(h, w))[:, 0]
+    clips = auto_clahe.clip_from_hists(hist, h * w)
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(frames, plan),
+                                  auto_clahe.int_clips(clips, plan.tile_area),
+                                  plan.lut_scale)
+    spec = lut.make_interp_spec(h, w, 40.0, grid)
+    check(spec is not None, f"{h}x{w} has no cell-grid spec")
+    return lut.clahe_interpolate_cells_ref(frames, luts, spec), clips
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -297,6 +350,86 @@ def phase_fused_kernel(device, rng) -> int:
     return worst
 
 
+def phase_clip_tensor(device, rng) -> int:
+    """K2 with one clip per frame, read on the device, against its plain
+    version: 4K b4 histograms with clips from auto-CLAHE's range, with 0
+    (no clipping), 1 and beyond every count, and the residual edge cases."""
+    plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, CLIP, GRID)
+    y = torch.from_numpy(structured_y(rng, BATCH, HEIGHT, WIDTH)).to(device)
+    hists = natural.tile_histograms_ref(y, plan)
+    edge = torch.from_numpy(residual_edge_hists(plan)).to(device)
+    cases = [("4k_b4_auto_range", hists, [506, 1012, 1519, 2025]),
+             ("4k_b4_0_1_clip_huge", hists, [0, 1, plan.clip, 1 << 30]),
+             ("residual_edges", edge, [plan.clip])]
+    worst = 0
+    for label, h, clips in cases:
+        c = torch.tensor(clips, dtype=torch.int32, device=device)
+        e = max_err(natural.build_luts(h, c, plan.lut_scale),
+                    natural.build_luts_ref(h, c, plan.lut_scale))
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K2 with a clip tensor {e} (max abs err)", flush=True)
+        worst = max(worst, e)
+    return worst
+
+
+def phase_cell_kernel(device, rng) -> int:
+    """K6 against its plain version and against K3 on the same LUTs, in
+    place over NV12 Y rows: 4K b4, 1080p (tile height 135), 1919x1079 and
+    a constant frame; the LUTs are those of other frames."""
+    cases = [
+        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
+        ("1080p_b4_random_nv12", nv12_batch(rng, BATCH, 1080, 1920, random_y), 1080, 1920),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, 1919),
+        ("4k_constant", np.full((1, HEIGHT, WIDTH), 77, np.uint8), HEIGHT, WIDTH),
+    ]
+    worst = 0
+    for label, frames_np, h, w in cases:
+        spec = lut.make_interp_spec(h, w, CLIP, GRID)
+        check(spec is not None, f"{label} has no cell-grid spec")
+        batch = torch.from_numpy(frames_np).to(device)
+        y = batch[:, :h]
+        n = y.shape[0]
+        plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+        prev = torch.from_numpy(structured_y(rng, n, h, w)).to(device)
+        luts = natural.build_luts_ref(natural.tile_histograms_ref(prev, plan),
+                                      plan.clip, plan.lut_scale)
+        want = lut.clahe_interpolate_cells_ref(y, luts, spec)
+        got = lut.clahe_interpolate_cells(y, luts, spec)
+        inplace = batch.clone()
+        lut.clahe_interpolate_cells(inplace[:, :h], luts, spec, out=inplace[:, :h])
+        e_plain = max(max_err(got, want), max_err(inplace[:, :h], want),
+                      max_err(inplace[:, h:], batch[:, h:]))
+        e_k3 = max_err(got, natural.clahe_interpolate(y, luts, plan))
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K6 {e_plain} vs plain, {e_k3} vs K3 (max abs "
+              f"err; pad_top {spec.pad_top}, pad_left {spec.pad_left})", flush=True)
+        worst = max(worst, e_plain, e_k3)
+    return worst
+
+
+def phase_private_hist_kernel(device, rng) -> tuple[int, int]:
+    """K8 against its plain version and against K1 on the same
+    tile-divisible 4K b4 frames (structured NV12 Y rows and constant), at an
+    8x8 and a 1x1 grid; returns the error and K8's launches here."""
+    frames = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
+    const = torch.full((BATCH, HEIGHT, WIDTH), 77, dtype=torch.uint8, device=device)
+    lut.tile_histograms_extended.launches = 0
+    worst = 0
+    for label, y in (("4k_b4_structured_nv12", frames[:, :HEIGHT]),
+                     ("4k_b4_constant", const)):
+        for grid in (GRID, (1, 1)):
+            plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, CLIP, grid)
+            args = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+            got = lut.tile_histograms_extended(y, *args)
+            e_plain = max_err(got, lut.tile_histograms_extended_ref(y, *args))
+            e_k1 = max_err(got, natural.tile_histograms(y, plan))
+            torch.cuda.synchronize(device)
+            print(f"kernels {label} grid {grid[0]}x{grid[1]}: K8 {e_plain} vs "
+                  f"plain, {e_k1} vs K1 (max abs err)", flush=True)
+            worst = max(worst, e_plain, e_k1)
+    return worst, lut.tile_histograms_extended.launches
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 
@@ -331,6 +464,69 @@ def phase_golden(device, rng, h=1080, w=1920) -> None:
         print(f"golden streaming {h}x{w} frame {i}: max abs diff {d}", flush=True)
         check(d == 0, f"streaming frame {i} differs from golden's chain by {d}")
         check(np.array_equal(got[i, h:], nv12[i, h:]), "streaming chroma changed")
+
+
+def golden_at_int_clip(frame: np.ndarray, clip: float, int_clip: int,
+                       tile_area: int) -> np.ndarray:
+    """``golden.clahe`` at the integer clip reckoned in f32 (as the JAX
+    package and the port do).  golden reckons its integer clip from the
+    float clip in f64; where that differs, it is given a clip limit whose
+    f64 reckoning is ``int_clip``, and the difference is printed."""
+    golden_int = max(int(clip * tile_area / 256.0), 1)
+    if golden_int == int_clip:
+        return golden.clahe(frame, clip, GRID)
+    print(f"golden's f64 integer clip {golden_int} differs from the f32 one "
+          f"{int_clip} at clip {clip!r}", flush=True)
+    return golden.clahe(frame, (int_clip + 0.5) * 256.0 / tile_area, GRID)
+
+
+def phase_golden_slice3(device, rng, h=1080, w=1920) -> None:
+    """The cell-grid CLAHE, auto-CLAHE and the colour conversions on the
+    card against core/golden.py and core/color.py at 1080p, 0 LSB."""
+    frames = structured_y(rng, 2, h, w)
+    out = clahe_ops.clahe(frames, CLIP, GRID, backend="pallas",
+                          device=device).cpu().numpy()
+    for i, f in enumerate(frames):
+        d = int(np.abs(out[i].astype(int) - golden.clahe(f, CLIP, GRID).astype(int)).max())
+        print(f"golden {h}x{w} frame {i}: CLAHE backend=pallas max abs diff {d}",
+              flush=True)
+        check(d == 0, f"pallas frame {i} differs from core.golden.clahe by {d}")
+
+    frames = ladder_y(rng, BATCH, h, w)
+    out, clips = auto_clahe.clahe_auto(frames, GRID, device=device)
+    area = clahe_ops.make_clahe_plan(h, w, 40.0, GRID).tile_area
+    ints = auto_clahe.int_clips(clips, area).cpu().numpy()
+    out, clips = out.cpu().numpy(), clips.cpu().numpy()
+    for i, f in enumerate(frames):
+        want = golden_at_int_clip(f, float(clips[i]), int(ints[i]), area)
+        d = int(np.abs(out[i].astype(int) - want.astype(int)).max())
+        print(f"golden {h}x{w} frame {i}: clahe_auto clip {float(clips[i])!r} "
+              f"(integer {int(ints[i])}) max abs diff {d}", flush=True)
+        check(d == 0, f"auto frame {i} differs from core.golden.clahe by {d}")
+    check(len(set(clips.tolist())) == BATCH, f"auto clips not distinct: {clips}")
+
+    # a BGR round trip through CLAHE on Y, and through NV12
+    bgr = np.stack([structured_y(rng, 1, h, w)[0] for _ in range(3)], axis=-1)
+    yuv = color.bgr2yuv(bgr, device)
+    y_eq = clahe_ops.clahe(yuv[..., 0].contiguous(), CLIP, GRID, device=device)
+    back = color.yuv2bgr(torch.stack([y_eq, yuv[..., 1], yuv[..., 2]], -1), device)
+    nv12 = color.bgr2nv12(bgr, device)
+    from_nv12 = color.nv12_to_bgr(nv12, device=device)
+    want_yuv = color_oracle.bgr2yuv(bgr)
+    want_y = golden.clahe(np.ascontiguousarray(want_yuv[..., 0]), CLIP, GRID)
+    want_back = color_oracle.yuv2bgr(
+        np.stack([want_y, want_yuv[..., 1], want_yuv[..., 2]], -1))
+    want_nv12 = color_oracle.bgr2nv12(bgr)
+    for label, got, want in (("bgr2yuv", yuv, want_yuv),
+                             ("clahe on Y, yuv2bgr", back, want_back),
+                             ("bgr2nv12", nv12, want_nv12),
+                             ("nv12_to_bgr", from_nv12,
+                              color_oracle.nv12_to_bgr(want_nv12))):
+        got = got.cpu().numpy()
+        check(got.shape == want.shape, f"{label}: shape {got.shape} vs {want.shape}")
+        d = int(np.abs(got.astype(int) - want.astype(int)).max())
+        print(f"golden {h}x{w} BGR round trip {label}: max abs diff {d}", flush=True)
+        check(d == 0, f"{label} differs from core/color.py by {d}")
 
 
 # ------------------------------------------------------------- phase 5 ----
@@ -430,6 +626,60 @@ def phase_main_paths(device, rng, h=HEIGHT, w=WIDTH) -> dict[str, dict[str, int]
     return per_path
 
 
+def drive_step(step, inputs, expected, steps=FEEDER_FRAMES // BATCH) -> dict:
+    """Call ``step`` on ``inputs[k % len(inputs)]`` for k < steps with the
+    launch counts set to 0 before and read after; then check each result
+    against ``expected(k, result)``, which returns the largest difference."""
+    cuda_ops.reset_launch_counts()
+    results = [step(inputs[k % len(inputs)]) for k in range(steps)]
+    torch.cuda.synchronize()
+    counts = cuda_ops.launch_counts()
+    errs = [expected(k, r) for k, r in enumerate(results)]
+    check(max(errs) == 0, f"{sum(e > 0 for e in errs)} of {steps} steps differ "
+          f"from the plain path by up to {max(errs)}")
+    return counts
+
+
+def phase_slice3_paths(device, rng, h=HEIGHT, w=WIDTH) -> dict[str, dict[str, int]]:
+    """Auto-CLAHE and the cell-grid CLAHE (``backend="pallas"``, clip 2.0,
+    8x8) at 4K b4, 16 batches each through their entry points (the JAX
+    package has no Enhancer for either), on the Y rows of NV12 batches held
+    on the card; every output checked against the plain path."""
+    batches = [torch.from_numpy(nv12_batch(rng, BATCH, h, w, ladder_y)).to(device)
+               for _ in range(2)]
+    ys = [b[:, :h] for b in batches]
+    per_path = {}
+
+    want_auto = [plain_auto(y) for y in ys]
+    for _, clips in want_auto:
+        check(len(set(clips.tolist())) == BATCH, f"auto clips not distinct: {clips}")
+
+    def auto_err(k, result) -> int:
+        (out, clips), (want, want_clips) = result, want_auto[k % 2]
+        check(torch.equal(clips, want_clips),
+              f"step {k}: clips {clips.tolist()}, plain {want_clips.tolist()}")
+        return max_err(out, want)
+
+    per_path["auto"] = drive_step(
+        lambda y: auto_clahe.clahe_auto(y, GRID, device=device), ys, auto_err)
+    print(f"main path auto 4K b{BATCH}: clips {want_auto[0][1].tolist()} and "
+          f"{want_auto[1][1].tolist()}, launches {per_path['auto']}", flush=True)
+
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    want_cells = [plain_step(y, plan) for y in ys]
+    per_path["pallas"] = drive_step(
+        lambda y: clahe_ops.clahe_apply(y, plan, backend="pallas"), ys,
+        lambda k, r: max_err(r, want_cells[k % 2]))
+    print(f"main path pallas 4K b{BATCH}: launches {per_path['pallas']}", flush=True)
+
+    for label in ("auto", "pallas"):
+        c = per_path[label]
+        check(c["tile_histograms"] > 0 and c["build_luts"] > 0
+              and c["clahe_interpolate_cells"] > 0 and c["clahe_interpolate"] == 0,
+              f"{label} path did not run K1, K2 and K6 alone: {c}")
+    return per_path
+
+
 def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> float:
     """Frames per second through the FrameFeeder, host frames in and host
     frames out (H2D, the step, D2H and the feeder's own copies)."""
@@ -524,6 +774,17 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     plain_ms = device_ms(lambda: y.copy_(plain_step(y, plan)))
     print(f"time plain CLAHE step 4K b{BATCH}: {plain_ms / BATCH:.4f} ms/frame "
           f"[{card}]", flush=True)
+    ladder = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH, ladder_y)).to(device)
+    y_ladder = ladder[:, :HEIGHT]
+    cells_out = torch.empty_like(y)
+    for label, step in (
+            ("auto", lambda: auto_clahe.clahe_auto(y_ladder, GRID, device=device)),
+            ("pallas", lambda: clahe_ops.clahe_apply(y, plan, backend="pallas",
+                                                     out=cells_out))):
+        print_step(label, time_ms(step), device_ms(step), card)
+    print(f"time plain auto step 4K b{BATCH}: "
+          f"{device_ms(lambda: plain_auto(y_ladder)) / BATCH:.4f} ms/frame [{card}]",
+          flush=True)
 
     hists = natural.tile_histograms_ref(y, plan)
     luts = natural.build_luts_ref(hists, plan.clip, plan.lut_scale)
@@ -536,6 +797,8 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     y_flat = y.contiguous().view(BATCH, -1)
     arrays = plan.device_arrays(device)
     frame_px = HEIGHT * WIDTH
+    spec = lut.make_interp_spec(HEIGHT, WIDTH, CLIP, GRID)
+    tiles = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
     fx = {
         # name: (kernel, plain version, library call or None, bytes, ops);
         # ops are f32 operations, or one integer add per histogram count:
@@ -564,6 +827,14 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
             lambda: natural.clahe_interp_and_hist_ref(frame, frame_luts, plan), None,
             2 * frame_px + nbytes(frame_luts, *arrays) + plan.num_tiles * 256 * 4,
             11 * frame_px),
+        "interp_cells_kernel": (
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out),
+            lambda: lut.clahe_interpolate_cells_ref(y, luts, spec), None,
+            2 * px + nbytes(luts, *spec.device_arrays(device)), 10 * px),
+        "tile_hist_private_kernel": (
+            lambda: lut.tile_histograms_extended(y, *tiles),
+            lambda: lut.tile_histograms_extended_ref(y, *tiles), None,
+            px + nbytes(hists), px),
     }
     times = {}
     for name, (kernel, plain, library, moved, ops) in fx.items():
@@ -590,6 +861,33 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     const_ms = device_ms(lambda: natural.tile_histograms(const, plan))
     print(f"time tile_hist_kernel 4K b{BATCH} constant frame: {const_ms:.4f} ms "
           f"[{card}]", flush=True)
+
+    # the slice-3 kernels beside the kernels of the same contract, in turns
+    whole = whole_frame_plan(HEIGHT, WIDTH)
+    clips = torch.tensor([506, 1012, 1519, 2025], dtype=torch.int32, device=device)
+    pairs = {
+        "K6 interp_cells_kernel vs K3 interp_kernel": (
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out),
+            lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
+        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 8x8": (
+            lambda: lut.tile_histograms_extended(y, *tiles),
+            lambda: natural.tile_histograms(y, plan)),
+        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 8x8 constant": (
+            lambda: lut.tile_histograms_extended(const, *tiles),
+            lambda: natural.tile_histograms(const, plan)),
+        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 1x1": (
+            lambda: lut.tile_histograms_extended(y, 1, 1, HEIGHT, WIDTH),
+            lambda: natural.tile_histograms(y, whole)),
+        "K2 build_luts_kernel clip tensor vs int": (
+            lambda: natural.build_luts(hists, clips, plan.lut_scale),
+            lambda: natural.build_luts(hists, plan.clip, plan.lut_scale)),
+    }
+    for label, (new, old) in pairs.items():
+        reads = [device_ms(new), device_ms(old), device_ms(old), device_ms(new)]
+        print(f"time {label} 4K b{BATCH}: {reads[0]:.4f} / {reads[3]:.4f} ms against "
+              f"{reads[1]:.4f} / {reads[2]:.4f} ms on the device [{card}]", flush=True)
+        if label.startswith("K2"):
+            times["build_luts_kernel"]["clip_tensor_ms"] = min(reads[0], reads[3])
     return times
 
 
@@ -603,8 +901,13 @@ def phase_profile(device, rng) -> None:
     stream_fn, _ = build_streaming_clahe_fn(cfg, spec)
     histeq = build_enhance_fn(*histeq_config()[::-1])
     state = initial_hists(plan, device)
+    ladder = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH, ladder_y)).to(device)
     steps = {"clahe": lambda: clahe(batch), "histeq": lambda: histeq(batch),
-             "streaming": lambda: stream_fn(batch, state)}
+             "streaming": lambda: stream_fn(batch, state),
+             "auto": lambda: auto_clahe.clahe_auto(ladder[:, :HEIGHT], GRID,
+                                                   device=device),
+             "pallas": lambda: clahe_ops.clahe_apply(batch[:, :HEIGHT], plan,
+                                                     backend="pallas")}
     for label, step in steps.items():
         step()
         torch.cuda.synchronize()
@@ -649,13 +952,25 @@ def main() -> int:
     errs = phase_clahe_kernels(device, kernel_cases(rng))
     errs["apply_lut_kernel"] = phase_lut_kernel(device, rng)
     errs["interp_hist_kernel"] = phase_fused_kernel(device, rng)
+    errs["build_luts_kernel"] = max(errs["build_luts_kernel"],
+                                    phase_clip_tensor(device, rng))
+    errs["interp_cells_kernel"] = phase_cell_kernel(device, rng)
+    errs["tile_hist_private_kernel"], off_path_launches = \
+        phase_private_hist_kernel(device, rng)
     check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
 
     phase_golden(device, rng)                              # phase 4
+    phase_golden_slice3(device, rng)
     per_path = phase_main_paths(device, rng)               # phase 5
+    per_path.update(phase_slice3_paths(device, rng))
     launches = {wrapper: sum(c[wrapper] for c in per_path.values())
                 for _, wrapper, _, _ in KERNELS}
-    check(all(n > 0 for n in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(n > 0 for w, n in launches.items() if w != OFF_PATH),
+          f"a kernel was not launched on a path: {launches}")
+    check(launches[OFF_PATH] == 0 and off_path_launches > 0,
+          f"{OFF_PATH}: {launches[OFF_PATH]} launches on the paths, "
+          f"{off_path_launches} in its check")
+    launches[OFF_PATH] = off_path_launches
 
     times = phase_timings(device, rng, card)               # phase 6
     frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)

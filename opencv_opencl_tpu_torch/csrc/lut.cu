@@ -1,7 +1,16 @@
-// Global equalizeHist on Hopper: K4, the 256-entry LUT map.
+// The kernels of opencv_opencl_tpu/ops/pallas/lut_kernels.py on Hopper:
 //
-//   K4 apply_lut_kernel   out[f, r, c] = luts[f, y[f, r, c]]
+//   K4 apply_lut_kernel          out[f, r, c] = luts[f, y[f, r, c]]
+//   K6 interp_cells_kernel       CLAHE's bilinear blend of four tile LUTs,
+//                                one block per (frame, cell, row chunk)
+//   K8 tile_hist_private_kernel  per-tile 256-bin histograms of an already
+//                                extended frame, per-warp private bins
 //
+// Their plain PyTorch versions are in opencv_opencl_tpu_torch/ops/cuda/lut.py.
+// Every launcher is extern "C", launches on the stream it is given, does
+// not synchronise, allocates nothing, and returns cudaGetLastError().
+//
+// ----------------------------------------------------------------- K4 ----
 // Replaces opencv_opencl_tpu/ops/pallas/lut_kernels.py apply_lut_pallas /
 // _apply_lut_kernel, which maps through a one-hot MXU dot because a gather
 // lowers badly on a TPU.  On Hopper a LUT read from shared memory is the
@@ -18,12 +27,11 @@
 // whole row whose source and destination are not equally aligned.  Rows
 // and frames are taken by stride, so the Y rows of an NV12 batch are mapped
 // in place: each pixel is read by the thread that then writes it.
-//
-// The launcher is extern "C", launches on the stream it is given, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "blend.cuh"
 
 namespace {
 
@@ -83,6 +91,152 @@ apply_lut_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
+// ----------------------------------------------------------------- K6 ----
+// Replaces lut_kernels.py clahe_interpolate_pallas / _interp_kernel
+// (radix=False).  The TPU embeds the frame in a padded grid of uniform
+// cells, the regions between tile centres where the same four tile LUTs
+// apply, so that each block gets one constant (4, 256) bf16 LUT pack for a
+// one-hot MXU dot.  Here the embedding copy is dropped: one block per
+// (row chunk of a cell, cell column, frame) maps the chunk's pixels, clipped
+// to the frame, straight from the frame.  Cell (cy, cx) covers the frame
+// rows [cy*tile_h - pad_top, (cy+1)*tile_h - pad_top) and the columns
+// likewise with pad_left; make_interp_spec only gives a spec where that
+// reproduces the plan's per-pixel tile indices, so its four LUTs
+// (cell_lut_idx, in l11, l12, l21, l22 order) are those K3 reads there.
+// Bound: the read and write of the frames (2 bytes per pixel, 66.4 MB for
+// a 4K batch of 4).  Design: the block stages only its cell's four LUTs
+// (1 KB, one 32-bit word per thread) in shared memory, where K3 stages all
+// T*256 bytes of the frame's LUTs and only when they fit 48 KB; the
+// threads walk the chunk's (row, column) pairs with running counters, so a
+// narrow border cell still keeps every thread busy; `xa` is read per
+// column and `ya` per row from the plan.  The blend is blend4, K3's bit for
+// bit.  Each pixel is read and then written by one thread, so `out` may
+// alias `y`.
+constexpr int kLutWords = kBins / 4;    // 32-bit words per LUT
+static_assert(kThreads == 4 * kLutWords, "one staging word per thread");
+
+__global__ void __launch_bounds__(kThreads)
+interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
+                    long long y_row_stride, const uint8_t* __restrict__ luts,
+                    int num_tiles, const int* __restrict__ cell_lut_idx,
+                    int cells_x, int height, int width, int tile_h,
+                    int tile_w, int pad_top, int pad_left,
+                    int rows_per_block, int chunks,
+                    const float* __restrict__ ya,
+                    const float* __restrict__ xa, uint8_t* out,
+                    long long out_frame_stride, long long out_row_stride) {
+    __shared__ __align__(16) uint8_t lut4[4 * kBins];
+    const int cy = blockIdx.x / chunks;
+    const int chunk = blockIdx.x % chunks;
+    const int cx = blockIdx.y;
+    const int frame = blockIdx.z;
+
+    // the chunk's rows and the cell's columns, in frame coordinates,
+    // clipped to the frame (the border cells are half outside it)
+    const int g0 = cy * tile_h + chunk * rows_per_block;
+    const int r0 = max(g0 - pad_top, 0);
+    const int r1 = min(min(g0 + rows_per_block, (cy + 1) * tile_h) - pad_top,
+                       height);
+    const int c0 = max(cx * tile_w - pad_left, 0);
+    const int c1 = min((cx + 1) * tile_w - pad_left, width);
+    if (r0 >= r1 || c0 >= c1) return;  // the same for every thread
+
+    {
+        const int k = threadIdx.x / kLutWords;
+        const int word = threadIdx.x % kLutWords;
+        const int tile = __ldg(&cell_lut_idx[(cy * cells_x + cx) * 4 + k]);
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            luts + ((long long)frame * num_tiles + tile) * kBins);
+        reinterpret_cast<uint32_t*>(lut4)[threadIdx.x] = __ldg(&src[word]);
+    }
+    __syncthreads();
+
+    const uint8_t* src = y + frame * y_frame_stride + c0;
+    uint8_t* dst = out + frame * out_frame_stride + c0;
+    const int cols = c1 - c0;
+    int r = r0 + (int)threadIdx.x / cols;
+    int c = (int)threadIdx.x % cols;
+    const int step_rows = kThreads / cols;
+    const int step_cols = kThreads % cols;
+    while (r < r1) {
+        const int v = src[r * y_row_stride + c];
+        const float fy = __ldg(&ya[r]);
+        dst[r * out_row_stride + c] = blend4(
+            lut4[v], lut4[kBins + v], lut4[2 * kBins + v], lut4[3 * kBins + v],
+            __ldg(&xa[c0 + c]), fy, __fsub_rn(1.0f, fy));
+        r += step_rows;
+        c += step_cols;
+        if (c >= cols) {
+            c -= cols;
+            ++r;
+        }
+    }
+}
+
+// ----------------------------------------------------------------- K8 ----
+// Replaces lut_kernels.py tile_histograms_pallas / _tile_hist_kernel, which
+// counts a tile by a 256-row one-hot compare summed over lanes, on tiles
+// re-laid out to (8, 128)-aligned slots whose zero padding is then taken
+// out of bin 0.  Its contract: the per-tile 256-bin int32 histograms of an
+// already extended, tile-divisible frame.  No path of the JAX package
+// runs it; here it is the second formulation of K1's contract, measured
+// beside K1 (natural.cu tile_hist_kernel), which counts into one shared
+// 256-bin histogram per block with one shared atomic per pixel.  Bound: the
+// read of the frames (1 byte per pixel) and one shared-memory atomic per
+// pixel.  Design: K1's grid (one block per (tile, slice of the tile's
+// rows), frame), K1's byte loads and running counters, but every warp
+// counts into its own private 256-bin int32 histogram (8 warps x 1 KB),
+// so atomics contend only within a warp; at the end the block sums the 8
+// sub-histograms per bin and adds each non-zero bin to the zeroed global
+// (N, T, 256) histogram with one global atomic.  No reflect math: the
+// input is already extended.
+__global__ void __launch_bounds__(kThreads)
+tile_hist_private_kernel(const uint8_t* __restrict__ ext,
+                         long long frame_stride, long long row_stride,
+                         int tiles_x, int tile_h, int tile_w, int slices,
+                         int* __restrict__ out) {
+    __shared__ int bins[kWarps][kBins];
+    int* flat = &bins[0][0];
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
+    __syncthreads();
+
+    const int num_tiles = gridDim.x / slices;
+    const int tile = blockIdx.x / slices;
+    const int slice = blockIdx.x % slices;
+    const int frame = blockIdx.y;
+    const int ty = tile / tiles_x;
+    const int tx = tile % tiles_x;
+    const int k0 = (int)((long long)tile_h * slice / slices);
+    const int k1 = (int)((long long)tile_h * (slice + 1) / slices);
+    const uint8_t* base = ext + frame * frame_stride
+                          + (long long)ty * tile_h * row_stride
+                          + (long long)tx * tile_w;
+    int* mine = bins[threadIdx.x >> 5];
+
+    int k = k0 + (int)threadIdx.x / tile_w;
+    int c = (int)threadIdx.x % tile_w;
+    const int step_rows = kThreads / tile_w;
+    const int step_cols = kThreads % tile_w;
+    while (k < k1) {
+        atomicAdd(&mine[base[k * row_stride + c]], 1);
+        k += step_rows;
+        c += step_cols;
+        if (c >= tile_w) {
+            c -= tile_w;
+            ++k;
+        }
+    }
+    __syncthreads();
+
+    int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
+    for (int b = threadIdx.x; b < kBins; b += kThreads) {
+        int v = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
+        if (v) atomicAdd(&dst[b], v);
+    }
+}
+
 }  // namespace
 
 extern "C" int apply_lut_launch(const uint8_t* y, long long y_frame_stride,
@@ -95,5 +249,36 @@ extern "C" int apply_lut_launch(const uint8_t* y, long long y_frame_stride,
     apply_lut_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, y_frame_stride, y_row_stride, luts, height, width, out,
         out_frame_stride, out_row_stride, rows_per_block);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int interp_cells_launch(const uint8_t* y, long long y_frame_stride,
+                                   long long y_row_stride, const uint8_t* luts,
+                                   int frames, int num_tiles,
+                                   const int* cell_lut_idx, int cells_y,
+                                   int cells_x, int height, int width,
+                                   int tile_h, int tile_w, int pad_top,
+                                   int pad_left, int rows_per_block,
+                                   const float* ya, const float* xa,
+                                   uint8_t* out, long long out_frame_stride,
+                                   long long out_row_stride, void* stream) {
+    const int chunks = (tile_h + rows_per_block - 1) / rows_per_block;
+    dim3 grid(cells_y * chunks, cells_x, frames);
+    interp_cells_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, y_frame_stride, y_row_stride, luts, num_tiles, cell_lut_idx,
+        cells_x, height, width, tile_h, tile_w, pad_top, pad_left,
+        rows_per_block, chunks, ya, xa, out, out_frame_stride,
+        out_row_stride);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tile_hist_private_launch(const uint8_t* ext, int frames,
+                                        long long frame_stride,
+                                        long long row_stride, int tiles_y,
+                                        int tiles_x, int tile_h, int tile_w,
+                                        int slices, int* out, void* stream) {
+    dim3 grid(tiles_y * tiles_x * slices, frames);
+    tile_hist_private_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices, out);
     return (int)cudaGetLastError();
 }

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend.cuh"
+
 namespace {
 
 constexpr int kBins = 256;
@@ -106,7 +108,10 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
 // block of 256 threads per (frame, tile), one thread per bin, integer
 // arithmetic up to the single f32 multiply of the scale; the excess is a
 // block reduction and the CDF an inclusive int32 warp-shuffle scan, both
-// exact in any order.
+// exact in any order.  With `clips` set (auto-CLAHE, the counterpart of
+// ops/auto_clahe.py _luts_with_traced_clip), the clip is per frame and
+// lives on the device: row blockIdx.x belongs to frame blockIdx.x / tiles
+// and takes clips[that frame] in place of the host `clip`.
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -118,7 +123,8 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
 }
 
 __global__ void __launch_bounds__(kBins)
-build_luts_kernel(const int* __restrict__ hists, int clip, float lut_scale,
+build_luts_kernel(const int* __restrict__ hists, int clip,
+                  const int* __restrict__ clips, int tiles, float lut_scale,
                   uint8_t* __restrict__ luts) {
     __shared__ int warp_sums[kBins / 32];
     __shared__ int total;
@@ -127,6 +133,7 @@ build_luts_kernel(const int* __restrict__ hists, int clip, float lut_scale,
     const int warp = bin >> 5;
     const long long row = (long long)blockIdx.x * kBins;
     int h = hists[row + bin];
+    if (clips != nullptr) clip = __ldg(&clips[blockIdx.x / tiles]);
 
     if (clip > 0) {
         // ops/clahe.py _clip_histograms: the excess is shared as
@@ -165,15 +172,13 @@ build_luts_kernel(const int* __restrict__ hists, int clip, float lut_scale,
 
 // ----------------------------------------------------------------- K3 ----
 // One output pixel of the bilinear blend: the four LUT reads at value v
-// (from shared memory when staged, else through __ldg), then OpenCV's
-// mul-then-add order.  The blend is __fmul_rn/__fadd_rn throughout: nvcc
-// would otherwise contract a*b+c into an FMA and flip exact ties by 1 LSB.
-// K3 and K7 both map every pixel through this function.
+// (from shared memory when staged, else through __ldg), then blend4
+// (blend.cuh), OpenCV's mul-then-add order without FMA contraction.  K3
+// and K7 both map every pixel through this function.
 __device__ __forceinline__ uint8_t blend_pixel(const uint8_t* lut, int staged,
                                                int row_a, int row_b, int ca,
                                                int cb, int v, float fx,
                                                float fy, float fy1) {
-    const float fx1 = __fsub_rn(1.0f, fx);
     float l11, l12, l21, l22;
     if (staged) {
         l11 = lut[(row_a + ca) * kBins + v];
@@ -186,10 +191,7 @@ __device__ __forceinline__ uint8_t blend_pixel(const uint8_t* lut, int staged,
         l21 = __ldg(&lut[(row_b + ca) * kBins + v]);
         l22 = __ldg(&lut[(row_b + cb) * kBins + v]);
     }
-    const float top = __fadd_rn(__fmul_rn(l11, fx1), __fmul_rn(l12, fx));
-    const float bot = __fadd_rn(__fmul_rn(l21, fx1), __fmul_rn(l22, fx));
-    const float res = __fadd_rn(__fmul_rn(top, fy1), __fmul_rn(bot, fy));
-    return (uint8_t)min(max(__float2int_rn(res), 0), 255);
+    return blend4(l11, l12, l21, l22, fx, fy, fy1);
 }
 
 // Stage one frame's LUTs (lut_bytes, a multiple of 256) into shared memory
@@ -344,11 +346,14 @@ extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
     return (int)cudaGetLastError();
 }
 
+// clips: nullptr for one host clip for every row, else one int32 clip per
+// frame of `tiles` rows (rows / tiles of them; the wrapper checks it)
 extern "C" int build_luts_launch(const int* hists, int rows, int clip,
+                                 const int* clips, int tiles,
                                  float lut_scale, uint8_t* luts,
                                  void* stream) {
     build_luts_kernel<<<rows, kBins, 0, (cudaStream_t)stream>>>(
-        hists, clip, lut_scale, luts);
+        hists, clip, clips, tiles, lut_scale, luts);
     return (int)cudaGetLastError();
 }
 

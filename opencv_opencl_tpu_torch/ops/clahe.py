@@ -8,9 +8,10 @@ and an *apply* over that plan.
 
 On a CUDA tensor, :func:`clahe_apply` runs three hand-written kernels
 (``ops/cuda/natural.py``): tile histograms (K1), LUT build (K2) and the
-bilinear interpolation (K3).  On a CPU tensor the same wrappers run their
-plain PyTorch versions.  Either way the output equals
-``cv2.createCLAHE(clip, grid).apply`` exactly.
+bilinear interpolation (K3), or, with ``backend="pallas"``, the cell-grid
+interpolation (K6, ``ops/cuda/lut.py``) in place of K3.  On a CPU tensor
+the same wrappers run their plain PyTorch versions.  Either way the output
+equals ``cv2.createCLAHE(clip, grid).apply`` exactly.
 
 The plain versions live beside the kernels' wrappers, in
 ``ops/cuda/natural.py``; the JAX module's private functions map to them as
@@ -27,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from opencv_opencl_tpu_torch.ops.cuda import natural
+from opencv_opencl_tpu_torch.ops.cuda import lut, natural
 
 __all__ = ["ClahePlan", "make_clahe_plan", "plan_from_jax", "clahe_apply",
            "clahe", "CLAHE"]
@@ -141,9 +142,29 @@ def plan_from_jax(plan) -> ClahePlan:
     return ClahePlan(**{name: getattr(plan, name) for name in _PLAN_FIELDS})
 
 
-def clahe_apply(y: torch.Tensor, plan: ClahePlan, hist_rowstep: int = 1,
+def _check_method(method: str) -> None:
+    """The histogram methods of the JAX package's ``hist256``; on the card
+    both are the same kernel."""
+    if method not in ("onehot", "scatter"):
+        raise ValueError(f"unknown histogram method {method!r}")
+
+
+def clahe_apply(y: torch.Tensor, plan: ClahePlan, method: str = "onehot",
+                backend: str = "auto", hist_rowstep: int = 1,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """CLAHE one frame (H, W) or a batch (N, H, W) of uint8 against a plan.
+
+    backend, as the JAX package maps it: "auto" and "natural" run tile
+    histograms (K1), the LUT build (K2) and the interpolation (K3), which
+    covers every width on the card; "pallas" runs K1, K2 and the cell-grid
+    interpolation (K6), and raises ``ValueError`` on a geometry without a
+    cell-grid spec (``ops/cuda/lut.make_interp_spec``); "xla" runs the
+    three plain versions, wherever the frames are (only a caller who names
+    it gets them).  Any other backend raises.  A batch is one launch per
+    kernel.
+
+    method: "onehot" or "scatter" (the JAX package's histogram methods;
+    the same kernel here); anything else raises.
 
     hist_rowstep: 1 = exact (the default; bit-exact vs cv2).  N > 1 is the
     opt-in APPROXIMATE mode: tile histograms from every Nth row with the
@@ -153,6 +174,7 @@ def clahe_apply(y: torch.Tensor, plan: ClahePlan, hist_rowstep: int = 1,
     out: where to write the result (same shape as ``y``; may be ``y``
     itself, which the in-place NV12 step uses).
     """
+    _check_method(method)
     if hist_rowstep != 1:
         if hist_rowstep < 1 or plan.tile_h % hist_rowstep:
             raise ValueError(
@@ -162,9 +184,30 @@ def clahe_apply(y: torch.Tensor, plan: ClahePlan, hist_rowstep: int = 1,
         raise ValueError(f"expected (H, W) or (N, H, W), got {tuple(y.shape)}")
     frames = y if y.ndim == 3 else y.unsqueeze(0)
     dst = out if out is None or out.ndim == 3 else out.unsqueeze(0)
-    hists = natural.tile_histograms(frames, plan, hist_rowstep)
-    luts = natural.build_luts(hists, plan.clip, plan.lut_scale)
-    res = natural.clahe_interpolate(frames, luts, plan, out=dst)
+    if backend in ("auto", "natural", "pallas"):
+        spec = None
+        if backend == "pallas":
+            spec = lut.make_interp_spec(plan.height, plan.width,
+                                        plan.clip_limit,
+                                        (plan.tiles_x, plan.tiles_y))
+            if spec is None:
+                raise ValueError(
+                    f"geometry {plan.height}x{plan.width} grid "
+                    f"{plan.tiles_x}x{plan.tiles_y} has no pallas fast path")
+        hists = natural.tile_histograms(frames, plan, hist_rowstep)
+        luts = natural.build_luts(hists, plan.clip, plan.lut_scale)
+        if spec is None:
+            res = natural.clahe_interpolate(frames, luts, plan, out=dst)
+        else:
+            res = lut.clahe_interpolate_cells(frames, luts, spec, out=dst)
+    elif backend == "xla":
+        hists = natural.tile_histograms_ref(frames, plan, hist_rowstep)
+        luts = natural.build_luts_ref(hists, plan.clip, plan.lut_scale)
+        res = natural.clahe_interpolate_ref(frames, luts, plan)
+        if dst is not None:
+            res = dst.copy_(res)
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
     return res if y.ndim == 3 else res[0]
 
 
@@ -172,15 +215,17 @@ def clahe(
     y,
     clip_limit: float = 40.0,
     tile_grid: tuple[int, int] = (8, 8),
+    method: str = "onehot",
+    backend: str = "auto",
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """One-shot OpenCV-exact CLAHE of a tensor (or numpy array) (H, W) or
     (N, H, W), moved to ``device`` first; the plan is cached per frame
-    shape."""
+    shape.  ``method`` and ``backend`` as in :func:`clahe_apply`."""
     y = torch.as_tensor(y).to(device)
     plan = make_clahe_plan(y.shape[-2], y.shape[-1], float(clip_limit),
                            tuple(tile_grid))
-    return clahe_apply(y, plan)
+    return clahe_apply(y, plan, method, backend)
 
 
 class CLAHE:
@@ -194,8 +239,9 @@ class CLAHE:
         self.tile_grid_size = tuple(tile_grid_size)
         self.device = torch.device(device)
 
-    def apply(self, y):
-        return clahe(y, self.clip_limit, self.tile_grid_size, self.device)
+    def apply(self, y, method: str = "onehot"):
+        return clahe(y, self.clip_limit, self.tile_grid_size, method,
+                     device=self.device)
 
     # cv2 API parity
     def setClipLimit(self, v: float) -> None:

@@ -1,31 +1,80 @@
-"""The equalizeHist map (K4) beside its plain PyTorch version.
+"""The kernels of ``lut_kernels.py`` (K4, K6, K8), each beside its plain
+PyTorch version.
 
-Counterpart of ``opencv_opencl_tpu/ops/pallas/lut_kernels.py``
-``apply_lut_pallas`` (K4).  The kernel is CUDA C++ for Hopper,
-``apply_lut_kernel`` in ``opencv_opencl_tpu_torch/csrc/lut.cu``.
+Counterpart of ``opencv_opencl_tpu/ops/pallas/lut_kernels.py``.  The
+kernels are CUDA C++ for Hopper in ``opencv_opencl_tpu_torch/csrc/lut.cu``:
 
-As in ``ops/cuda/natural.py``: the wrapper takes its plain version only for
+========================  ===========================  ==========================
+wrapper                   plain version                TPU kernel it replaces
+========================  ===========================  ==========================
+apply_lut                 apply_lut_ref                apply_lut_pallas (K4)
+clahe_interpolate_cells   clahe_interpolate_cells_ref  clahe_interpolate_pallas,
+                                                       radix=False (K6)
+tile_histograms_extended  tile_histograms_extended_    tile_histograms_pallas
+                          ref                          (K8)
+========================  ===========================  ==========================
+
+As in ``ops/cuda/natural.py``: a wrapper takes its plain version only for
 a tensor on the CPU; for a CUDA tensor it launches its kernel on the
-current stream or raises, and counts its launches in ``apply_lut.launches``.
+current stream or raises, and counts its launches in ``<wrapper>.launches``.
+Frames are (N, H, W) uint8 with unit column stride; rows and frames may be
+strided, so the Y rows of an NV12 batch go in without a copy.
+
+K6 is CLAHE's bilinear blend (K3's contract) organised by cells: the
+regions between tile centres where the same four tile LUTs apply.
+:func:`make_interp_spec` is the host-side geometry, ``make_interp_spec``
+of the JAX module without its TPU layout fields (the (8, 128)-aligned cell
+padding, ``rows_sub``, ``row_block_live`` and the padded weight tables),
+which the Hopper kernel does not use.  K8 is K1's contract on an already
+extended frame; no path runs it (nor does any path of the JAX package): it
+is the per-warp-bins formulation of the tile histograms, timed beside K1.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import (
+    _HIST_TARGET_BLOCKS,
     _check,
+    _check_frames,
     _on_card,
     _raise_on,
     _stream,
+    bincount_tiles,
+    blend,
 )
 
-__all__ = ["apply_lut", "apply_lut_ref", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "apply_lut",
+    "apply_lut_ref",
+    "InterpSpec",
+    "make_interp_spec",
+    "clahe_interpolate_cells",
+    "clahe_interpolate_cells_ref",
+    "tile_histograms_extended",
+    "tile_histograms_extended_ref",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
-# rows per block: one row per warp of the 8-warp block, so a 4K batch of 4
-# gives 1080 blocks, about 8 per SM of an H100's 132
+# K4 rows per block: one row per warp of the 8-warp block, so a 4K batch of
+# 4 gives 1080 blocks, about 8 per SM of an H100's 132
 _ROWS_PER_BLOCK = 8
+# K6 pixels per block: a block covers as many rows of its cell as make
+# about this many pixels (17 rows of a 480-pixel 4K cell), so a 4K batch of
+# 4 gives some 5,000 blocks
+_CELL_PX_PER_BLOCK = 8192
+# the JAX module's cut: a cell row's one-hot, 256 x tw_pad bf16, within 8 MB
+_ONEHOT_ROW_BYTES_LIMIT = 8 * 1024 * 1024
+
+
+# ------------------------------------------------------------------ K4 ----
 
 
 def apply_lut_ref(y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -35,11 +84,18 @@ def apply_lut_ref(y: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return torch.gather(luts, 1, y.reshape(n, -1).long()).reshape(y.shape)
 
 
-def _check_frames(t: torch.Tensor, name: str) -> None:
+def _check_unit_cols(t: torch.Tensor, name: str) -> None:
     _check(t, name, torch.uint8, 3)
     if t.stride(2) != 1 and t.shape[2] > 1:
         raise ValueError(f"{name} must have unit column stride, got "
                          f"strides {t.stride()}")
+
+
+def _check_out(out: torch.Tensor | None, y: torch.Tensor) -> None:
+    if out is not None:
+        _check_unit_cols(out, "out")
+        if out.shape != y.shape or out.device != y.device:
+            raise ValueError("out must match y in shape and device")
 
 
 def apply_lut(y: torch.Tensor, luts: torch.Tensor,
@@ -47,15 +103,12 @@ def apply_lut(y: torch.Tensor, luts: torch.Tensor,
     """Map (N, H, W) uint8 frames through one 256-entry uint8 LUT per frame,
     ``luts`` (N, 256).  Rows and frames may be strided (the Y rows of an
     NV12 batch); ``out`` (same shape) may be ``y`` itself."""
-    _check_frames(y, "y")
+    _check_unit_cols(y, "y")
     _check(luts, "luts", torch.uint8, 2)
     if tuple(luts.shape) != (y.shape[0], 256):
         raise ValueError(f"luts must be ({y.shape[0]}, 256), got "
                          f"{tuple(luts.shape)}")
-    if out is not None:
-        _check_frames(out, "out")
-        if out.shape != y.shape or out.device != y.device:
-            raise ValueError("out must match y in shape and device")
+    _check_out(out, y)
     if luts.device != y.device:
         raise ValueError(f"luts on {luts.device}, frames on {y.device}")
     if not _on_card(y):
@@ -78,12 +131,231 @@ def apply_lut(y: torch.Tensor, luts: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------------------ K6 ----
+
+
+@dataclasses.dataclass(frozen=True)
+class InterpSpec:
+    """Static geometry of the cell-grid CLAHE interpolation.
+
+    The frame sits in a grid of (tiles_y + 1) x (tiles_x + 1) cells of
+    (tile_h, tile_w) pixels at offset (pad_top, pad_left): frame row r lies
+    in cell row (r + pad_top) // tile_h, and the cell's four LUTs are
+    ``cell_lut_idx[cy, cx]``.  ``ya`` and ``xa`` are the plan's f32 row and
+    column weights.  ``device_arrays`` caches the arrays as tensors, once
+    per device."""
+
+    height: int
+    width: int
+    tiles_x: int
+    tiles_y: int
+    tile_h: int          # interpolation tile size (from the CLAHE plan)
+    tile_w: int
+    pad_top: int         # frame origin inside the cell grid
+    pad_left: int
+    cell_lut_idx: np.ndarray  # int32 (CY, CX, 4): flat tile index of the 4 LUTs
+    ya: np.ndarray            # float32[H]
+    xa: np.ndarray            # float32[W]
+    _device_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @property
+    def cy(self) -> int:
+        return self.tiles_y + 1
+
+    @property
+    def cx(self) -> int:
+        return self.tiles_x + 1
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    def device_arrays(self, device) -> tuple[torch.Tensor, ...]:
+        """(cell_lut_idx, ya, xa) on ``device``, as the host built them."""
+        device = torch.device(device)
+        arrays = self._device_cache.get(device)
+        if arrays is None:
+            arrays = tuple(torch.from_numpy(a).to(device)
+                           for a in (self.cell_lut_idx, self.ya, self.xa))
+            self._device_cache[device] = arrays
+        return arrays
+
+
+def _cell_mapping_ok(lo: np.ndarray, hi: np.ndarray, n: int, tile: int,
+                     pad: int, tiles: int) -> bool:
+    """Verify clip(floor((p+pad)/tile) - 1) reproduces the plan's exact
+    f32-derived per-pixel tile indices."""
+    c = (np.arange(n) + pad) // tile
+    lo2 = np.clip(c - 1, 0, tiles - 1)
+    hi2 = np.clip(c, 0, tiles - 1)
+    return bool(np.array_equal(lo2, lo) and np.array_equal(hi2, hi))
+
+
+@functools.lru_cache(maxsize=64)
+def make_interp_spec(height: int, width: int, clip_limit: float,
+                     tile_grid: tuple[int, int]) -> InterpSpec | None:
+    """The cell-grid spec for a CLAHE plan, or None where the JAX package's
+    ``make_interp_spec`` gives None: a geometry whose cells do not
+    reproduce the plan's per-pixel tile indices at either rounding of the
+    offset, or whose cell row's one-hot would exceed the TPU's 8 MB."""
+    # ops.clahe imports this package, so its plan builder is imported here
+    from opencv_opencl_tpu_torch.ops.clahe import make_clahe_plan
+
+    plan = make_clahe_plan(height, width, clip_limit, tile_grid)
+    th, tw = plan.tile_h, plan.tile_w
+    pad_top, pad_left = th // 2, tw // 2
+    if not _cell_mapping_ok(plan.ty1, plan.ty2, height, th, pad_top,
+                            plan.tiles_y):
+        pad_top += 1  # odd tile sizes: the boundary rounds the other way
+        if not _cell_mapping_ok(plan.ty1, plan.ty2, height, th, pad_top,
+                                plan.tiles_y):
+            return None
+    if not _cell_mapping_ok(plan.tx1, plan.tx2, width, tw, pad_left,
+                            plan.tiles_x):
+        pad_left += 1
+        if not _cell_mapping_ok(plan.tx1, plan.tx2, width, tw, pad_left,
+                                plan.tiles_x):
+            return None
+    tw_pad = -(-tw // 128) * 128
+    if 256 * tw_pad * 2 > _ONEHOT_ROW_BYTES_LIMIT:
+        return None
+
+    # the 4 contributing LUT (flat) indices per cell: l11, l12, l21, l22
+    cy, cx = plan.tiles_y + 1, plan.tiles_x + 1
+    y1 = np.clip(np.arange(cy)[:, None] - 1, 0, plan.tiles_y - 1)
+    y2 = np.clip(np.arange(cy)[:, None], 0, plan.tiles_y - 1)
+    x1 = np.clip(np.arange(cx)[None, :] - 1, 0, plan.tiles_x - 1)
+    x2 = np.clip(np.arange(cx)[None, :], 0, plan.tiles_x - 1)
+    tx = plan.tiles_x
+    cell_lut_idx = np.stack(
+        [np.broadcast_to(a * tx + b, (cy, cx))
+         for a, b in ((y1, x1), (y1, x2), (y2, x1), (y2, x2))],
+        axis=-1).astype(np.int32)
+    return InterpSpec(
+        height=height, width=width, tiles_x=plan.tiles_x,
+        tiles_y=plan.tiles_y, tile_h=th, tile_w=tw, pad_top=pad_top,
+        pad_left=pad_left, cell_lut_idx=cell_lut_idx, ya=plan.ya, xa=plan.xa)
+
+
+def clahe_interpolate_cells_ref(y: torch.Tensor, luts: torch.Tensor,
+                                spec: InterpSpec) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate_cells`: each pixel's cell
+    from the spec's offsets, the cell's four LUTs gathered at its value,
+    then the blend (``natural.blend``)."""
+    n, h, w = y.shape
+    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
+    rows = (torch.arange(h, device=y.device) + spec.pad_top) // spec.tile_h
+    cols = (torch.arange(w, device=y.device) + spec.pad_left) // spec.tile_w
+    four = cell_lut_idx[rows[:, None], cols[None, :]].long() * 256  # (H, W, 4)
+    flat = luts.reshape(-1)
+    v = y.long() + (torch.arange(n, device=y.device)
+                    * (spec.num_tiles * 256))[:, None, None]
+
+    def lookup(k):
+        return flat[four[..., k] + v].to(torch.float32)
+
+    return blend(lookup(0), lookup(1), lookup(2), lookup(3), xa,
+                 ya[:, None])
+
+
+def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
+                            spec: InterpSpec, out: torch.Tensor | None = None,
+                            radix: bool = False) -> torch.Tensor:
+    """CLAHE bilinear LUT interpolation of (N, H, W) uint8 frames on the
+    cell grid of ``spec``, with (N, T, 256) uint8 ``luts``: K3's output, bit
+    for bit.  ``out`` (same shape, unit column stride) may be ``y`` itself.
+
+    ``radix=True`` (the JAX module's radix-16 kernel variant) is not ported
+    yet and raises."""
+    if radix:
+        raise NotImplementedError(
+            "K6's radix=True variant (_interp_kernel_radix) is not ported yet: "
+            "ROADMAP Queue 1 item 11")
+    _check_frames(y, spec)
+    _check(luts, "luts", torch.uint8, 3)
+    if tuple(luts.shape) != (y.shape[0], spec.num_tiles, 256):
+        raise ValueError(f"luts shape {tuple(luts.shape)} does not match "
+                         f"{y.shape[0]} frames of {spec.num_tiles} tiles")
+    _check_out(out, y)
+    if luts.device != y.device:
+        raise ValueError(f"luts on {luts.device}, frames on {y.device}")
+    if not _on_card(y):
+        res = clahe_interpolate_cells_ref(y, luts, spec)
+        return res if out is None else out.copy_(res)
+    # the kernel stages each LUT as 32-bit words
+    if not luts.is_contiguous() or luts.data_ptr() % 4:
+        raise ValueError("luts must be contiguous and 4-byte aligned")
+    if spec.cx > 65535 or y.shape[0] > 65535:
+        raise ValueError(f"{spec.cx} cell columns or {y.shape[0]} frames "
+                         "exceed the launch grid")
+    lib = _build.load()
+    if out is None:
+        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
+    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
+    rows_per_block = max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
+    if y.shape[0]:
+        with torch.cuda.device(y.device):
+            err = lib.interp_cells_launch(
+                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(),
+                y.shape[0], spec.num_tiles, cell_lut_idx.data_ptr(), spec.cy,
+                spec.cx, spec.height, spec.width, spec.tile_h, spec.tile_w,
+                spec.pad_top, spec.pad_left, rows_per_block,
+                ya.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
+                out.stride(1), _stream(y.device))
+        _raise_on(err, "interp_cells_kernel")
+        clahe_interpolate_cells.launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ K8 ----
+
+
+def tile_histograms_extended_ref(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                                 tile_h: int, tile_w: int) -> torch.Tensor:
+    """Plain version of :func:`tile_histograms_extended`: ``bincount`` per
+    tile."""
+    return bincount_tiles(ext, tiles_y, tiles_x, tile_h, tile_w).to(torch.int32)
+
+
+def tile_histograms_extended(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                             tile_h: int, tile_w: int) -> torch.Tensor:
+    """(N, tiles_y*tile_h, tiles_x*tile_w) uint8 frames, already extended
+    to the tile-divisible size -> (N, T, 256) int32 histograms of their
+    tiles in row-major order (``tile_histograms_pallas`` with a batch
+    axis)."""
+    _check_unit_cols(ext, "ext")
+    if tuple(ext.shape[1:]) != (tiles_y * tile_h, tiles_x * tile_w):
+        raise ValueError(f"ext frames are {tuple(ext.shape[1:])}, not "
+                         f"{tiles_y}x{tiles_x} tiles of {tile_h}x{tile_w}")
+    if not _on_card(ext):
+        return tile_histograms_extended_ref(ext, tiles_y, tiles_x, tile_h, tile_w)
+    lib = _build.load()
+    n = ext.shape[0]
+    num_tiles = tiles_y * tiles_x
+    out = torch.zeros((n, num_tiles, 256), dtype=torch.int32, device=ext.device)
+    if n and num_tiles and tile_h and tile_w:
+        slices = max(1, min(tile_h, -(-_HIST_TARGET_BLOCKS // (n * num_tiles))))
+        with torch.cuda.device(ext.device):
+            err = lib.tile_hist_private_launch(
+                ext.data_ptr(), n, ext.stride(0), ext.stride(1), tiles_y,
+                tiles_x, tile_h, tile_w, slices, out.data_ptr(),
+                _stream(ext.device))
+        _raise_on(err, "tile_hist_private_kernel")
+        tile_histograms_extended.launches += 1
+    return out
+
+
+_WRAPPERS = (apply_lut, clahe_interpolate_cells, tile_histograms_extended)
+
+
 def reset_launch_counts() -> None:
-    apply_lut.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {"apply_lut": apply_lut.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
 
 
 reset_launch_counts()

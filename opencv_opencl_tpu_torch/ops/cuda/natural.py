@@ -34,7 +34,9 @@ from opencv_opencl_tpu_torch.ops.cuda import _build
 
 __all__ = [
     "extend",
+    "bincount_tiles",
     "clip_histograms",
+    "blend",
     "tile_histograms",
     "tile_histograms_ref",
     "build_luts",
@@ -80,8 +82,9 @@ def extend(y: torch.Tensor, plan) -> torch.Tensor:
     return y.index_select(-2, rows).index_select(-1, cols)
 
 
-def clip_histograms(hists: torch.Tensor, clip: int) -> torch.Tensor:
-    """OpenCV's single-pass clip and redistribution over the last axis.
+def clip_histograms(hists: torch.Tensor, clip: int | torch.Tensor) -> torch.Tensor:
+    """OpenCV's single-pass clip and redistribution over the last axis
+    (``clip`` an int, or a tensor that broadcasts against ``hists``).
 
     The excess above ``clip`` is shared as ``excess // 256`` to every bin;
     the residual goes one count at a time with stride
@@ -96,39 +99,75 @@ def clip_histograms(hists: torch.Tensor, clip: int) -> torch.Tensor:
     return hists.clamp_max(clip) + redist + bump.to(torch.int32)
 
 
+def bincount_tiles(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                   tile_h: int, tile_w: int) -> torch.Tensor:
+    """(N, tiles_y*tile_h, tiles_x*tile_w) uint8 -> (N, T, 256) int64
+    histograms of its tiles, in row-major tile order: one ``bincount``."""
+    n = ext.shape[0]
+    num_tiles = tiles_y * tiles_x
+    tiles = (ext.reshape(n, tiles_y, tile_h, tiles_x, tile_w)
+             .permute(0, 1, 3, 2, 4)
+             .reshape(n * num_tiles, tile_h * tile_w))
+    offsets = torch.arange(n * num_tiles, device=ext.device)[:, None] * 256
+    hists = torch.bincount((tiles.long() + offsets).reshape(-1),
+                           minlength=n * num_tiles * 256)
+    return hists.reshape(n, num_tiles, 256)
+
+
 def tile_histograms_ref(y: torch.Tensor, plan, rowstep: int = 1) -> torch.Tensor:
     """Plain version of :func:`tile_histograms`: ``bincount`` over tiles."""
-    n = y.shape[0]
     ext = extend(y, plan)
-    tile_h = plan.tile_h
     if rowstep > 1:
         ext = ext[:, ::rowstep]
-        tile_h //= rowstep
-    tiles = (ext.reshape(n, plan.tiles_y, tile_h, plan.tiles_x, plan.tile_w)
-             .permute(0, 1, 3, 2, 4)
-             .reshape(n * plan.num_tiles, tile_h * plan.tile_w))
-    offsets = torch.arange(n * plan.num_tiles, device=y.device)[:, None] * 256
-    hists = torch.bincount((tiles.long() + offsets).reshape(-1),
-                           minlength=n * plan.num_tiles * 256)
-    return (hists.reshape(n, plan.num_tiles, 256) * rowstep).to(torch.int32)
+    hists = bincount_tiles(ext, plan.tiles_y, plan.tiles_x,
+                           plan.tile_h // rowstep, plan.tile_w)
+    return (hists * rowstep).to(torch.int32)
 
 
-def build_luts_ref(hists: torch.Tensor, clip: int,
+def _check_clips(clip: torch.Tensor, hists: torch.Tensor) -> None:
+    """A per-frame clip is an int32 (N,) tensor on the histograms' device:
+    the kernel reads one entry per frame, so any other length would read
+    out of bounds or leave frames without one."""
+    if clip.dtype != torch.int32:
+        raise ValueError(f"clip must be int32, got {clip.dtype}")
+    if tuple(clip.shape) != (hists.shape[0],):
+        raise ValueError(f"clip must have shape ({hists.shape[0]},), one per "
+                         f"frame, got {tuple(clip.shape)}")
+    if clip.device != hists.device:
+        raise ValueError(f"clip on {clip.device}, hists on {hists.device}")
+
+
+def build_luts_ref(hists: torch.Tensor, clip: int | torch.Tensor,
                    lut_scale: float) -> torch.Tensor:
     """Plain version of :func:`build_luts`: clip, int32 cumsum, f32 scale,
     round half to even (``torch.round``, like ``jnp.rint``)."""
-    if clip > 0:
+    if isinstance(clip, torch.Tensor):
+        c = clip[:, None, None]
+        hists = torch.where(c > 0, clip_histograms(hists, c), hists)
+    elif clip > 0:
         hists = clip_histograms(hists, clip)
     cdf = torch.cumsum(hists, dim=-1, dtype=torch.int32)
     scale = torch.tensor(lut_scale, dtype=torch.float32, device=hists.device)
     return torch.round(cdf.to(torch.float32) * scale).clamp(0, 255).to(torch.uint8)
 
 
+def blend(l11: torch.Tensor, l12: torch.Tensor, l21: torch.Tensor,
+          l22: torch.Tensor, xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
+    """The bilinear blend of four f32 LUT values as separate eager
+    multiplies and adds, so every product rounds to f32 before its add
+    (OpenCV's order, ops/clahe.py _blend), then round half to even."""
+    xa1 = 1.0 - xa
+    ya1 = 1.0 - ya
+    r1 = l11 * xa1 + l12 * xa
+    r2 = l21 * xa1 + l22 * xa
+    res = r1 * ya1 + r2 * ya
+    return torch.round(res).clamp(0, 255).to(torch.uint8)
+
+
 def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
                           plan) -> torch.Tensor:
-    """Plain version of :func:`clahe_interpolate`: four gathers, then the
-    blend as separate eager multiplies and adds, so every product rounds to
-    f32 before its add (OpenCV's order, ops/clahe.py _blend)."""
+    """Plain version of :func:`clahe_interpolate`: four gathers at the
+    plan's per-pixel tile indices, then :func:`blend`."""
     n = y.shape[0]
     ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y.device)
     ty1, ty2, ya = ty1[:, None], ty2[:, None], ya[:, None]
@@ -139,14 +178,8 @@ def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
     def lookup(tyr, txc):
         return flat[(tyr * plan.tiles_x + txc).long() * 256 + v].to(torch.float32)
 
-    l11, l12 = lookup(ty1, tx1), lookup(ty1, tx2)
-    l21, l22 = lookup(ty2, tx1), lookup(ty2, tx2)
-    xa1 = 1.0 - xa
-    ya1 = 1.0 - ya
-    r1 = l11 * xa1 + l12 * xa
-    r2 = l21 * xa1 + l22 * xa
-    res = r1 * ya1 + r2 * ya
-    return torch.round(res).clamp(0, 255).to(torch.uint8)
+    return blend(lookup(ty1, tx1), lookup(ty1, tx2), lookup(ty2, tx1),
+                 lookup(ty2, tx2), xa, ya)
 
 
 def clahe_interp_and_hist_ref(y: torch.Tensor, luts: torch.Tensor,
@@ -222,25 +255,36 @@ def tile_histograms(y: torch.Tensor, plan, rowstep: int = 1) -> torch.Tensor:
     return out
 
 
-def build_luts(hists: torch.Tensor, clip: int, lut_scale: float) -> torch.Tensor:
+def build_luts(hists: torch.Tensor, clip: int | torch.Tensor,
+               lut_scale: float) -> torch.Tensor:
     """(N, T, 256) int32 histograms -> (N, T, 256) uint8 LUTs: clip at
     ``clip`` (0 = no clipping) with OpenCV's redistribution, inclusive int32
-    cumsum, ``clip(rint(cdf * lut_scale), 0, 255)`` with f32 ``lut_scale``."""
+    cumsum, ``clip(rint(cdf * lut_scale), 0, 255)`` with f32 ``lut_scale``.
+
+    ``clip`` is one host int for every frame, or an int32 (N,) tensor on the
+    histograms' device with one clip per frame (auto-CLAHE: the clip never
+    leaves the device)."""
     _check(hists, "hists", torch.int32, 3)
     if hists.shape[-1] != 256:
         raise ValueError(f"hists must have 256 bins, got {tuple(hists.shape)}")
+    per_frame = isinstance(clip, torch.Tensor)
+    if per_frame:
+        _check_clips(clip, hists)
     if not _on_card(hists):
         return build_luts_ref(hists, clip, lut_scale)
     if not hists.is_contiguous():
         raise ValueError("hists must be contiguous")
+    if per_frame and not clip.is_contiguous():
+        raise ValueError("clip must be contiguous")
     lib = _build.load()
     luts = torch.empty(hists.shape, dtype=torch.uint8, device=hists.device)
     rows = hists.shape[0] * hists.shape[1]
     if rows:
         with torch.cuda.device(hists.device):
-            err = lib.build_luts_launch(hists.data_ptr(), rows, int(clip),
-                                        float(lut_scale), luts.data_ptr(),
-                                        _stream(hists.device))
+            err = lib.build_luts_launch(
+                hists.data_ptr(), rows, 0 if per_frame else int(clip),
+                clip.data_ptr() if per_frame else None, hists.shape[1],
+                float(lut_scale), luts.data_ptr(), _stream(hists.device))
         _raise_on(err, "build_luts_kernel")
         build_luts.launches += 1
     return luts

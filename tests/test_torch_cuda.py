@@ -6,10 +6,11 @@ machine with a card and no JAX, run it without the JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
-outputs (K1 histograms, K2 LUTs, K3 and K4 frames, K7 frames and
-histograms) must equal the plain PyTorch versions on the same CUDA inputs
-exactly, and the CLAHE, histeq and streaming steps must equal
-``core.golden`` and the same steps on the CPU.  Tolerance: 0.
+outputs (K1 and K8 histograms, K2 LUTs with one clip or one per frame, K3,
+K4 and K6 frames, K7 frames and histograms) must equal the plain PyTorch
+versions on the same CUDA inputs exactly, and the CLAHE (every backend),
+auto-CLAHE, histeq and streaming steps must equal ``core.golden`` and the
+same steps on the CPU.  Tolerance: 0.
 """
 
 import numpy as np
@@ -256,3 +257,111 @@ def test_streaming_on_card_equals_cpu_and_golden(device, spec, fused):
     assert counts["build_luts"] == 6
     assert counts["clahe_interp_and_hist"] == (6 if fused else 0)
     assert counts["clahe_interpolate"] == (0 if fused else 6)
+
+
+# ------------------------------------------------------ K6, K8, K2 clips ----
+
+
+@pytest.mark.parametrize("n,h,w,grid,content", [
+    (2, 96, 128, (8, 8), "nv12"),          # in place over NV12 Y rows
+    (2, 66, 120, (8, 8), "random"),        # padded tiles
+    (1, 1080, 1920, (8, 8), "random"),     # tile height 135
+    (1, 1079, 1919, (8, 8), "random"),
+    (2, 64, 128, (8, 8), "constant"),
+    (2, 64, 64, (16, 16), "random"),
+    (3, 6, 6, (8, 8), "random"),           # cells of one row
+    (2, 33, 47, (3, 5), "random"),
+])
+def test_interpolate_cells_equals_plain_and_k3(device, n, h, w, grid, content):
+    batch = torch.from_numpy(_frames(12, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    luts = natural.build_luts_ref(
+        natural.tile_histograms_ref(torch.from_numpy(_frames(13, n, h, w)).to(device),
+                                    plan), plan.clip, plan.lut_scale)
+    want = lut.clahe_interpolate_cells_ref(y, luts, spec)
+    assert torch.equal(lut.clahe_interpolate_cells(y, luts, spec), want)
+    assert torch.equal(natural.clahe_interpolate(y, luts, plan), want)
+    inplace = batch.clone()
+    lut.clahe_interpolate_cells(inplace[:, :h], luts, spec, out=inplace[:, :h])
+    assert torch.equal(inplace[:, :h], want)
+    assert torch.equal(inplace[:, h:], batch[:, h:])
+    torch.cuda.synchronize(device)
+
+
+def test_interpolate_cells_rejects_the_radix_variant(device):
+    spec = lut.make_interp_spec(32, 32, 2.0, (4, 4))
+    y = torch.zeros((1, 32, 32), dtype=torch.uint8, device=device)
+    luts = torch.zeros((1, 16, 256), dtype=torch.uint8, device=device)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+
+
+@pytest.mark.parametrize("n,h,w,grid,content", [
+    (2, 96, 128, (8, 8), "nv12"),          # strided rows
+    (2, 66, 120, (8, 8), "random"),        # extended by reflect-101 first
+    (2, 64, 128, (8, 8), "constant"),      # every lane on one bin
+    (2, 40, 60, (1, 1), "random"),
+    (1, 1080, 1920, (8, 8), "random"),
+])
+def test_extended_hists_equal_plain_and_k1(device, n, h, w, grid, content):
+    batch = torch.from_numpy(_frames(14, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    ext = natural.extend(y, plan)
+    args = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+    got = lut.tile_histograms_extended(ext, *args)
+    assert torch.equal(got, lut.tile_histograms_extended_ref(ext, *args))
+    assert torch.equal(got, natural.tile_histograms(y, plan))
+    torch.cuda.synchronize(device)
+
+
+def test_build_luts_with_clip_tensor_equals_plain(device):
+    plan = torch_clahe.make_clahe_plan(96, 128, 2.0, (8, 8))
+    frames = torch.from_numpy(_frames(15, 4, 96, 128)).to(device)
+    hists = natural.tile_histograms_ref(frames, plan)
+    clips = torch.tensor([1, 0, 17, 400], dtype=torch.int32, device=device)
+    got = natural.build_luts(hists, clips, plan.lut_scale)
+    assert torch.equal(got, natural.build_luts_ref(hists, clips, plan.lut_scale))
+    for i, c in enumerate(clips.tolist()):
+        assert torch.equal(got[i], natural.build_luts_ref(hists[i:i + 1], c,
+                                                          plan.lut_scale)[0])
+    strided = torch.ones(8, dtype=torch.int32, device=device)[::2]
+    for bad in (clips[:3], clips.to(torch.int64), clips.cpu(), strided):
+        with pytest.raises(ValueError, match="clip"):
+            natural.build_luts(hists, bad, plan.lut_scale)
+    torch.cuda.synchronize(device)
+
+
+def test_clahe_auto_on_card_equals_cpu_and_counts_launches(device):
+    from opencv_opencl_tpu_torch.ops import auto_clahe
+
+    frames = np.stack([_frames(16, 1, 108, 192)[0],
+                       np.full((108, 192), 90, np.uint8),
+                       (_frames(17, 1, 108, 192)[0] // 8 + 100)])
+    torch_cuda.reset_launch_counts()
+    out, clips = auto_clahe.clahe_auto(frames, (8, 8), device=device)
+    counts = torch_cuda.launch_counts()
+    assert counts["tile_histograms"] == 2 and counts["build_luts"] == 1
+    assert counts["clahe_interpolate_cells"] == 1
+    assert counts["clahe_interpolate"] == 0
+    cpu_out, cpu_clips = auto_clahe.clahe_auto(frames, (8, 8), device="cpu")
+    assert torch.equal(out.cpu(), cpu_out)
+    area = torch_clahe.make_clahe_plan(108, 192, 40.0, (8, 8)).tile_area
+    assert torch.equal(auto_clahe.int_clips(clips.cpu(), area),
+                       auto_clahe.int_clips(cpu_clips, area))
+
+
+@pytest.mark.parametrize("h,w,grid", [(108, 192, (8, 8)), (66, 120, (4, 4))])
+def test_pallas_backend_on_card_equals_cpu_and_counts_launches(device, h, w, grid):
+    frames = _frames(18, 3, h, w)
+    torch_cuda.reset_launch_counts()
+    out = torch_clahe.clahe(frames, 2.0, grid, backend="pallas", device=device)
+    counts = torch_cuda.launch_counts()
+    assert (counts["tile_histograms"], counts["build_luts"],
+            counts["clahe_interpolate_cells"], counts["clahe_interpolate"]) == (1, 1, 1, 0)
+    assert torch.equal(out.cpu(), torch_clahe.clahe(frames, 2.0, grid,
+                                                    backend="xla", device="cpu"))
+    for i, f in enumerate(frames):
+        assert np.array_equal(out[i].cpu().numpy(), golden.clahe(f, 2.0, grid))

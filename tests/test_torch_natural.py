@@ -233,7 +233,8 @@ def test_wrappers_launch_nothing_on_cpu():
     histeq.equalize_hist_batch(y, device="cpu")
     assert cuda.launch_counts() == {
         "tile_histograms": 0, "build_luts": 0, "clahe_interpolate": 0,
-        "clahe_interp_and_hist": 0, "apply_lut": 0}
+        "clahe_interp_and_hist": 0, "apply_lut": 0,
+        "clahe_interpolate_cells": 0, "tile_histograms_extended": 0}
 
 
 def test_wrappers_reject_bad_inputs():
