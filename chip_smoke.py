@@ -18,13 +18,21 @@ Phases, each of which raises (exit code != 0) when it fails:
             rows, and against K3 followed by K1; K2 with one clip per frame
             in a device tensor; K6 at 4K b4, 1080p, 1919x1079 and on a
             constant frame in place over NV12 Y rows, and against K3; K8
-            at 4K b4 on an 8x8 and a 1x1 grid, and against K1;
+            at 4K b4 on an 8x8 and a 1x1 grid, and against K1; K5 (the band
+            interpolation) on a 4K b4 NV12 batch cut into 2, 3 and 4 bands
+            of the sharded geometry (the last one short), in place, at
+            1080p, 1079x1919 and on a constant frame, against its plain
+            version and against K3; K3v1 (K5's kernel over whole frames)
+            against K3; K9 (K6's kernel on a band) on the same bands
+            against K6 and K5; K1 per band of tile rows (space 3, with fake
+            tile rows) against K1 on the whole frame;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
             LUT chain, auto-CLAHE over four 1080p frames at the clips the
             card chose, and a BGR round trip (CLAHE on Y, and NV12) against
-            the port's ``core/color.py``;
+            the port's ``core/color.py``; the sharded CLAHE and histeq steps
+            at 1080p, every mesh position run in this process;
 5. main     three paths driven through the port's ``FrameFeeder`` at 4K
             batch 4, 64 frames each, every output checked in sequence
             order against the plain versions: ``Enhancer`` with histeq
@@ -36,13 +44,22 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``backend="pallas"`` (clip 2.0, 8x8); the launch counts are set
             to 0 before each path and read after it, and every kernel of a
             path must have been launched (K8 lies on no path: its launches
-            are those of its phase-3 check);
+            are those of its phase-3 check, as are K3v1's and K9's); then
+            the sharded path: ``ShardedEnhancer`` on a 1x1 mesh on NCCL in
+            this process, through the ``FrameFeeder`` (CLAHE passthrough and
+            histeq gray, 64 frames each), and the same two configurations
+            on a 2x2 and a 1x4 mesh of four spawned processes that share
+            the card (gloo, staged through the host), 16 batches each,
+            every assembled batch and every position's band compared with
+            the single-card ``Enhancer``'s inside each rank;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
             PyTorch call that computes the same function; K6 beside K3, K8
-            beside K1 and K2 with a clip tensor beside K2 with an int, in
-            turns; the feeder's end-to-end rates; torch.profiler's device
-            time per kernel for each step.
+            beside K1, K2 with a clip tensor beside K2 with an int, K5 and
+            K3v1 beside K3 and K9 beside K6, in turns; the 1x1 sharded step
+            beside the CLAHE step; each rank's time for its part of the 2x2
+            and 1x4 steps; the feeder's end-to-end rates; torch.profiler's
+            device time per kernel for each step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -53,13 +70,16 @@ versions and the port's ``core/golden.py``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from opencv_opencl_tpu_torch.core import color as color_oracle
@@ -72,6 +92,7 @@ from opencv_opencl_tpu_torch.models.enhancer import (
     build_enhance_fn,
     build_streaming_clahe_fn,
     initial_hists,
+    make_enhance_y,
 )
 from opencv_opencl_tpu_torch.ops import auto_clahe
 from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
@@ -80,6 +101,7 @@ from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
 from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
 from opencv_opencl_tpu_torch.ops import histogram
 from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.parallel import launch, sharded
 from opencv_opencl_tpu_torch.runtime.feeder import FrameFeeder
 from opencv_opencl_tpu_torch.utils.envinfo import nvidia_smi_name_power
 
@@ -92,7 +114,8 @@ DISTINCT_FRAMES = 8
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 KERNELS = (
-    # (name, wrapper, source, TPU entry function it replaces)
+    # (kernel name, wrapper, source, TPU entry function it replaces); a name
+    # with a ":suffix" is a second TPU kernel behind the same CUDA kernel
     ("tile_hist_kernel", "tile_histograms",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:493"),
@@ -114,10 +137,22 @@ KERNELS = (
     ("tile_hist_private_kernel", "tile_histograms_extended",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:142"),
+    ("interp_pack_kernel", "clahe_interpolate_band",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
+     "opencv_opencl_tpu/ops/pallas/natural.py:525"),
+    ("interp_pack_kernel:variant1", "clahe_interpolate_pack",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
+     "opencv_opencl_tpu/ops/pallas/natural.py:273"),
+    ("interp_cells_kernel:band", "clahe_interpolate_cells_band",
+     "opencv_opencl_tpu_torch/csrc/lut.cu",
+     "opencv_opencl_tpu/ops/pallas/lut_kernels.py:356"),
 )
-# K8 lies on no path (nor does its TPU kernel on any path of the JAX
-# package): its launches are those of its phase-3 check
-OFF_PATH = "tile_histograms_extended"
+# K8, K3v1 and K9 lie on no path (nor do their TPU kernels on any path of
+# the JAX package): their launches are those of their phase-3 checks
+OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
+            "clahe_interpolate_cells_band")
+SHARDED_BATCHES = 16
+SPAWN_TIMEOUT = 420.0
 
 
 def clahe_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
@@ -430,6 +465,107 @@ def phase_private_hist_kernel(device, rng) -> tuple[int, int]:
     return worst, lut.tile_histograms_extended.launches
 
 
+def sharded_bands(plan, space: int) -> list[tuple[int, int]]:
+    """The sharded step's interpolation bands for ``space`` positions:
+    (row0, row1) per position, clipped to the frame (the last one short)."""
+    rows_loc = sharded._clahe_geometry(plan, space)[2] // space
+    return [(min(s * rows_loc, plan.height), min((s + 1) * rows_loc, plan.height))
+            for s in range(space)]
+
+
+def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
+    """K5 against its plain version and against K3, K3v1 against K3, K9
+    against K6 and K5, on the sharded step's bands (2, 3 and 4 positions,
+    row0 = s * rows_loc, the last band short), in place over NV12 Y rows;
+    K1 per band of tile rows (3 positions, with fake tile rows) against K1
+    on the whole frame.  Returns the errors, and the launches made here by
+    the wrappers that lie on no path."""
+    cases = [
+        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
+        ("1080p_b4_random_nv12", nv12_batch(rng, BATCH, 1080, 1920, random_y), 1080, 1920),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, 1919),
+        ("4k_constant", np.full((1, HEIGHT, WIDTH), 77, np.uint8), HEIGHT, WIDTH),
+    ]
+    natural.clahe_interpolate_pack.launches = 0
+    lut.clahe_interpolate_cells_band.launches = 0
+    errs = {"interp_pack_kernel": 0, "interp_pack_kernel:variant1": 0,
+            "interp_cells_kernel:band": 0, "tile_hist_kernel": 0}
+    for label, frames_np, h, w in cases:
+        plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+        spec = lut.make_interp_spec(h, w, CLIP, GRID)
+        check(spec is not None, f"{label} has no cell-grid spec")
+        batch = torch.from_numpy(frames_np).to(device)
+        y = batch[:, :h]
+        n = y.shape[0]
+        prev = torch.from_numpy(structured_y(rng, n, h, w)).to(device)
+        luts = natural.build_luts_ref(natural.tile_histograms_ref(prev, plan),
+                                      plan.clip, plan.lut_scale)
+        k3 = natural.clahe_interpolate(y, luts, plan)
+        k6 = lut.clahe_interpolate_cells(y, luts, spec)
+        e_v1 = max_err(natural.clahe_interpolate_pack(y, luts, plan), k3)
+        e_v1 = max(e_v1, max_err(natural.clahe_interpolate_pack_ref(y, luts, plan), k3))
+        e_k5 = e_k5_k3 = e_k9 = 0
+        for space in (2, 3, 4):
+            inplace5, inplace9 = batch.clone(), batch.clone()
+            for row0, row1 in sharded_bands(plan, space):
+                band = y[:, row0:row1]
+                want = natural.clahe_interpolate_band_ref(band, luts, plan, row0)
+                got = natural.clahe_interpolate_band(band, luts, plan, row0)
+                e_k5 = max(e_k5, max_err(got, want))
+                e_k5_k3 = max(e_k5_k3, max_err(got, k3[:, row0:row1]))
+                got9 = lut.clahe_interpolate_cells_band(band, luts, spec, row0)
+                e_k9 = max(e_k9, max_err(got9, k6[:, row0:row1]), max_err(got9, got),
+                           max_err(got9, lut.clahe_interpolate_cells_band_ref(
+                               band, luts, spec, row0)))
+                for buf, fn, geom in ((inplace5, natural.clahe_interpolate_band, plan),
+                                      (inplace9, lut.clahe_interpolate_cells_band, spec)):
+                    view = buf[:, row0:row1]
+                    fn(view, luts, geom, row0, out=view)
+            # the bands written in place make up the whole frame; the chroma
+            # rows stay untouched
+            e_k5 = max(e_k5, max_err(inplace5[:, :h], k3),
+                       max_err(inplace5[:, h:], batch[:, h:]))
+            e_k9 = max(e_k9, max_err(inplace9[:, :h], k3),
+                       max_err(inplace9[:, h:], batch[:, h:]))
+        # a band at a row0 that is no multiple of 8, and one that runs past
+        # the frame's last row (those rows are not written)
+        for row0, rows in ((13, 700), (h - 37, 64)):
+            src = torch.cat([y[:, row0:], y[:, :64]], dim=1)[:, :rows].contiguous()
+            live = min(rows, h - row0)
+            for fn, geom in ((natural.clahe_interpolate_band, plan),
+                             (lut.clahe_interpolate_cells_band, spec)):
+                got = fn(src, luts, geom, row0)
+                e = max(max_err(got[:, :live], k3[:, row0:row0 + live]),
+                        max_err(got[:, live:], src[:, live:]))
+                if fn is natural.clahe_interpolate_band:
+                    e_k5 = max(e_k5, e)
+                else:
+                    e_k9 = max(e_k9, e)
+        # K1 on the bands of tile rows of 3 positions against the whole frame
+        whole = natural.tile_histograms(y, plan)
+        tiles_loc = sharded._clahe_geometry(plan, 3)[0] // 3
+        parts = []
+        for s in range(3):
+            tile_rows = (min(s * tiles_loc, plan.tiles_y),
+                         min((s + 1) * tiles_loc, plan.tiles_y))
+            lo, hi = natural.band_source_rows(plan, tile_rows)
+            parts.append(natural.tile_histograms(y[:, lo:hi], plan, 1, tile_rows, lo))
+            check(parts[-1].shape[1] == (tile_rows[1] - tile_rows[0]) * plan.tiles_x,
+                  f"{label}: band histograms of shape {tuple(parts[-1].shape)}")
+        e_k1 = max_err(torch.cat(parts, dim=1), whole)
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K5 {e_k5} vs plain, {e_k5_k3} vs K3; K3v1 {e_v1} vs "
+              f"K3; K9 {e_k9} vs K6, K5 and plain; K1 per band {e_k1} vs whole "
+              f"(max abs err)", flush=True)
+        for name, e in (("interp_pack_kernel", max(e_k5, e_k5_k3)),
+                        ("interp_pack_kernel:variant1", e_v1),
+                        ("interp_cells_kernel:band", e_k9), ("tile_hist_kernel", e_k1)):
+            errs[name] = max(errs[name], e)
+    return errs, {"clahe_interpolate_pack": natural.clahe_interpolate_pack.launches,
+                  "clahe_interpolate_cells_band":
+                      lut.clahe_interpolate_cells_band.launches}
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 
@@ -527,6 +663,24 @@ def phase_golden_slice3(device, rng, h=1080, w=1920) -> None:
         d = int(np.abs(got.astype(int) - want.astype(int)).max())
         print(f"golden {h}x{w} BGR round trip {label}: max abs diff {d}", flush=True)
         check(d == 0, f"{label} differs from core/color.py by {d}")
+
+
+def phase_golden_sharded(device, rng, h=1080, w=1920) -> None:
+    """The sharded CLAHE and histeq steps on the card against
+    core/golden.py at 1080p, 0 LSB: every position of a 2x2 and a 1x3 mesh
+    run in this process, one after another (no process group)."""
+    frames = structured_y(rng, 2, h, w)
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    for shape in ((2, 2), (1, 3)):
+        out = sharded.sharded_clahe(shape, plan, device=device)(frames).cpu().numpy()
+        eq = sharded.sharded_histeq(shape, h, w, device=device)(frames).cpu().numpy()
+        for i, f in enumerate(frames):
+            d = int(np.abs(out[i].astype(int) - golden.clahe(f, CLIP, GRID).astype(int)).max())
+            e = int(np.abs(eq[i].astype(int) - golden.equalize_hist(f).astype(int)).max())
+            print(f"golden {h}x{w} frame {i} sharded {shape[0]}x{shape[1]}: CLAHE max "
+                  f"abs diff {d}, histeq {e}", flush=True)
+            check(d == 0, f"sharded {shape} CLAHE frame {i} differs from golden by {d}")
+            check(e == 0, f"sharded {shape} histeq frame {i} differs from golden by {e}")
 
 
 # ------------------------------------------------------------- phase 5 ----
@@ -680,6 +834,88 @@ def phase_slice3_paths(device, rng, h=HEIGHT, w=WIDTH) -> dict[str, dict[str, in
     return per_path
 
 
+def sum_counts(counts: list[dict[str, int]]) -> dict[str, int]:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_sharded_paths(device, rng, h=HEIGHT, w=WIDTH):
+    """The sharded path at 4K b4, CLAHE (clip 2.0, 8x8, passthrough) and
+    histeq (chroma gray).  (a) ``ShardedEnhancer`` on a 1x1 mesh on NCCL in
+    this process, through the FrameFeeder, every output against the plain
+    versions.  (b) The same on a 2x2 and a 1x4 mesh of four spawned
+    processes that share the card (gloo, staged through the host): each rank
+    compares every assembled batch, and its own band, with the single-card
+    Enhancer's, and returns its launch counts.  Returns each path's launch
+    counts and each rank's time for its part of a step."""
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1, "the 1x1 mesh needs the NCCL group")
+    frames = nv12_batch(rng, DISTINCT_FRAMES, h, w)
+    y = torch.from_numpy(frames[:, :h]).to(device)
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    gray = np.full((DISTINCT_FRAMES, h // 2, w), 128, np.uint8)
+    want = {"clahe": np.concatenate([plain_step(y, plan).cpu().numpy(), frames[:, h:]],
+                                    axis=1),
+            "histeq": np.concatenate([plain_histeq(y).cpu().numpy(), gray], axis=1)}
+    configs = {"clahe": clahe_config(h, w), "histeq": histeq_config(h, w)}
+    per_path, rank_ms = {}, {}
+    for label, (spec, cfg) in configs.items():
+        enhancer = sharded.ShardedEnhancer(cfg, spec, shape=(1, 1), device=device)
+        check(enhancer.part.rows == (0, h) and enhancer.part.slab == (0, h),
+              f"1x1 part {enhancer.part}")
+        name = f"sharded_1x1_{label}"
+        per_path[name], stats = drive_feeder(
+            enhancer.process_batch, frames,
+            lambda k, label=label: want[label][k % DISTINCT_FRAMES])
+        print(f"main path {name} (nccl): stats {stats}, launches {per_path[name]}",
+              flush=True)
+
+    batches = [frames[:BATCH], frames[BATCH:2 * BATCH]]
+    cases = [(cfg, spec, batches) for spec, cfg in configs.values()]
+    repeats = SHARDED_BATCHES // len(batches)
+    for shape in ((2, 2), (1, 4)):
+        t0 = time.perf_counter()
+        ranks = launch.run_on_mesh(shape, launch.compare_with_enhancer,
+                                   (cases, repeats), device_type="cuda",
+                                   timeout=SPAWN_TIMEOUT)
+        elapsed = time.perf_counter() - t0
+        for (label, _), results in zip(configs.items(), zip(*ranks)):
+            name = f"sharded_{shape[0]}x{shape[1]}_{label}"
+            for rank, res in enumerate(results):
+                check(res["backend"] == "gloo", f"{name} rank {rank}: {res['backend']}")
+                check(not res["loaded"], f"{name} rank {rank} loaded {res['loaded']}")
+                check(len(res["equal"]) == SHARDED_BATCHES and all(res["equal"]),
+                      f"{name} rank {rank}: assembled batches differ from the "
+                      f"single-card Enhancer's: {res['equal']}")
+                check(all(res["local_equal"]),
+                      f"{name} rank {rank}: its band differs: {res['local_equal']}")
+                check((res["part"].d, res["part"].s) == divmod(rank, shape[1]),
+                      f"{name} rank {rank}: {res['part']}")
+            per_path[name] = sum_counts([res["launches"] for res in results])
+            rank_ms[name] = [res["local_ms"] for res in results]
+            if label == "clahe":
+                moved = [res["launches"]["clahe_interpolate_band"] for res in results
+                         if res["part"].rows[0] > 0]
+                check(moved and all(n > 0 for n in moved),
+                      f"{name}: K5 was not launched at a row0 != 0: {moved}")
+            print(f"main path {name} (gloo, 4 processes on the card): "
+                  f"{SHARDED_BATCHES} batches equal on every rank; rows "
+                  f"{[res['part'].rows for res in results]}, launches "
+                  f"{per_path[name]}", flush=True)
+        print(f"main path sharded {shape[0]}x{shape[1]}: {elapsed:.1f} s for both "
+              f"configurations, spawn and reference included", flush=True)
+
+    for name, counts in per_path.items():
+        if name.endswith("clahe"):
+            need, none = ("tile_histograms", "build_luts", "clahe_interpolate_band"), \
+                ("clahe_interpolate", "apply_lut")
+        else:
+            need, none = ("tile_histograms", "apply_lut"), \
+                ("clahe_interpolate", "clahe_interpolate_band", "build_luts")
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in none),
+              f"{name} did not run {need} alone: {counts}")
+    return per_path, rank_ms
+
+
 def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> float:
     """Frames per second through the FrameFeeder, host frames in and host
     frames out (H2D, the step, D2H and the feeder's own copies)."""
@@ -799,6 +1035,12 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     frame_px = HEIGHT * WIDTH
     spec = lut.make_interp_spec(HEIGHT, WIDTH, CLIP, GRID)
     tiles = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+    band_row0, band_row1 = sharded_bands(plan, 2)[1]
+    band = y[:BATCH // 2, band_row0:band_row1]
+    band_luts = luts[:BATCH // 2].contiguous()
+    band_out = torch.empty(band.shape, dtype=torch.uint8, device=device)
+    pack_arrays = natural.make_pack_spec(HEIGHT, WIDTH, CLIP, GRID).device_arrays(
+        device)[:4]
     fx = {
         # name: (kernel, plain version, library call or None, bytes, ops);
         # ops are f32 operations, or one integer add per histogram count:
@@ -835,6 +1077,25 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
             lambda: lut.tile_histograms_extended(y, *tiles),
             lambda: lut.tile_histograms_extended_ref(y, *tiles), None,
             px + nbytes(hists), px),
+        # K5 and K9 on the band of a 2x2 mesh's second space position: two
+        # frames, rows [1080, 2160), in place; K3v1 over the whole batch
+        "interp_pack_kernel": (
+            lambda: natural.clahe_interpolate_band(band, band_luts, plan, band_row0,
+                                                   out=band_out),
+            lambda: natural.clahe_interpolate_band_ref(band, band_luts, plan,
+                                                       band_row0), None,
+            2 * band.numel() + nbytes(band_luts, *pack_arrays), 10 * band.numel()),
+        "interp_pack_kernel:variant1": (
+            lambda: natural.clahe_interpolate_pack(y, luts, plan, out=out),
+            lambda: natural.clahe_interpolate_pack_ref(y, luts, plan), None,
+            2 * px + nbytes(luts, *pack_arrays), 10 * px),
+        "interp_cells_kernel:band": (
+            lambda: lut.clahe_interpolate_cells_band(band, band_luts, spec,
+                                                     band_row0, out=band_out),
+            lambda: lut.clahe_interpolate_cells_band_ref(band, band_luts, spec,
+                                                         band_row0), None,
+            2 * band.numel() + nbytes(band_luts, *spec.device_arrays(device)),
+            10 * band.numel()),
     }
     times = {}
     for name, (kernel, plain, library, moved, ops) in fx.items():
@@ -881,6 +1142,20 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K2 build_luts_kernel clip tensor vs int": (
             lambda: natural.build_luts(hists, clips, plan.lut_scale),
             lambda: natural.build_luts(hists, plan.clip, plan.lut_scale)),
+        "K5 interp_pack_kernel, the batch as one band, vs K3 interp_kernel": (
+            lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out),
+            lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
+        "K3v1 interp_pack_kernel vs K3 interp_kernel": (
+            lambda: natural.clahe_interpolate_pack(y, luts, plan, out=out),
+            lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
+        "K9 interp_cells_kernel, the batch as one band, vs K6": (
+            lambda: lut.clahe_interpolate_cells_band(y, luts, spec, 0, out=out),
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
+        "K9 vs K5 on a 2x2 band (2 frames, 1080 rows)": (
+            lambda: lut.clahe_interpolate_cells_band(band, band_luts, spec,
+                                                     band_row0, out=band_out),
+            lambda: natural.clahe_interpolate_band(band, band_luts, plan, band_row0,
+                                                   out=band_out)),
     }
     for label, (new, old) in pairs.items():
         reads = [device_ms(new), device_ms(old), device_ms(old), device_ms(new)]
@@ -888,6 +1163,26 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
               f"{reads[1]:.4f} / {reads[2]:.4f} ms on the device [{card}]", flush=True)
         if label.startswith("K2"):
             times["build_luts_kernel"]["clip_tensor_ms"] = min(reads[0], reads[3])
+    pack_spec = natural.make_pack_spec(HEIGHT, WIDTH, CLIP, GRID)
+    print(f"time build_lut_pack 4K b{BATCH} (the gather and permute inside K5's "
+          f"wrapper): {device_ms(lambda: natural.build_lut_pack(luts, pack_spec)):.4f}"
+          f" ms on the device [{card}]", flush=True)
+
+    # the 1x1 sharded step (the glue and two world-size-1 NCCL collectives)
+    # beside the single-card step, on the Y rows of a batch on the card
+    work = batch.clone()
+    slab = work[:, :HEIGHT]
+    for label, (fspec, cfg) in (("clahe", clahe_config()), ("histeq", histeq_config())):
+        step = sharded.ShardedEnhancer(cfg, fspec, shape=(1, 1), device=device)._y_step
+        single, _ = make_enhance_y(cfg, fspec)
+        reads = [[fn(lambda: step.step_slab(slab)), fn(lambda: single(slab, slab)),
+                  fn(lambda: single(slab, slab)), fn(lambda: step.step_slab(slab))]
+                 for fn in (time_ms, device_ms)]
+        print(f"time sharded 1x1 {label} Y step (nccl) 4K b{BATCH}: idle card "
+              f"{reads[0][0]:.4f} / {reads[0][3]:.4f} ms against the single-card Y step "
+              f"{reads[0][1]:.4f} / {reads[0][2]:.4f}; device alone {reads[1][0]:.4f} / "
+              f"{reads[1][3]:.4f} against {reads[1][1]:.4f} / {reads[1][2]:.4f} [{card}]",
+              flush=True)
     return times
 
 
@@ -908,6 +1203,8 @@ def phase_profile(device, rng) -> None:
                                                    device=device),
              "pallas": lambda: clahe_ops.clahe_apply(batch[:, :HEIGHT], plan,
                                                      backend="pallas")}
+    sharded_step = sharded.ShardedEnhancer(cfg, spec, shape=(1, 1), device=device)._y_step
+    steps["sharded_1x1_clahe"] = lambda: sharded_step.step_slab(batch[:, :HEIGHT])
     for label, step in steps.items():
         step()
         torch.cuda.synchronize()
@@ -955,42 +1252,66 @@ def main() -> int:
     errs["build_luts_kernel"] = max(errs["build_luts_kernel"],
                                     phase_clip_tensor(device, rng))
     errs["interp_cells_kernel"] = phase_cell_kernel(device, rng)
-    errs["tile_hist_private_kernel"], off_path_launches = \
+    errs["tile_hist_private_kernel"], k8_launches = \
         phase_private_hist_kernel(device, rng)
+    band_errs, off_path_launches = phase_band_kernels(device, rng)
+    off_path_launches["tile_histograms_extended"] = k8_launches
+    errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
+                                   band_errs.pop("tile_hist_kernel"))
+    errs.update(band_errs)
     check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
 
     phase_golden(device, rng)                              # phase 4
     phase_golden_slice3(device, rng)
+    phase_golden_sharded(device, rng)
     per_path = phase_main_paths(device, rng)               # phase 5
     per_path.update(phase_slice3_paths(device, rng))
-    launches = {wrapper: sum(c[wrapper] for c in per_path.values())
-                for _, wrapper, _, _ in KERNELS}
-    check(all(n > 0 for w, n in launches.items() if w != OFF_PATH),
-          f"a kernel was not launched on a path: {launches}")
-    check(launches[OFF_PATH] == 0 and off_path_launches > 0,
-          f"{OFF_PATH}: {launches[OFF_PATH]} launches on the paths, "
-          f"{off_path_launches} in its check")
-    launches[OFF_PATH] = off_path_launches
+    # the 1x1 mesh of the sharded path lives in this process: a process
+    # group of one rank on NCCL, until the script ends
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as rendezvous:
+        launch.init_process_group(0, 1, os.path.join(rendezvous, "rendezvous"), "cuda")
+        try:
+            check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+            sharded_paths, rank_ms = phase_sharded_paths(device, rng)
+            per_path.update(sharded_paths)
+            launches = {wrapper: sum(c[wrapper] for c in per_path.values())
+                        for _, wrapper, _, _ in KERNELS}
+            check(all(n > 0 for w, n in launches.items() if w not in OFF_PATH),
+                  f"a kernel was not launched on a path: {launches}")
+            for wrapper in OFF_PATH:
+                check(launches[wrapper] == 0 and off_path_launches[wrapper] > 0,
+                      f"{wrapper}: {launches[wrapper]} launches on the paths, "
+                      f"{off_path_launches[wrapper]} in its check")
+                launches[wrapper] = off_path_launches[wrapper]
 
-    times = phase_timings(device, rng, card)               # phase 6
-    frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)
-    spec, cfg = clahe_config()
-    for label, process_batch in (
-            ("clahe", Enhancer(cfg, spec, device).process_batch),
-            ("histeq", Enhancer(*histeq_config()[::-1], device).process_batch),
-            ("streaming", StreamingEnhancer(cfg, spec, device).process_batch)):
-        fps = feeder_fps(process_batch, frames)
-        print(f"time feeder end to end {label} 4K b{BATCH} (H2D + step + D2H): "
-              f"{fps:.1f} fps over {FEEDER_FRAMES} frames [{card}]", flush=True)
-    phase_profile(device, rng)
+            times = phase_timings(device, rng, card)       # phase 6
+            for name, ms in rank_ms.items():
+                print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
+                      f"upload included, four processes on one card: "
+                      f"{[round(t, 4) for t in ms]} ms [{card}]", flush=True)
+            frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)
+            spec, cfg = clahe_config()
+            for label, process_batch in (
+                    ("clahe", Enhancer(cfg, spec, device).process_batch),
+                    ("histeq", Enhancer(*histeq_config()[::-1], device).process_batch),
+                    ("streaming", StreamingEnhancer(cfg, spec, device).process_batch),
+                    ("sharded 1x1 clahe", sharded.ShardedEnhancer(
+                        cfg, spec, shape=(1, 1), device=device).process_batch)):
+                fps = feeder_fps(process_batch, frames)
+                print(f"time feeder end to end {label} 4K b{BATCH} (H2D + step + "
+                      f"D2H): {fps:.1f} fps over {FEEDER_FRAMES} frames [{card}]",
+                      flush=True)
+            phase_profile(device, rng)
+        finally:
+            dist.destroy_process_group()
 
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "opencv_opencl_tpu" or m.startswith("opencv_opencl_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     kernels = [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[wrapper], "max_abs_err": errs[name],
-         **times[name]}
+        {"name": name.split(":")[0], "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[wrapper],
+         "max_abs_err": errs[name], **times[name]}
         for name, wrapper, source, replaces in KERNELS
     ]
     print(card, flush=True)

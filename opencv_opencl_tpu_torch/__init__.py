@@ -14,6 +14,8 @@ ops       histogram, equalizeHist and CLAHE on tensors; ``ops/cuda`` holds
           the hand-written Hopper kernels' wrappers (sources in ``csrc/``)
           beside their plain PyTorch versions
 models    the NV12 enhancement step, ``Enhancer`` and ``StreamingEnhancer``
+parallel  the same step over a (data, space) mesh of processes on
+          ``torch.distributed``: ``ShardedEnhancer``, ``run_on_mesh``
 runtime   the frame feeder, queues and resequencer, and the device-to-host
           handoff the feeder materialises
 metrics   streaming counters and timing

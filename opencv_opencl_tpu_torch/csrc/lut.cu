@@ -2,7 +2,8 @@
 //
 //   K4 apply_lut_kernel          out[f, r, c] = luts[f, y[f, r, c]]
 //   K6 interp_cells_kernel       CLAHE's bilinear blend of four tile LUTs,
-//                                one block per (frame, cell, row chunk)
+//                                one block per (frame, cell, row chunk);
+//                                on a band of rows at a global row it is K9
 //   K8 tile_hist_private_kernel  per-tile 256-bin histograms of an already
 //                                extended frame, per-warp private bins
 //
@@ -112,6 +113,16 @@ apply_lut_kernel(const uint8_t* y, long long y_frame_stride,
 // column and `ya` per row from the plan.  The blend is blend4, K3's bit for
 // bit.  Each pixel is read and then written by one thread, so `out` may
 // alias `y`.
+//
+// K9: the same kernel replaces clahe_interpolate_pallas_band, as the JAX
+// package has one body (_interp_kernel) behind both.  `y` and `out` then hold
+// a band of the frame whose first row is global row row0; the launch covers
+// the cell rows from cy0 on that the band touches, each block clips its
+// chunk to the band's rows [row0, row_end) as well, and `ya` and the cell row
+// are taken at the global row.  The TPU version embeds the band in a
+// cell-aligned copy with dynamic slices of zero-padded tables around the
+// kernel; none of that is needed here.  K6 is row0 = 0, cy0 = 0, row_end =
+// height.
 constexpr int kLutWords = kBins / 4;    // 32-bit words per LUT
 static_assert(kThreads == 4 * kLutWords, "one staging word per thread");
 
@@ -121,22 +132,23 @@ interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
                     int num_tiles, const int* __restrict__ cell_lut_idx,
                     int cells_x, int height, int width, int tile_h,
                     int tile_w, int pad_top, int pad_left,
-                    int rows_per_block, int chunks,
-                    const float* __restrict__ ya,
+                    int rows_per_block, int chunks, int row0, int row_end,
+                    int cy0, const float* __restrict__ ya,
                     const float* __restrict__ xa, uint8_t* out,
                     long long out_frame_stride, long long out_row_stride) {
     __shared__ __align__(16) uint8_t lut4[4 * kBins];
-    const int cy = blockIdx.x / chunks;
+    const int cy = cy0 + blockIdx.x / chunks;
     const int chunk = blockIdx.x % chunks;
     const int cx = blockIdx.y;
     const int frame = blockIdx.z;
 
     // the chunk's rows and the cell's columns, in frame coordinates,
-    // clipped to the frame (the border cells are half outside it)
+    // clipped to the band and the frame (the border cells are half outside
+    // it)
     const int g0 = cy * tile_h + chunk * rows_per_block;
-    const int r0 = max(g0 - pad_top, 0);
+    const int r0 = max(g0 - pad_top, row0);
     const int r1 = min(min(g0 + rows_per_block, (cy + 1) * tile_h) - pad_top,
-                       height);
+                       row_end);
     const int c0 = max(cx * tile_w - pad_left, 0);
     const int c1 = min((cx + 1) * tile_w - pad_left, width);
     if (r0 >= r1 || c0 >= c1) return;  // the same for every thread
@@ -159,9 +171,9 @@ interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
     const int step_rows = kThreads / cols;
     const int step_cols = kThreads % cols;
     while (r < r1) {
-        const int v = src[r * y_row_stride + c];
+        const int v = src[(r - row0) * y_row_stride + c];
         const float fy = __ldg(&ya[r]);
-        dst[r * out_row_stride + c] = blend4(
+        dst[(r - row0) * out_row_stride + c] = blend4(
             lut4[v], lut4[kBins + v], lut4[2 * kBins + v], lut4[3 * kBins + v],
             __ldg(&xa[c0 + c]), fy, __fsub_rn(1.0f, fy));
         r += step_rows;
@@ -252,23 +264,30 @@ extern "C" int apply_lut_launch(const uint8_t* y, long long y_frame_stride,
     return (int)cudaGetLastError();
 }
 
+// y and out hold band_rows rows from global row row0 on (the whole frame:
+// row0 = 0, band_rows = height); rows at or beyond height are not written
 extern "C" int interp_cells_launch(const uint8_t* y, long long y_frame_stride,
                                    long long y_row_stride, const uint8_t* luts,
                                    int frames, int num_tiles,
-                                   const int* cell_lut_idx, int cells_y,
-                                   int cells_x, int height, int width,
-                                   int tile_h, int tile_w, int pad_top,
-                                   int pad_left, int rows_per_block,
-                                   const float* ya, const float* xa,
-                                   uint8_t* out, long long out_frame_stride,
+                                   const int* cell_lut_idx, int cells_x,
+                                   int height, int width, int tile_h,
+                                   int tile_w, int pad_top, int pad_left,
+                                   int rows_per_block, int row0,
+                                   int band_rows, const float* ya,
+                                   const float* xa, uint8_t* out,
+                                   long long out_frame_stride,
                                    long long out_row_stride, void* stream) {
+    const int row_end = row0 + band_rows < height ? row0 + band_rows : height;
+    if (row_end <= row0) return 0;
     const int chunks = (tile_h + rows_per_block - 1) / rows_per_block;
-    dim3 grid(cells_y * chunks, cells_x, frames);
+    const int cy0 = (row0 + pad_top) / tile_h;
+    const int cy1 = (row_end - 1 + pad_top) / tile_h;
+    dim3 grid((cy1 - cy0 + 1) * chunks, cells_x, frames);
     interp_cells_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, y_frame_stride, y_row_stride, luts, num_tiles, cell_lut_idx,
         cells_x, height, width, tile_h, tile_w, pad_top, pad_left,
-        rows_per_block, chunks, ya, xa, out, out_frame_stride,
-        out_row_stride);
+        rows_per_block, chunks, row0, row_end, cy0, ya, xa, out,
+        out_frame_stride, out_row_stride);
     return (int)cudaGetLastError();
 }
 

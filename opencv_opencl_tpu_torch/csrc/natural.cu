@@ -9,6 +9,11 @@
 //   K7 interp_hist_kernel K3's blend with the previous frame's LUTs plus
 //                         K1's histograms of the frame it reads, in one pass
 //                         (the streaming step, tile-divisible geometry)
+//   K5 interp_pack_kernel K3's blend on a band of rows that starts at a
+//                         global row, reading the four LUT entries of a
+//                         pixel as one 32-bit word of an interleaved pack
+//                         (the sharded step; over a whole frame it is the
+//                         TPU package's variant 1 of K3)
 //
 // Each kernel computes exactly what its TPU kernel in
 // opencv_opencl_tpu/ops/pallas/natural.py computes, and what the plain
@@ -51,12 +56,18 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 // each block counts into 256 int32 bins in shared memory and adds its
 // non-zero bins to the zeroed global (N, T, 256) histogram with one global
 // atomic each.  The extended frame is never materialised: padded positions
-// map to their source with reflect-101 index math.
+// map to their source with reflect-101 index math.  A launch covers the
+// tile rows [ty0, ty0 + gridDim.x / (tiles_x * slices)) of the plan and reads
+// a slab of the frame whose first row is frame row slab_row0 (the sharded
+// step: a rank holds only the rows its band reads); the whole-frame call is
+// ty0 = 0, slab_row0 = 0.  The wrapper checks that every source row of the
+// launch lies inside the slab.
 __global__ void __launch_bounds__(kThreads)
 tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
                  long long frame_stride, long long row_stride,
                  int tiles_x, int tile_h, int tile_w, int rowstep,
-                 int slices, int* __restrict__ out) {
+                 int slices, int ty0, int slab_row0,
+                 int* __restrict__ out) {
     __shared__ int bins[kBins];
     for (int b = threadIdx.x; b < kBins; b += blockDim.x) bins[b] = 0;
     __syncthreads();
@@ -65,7 +76,7 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
     const int tile = blockIdx.x / slices;
     const int slice = blockIdx.x % slices;
     const int frame = blockIdx.y;
-    const int ty = tile / tiles_x;
+    const int ty = ty0 + tile / tiles_x;
     const int tx = tile % tiles_x;
 
     // sampled rows of this tile: ty*tile_h + k*rowstep, k in [k0, k1)
@@ -82,7 +93,7 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
     const int step_rows = (int)blockDim.x / tile_w;
     const int step_cols = (int)blockDim.x % tile_w;
     while (k < k1) {
-        const int r = reflect101(ty * tile_h + k * rowstep, height);
+        const int r = reflect101(ty * tile_h + k * rowstep, height) - slab_row0;
         const int x = reflect101(col0 + c, width);
         atomicAdd(&bins[base[r * row_stride + x]], 1);
         k += step_rows;
@@ -328,21 +339,71 @@ interp_hist_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
+// ------------------------------------------------------------ K5, K3v1 ----
+// Replaces natural.py clahe_interpolate_natural_band (the sharded step's
+// band interpolation) and clahe_interpolate_natural(variant=1): the JAX
+// package has one kernel body, _natural_interp_kernel, behind both, and so
+// has the port.  The TPU body multiplies a 4*G-row LUT pack of the row's
+// tile-row pair by a one-hot of the pixel values and selects each column's
+// group with masks.  Contract here: K3's blend of a band of `rows` rows
+// whose first row is global row `row0` of the plan; rows at or beyond
+// `height` are not written.  Bound: the read and write of the band (2 bytes
+// per pixel).  Design: the pack is interleaved, (frame, row pair, column
+// group, 256) of uchar4 = (l11, l12, l21, l22), so one 32-bit load at the
+// pixel's value gives all four LUT entries where K3 does four byte loads;
+// it is read through __ldg (a block's rows touch one or two row pairs, 9 KB
+// each at 8 column groups, which stay in L1), so nothing is staged and a
+// block may be as small as one row.  The row tables (row pair, ya) are
+// indexed at row0 + r, the column tables (group, xa) per column.  The blend
+// is blend4, K3's bit for bit.  Each pixel is read and then written by one
+// thread, so `out` may alias `y`.
+__global__ void __launch_bounds__(kThreads)
+interp_pack_kernel(const uint8_t* y, long long y_frame_stride,
+                   long long y_row_stride, const uchar4* __restrict__ pack,
+                   int groups, long long pack_frame_stride, int row0,
+                   int rows, int height, int width,
+                   const int* __restrict__ rp_of_r,
+                   const float* __restrict__ ya,
+                   const int* __restrict__ g_of_c,
+                   const float* __restrict__ xa, uint8_t* out,
+                   long long out_frame_stride, long long out_row_stride,
+                   int rows_per_block) {
+    const int frame = blockIdx.y;
+    const uchar4* frame_pack = pack + frame * pack_frame_stride;
+    const int r0 = blockIdx.x * rows_per_block;
+    const int r1 = min(min(r0 + rows_per_block, rows), height - row0);
+    for (int r = r0; r < r1; ++r) {
+        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
+        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
+        const uchar4* row_pack =
+            frame_pack + (long long)__ldg(&rp_of_r[row0 + r]) * groups * kBins;
+        const float fy = __ldg(&ya[row0 + r]);
+        const float fy1 = __fsub_rn(1.0f, fy);
+        for (int c = threadIdx.x; c < width; c += blockDim.x) {
+            const uchar4 q =
+                __ldg(&row_pack[__ldg(&g_of_c[c]) * kBins + src_row[c]]);
+            dst_row[c] = blend4(q.x, q.y, q.z, q.w, __ldg(&xa[c]), fy, fy1);
+        }
+    }
+}
+
 }  // namespace
 
 // Shared memory a block may use without opting in to more.
 constexpr int kStaticSmemLimit = 48 * 1024;
 
+// tile_rows tile rows from ty0 on; y is the slab that starts at frame row
+// slab_row0 (see the kernel)
 extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
                                 int width, long long frame_stride,
-                                long long row_stride, int tiles_y,
+                                long long row_stride, int tile_rows,
                                 int tiles_x, int tile_h, int tile_w,
-                                int rowstep, int slices, int* out,
-                                void* stream) {
-    dim3 grid(tiles_y * tiles_x * slices, frames);
+                                int rowstep, int slices, int ty0,
+                                int slab_row0, int* out, void* stream) {
+    dim3 grid(tile_rows * tiles_x * slices, frames);
     tile_hist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, height, width, frame_stride, row_stride, tiles_x, tile_h, tile_w,
-        rowstep, slices, out);
+        rowstep, slices, ty0, slab_row0, out);
     return (int)cudaGetLastError();
 }
 
@@ -400,5 +461,25 @@ extern "C" int interp_hist_launch(const uint8_t* y, long long y_frame_stride,
         y, y_frame_stride, y_row_stride, luts, tiles_x, num_tiles, tile_h,
         tile_w, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
         out_row_stride, rows_per_block, tiles_per_block, staged, hists);
+    return (int)cudaGetLastError();
+}
+
+// pack: (frames, row_pairs, groups, 256) uchar4, contiguous; the band has
+// `rows` rows from global row row0 on
+extern "C" int interp_pack_launch(const uint8_t* y, long long y_frame_stride,
+                                  long long y_row_stride, const void* pack,
+                                  int frames, int row_pairs, int groups,
+                                  int row0, int rows, int height, int width,
+                                  const int* rp_of_r, const float* ya,
+                                  const int* g_of_c, const float* xa,
+                                  uint8_t* out, long long out_frame_stride,
+                                  long long out_row_stride,
+                                  int rows_per_block, void* stream) {
+    dim3 grid((rows + rows_per_block - 1) / rows_per_block, frames);
+    interp_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, y_frame_stride, y_row_stride, (const uchar4*)pack, groups,
+        (long long)row_pairs * groups * kBins, row0, rows, height, width,
+        rp_of_r, ya, g_of_c, xa, out, out_frame_stride, out_row_stride,
+        rows_per_block);
     return (int)cudaGetLastError();
 }

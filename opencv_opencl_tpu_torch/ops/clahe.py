@@ -59,8 +59,6 @@ class ClahePlan:
     tx1: np.ndarray      # int32[W]
     tx2: np.ndarray      # int32[W]
     xa: np.ndarray       # float32[W]
-    _device_cache: dict = dataclasses.field(
-        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_tiles(self) -> int:
@@ -74,18 +72,20 @@ class ClahePlan:
         """(ty1, ty2, ya, tx1, tx2, xa) on ``device``: the host-built int32
         and f32 values, copied as they are."""
         device = torch.device(device)
-        arrays = self._device_cache.get(device)
+        # kept beside the fields, not among them: two plans of one geometry
+        # stay equal field for field whether or not one has been used
+        cache = self.__dict__.setdefault("_device_cache", {})
+        arrays = cache.get(device)
         if arrays is None:
             arrays = tuple(
                 torch.from_numpy(a).to(device)
                 for a in (self.ty1, self.ty2, self.ya, self.tx1, self.tx2,
                           self.xa))
-            self._device_cache[device] = arrays
+            cache[device] = arrays
         return arrays
 
 
-_PLAN_FIELDS = tuple(f.name for f in dataclasses.fields(ClahePlan)
-                     if f.init)
+_PLAN_FIELDS = tuple(f.name for f in dataclasses.fields(ClahePlan))
 
 
 def _interp_coords(n: int, tile: int, tiles: int):

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels with nvcc at first use, load with ctypes.
 
 The sources are ``opencv_opencl_tpu_torch/csrc/*.cu`` (and the ``*.cuh``
-they include).  They compile to one shared library with a plain C
-interface for Hopper (``sm_90a``), named after a hash of the sources and
-the flags, in ``opencv_opencl_tpu_torch/_build/``: an edited source gets a
-new library, an unchanged one is reused.  A failed build raises with
+they include).  They compile, one nvcc per source and all at
+once, and link to one shared library with a plain C interface for Hopper
+(``sm_90a``), named after a hash of the sources and the flags, in
+``opencv_opencl_tpu_torch/_build/``: an edited source gets a new library,
+an unchanged one is reused.  A failed build raises with
 nvcc's output; nothing falls back to another implementation.
 """
 
@@ -35,7 +36,7 @@ _LL = ctypes.c_longlong
 # Python int as a 32-bit int and cut the address
 _SIGNATURES = {
     "tile_hist_launch": (_P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
-                         _P, _P),
+                         _I, _I, _P, _P),
     "build_luts_launch": (_P, _I, _I, _P, _I, ctypes.c_float, _P, _P),
     "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                       _P, _P, _P, _LL, _LL, _I, _P),
@@ -43,7 +44,9 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P),
     "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),
     "interp_cells_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _LL, _LL, _P),
+                            _I, _I, _I, _I, _I, _P, _P, _P, _LL, _LL, _P),
+    "interp_pack_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _LL, _LL, _I, _P),
     "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,
                                  _P),
 }
@@ -83,24 +86,34 @@ def _nvcc() -> str:
     return path
 
 
+def _raise_on_failure(cmd: list[str], output: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{output}")
+
+
 def _compile(out: str) -> None:
     cu, _ = _sources()
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    # build beside the target and rename: a concurrent loader never sees a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # build in a directory beside the target and rename: a concurrent loader
+    # never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        jobs = []
+        for src in cu:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        outputs = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, _, proc in jobs]
+        for cmd, text, returncode in outputs:
+            _raise_on_failure(cmd, text, returncode)
+        lib = os.path.join(tmp, "libkernels.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", lib, *(obj for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        _raise_on_failure(cmd, res.stdout + res.stderr, res.returncode)
+        os.replace(lib, out)
 
 
 def load() -> ctypes.CDLL:

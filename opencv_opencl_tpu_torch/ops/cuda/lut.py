@@ -12,6 +12,8 @@ clahe_interpolate_cells   clahe_interpolate_cells_ref  clahe_interpolate_pallas,
                                                        radix=False (K6)
 tile_histograms_extended  tile_histograms_extended_    tile_histograms_pallas
                           ref                          (K8)
+clahe_interpolate_cells_  clahe_interpolate_cells_     clahe_interpolate_pallas_
+band                      band_ref                     band (K9; K6's kernel)
 ========================  ===========================  ==========================
 
 As in ``ops/cuda/natural.py``: a wrapper takes its plain version only for
@@ -28,6 +30,9 @@ padding, ``rows_sub``, ``row_block_live`` and the padded weight tables),
 which the Hopper kernel does not use.  K8 is K1's contract on an already
 extended frame; no path runs it (nor does any path of the JAX package): it
 is the per-warp-bins formulation of the tile histograms, timed beside K1.
+K9 is K6's kernel on a band of rows that starts at a global row, as the
+JAX package has one Pallas body behind both; no path of either package
+runs it (the sharded step takes K5), and it is checked and timed beside K5.
 """
 
 from __future__ import annotations
@@ -42,12 +47,16 @@ from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import (
     _HIST_TARGET_BLOCKS,
     _check,
+    _check_band,
+    _check_band_out,
     _check_frames,
+    _check_luts,
     _on_card,
     _raise_on,
     _stream,
     bincount_tiles,
     blend,
+    live_rows,
 )
 
 __all__ = [
@@ -57,6 +66,8 @@ __all__ = [
     "make_interp_spec",
     "clahe_interpolate_cells",
     "clahe_interpolate_cells_ref",
+    "clahe_interpolate_cells_band",
+    "clahe_interpolate_cells_band_ref",
     "tile_histograms_extended",
     "tile_histograms_extended_ref",
     "launch_counts",
@@ -238,25 +249,36 @@ def make_interp_spec(height: int, width: int, clip_limit: float,
         pad_left=pad_left, cell_lut_idx=cell_lut_idx, ya=plan.ya, xa=plan.xa)
 
 
-def clahe_interpolate_cells_ref(y: torch.Tensor, luts: torch.Tensor,
-                                spec: InterpSpec) -> torch.Tensor:
-    """Plain version of :func:`clahe_interpolate_cells`: each pixel's cell
-    from the spec's offsets, the cell's four LUTs gathered at its value,
-    then the blend (``natural.blend``)."""
-    n, h, w = y.shape
-    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
-    rows = (torch.arange(h, device=y.device) + spec.pad_top) // spec.tile_h
-    cols = (torch.arange(w, device=y.device) + spec.pad_left) // spec.tile_w
-    four = cell_lut_idx[rows[:, None], cols[None, :]].long() * 256  # (H, W, 4)
+def clahe_interpolate_cells_band_ref(y_band: torch.Tensor, luts: torch.Tensor,
+                                     spec: InterpSpec, row0: int) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate_cells_band`: each pixel's
+    cell from the spec's offsets and its global row, the cell's four LUTs
+    gathered at its value, then the blend (``natural.blend``).  Rows at or
+    beyond the frame's height come back unchanged."""
+    n, band_rows, w = y_band.shape
+    live = live_rows(band_rows, spec.height, row0)
+    cell_lut_idx, ya, xa = spec.device_arrays(y_band.device)
+    global_rows = torch.arange(row0, row0 + live, device=y_band.device)
+    rows = (global_rows + spec.pad_top) // spec.tile_h
+    cols = (torch.arange(w, device=y_band.device) + spec.pad_left) // spec.tile_w
+    four = cell_lut_idx[rows[:, None], cols[None, :]].long() * 256  # (rows, W, 4)
     flat = luts.reshape(-1)
-    v = y.long() + (torch.arange(n, device=y.device)
-                    * (spec.num_tiles * 256))[:, None, None]
+    v = y_band[:, :live].long() + (torch.arange(n, device=y_band.device)
+                                   * (spec.num_tiles * 256))[:, None, None]
 
     def lookup(k):
         return flat[four[..., k] + v].to(torch.float32)
 
-    return blend(lookup(0), lookup(1), lookup(2), lookup(3), xa,
-                 ya[:, None])
+    res = blend(lookup(0), lookup(1), lookup(2), lookup(3), xa,
+                ya[row0:row0 + live, None])
+    return res if live == band_rows else torch.cat([res, y_band[:, live:]], dim=1)
+
+
+def clahe_interpolate_cells_ref(y: torch.Tensor, luts: torch.Tensor,
+                                spec: InterpSpec) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate_cells`: the band version
+    over the whole frame."""
+    return clahe_interpolate_cells_band_ref(y, luts, spec, 0)
 
 
 def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
@@ -273,38 +295,69 @@ def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
             "K6's radix=True variant (_interp_kernel_radix) is not ported yet: "
             "ROADMAP Queue 1 item 11")
     _check_frames(y, spec)
-    _check(luts, "luts", torch.uint8, 3)
-    if tuple(luts.shape) != (y.shape[0], spec.num_tiles, 256):
-        raise ValueError(f"luts shape {tuple(luts.shape)} does not match "
-                         f"{y.shape[0]} frames of {spec.num_tiles} tiles")
+    _check_luts(luts, y, spec)
     _check_out(out, y)
-    if luts.device != y.device:
-        raise ValueError(f"luts on {luts.device}, frames on {y.device}")
     if not _on_card(y):
         res = clahe_interpolate_cells_ref(y, luts, spec)
         return res if out is None else out.copy_(res)
+    out, launched = _interpolate_cells(y, luts, spec, 0, out)
+    clahe_interpolate_cells.launches += launched
+    return out
+
+
+def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
+                       spec: InterpSpec, row0: int,
+                       out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
+    """Launch ``interp_cells_kernel`` on a band on the card (the whole
+    frame is the band at row 0); returns the output and whether a launch
+    was made (the callers count it)."""
     # the kernel stages each LUT as 32-bit words
     if not luts.is_contiguous() or luts.data_ptr() % 4:
         raise ValueError("luts must be contiguous and 4-byte aligned")
-    if spec.cx > 65535 or y.shape[0] > 65535:
-        raise ValueError(f"{spec.cx} cell columns or {y.shape[0]} frames "
-                         "exceed the launch grid")
+    n, band_rows, _ = y_band.shape
+    if spec.cx > 65535 or n > 65535:
+        raise ValueError(f"{spec.cx} cell columns or {n} frames exceed the "
+                         "launch grid")
     lib = _build.load()
+    live = live_rows(band_rows, spec.height, row0)
     if out is None:
-        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
-    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
+        out = torch.empty(y_band.shape, dtype=torch.uint8, device=y_band.device)
+        if live < band_rows:
+            out[:, live:].copy_(y_band[:, live:])
+    if not (n and live):
+        return out, False
+    cell_lut_idx, ya, xa = spec.device_arrays(y_band.device)
     rows_per_block = max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
-    if y.shape[0]:
-        with torch.cuda.device(y.device):
-            err = lib.interp_cells_launch(
-                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(),
-                y.shape[0], spec.num_tiles, cell_lut_idx.data_ptr(), spec.cy,
-                spec.cx, spec.height, spec.width, spec.tile_h, spec.tile_w,
-                spec.pad_top, spec.pad_left, rows_per_block,
-                ya.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
-                out.stride(1), _stream(y.device))
-        _raise_on(err, "interp_cells_kernel")
-        clahe_interpolate_cells.launches += 1
+    with torch.cuda.device(y_band.device):
+        err = lib.interp_cells_launch(
+            y_band.data_ptr(), y_band.stride(0), y_band.stride(1),
+            luts.data_ptr(), n, spec.num_tiles, cell_lut_idx.data_ptr(),
+            spec.cx, spec.height, spec.width, spec.tile_h, spec.tile_w,
+            spec.pad_top, spec.pad_left, rows_per_block, row0, live,
+            ya.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
+            out.stride(1), _stream(y_band.device))
+    _raise_on(err, "interp_cells_kernel")
+    return out, True
+
+
+def clahe_interpolate_cells_band(y_band: torch.Tensor, luts: torch.Tensor,
+                                 spec: InterpSpec, row0: int,
+                                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """K6's blend on a band: (N, rows, W) uint8 whose first row is global
+    row ``row0`` (any ``row0 >= 0``, any number of rows) of the spec's
+    frames, with the whole frames' (N, T, 256) LUTs.  Rows at or beyond the
+    frame's height are not written (with ``out=None`` they come back
+    unchanged).  ``out`` may be ``y_band`` itself."""
+    _check_band(y_band, spec.width)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    _check_luts(luts, y_band, spec)
+    _check_band_out(out, y_band, spec.width)
+    if not _on_card(y_band):
+        res = clahe_interpolate_cells_band_ref(y_band, luts, spec, row0)
+        return res if out is None else out.copy_(res)
+    out, launched = _interpolate_cells(y_band, luts, spec, row0, out)
+    clahe_interpolate_cells_band.launches += launched
     return out
 
 
@@ -346,7 +399,8 @@ def tile_histograms_extended(ext: torch.Tensor, tiles_y: int, tiles_x: int,
     return out
 
 
-_WRAPPERS = (apply_lut, clahe_interpolate_cells, tile_histograms_extended)
+_WRAPPERS = (apply_lut, clahe_interpolate_cells, tile_histograms_extended,
+             clahe_interpolate_cells_band)
 
 
 def reset_launch_counts() -> None:

@@ -12,7 +12,19 @@ clahe_interpolate   clahe_interpolate_   natural.clahe_interpolate_natural,
                     ref                  variant 2 (K3)
 clahe_interp_and_   clahe_interp_and_    experiments.clahe_interp_and_hist_
 hist                hist_ref             natural (K7)
+clahe_interpolate_  clahe_interpolate_   natural.clahe_interpolate_natural_
+band                band_ref             band (K5)
+clahe_interpolate_  clahe_interpolate_   natural.clahe_interpolate_natural,
+pack                pack_ref             variant 1 (K3v1; K5's kernel)
 ==================  ===================  =====================================
+
+K5 and K3v1 are one kernel, ``interp_pack_kernel``, as the JAX package has
+one Pallas body behind both: K3's blend with the four LUT entries of a pixel
+read as one 32-bit word of an interleaved pack (:func:`build_lut_pack`,
+geometry in :class:`PackSpec`).  K5 runs it on a band of rows that starts
+at a global row ``row0`` (the sharded step), K3v1 on whole frames.
+``tile_histograms`` also takes a band: ``tile_rows`` of the plan, read from
+a slab of the frame that starts at ``slab_row0``.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel on the current stream or raises; it
@@ -27,6 +39,10 @@ uint8, with T = tiles_y * tiles_x in row-major tile order.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from opencv_opencl_tpu_torch.core.golden import reflect101_indices
@@ -46,6 +62,14 @@ __all__ = [
     "clahe_interp_and_hist",
     "clahe_interp_and_hist_ref",
     "fused_interp_hist_fits",
+    "PackSpec",
+    "make_pack_spec",
+    "build_lut_pack",
+    "band_source_rows",
+    "clahe_interpolate_band",
+    "clahe_interpolate_band_ref",
+    "clahe_interpolate_pack",
+    "clahe_interpolate_pack_ref",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -56,6 +80,10 @@ _HIST_TARGET_BLOCKS = 8 * 132
 # K3 rows per block: the frame's LUTs are staged in shared memory once per
 # block, so a block covers several full rows
 _INTERP_ROWS_PER_BLOCK = 16
+# K5 rows per block: nothing is staged, so a block is small; fewer rows
+# still where a band would otherwise give the card less than one block per
+# SM slot (_HIST_TARGET_BLOCKS)
+_PACK_ROWS_PER_BLOCK = 4
 # K7 runs on one frame at a time in the streaming step, so its blocks split
 # the frame's tile columns as well as its rows until the grid has about this
 # many blocks: 4 per SM of an H100's 132
@@ -114,12 +142,37 @@ def bincount_tiles(ext: torch.Tensor, tiles_y: int, tiles_x: int,
     return hists.reshape(n, num_tiles, 256)
 
 
-def tile_histograms_ref(y: torch.Tensor, plan, rowstep: int = 1) -> torch.Tensor:
+def _band_ext_rows(plan, tile_rows: tuple[int, int]) -> np.ndarray:
+    """The frame row behind every extended row of the plan's tile rows
+    [ty0, ty1): reflect-101 sources for the rows of the bottom pad."""
+    ty0, ty1 = tile_rows
+    return reflect101_indices(plan.height + plan.pad_bottom,
+                              plan.height)[ty0 * plan.tile_h:ty1 * plan.tile_h]
+
+
+def band_source_rows(plan, tile_rows: tuple[int, int]) -> tuple[int, int]:
+    """The frame rows [lo, hi) that the histograms of the plan's tile rows
+    [ty0, ty1) read.  With a bottom pad the last tile row mirrors rows that
+    may lie above its own first row."""
+    rows = _band_ext_rows(plan, tile_rows)
+    if not rows.size:
+        return 0, 0
+    return int(rows.min()), int(rows.max()) + 1
+
+
+def tile_histograms_ref(y: torch.Tensor, plan, rowstep: int = 1,
+                        tile_rows: tuple[int, int] | None = None,
+                        slab_row0: int = 0) -> torch.Tensor:
     """Plain version of :func:`tile_histograms`: ``bincount`` over tiles."""
-    ext = extend(y, plan)
+    if tile_rows is None:
+        tile_rows = (0, plan.tiles_y)
+    rows = torch.from_numpy(_band_ext_rows(plan, tile_rows) - slab_row0).to(y.device)
+    cols = torch.from_numpy(
+        reflect101_indices(plan.width + plan.pad_right, plan.width)).to(y.device)
+    ext = y.index_select(-2, rows).index_select(-1, cols)
     if rowstep > 1:
         ext = ext[:, ::rowstep]
-    hists = bincount_tiles(ext, plan.tiles_y, plan.tiles_x,
+    hists = bincount_tiles(ext, tile_rows[1] - tile_rows[0], plan.tiles_x,
                            plan.tile_h // rowstep, plan.tile_w)
     return (hists * rowstep).to(torch.int32)
 
@@ -164,22 +217,151 @@ def blend(l11: torch.Tensor, l12: torch.Tensor, l21: torch.Tensor,
     return torch.round(res).clamp(0, 255).to(torch.uint8)
 
 
-def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
-                          plan) -> torch.Tensor:
-    """Plain version of :func:`clahe_interpolate`: four gathers at the
-    plan's per-pixel tile indices, then :func:`blend`."""
-    n = y.shape[0]
-    ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y.device)
-    ty1, ty2, ya = ty1[:, None], ty2[:, None], ya[:, None]
+def live_rows(rows: int, height: int, row0: int) -> int:
+    """How many of a band's ``rows`` rows, the first at global row ``row0``,
+    lie inside a frame of ``height`` rows."""
+    return max(0, min(rows, height - row0))
+
+
+def clahe_interpolate_band_ref(y_band: torch.Tensor, luts: torch.Tensor,
+                               plan, row0: int) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate_band`: the plan's row
+    arrays sliced at ``row0``, four gathers at the per-pixel tile indices,
+    then :func:`blend` (``ops/clahe._interpolate_rows`` of the JAX package).
+    Rows at or beyond the frame's height come back unchanged."""
+    n, rows, _ = y_band.shape
+    live = live_rows(rows, plan.height, row0)
+    ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y_band.device)
+    ty1, ty2, ya = (a[row0:row0 + live, None] for a in (ty1, ty2, ya))
     flat = luts.reshape(-1)
-    v = y.long() + (torch.arange(n, device=y.device)
-                    * (plan.num_tiles * 256))[:, None, None]
+    v = y_band[:, :live].long() + (torch.arange(n, device=y_band.device)
+                                   * (plan.num_tiles * 256))[:, None, None]
 
     def lookup(tyr, txc):
         return flat[(tyr * plan.tiles_x + txc).long() * 256 + v].to(torch.float32)
 
-    return blend(lookup(ty1, tx1), lookup(ty1, tx2), lookup(ty2, tx1),
-                 lookup(ty2, tx2), xa, ya)
+    res = blend(lookup(ty1, tx1), lookup(ty1, tx2), lookup(ty2, tx1),
+                lookup(ty2, tx2), xa, ya)
+    return res if live == rows else torch.cat([res, y_band[:, live:]], dim=1)
+
+
+def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
+                          plan) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate`: the band version over
+    the whole frame."""
+    return clahe_interpolate_band_ref(y, luts, plan, 0)
+
+
+# ----------------------------------------------------- the LUT pack (K5) ----
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    """Static geometry of the pack interpolation (K5, K3v1), the Hopper
+    form of the JAX package's ``NaturalSpec`` (variant 1).
+
+    Row r lies in row pair ``rp_of_r[r]`` (tile rows clip(rp-1), clip(rp)),
+    column c in group ``g_of_c[c]`` likewise; ``pack_idx[rp, g]`` holds the
+    flat tile ids of the four LUTs (l11, l12, l21, l22) that apply there.
+    ``ya`` and ``xa`` are the plan's f32 weights.  ``device_arrays`` caches
+    the arrays as tensors, once per device."""
+
+    height: int
+    width: int
+    tiles_x: int
+    tiles_y: int
+    rp_of_r: np.ndarray       # int32[H]
+    ya: np.ndarray            # float32[H]
+    g_of_c: np.ndarray        # int32[W]
+    xa: np.ndarray            # float32[W]
+    pack_idx: np.ndarray      # int64 (R, G, 4)
+    _device_cache: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    @property
+    def groups(self) -> int:
+        return self.tiles_x + 1
+
+    @property
+    def row_pairs(self) -> int:
+        return self.tiles_y + 1
+
+    def device_arrays(self, device) -> tuple[torch.Tensor, ...]:
+        """(rp_of_r, ya, g_of_c, xa, pack_idx) on ``device``."""
+        device = torch.device(device)
+        arrays = self._device_cache.get(device)
+        if arrays is None:
+            arrays = tuple(torch.from_numpy(a).to(device)
+                           for a in (self.rp_of_r, self.ya, self.g_of_c,
+                                     self.xa, self.pack_idx))
+            self._device_cache[device] = arrays
+        return arrays
+
+
+def _pair_ids(lo: np.ndarray, hi: np.ndarray, tiles: int) -> np.ndarray:
+    """Map per-pixel (clip(p-1), clip(p)) index pairs back to p, and check
+    against the plan's own arrays that nothing was lost."""
+    p = np.where((lo == 0) & (hi == 0), 0, lo + 1).astype(np.int32)
+    if not (np.array_equal(np.clip(p - 1, 0, tiles - 1), lo)
+            and np.array_equal(np.clip(p, 0, tiles - 1), hi)):
+        raise ValueError("the plan's tile indices do not follow the "
+                         "(clip(p-1), clip(p)) pattern")
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def make_pack_spec(height: int, width: int, clip_limit: float,
+                   tile_grid: tuple[int, int]) -> PackSpec:
+    """The pack geometry of a CLAHE plan (every geometry has one: the TPU's
+    width cap has no counterpart here)."""
+    # ops.clahe imports this module, so its plan builder is imported here
+    from opencv_opencl_tpu_torch.ops.clahe import make_clahe_plan
+
+    plan = make_clahe_plan(height, width, clip_limit, tile_grid)
+    tx, ty = plan.tiles_x, plan.tiles_y
+    lo_y = np.clip(np.arange(ty + 1) - 1, 0, ty - 1)[:, None]
+    hi_y = np.clip(np.arange(ty + 1), 0, ty - 1)[:, None]
+    lo_x = np.clip(np.arange(tx + 1) - 1, 0, tx - 1)[None, :]
+    hi_x = np.clip(np.arange(tx + 1), 0, tx - 1)[None, :]
+    pack_idx = np.stack(
+        [np.broadcast_to(a * tx + b, (ty + 1, tx + 1))
+         for a, b in ((lo_y, lo_x), (lo_y, hi_x), (hi_y, lo_x), (hi_y, hi_x))],
+        axis=-1).astype(np.int64)
+    return PackSpec(
+        height=height, width=width, tiles_x=tx, tiles_y=ty,
+        rp_of_r=_pair_ids(plan.ty1, plan.ty2, ty), ya=plan.ya,
+        g_of_c=_pair_ids(plan.tx1, plan.tx2, tx), xa=plan.xa,
+        pack_idx=pack_idx)
+
+
+def _pack_spec_of(plan) -> PackSpec:
+    return make_pack_spec(plan.height, plan.width, plan.clip_limit,
+                          (plan.tiles_x, plan.tiles_y))
+
+
+def build_lut_pack(luts: torch.Tensor, spec: PackSpec) -> torch.Tensor:
+    """(N, T, 256) uint8 LUTs -> the interleaved pack (N, R, G, 256, 4)
+    uint8: ``pack[n, rp, g, v]`` holds the four LUT entries (l11, l12, l21,
+    l22) at value v for row pair rp and column group g, so the kernel reads
+    them as one 32-bit word.  A gather and a permute, as the JAX package
+    builds its pack with ``jnp.take`` outside the kernel."""
+    pack_idx = spec.device_arrays(luts.device)[4]
+    return luts[:, pack_idx].permute(0, 1, 2, 4, 3).contiguous()
+
+
+def clahe_interpolate_pack_ref(y: torch.Tensor, luts: torch.Tensor,
+                               plan) -> torch.Tensor:
+    """Plain version of :func:`clahe_interpolate_pack`: the four LUT
+    entries gathered from the pack at each pixel's (row pair, group,
+    value), then :func:`blend`."""
+    spec = _pack_spec_of(plan)
+    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y.device)
+    pack = build_lut_pack(luts, spec)
+    n = torch.arange(y.shape[0], device=y.device)[:, None, None]
+    four = pack[n, rp_of_r.long()[None, :, None], g_of_c.long()[None, None, :],
+                y.long()].to(torch.float32)        # (N, H, W, 4)
+    return blend(four[..., 0], four[..., 1], four[..., 2], four[..., 3], xa,
+                 ya[:, None])
 
 
 def clahe_interp_and_hist_ref(y: torch.Tensor, luts: torch.Tensor,
@@ -210,14 +392,23 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def _check_band(y: torch.Tensor, width: int, name: str = "y_band") -> None:
+    """A band of frames: (N, rows, W) uint8 with the plan's width and unit
+    column stride."""
+    _check(y, name, torch.uint8, 3)
+    if y.shape[2] != width:
+        raise ValueError(f"{name} is {y.shape[2]} wide, the plan {width}")
+    if y.stride(2) != 1 and width > 1:
+        raise ValueError(f"{name} must have unit column stride, got "
+                         f"strides {y.stride()}")
+
+
 def _check_frames(y: torch.Tensor, plan, name: str = "y") -> None:
     _check(y, name, torch.uint8, 3)
     if tuple(y.shape[1:]) != (plan.height, plan.width):
         raise ValueError(f"{name} frames are {tuple(y.shape[1:])}, plan is "
                          f"({plan.height}, {plan.width})")
-    if y.stride(2) != 1 and plan.width > 1:
-        raise ValueError(f"{name} must have unit column stride, got "
-                         f"strides {y.stride()}")
+    _check_band(y, plan.width, name)
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -229,27 +420,49 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def tile_histograms(y: torch.Tensor, plan, rowstep: int = 1) -> torch.Tensor:
+def tile_histograms(y: torch.Tensor, plan, rowstep: int = 1,
+                    tile_rows: tuple[int, int] | None = None,
+                    slab_row0: int = 0) -> torch.Tensor:
     """(N, H, W) uint8 frames -> (N, T, 256) int32 tile histograms of the
     reflect-101 extended frames; ``rowstep > 1`` counts every rowstep-th row
-    of each tile and scales the counts by rowstep (the approximate mode)."""
-    _check_frames(y, plan)
+    of each tile and scales the counts by rowstep (the approximate mode).
+
+    With ``tile_rows=(ty0, ty1)`` only those tile rows of the plan are
+    counted, (N, (ty1-ty0)*tiles_x, 256), and ``y`` is a slab of the frames
+    whose first row is frame row ``slab_row0``; it must hold every row the
+    band reads (:func:`band_source_rows`)."""
+    if tile_rows is None and slab_row0 == 0:
+        _check_frames(y, plan)
+        tile_rows = (0, plan.tiles_y)
+    else:
+        _check_band(y, plan.width, "y")
+        tile_rows = (0, plan.tiles_y) if tile_rows is None else tuple(tile_rows)
+        if not 0 <= tile_rows[0] <= tile_rows[1] <= plan.tiles_y:
+            raise ValueError(f"tile_rows {tile_rows} outside the plan's "
+                             f"{plan.tiles_y} tile rows")
+        lo, hi = band_source_rows(plan, tile_rows)
+        if hi > lo and not (slab_row0 <= lo and hi <= slab_row0 + y.shape[1]):
+            raise ValueError(
+                f"tile rows {tile_rows} read frame rows [{lo}, {hi}); the slab "
+                f"holds [{slab_row0}, {slab_row0 + y.shape[1]})")
     if rowstep < 1 or plan.tile_h % rowstep:
         raise ValueError(f"rowstep={rowstep} must divide tile_h ({plan.tile_h})")
     if not _on_card(y):
-        return tile_histograms_ref(y, plan, rowstep)
+        return tile_histograms_ref(y, plan, rowstep, tile_rows, slab_row0)
     lib = _build.load()
     n = y.shape[0]
-    out = torch.zeros((n, plan.num_tiles, 256), dtype=torch.int32, device=y.device)
-    if n == 0:
+    tiles = (tile_rows[1] - tile_rows[0]) * plan.tiles_x
+    out = torch.zeros((n, tiles, 256), dtype=torch.int32, device=y.device)
+    if n == 0 or tiles == 0:
         return out
     rows = plan.tile_h // rowstep
-    slices = max(1, min(rows, -(-_HIST_TARGET_BLOCKS // (n * plan.num_tiles))))
+    slices = max(1, min(rows, -(-_HIST_TARGET_BLOCKS // (n * tiles))))
     with torch.cuda.device(y.device):
         err = lib.tile_hist_launch(
             y.data_ptr(), n, plan.height, plan.width, y.stride(0), y.stride(1),
-            plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w, rowstep,
-            slices, out.data_ptr(), _stream(y.device))
+            tile_rows[1] - tile_rows[0], plan.tiles_x, plan.tile_h,
+            plan.tile_w, rowstep, slices, tile_rows[0], slab_row0,
+            out.data_ptr(), _stream(y.device))
     _raise_on(err, "tile_hist_kernel")
     tile_histograms.launches += 1
     return out
@@ -331,6 +544,94 @@ def clahe_interpolate(y: torch.Tensor, luts: torch.Tensor, plan,
     return out
 
 
+def _check_luts(luts: torch.Tensor, y: torch.Tensor, plan) -> None:
+    _check(luts, "luts", torch.uint8, 3)
+    if tuple(luts.shape) != (y.shape[0], plan.num_tiles, 256):
+        raise ValueError(f"luts shape {tuple(luts.shape)} does not match "
+                         f"{y.shape[0]} frames of {plan.num_tiles} tiles")
+    if luts.device != y.device:
+        raise ValueError(f"luts on {luts.device}, frames on {y.device}")
+
+
+def _interpolate_pack(y_band: torch.Tensor, luts: torch.Tensor, plan,
+                      row0: int, out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
+    """Launch ``interp_pack_kernel`` on a band on the card; returns the
+    output and whether a launch was made (the callers count it)."""
+    if not luts.is_contiguous():
+        raise ValueError("luts must be contiguous")
+    lib = _build.load()
+    n, rows, _ = y_band.shape
+    live = live_rows(rows, plan.height, row0)
+    if out is None:
+        out = torch.empty(y_band.shape, dtype=torch.uint8, device=y_band.device)
+        if live < rows:
+            out[:, live:].copy_(y_band[:, live:])
+    if not (n and live and plan.width):
+        return out, False
+    spec = _pack_spec_of(plan)
+    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y_band.device)
+    pack = build_lut_pack(luts, spec)
+    rows_per_block = max(1, min(_PACK_ROWS_PER_BLOCK,
+                                n * live // _HIST_TARGET_BLOCKS))
+    with torch.cuda.device(y_band.device):
+        err = lib.interp_pack_launch(
+            y_band.data_ptr(), y_band.stride(0), y_band.stride(1),
+            pack.data_ptr(), n, spec.row_pairs, spec.groups, row0, live,
+            plan.height, plan.width, rp_of_r.data_ptr(), ya.data_ptr(),
+            g_of_c.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
+            out.stride(1), rows_per_block, _stream(y_band.device))
+    _raise_on(err, "interp_pack_kernel")
+    return out, True
+
+
+def _check_band_out(out: torch.Tensor | None, y_band: torch.Tensor,
+                    width: int) -> None:
+    if out is not None:
+        _check_band(out, width, "out")
+        if out.shape != y_band.shape or out.device != y_band.device:
+            raise ValueError("out must match y_band in shape and device")
+
+
+def clahe_interpolate_band(y_band: torch.Tensor, luts: torch.Tensor, plan,
+                           row0: int, out: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """K3's blend on a band: (N, rows, W) uint8 whose first row is global
+    row ``row0`` (any ``row0 >= 0``) of the plan's frames, with the whole
+    frames' (N, T, 256) LUTs.  Rows at or beyond the frame's height are not
+    written (with ``out=None`` they come back unchanged).  ``out`` may be
+    ``y_band`` itself."""
+    _check_band(y_band, plan.width)
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    _check_luts(luts, y_band, plan)
+    _check_band_out(out, y_band, plan.width)
+    if not _on_card(y_band):
+        res = clahe_interpolate_band_ref(y_band, luts, plan, row0)
+        return res if out is None else out.copy_(res)
+    out, launched = _interpolate_pack(y_band, luts, plan, row0, out)
+    clahe_interpolate_band.launches += launched
+    return out
+
+
+def clahe_interpolate_pack(y: torch.Tensor, luts: torch.Tensor, plan,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`clahe_interpolate` in the JAX package's variant 1: whole
+    (N, H, W) uint8 frames through the pack kernel (K5's, at ``row0 = 0``).
+    K3's output, bit for bit.  ``out`` may be ``y`` itself."""
+    _check_frames(y, plan)
+    _check_luts(luts, y, plan)
+    if out is not None:
+        _check_frames(out, plan, "out")
+        if out.shape != y.shape or out.device != y.device:
+            raise ValueError("out must match y in shape and device")
+    if not _on_card(y):
+        res = clahe_interpolate_pack_ref(y, luts, plan)
+        return res if out is None else out.copy_(res)
+    out, launched = _interpolate_pack(y, luts, plan, 0, out)
+    clahe_interpolate_pack.launches += launched
+    return out
+
+
 def fused_interp_hist_fits(plan) -> bool:
     """Whether :func:`clahe_interp_and_hist` takes this geometry: no
     reflect-101 padding, the TPU kernel's contract."""
@@ -406,7 +707,8 @@ def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
 
 
 _WRAPPERS = (tile_histograms, build_luts, clahe_interpolate,
-             clahe_interp_and_hist)
+             clahe_interp_and_hist, clahe_interpolate_band,
+             clahe_interpolate_pack)
 
 
 def reset_launch_counts() -> None:

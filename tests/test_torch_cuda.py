@@ -7,10 +7,11 @@ machine with a card and no JAX, run it without the JAX test configuration:
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
 outputs (K1 and K8 histograms, K2 LUTs with one clip or one per frame, K3,
-K4 and K6 frames, K7 frames and histograms) must equal the plain PyTorch
-versions on the same CUDA inputs exactly, and the CLAHE (every backend),
-auto-CLAHE, histeq and streaming steps must equal ``core.golden`` and the
-same steps on the CPU.  Tolerance: 0.
+K4 and K6 frames, K7 frames and histograms, K5, K3v1 and K9 bands, K1 on
+bands of tile rows) must equal the plain PyTorch versions on the same CUDA
+inputs exactly, and the CLAHE (every backend), auto-CLAHE, histeq,
+streaming and sharded steps must equal ``core.golden`` and the same steps
+on the CPU.  Tolerance: 0.
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
 from opencv_opencl_tpu_torch.ops import histeq as torch_histeq
 from opencv_opencl_tpu_torch.ops import cuda as torch_cuda
 from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.parallel import launch, sharded
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +109,8 @@ def test_step_equals_golden_and_counts_launches(device):
     out = torch_clahe.clahe_apply(torch.from_numpy(frames).to(device), plan)
     assert natural.launch_counts() == {
         "tile_histograms": 1, "build_luts": 1, "clahe_interpolate": 1,
-        "clahe_interp_and_hist": 0}
+        "clahe_interp_and_hist": 0, "clahe_interpolate_band": 0,
+        "clahe_interpolate_pack": 0}
     for i, f in enumerate(frames):
         assert np.array_equal(out[i].cpu().numpy(), golden.clahe(f, 2.0, (8, 8)))
     assert _build.is_built()
@@ -365,3 +368,113 @@ def test_pallas_backend_on_card_equals_cpu_and_counts_launches(device, h, w, gri
                                                     backend="xla", device="cpu"))
     for i, f in enumerate(frames):
         assert np.array_equal(out[i].cpu().numpy(), golden.clahe(f, 2.0, grid))
+
+
+BAND_CASES = [
+    # (n, h, w, grid, content)
+    (2, 96, 128, (8, 8), "nv12"),       # strided Y rows of NV12
+    (1, 1079, 1919, (8, 8), "random"),  # odd geometry
+    (2, 67, 131, (5, 3), "random"),     # odd grid
+    (2, 64, 128, (8, 8), "constant"),
+]
+
+
+@pytest.mark.parametrize("n,h,w,grid,content", BAND_CASES)
+def test_band_kernels_equal_plain_and_whole_frame_kernels(device, n, h, w, grid, content):
+    """K5, K3v1 and K9 on the sharded step's bands for 2, 3 and 4 positions,
+    in place, against their plain versions, K3 and K6; K1 per band of tile
+    rows against K1 on the whole frame."""
+    batch = torch.from_numpy(_frames(11, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(
+        torch.from_numpy(_frames(12, n, h, w)).to(device), plan), plan.clip, plan.lut_scale)
+    k3 = natural.clahe_interpolate(y, luts, plan)
+    assert torch.equal(natural.clahe_interpolate_pack(y, luts, plan), k3)
+    assert torch.equal(natural.clahe_interpolate_pack_ref(y, luts, plan), k3)
+    whole_hists = natural.tile_histograms(y, plan)
+    for space in (2, 3, 4):
+        tiles_yp, _, hq = sharded._clahe_geometry(plan, space)
+        inplace = batch.clone()
+        hists = []
+        for s in range(space):
+            row0 = min(s * (hq // space), h)
+            row1 = min((s + 1) * (hq // space), h)
+            band = y[:, row0:row1]
+            got = natural.clahe_interpolate_band(band, luts, plan, row0)
+            assert torch.equal(got, natural.clahe_interpolate_band_ref(band, luts, plan, row0))
+            assert torch.equal(got, k3[:, row0:row1])
+            got9 = lut.clahe_interpolate_cells_band(band, luts, spec, row0)
+            assert torch.equal(got9, lut.clahe_interpolate_cells_band_ref(band, luts, spec, row0))
+            assert torch.equal(got9, got)
+            view = inplace[:, row0:row1]
+            natural.clahe_interpolate_band(view, luts, plan, row0, out=view)
+            tile_rows = (min(s * (tiles_yp // space), plan.tiles_y),
+                         min((s + 1) * (tiles_yp // space), plan.tiles_y))
+            lo, hi = natural.band_source_rows(plan, tile_rows)
+            hists.append(natural.tile_histograms(y[:, lo:hi], plan, 1, tile_rows, lo))
+        assert torch.equal(inplace[:, :h], k3)
+        assert torch.equal(inplace[:, h:], batch[:, h:])
+        assert torch.equal(torch.cat(hists, dim=1), whole_hists)
+    # any row0, and a band that runs past the frame: those rows stay
+    past = torch.cat([y[:, h - 5:], y[:, :3]], dim=1).contiguous()
+    for fn, geom in ((natural.clahe_interpolate_band, plan),
+                     (lut.clahe_interpolate_cells_band, spec)):
+        assert torch.equal(fn(y[:, 5:h - 3], luts, geom, 5), k3[:, 5:h - 3])
+        got = fn(past, luts, geom, h - 5)
+        assert torch.equal(got[:, :5], k3[:, h - 5:]) and torch.equal(got[:, 5:], past[:, 5:])
+
+
+def test_lut_pack_on_card_holds_the_direct_lookups(device):
+    plan = torch_clahe.make_clahe_plan(96, 128, 2.0, (8, 8))
+    spec = natural.make_pack_spec(96, 128, 2.0, (8, 8))
+    luts = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 256, (2, plan.num_tiles, 256), dtype=np.uint8)).to(device)
+    pack = natural.build_lut_pack(luts, spec)
+    assert pack.is_contiguous() and pack.shape == (2, 9, 9, 256, 4)
+    assert torch.equal(pack.cpu(), natural.build_lut_pack(luts.cpu(), spec))
+
+
+@pytest.mark.parametrize("op,chroma", [("clahe", ChromaPolicy.PASSTHROUGH),
+                                       ("histeq", ChromaPolicy.GRAY)])
+def test_sharded_enhancer_in_process_on_card_equals_cpu(device, op, chroma):
+    """Every mesh position run in this process on the card: the kernels on
+    the bands, against the single-device Enhancer on the CPU."""
+    spec = FrameSpec(width=120, height=66)
+    cfg = torch_enhancer.EnhancerConfig(op=op, clip_limit=2.0, tile_grid=(8, 8),
+                                        chroma=chroma)
+    batch = _frames(14, 4, spec.buffer_rows, spec.width)
+    want = np.asarray(torch_enhancer.Enhancer(cfg, spec, "cpu").process_batch(batch))
+    for shape in ((2, 2), (1, 4), (2, 3), (1, 1)):
+        torch_cuda.reset_launch_counts()
+        enhancer = sharded.ShardedEnhancer(cfg, spec, mesh=shape, device=device)
+        assert np.array_equal(np.asarray(enhancer.process_batch(batch)), want), shape
+        counts = torch_cuda.launch_counts()
+        bands = enhancer._y_step.bands
+        # a position whose band is empty (66 rows in 4 bands of 24) has
+        # nothing to map
+        mapping = shape[0] * sum(r1 > r0 for r0, r1 in map(bands.rows, range(shape[1])))
+        assert counts["tile_histograms"] == shape[0] * shape[1]
+        if op == "clahe":
+            assert counts["build_luts"] == counts["clahe_interpolate_band"] == mapping
+            assert counts["clahe_interpolate"] == 0
+        else:
+            assert counts["apply_lut"] == mapping
+
+
+def test_sharded_enhancer_on_a_process_group_sharing_the_card(device):
+    """Two spawned processes on the one card (gloo, staged through the
+    host): each compares the assembled batch with the single-card Enhancer."""
+    spec = FrameSpec(width=128, height=96)
+    cfg = torch_enhancer.EnhancerConfig(op="clahe", clip_limit=2.0, tile_grid=(8, 8),
+                                        chroma=ChromaPolicy.PASSTHROUGH)
+    batch = _frames(15, 2, spec.buffer_rows, spec.width)
+    ranks = launch.run_on_mesh((1, 2), launch.compare_with_enhancer,
+                               ([(cfg, spec, [batch])],), device_type="cuda",
+                               timeout=240.0)
+    for rank, (res,) in enumerate(ranks):
+        assert res["equal"] == [True] and res["local_equal"] == [True]
+        assert res["launches"]["clahe_interpolate_band"] == 2    # assembled + local
+        assert res["part"].rows == ((0, 48), (48, 96))[rank]
+        assert res["loaded"] == []

@@ -230,11 +230,15 @@ def test_wrappers_launch_nothing_on_cpu():
     luts = natural.build_luts_ref(natural.tile_histograms_ref(y, plan),
                                   plan.clip, plan.lut_scale)
     natural.clahe_interp_and_hist(y, luts, plan)
+    natural.clahe_interpolate_band(y[:, 8:24], luts, plan, 8)
+    natural.clahe_interpolate_pack(y, luts, plan)
     histeq.equalize_hist_batch(y, device="cpu")
     assert cuda.launch_counts() == {
         "tile_histograms": 0, "build_luts": 0, "clahe_interpolate": 0,
-        "clahe_interp_and_hist": 0, "apply_lut": 0,
-        "clahe_interpolate_cells": 0, "tile_histograms_extended": 0}
+        "clahe_interp_and_hist": 0, "clahe_interpolate_band": 0,
+        "clahe_interpolate_pack": 0, "apply_lut": 0,
+        "clahe_interpolate_cells": 0, "tile_histograms_extended": 0,
+        "clahe_interpolate_cells_band": 0}
 
 
 def test_wrappers_reject_bad_inputs():
