@@ -25,7 +25,15 @@ Phases, each of which raises (exit code != 0) when it fails:
             version and against K3; K3v1 (K5's kernel over whole frames)
             against K3; K9 (K6's kernel on a band) on the same bands
             against K6 and K5; K1 per band of tile rows (space 3, with fake
-            tile rows) against K1 on the whole frame;
+            tile rows) against K1 on the whole frame; K10 (the row-batched,
+            warp-aggregated tile histograms) at 4K b4 on an 8x8 and a 1x1
+            grid for batch_rows 2, 4 and 8 on structured, random and
+            constant content, on a 1919x1079 frame extended to its tile
+            multiple and on an unaligned view, against its plain version,
+            K1 and K8; K6r (the cell-grid blend with the cell's LUTs
+            interleaved in shared memory) at 4K b4, 1080p, 1919x1079 and on
+            a constant frame in place over NV12 Y rows, against its plain
+            version, K6 and K3;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -51,7 +59,19 @@ Phases, each of which raises (exit code != 0) when it fails:
             on a 2x2 and a 1x4 mesh of four spawned processes that share
             the card (gloo, staged through the host), 16 batches each,
             every assembled batch and every position's band compared with
-            the single-card ``Enhancer``'s inside each rank;
+            the single-card ``Enhancer``'s inside each rank; then the relay
+            apps as a user starts them, in this process:
+            ``apps.relay.run`` at 3840x2160, batch 4, ``--source=test``, 64
+            frames, for (a) histeq gray to the null sink, (b) CLAHE
+            passthrough to a raw NV12 file that is compared frame by frame
+            with the plain versions on the same ``TestSource`` frames, (c)
+            ``--ref-frame``, (d) ``--mesh=1x1`` (the app starts its own
+            one-rank NCCL group) and (e) ``--sink=rtp+raw://`` on loopback
+            with a receiver thread that reassembles frames and compares
+            them (the source paced at 1 fps, which the Python packetizer
+            keeps up with; at 1080p as well if the host is slower than
+            that); and ``apps.multi_relay.run`` with 4 streams of 1080p, 32
+            frames each;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
             PyTorch call that computes the same function; K6 beside K3, K8
@@ -59,7 +79,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             K3v1 beside K3 and K9 beside K6, in turns; the 1x1 sharded step
             beside the CLAHE step; each rank's time for its part of the 2x2
             and 1x4 steps; the feeder's end-to-end rates; torch.profiler's
-            device time per kernel for each step.
+            device time per kernel for each step; the relay's and the
+            multi-stream relay's own ``Shutdown`` rates; K10 for each
+            batch_rows beside K1 and K8 on structured, random and constant
+            content, and K6r beside K6 and K5, in turns.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
@@ -69,8 +92,11 @@ versions and the port's ``core/golden.py``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -82,9 +108,12 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
+from opencv_opencl_tpu_torch.apps import multi_relay, relay
 from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
+from opencv_opencl_tpu_torch.io.rtp import RtpUdpReceiver
+from opencv_opencl_tpu_torch.io.videofile import TestSource
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer,
     EnhancerConfig,
@@ -146,12 +175,26 @@ KERNELS = (
     ("interp_cells_kernel:band", "clahe_interpolate_cells_band",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:356"),
+    ("tile_hist_batched_kernel", "tile_histograms_batched",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
+     "opencv_opencl_tpu/ops/pallas/experiments.py:116"),
+    ("interp_cells_radix_kernel", "clahe_interpolate_cells_radix",
+     "opencv_opencl_tpu_torch/csrc/lut.cu",
+     "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477:radix"),
 )
-# K8, K3v1 and K9 lie on no path (nor do their TPU kernels on any path of
-# the JAX package): their launches are those of their phase-3 checks
+# K8, K3v1, K9, K10 and K6r lie on no path (nor do their TPU kernels on any
+# path of the JAX package): their launches are those of their phase-3 checks
 OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
-            "clahe_interpolate_cells_band")
-SHARDED_BATCHES = 16
+            "clahe_interpolate_cells_band", "tile_histograms_batched",
+            "clahe_interpolate_cells_radix")
+# batches per configuration on the spawned 2x2 and 1x4 meshes
+SHARDED_BATCHES = 4
+RELAY_FRAMES = 64
+# the pace of the relay's source when its sink is raw RTP at 4K (see
+# relay_over_rtp): the Python packetizer sent 1.6 4K frames a second on the
+# H100's host
+RTP_PACE_FPS = 1.0
+MULTI_STREAMS, MULTI_FRAMES = 4, 32
 SPAWN_TIMEOUT = 420.0
 
 
@@ -566,6 +609,87 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
                       lut.clahe_interpolate_cells_band.launches}
 
 
+def phase_batched_hist_kernel(device, rng) -> tuple[int, int]:
+    """K10 against its plain version, K1 and K8, for batch_rows 2, 4 and 8:
+    4K b4 (structured NV12 Y rows, random, constant) on an 8x8 and a 1x1
+    grid, a 1919x1079 frame reflect-extended to its tile multiple, and an
+    unaligned view with 30-wide tiles (the byte path, partial warps);
+    returns the error and K10's launches here."""
+    frames = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
+    natural.tile_histograms_batched.launches = 0
+    cases = [("4k_b4_structured_nv12", frames[:, :HEIGHT], (GRID, (1, 1))),
+             ("4k_b4_random", torch.from_numpy(
+                 random_y(rng, BATCH, HEIGHT, WIDTH)).to(device), (GRID, (1, 1))),
+             ("4k_b4_constant", torch.full((BATCH, HEIGHT, WIDTH), 77,
+                                           dtype=torch.uint8, device=device),
+              (GRID, (1, 1))),
+             ("1079x1919_odd_extended", torch.from_numpy(
+                 random_y(rng, 2, 1079, 1919)).to(device), (GRID,))]
+    worst = 0
+    for label, y, grids in cases:
+        for grid in grids:
+            plan = clahe_ops.make_clahe_plan(y.shape[1], y.shape[2], CLIP, grid)
+            ext = natural.extend(y, plan)
+            args = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+            want = natural.tile_histograms_batched_ref(ext, *args)
+            k1 = natural.tile_histograms(y, plan)
+            k8 = lut.tile_histograms_extended(ext, *args)
+            errs = []
+            for batch_rows in (2, 4, 8):
+                got = natural.tile_histograms_batched(ext, *args, batch_rows=batch_rows)
+                errs.append(max(max_err(got, want), max_err(got, k1), max_err(got, k8)))
+            torch.cuda.synchronize(device)
+            print(f"kernels {label} grid {grid[0]}x{grid[1]}: K10 {errs} for "
+                  f"batch_rows 2, 4, 8 vs plain, K1 and K8 (max abs err)", flush=True)
+            worst = max(worst, *errs)
+    wide = torch.from_numpy(random_y(rng, 2, 48, 131)).to(device)
+    view = wide[:, :, 7:127]            # base and row stride off 16 bytes
+    want = natural.tile_histograms_batched_ref(view, 4, 4, 12, 30)
+    errs = [max_err(natural.tile_histograms_batched(view, 4, 4, 12, 30, r), want)
+            for r in (2, 4, 8)]
+    torch.cuda.synchronize(device)
+    print(f"kernels 48x120_view_tiles_12x30_unaligned: K10 {errs} for batch_rows "
+          f"2, 4, 8 vs plain (max abs err)", flush=True)
+    return max(worst, *errs), natural.tile_histograms_batched.launches
+
+
+def phase_radix_cell_kernel(device, rng) -> tuple[int, int]:
+    """K6r against its plain version, K6 and K3 on the same LUTs (those of
+    other frames), in place over NV12 Y rows: 4K b4, 1080p, 1919x1079 and a
+    constant frame; returns the error and K6r's launches here."""
+    cases = [
+        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
+        ("1080p_b4_random_nv12", nv12_batch(rng, BATCH, 1080, 1920, random_y), 1080, 1920),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, 1919),
+        ("4k_constant", np.full((1, HEIGHT, WIDTH), 77, np.uint8), HEIGHT, WIDTH),
+    ]
+    lut.clahe_interpolate_cells.radix_launches = 0
+    worst = 0
+    for label, frames_np, h, w in cases:
+        spec = lut.make_interp_spec(h, w, CLIP, GRID)
+        check(spec is not None, f"{label} has no cell-grid spec")
+        batch = torch.from_numpy(frames_np).to(device)
+        y = batch[:, :h]
+        plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+        prev = torch.from_numpy(structured_y(rng, y.shape[0], h, w)).to(device)
+        luts = natural.build_luts_ref(natural.tile_histograms_ref(prev, plan),
+                                      plan.clip, plan.lut_scale)
+        want = lut.clahe_interpolate_cells_ref(y, luts, spec, radix=True)
+        got = lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+        inplace = batch.clone()
+        lut.clahe_interpolate_cells(inplace[:, :h], luts, spec, out=inplace[:, :h],
+                                    radix=True)
+        e_plain = max(max_err(got, want), max_err(inplace[:, :h], want),
+                      max_err(inplace[:, h:], batch[:, h:]))
+        e_k6 = max_err(got, lut.clahe_interpolate_cells(y, luts, spec))
+        e_k3 = max_err(got, natural.clahe_interpolate(y, luts, plan))
+        torch.cuda.synchronize(device)
+        print(f"kernels {label}: K6r {e_plain} vs plain, {e_k6} vs K6, {e_k3} vs K3 "
+              f"(max abs err)", flush=True)
+        worst = max(worst, e_plain, e_k6, e_k3)
+    return worst, lut.clahe_interpolate_cells.radix_launches
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 
@@ -871,7 +995,7 @@ def phase_sharded_paths(device, rng, h=HEIGHT, w=WIDTH):
 
     batches = [frames[:BATCH], frames[BATCH:2 * BATCH]]
     cases = [(cfg, spec, batches) for spec, cfg in configs.values()]
-    repeats = SHARDED_BATCHES // len(batches)
+    repeats = max(1, SHARDED_BATCHES // len(batches))
     for shape in ((2, 2), (1, 4)):
         t0 = time.perf_counter()
         ranks = launch.run_on_mesh(shape, launch.compare_with_enhancer,
@@ -914,6 +1038,225 @@ def phase_sharded_paths(device, rng, h=HEIGHT, w=WIDTH):
         check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in none),
               f"{name} did not run {need} alone: {counts}")
     return per_path, rank_ms
+
+
+def run_app(app, argv: list[str], label: str) -> str:
+    """Call an app's ``run(argv)`` in this process with the launch counts at
+    0 and its standard output captured (and echoed, every line tagged);
+    a return code other than 0 fails the script."""
+    captured = io.StringIO()
+    cuda_ops.reset_launch_counts()
+    with contextlib.redirect_stdout(captured):
+        rc = app.run(argv)
+    text = captured.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            print(f"{label} | {line}", flush=True)
+    check(rc == 0, f"{label}: {app.__name__}.run({argv}) returned {rc}")
+    return text
+
+
+def relay_shutdown(text: str, label: str, frames: int,
+                   must_emit_all: bool = True) -> tuple[float, int]:
+    """The relay's own rate and the frames it emitted, from its
+    ``Shutdown`` line, after checking that it saw no processing error and
+    (unless told otherwise) emitted every frame and dropped none."""
+    m = re.search(r"Shutdown: (\d+) frames emitted in [\d.]+s \(([\d.]+) fps\), "
+                  r"dropped\(late\)=(\d+), dropped\(overflow\)=(\d+), "
+                  r"errors=(\d+)", text)
+    check(m is not None, f"{label}: no Shutdown line")
+    emitted, fps, late, overflow, errors = m.groups()
+    check(int(errors) == 0 and int(late) == 0
+          and int(emitted) + int(overflow) == frames, f"{label}: {m.group(0)}")
+    if must_emit_all:
+        check(int(emitted) == frames, f"{label}: {m.group(0)}")
+    for marker in ("relay pipeline started", "(with frame ordering)",
+                   "FINAL PERFORMANCE ANALYSIS"):
+        check(marker in text, f"{label}: no {marker!r} in the output")
+    return float(fps), int(emitted)
+
+
+class RawFrameCatcher(threading.Thread):
+    """A receiver of an ``rtp+raw://`` stream on 127.0.0.1: reassembles
+    frames until it holds ``keep`` complete ones (or is stopped), then
+    leaves the wire alone: what the sender goes on to send is dropped by the
+    socket, which a UDP sender does not notice."""
+
+    def __init__(self, rows: int, width: int, keep: int = 3):
+        super().__init__(daemon=True, name="rtp-raw-catcher")
+        # a stream frame the relay's queue dropped never reaches the wire, so
+        # the kept frames are matched to the expected ones in order, not by
+        # position
+        self.rx = RtpUdpReceiver(host="127.0.0.1", port=0, kind="raw",
+                                 frame_shape=(rows, width), timeout=0.5,
+                                 rtcp=False)
+        self.port = self.rx.port
+        self.kept: list[np.ndarray] = []
+        self.keep = keep
+        self._done = threading.Event()
+
+    def run(self) -> None:
+        while not self._done.is_set() and len(self.kept) < self.keep:
+            try:
+                self.kept.append(self.rx.recv_frame())
+            except OSError:      # the socket's timeout: nothing on the wire
+                continue
+
+    def finish(self) -> None:
+        self._done.set()
+        self.join(timeout=10)
+        check(not self.is_alive(), "the RTP receiver thread did not stop")
+        self.rx.close()
+
+
+def relay_over_rtp(w: int, h: int, want: np.ndarray,
+                   pace_fps: float) -> tuple[float, dict]:
+    """Configuration (e): CLAHE passthrough to ``rtp+raw://127.0.0.1:<port>``
+    with a receiver thread on loopback, the source paced at ``pace_fps``
+    like a camera (``--realtime``): the sink packetizes in Python on the
+    feeder's output thread, some 13,000 ``sendto`` calls per 4K frame, and a
+    source faster than that makes the relay's leaky queue drop frames, as
+    it is meant to.  Every complete frame the receiver kept must equal one
+    of the expected frames, in order.  The sender and
+    the receiver share this process's interpreter lock, so the lock's switch
+    interval is shortened for the run: a sender that kept the lock for the
+    default 5 ms would overrun the socket buffer between two turns of the
+    receiver."""
+    catcher = RawFrameCatcher(h * 3 // 2, w)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(2e-4)
+    catcher.start()
+    try:
+        text = run_app(relay, [
+            "--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
+            f"--max-frames={RELAY_FRAMES}", "--op=clahe", "--chroma=passthrough",
+            f"--fps={pace_fps:g}", "--realtime",
+            f"--sink=rtp+raw://127.0.0.1:{catcher.port}", "--status-interval=60"],
+            f"relay (e) {w}x{h}")
+        counts = cuda_ops.launch_counts()
+        time.sleep(0.3)          # what is still in the socket buffer
+    finally:
+        sys.setswitchinterval(interval)
+        catcher.finish()
+    fps, emitted = relay_shutdown(text, f"relay (e) {w}x{h}", RELAY_FRAMES,
+                                  must_emit_all=False)
+    last = -1
+    for frame in catcher.kept:
+        hits = [k for k in range(last + 1, RELAY_FRAMES)
+                if np.array_equal(frame, want[k])]
+        check(bool(hits), f"relay (e) {w}x{h}: a reassembled frame equals no "
+              f"expected frame after frame {last}")
+        last = hits[0]
+    print(f"relay (e) {w}x{h}: the receiver reassembled {len(catcher.kept)} "
+          f"complete frames (stream frames up to {last}; "
+          f"{catcher.rx.frames_dropped} before them dropped for lost packets), "
+          f"each equal to the plain versions' frame", flush=True)
+    return fps, {"complete": len(catcher.kept), "counts": counts,
+                 "emitted": emitted}
+
+
+def expected_relay_frames(device, w: int, h: int) -> np.ndarray:
+    """What the relay's CLAHE passthrough configuration must write: the
+    ``TestSource`` frames (seed 0, as the relay makes them) through the
+    plain versions."""
+    src = np.stack(list(TestSource(FrameSpec(width=w, height=h),
+                                   num_frames=RELAY_FRAMES)))
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    want = src.copy()
+    for k in range(0, RELAY_FRAMES, BATCH):
+        y = torch.from_numpy(src[k:k + BATCH, :h]).to(device)
+        want[k:k + BATCH, :h] = plain_step(y, plan).cpu().numpy()
+    return want
+
+
+def phase_relay_paths(device, h=HEIGHT, w=WIDTH):
+    """This slice's path: the relay apps as a user starts them, at 4K batch
+    4 on ``TestSource`` frames.  Returns each configuration's launch counts
+    and the apps' own rates."""
+    check(not dist.is_initialized(), "the relay's --mesh=1x1 starts its own group")
+    base = ["--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
+            f"--max-frames={RELAY_FRAMES}", "--status-interval=60"]
+    want = expected_relay_frames(device, w, h)
+    per_path, rates = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_relay_") as tmp:
+        raw = os.path.join(tmp, "clahe.nv12")
+        configs = [
+            ("relay_a_histeq_gray_null",
+             ["--op=histeq", "--chroma=gray", "--sink=null"],
+             ("tile_histograms", "apply_lut")),
+            ("relay_b_clahe_rawfile",
+             ["--op=clahe", "--chroma=passthrough", f"--sink={raw}"],
+             ("tile_histograms", "build_luts", "clahe_interpolate")),
+            ("relay_c_clahe_ref_frame",
+             ["--op=clahe", "--chroma=passthrough", "--ref-frame", "--sink=null"],
+             ("build_luts", "clahe_interp_and_hist")),
+            ("relay_d_clahe_mesh_1x1",
+             ["--op=clahe", "--chroma=passthrough", "--mesh=1x1", "--sink=null"],
+             ("tile_histograms", "build_luts", "clahe_interpolate_band")),
+        ]
+        for name, extra, need in configs:
+            text = run_app(relay, base + extra, name)
+            per_path[name] = cuda_ops.launch_counts()
+            rates[name], _ = relay_shutdown(text, name, RELAY_FRAMES)
+            check(all(per_path[name][k] > 0 for k in need),
+                  f"{name} did not launch {need}: {per_path[name]}")
+            if "mesh" in name:
+                check("Sharded over mesh {'data': 1, 'space': 1} (1 devices)" in text
+                      and not dist.is_initialized(),
+                      f"{name}: no mesh line, or the app left its group open")
+        got = np.fromfile(raw, np.uint8)
+        check(got.size == want.size, f"the raw sink holds {got.size} bytes, not "
+              f"{want.size}")
+        got = got.reshape(want.shape)
+        bad = [k for k in range(RELAY_FRAMES) if not np.array_equal(got[k], want[k])]
+        check(not bad, f"relay (b): frames {bad} differ from the plain versions")
+        print(f"relay (b): all {RELAY_FRAMES} frames of the raw file equal the plain "
+              f"versions on the same TestSource frames", flush=True)
+        del got
+
+    # (e) over loopback: 4K paced at 1 fps; at 1080p and 3 fps as well if the
+    # host was too slow for that (frames dropped by the relay's queue) or no
+    # 4K frame arrived whole
+    name = "relay_e_clahe_rtp_raw"
+    rates[name], info = relay_over_rtp(w, h, want, RTP_PACE_FPS)
+    del want
+    if info["complete"] == 0 or info["emitted"] != RELAY_FRAMES:
+        print(f"relay (e): at 4K the relay emitted {info['emitted']} of "
+              f"{RELAY_FRAMES} frames and {info['complete']} arrived whole; at "
+              f"1080p:", flush=True)
+        rates[name + "_1080p"], info = relay_over_rtp(
+            1920, 1080, expected_relay_frames(device, 1920, 1080), 3.0)
+        check(info["complete"] > 0 and info["emitted"] == RELAY_FRAMES,
+              f"relay (e) at 1080p: emitted {info['emitted']}, "
+              f"{info['complete']} frames arrived whole")
+    per_path[name] = info["counts"]
+    check(all(per_path[name][k] > 0 for k in
+              ("tile_histograms", "build_luts", "clahe_interpolate")),
+          f"{name} launched no K1, K2 or K3: {per_path[name]}")
+
+    # the multi-stream relay: 4 streams of 1080p through one StreamMux
+    name = "multi_relay_4x1080p_clahe"
+    text = run_app(multi_relay, [
+        f"--streams={MULTI_STREAMS}", "--width=1920", "--height=1080",
+        "--fps=1000", f"--max-frames={MULTI_FRAMES}", f"--batch={BATCH}",
+        "--op=clahe", "--chroma=passthrough", "--sink=null",
+        "--status-interval=1"], name)
+    per_path[name] = cuda_ops.launch_counts()
+    m = re.search(r"Shutdown: (\d+) frames across (\d+) streams in [\d.]+s "
+                  r"\(([\d.]+) fps aggregate\)", text)
+    check(m is not None, f"{name}: no Shutdown line")
+    per_stream = re.findall(r"#\d+=(\d+)/(\d+)", text)
+    total = MULTI_STREAMS * MULTI_FRAMES
+    check(int(m.group(1)) == total and int(m.group(2)) == MULTI_STREAMS
+          and per_stream == [(str(MULTI_FRAMES),) * 2] * MULTI_STREAMS,
+          f"{name}: {m.group(0)}; per stream {per_stream}")
+    check(all(e == "0" for e in re.findall(r"errors=(\d+)", text)),
+          f"{name}: processing errors in its status lines")
+    check(all(per_path[name][k] > 0 for k in
+              ("tile_histograms", "build_luts", "clahe_interpolate")),
+          f"{name} launched no K1, K2 or K3: {per_path[name]}")
+    rates[name] = float(m.group(3))
+    return per_path, rates
 
 
 def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> float:
@@ -1096,6 +1439,15 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
                                                          band_row0), None,
             2 * band.numel() + nbytes(band_luts, *spec.device_arrays(device)),
             10 * band.numel()),
+        # K10 (batch_rows 8, its default) and K6r over the whole batch
+        "tile_hist_batched_kernel": (
+            lambda: natural.tile_histograms_batched(y, *tiles),
+            lambda: natural.tile_histograms_batched_ref(y, *tiles), None,
+            px + nbytes(hists), px),
+        "interp_cells_radix_kernel": (
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
+            lambda: lut.clahe_interpolate_cells_ref(y, luts, spec, radix=True), None,
+            2 * px + nbytes(luts, *spec.device_arrays(device)), 10 * px),
     }
     times = {}
     for name, (kernel, plain, library, moved, ops) in fx.items():
@@ -1151,6 +1503,13 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K9 interp_cells_kernel, the batch as one band, vs K6": (
             lambda: lut.clahe_interpolate_cells_band(y, luts, spec, 0, out=out),
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
+        "K6r interp_cells_radix_kernel vs K6 interp_cells_kernel": (
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
+        "K6r interp_cells_radix_kernel vs K5 interp_pack_kernel, the batch as one "
+        "band": (
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
+            lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out)),
         "K9 vs K5 on a 2x2 band (2 frames, 1080 rows)": (
             lambda: lut.clahe_interpolate_cells_band(band, band_luts, spec,
                                                      band_row0, out=band_out),
@@ -1163,6 +1522,21 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
               f"{reads[1]:.4f} / {reads[2]:.4f} ms on the device [{card}]", flush=True)
         if label.startswith("K2"):
             times["build_luts_kernel"]["clip_tensor_ms"] = min(reads[0], reads[3])
+    # K10 for each batch_rows beside K1 and K8, by content, in turns
+    random_frames = torch.from_numpy(random_y(rng, BATCH, HEIGHT, WIDTH)).to(device)
+    for label, frames in (("structured", y), ("random", random_frames), ("constant", const)):
+        fns = [(f"K10 rows {r}", lambda r=r: natural.tile_histograms_batched(
+            frames, *tiles, batch_rows=r)) for r in (2, 4, 8)]
+        fns += [("K1", lambda: natural.tile_histograms(frames, plan)),
+                ("K8", lambda: lut.tile_histograms_extended(frames, *tiles))]
+        reads = {name: [] for name, _ in fns}
+        for name, fn in fns + fns[::-1]:
+            reads[name].append(device_ms(fn))
+        times["tile_hist_batched_kernel"][f"{label}_ms"] = {
+            name: min(v) for name, v in reads.items()}
+        print(f"time tile histograms 4K b{BATCH} {label} content, in turns: "
+              + "; ".join(f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in reads.items())
+              + f" ms on the device [{card}]", flush=True)
     pack_spec = natural.make_pack_spec(HEIGHT, WIDTH, CLIP, GRID)
     print(f"time build_lut_pack 4K b{BATCH} (the gather and permute inside K5's "
           f"wrapper): {device_ms(lambda: natural.build_lut_pack(luts, pack_spec)):.4f}"
@@ -1256,6 +1630,12 @@ def main() -> int:
         phase_private_hist_kernel(device, rng)
     band_errs, off_path_launches = phase_band_kernels(device, rng)
     off_path_launches["tile_histograms_extended"] = k8_launches
+    errs["tile_hist_batched_kernel"], \
+        off_path_launches["tile_histograms_batched"] = \
+        phase_batched_hist_kernel(device, rng)
+    errs["interp_cells_radix_kernel"], \
+        off_path_launches["clahe_interpolate_cells_radix"] = \
+        phase_radix_cell_kernel(device, rng)
     errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
                                    band_errs.pop("tile_hist_kernel"))
     errs.update(band_errs)
@@ -1266,6 +1646,9 @@ def main() -> int:
     phase_golden_sharded(device, rng)
     per_path = phase_main_paths(device, rng)               # phase 5
     per_path.update(phase_slice3_paths(device, rng))
+    # the relay apps first: their --mesh=1x1 starts and ends a group of its own
+    relay_paths, relay_rates = phase_relay_paths(device)
+    per_path.update(relay_paths)
     # the 1x1 mesh of the sharded path lives in this process: a process
     # group of one rank on NCCL, until the script ends
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as rendezvous:
@@ -1289,6 +1672,10 @@ def main() -> int:
                 print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
                       f"upload included, four processes on one card: "
                       f"{[round(t, 4) for t in ms]} ms [{card}]", flush=True)
+            for name, fps in relay_rates.items():
+                print(f"time {name}: the app's own Shutdown rate {fps:.1f} fps "
+                      f"(TestSource on the host, H2D, step, D2H and the sink) "
+                      f"[{card}]", flush=True)
             frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)
             spec, cfg = clahe_config()
             for label, process_batch in (
@@ -1305,7 +1692,8 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
-    check("jax" not in sys.modules, "jax was imported")
+    check("jax" not in sys.modules and "cv2" not in sys.modules,
+          "jax or cv2 was imported")
     check(not any(m == "opencv_opencl_tpu" or m.startswith("opencv_opencl_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     kernels = [

@@ -13,11 +13,16 @@ core      frame layouts (``frames``) and the numpy golden models (``golden``)
 ops       histogram, equalizeHist and CLAHE on tensors; ``ops/cuda`` holds
           the hand-written Hopper kernels' wrappers (sources in ``csrc/``)
           beside their plain PyTorch versions
-models    the NV12 enhancement step, ``Enhancer`` and ``StreamingEnhancer``
+models    the NV12 enhancement step, ``Enhancer`` and ``StreamingEnhancer``,
+          and the named presets of the reference programs
 parallel  the same step over a (data, space) mesh of processes on
           ``torch.distributed``: ``ShardedEnhancer``, ``run_on_mesh``
-runtime   the frame feeder, queues and resequencer, and the device-to-host
-          handoff the feeder materialises
+runtime   the frame feeder, queues and resequencer, the device-to-host
+          handoff the feeder materialises, the rate governors and the
+          stream mux
+io        sources and sinks of NV12 frames (synthetic, file, raw), the native
+          RTP/RTCP data plane, SDP, and the GStreamer pipeline strings
+apps      the command-line apps: ``relay`` and ``multi_relay``
 metrics   streaming counters and timing
 utils     environment report (torch, CUDA, card, power limit, kernels)
 """

@@ -1,4 +1,4 @@
-// CLAHE on Hopper: the three kernels of the NV12 CLAHE step.
+// CLAHE on Hopper: the kernels of the NV12 CLAHE steps.
 //
 //   K1 tile_hist_kernel   per-tile 256-bin histograms of the reflect-101
 //                         extended Y plane (optionally every rowstep-th row)
@@ -14,6 +14,10 @@
 //                         pixel as one 32-bit word of an interleaved pack
 //                         (the sharded step; over a whole frame it is the
 //                         TPU package's variant 1 of K3)
+//   K10 tile_hist_batched_kernel  K1's contract on an already extended
+//                         frame, batch_rows rows of a tile per warp step,
+//                         counted warp-aggregated without atomics
+//                         (experiments.py tile_histograms_radix_batched)
 //
 // Each kernel computes exactly what its TPU kernel in
 // opencv_opencl_tpu/ops/pallas/natural.py computes, and what the plain
@@ -387,6 +391,132 @@ interp_pack_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
+// ---------------------------------------------------------------- K10 ----
+// Replaces experiments.py tile_histograms_radix_batched /
+// _tile_hist_radixn_kernel (and _tile_hist_radix8_kernel): K1's contract on
+// an already extended, tile-divisible frame, with `batch_rows` rows of a tile
+// taken per step.  On the TPU that is batch_rows rows per MXU dot of radix-16
+// one-hots, trading FLOP overshoot against fewer dot issues; none of that
+// carries over.  Here the question the variant asks is how many rows one
+// unit of work takes per step: a warp takes R = batch_rows rows of its tile
+// at a time and each lane issues R independent loads (16 bytes each on the
+// aligned path) before it counts any of them, so R loads are in flight per
+// lane.  Bound: the read of the frames (1 byte per pixel, 33.2 MB for a 4K
+// batch of 4).  Counting is the third formulation beside K1 (one shared
+// atomic per pixel into one histogram per block) and K8 (per-warp private
+// bins, still one atomic per pixel): warp-aggregated and without atomics.
+// For each byte position the lanes of the warp find the lanes that hold the
+// same value (__match_any_sync over the active lanes), and the lowest lane of
+// each group adds the group's size (__popc) to the warp's private 256-bin
+// histogram with a plain add: the leaders of one step hold distinct values,
+// so they touch distinct bins, and __syncwarp orders one step's adds before
+// the next.  A constant frame costs one add per 32 pixels.  Grid: K8's, one
+// block per (tile, slice of the tile's rows), frame; the 8 warps of a block
+// take the slice's groups of R rows in turn; at the end the block sums the 8
+// private histograms per bin and adds each non-zero bin to the zeroed global
+// (N, T, 256) histogram with one global atomic (several blocks share a tile).
+// The 16-byte path needs the base, both strides and the tile width to be
+// multiples of 16 (`vec`, decided by the launcher); otherwise each lane
+// loads one byte per row and step, and a partial warp at a tile's right
+// edge passes its active mask to __match_any_sync.
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ void count_aggregated(int* mine, unsigned mask,
+                                                 int lane, unsigned v) {
+    const unsigned peers = __match_any_sync(mask, v);
+    if (lane == __ffs(peers) - 1) mine[v] += __popc(peers);
+    __syncwarp(mask);
+}
+
+__device__ __forceinline__ void count_word(int* mine, unsigned mask, int lane,
+                                           uint32_t w) {
+    count_aggregated(mine, mask, lane, w & 0xffu);
+    count_aggregated(mine, mask, lane, (w >> 8) & 0xffu);
+    count_aggregated(mine, mask, lane, (w >> 16) & 0xffu);
+    count_aggregated(mine, mask, lane, w >> 24);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+tile_hist_batched_kernel(const uint8_t* __restrict__ ext,
+                         long long frame_stride, long long row_stride,
+                         int tiles_x, int tile_h, int tile_w, int slices,
+                         int vec, int* __restrict__ out) {
+    __shared__ int bins[kWarps][kBins];
+    int* flat = &bins[0][0];
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
+    __syncthreads();
+
+    const int num_tiles = gridDim.x / slices;
+    const int tile = blockIdx.x / slices;
+    const int slice = blockIdx.x % slices;
+    const int frame = blockIdx.y;
+    const int ty = tile / tiles_x;
+    const int tx = tile % tiles_x;
+    const int k0 = (int)((long long)tile_h * slice / slices);
+    const int k1 = (int)((long long)tile_h * (slice + 1) / slices);
+    const uint8_t* base = ext + frame * frame_stride
+                          + (long long)ty * tile_h * row_stride
+                          + (long long)tx * tile_w;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    int* mine = bins[warp];
+    const unsigned full = 0xffffffffu;
+
+    // the slice's groups of R rows, one group per warp and step
+    for (int k = k0 + warp * R; k < k1; k += kWarps * R) {
+        const int nrows = min(R, k1 - k);
+        const uint8_t* rows = base + (long long)k * row_stride;
+        if (vec) {
+            const int units = tile_w >> 4;
+            for (int u0 = 0; u0 < units; u0 += 32) {
+                const int u = u0 + lane;
+                const bool active = u < units;
+                const unsigned mask = __ballot_sync(full, active);
+                if (!active) continue;
+                uint4 q[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    if (r < nrows)
+                        q[r] = __ldg(reinterpret_cast<const uint4*>(
+                                         rows + r * row_stride) + u);
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    if (r < nrows) {
+                        count_word(mine, mask, lane, q[r].x);
+                        count_word(mine, mask, lane, q[r].y);
+                        count_word(mine, mask, lane, q[r].z);
+                        count_word(mine, mask, lane, q[r].w);
+                    }
+                }
+            }
+        } else {
+            for (int c0 = 0; c0 < tile_w; c0 += 32) {
+                const int c = c0 + lane;
+                const bool active = c < tile_w;
+                const unsigned mask = __ballot_sync(full, active);
+                if (!active) continue;
+                unsigned v[R];
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    if (r < nrows) v[r] = rows[r * row_stride + c];
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    if (r < nrows) count_aggregated(mine, mask, lane, v[r]);
+            }
+        }
+    }
+    __syncthreads();
+
+    int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
+    for (int b = threadIdx.x; b < kBins; b += kThreads) {
+        int v = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
+        if (v) atomicAdd(&dst[b], v);
+    }
+}
+
 }  // namespace
 
 // Shared memory a block may use without opting in to more.
@@ -481,5 +611,40 @@ extern "C" int interp_pack_launch(const uint8_t* y, long long y_frame_stride,
         (long long)row_pairs * groups * kBins, row0, rows, height, width,
         rp_of_r, ya, g_of_c, xa, out, out_frame_stride, out_row_stride,
         rows_per_block);
+    return (int)cudaGetLastError();
+}
+
+// ext: (frames, tiles_y * tile_h, tiles_x * tile_w), already extended;
+// batch_rows is 2, 4 or 8 (the wrapper checks it); out is zeroed
+extern "C" int tile_hist_batched_launch(const uint8_t* ext, int frames,
+                                        long long frame_stride,
+                                        long long row_stride, int tiles_y,
+                                        int tiles_x, int tile_h, int tile_w,
+                                        int slices, int batch_rows, int* out,
+                                        void* stream) {
+    const int vec = (reinterpret_cast<uintptr_t>(ext) % 16 == 0
+                     && frame_stride % 16 == 0 && row_stride % 16 == 0
+                     && tile_w % 16 == 0) ? 1 : 0;
+    dim3 grid(tiles_y * tiles_x * slices, frames);
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (batch_rows) {
+    case 2:
+        tile_hist_batched_kernel<2><<<grid, kThreads, 0, s>>>(
+            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
+            vec, out);
+        break;
+    case 4:
+        tile_hist_batched_kernel<4><<<grid, kThreads, 0, s>>>(
+            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
+            vec, out);
+        break;
+    case 8:
+        tile_hist_batched_kernel<8><<<grid, kThreads, 0, s>>>(
+            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
+            vec, out);
+        break;
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version
-(counterpart of ``opencv_opencl_tpu.ops.pallas``): K1-K3, K5 (with K3v1) and
-K7 in ``natural``, K4, K6 (with K9) and K8 in ``lut``."""
+(counterpart of ``opencv_opencl_tpu.ops.pallas``): K1-K3, K5 (with K3v1),
+K7 and K10 in ``natural``, K4, K6 (with K9), K6r and K8 in ``lut``."""
 
 from opencv_opencl_tpu_torch.ops.cuda import lut, natural
 

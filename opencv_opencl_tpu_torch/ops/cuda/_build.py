@@ -49,6 +49,10 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _LL, _LL, _I, _P),
     "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,
                                  _P),
+    "tile_hist_batched_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
+                                 _P),
+    "interp_cells_radix_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P, _P, _P, _LL, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,5 @@
-"""The kernels of ``lut_kernels.py`` (K4, K6, K8), each beside its plain
-PyTorch version.
+"""The kernels of ``lut_kernels.py`` (K4, K6, K6r, K8, K9), each beside its
+plain PyTorch version.
 
 Counterpart of ``opencv_opencl_tpu/ops/pallas/lut_kernels.py``.  The
 kernels are CUDA C++ for Hopper in ``opencv_opencl_tpu_torch/csrc/lut.cu``:
@@ -14,6 +14,8 @@ tile_histograms_extended  tile_histograms_extended_    tile_histograms_pallas
                           ref                          (K8)
 clahe_interpolate_cells_  clahe_interpolate_cells_     clahe_interpolate_pallas_
 band                      band_ref                     band (K9; K6's kernel)
+clahe_interpolate_cells   clahe_interpolate_cells_ref  clahe_interpolate_pallas,
+(radix=True)              (radix=True)                 radix=True (K6r)
 ========================  ===========================  ==========================
 
 As in ``ops/cuda/natural.py``: a wrapper takes its plain version only for
@@ -33,6 +35,10 @@ is the per-warp-bins formulation of the tile histograms, timed beside K1.
 K9 is K6's kernel on a band of rows that starts at a global row, as the
 JAX package has one Pallas body behind both; no path of either package
 runs it (the sharded step takes K5), and it is checked and timed beside K5.
+K6r is K6's contract through ``interp_cells_radix_kernel``: the cell's four
+LUTs interleaved in shared memory as 256 four-byte words, one 32-bit load
+per pixel; only the tests of the JAX package run its TPU kernel, and here it
+is checked and timed beside K6, K3 and K5.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ __all__ = [
     "make_interp_spec",
     "clahe_interpolate_cells",
     "clahe_interpolate_cells_ref",
+    "build_cell_pack",
     "clahe_interpolate_cells_band",
     "clahe_interpolate_cells_band_ref",
     "tile_histograms_extended",
@@ -274,10 +281,42 @@ def clahe_interpolate_cells_band_ref(y_band: torch.Tensor, luts: torch.Tensor,
     return res if live == band_rows else torch.cat([res, y_band[:, live:]], dim=1)
 
 
+def build_cell_pack(luts: torch.Tensor, spec: InterpSpec) -> torch.Tensor:
+    """(N, T, 256) uint8 LUTs -> (N, CY, CX, 16, 16, 4): ``pack[n, cy, cx,
+    hi, lo]`` holds the four LUT entries (l11, l12, l21, l22) of cell
+    (cy, cx) at value ``16*hi + lo``, the layout K6r's blocks build in
+    shared memory."""
+    cell_lut_idx = spec.device_arrays(luts.device)[0].long()
+    pack = luts[:, cell_lut_idx].permute(0, 1, 2, 4, 3)     # (N, CY, CX, 256, 4)
+    return pack.reshape(*pack.shape[:3], 16, 16, 4)
+
+
+def _interpolate_cells_radix_ref(y: torch.Tensor, luts: torch.Tensor,
+                                 spec: InterpSpec) -> torch.Tensor:
+    """The radix form of the plain version: each pixel's four entries come
+    out of its cell's interleaved pack in two stages, the high then the low
+    four bits of its value."""
+    n, h, w = y.shape
+    _, ya, xa = spec.device_arrays(y.device)
+    rows = (torch.arange(h, device=y.device) + spec.pad_top) // spec.tile_h
+    cols = (torch.arange(w, device=y.device) + spec.pad_left) // spec.tile_w
+    words = build_cell_pack(luts, spec).reshape(-1, 4)
+    v = y.long()
+    frames = torch.arange(n, device=y.device)[:, None, None]
+    cell = (frames * spec.cy + rows[None, :, None]) * spec.cx + cols[None, None, :]
+    four = words[((cell * 16 + (v >> 4)) * 16) + (v & 15)].to(torch.float32)
+    return blend(four[..., 0], four[..., 1], four[..., 2], four[..., 3], xa,
+                 ya[:, None])
+
+
 def clahe_interpolate_cells_ref(y: torch.Tensor, luts: torch.Tensor,
-                                spec: InterpSpec) -> torch.Tensor:
+                                spec: InterpSpec,
+                                radix: bool = False) -> torch.Tensor:
     """Plain version of :func:`clahe_interpolate_cells`: the band version
-    over the whole frame."""
+    over the whole frame, or with ``radix=True`` the two-stage selection
+    from the interleaved cell pack (the same output)."""
+    if radix:
+        return _interpolate_cells_radix_ref(y, luts, spec)
     return clahe_interpolate_cells_band_ref(y, luts, spec, 0)
 
 
@@ -288,21 +327,58 @@ def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
     cell grid of ``spec``, with (N, T, 256) uint8 ``luts``: K3's output, bit
     for bit.  ``out`` (same shape, unit column stride) may be ``y`` itself.
 
-    ``radix=True`` (the JAX module's radix-16 kernel variant) is not ported
-    yet and raises."""
-    if radix:
-        raise NotImplementedError(
-            "K6's radix=True variant (_interp_kernel_radix) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
+    ``radix=True`` (the JAX module's radix-16 kernel variant) takes K6r,
+    ``interp_cells_radix_kernel``, and gives the same output; its launches
+    are counted in ``clahe_interpolate_cells.radix_launches``."""
     _check_frames(y, spec)
     _check_luts(luts, y, spec)
     _check_out(out, y)
     if not _on_card(y):
-        res = clahe_interpolate_cells_ref(y, luts, spec)
+        res = clahe_interpolate_cells_ref(y, luts, spec, radix)
         return res if out is None else out.copy_(res)
+    if radix:
+        out, launched = _interpolate_cells_radix(y, luts, spec, out)
+        clahe_interpolate_cells.radix_launches += launched
+        return out
     out, launched = _interpolate_cells(y, luts, spec, 0, out)
     clahe_interpolate_cells.launches += launched
     return out
+
+
+def _rows_per_block(spec: InterpSpec) -> int:
+    return max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
+
+
+def _check_cell_grid(spec: InterpSpec, n: int) -> None:
+    if spec.cx > 65535 or n > 65535:
+        raise ValueError(f"{spec.cx} cell columns or {n} frames exceed the "
+                         "launch grid")
+
+
+def _interpolate_cells_radix(y: torch.Tensor, luts: torch.Tensor,
+                             spec: InterpSpec,
+                             out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
+    """Launch ``interp_cells_radix_kernel`` on whole frames on the card;
+    returns the output and whether a launch was made."""
+    if not luts.is_contiguous():
+        raise ValueError("luts must be contiguous")
+    n = y.shape[0]
+    _check_cell_grid(spec, n)
+    lib = _build.load()
+    if out is None:
+        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
+    if not (n and spec.height and spec.width):
+        return out, False
+    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
+    with torch.cuda.device(y.device):
+        err = lib.interp_cells_radix_launch(
+            y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
+            spec.num_tiles, cell_lut_idx.data_ptr(), spec.cx, spec.height,
+            spec.width, spec.tile_h, spec.tile_w, spec.pad_top, spec.pad_left,
+            _rows_per_block(spec), ya.data_ptr(), xa.data_ptr(),
+            out.data_ptr(), out.stride(0), out.stride(1), _stream(y.device))
+    _raise_on(err, "interp_cells_radix_kernel")
+    return out, True
 
 
 def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
@@ -315,9 +391,7 @@ def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
     if not luts.is_contiguous() or luts.data_ptr() % 4:
         raise ValueError("luts must be contiguous and 4-byte aligned")
     n, band_rows, _ = y_band.shape
-    if spec.cx > 65535 or n > 65535:
-        raise ValueError(f"{spec.cx} cell columns or {n} frames exceed the "
-                         "launch grid")
+    _check_cell_grid(spec, n)
     lib = _build.load()
     live = live_rows(band_rows, spec.height, row0)
     if out is None:
@@ -327,13 +401,12 @@ def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
     if not (n and live):
         return out, False
     cell_lut_idx, ya, xa = spec.device_arrays(y_band.device)
-    rows_per_block = max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
     with torch.cuda.device(y_band.device):
         err = lib.interp_cells_launch(
             y_band.data_ptr(), y_band.stride(0), y_band.stride(1),
             luts.data_ptr(), n, spec.num_tiles, cell_lut_idx.data_ptr(),
             spec.cx, spec.height, spec.width, spec.tile_h, spec.tile_w,
-            spec.pad_top, spec.pad_left, rows_per_block, row0, live,
+            spec.pad_top, spec.pad_left, _rows_per_block(spec), row0, live,
             ya.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
             out.stride(1), _stream(y_band.device))
     _raise_on(err, "interp_cells_kernel")
@@ -406,10 +479,16 @@ _WRAPPERS = (apply_lut, clahe_interpolate_cells, tile_histograms_extended,
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    clahe_interpolate_cells.radix_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """Launches by wrapper name; K6r's, made through
+    ``clahe_interpolate_cells(radix=True)``, under
+    ``clahe_interpolate_cells_radix``."""
+    counts = {fn.__name__: fn.launches for fn in _WRAPPERS}
+    counts["clahe_interpolate_cells_radix"] = clahe_interpolate_cells.radix_launches
+    return counts
 
 
 reset_launch_counts()

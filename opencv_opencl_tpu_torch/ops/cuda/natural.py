@@ -16,6 +16,8 @@ clahe_interpolate_  clahe_interpolate_   natural.clahe_interpolate_natural_
 band                band_ref             band (K5)
 clahe_interpolate_  clahe_interpolate_   natural.clahe_interpolate_natural,
 pack                pack_ref             variant 1 (K3v1; K5's kernel)
+tile_histograms_    tile_histograms_     experiments.tile_histograms_radix_
+batched             batched_ref          batched (K10)
 ==================  ===================  =====================================
 
 K5 and K3v1 are one kernel, ``interp_pack_kernel``, as the JAX package has
@@ -24,7 +26,11 @@ read as one 32-bit word of an interleaved pack (:func:`build_lut_pack`,
 geometry in :class:`PackSpec`).  K5 runs it on a band of rows that starts
 at a global row ``row0`` (the sharded step), K3v1 on whole frames.
 ``tile_histograms`` also takes a band: ``tile_rows`` of the plan, read from
-a slab of the frame that starts at ``slab_row0``.
+a slab of the frame that starts at ``slab_row0``.  K10 is K1's contract on
+an already extended frame with ``batch_rows`` rows of a tile per warp step,
+counted warp-aggregated; no path runs it (nor does any path of the JAX
+package): it is the third formulation of the tile histograms, checked and
+timed beside K1 and K8.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel on the current stream or raises; it
@@ -70,6 +76,8 @@ __all__ = [
     "clahe_interpolate_band_ref",
     "clahe_interpolate_pack",
     "clahe_interpolate_pack_ref",
+    "tile_histograms_batched",
+    "tile_histograms_batched_ref",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -706,9 +714,58 @@ def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
     return out, hists
 
 
+# ----------------------------------------------------------------- K10 ----
+
+_BATCH_ROWS = (2, 4, 8)
+
+
+def tile_histograms_batched_ref(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                                tile_h: int, tile_w: int) -> torch.Tensor:
+    """Plain version of :func:`tile_histograms_batched`: ``bincount`` per
+    tile (``batch_rows`` changes how the kernel walks, not what it counts)."""
+    batch = ext if ext.ndim == 3 else ext[None]
+    hists = bincount_tiles(batch, tiles_y, tiles_x, tile_h, tile_w).to(torch.int32)
+    return hists if ext.ndim == 3 else hists[0]
+
+
+def tile_histograms_batched(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                            tile_h: int, tile_w: int,
+                            batch_rows: int = 8) -> torch.Tensor:
+    """An already reflect-extended, tile-divisible uint8 plane
+    (tiles_y*tile_h, tiles_x*tile_w) -> (T, 256) int32 histograms of its
+    tiles in row-major order, or (N, He, We) frames -> (N, T, 256): K1's
+    counts, with ``batch_rows`` rows (2, 4 or 8) of a tile per warp step."""
+    if batch_rows not in _BATCH_ROWS:
+        raise ValueError(
+            f"batch_rows must be one of (2, 4, 8), got {batch_rows}")
+    if not isinstance(ext, torch.Tensor) or ext.ndim not in (2, 3):
+        raise ValueError("ext must be a (He, We) or (N, He, We) tensor")
+    batch = ext if ext.ndim == 3 else ext[None]
+    _check_band(batch, tiles_x * tile_w, "ext")
+    if batch.shape[1] != tiles_y * tile_h:
+        raise ValueError(f"ext frames are {tuple(batch.shape[1:])}, not "
+                         f"{tiles_y}x{tiles_x} tiles of {tile_h}x{tile_w}")
+    if not _on_card(batch):
+        return tile_histograms_batched_ref(ext, tiles_y, tiles_x, tile_h, tile_w)
+    lib = _build.load()
+    n = batch.shape[0]
+    num_tiles = tiles_y * tiles_x
+    out = torch.zeros((n, num_tiles, 256), dtype=torch.int32, device=ext.device)
+    if n and num_tiles and tile_h and tile_w:
+        slices = max(1, min(tile_h, -(-_HIST_TARGET_BLOCKS // (n * num_tiles))))
+        with torch.cuda.device(ext.device):
+            err = lib.tile_hist_batched_launch(
+                batch.data_ptr(), n, batch.stride(0), batch.stride(1), tiles_y,
+                tiles_x, tile_h, tile_w, slices, batch_rows, out.data_ptr(),
+                _stream(ext.device))
+        _raise_on(err, "tile_hist_batched_kernel")
+        tile_histograms_batched.launches += 1
+    return out if ext.ndim == 3 else out[0]
+
+
 _WRAPPERS = (tile_histograms, build_luts, clahe_interpolate,
              clahe_interp_and_hist, clahe_interpolate_band,
-             clahe_interpolate_pack)
+             clahe_interpolate_pack, tile_histograms_batched)
 
 
 def reset_launch_counts() -> None:

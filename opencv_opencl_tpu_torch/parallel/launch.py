@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_process_group", "run_on_mesh", "compare_with_enhancer"]
+__all__ = ["init_process_group", "run_on_mesh", "compare_with_enhancer",
+           "run_relay"]
 
 
 def init_process_group(rank: int, world_size: int, rendezvous_file: str,
@@ -202,3 +203,15 @@ def compare_with_enhancer(mesh, device, cases, repeats: int = 1,
             result["outputs"] = outputs
         results.append(result)
     return results
+
+
+def run_relay(mesh, device, argv: list[str]) -> int:
+    """A position's call of the relay app inside the group that
+    :func:`run_on_mesh` started: every rank runs ``apps.relay.run(argv)``
+    with the same arguments (``--mesh=DxS`` of the group's shape among
+    them; the app builds its own mesh over the group) and returns its
+    return code.  Rank 0 owns the sink and prints."""
+    from opencv_opencl_tpu_torch.apps import relay
+
+    del mesh, device  # the app takes both from its flags and the group
+    return relay.run(list(argv))

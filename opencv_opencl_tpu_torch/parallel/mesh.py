@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_mesh", "best_mesh_shape", "mesh_from_cli"]
+__all__ = ["make_mesh", "best_mesh_shape", "parse_mesh_spec", "mesh_from_cli"]
 
 
 def best_mesh_shape(n: int) -> tuple[int, int]:
@@ -77,21 +77,28 @@ def make_mesh(
                             mesh_dim_names=tuple(axis_names))
 
 
+def parse_mesh_spec(spec: str) -> tuple[int, int] | None:
+    """A ``--mesh`` flag value as a shape: None for 'auto', (D, S) for
+    'DxS' (e.g. '4x2').  Raises ValueError with a user-facing message for a
+    malformed spec."""
+    if spec == "auto":
+        return None
+    try:
+        d, s = spec.lower().split("x", 1)
+        shape = (int(d), int(s))
+    except ValueError:
+        raise ValueError(
+            f"--mesh={spec!r} invalid: use 'auto' or DxS (e.g. 4x2)"
+        ) from None
+    if shape[0] < 1 or shape[1] < 1:
+        raise ValueError(
+            f"--mesh={spec!r} invalid: axes must be >= 1")
+    return shape
+
+
 def mesh_from_cli(spec: str) -> DeviceMesh:
     """Parse a ``--mesh`` flag value ('auto' or 'DxS', e.g. '4x2') and
     build the mesh.  Raises ValueError with a user-facing message for a
     malformed spec or an unsatisfiable device count — one parser shared
     by every app exposing the flag."""
-    shape = None
-    if spec != "auto":
-        try:
-            d, s = spec.lower().split("x", 1)
-            shape = (int(d), int(s))
-        except ValueError:
-            raise ValueError(
-                f"--mesh={spec!r} invalid: use 'auto' or DxS (e.g. 4x2)"
-            ) from None
-        if shape[0] < 1 or shape[1] < 1:
-            raise ValueError(
-                f"--mesh={spec!r} invalid: axes must be >= 1")
-    return make_mesh(shape=shape)
+    return make_mesh(shape=parse_mesh_spec(spec))

@@ -4,7 +4,10 @@ The port's own copy of ``opencv_opencl_tpu/runtime/feeder.py``, without
 the C++ staging ring: ``native_staging`` raises ``NotImplementedError``
 until that ring is ported (ROADMAP.md Queue 1 item 10).  Everything else
 is the same code, so the same frames give the same outputs, order and
-stats.
+stats.  One option is the port's: ``whole_batches``, for a step that is a
+collective over several processes (``parallel/sharded.ShardedEnhancer`` in a
+process group), where every process must cut the same frames into the same
+batches whatever its timing.
 
 reference                                  here
 ---------------------------------------   -----------------------------------
@@ -61,6 +64,9 @@ class FrameFeeder:
     queue_capacity: input LeakyQueue size (reference max-size-buffers=8).
     on_output: called with (seq, np.uint8 frame, meta) in seq order.
     native_staging: not ported; a truthy value raises NotImplementedError.
+    whole_batches: dispatch only full batches of ``batch_size`` frames (and
+        the remainder when the feeder stops), never what happens to be
+        queued: the batches then depend on the frames alone, not on timing.
     """
 
     def __init__(
@@ -76,6 +82,7 @@ class FrameFeeder:
         native_staging: bool | tuple[int, ...] = False,
         priority_of: Callable | None = None,
         on_drop_item: Callable | None = None,
+        whole_batches: bool = False,
     ) -> None:
         if native_staging:
             raise NotImplementedError(
@@ -89,6 +96,7 @@ class FrameFeeder:
         self.counters = counters or FrameRateCounters()
         self.timing = timing or TimingStats(label="feeder")
         self.pad_batches = pad_batches
+        self.whole_batches = whole_batches
 
         def _note_drop(item):
             self.counters.count("dropped_overflow")
@@ -205,9 +213,10 @@ class FrameFeeder:
             self._retire_oldest()
 
     def _run(self) -> None:
+        pending: list = []  # whole_batches: frames waiting for a full batch
         while True:
             try:
-                got = self._inq.get_batch(self.batch_size,
+                got = self._inq.get_batch(self.batch_size - len(pending),
                                           timeout=_POP_TIMEOUT_S)
             except TimeoutError:
                 if self._stopping.is_set():
@@ -218,15 +227,25 @@ class FrameFeeder:
                 continue
             except Closed:
                 break
-            try:
-                self._dispatch(got)
-            except Exception:
-                # staging/assembly failures must not kill the feeder
-                # thread — count and keep streaming (drop semantics)
-                self.counters.count("processing_errors", len(got))
+            if self.whole_batches:
+                pending += got
+                if len(pending) < self.batch_size:
+                    continue
+                got, pending = pending, []
+            self._dispatch_counted(got)
+        if pending:
+            self._dispatch_counted(pending)
         while self._inflight:
             self._retire_oldest()
         self._reseq.flush()
+
+    def _dispatch_counted(self, got: list) -> None:
+        try:
+            self._dispatch(got)
+        except Exception:
+            # staging/assembly failures must not kill the feeder
+            # thread — count and keep streaming (drop semantics)
+            self.counters.count("processing_errors", len(got))
 
     # ---- lifecycle ----
 

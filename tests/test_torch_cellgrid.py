@@ -162,8 +162,11 @@ def test_cells_reject_bad_inputs_and_the_radix_variant():
     spec = lut.make_interp_spec(32, 32, 2.0, (4, 4))
     y = torch.zeros((1, 32, 32), dtype=torch.uint8)
     luts = torch.zeros((1, 16, 256), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+    # the radix variant is taken, not refused, and checks its inputs too
+    assert torch.equal(lut.clahe_interpolate_cells(y, luts, spec, radix=True),
+                       lut.clahe_interpolate_cells(y, luts, spec))
+    with pytest.raises(ValueError):
+        lut.clahe_interpolate_cells(y, luts[:, :15], spec, radix=True)
     with pytest.raises(ValueError):
         lut.clahe_interpolate_cells(y, luts[:, :15], spec)
     with pytest.raises(ValueError):

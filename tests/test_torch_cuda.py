@@ -6,9 +6,9 @@ machine with a card and no JAX, run it without the JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
-outputs (K1 and K8 histograms, K2 LUTs with one clip or one per frame, K3,
-K4 and K6 frames, K7 frames and histograms, K5, K3v1 and K9 bands, K1 on
-bands of tile rows) must equal the plain PyTorch versions on the same CUDA
+outputs (K1, K8 and K10 histograms, K2 LUTs with one clip or one per frame,
+K3, K4, K6 and K6r frames, K7 frames and histograms, K5, K3v1 and K9 bands,
+K1 on bands of tile rows) must equal the plain PyTorch versions on the same CUDA
 inputs exactly, and the CLAHE (every backend), auto-CLAHE, histeq,
 streaming and sharded steps must equal ``core.golden`` and the same steps
 on the CPU.  Tolerance: 0.
@@ -110,7 +110,7 @@ def test_step_equals_golden_and_counts_launches(device):
     assert natural.launch_counts() == {
         "tile_histograms": 1, "build_luts": 1, "clahe_interpolate": 1,
         "clahe_interp_and_hist": 0, "clahe_interpolate_band": 0,
-        "clahe_interpolate_pack": 0}
+        "clahe_interpolate_pack": 0, "tile_histograms_batched": 0}
     for i, f in enumerate(frames):
         assert np.array_equal(out[i].cpu().numpy(), golden.clahe(f, 2.0, (8, 8)))
     assert _build.is_built()
@@ -294,11 +294,92 @@ def test_interpolate_cells_equals_plain_and_k3(device, n, h, w, grid, content):
 
 
 def test_interpolate_cells_rejects_the_radix_variant(device):
+    """The radix variant is no longer refused: on the card it launches K6r
+    (and only K6r) and gives K6's output."""
     spec = lut.make_interp_spec(32, 32, 2.0, (4, 4))
-    y = torch.zeros((1, 32, 32), dtype=torch.uint8, device=device)
-    luts = torch.zeros((1, 16, 256), dtype=torch.uint8, device=device)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+    y = torch.from_numpy(_frames(16, 1, 32, 32)).to(device)
+    luts = torch.from_numpy(
+        np.random.default_rng(17).integers(0, 256, (1, 16, 256), dtype=np.uint8)
+    ).to(device)
+    torch_cuda.reset_launch_counts()
+    got = lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+    counts = torch_cuda.launch_counts()
+    assert counts["clahe_interpolate_cells_radix"] == 1
+    assert counts["clahe_interpolate_cells"] == 0
+    assert torch.equal(got, lut.clahe_interpolate_cells(y, luts, spec))
+    with pytest.raises(ValueError):
+        lut.clahe_interpolate_cells(y, luts[:, :15], spec, radix=True)
+
+
+@pytest.mark.parametrize("n,h,w,grid,content", [
+    (2, 96, 128, (8, 8), "nv12"),          # in place over NV12 Y rows
+    (2, 66, 120, (8, 8), "random"),        # padded tiles
+    (1, 1080, 1920, (8, 8), "random"),     # tile height 135
+    (1, 1079, 1919, (8, 8), "random"),     # pad_left one more than tile_w // 2
+    (2, 64, 128, (8, 8), "constant"),
+    (2, 64, 64, (16, 16), "random"),
+    (3, 6, 6, (8, 8), "random"),           # cells of one row
+    (2, 33, 47, (3, 5), "random"),
+    (1, 40, 60, (1, 1), "random"),         # every cell the same LUT four times
+])
+def test_interpolate_cells_radix_equals_plain_k6_and_k3(device, n, h, w, grid, content):
+    batch = torch.from_numpy(_frames(18, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    luts = natural.build_luts_ref(
+        natural.tile_histograms_ref(torch.from_numpy(_frames(19, n, h, w)).to(device),
+                                    plan), plan.clip, plan.lut_scale)
+    want = lut.clahe_interpolate_cells_ref(y, luts, spec, radix=True)
+    assert torch.equal(want, lut.clahe_interpolate_cells_ref(y, luts, spec))
+    got = lut.clahe_interpolate_cells(y, luts, spec, radix=True)
+    assert torch.equal(got, want)
+    assert torch.equal(got, lut.clahe_interpolate_cells(y, luts, spec))
+    assert torch.equal(got, natural.clahe_interpolate(y, luts, plan))
+    inplace = batch.clone()
+    lut.clahe_interpolate_cells(inplace[:, :h], luts, spec, out=inplace[:, :h],
+                                radix=True)
+    assert torch.equal(inplace[:, :h], want)
+    assert torch.equal(inplace[:, h:], batch[:, h:])
+    torch.cuda.synchronize(device)
+
+
+@pytest.mark.parametrize("batch_rows", [2, 4, 8])
+@pytest.mark.parametrize("n,h,w,grid,content", [
+    (2, 96, 128, (8, 8), "nv12"),          # 16-byte path, strided rows
+    (2, 66, 120, (8, 8), "random"),        # tile width 15: the byte path
+    (2, 64, 128, (8, 8), "constant"),      # one group of 32 equal values
+    (2, 40, 60, (1, 1), "random"),         # tile width 60: partial warps
+    (1, 1080, 1920, (8, 8), "random"),     # tile height 135: short last groups
+    (1, 1079, 1919, (8, 8), "random"),     # extended to 1080x1920 first
+    (1, 2160, 3840, (1, 1), "random"),     # one tile, 240 units a row
+])
+def test_batched_hists_equal_plain_k1_and_k8(device, n, h, w, grid, content, batch_rows):
+    batch = torch.from_numpy(_frames(20, n, h, w, content)).to(device)
+    y = batch[:, :h]
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    ext = natural.extend(y, plan)
+    args = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+    got = natural.tile_histograms_batched(ext, *args, batch_rows=batch_rows)
+    assert torch.equal(got, natural.tile_histograms_batched_ref(ext, *args))
+    assert torch.equal(got, natural.tile_histograms(y, plan))
+    assert torch.equal(got, lut.tile_histograms_extended(ext, *args))
+    assert torch.equal(got[0], natural.tile_histograms_batched(
+        ext[0], *args, batch_rows=batch_rows))
+    torch.cuda.synchronize(device)
+
+
+def test_batched_hists_on_an_unaligned_view_and_bad_batch_rows(device):
+    """A view whose base and row stride 16 bytes do not divide takes the byte
+    path, with a tile width (30) that leaves a partial warp."""
+    wide = torch.from_numpy(_frames(21, 2, 48, 131)).to(device)
+    ext = wide[:, :, 7:127]                       # (2, 48, 120), stride 131
+    for batch_rows in (2, 4, 8):
+        got = natural.tile_histograms_batched(ext, 4, 4, 12, 30, batch_rows)
+        assert torch.equal(got, natural.tile_histograms_batched_ref(ext, 4, 4, 12, 30))
+    with pytest.raises(ValueError, match="batch_rows must be one of"):
+        natural.tile_histograms_batched(ext, 4, 4, 12, 30, batch_rows=3)
+    torch.cuda.synchronize(device)
 
 
 @pytest.mark.parametrize("n,h,w,grid,content", [

@@ -234,13 +234,23 @@ def test_enhancer_through_feeder_equals_jax_enhancer():
 
 
 def _imports(path):
+    """(module name, at module level) for every import of a source file; an
+    import inside a function or a method is not at module level."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module
+
+    def walk(node, top):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                yield from ((a.name, top) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and not child.level:
+                yield child.module, top
+            else:
+                inner = top and not isinstance(
+                    child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+                yield from walk(child, inner)
+
+    yield from walk(tree, True)
 
 
 def _port_sources():
@@ -251,9 +261,34 @@ def _port_sources():
 @pytest.mark.parametrize("path", sorted(
     os.path.relpath(p, ROOT) for p in _port_sources()) + ["chip_smoke.py"])
 def test_port_imports_no_jax(path):
-    for name in _imports(os.path.join(ROOT, path)):
-        assert name.split(".")[0] not in ("jax", "cv2", "opencv_opencl_tpu"), (
-            path, name)
+    """No source of the port (``apps/``, ``io/``, ``models/``, ``runtime/``,
+    ``__main__.py`` and the rest, and ``chip_smoke.py``) imports jax or the
+    JAX package anywhere, nor cv2 at module level (``io/videofile.py`` and
+    ``io/rtp.py`` import cv2 inside the methods that need it, as the JAX
+    package's do)."""
+    for name, top in _imports(os.path.join(ROOT, path)):
+        root = name.split(".")[0]
+        assert root not in ("jax", "opencv_opencl_tpu"), (path, name)
+        assert not (root == "cv2" and top), (path, name, "at module level")
+    if path == "chip_smoke.py":     # the card's machine has no cv2 at all
+        assert "cv2" not in {n.split(".")[0] for n, _ in
+                             _imports(os.path.join(ROOT, path))}
+
+
+def test_import_scan_tells_module_level_from_lazy_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\ntry:\n    import cv2\nexcept ImportError:\n    cv2 = None\n"
+                   "class A:\n    import json\n    def f(self):\n        import jax\n"
+                   "def g():\n    from opencv_opencl_tpu.io import rtp\n")
+    assert sorted(_imports(str(src))) == [
+        ("cv2", True), ("jax", False), ("json", True),
+        ("opencv_opencl_tpu.io", False), ("os", True)]
+    paths = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for needed in ("apps/relay.py", "apps/multi_relay.py", "apps/_cli.py",
+                   "io/videofile.py", "io/rtp.py", "io/rtcp.py", "io/sdp.py",
+                   "io/gst.py", "models/presets.py", "runtime/governor.py",
+                   "runtime/mux.py", "__main__.py"):
+        assert needed in paths, needed
 
 
 def test_port_runs_without_loading_jax():

@@ -238,7 +238,8 @@ def test_wrappers_launch_nothing_on_cpu():
         "clahe_interp_and_hist": 0, "clahe_interpolate_band": 0,
         "clahe_interpolate_pack": 0, "apply_lut": 0,
         "clahe_interpolate_cells": 0, "tile_histograms_extended": 0,
-        "clahe_interpolate_cells_band": 0}
+        "clahe_interpolate_cells_band": 0, "tile_histograms_batched": 0,
+        "clahe_interpolate_cells_radix": 0}
 
 
 def test_wrappers_reject_bad_inputs():
