@@ -10,8 +10,12 @@ Phases, each of which raises (exit code != 0) when it fails:
 1. device   the card, and its name and power limit from nvidia-smi;
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``;
 3. kernels  every kernel against its plain PyTorch version on the card,
-            exact: K1, K2 and K3 over 4K batches, odd and tiny geometries,
-            a constant frame, hist_rowstep=2 and several tile grids; K4 in
+            exact: K1, K2 and K3 over 4K batches (structured, random and
+            ladder NV12 rows, and a view from column 1 whose base and rows
+            lie off 16 bytes, which K1 and K3 read on their byte paths),
+            1080p NV12 rows (K3's column groups change inside a 16-pixel
+            unit), odd and tiny geometries, a constant frame,
+            hist_rowstep=2 and several tile grids; K4 in
             place over a 4K NV12 batch with random and identity LUTs, at
             1079x1919 and on a constant frame; K7 at 4K and 1080p on
             structured, random and constant content in place over NV12 Y
@@ -291,23 +295,30 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def kernel_cases(rng):
-    """(label, frames, h, clip, grid, rowstep): ``frames`` is (N, h, W) or
-    an NV12 batch (N, h*3/2, W), whose strided Y rows go to the kernels."""
+    """(label, frames, h, clip, grid, rowstep, col0): ``frames`` is (N, h, W)
+    or an NV12 batch (N, h*3/2, W), whose strided Y rows from column
+    ``col0`` on go to the kernels (``col0 = 1``: a view whose base and
+    rows lie off 16 bytes, which K1 and K3 read on their byte paths)."""
     four_k = nv12_batch(rng, BATCH, HEIGHT, WIDTH)
     four_k_random = four_k.copy()
     four_k_random[:, :HEIGHT] = random_y(rng, BATCH, HEIGHT, WIDTH)
     return [
-        ("4k_b4_random_nv12", four_k_random, HEIGHT, CLIP, GRID, 1),
-        ("4k_b4_structured_nv12", four_k, HEIGHT, CLIP, GRID, 1),
-        ("4k_b4_rowstep2_nv12", four_k, HEIGHT, CLIP, GRID, 2),
-        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, CLIP, GRID, 1),
+        ("4k_b4_random_nv12", four_k_random, HEIGHT, CLIP, GRID, 1, 0),
+        ("4k_b4_structured_nv12", four_k, HEIGHT, CLIP, GRID, 1, 0),
+        ("4k_b4_rowstep2_nv12", four_k, HEIGHT, CLIP, GRID, 2, 0),
+        ("4k_b4_nv12_view_from_column_1", four_k, HEIGHT, CLIP, GRID, 1, 1),
+        ("4k_b4_ladder_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH, ladder_y),
+         HEIGHT, CLIP, GRID, 1, 0),
+        ("1080p_b4_structured_nv12", nv12_batch(rng, BATCH, 1080, 1920), 1080,
+         CLIP, GRID, 1, 0),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, CLIP, GRID, 1, 0),
         ("4k_constant", np.full((2, HEIGHT, WIDTH), 77, np.uint8), HEIGHT,
-         CLIP, GRID, 1),
-        ("6x6_grid8x8", random_y(rng, 3, 6, 6), 6, CLIP, GRID, 1),
-        ("3x3_grid8x8_pad_ge_dim", random_y(rng, 2, 3, 3), 3, 40.0, GRID, 1),
-        ("270x480_grid1x1", random_y(rng, 2, 270, 480), 270, CLIP, (1, 1), 1),
-        ("97x131_grid3x5", random_y(rng, 2, 97, 131), 97, 40.0, (3, 5), 1),
-        ("64x128_noclip", random_y(rng, 1, 64, 128), 64, 0.0, GRID, 1),
+         CLIP, GRID, 1, 0),
+        ("6x6_grid8x8", random_y(rng, 3, 6, 6), 6, CLIP, GRID, 1, 0),
+        ("3x3_grid8x8_pad_ge_dim", random_y(rng, 2, 3, 3), 3, 40.0, GRID, 1, 0),
+        ("270x480_grid1x1", random_y(rng, 2, 270, 480), 270, CLIP, (1, 1), 1, 0),
+        ("97x131_grid3x5", random_y(rng, 2, 97, 131), 97, 40.0, (3, 5), 1, 0),
+        ("64x128_noclip", random_y(rng, 1, 64, 128), 64, 0.0, GRID, 1, 0),
     ]
 
 
@@ -328,9 +339,9 @@ def residual_edge_hists(plan) -> np.ndarray:
 def phase_clahe_kernels(device, cases) -> dict[str, int]:
     """K1, K2 and K3 against their plain versions."""
     errs = {"tile_hist_kernel": 0, "build_luts_kernel": 0, "interp_kernel": 0}
-    for label, frames_np, h, clip, grid, rowstep in cases:
+    for label, frames_np, h, clip, grid, rowstep, col0 in cases:
         batch = torch.from_numpy(frames_np).to(device)
-        y = batch[:, :h]
+        y = batch[:, :h, col0:]
         plan = clahe_ops.make_clahe_plan(h, y.shape[2], clip, grid)
 
         hk = natural.tile_histograms(y, plan, rowstep)
@@ -342,17 +353,22 @@ def phase_clahe_kernels(device, cases) -> dict[str, int]:
         ok = natural.clahe_interpolate(y, lr, plan)
         orf = natural.clahe_interpolate_ref(y, lr, plan)
         e3 = max_err(ok, orf)
-        # in place, as the NV12 step runs it: the chroma rows stay untouched
+        # in place, as the NV12 step runs it: the chroma rows (and the
+        # columns left of col0) stay untouched
         inplace = batch.clone()
-        natural.clahe_interpolate(inplace[:, :h], lr, plan, out=inplace[:, :h])
-        e3 = max(e3, max_err(inplace[:, :h], orf),
-                 max_err(inplace[:, h:], batch[:, h:]))
+        natural.clahe_interpolate(inplace[:, :h, col0:], lr, plan,
+                                  out=inplace[:, :h, col0:])
+        e3 = max(e3, max_err(inplace[:, :h, col0:], orf),
+                 max_err(inplace[:, h:], batch[:, h:]),
+                 max_err(inplace[:, :h, :col0], batch[:, :h, :col0]))
         if label == "4k_b4_structured_nv12":  # K2 alone on edge cases
             edge = torch.from_numpy(residual_edge_hists(plan)).to(device)
             e2 = max(e2, max_err(natural.build_luts(edge, plan.clip, plan.lut_scale),
                                  natural.build_luts_ref(edge, plan.clip, plan.lut_scale)))
         torch.cuda.synchronize(device)
-        print(f"kernels {label}: K1 {e1} K2 {e2} K3 {e3} (max abs err)", flush=True)
+        print(f"kernels {label}: K1 {e1} K2 {e2} K3 {e3} (max abs err; 16-byte "
+              f"paths: K1 {natural.tile_hist_vec(y, plan)}, K3 "
+              f"{natural.interp_vec(y, ok)})", flush=True)
         for name, e in zip(errs, (e1, e2, e3)):
             errs[name] = max(errs[name], e)
     return errs
@@ -1474,6 +1490,12 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     const_ms = device_ms(lambda: natural.tile_histograms(const, plan))
     print(f"time tile_hist_kernel 4K b{BATCH} constant frame: {const_ms:.4f} ms "
           f"[{card}]", flush=True)
+    const_luts = natural.build_luts_ref(natural.tile_histograms_ref(const, plan),
+                                        plan.clip, plan.lut_scale)
+    const_ms = device_ms(lambda: natural.clahe_interpolate(const, const_luts, plan,
+                                                           out=out))
+    print(f"time interp_kernel 4K b{BATCH} constant frame: {const_ms:.4f} ms "
+          f"(bound {times['interp_kernel']['bound_ms']:.4f} ms) [{card}]", flush=True)
 
     # the slice-3 kernels beside the kernels of the same contract, in turns
     whole = whole_frame_plan(HEIGHT, WIDTH)

@@ -34,7 +34,8 @@ RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
 Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks, ``--encoder`` and ``--native``.  ``--mesh`` takes a
+``rtp+h265://`` sinks and ``--native``; ``--encoder`` is read only for an
+encoded sink, as in the JAX package, and ignored otherwise.  ``--mesh`` takes a
 mesh of one position (``1x1`` or ``auto``) here: the mux cuts batches by
 arrival, which several ranks would not do alike.
 """

@@ -45,8 +45,10 @@ every rank makes the same collective calls; the time-driven flags
 (``--duration``, ``--max-rate``, ``--adaptive-rate``) are refused there.
 
 Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks, ``--encoder``, ``--fused-encode`` (the H.264 device
-encoder), ``--io=gst`` and ``--native`` (the C++ staging ring).
+``rtp+h265://`` sinks, ``--fused-encode`` (the H.264 device encoder),
+``--io=gst`` and ``--native`` (the C++ staging ring).  ``--encoder`` is
+read only for an encoded sink, as in the JAX package: with any other sink
+it is ignored.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -69,7 +71,6 @@ from opencv_opencl_tpu_torch.apps._cli import (
     install_sigterm_handler, parse_kv_args)
 
 _NOT_PORTED = {
-    "encoder": "--encoder (the H.264/H.265 encoder boundary)",
     "fused-encode": "--fused-encode (the fused enhance + encode program)",
     "native": "--native (the C++ staging ring)",
 }

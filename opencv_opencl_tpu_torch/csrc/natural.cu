@@ -52,28 +52,51 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 
 // ----------------------------------------------------------------- K1 ----
 // Replaces natural.py tile_histograms_radix / _tile_hist_radix_kernel.
-// Bound: the read of the Y plane (8.3 MB per 4K frame) and one shared-memory
-// atomic per pixel.  A constant frame, which sends all 32 lanes of a warp to
-// one bin, measured no slower than random content on an H100, so the bins
-// are not replicated per warp.  Design: one block per (frame, tile, slice of
-// the tile's rows), so a 4K batch of 4 (256 tiles) still fills the 132 SMs;
-// each block counts into 256 int32 bins in shared memory and adds its
-// non-zero bins to the zeroed global (N, T, 256) histogram with one global
-// atomic each.  The extended frame is never materialised: padded positions
-// map to their source with reflect-101 index math.  A launch covers the
-// tile rows [ty0, ty0 + gridDim.x / (tiles_x * slices)) of the plan and reads
-// a slab of the frame whose first row is frame row slab_row0 (the sharded
-// step: a rank holds only the rows its band reads); the whole-frame call is
-// ty0 = 0, slab_row0 = 0.  The wrapper checks that every source row of the
-// launch lies inside the slab.
+// Bound: the read of the Y plane (8.3 MB per 4K frame), then one
+// shared-memory atomic per pixel.  Design: one block per (frame, tile, slice
+// of the tile's rows), so a 4K batch of 4 (256 tiles) still fills the 132
+// SMs; each warp counts into its own 256 int32 bins in shared memory (8 KB a
+// block: the 8 warps of a block do not contend for one histogram), and at
+// the end the block folds the 8 histograms and adds each non-zero bin to the
+// zeroed global (N, T, 256) histogram with one global atomic.
+//
+// Two ways to read a tile, chosen per block:
+// - the 16-byte path, for a tile whose rows and columns all lie inside the
+//   frame (tile row ty < inner_rows, tile column tx < inner_cols: no
+//   reflect-101 index math) when the launch is `vec` (the base, both strides
+//   and tile_w are multiples of 16, decided by the wrapper).  The slice's
+//   (row, 16-byte unit) pairs are walked as one flattened index with a
+//   running counter (a 4K tile row is 30 units, so one warp per row would
+//   leave lanes idle), and each thread issues kHistLoads uint4 loads before
+//   it counts any of them;
+// - the byte path, for border tiles and unaligned input: one byte per thread
+//   and step, padded positions mapped to their source with reflect-101
+//   index math, so the extended frame is never materialised.
+//
+// A launch covers the tile rows [ty0, ty0 + gridDim.x / (tiles_x * slices))
+// of the plan and reads a slab of the frame whose first row is frame row
+// slab_row0 (the sharded step: a rank holds only the rows its band reads);
+// the whole-frame call is ty0 = 0, slab_row0 = 0.  The wrapper checks that
+// every source row of the launch lies inside the slab.
+constexpr int kWarps = kThreads / 32;
+constexpr int kHistLoads = 4;
+
+__device__ __forceinline__ void count_bytes(int* mine, uint32_t w) {
+    atomicAdd(&mine[w & 0xffu], 1);
+    atomicAdd(&mine[(w >> 8) & 0xffu], 1);
+    atomicAdd(&mine[(w >> 16) & 0xffu], 1);
+    atomicAdd(&mine[w >> 24], 1);
+}
+
 __global__ void __launch_bounds__(kThreads)
 tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
                  long long frame_stride, long long row_stride,
                  int tiles_x, int tile_h, int tile_w, int rowstep,
-                 int slices, int ty0, int slab_row0,
-                 int* __restrict__ out) {
-    __shared__ int bins[kBins];
-    for (int b = threadIdx.x; b < kBins; b += blockDim.x) bins[b] = 0;
+                 int slices, int ty0, int slab_row0, int inner_rows,
+                 int inner_cols, int vec, int* __restrict__ out) {
+    __shared__ int bins[kWarps][kBins];
+    int* flat = &bins[0][0];
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
     __syncthreads();
 
     const int num_tiles = gridDim.x / slices;
@@ -82,6 +105,7 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
     const int frame = blockIdx.y;
     const int ty = ty0 + tile / tiles_x;
     const int tx = tile % tiles_x;
+    int* mine = bins[threadIdx.x >> 5];
 
     // sampled rows of this tile: ty*tile_h + k*rowstep, k in [k0, k1)
     const int rows = tile_h / rowstep;
@@ -90,28 +114,71 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
     const uint8_t* base = y + frame * frame_stride;
     const int col0 = tx * tile_w;
 
-    // walk the (row, column) pairs of the slice with a running counter:
-    // no per-pixel division
-    int k = k0 + (int)threadIdx.x / tile_w;
-    int c = (int)threadIdx.x % tile_w;
-    const int step_rows = (int)blockDim.x / tile_w;
-    const int step_cols = (int)blockDim.x % tile_w;
-    while (k < k1) {
-        const int r = reflect101(ty * tile_h + k * rowstep, height) - slab_row0;
-        const int x = reflect101(col0 + c, width);
-        atomicAdd(&bins[base[r * row_stride + x]], 1);
-        k += step_rows;
-        c += step_cols;
-        if (c >= tile_w) {
-            c -= tile_w;
-            ++k;
+    if (vec && ty < inner_rows && tx < inner_cols) {
+        const uint8_t* tile0 = base
+            + (long long)(ty * tile_h + k0 * rowstep - slab_row0) * row_stride
+            + col0;
+        const long long step = (long long)rowstep * row_stride;
+        const int units = tile_w >> 4;
+        const int nk = k1 - k0;
+        // (k, u) is the thread's flattened (row, unit) position; one division
+        // here, a running counter after
+        int k = (int)threadIdx.x / units;
+        int u = (int)threadIdx.x % units;
+        const int step_k = kThreads / units;
+        const int step_u = kThreads % units;
+        while (k < nk) {
+            uint4 q[kHistLoads];
+            int loaded = 0;
+#pragma unroll
+            for (int j = 0; j < kHistLoads; ++j) {
+                if (k < nk) {
+                    q[j] = __ldg(reinterpret_cast<const uint4*>(tile0 + k * step) + u);
+                    loaded = j + 1;
+                }
+                k += step_k;
+                u += step_u;
+                if (u >= units) {
+                    u -= units;
+                    ++k;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < kHistLoads; ++j) {
+                if (j < loaded) {
+                    count_bytes(mine, q[j].x);
+                    count_bytes(mine, q[j].y);
+                    count_bytes(mine, q[j].z);
+                    count_bytes(mine, q[j].w);
+                }
+            }
+        }
+    } else {
+        // walk the (row, column) pairs of the slice with a running counter:
+        // no per-pixel division
+        int k = k0 + (int)threadIdx.x / tile_w;
+        int c = (int)threadIdx.x % tile_w;
+        const int step_rows = kThreads / tile_w;
+        const int step_cols = kThreads % tile_w;
+        while (k < k1) {
+            const int r = reflect101(ty * tile_h + k * rowstep, height) - slab_row0;
+            const int x = reflect101(col0 + c, width);
+            atomicAdd(&mine[base[r * row_stride + x]], 1);
+            k += step_rows;
+            c += step_cols;
+            if (c >= tile_w) {
+                c -= tile_w;
+                ++k;
+            }
         }
     }
     __syncthreads();
 
     int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
-    for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
-        const int v = bins[b];
+    for (int b = threadIdx.x; b < kBins; b += kThreads) {
+        int v = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
         if (v) atomicAdd(&dst[b], v * rowstep);
     }
 }
@@ -186,10 +253,46 @@ build_luts_kernel(const int* __restrict__ hists, int clip,
 }
 
 // ----------------------------------------------------------------- K3 ----
-// One output pixel of the bilinear blend: the four LUT reads at value v
-// (from shared memory when staged, else through __ldg), then blend4
-// (blend.cuh), OpenCV's mul-then-add order without FMA contraction.  K3
-// and K7 both map every pixel through this function.
+// Replaces natural.py clahe_interpolate_natural (variant 2) /
+// _natural_interp_kernel_v2.  Bound: the read and write of the Y plane (2
+// bytes per pixel, 66 MB for a 4K batch of 4); after it, one shared-memory
+// gather per pixel (its bank is the pixel's value mod 32, so lanes
+// conflict).  A design for Hopper; nothing of the TPU kernel's one-hot dots
+// carries over:
+// - Grid: one block per (range of rows, frame).  The wrapper's table
+//   `ranges` holds each block's [start, end) rows, and every range lies
+//   inside one row pair of the PackSpec (the rows between two tile centres),
+//   so a block needs only that pair's LUTs.
+// - Staging: the block builds its row pair's interleaved pack in shared
+//   memory: for column group g (the columns between two tile centres) and
+//   value v, the uchar4 (l11, l12, l21, l22) at g*256 + v, (tiles_x + 1) KB
+//   in all (9 KB at 8x8).  A thread reads one 32-bit word (four values) of
+//   each of the four LUTs and transposes the 4x4 bytes with __byte_perm into
+//   four pack words, stored as one uint4.  A pack larger than
+//   kStaticSmemLimit is not staged: each pixel then reads its four LUT bytes
+//   through __ldg.
+// - 16-byte frame I/O when the launch is `vec` (both bases and all four
+//   strides multiples of 16; the wrapper decides): a thread maps 16
+//   consecutive pixels in each of two neighbouring rows, two uint4 loads in
+//   flight, 32 blends, two uint4 stores.  The block's (two rows, unit)
+//   positions are one flattened index walked with a running counter.  The
+//   columns past a row's last whole unit (width % 16), and every column of a
+//   launch that is not `vec`, take the byte path, one pixel per thread and
+//   step.
+// - Column tables: the two rows of a unit share their 16 group ids and xa,
+//   read four at a time as int4 and float4 from unit-major copies of the
+//   plan's tables (PackSpec.unit_tables), so the lanes of a warp, which map
+//   consecutive units, read consecutive 16-byte pieces (from the plan's own
+//   tables they would stride 64 bytes apart and touch four times the lines).
+//   At 1080p a group boundary falls inside a unit, so the group is per pixel.
+// - Per pixel: one 32-bit shared load of the pack word, its four bytes to
+//   f32 exactly (no I2F), blend4 (blend.cuh).  Per row: ya.
+// Each pixel is read and then written by the same thread and depends only on
+// itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).
+
+// One output pixel of K7's blend: the four LUT reads at value v (from
+// shared memory when staged, else through __ldg), then blend4 (blend.cuh),
+// OpenCV's mul-then-add order without FMA contraction.
 __device__ __forceinline__ uint8_t blend_pixel(const uint8_t* lut, int staged,
                                                int row_a, int row_b, int ca,
                                                int cb, int v, float fx,
@@ -220,47 +323,170 @@ __device__ __forceinline__ void stage_luts(uint8_t* dst, const uint8_t* src,
         d[i] = __ldg(&s[i]);
 }
 
-// Replaces natural.py clahe_interpolate_natural (variant 2) /
-// _natural_interp_kernel_v2.  Bound: the read and write of the Y plane
-// (2 bytes per pixel) plus four LUT lookups per pixel.  Design: one block
-// per (band of rows, frame); the frame's LUTs are staged once per block in
-// shared memory when they fit (read through __ldg otherwise), so the four
-// lookups are shared-memory loads; threads walk the columns of each row for
-// coalesced access.  Each pixel is read and then written by the same
-// thread and depends only on itself and the LUTs, so `out` may alias `y`
-// (the in-place NV12 step).
+// byte i of w as an f32, exactly: the byte becomes the low mantissa bits of
+// 2^23, which is then subtracted (two full-rate instructions where I2F runs
+// at a quarter of the rate)
+__device__ __forceinline__ float byte_to_float(uint32_t w, int i) {
+    return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | i)),
+                     8388608.0f);
+}
+
+// The row pair's LUTs seen by one block: la and lb are the frame's LUTs of
+// its two tile rows; pack is the staged interleaved pack, or null
+struct PairLuts {
+    const uint32_t* pack;
+    const uint8_t* la;
+    const uint8_t* lb;
+    int tiles_x;
+
+    __device__ __forceinline__ uint32_t word(int g, int v) const {
+        if (pack != nullptr) return pack[g * kBins + v];
+        const int ca = max(g - 1, 0) * kBins + v;
+        const int cb = min(g, tiles_x - 1) * kBins + v;
+        return (uint32_t)__ldg(la + ca) | (uint32_t)__ldg(la + cb) << 8
+               | (uint32_t)__ldg(lb + ca) << 16 | (uint32_t)__ldg(lb + cb) << 24;
+    }
+
+    __device__ __forceinline__ uint32_t blend(int v, int g, float fx, float fy,
+                                              float fy1) const {
+        const uint32_t q = word(g, v);
+        return blend4(byte_to_float(q, 0), byte_to_float(q, 1),
+                      byte_to_float(q, 2), byte_to_float(q, 3), fx, fy, fy1);
+    }
+};
+
+// 16 pixels from column 16*u on in two rows, a and b, which share the
+// columns' tables: g4 and x4 point at unit u of the unit-major tables, whose
+// four int4 / float4 of a unit lie `units` entries apart
+__device__ __forceinline__ void blend_units(const PairLuts& luts, uint4 a,
+                                            uint4 b, const int4* __restrict__ g4,
+                                            const float4* __restrict__ x4,
+                                            int units, float fya, float fyb,
+                                            uint4& out_a, uint4& out_b) {
+    const uint32_t in_a[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t in_b[4] = {b.x, b.y, b.z, b.w};
+    const float fya1 = __fsub_rn(1.0f, fya);
+    const float fyb1 = __fsub_rn(1.0f, fyb);
+    uint32_t res_a[4], res_b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int4 g = __ldg(g4 + j * units);
+        const float4 fx = __ldg(x4 + j * units);
+        const uint32_t wa = in_a[j];
+        const uint32_t wb = in_b[j];
+        res_a[j] = luts.blend(wa & 0xffu, g.x, fx.x, fya, fya1)
+                   | luts.blend((wa >> 8) & 0xffu, g.y, fx.y, fya, fya1) << 8
+                   | luts.blend((wa >> 16) & 0xffu, g.z, fx.z, fya, fya1) << 16
+                   | luts.blend(wa >> 24, g.w, fx.w, fya, fya1) << 24;
+        res_b[j] = luts.blend(wb & 0xffu, g.x, fx.x, fyb, fyb1)
+                   | luts.blend((wb >> 8) & 0xffu, g.y, fx.y, fyb, fyb1) << 8
+                   | luts.blend((wb >> 16) & 0xffu, g.z, fx.z, fyb, fyb1) << 16
+                   | luts.blend(wb >> 24, g.w, fx.w, fyb, fyb1) << 24;
+    }
+    out_a = make_uint4(res_a[0], res_a[1], res_a[2], res_a[3]);
+    out_b = make_uint4(res_b[0], res_b[1], res_b[2], res_b[3]);
+}
+
 __global__ void __launch_bounds__(kThreads)
 interp_kernel(const uint8_t* y, long long y_frame_stride,
               long long y_row_stride, const uint8_t* __restrict__ luts,
-              int height, int width, int tiles_x, int num_tiles,
-              const int* __restrict__ ty1, const int* __restrict__ ty2,
-              const float* __restrict__ ya, const int* __restrict__ tx1,
-              const int* __restrict__ tx2, const float* __restrict__ xa,
-              uint8_t* out, long long out_frame_stride,
-              long long out_row_stride, int rows_per_block, int staged) {
-    extern __shared__ __align__(16) uint8_t smem[];
+              int width, int tiles_y, int tiles_x,
+              const int2* __restrict__ ranges, const int* __restrict__ rp_of_r,
+              const float* __restrict__ ya, const int* __restrict__ g_of_c,
+              const float* __restrict__ xa, const int4* __restrict__ g_units,
+              const float4* __restrict__ xa_units, uint8_t* out,
+              long long out_frame_stride, long long out_row_stride, int vec,
+              int staged) {
+    extern __shared__ __align__(16) uint32_t pack[];
     const int frame = blockIdx.y;
-    const int lut_bytes = num_tiles * kBins;
-    const uint8_t* lut = luts + (long long)frame * lut_bytes;
+    const int2 range = __ldg(&ranges[blockIdx.x]);
+    const int rp = __ldg(&rp_of_r[range.x]);
+    const uint8_t* lut = luts + (long long)frame * tiles_y * tiles_x * kBins;
+    PairLuts pair{nullptr, lut + max(rp - 1, 0) * tiles_x * kBins,
+                  lut + min(rp, tiles_y - 1) * tiles_x * kBins, tiles_x};
     if (staged) {
-        stage_luts(smem, lut, lut_bytes);
+        uint4* dst = reinterpret_cast<uint4*>(pack);
+        const int words = (tiles_x + 1) * (kBins / 4);
+        for (int i = threadIdx.x; i < words; i += kThreads) {
+            const int g = i / (kBins / 4);
+            const int v = (i % (kBins / 4)) * 4;
+            const int ca = max(g - 1, 0) * kBins + v;
+            const int cb = min(g, tiles_x - 1) * kBins + v;
+            const uint32_t a = __ldg(reinterpret_cast<const uint32_t*>(pair.la + ca));
+            const uint32_t b = __ldg(reinterpret_cast<const uint32_t*>(pair.la + cb));
+            const uint32_t c = __ldg(reinterpret_cast<const uint32_t*>(pair.lb + ca));
+            const uint32_t d = __ldg(reinterpret_cast<const uint32_t*>(pair.lb + cb));
+            // [a0 b0 a1 b1], [c0 d0 c1 d1], [a2 b2 a3 b3], [c2 d2 c3 d3]
+            const uint32_t ab_lo = __byte_perm(a, b, 0x5140);
+            const uint32_t cd_lo = __byte_perm(c, d, 0x5140);
+            const uint32_t ab_hi = __byte_perm(a, b, 0x7362);
+            const uint32_t cd_hi = __byte_perm(c, d, 0x7362);
+            dst[i] = make_uint4(__byte_perm(ab_lo, cd_lo, 0x5410),
+                                __byte_perm(ab_lo, cd_lo, 0x7632),
+                                __byte_perm(ab_hi, cd_hi, 0x5410),
+                                __byte_perm(ab_hi, cd_hi, 0x7632));
+        }
         __syncthreads();
-        lut = smem;
+        pair.pack = pack;
     }
 
-    const int r0 = blockIdx.x * rows_per_block;
-    const int r1 = min(r0 + rows_per_block, height);
-    for (int r = r0; r < r1; ++r) {
-        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
-        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
-        const int row_a = __ldg(&ty1[r]) * tiles_x;
-        const int row_b = __ldg(&ty2[r]) * tiles_x;
-        const float fy = __ldg(&ya[r]);
-        const float fy1 = __fsub_rn(1.0f, fy);
-        for (int c = threadIdx.x; c < width; c += blockDim.x) {
-            dst_row[c] = blend_pixel(lut, staged, row_a, row_b,
-                                     __ldg(&tx1[c]), __ldg(&tx2[c]),
-                                     src_row[c], __ldg(&xa[c]), fy, fy1);
+    const int rows = range.y - range.x;
+    const uint8_t* src = y + frame * y_frame_stride
+                         + (long long)range.x * y_row_stride;
+    uint8_t* dst = out + frame * out_frame_stride
+                   + (long long)range.x * out_row_stride;
+    const int units = vec ? width >> 4 : 0;
+    if (units > 0) {
+        // (p, u) is the thread's flattened position: unit u of rows 2p and
+        // 2p + 1; one division here, a running counter after
+        const int doubles = (rows + 1) >> 1;
+        int p = (int)threadIdx.x / units;
+        int u = (int)threadIdx.x % units;
+        const int step_p = kThreads / units;
+        const int step_u = kThreads % units;
+        while (p < doubles) {
+            const int r = 2 * p;
+            const bool two = r + 1 < rows;
+            const uint8_t* s = src + r * y_row_stride + 16 * u;
+            const uint4 a = *reinterpret_cast<const uint4*>(s);
+            uint4 b = make_uint4(0, 0, 0, 0);
+            if (two) b = *reinterpret_cast<const uint4*>(s + y_row_stride);
+            const float fya = __ldg(&ya[range.x + r]);
+            const float fyb = two ? __ldg(&ya[range.x + r + 1]) : 0.0f;
+            uint4 out_a, out_b;
+            blend_units(pair, a, b, g_units + u, xa_units + u, units, fya, fyb,
+                        out_a, out_b);
+            uint8_t* d = dst + r * out_row_stride + 16 * u;
+            *reinterpret_cast<uint4*>(d) = out_a;
+            if (two) *reinterpret_cast<uint4*>(d + out_row_stride) = out_b;
+            p += step_p;
+            u += step_u;
+            if (u >= units) {
+                u -= units;
+                ++p;
+            }
+        }
+    }
+    // the byte path: columns [16 * units, width) of every row
+    const int c0 = units * 16;
+    const int cols = width - c0;
+    if (cols > 0) {
+        int r = (int)threadIdx.x / cols;
+        int c = (int)threadIdx.x % cols;
+        const int step_r = kThreads / cols;
+        const int step_c = kThreads % cols;
+        while (r < rows) {
+            const int col = c0 + c;
+            const float fy = __ldg(&ya[range.x + r]);
+            dst[r * out_row_stride + col] = (uint8_t)pair.blend(
+                src[r * y_row_stride + col], __ldg(&g_of_c[col]),
+                __ldg(&xa[col]), fy, __fsub_rn(1.0f, fy));
+            r += step_r;
+            c += step_c;
+            if (c >= cols) {
+                c -= cols;
+                ++r;
+            }
         }
     }
 }
@@ -419,7 +645,6 @@ interp_pack_kernel(const uint8_t* y, long long y_frame_stride,
 // multiples of 16 (`vec`, decided by the launcher); otherwise each lane
 // loads one byte per row and step, and a partial warp at a tile's right
 // edge passes its active mask to __match_any_sync.
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ void count_aggregated(int* mine, unsigned mask,
                                                  int lane, unsigned v) {
@@ -523,17 +748,23 @@ tile_hist_batched_kernel(const uint8_t* __restrict__ ext,
 constexpr int kStaticSmemLimit = 48 * 1024;
 
 // tile_rows tile rows from ty0 on; y is the slab that starts at frame row
-// slab_row0 (see the kernel)
+// slab_row0 (see the kernel).  vec (the 16-byte path) is the wrapper's
+// choice; a launch that claims it on a base, stride or tile width that 16
+// does not divide is refused with cudaErrorInvalidValue.
 extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
                                 int width, long long frame_stride,
                                 long long row_stride, int tile_rows,
                                 int tiles_x, int tile_h, int tile_w,
                                 int rowstep, int slices, int ty0,
-                                int slab_row0, int* out, void* stream) {
+                                int slab_row0, int inner_rows, int inner_cols,
+                                int vec, int* out, void* stream) {
+    if (vec && (reinterpret_cast<uintptr_t>(y) % 16 || frame_stride % 16
+                || row_stride % 16 || tile_w % 16))
+        return (int)cudaErrorInvalidValue;
     dim3 grid(tile_rows * tiles_x * slices, frames);
     tile_hist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, height, width, frame_stride, row_stride, tiles_x, tile_h, tile_w,
-        rowstep, slices, ty0, slab_row0, out);
+        rowstep, slices, ty0, slab_row0, inner_rows, inner_cols, vec, out);
     return (int)cudaGetLastError();
 }
 
@@ -548,24 +779,38 @@ extern "C" int build_luts_launch(const int* hists, int rows, int clip,
     return (int)cudaGetLastError();
 }
 
+// ranges: blocks (start, end) row pairs, each inside one row pair of
+// rp_of_r; the pack of (tiles_x + 1) KB is staged when it fits in the shared
+// memory a block gets without opting in to more.  vec (the 16-byte path) is
+// the wrapper's choice; a launch that claims it on a base or stride that 16
+// does not divide is refused with cudaErrorInvalidValue.
 extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
                              long long y_row_stride, const uint8_t* luts,
-                             int frames, int height, int width, int tiles_y,
-                             int tiles_x, const int* ty1, const int* ty2,
-                             const float* ya, const int* tx1, const int* tx2,
-                             const float* xa, uint8_t* out,
+                             int frames, int width, int tiles_y, int tiles_x,
+                             const int* ranges, int blocks,
+                             const int* rp_of_r, const float* ya,
+                             const int* g_of_c, const float* xa,
+                             const int* g_units, const float* xa_units,
+                             uint8_t* out,
                              long long out_frame_stride,
-                             long long out_row_stride, int rows_per_block,
+                             long long out_row_stride, int vec,
                              void* stream) {
-    const int num_tiles = tiles_y * tiles_x;
-    const int lut_bytes = num_tiles * kBins;
-    const int staged = lut_bytes <= kStaticSmemLimit ? 1 : 0;
-    dim3 grid((height + rows_per_block - 1) / rows_per_block, frames);
-    interp_kernel<<<grid, kThreads, staged ? lut_bytes : 0,
+    if (vec && (reinterpret_cast<uintptr_t>(y) % 16
+                || reinterpret_cast<uintptr_t>(out) % 16
+                || y_frame_stride % 16 || y_row_stride % 16
+                || out_frame_stride % 16 || out_row_stride % 16))
+        return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(luts) % 4) return (int)cudaErrorInvalidValue;
+    const int pack_bytes = (tiles_x + 1) * kBins * 4;
+    const int staged = pack_bytes <= kStaticSmemLimit ? 1 : 0;
+    dim3 grid(blocks, frames);
+    interp_kernel<<<grid, kThreads, staged ? pack_bytes : 0,
                     (cudaStream_t)stream>>>(
-        y, y_frame_stride, y_row_stride, luts, height, width, tiles_x,
-        num_tiles, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
-        out_row_stride, rows_per_block, staged);
+        y, y_frame_stride, y_row_stride, luts, width, tiles_y, tiles_x,
+        reinterpret_cast<const int2*>(ranges), rp_of_r, ya, g_of_c, xa,
+        reinterpret_cast<const int4*>(g_units),
+        reinterpret_cast<const float4*>(xa_units), out, out_frame_stride,
+        out_row_stride, vec, staged);
     return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 
 The port's own copy of ``opencv_opencl_tpu/io/rtp.py`` (host code on
 sockets and numpy; the same frames give the same packets), without the C++
-packetizer: ``RtpUdpSink(native=True)`` raises ``NotImplementedError``
-until that is ported, and nothing asks for it by default.
+packetizer, which the reference's sink takes by itself when its library is
+built: here the sink always packetizes in Python.
 
 The reference's emit side really puts media packets on the wire
 (``udpsink host=192.168.25.69 port=5004`` with 60 MB socket buffers and
@@ -346,10 +346,7 @@ class RtpUdpSink:
     def __init__(self, host: str, port: int, kind: str = "jpeg",
                  fps: float = 30.0, quality: int = 85,
                  mtu: int = DEFAULT_MTU, buffer_size: int = 60_000_000,
-                 rtcp: bool = True, rtcp_schedule: str = "tick",
-                 native: bool = False):
-        if native:
-            raise NotImplementedError("native packetizer: not ported yet")
+                 rtcp: bool = True, rtcp_schedule: str = "tick"):
         # validate kind (payloader construction) before binding sockets
         if kind == "jpeg":
             self.payloader = JpegRtpPayloader(quality=quality, mtu=mtu,

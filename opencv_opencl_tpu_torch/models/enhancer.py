@@ -42,7 +42,8 @@ class EnhancerConfig:
     op: "histeq" (global equalization), "clahe", or "none" (passthrough).
     chroma: GRAY (UV=128) or PASSTHROUGH, the two reference chroma policies.
     hist_method: histogram strategy of the JAX package ("onehot" |
-        "scatter"); the port has one histogram kernel and ignores it.
+        "scatter"; one kernel here); any other value raises ``ValueError``
+        at the first step, as in the JAX package.
     use_ref_frame: two-input mode — histeq maps frame i of a batch with
         the LUT of frame i-1 (frame 0 maps itself); clahe ignores it here
         and streams through :class:`StreamingEnhancer`.
@@ -92,7 +93,7 @@ def make_enhance_y(cfg: EnhancerConfig, spec: FrameSpec):
         total = -(-h // ds) * w * ds
 
         def equalize_y(y, out):
-            hists = histogram.hist256(y[:, ::ds])
+            hists = histogram.hist256(y[:, ::ds], cfg.hist_method)
             if ds > 1:
                 hists = hists * ds
             if cfg.use_ref_frame:
@@ -112,7 +113,8 @@ def make_enhance_y(cfg: EnhancerConfig, spec: FrameSpec):
             f"({plan.tile_h} for {h}x{w} grid {tuple(cfg.tile_grid)})")
 
     def enhance_y(y, out):
-        return clahe_ops.clahe_apply(y, plan, hist_rowstep=ds, out=out)
+        return clahe_ops.clahe_apply(y, plan, cfg.hist_method,
+                                     hist_rowstep=ds, out=out)
 
     return enhance_y, plan
 
@@ -195,6 +197,7 @@ def build_streaming_clahe_fn(cfg: EnhancerConfig, spec: FrameSpec):
     fused = natural.fused_interp_hist_fits(plan)
 
     def fn(nv12_batch: torch.Tensor, prev_hists: torch.Tensor):
+        clahe_ops._check_method(cfg.hist_method)
         _check_batch(nv12_batch, spec)
         hists = prev_hists
         for i in range(nv12_batch.shape[0]):

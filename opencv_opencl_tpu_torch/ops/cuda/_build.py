@@ -36,10 +36,10 @@ _LL = ctypes.c_longlong
 # Python int as a 32-bit int and cut the address
 _SIGNATURES = {
     "tile_hist_launch": (_P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P, _P),
+                         _I, _I, _I, _I, _I, _P, _P),
     "build_luts_launch": (_P, _I, _I, _P, _I, ctypes.c_float, _P, _P),
-    "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                      _P, _P, _P, _LL, _LL, _I, _P),
+    "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _LL, _LL, _I, _P),
     "interp_hist_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P),
     "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),

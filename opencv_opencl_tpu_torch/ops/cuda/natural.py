@@ -68,6 +68,10 @@ __all__ = [
     "clahe_interp_and_hist",
     "clahe_interp_and_hist_ref",
     "fused_interp_hist_fits",
+    "interior_tiles",
+    "tile_hist_vec",
+    "interp_vec",
+    "interp_rows_per_block",
     "PackSpec",
     "make_pack_spec",
     "build_lut_pack",
@@ -85,9 +89,16 @@ __all__ = [
 # K1 cuts each tile into row slices until the grid has about this many
 # blocks: 8 per SM of an H100's 132
 _HIST_TARGET_BLOCKS = 8 * 132
-# K3 rows per block: the frame's LUTs are staged in shared memory once per
-# block, so a block covers several full rows
-_INTERP_ROWS_PER_BLOCK = 16
+# K3 rows per block: as many as keep the grid at about _INTERP_TARGET_BLOCKS
+# blocks (16 per SM: four waves or more of the five 256-thread blocks an SM
+# holds at 48 registers), within [_INTERP_MIN_ROWS, _INTERP_MAX_ROWS]: a
+# block stages its row pair's LUT pack ((tiles_x + 1) KB, from L2) once, so
+# it maps at least a few full rows.  At 4K b4 that is 4 rows; on an H100
+# (700 W) K3 took 0.0489 ms with 4 rows a block, 0.0503 with 8, 0.0536 with
+# 2 and 0.0548 with 16 (scripts/torch_kernel_turns.py --interp-rows)
+_INTERP_TARGET_BLOCKS = 16 * 132
+_INTERP_MIN_ROWS = 4
+_INTERP_MAX_ROWS = 32
 # K5 rows per block: nothing is staged, so a block is small; fewer rows
 # still where a band would otherwise give the card less than one block per
 # SM slot (_HIST_TARGET_BLOCKS)
@@ -272,7 +283,8 @@ class PackSpec:
     column c in group ``g_of_c[c]`` likewise; ``pack_idx[rp, g]`` holds the
     flat tile ids of the four LUTs (l11, l12, l21, l22) that apply there.
     ``ya`` and ``xa`` are the plan's f32 weights.  ``device_arrays`` caches
-    the arrays as tensors, once per device."""
+    the arrays as tensors, once per device, and so do ``unit_tables`` and
+    ``device_row_ranges`` (K3's column tables by unit and its blocks)."""
 
     height: int
     width: int
@@ -304,6 +316,47 @@ class PackSpec:
                                      self.xa, self.pack_idx))
             self._device_cache[device] = arrays
         return arrays
+
+    def row_ranges(self, rows_per_block: int) -> np.ndarray:
+        """K3's blocks: (B, 2) int32 [start, end) rows in order, the rows
+        of each row pair cut into ceil(len / rows_per_block) ranges whose
+        lengths differ by at most one, so no range leaves its row pair."""
+        change = np.flatnonzero(np.diff(self.rp_of_r)) + 1
+        bounds = np.concatenate([[0], change, [self.height]])
+        parts = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            n = -(-(hi - lo) // rows_per_block)
+            cuts = lo + np.arange(n + 1) * (hi - lo) // n
+            parts.append(np.stack([cuts[:-1], cuts[1:]], axis=1))
+        if not parts:
+            return np.zeros((0, 2), np.int32)
+        return np.concatenate(parts).astype(np.int32)
+
+    def unit_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """K3's column tables by 16-pixel unit, (g_of_c, xa) each as a (4,
+        W // 16, 4) tensor on ``device``: entry [j, u, k] is column
+        16*u + 4*j + k, so the lanes of a warp that map consecutive units
+        read consecutive 16-byte pieces.  The same int32 and f32 values as
+        the plan's, reordered."""
+        key = (torch.device(device), "unit_tables")
+        tables = self._device_cache.get(key)
+        if tables is None:
+            units = self.width // 16
+            tables = tuple(
+                torch.from_numpy(np.ascontiguousarray(
+                    a[:units * 16].reshape(units, 4, 4).transpose(1, 0, 2)))
+                .to(key[0]) for a in (self.g_of_c, self.xa))
+            self._device_cache[key] = tables
+        return tables
+
+    def device_row_ranges(self, device, rows_per_block: int) -> torch.Tensor:
+        """:meth:`row_ranges` on ``device``, cached with the arrays."""
+        key = (torch.device(device), "row_ranges", rows_per_block)
+        ranges = self._device_cache.get(key)
+        if ranges is None:
+            ranges = torch.from_numpy(self.row_ranges(rows_per_block)).to(key[0])
+            self._device_cache[key] = ranges
+        return ranges
 
 
 def _pair_ids(lo: np.ndarray, hi: np.ndarray, tiles: int) -> np.ndarray:
@@ -419,6 +472,38 @@ def _check_frames(y: torch.Tensor, plan, name: str = "y") -> None:
     _check_band(y, plan.width, name)
 
 
+def _aligned16(*values: int) -> bool:
+    return all(v % 16 == 0 for v in values)
+
+
+def interior_tiles(plan) -> tuple[int, int]:
+    """(rows, cols): the plan's tile rows [0, rows) and tile columns
+    [0, cols) lie inside the frame, so K1 counts them without reflect-101
+    index math (padding is only ever at the bottom and the right)."""
+    return (min(plan.tiles_y, plan.height // plan.tile_h),
+            min(plan.tiles_x, plan.width // plan.tile_w))
+
+
+def tile_hist_vec(y: torch.Tensor, plan) -> bool:
+    """Whether K1 reads the interior tiles of ``y`` with 16-byte loads:
+    the base, both strides and the tile width are multiples of 16."""
+    return _aligned16(y.data_ptr(), y.stride(0), y.stride(1), plan.tile_w)
+
+
+def interp_vec(y: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether K3 maps whole 16-byte units (the columns past a row's last
+    whole unit take its byte path): both bases and all four strides are
+    multiples of 16."""
+    return _aligned16(y.data_ptr(), y.stride(0), y.stride(1),
+                      out.data_ptr(), out.stride(0), out.stride(1))
+
+
+def interp_rows_per_block(frames: int, height: int) -> int:
+    """K3's rows per block for ``frames`` frames of ``height`` rows."""
+    return max(_INTERP_MIN_ROWS, min(_INTERP_MAX_ROWS,
+                                     frames * height // _INTERP_TARGET_BLOCKS))
+
+
 def _raise_on(err: int, kernel: str) -> None:
     if err:
         raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
@@ -465,12 +550,14 @@ def tile_histograms(y: torch.Tensor, plan, rowstep: int = 1,
         return out
     rows = plan.tile_h // rowstep
     slices = max(1, min(rows, -(-_HIST_TARGET_BLOCKS // (n * tiles))))
+    inner_rows, inner_cols = interior_tiles(plan)
     with torch.cuda.device(y.device):
         err = lib.tile_hist_launch(
             y.data_ptr(), n, plan.height, plan.width, y.stride(0), y.stride(1),
             tile_rows[1] - tile_rows[0], plan.tiles_x, plan.tile_h,
-            plan.tile_w, rowstep, slices, tile_rows[0], slab_row0,
-            out.data_ptr(), _stream(y.device))
+            plan.tile_w, rowstep, slices, tile_rows[0], slab_row0, inner_rows,
+            inner_cols, int(tile_hist_vec(y, plan)), out.data_ptr(),
+            _stream(y.device))
     _raise_on(err, "tile_hist_kernel")
     tile_histograms.launches += 1
     return out
@@ -532,20 +619,26 @@ def clahe_interpolate(y: torch.Tensor, luts: torch.Tensor, plan,
         if out is None:
             return res
         return out.copy_(res)
-    if not luts.is_contiguous():
-        raise ValueError("luts must be contiguous")
+    if not luts.is_contiguous() or luts.data_ptr() % 4:
+        raise ValueError("luts must be contiguous and 4-byte aligned")
     lib = _build.load()
     if out is None:
         out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
-    ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y.device)
-    if y.shape[0]:
+    n = y.shape[0]
+    spec = _pack_spec_of(plan)
+    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y.device)
+    g_units, xa_units = spec.unit_tables(y.device)
+    ranges = spec.device_row_ranges(y.device,
+                                    interp_rows_per_block(n, plan.height))
+    if n and ranges.shape[0]:
         with torch.cuda.device(y.device):
             err = lib.interp_launch(
-                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(),
-                y.shape[0], plan.height, plan.width, plan.tiles_y,
-                plan.tiles_x, ty1.data_ptr(), ty2.data_ptr(), ya.data_ptr(),
-                tx1.data_ptr(), tx2.data_ptr(), xa.data_ptr(), out.data_ptr(),
-                out.stride(0), out.stride(1), _INTERP_ROWS_PER_BLOCK,
+                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
+                plan.width, plan.tiles_y, plan.tiles_x, ranges.data_ptr(),
+                ranges.shape[0], rp_of_r.data_ptr(), ya.data_ptr(),
+                g_of_c.data_ptr(), xa.data_ptr(), g_units.data_ptr(),
+                xa_units.data_ptr(), out.data_ptr(),
+                out.stride(0), out.stride(1), int(interp_vec(y, out)),
                 _stream(y.device))
         _raise_on(err, "interp_kernel")
         clahe_interpolate.launches += 1

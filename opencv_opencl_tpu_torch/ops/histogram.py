@@ -19,9 +19,12 @@ from opencv_opencl_tpu_torch.ops.cuda import natural
 __all__ = ["hist256", "equalize_lut"]
 
 
-def hist256(y: torch.Tensor) -> torch.Tensor:
+def hist256(y: torch.Tensor, method: str = "onehot") -> torch.Tensor:
     """uint8 frames (N, H, W), or one frame (H, W) -> int32 (N, 256), or
-    (256,), histograms of each whole frame."""
+    (256,), histograms of each whole frame.  ``method`` is the JAX
+    package's ("onehot" or "scatter"; one kernel here); any other raises
+    ``ValueError``."""
+    clahe_ops._check_method(method)
     if y.ndim not in (2, 3):
         raise ValueError(f"expected (H, W) or (N, H, W), got {tuple(y.shape)}")
     frames = y if y.ndim == 3 else y.unsqueeze(0)

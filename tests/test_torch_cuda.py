@@ -59,7 +59,10 @@ CASES = [
     (2, 40, 60, 2.0, (1, 1), 1, "random"),
     (2, 33, 47, 40.0, (3, 5), 1, "random"),
     (1, 64, 128, 0.0, (8, 8), 1, "random"),    # no clipping
-    (1, 64, 64, 2.0, (16, 16), 1, "random"),   # 256 tiles: LUTs read via __ldg
+    (1, 64, 64, 2.0, (16, 16), 1, "random"),   # 256 tiles
+    (2, 135, 240, 2.0, (8, 8), 1, "nv12"),     # 1080p / 8: groups change inside units
+    (2, 48, 160, 2.0, (5, 3), 1, "nv12"),      # K1: 32-wide interior tiles, 16-byte path
+    (1, 32, 256, 2.0, (64, 4), 1, "random"),   # K3: 65 groups, the pack not staged
 ]
 
 
@@ -83,6 +86,30 @@ def test_kernels_equal_plain_versions(device, n, h, w, clip, grid, rowstep, cont
     natural.clahe_interpolate(inplace[:, :h], luts_ref, plan, out=inplace[:, :h])
     assert torch.equal(inplace[:, :h], out_ref)
     assert torch.equal(inplace[:, h:], batch[:, h:])
+    torch.cuda.synchronize(device)
+
+
+@pytest.mark.parametrize("h,w,grid", [(135, 240, (8, 8)), (67, 119, (8, 8)),
+                                      (96, 128, (8, 8)), (97, 131, (3, 5))])
+def test_k1_k3_on_views_that_take_the_byte_paths(device, h, w, grid):
+    """An unaligned view (y[..., 1:]: the byte paths throughout), and a view
+    whose base and strides are aligned but whose width is not a multiple of
+    16 (K3: 16-byte units and a byte tail), against the plain versions."""
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    wide = torch.from_numpy(_frames(11, 2, h, 16 * (w // 16 + 2))).to(device)
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(wide[:, :, :w], plan),
+                                  plan.clip, plan.lut_scale)
+    for y in (wide[:, :, 1:w + 1], wide[:, :, :w]):
+        assert torch.equal(natural.tile_histograms(y, plan),
+                           natural.tile_histograms_ref(y, plan))
+        want = natural.clahe_interpolate_ref(y, luts, plan)
+        assert torch.equal(natural.clahe_interpolate(y, luts, plan), want)
+        inplace = wide.clone()
+        view = inplace[:, :, 1:w + 1] if y.data_ptr() % 16 else inplace[:, :, :w]
+        natural.clahe_interpolate(view, luts, plan, out=view)
+        assert torch.equal(view, want)
+    assert not natural.interp_vec(wide[:, :, 1:w + 1], wide[:, :, 1:w + 1])
+    assert natural.interp_vec(wide[:, :, :w], wide[:, :, :w])
     torch.cuda.synchronize(device)
 
 
@@ -180,8 +207,8 @@ def test_histeq_equals_golden_and_counts_launches(device):
     for i, f in enumerate(frames):
         assert np.array_equal(out[i].cpu().numpy(), golden.equalize_hist(f))
     const = np.full((64, 96), 9, np.uint8)
-    assert np.array_equal(torch_histeq.equalize_hist(const, device).cpu().numpy(),
-                          const)
+    assert np.array_equal(
+        torch_histeq.equalize_hist(const, device=device).cpu().numpy(), const)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(hist_downsample=3),

@@ -23,6 +23,7 @@ from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.models import enhancer as torch_enhancer
 from opencv_opencl_tpu_torch.ops import histeq, histogram
 from opencv_opencl_tpu_torch.ops.cuda import lut
+from tests.conftest import assert_clahe_close
 
 torch.set_num_threads(1)
 
@@ -169,6 +170,79 @@ def test_apply_lut_checks_its_inputs():
 
 
 # ------------------------------------------------------- ops/histeq.py ----
+
+
+@pytest.mark.parametrize("method", ["onehot", "scatter"])
+def test_entry_points_take_the_reference_method_and_backend(method):
+    """The JAX package's signatures: ``method`` (and ``backend`` for
+    ``apply_lut``) in the reference's position, ``device`` by keyword; both
+    packages give the same output for every method and backend."""
+    y = _frames(12, 2, 40, 56, "random")
+    luts = np.random.default_rng(13).integers(0, 256, (2, 256), dtype=np.uint8)
+    assert np.array_equal(
+        histeq.equalize_hist_batch(y, method, device="cpu").numpy(),
+        np.asarray(jax_histeq.equalize_hist_batch(y, method)))
+    assert np.array_equal(histeq.equalize_hist(y[0], method, device="cpu").numpy(),
+                          np.asarray(jax_histeq.equalize_hist(y[0], method)))
+    assert np.array_equal(
+        histeq.equalize_hist_ref(y[0], y[1], method, device="cpu").numpy(),
+        np.asarray(jax_histeq.equalize_hist_ref(y[0], y[1], method)))
+    assert np.array_equal(histogram.hist256(torch.from_numpy(y[0]), method).numpy(),
+                          np.asarray(jax_histogram.hist256(y[0], method)))
+    for backend in ("auto", "pallas", "xla"):
+        assert np.array_equal(
+            histeq.apply_lut(y[0], luts[0], backend, device="cpu").numpy(),
+            np.asarray(jax_histeq.apply_lut(y[0], luts[0], backend)))
+
+
+@pytest.mark.parametrize("call", ["hist256", "equalize_hist", "equalize_hist_ref",
+                                  "equalize_hist_batch"])
+def test_unknown_method_raises_like_jax(call):
+    y = _frames(14, 2, 16, 24, "random")
+    ours = {"hist256": lambda m: histogram.hist256(torch.from_numpy(y), m),
+            "equalize_hist": lambda m: histeq.equalize_hist(y[0], m, device="cpu"),
+            "equalize_hist_ref": lambda m: histeq.equalize_hist_ref(
+                y[0], y[1], m, device="cpu"),
+            "equalize_hist_batch": lambda m: histeq.equalize_hist_batch(
+                y, m, device="cpu")}[call]
+    theirs = {"hist256": lambda m: jax_histogram.hist256(y[0], m),
+              "equalize_hist": lambda m: jax_histeq.equalize_hist(y[0], m),
+              "equalize_hist_ref": lambda m: jax_histeq.equalize_hist_ref(
+                  y[0], y[1], m),
+              "equalize_hist_batch": lambda m: jax_histeq.equalize_hist_batch(
+                  y, m)}[call]
+    for fn in (ours, theirs):
+        with pytest.raises(ValueError, match="unknown histogram method 'radix'"):
+            fn("radix")
+    # a device where the method goes is a method too
+    with pytest.raises(ValueError, match="unknown histogram method 'cpu'"):
+        ours("cpu")
+
+
+@pytest.mark.parametrize("op", ["histeq", "clahe"])
+@pytest.mark.parametrize("method", ["scatter", "bogus"])
+def test_enhancer_hist_method_like_jax(op, method):
+    """``EnhancerConfig.hist_method`` reaches the histograms: a known method
+    gives the JAX package's output, an unknown one raises at the first step
+    in both packages."""
+    spec = FrameSpec(width=64, height=48)
+    batch = _nv12(15, 2, spec, "random")
+    ours = torch_enhancer.Enhancer(
+        torch_enhancer.EnhancerConfig(op=op, hist_method=method), spec, "cpu")
+    jax_spec = jax_enhancer.FrameSpec(width=64, height=48)
+    theirs = jax_enhancer.Enhancer(
+        jax_enhancer.EnhancerConfig(op=op, hist_method=method), jax_spec)
+    if method == "bogus":
+        for enhancer in (ours, theirs):
+            with pytest.raises(ValueError, match="unknown histogram method"):
+                np.asarray(enhancer.process_batch(batch))
+        return
+    got = np.asarray(ours.process_batch(batch))
+    want = np.asarray(theirs.process_batch(batch))
+    if op == "histeq":
+        assert np.array_equal(got, want)
+    else:
+        assert_clahe_close(got, want)       # FMA ties in JAX
 
 
 @pytest.mark.parametrize("kind", ["structured", "random", "constant", "sparse"])

@@ -1,0 +1,138 @@
+"""The launch planning of K1 and K3 in pure Python (no kernel runs here).
+
+- K3 (``interp_kernel``): the per-block row ranges cover every row once,
+  in order, each inside one row pair of ``PackSpec.rp_of_r``, and the
+  unit-major column tables hold the plan's values;
+- the choice between the 16-byte and the byte paths of K1 and K3 on
+  aligned NV12 views, ``y[..., 1:]``, 1919x1079 and tile widths that 16
+  does not divide;
+- K1's interior tiles, which it reads without reflect-101 index math:
+  exactly the tiles whose rows and columns all lie inside the frame.
+
+At 4K, 1080p, 1919x1079, 6x6 and 3x3 on an 8x8 grid, and 97x131 on a 3x5
+grid.  The card runs the same geometries in ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from opencv_opencl_tpu_torch.core.golden import reflect101_indices
+from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
+from opencv_opencl_tpu_torch.ops.cuda import natural
+
+GEOMETRIES = [
+    # (height, width, tile grid (x, y))
+    (2160, 3840, (8, 8)),
+    (1080, 1920, (8, 8)),
+    (1079, 1919, (8, 8)),
+    (6, 6, (8, 8)),
+    (3, 3, (8, 8)),
+    (97, 131, (3, 5)),
+]
+IDS = [f"{h}x{w}_grid{g[0]}x{g[1]}" for h, w, g in GEOMETRIES]
+
+
+def _spec(h, w, grid):
+    return natural.make_pack_spec(h, w, 2.0, grid)
+
+
+@pytest.mark.parametrize("h,w,grid", GEOMETRIES, ids=IDS)
+def test_k3_row_ranges_cover_every_row_once_inside_one_row_pair(h, w, grid):
+    spec = _spec(h, w, grid)
+    for frames in (1, 4):
+        rows = natural.interp_rows_per_block(frames, h)
+        for per_block in sorted({1, 3, rows}):
+            ranges = spec.row_ranges(per_block)
+            assert ranges.dtype == np.int32 and ranges.shape[1] == 2
+            assert ranges[0, 0] == 0 and ranges[-1, 1] == h
+            assert np.array_equal(ranges[1:, 0], ranges[:-1, 1])   # in order
+            assert np.all(ranges[:, 1] > ranges[:, 0])
+            assert np.all(ranges[:, 1] - ranges[:, 0] <= per_block)
+            for lo, hi in ranges:
+                assert len(set(spec.rp_of_r[lo:hi].tolist())) == 1
+    # the ranges of a row pair differ in length by at most one row
+    ranges = spec.row_ranges(natural.interp_rows_per_block(4, h))
+    pair = spec.rp_of_r[ranges[:, 0]]
+    for rp in np.unique(pair):
+        lengths = np.diff(ranges[pair == rp], axis=1)
+        assert lengths.max() - lengths.min() <= 1
+
+
+def test_k3_rows_per_block_keep_the_grid_at_four_waves():
+    # 4K b4: 4 rows a block; 4K rows are two half row pairs of 135 rows (34
+    # ranges each) and seven of 270 (68): 544 blocks a frame, 2176 in all
+    assert natural.interp_rows_per_block(4, 2160) == 4
+    assert len(_spec(2160, 3840, (8, 8)).row_ranges(4)) == 2 * 34 + 7 * 68
+    assert natural.interp_rows_per_block(16, 2160) == 16
+    assert natural.interp_rows_per_block(4, 1080) == 4
+    assert natural.interp_rows_per_block(1, 6) == 4
+    assert natural.interp_rows_per_block(64, 2160) == 32
+
+
+@pytest.mark.parametrize("h,w,grid", GEOMETRIES, ids=IDS)
+def test_k3_unit_tables_hold_the_plan_values_by_unit(h, w, grid):
+    spec = _spec(h, w, grid)
+    g_units, xa_units = spec.unit_tables("cpu")
+    units = w // 16
+    assert tuple(g_units.shape) == tuple(xa_units.shape) == (4, units, 4)
+    assert g_units.dtype == torch.int32 and xa_units.dtype == torch.float32
+    for j in range(4):
+        for k in range(4):
+            cols = 16 * np.arange(units) + 4 * j + k
+            assert np.array_equal(g_units[j, :, k].numpy(), spec.g_of_c[cols])
+            assert np.array_equal(xa_units[j, :, k].numpy().view(np.uint32),
+                                  spec.xa[cols].view(np.uint32))
+    assert spec.unit_tables("cpu")[0] is g_units         # cached
+
+
+@pytest.mark.parametrize("h,w,grid", GEOMETRIES, ids=IDS)
+def test_vector_path_choice(h, w, grid):
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    nv12 = torch.zeros((2, h + h // 2, w), dtype=torch.uint8)
+    assert nv12.data_ptr() % 16 == 0
+    y = nv12[:, :h]
+    rows_aligned = w % 16 == 0
+    assert natural.interp_vec(y, y) == rows_aligned
+    assert natural.tile_hist_vec(y, plan) == (rows_aligned and plan.tile_w % 16 == 0)
+    # a view from column 1 lies off 16 bytes: the byte paths throughout
+    view = nv12[:, :h, 1:]
+    assert not natural.interp_vec(view, view)
+    assert not natural.interp_vec(y, view) and not natural.interp_vec(view, y)
+    assert not natural.tile_hist_vec(
+        view, torch_clahe.make_clahe_plan(h, w - 1, 2.0, grid))
+    # aligned base and rows, any width: K3 maps 16-byte units and a byte tail
+    padded = torch.zeros((2, h, 16 * (w // 16 + 1)), dtype=torch.uint8)
+    assert natural.interp_vec(padded[:, :, :w], padded[:, :, :w])
+
+
+def test_vector_path_choice_on_the_named_cases():
+    def choose(h, w, grid, view):
+        plan = torch_clahe.make_clahe_plan(h, view.shape[2], 2.0, grid)
+        return natural.tile_hist_vec(view, plan), natural.interp_vec(view, view)
+
+    four_k = torch.zeros((4, 3240, 3840), dtype=torch.uint8)
+    assert choose(2160, 3840, (8, 8), four_k[:, :2160]) == (True, True)
+    assert choose(2160, 3839, (8, 8), four_k[:, :2160, 1:]) == (False, False)
+    hd = torch.zeros((4, 1620, 1920), dtype=torch.uint8)
+    assert choose(1080, 1920, (8, 8), hd[:, :1080]) == (True, True)
+    # 1920 / 7 tiles of 275: K1 reads bytes, K3 still 16-byte units
+    assert choose(1080, 1920, (7, 8), hd[:, :1080]) == (False, True)
+    odd = torch.zeros((2, 1079, 1919), dtype=torch.uint8)
+    assert choose(1079, 1919, (8, 8), odd) == (False, False)
+
+
+@pytest.mark.parametrize("h,w,grid", GEOMETRIES, ids=IDS)
+def test_k1_interior_tiles_are_those_without_reflection(h, w, grid):
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    rows = reflect101_indices(plan.height + plan.pad_bottom, plan.height)
+    cols = reflect101_indices(plan.width + plan.pad_right, plan.width)
+    inner_rows, inner_cols = natural.interior_tiles(plan)
+    for ty in range(plan.tiles_y):
+        r = np.arange(ty * plan.tile_h, (ty + 1) * plan.tile_h)
+        assert np.array_equal(rows[r], r) == (ty < inner_rows)
+    for tx in range(plan.tiles_x):
+        c = np.arange(tx * plan.tile_w, (tx + 1) * plan.tile_w)
+        assert np.array_equal(cols[c], c) == (tx < inner_cols)
+    if not (plan.pad_bottom or plan.pad_right):
+        assert (inner_rows, inner_cols) == (plan.tiles_y, plan.tiles_x)
