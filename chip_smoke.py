@@ -18,10 +18,13 @@ Phases, each of which raises (exit code != 0) when it fails:
             hist_rowstep=2 and several tile grids; K4 in
             place over a 4K NV12 batch with random and identity LUTs, at
             1079x1919 and on a constant frame; K7 at 4K and 1080p on
-            structured, random and constant content in place over NV12 Y
-            rows, and against K3 followed by K1; K2 with one clip per frame
-            in a device tensor; K6 at 4K b4, 1080p, 1919x1079 and on a
-            constant frame in place over NV12 Y rows, and against K3; K8
+            structured, random and constant content, on a 4K ladder batch
+            and on a view of the 4K batch from column 1 (its byte path), in
+            place over NV12 Y rows, and against K3 followed by K1; K2 with
+            one clip per frame in a device tensor; K6 at 4K b4, 1080p,
+            1919x1079, on a 4K ladder batch, on a view of the 4K batch from
+            column 1 and on a constant frame in place over NV12 Y rows, and
+            against K3; K8
             at 4K b4 on an 8x8 and a 1x1 grid, and against K1; K5 (the band
             interpolation) on a 4K b4 NV12 batch cut into 2, 3 and 4 bands
             of the sharded geometry (the last one short), in place, at
@@ -407,22 +410,32 @@ def phase_lut_kernel(device, rng) -> int:
 
 def phase_fused_kernel(device, rng) -> int:
     """K7 against its plain version and against K3 followed by K1, in place
-    over NV12 Y rows, with the LUTs of other frames (the previous ones)."""
+    over NV12 Y rows, with the LUTs of other frames (the previous ones): at
+    4K and 1080p (16-byte units), on a 4K view from column 1, 3832 columns
+    wide (base and rows off 16 bytes, tile width 479: the byte path), and on
+    a 4K ladder batch (flat to rich content)."""
+    four_k = nv12_batch(rng, BATCH, HEIGHT, WIDTH)
     cases = [
-        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
+        # (label, frames, height, first column, width)
+        ("4k_b4_structured_nv12", four_k, HEIGHT, 0, WIDTH),
         ("4k_b2_random_nv12", np.concatenate(
             [random_y(rng, 2, HEIGHT, WIDTH),
-             random_y(rng, 2, HEIGHT // 2, WIDTH)], axis=1), HEIGHT, WIDTH),
+             random_y(rng, 2, HEIGHT // 2, WIDTH)], axis=1), HEIGHT, 0, WIDTH),
         ("4k_constant_nv12", np.full((1, HEIGHT * 3 // 2, WIDTH), 77, np.uint8),
-         HEIGHT, WIDTH),
-        ("1080p_b4_structured_nv12", nv12_batch(rng, BATCH, 1080, 1920), 1080, 1920),
-        ("1080p_b2_random_nv12", random_y(rng, 2, 1620, 1920), 1080, 1920),
-        ("1080p_constant_nv12", np.full((2, 1620, 1920), 200, np.uint8), 1080, 1920),
+         HEIGHT, 0, WIDTH),
+        ("4k_b4_nv12_view_from_column_1", four_k, HEIGHT, 1, 3832),
+        ("4k_b4_ladder_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH, ladder_y),
+         HEIGHT, 0, WIDTH),
+        ("1080p_b4_structured_nv12", nv12_batch(rng, BATCH, 1080, 1920), 1080, 0,
+         1920),
+        ("1080p_b2_random_nv12", random_y(rng, 2, 1620, 1920), 1080, 0, 1920),
+        ("1080p_constant_nv12", np.full((2, 1620, 1920), 200, np.uint8), 1080, 0,
+         1920),
     ]
     worst = 0
-    for label, frames_np, h, w in cases:
+    for label, frames_np, h, col0, w in cases:
         batch = torch.from_numpy(frames_np).to(device)
-        y = batch[:, :h]
+        y = batch[:, :h, col0:col0 + w]
         n = y.shape[0]
         plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
         prev = torch.from_numpy(structured_y(rng, n, h, w)).to(device)
@@ -431,15 +444,20 @@ def phase_fused_kernel(device, rng) -> int:
         out_ref, hists_ref = natural.clahe_interp_and_hist_ref(y, luts, plan)
         separate = natural.clahe_interpolate(y, luts, plan)
         separate_h = natural.tile_histograms(y, plan)
+        out, hists = natural.clahe_interp_and_hist(y, luts, plan)
+        e_plain = max(max_err(out, out_ref), max_err(hists, hists_ref))
         inplace = batch.clone()
-        out, hists = natural.clahe_interp_and_hist(inplace[:, :h], luts, plan,
-                                                   out=inplace[:, :h])
-        e_plain = max(max_err(out, out_ref), max_err(hists, hists_ref),
-                      max_err(inplace[:, h:], batch[:, h:]))
+        view = inplace[:, :h, col0:col0 + w]
+        _, hists = natural.clahe_interp_and_hist(view, luts, plan, out=view)
+        e_plain = max(e_plain, max_err(view, out_ref), max_err(hists, hists_ref),
+                      max_err(inplace[:, h:], batch[:, h:]),
+                      max_err(inplace[:, :h, :col0], batch[:, :h, :col0]),
+                      max_err(inplace[:, :h, col0 + w:], batch[:, :h, col0 + w:]))
         e_k3k1 = max(max_err(out, separate), max_err(hists, separate_h))
         torch.cuda.synchronize(device)
         print(f"kernels {label}: K7 {e_plain} vs plain, {e_k3k1} vs K3+K1 "
-              f"(max abs err)", flush=True)
+              f"(max abs err; 16-byte path {natural.fused_vec(y, y, plan)})",
+              flush=True)
         worst = max(worst, e_plain, e_k3k1)
     return worst
 
@@ -468,20 +486,28 @@ def phase_clip_tensor(device, rng) -> int:
 
 def phase_cell_kernel(device, rng) -> int:
     """K6 against its plain version and against K3 on the same LUTs, in
-    place over NV12 Y rows: 4K b4, 1080p (tile height 135), 1919x1079 and
-    a constant frame; the LUTs are those of other frames."""
+    place over NV12 Y rows: 4K b4 (whole 16-byte units), 1080p (tile height
+    135; 8 head and 8 tail bytes a cell), 1919x1079 and a view of the 4K
+    batch from column 1 (the byte path), a 4K ladder batch and a constant
+    frame; the LUTs are those of other frames."""
+    four_k = nv12_batch(rng, BATCH, HEIGHT, WIDTH)
     cases = [
-        ("4k_b4_structured_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH), HEIGHT, WIDTH),
-        ("1080p_b4_random_nv12", nv12_batch(rng, BATCH, 1080, 1920, random_y), 1080, 1920),
-        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, 1919),
-        ("4k_constant", np.full((1, HEIGHT, WIDTH), 77, np.uint8), HEIGHT, WIDTH),
+        # (label, frames, height, first column, width)
+        ("4k_b4_structured_nv12", four_k, HEIGHT, 0, WIDTH),
+        ("1080p_b4_random_nv12", nv12_batch(rng, BATCH, 1080, 1920, random_y), 1080,
+         0, 1920),
+        ("1079x1919_odd", random_y(rng, 2, 1079, 1919), 1079, 0, 1919),
+        ("4k_b4_nv12_view_from_column_1", four_k, HEIGHT, 1, WIDTH - 1),
+        ("4k_b4_ladder_nv12", nv12_batch(rng, BATCH, HEIGHT, WIDTH, ladder_y),
+         HEIGHT, 0, WIDTH),
+        ("4k_constant", np.full((1, HEIGHT, WIDTH), 77, np.uint8), HEIGHT, 0, WIDTH),
     ]
     worst = 0
-    for label, frames_np, h, w in cases:
+    for label, frames_np, h, col0, w in cases:
         spec = lut.make_interp_spec(h, w, CLIP, GRID)
         check(spec is not None, f"{label} has no cell-grid spec")
         batch = torch.from_numpy(frames_np).to(device)
-        y = batch[:, :h]
+        y = batch[:, :h, col0:col0 + w]
         n = y.shape[0]
         plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
         prev = torch.from_numpy(structured_y(rng, n, h, w)).to(device)
@@ -490,13 +516,16 @@ def phase_cell_kernel(device, rng) -> int:
         want = lut.clahe_interpolate_cells_ref(y, luts, spec)
         got = lut.clahe_interpolate_cells(y, luts, spec)
         inplace = batch.clone()
-        lut.clahe_interpolate_cells(inplace[:, :h], luts, spec, out=inplace[:, :h])
-        e_plain = max(max_err(got, want), max_err(inplace[:, :h], want),
-                      max_err(inplace[:, h:], batch[:, h:]))
+        view = inplace[:, :h, col0:col0 + w]
+        lut.clahe_interpolate_cells(view, luts, spec, out=view)
+        e_plain = max(max_err(got, want), max_err(view, want),
+                      max_err(inplace[:, h:], batch[:, h:]),
+                      max_err(inplace[:, :h, :col0], batch[:, :h, :col0]))
         e_k3 = max_err(got, natural.clahe_interpolate(y, luts, plan))
         torch.cuda.synchronize(device)
         print(f"kernels {label}: K6 {e_plain} vs plain, {e_k3} vs K3 (max abs "
-              f"err; pad_top {spec.pad_top}, pad_left {spec.pad_left})", flush=True)
+              f"err; pad_top {spec.pad_top}, pad_left {spec.pad_left}, 16-byte "
+              f"path {natural.interp_vec(y, got)})", flush=True)
         worst = max(worst, e_plain, e_k3)
     return worst
 

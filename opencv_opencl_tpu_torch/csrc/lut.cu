@@ -2,8 +2,9 @@
 //
 //   K4 apply_lut_kernel          out[f, r, c] = luts[f, y[f, r, c]]
 //   K6 interp_cells_kernel       CLAHE's bilinear blend of four tile LUTs,
-//                                one block per (frame, cell, row chunk);
-//                                on a band of rows at a global row it is K9
+//                                one block per (frame, cell, row chunk),
+//                                16-byte units of two rows a thread; on a
+//                                band of rows at a global row it is K9
 //   K6r interp_cells_radix_kernel  K6 with the cell's four LUTs
 //                                interleaved in shared memory as uchar4
 //                                words: one 32-bit load per pixel
@@ -108,14 +109,27 @@ apply_lut_kernel(const uint8_t* y, long long y_frame_stride,
 // reproduces the plan's per-pixel tile indices, so its four LUTs
 // (cell_lut_idx, in l11, l12, l21, l22 order) are those K3 reads there.
 // Bound: the read and write of the frames (2 bytes per pixel, 66.4 MB for
-// a 4K batch of 4).  Design: the block stages only its cell's four LUTs
-// (1 KB, one 32-bit word per thread) in shared memory, where K3 stages all
-// T*256 bytes of the frame's LUTs and only when they fit 48 KB; the
-// threads walk the chunk's (row, column) pairs with running counters, so a
-// narrow border cell still keeps every thread busy; `xa` is read per
-// column and `ya` per row from the plan.  The blend is blend4, K3's bit for
-// bit.  Each pixel is read and then written by one thread, so `out` may
-// alias `y`.
+// a 4K batch of 4).  Design, K3's for Hopper on K6's grid:
+// - Staging: the block interleaves its cell's four LUTs into 256 uchar4
+//   words (1 KB; interleave4, as K3 builds its pack), so a pixel's four
+//   entries are one 32-bit shared load.
+// - Columns: each row's columns of the cell fall in three parts, from the
+//   wrapper's table `col_parts` (InterpSpec.column_parts: c0, a, b, c1 per
+//   cell column): head bytes [c0, a) up to the first 16-byte boundary,
+//   whole 16-byte units [a, b), tail bytes [b, c1).  When the launch is
+//   `vec` (both bases and all four strides multiples of 16; the wrapper
+//   decides), a thread maps one unit in each of two neighbouring rows: both
+//   loads issued before either store, 32 blends with xa read four at a time
+//   as float4 from a unit-major copy of the plan's xa (InterpSpec.unit_xa),
+//   two uint4 stores.  At 4K the cell columns start at 240 + 480k, so there
+//   are no head or tail bytes; at 1080p at 120 + 240k, so each cell has 8 of
+//   each.  The head and tail bytes, and every column of a launch that is not
+//   `vec`, take the byte path, one pixel per thread and step.
+// - Per pixel: one 32-bit shared load, its four bytes to f32 exactly (no
+//   I2F), blend4 (blend.cuh), K3's blend bit for bit.  Per row: ya.
+// Each pixel is read and then written by one thread, so `out` may alias `y`.
+// On an NVIDIA H100 80GB HBM3 (700 W) a 4K batch of 4 takes 0.047 ms, 0.031
+// without the blend (scripts/torch_kernel_turns.py on a copy of it).
 //
 // K9: the same kernel replaces clahe_interpolate_pallas_band, as the JAX
 // package has one body (_interp_kernel) behind both.  `y` and `out` then hold
@@ -127,63 +141,133 @@ apply_lut_kernel(const uint8_t* y, long long y_frame_stride,
 // kernel; none of that is needed here.  K6 is row0 = 0, cy0 = 0, row_end =
 // height.
 constexpr int kLutWords = kBins / 4;    // 32-bit words per LUT
-static_assert(kThreads == 4 * kLutWords, "one staging word per thread");
+static_assert(kThreads >= kLutWords, "one staging word of each LUT per thread");
+
+// the four pixels of one input word w, each blended from its pack word
+__device__ __forceinline__ uint32_t blend_pixels4(const uint32_t* pack,
+                                                  uint32_t w, float4 fx,
+                                                  float fy, float fy1) {
+    return blend_word(pack[w & 0xffu], fx.x, fy, fy1)
+           | blend_word(pack[(w >> 8) & 0xffu], fx.y, fy, fy1) << 8
+           | blend_word(pack[(w >> 16) & 0xffu], fx.z, fy, fy1) << 16
+           | blend_word(pack[w >> 24], fx.w, fy, fy1) << 24;
+}
 
 __global__ void __launch_bounds__(kThreads)
 interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
                     long long y_row_stride, const uint8_t* __restrict__ luts,
                     int num_tiles, const int* __restrict__ cell_lut_idx,
-                    int cells_x, int height, int width, int tile_h,
-                    int tile_w, int pad_top, int pad_left,
-                    int rows_per_block, int chunks, int row0, int row_end,
-                    int cy0, const float* __restrict__ ya,
-                    const float* __restrict__ xa, uint8_t* out,
-                    long long out_frame_stride, long long out_row_stride) {
-    __shared__ __align__(16) uint8_t lut4[4 * kBins];
+                    int cells_x, int tile_h, int pad_top, int rows_per_block,
+                    int chunks, int row0, int row_end, int cy0,
+                    const int4* __restrict__ col_parts,
+                    const float* __restrict__ ya, const float* __restrict__ xa,
+                    const float4* __restrict__ xa_units, int units,
+                    uint8_t* out, long long out_frame_stride,
+                    long long out_row_stride, int vec) {
+    __shared__ __align__(16) uint4 pack4[kLutWords];
     const int cy = cy0 + blockIdx.x / chunks;
     const int chunk = blockIdx.x % chunks;
     const int cx = blockIdx.y;
     const int frame = blockIdx.z;
 
-    // the chunk's rows and the cell's columns, in frame coordinates,
-    // clipped to the band and the frame (the border cells are half outside
-    // it)
+    // the chunk's rows, in frame coordinates, clipped to the band and the
+    // frame (the border cells are half outside it); the cell's columns
     const int g0 = cy * tile_h + chunk * rows_per_block;
     const int r0 = max(g0 - pad_top, row0);
     const int r1 = min(min(g0 + rows_per_block, (cy + 1) * tile_h) - pad_top,
                        row_end);
-    const int c0 = max(cx * tile_w - pad_left, 0);
-    const int c1 = min((cx + 1) * tile_w - pad_left, width);
+    const int4 cols = __ldg(&col_parts[cx]);
+    const int c0 = cols.x, c1 = cols.w;
     if (r0 >= r1 || c0 >= c1) return;  // the same for every thread
 
-    {
-        const int k = threadIdx.x / kLutWords;
-        const int word = threadIdx.x % kLutWords;
-        const int tile = __ldg(&cell_lut_idx[(cy * cells_x + cx) * 4 + k]);
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            luts + ((long long)frame * num_tiles + tile) * kBins);
-        reinterpret_cast<uint32_t*>(lut4)[threadIdx.x] = __ldg(&src[word]);
+    if (threadIdx.x < kLutWords) {
+        // word i (values 4i..4i+3) of each of the cell's four LUTs
+        const int i = threadIdx.x;
+        const int* four = cell_lut_idx + (cy * cells_x + cx) * 4;
+        const uint32_t* frame_luts = reinterpret_cast<const uint32_t*>(
+            luts + (long long)frame * num_tiles * kBins);
+        auto word = [&](int k) {
+            return __ldg(&frame_luts[__ldg(&four[k]) * kLutWords + i]);
+        };
+        pack4[i] = interleave4(word(0), word(1), word(2), word(3));
     }
     __syncthreads();
+    const uint32_t* pack = reinterpret_cast<const uint32_t*>(pack4);
 
-    const uint8_t* src = y + frame * y_frame_stride + c0;
-    uint8_t* dst = out + frame * out_frame_stride + c0;
-    const int cols = c1 - c0;
-    int r = r0 + (int)threadIdx.x / cols;
-    int c = (int)threadIdx.x % cols;
-    const int step_rows = kThreads / cols;
-    const int step_cols = kThreads % cols;
-    while (r < r1) {
-        const int v = src[(r - row0) * y_row_stride + c];
-        const float fy = __ldg(&ya[r]);
-        dst[(r - row0) * out_row_stride + c] = blend4(
-            lut4[v], lut4[kBins + v], lut4[2 * kBins + v], lut4[3 * kBins + v],
-            __ldg(&xa[c0 + c]), fy, __fsub_rn(1.0f, fy));
-        r += step_rows;
-        c += step_cols;
-        if (c >= cols) {
-            c -= cols;
-            ++r;
+    const int rows = r1 - r0;
+    const uint8_t* src = y + frame * y_frame_stride
+                         + (long long)(r0 - row0) * y_row_stride;
+    uint8_t* dst = out + frame * out_frame_stride
+                   + (long long)(r0 - row0) * out_row_stride;
+    // a launch that is not vec maps every column as a head byte
+    const int a = vec ? cols.y : c1;
+    const int b = vec ? cols.z : c1;
+    const int nu = (b - a) >> 4;
+    if (nu > 0) {
+        // (p, u) is the thread's flattened position: unit u of the cell in
+        // rows 2p and 2p + 1; one division here, a running counter after
+        const int doubles = (rows + 1) >> 1;
+        int p = (int)threadIdx.x / nu;
+        int u = (int)threadIdx.x % nu;
+        const int step_p = kThreads / nu;
+        const int step_u = kThreads % nu;
+        while (p < doubles) {
+            const int r = 2 * p;
+            const bool two = r + 1 < rows;
+            const uint8_t* s = src + r * y_row_stride + a + 16 * u;
+            const uint4 qa = *reinterpret_cast<const uint4*>(s);
+            uint4 qb = make_uint4(0, 0, 0, 0);
+            if (two) qb = *reinterpret_cast<const uint4*>(s + y_row_stride);
+            const float fya = __ldg(&ya[r0 + r]);
+            const float fyb = two ? __ldg(&ya[r0 + r + 1]) : 0.0f;
+            const float fya1 = __fsub_rn(1.0f, fya);
+            const float fyb1 = __fsub_rn(1.0f, fyb);
+            // the unit's columns 4j..4j+3: input word j of each row, xa at
+            // x4[j * units]
+            const uint32_t in_a[4] = {qa.x, qa.y, qa.z, qa.w};
+            const uint32_t in_b[4] = {qb.x, qb.y, qb.z, qb.w};
+            const float4* x4 = xa_units + (a >> 4) + u;
+            uint32_t res_a[4], res_b[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float4 fx = __ldg(x4 + j * units);
+                res_a[j] = blend_pixels4(pack, in_a[j], fx, fya, fya1);
+                res_b[j] = blend_pixels4(pack, in_b[j], fx, fyb, fyb1);
+            }
+            const uint4 out_a = make_uint4(res_a[0], res_a[1], res_a[2], res_a[3]);
+            const uint4 out_b = make_uint4(res_b[0], res_b[1], res_b[2], res_b[3]);
+            uint8_t* d = dst + r * out_row_stride + a + 16 * u;
+            *reinterpret_cast<uint4*>(d) = out_a;
+            if (two) *reinterpret_cast<uint4*>(d + out_row_stride) = out_b;
+            p += step_p;
+            u += step_u;
+            if (u >= nu) {
+                u -= nu;
+                ++p;
+            }
+        }
+    }
+    // the byte path: the head [c0, a) and the tail [b, c1) of every row,
+    // (row, k) walked with a running counter
+    const int head = a - c0;
+    const int edge = head + (c1 - b);
+    if (edge > 0) {
+        int r = (int)threadIdx.x / edge;
+        int k = (int)threadIdx.x % edge;
+        const int step_r = kThreads / edge;
+        const int step_k = kThreads % edge;
+        while (r < rows) {
+            const int col = k < head ? c0 + k : b + (k - head);
+            const float fy = __ldg(&ya[r0 + r]);
+            dst[r * out_row_stride + col] = (uint8_t)blend_word(
+                pack[src[r * y_row_stride + col]], __ldg(&xa[col]), fy,
+                __fsub_rn(1.0f, fy));
+            r += step_r;
+            k += step_k;
+            if (k >= edge) {
+                k -= edge;
+                ++r;
+            }
         }
     }
 }
@@ -350,18 +434,30 @@ extern "C" int apply_lut_launch(const uint8_t* y, long long y_frame_stride,
 }
 
 // y and out hold band_rows rows from global row row0 on (the whole frame:
-// row0 = 0, band_rows = height); rows at or beyond height are not written
+// row0 = 0, band_rows = height); rows at or beyond height are not written.
+// col_parts: (cells_x, 4) int32, each cell column's (c0, a, b, c1) with a and
+// b multiples of 16; xa_units: (4, units, 4) f32, units = width / 16.  vec
+// (the 16-byte path) is the wrapper's choice; a launch that claims it on a
+// base or stride that 16 does not divide is refused with
+// cudaErrorInvalidValue.
 extern "C" int interp_cells_launch(const uint8_t* y, long long y_frame_stride,
                                    long long y_row_stride, const uint8_t* luts,
                                    int frames, int num_tiles,
                                    const int* cell_lut_idx, int cells_x,
-                                   int height, int width, int tile_h,
-                                   int tile_w, int pad_top, int pad_left,
+                                   int height, int tile_h, int pad_top,
                                    int rows_per_block, int row0,
-                                   int band_rows, const float* ya,
-                                   const float* xa, uint8_t* out,
-                                   long long out_frame_stride,
-                                   long long out_row_stride, void* stream) {
+                                   int band_rows, const int* col_parts,
+                                   const float* ya, const float* xa,
+                                   const float* xa_units, int units,
+                                   uint8_t* out, long long out_frame_stride,
+                                   long long out_row_stride, int vec,
+                                   void* stream) {
+    if (vec && (reinterpret_cast<uintptr_t>(y) % 16
+                || reinterpret_cast<uintptr_t>(out) % 16
+                || y_frame_stride % 16 || y_row_stride % 16
+                || out_frame_stride % 16 || out_row_stride % 16))
+        return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(luts) % 4) return (int)cudaErrorInvalidValue;
     const int row_end = row0 + band_rows < height ? row0 + band_rows : height;
     if (row_end <= row0) return 0;
     const int chunks = (tile_h + rows_per_block - 1) / rows_per_block;
@@ -370,9 +466,10 @@ extern "C" int interp_cells_launch(const uint8_t* y, long long y_frame_stride,
     dim3 grid((cy1 - cy0 + 1) * chunks, cells_x, frames);
     interp_cells_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, y_frame_stride, y_row_stride, luts, num_tiles, cell_lut_idx,
-        cells_x, height, width, tile_h, tile_w, pad_top, pad_left,
-        rows_per_block, chunks, row0, row_end, cy0, ya, xa, out,
-        out_frame_stride, out_row_stride);
+        cells_x, tile_h, pad_top, rows_per_block, chunks, row0, row_end, cy0,
+        reinterpret_cast<const int4*>(col_parts), ya, xa,
+        reinterpret_cast<const float4*>(xa_units), units, out,
+        out_frame_stride, out_row_stride, vec);
     return (int)cudaGetLastError();
 }
 

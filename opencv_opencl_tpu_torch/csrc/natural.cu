@@ -290,47 +290,6 @@ build_luts_kernel(const int* __restrict__ hists, int clip,
 // Each pixel is read and then written by the same thread and depends only on
 // itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).
 
-// One output pixel of K7's blend: the four LUT reads at value v (from
-// shared memory when staged, else through __ldg), then blend4 (blend.cuh),
-// OpenCV's mul-then-add order without FMA contraction.
-__device__ __forceinline__ uint8_t blend_pixel(const uint8_t* lut, int staged,
-                                               int row_a, int row_b, int ca,
-                                               int cb, int v, float fx,
-                                               float fy, float fy1) {
-    float l11, l12, l21, l22;
-    if (staged) {
-        l11 = lut[(row_a + ca) * kBins + v];
-        l12 = lut[(row_a + cb) * kBins + v];
-        l21 = lut[(row_b + ca) * kBins + v];
-        l22 = lut[(row_b + cb) * kBins + v];
-    } else {
-        l11 = __ldg(&lut[(row_a + ca) * kBins + v]);
-        l12 = __ldg(&lut[(row_a + cb) * kBins + v]);
-        l21 = __ldg(&lut[(row_b + ca) * kBins + v]);
-        l22 = __ldg(&lut[(row_b + cb) * kBins + v]);
-    }
-    return blend4(l11, l12, l21, l22, fx, fy, fy1);
-}
-
-// Stage one frame's LUTs (lut_bytes, a multiple of 256) into shared memory
-// with 16-byte copies: the LUT tensor is contiguous, so every frame's LUTs
-// start 16-byte aligned.  The caller synchronises.
-__device__ __forceinline__ void stage_luts(uint8_t* dst, const uint8_t* src,
-                                           int lut_bytes) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < lut_bytes / 16; i += blockDim.x)
-        d[i] = __ldg(&s[i]);
-}
-
-// byte i of w as an f32, exactly: the byte becomes the low mantissa bits of
-// 2^23, which is then subtracted (two full-rate instructions where I2F runs
-// at a quarter of the rate)
-__device__ __forceinline__ float byte_to_float(uint32_t w, int i) {
-    return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | i)),
-                     8388608.0f);
-}
-
 // The row pair's LUTs seen by one block: la and lb are the frame's LUTs of
 // its two tile rows; pack is the staged interleaved pack, or null
 struct PairLuts {
@@ -349,16 +308,39 @@ struct PairLuts {
 
     __device__ __forceinline__ uint32_t blend(int v, int g, float fx, float fy,
                                               float fy1) const {
-        const uint32_t q = word(g, v);
-        return blend4(byte_to_float(q, 0), byte_to_float(q, 1),
-                      byte_to_float(q, 2), byte_to_float(q, 3), fx, fy, fy1);
+        return blend_word(word(g, v), fx, fy, fy1);
     }
 };
 
+// Stage the interleaved pack of `groups` column groups from g_first on, of
+// the row pair whose tile rows' LUTs are la and lb, into dst: for group
+// g_first + j and value v, the uchar4 (l11, l12, l21, l22) at j*256 + v.  A
+// thread reads one 32-bit word (four values) of each of the four LUTs and
+// transposes them into four pack words, stored as one uint4.  The LUTs must
+// be 4-byte aligned; the caller synchronises.
+__device__ __forceinline__ void stage_pack(uint4* dst, const uint8_t* la,
+                                           const uint8_t* lb, int tiles_x,
+                                           int g_first, int groups) {
+    const int words = groups * (kBins / 4);
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+        const int g = g_first + i / (kBins / 4);
+        const int v = (i % (kBins / 4)) * 4;
+        const int ca = max(g - 1, 0) * kBins + v;
+        const int cb = min(g, tiles_x - 1) * kBins + v;
+        dst[i] = interleave4(
+            __ldg(reinterpret_cast<const uint32_t*>(la + ca)),
+            __ldg(reinterpret_cast<const uint32_t*>(la + cb)),
+            __ldg(reinterpret_cast<const uint32_t*>(lb + ca)),
+            __ldg(reinterpret_cast<const uint32_t*>(lb + cb)));
+    }
+}
+
 // 16 pixels from column 16*u on in two rows, a and b, which share the
 // columns' tables: g4 and x4 point at unit u of the unit-major tables, whose
-// four int4 / float4 of a unit lie `units` entries apart
-__device__ __forceinline__ void blend_units(const PairLuts& luts, uint4 a,
+// four int4 / float4 of a unit lie `units` entries apart.  Luts is PairLuts
+// (K3) or ColumnLuts (K7): anything with blend(v, g, fx, fy, fy1).
+template <class Luts>
+__device__ __forceinline__ void blend_units(const Luts& luts, uint4 a,
                                             uint4 b, const int4* __restrict__ g4,
                                             const float4* __restrict__ x4,
                                             int units, float fya, float fyb,
@@ -405,27 +387,8 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
     PairLuts pair{nullptr, lut + max(rp - 1, 0) * tiles_x * kBins,
                   lut + min(rp, tiles_y - 1) * tiles_x * kBins, tiles_x};
     if (staged) {
-        uint4* dst = reinterpret_cast<uint4*>(pack);
-        const int words = (tiles_x + 1) * (kBins / 4);
-        for (int i = threadIdx.x; i < words; i += kThreads) {
-            const int g = i / (kBins / 4);
-            const int v = (i % (kBins / 4)) * 4;
-            const int ca = max(g - 1, 0) * kBins + v;
-            const int cb = min(g, tiles_x - 1) * kBins + v;
-            const uint32_t a = __ldg(reinterpret_cast<const uint32_t*>(pair.la + ca));
-            const uint32_t b = __ldg(reinterpret_cast<const uint32_t*>(pair.la + cb));
-            const uint32_t c = __ldg(reinterpret_cast<const uint32_t*>(pair.lb + ca));
-            const uint32_t d = __ldg(reinterpret_cast<const uint32_t*>(pair.lb + cb));
-            // [a0 b0 a1 b1], [c0 d0 c1 d1], [a2 b2 a3 b3], [c2 d2 c3 d3]
-            const uint32_t ab_lo = __byte_perm(a, b, 0x5140);
-            const uint32_t cd_lo = __byte_perm(c, d, 0x5140);
-            const uint32_t ab_hi = __byte_perm(a, b, 0x7362);
-            const uint32_t cd_hi = __byte_perm(c, d, 0x7362);
-            dst[i] = make_uint4(__byte_perm(ab_lo, cd_lo, 0x5410),
-                                __byte_perm(ab_lo, cd_lo, 0x7632),
-                                __byte_perm(ab_hi, cd_hi, 0x5410),
-                                __byte_perm(ab_hi, cd_hi, 0x7632));
-        }
+        stage_pack(reinterpret_cast<uint4*>(pack), pair.la, pair.lb, tiles_x, 0,
+                   tiles_x + 1);
         __syncthreads();
         pair.pack = pack;
     }
@@ -497,75 +460,153 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
 // LUTs built from frame N-1 and, in the same pass, counts frame N's tile
 // histograms, so the frame is read once for both outputs where K3 then K1
 // read it twice.  Bound: the read and write of the Y plane (2 bytes per
-// pixel; 16.6 MB per 4K frame).  Design: K3's blend (blend_pixel) with the
-// LUTs staged as K3 stages them.  The step launches it on one frame at a
-// time, so a block covers rows_per_block rows (a divisor of tile_h: all
-// of them lie in one tile row) of tiles_per_block tile columns, which
-// gives the grid several blocks per SM; the block keeps one shared-memory
-// 256-bin histogram per tile column it covers.  Threads walk each row tile
-// column by tile column (no per-pixel division), add the INPUT value to
-// that column's bins before the pixel is written (so `out` may alias `y`),
-// and at the end the block adds its non-zero bins to the zeroed
-// (N, T, 256) output with one global atomic each.  Tile-divisible geometry
-// only, the TPU kernel's contract: every row and column is real, so there
-// is no reflect-101 padding to count.
+// pixel; 16.6 MB per 4K frame), then one shared atomic per pixel.  The step
+// launches it on one frame at a time (frame i's LUTs come from frame i-1's
+// histograms), so a frame has to fill the card on its own.  Design: K3's
+// blend and K1's counting in one block:
+// - Grid: one block per (range of rows, tile column, frame).  The wrapper's
+//   table `ranges` cuts the rows at every row pair of the PackSpec and at
+//   every tile row (PackSpec.row_ranges with tile_h), so a block's pixels
+//   all count into one tile's histogram, and its columns, those of one tile
+//   column tx, lie in column groups tx and tx + 1 only.
+// - Staging: those two groups' interleaved pack of the row pair (2 KB, built
+//   by stage_pack as K3 builds its whole pack) in place of the frame's LUTs.
+// - 16-byte frame I/O when the launch is `vec` (both bases, all four strides
+//   and tile_w multiples of 16, so a unit never straddles a tile column;
+//   the wrapper decides): a thread takes 16 pixels of each of two rows,
+//   issues both loads, counts the 32 input bytes from the registers, blends
+//   them with K3's blend_units and the unit-major column tables
+//   (PackSpec.unit_tables; at 1080p a group boundary falls inside a unit, so
+//   the group is per pixel), and stores both units.  Every other launch
+//   takes the byte path, one pixel per thread and step.
+// - Counting: K1's per-warp bins (8 x 1 KB) from the input value in the
+//   register, before the store, so `out` may alias `y`; at the end the block
+//   folds the warps' bins and adds each non-zero bin to the zeroed (N, T,
+//   256) output with one global atomic.
+// Tile-divisible geometry only, the TPU kernel's contract: every row and
+// column is real, so there is no reflect-101 padding to count.  On an
+// NVIDIA H100 80GB HBM3 (700 W) a 4K frame takes 0.021 ms, 0.020 without the
+// atomics and 0.012 without the blend: the blend bounds it now
+// (scripts/torch_kernel_turns.py on copies of this kernel).
+
+// The two staged column groups of one tile column: group g of the block
+// lies at (g - g0) * 256 in the pack
+struct ColumnLuts {
+    const uint32_t* pack;
+    int g0;
+
+    __device__ __forceinline__ uint32_t blend(int v, int g, float fx, float fy,
+                                              float fy1) const {
+        return blend_word(pack[(g - g0) * kBins + v], fx, fy, fy1);
+    }
+};
+
 __global__ void __launch_bounds__(kThreads)
 interp_hist_kernel(const uint8_t* y, long long y_frame_stride,
                    long long y_row_stride, const uint8_t* __restrict__ luts,
-                   int tiles_x, int num_tiles, int tile_h, int tile_w,
-                   const int* __restrict__ ty1, const int* __restrict__ ty2,
-                   const float* __restrict__ ya, const int* __restrict__ tx1,
-                   const int* __restrict__ tx2, const float* __restrict__ xa,
-                   uint8_t* out, long long out_frame_stride,
-                   long long out_row_stride, int rows_per_block,
-                   int tiles_per_block, int staged, int* __restrict__ hists) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    // [tiles_per_block * 256 int32 bins][the frame's LUTs when staged]; the
-    // bins take a multiple of 1 KB, so the LUTs stay 16-byte aligned
-    int* bins = reinterpret_cast<int*>(smem);
-    const int hist_len = tiles_per_block * kBins;
-    const int frame = blockIdx.z;
-    const int t0 = blockIdx.y * tiles_per_block;
-    const int lut_bytes = num_tiles * kBins;
-    const uint8_t* lut = luts + (long long)frame * lut_bytes;
-    for (int i = threadIdx.x; i < hist_len; i += blockDim.x) bins[i] = 0;
-    if (staged) {
-        uint8_t* staged_luts = smem + hist_len * sizeof(int);
-        stage_luts(staged_luts, lut, lut_bytes);
-        lut = staged_luts;
-    }
-    __syncthreads();
+                   int width, int tiles_y, int tiles_x, int tile_h, int tile_w,
+                   const int2* __restrict__ ranges,
+                   const int* __restrict__ rp_of_r,
+                   const float* __restrict__ ya, const int* __restrict__ g_of_c,
+                   const float* __restrict__ xa, const int4* __restrict__ g_units,
+                   const float4* __restrict__ xa_units, uint8_t* out,
+                   long long out_frame_stride, long long out_row_stride,
+                   int vec, int* __restrict__ hists) {
+    __shared__ int bins[kWarps][kBins];
+    __shared__ __align__(16) uint4 pack[2 * kBins / 4];
+    int* flat = &bins[0][0];
+    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
 
-    const int r0 = blockIdx.x * rows_per_block;
-    for (int r = r0; r < r0 + rows_per_block; ++r) {
-        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
-        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
-        const int row_a = __ldg(&ty1[r]) * tiles_x;
-        const int row_b = __ldg(&ty2[r]) * tiles_x;
-        const float fy = __ldg(&ya[r]);
-        const float fy1 = __fsub_rn(1.0f, fy);
-        for (int t = 0; t < tiles_per_block; ++t) {
-            int* tile_bins = bins + t * kBins;
-            const int c1 = (t0 + t + 1) * tile_w;
-            for (int c = (t0 + t) * tile_w + threadIdx.x; c < c1;
-                 c += blockDim.x) {
-                const int v = src_row[c];
-                atomicAdd(&tile_bins[v], 1);
-                dst_row[c] = blend_pixel(lut, staged, row_a, row_b,
-                                         __ldg(&tx1[c]), __ldg(&tx2[c]), v,
-                                         __ldg(&xa[c]), fy, fy1);
+    const int frame = blockIdx.z;
+    const int tx = blockIdx.y;
+    const int2 range = __ldg(&ranges[blockIdx.x]);
+    const int rp = __ldg(&rp_of_r[range.x]);
+    const int num_tiles = tiles_y * tiles_x;
+    const uint8_t* lut = luts + (long long)frame * num_tiles * kBins;
+    stage_pack(pack, lut + max(rp - 1, 0) * tiles_x * kBins,
+               lut + min(rp, tiles_y - 1) * tiles_x * kBins, tiles_x, tx, 2);
+    __syncthreads();
+    const ColumnLuts column{reinterpret_cast<const uint32_t*>(pack), tx};
+    int* mine = bins[threadIdx.x >> 5];
+
+    const int rows = range.y - range.x;
+    const int c0 = tx * tile_w;
+    const uint8_t* src = y + frame * y_frame_stride
+                         + (long long)range.x * y_row_stride + c0;
+    uint8_t* dst = out + frame * out_frame_stride
+                   + (long long)range.x * out_row_stride + c0;
+    if (vec) {
+        // (p, u) is the thread's flattened position: unit u of the tile
+        // column in rows 2p and 2p + 1; one division here, a running
+        // counter after
+        const int units = tile_w >> 4;
+        const int u0 = c0 >> 4;
+        const int doubles = (rows + 1) >> 1;
+        int p = (int)threadIdx.x / units;
+        int u = (int)threadIdx.x % units;
+        const int step_p = kThreads / units;
+        const int step_u = kThreads % units;
+        while (p < doubles) {
+            const int r = 2 * p;
+            const bool two = r + 1 < rows;
+            const uint8_t* s = src + r * y_row_stride + 16 * u;
+            const uint4 a = *reinterpret_cast<const uint4*>(s);
+            uint4 b = make_uint4(0, 0, 0, 0);
+            if (two) b = *reinterpret_cast<const uint4*>(s + y_row_stride);
+            count_bytes(mine, a.x);
+            count_bytes(mine, a.y);
+            count_bytes(mine, a.z);
+            count_bytes(mine, a.w);
+            if (two) {
+                count_bytes(mine, b.x);
+                count_bytes(mine, b.y);
+                count_bytes(mine, b.z);
+                count_bytes(mine, b.w);
+            }
+            const float fya = __ldg(&ya[range.x + r]);
+            const float fyb = two ? __ldg(&ya[range.x + r + 1]) : 0.0f;
+            uint4 out_a, out_b;
+            blend_units(column, a, b, g_units + u0 + u, xa_units + u0 + u,
+                        width >> 4, fya, fyb, out_a, out_b);
+            uint8_t* d = dst + r * out_row_stride + 16 * u;
+            *reinterpret_cast<uint4*>(d) = out_a;
+            if (two) *reinterpret_cast<uint4*>(d + out_row_stride) = out_b;
+            p += step_p;
+            u += step_u;
+            if (u >= units) {
+                u -= units;
+                ++p;
+            }
+        }
+    } else {
+        int r = (int)threadIdx.x / tile_w;
+        int c = (int)threadIdx.x % tile_w;
+        const int step_r = kThreads / tile_w;
+        const int step_c = kThreads % tile_w;
+        while (r < rows) {
+            const int v = src[r * y_row_stride + c];
+            atomicAdd(&mine[v], 1);
+            const float fy = __ldg(&ya[range.x + r]);
+            dst[r * out_row_stride + c] = (uint8_t)column.blend(
+                v, __ldg(&g_of_c[c0 + c]), __ldg(&xa[c0 + c]), fy,
+                __fsub_rn(1.0f, fy));
+            r += step_r;
+            c += step_c;
+            if (c >= tile_w) {
+                c -= tile_w;
+                ++r;
             }
         }
     }
     __syncthreads();
 
-    // tiles are row-major, so the block's tiles_per_block histograms are
-    // contiguous in the output, in the order of `bins`
-    int* dst = hists + ((long long)frame * num_tiles
-                        + (long long)(r0 / tile_h) * tiles_x + t0) * kBins;
-    for (int i = threadIdx.x; i < hist_len; i += blockDim.x) {
-        const int v = bins[i];
-        if (v) atomicAdd(&dst[i], v);
+    int* dst_hist = hists + ((long long)frame * num_tiles
+                             + (range.x / tile_h) * tiles_x + tx) * kBins;
+    for (int b = threadIdx.x; b < kBins; b += kThreads) {
+        int v = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
+        if (v) atomicAdd(&dst_hist[b], v);
     }
 }
 
@@ -814,28 +855,36 @@ extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
     return (int)cudaGetLastError();
 }
 
+// ranges: blocks (start, end) rows, each inside one row pair of rp_of_r
+// and one tile row; the grid is ranges x tiles_x x frames.  vec (the
+// 16-byte path) is the wrapper's choice; a launch that claims it on a base,
+// stride or tile width that 16 does not divide is refused with
+// cudaErrorInvalidValue.
 extern "C" int interp_hist_launch(const uint8_t* y, long long y_frame_stride,
                                   long long y_row_stride, const uint8_t* luts,
-                                  int frames, int height, int tiles_y,
+                                  int frames, int width, int tiles_y,
                                   int tiles_x, int tile_h, int tile_w,
-                                  const int* ty1, const int* ty2,
-                                  const float* ya, const int* tx1,
-                                  const int* tx2, const float* xa,
+                                  const int* ranges, int blocks,
+                                  const int* rp_of_r, const float* ya,
+                                  const int* g_of_c, const float* xa,
+                                  const int* g_units, const float* xa_units,
                                   uint8_t* out, long long out_frame_stride,
-                                  long long out_row_stride,
-                                  int rows_per_block, int tiles_per_block,
+                                  long long out_row_stride, int vec,
                                   int* hists, void* stream) {
-    const int num_tiles = tiles_y * tiles_x;
-    const int lut_bytes = num_tiles * kBins;
-    const int hist_bytes = tiles_per_block * kBins * (int)sizeof(int);
-    const int staged = hist_bytes + lut_bytes <= kStaticSmemLimit ? 1 : 0;
-    dim3 grid(height / rows_per_block, tiles_x / tiles_per_block, frames);
-    interp_hist_kernel<<<grid, kThreads,
-                         hist_bytes + (staged ? lut_bytes : 0),
-                         (cudaStream_t)stream>>>(
-        y, y_frame_stride, y_row_stride, luts, tiles_x, num_tiles, tile_h,
-        tile_w, ty1, ty2, ya, tx1, tx2, xa, out, out_frame_stride,
-        out_row_stride, rows_per_block, tiles_per_block, staged, hists);
+    if (vec && (reinterpret_cast<uintptr_t>(y) % 16
+                || reinterpret_cast<uintptr_t>(out) % 16
+                || y_frame_stride % 16 || y_row_stride % 16
+                || out_frame_stride % 16 || out_row_stride % 16
+                || tile_w % 16))
+        return (int)cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(luts) % 4) return (int)cudaErrorInvalidValue;
+    dim3 grid(blocks, tiles_x, frames);
+    interp_hist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, y_frame_stride, y_row_stride, luts, width, tiles_y, tiles_x, tile_h,
+        tile_w, reinterpret_cast<const int2*>(ranges), rp_of_r, ya, g_of_c, xa,
+        reinterpret_cast<const int4*>(g_units),
+        reinterpret_cast<const float4*>(xa_units), out, out_frame_stride,
+        out_row_stride, vec, hists);
     return (int)cudaGetLastError();
 }
 

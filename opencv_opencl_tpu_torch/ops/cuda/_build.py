@@ -40,11 +40,11 @@ _SIGNATURES = {
     "build_luts_launch": (_P, _I, _I, _P, _I, ctypes.c_float, _P, _P),
     "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
                       _P, _P, _P, _P, _LL, _LL, _I, _P),
-    "interp_hist_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                           _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P),
+    "interp_hist_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P),
     "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),
     "interp_cells_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P, _P, _P, _LL, _LL, _P),
+                            _I, _I, _P, _P, _P, _P, _I, _P, _LL, _LL, _I, _P),
     "interp_pack_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                            _P, _P, _P, _P, _LL, _LL, _I, _P),
     "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,

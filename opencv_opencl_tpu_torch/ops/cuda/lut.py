@@ -52,6 +52,7 @@ import torch
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import (
     _HIST_TARGET_BLOCKS,
+    _THREADS,
     _check,
     _check_band,
     _check_band_out,
@@ -62,7 +63,9 @@ from opencv_opencl_tpu_torch.ops.cuda.natural import (
     _stream,
     bincount_tiles,
     blend,
+    interp_vec,
     live_rows,
+    unit_major,
 )
 
 __all__ = [
@@ -70,6 +73,7 @@ __all__ = [
     "apply_lut_ref",
     "InterpSpec",
     "make_interp_spec",
+    "cells_rows_per_block",
     "clahe_interpolate_cells",
     "clahe_interpolate_cells_ref",
     "build_cell_pack",
@@ -84,10 +88,16 @@ __all__ = [
 # K4 rows per block: one row per warp of the 8-warp block, so a 4K batch of
 # 4 gives 1080 blocks, about 8 per SM of an H100's 132
 _ROWS_PER_BLOCK = 8
-# K6 pixels per block: a block covers as many rows of its cell as make
+# K6r pixels per block: a block covers as many rows of its cell as make
 # about this many pixels (17 rows of a 480-pixel 4K cell), so a 4K batch of
 # 4 gives some 5,000 blocks
 _CELL_PX_PER_BLOCK = 8192
+# K6 rows per block: as many as this many passes of the block's 256 threads
+# map in 16-byte units of two rows of a cell (32 rows of a 4K cell).  On an
+# H100 (700 W) K6 took 0.0520 ms at 4K b4 with 16 rows a block, 0.0504 with
+# 24, 0.0470 with 32, 0.0478 with 48 and 0.0481 with 64
+# (scripts/torch_kernel_turns.py --cells-rows)
+_CELL_PASSES = 2
 # the JAX module's cut: a cell row's one-hot, 256 x tw_pad bf16, within 8 MB
 _ONEHOT_ROW_BYTES_LIMIT = 8 * 1024 * 1024
 
@@ -198,6 +208,32 @@ class InterpSpec:
                            for a in (self.cell_lut_idx, self.ya, self.xa))
             self._device_cache[device] = arrays
         return arrays
+
+    def column_parts(self) -> np.ndarray:
+        """K6's columns of each cell column cx: (CX, 4) int32 (c0, a, b, c1),
+        the cell's frame columns [c0, c1) cut into head bytes [c0, a) up to
+        the first multiple of 16, whole 16-byte units [a, b) and tail bytes
+        [b, c1).  A cell with no whole unit has a == b; a cell outside the
+        frame has c0 == c1."""
+        cx = np.arange(self.cx)
+        c0 = np.clip(cx * self.tile_w - self.pad_left, 0, self.width)
+        c1 = np.maximum(np.clip((cx + 1) * self.tile_w - self.pad_left, 0,
+                                self.width), c0)
+        a = np.minimum(-(-c0 // 16) * 16, c1)
+        b = np.maximum(c1 // 16 * 16, a)
+        return np.stack([c0, a, b, c1], axis=1).astype(np.int32)
+
+    def unit_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """K6's column tables on ``device``: :meth:`column_parts`, and the
+        plan's ``xa`` by 16-pixel unit, (4, W // 16, 4) f32
+        (``natural.unit_major``: the values of ``PackSpec.unit_tables``)."""
+        key = (torch.device(device), "unit_tables")
+        tables = self._device_cache.get(key)
+        if tables is None:
+            tables = (torch.from_numpy(self.column_parts()).to(key[0]),
+                      torch.from_numpy(unit_major(self.xa)).to(key[0]))
+            self._device_cache[key] = tables
+        return tables
 
 
 def _cell_mapping_ok(lo: np.ndarray, hi: np.ndarray, n: int, tile: int,
@@ -346,7 +382,16 @@ def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
 
 
 def _rows_per_block(spec: InterpSpec) -> int:
+    """K6r's rows per block."""
     return max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
+
+
+def cells_rows_per_block(spec: InterpSpec) -> int:
+    """K6's rows per block: as many as ``_CELL_PASSES`` passes of the
+    block's threads map in a cell, two rows of a 16-byte unit each (32 at
+    4K, 68 at 1080p)."""
+    passes = 2 * _CELL_PASSES * max(1, _THREADS // max(1, spec.tile_w // 16))
+    return max(1, min(spec.tile_h, passes))
 
 
 def _check_cell_grid(spec: InterpSpec, n: int) -> None:
@@ -401,14 +446,16 @@ def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
     if not (n and live):
         return out, False
     cell_lut_idx, ya, xa = spec.device_arrays(y_band.device)
+    col_parts, xa_units = spec.unit_tables(y_band.device)
     with torch.cuda.device(y_band.device):
         err = lib.interp_cells_launch(
             y_band.data_ptr(), y_band.stride(0), y_band.stride(1),
             luts.data_ptr(), n, spec.num_tiles, cell_lut_idx.data_ptr(),
-            spec.cx, spec.height, spec.width, spec.tile_h, spec.tile_w,
-            spec.pad_top, spec.pad_left, _rows_per_block(spec), row0, live,
-            ya.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
-            out.stride(1), _stream(y_band.device))
+            spec.cx, spec.height, spec.tile_h, spec.pad_top,
+            cells_rows_per_block(spec), row0, live, col_parts.data_ptr(),
+            ya.data_ptr(), xa.data_ptr(), xa_units.data_ptr(),
+            spec.width // 16, out.data_ptr(), out.stride(0), out.stride(1),
+            int(interp_vec(y_band, out)), _stream(y_band.device))
     _raise_on(err, "interp_cells_kernel")
     return out, True
 

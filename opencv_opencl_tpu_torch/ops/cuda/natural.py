@@ -68,11 +68,14 @@ __all__ = [
     "clahe_interp_and_hist",
     "clahe_interp_and_hist_ref",
     "fused_interp_hist_fits",
+    "fused_rows_per_block",
+    "fused_vec",
     "interior_tiles",
     "tile_hist_vec",
     "interp_vec",
     "interp_rows_per_block",
     "PackSpec",
+    "unit_major",
     "make_pack_spec",
     "build_lut_pack",
     "band_source_rows",
@@ -103,13 +106,18 @@ _INTERP_MAX_ROWS = 32
 # still where a band would otherwise give the card less than one block per
 # SM slot (_HIST_TARGET_BLOCKS)
 _PACK_ROWS_PER_BLOCK = 4
-# K7 runs on one frame at a time in the streaming step, so its blocks split
-# the frame's tile columns as well as its rows until the grid has about this
-# many blocks: 4 per SM of an H100's 132
-_FUSED_TARGET_BLOCKS = 4 * 132
-# a K7 block keeps one 256-bin int32 histogram per tile column it covers in
-# shared memory, within the 48 KB a block gets without opting in to more
-_FUSED_MAX_TILES_PER_BLOCK = 48
+# K7 runs on one frame at a time in the streaming step, so its grid is
+# (range of rows, tile column): the rows per block are as many as
+# _FUSED_PASSES passes of the block's 256 threads map in 16-byte units of
+# two rows (48 at 4K: 384 blocks a frame), and fewer where the frames would
+# otherwise give the grid fewer than about _FUSED_TARGET_BLOCKS blocks (2
+# per SM of an H100's 132).  On an H100 (700 W) K7 took 0.0223 ms a 4K frame
+# with 16 rows a block, 0.0220 with 24, 0.0211 with 32, 0.0207 with 48 and
+# 64 (scripts/torch_kernel_turns.py --fused-rows): a block stages its 2 KB
+# and folds its 8 KB of bins once, so it maps several passes
+_THREADS = 256
+_FUSED_PASSES = 3
+_FUSED_TARGET_BLOCKS = 2 * 132
 
 
 # ------------------------------------------------------------ plain math ----
@@ -284,7 +292,8 @@ class PackSpec:
     flat tile ids of the four LUTs (l11, l12, l21, l22) that apply there.
     ``ya`` and ``xa`` are the plan's f32 weights.  ``device_arrays`` caches
     the arrays as tensors, once per device, and so do ``unit_tables`` and
-    ``device_row_ranges`` (K3's column tables by unit and its blocks)."""
+    ``device_row_ranges`` (the column tables by unit and the blocks of K3
+    and K7)."""
 
     height: int
     width: int
@@ -317,46 +326,58 @@ class PackSpec:
             self._device_cache[device] = arrays
         return arrays
 
-    def row_ranges(self, rows_per_block: int) -> np.ndarray:
+    def row_ranges(self, rows_per_block: int,
+                   tile_h: int | None = None) -> np.ndarray:
         """K3's blocks: (B, 2) int32 [start, end) rows in order, the rows
         of each row pair cut into ceil(len / rows_per_block) ranges whose
-        lengths differ by at most one, so no range leaves its row pair."""
-        change = np.flatnonzero(np.diff(self.rp_of_r)) + 1
-        bounds = np.concatenate([[0], change, [self.height]])
+        lengths differ by at most one, so no range leaves its row pair.
+        With ``tile_h`` (K7's blocks) the rows are also cut at every
+        multiple of ``tile_h``, so no range leaves its tile row either."""
+        cuts = set(np.flatnonzero(np.diff(self.rp_of_r)) + 1)
+        if tile_h is not None:
+            cuts |= set(range(tile_h, self.height, tile_h))
+        bounds = np.array([0, *sorted(cuts), self.height])
         parts = []
         for lo, hi in zip(bounds[:-1], bounds[1:]):
             n = -(-(hi - lo) // rows_per_block)
-            cuts = lo + np.arange(n + 1) * (hi - lo) // n
-            parts.append(np.stack([cuts[:-1], cuts[1:]], axis=1))
+            edges = lo + np.arange(n + 1) * (hi - lo) // n
+            parts.append(np.stack([edges[:-1], edges[1:]], axis=1))
         if not parts:
             return np.zeros((0, 2), np.int32)
         return np.concatenate(parts).astype(np.int32)
 
     def unit_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """K3's column tables by 16-pixel unit, (g_of_c, xa) each as a (4,
-        W // 16, 4) tensor on ``device``: entry [j, u, k] is column
-        16*u + 4*j + k, so the lanes of a warp that map consecutive units
-        read consecutive 16-byte pieces.  The same int32 and f32 values as
-        the plan's, reordered."""
+        """K3's and K7's column tables by 16-pixel unit, (g_of_c, xa) each
+        as a (4, W // 16, 4) tensor on ``device`` (:func:`unit_major`).  The
+        same int32 and f32 values as the plan's, reordered."""
         key = (torch.device(device), "unit_tables")
         tables = self._device_cache.get(key)
         if tables is None:
-            units = self.width // 16
-            tables = tuple(
-                torch.from_numpy(np.ascontiguousarray(
-                    a[:units * 16].reshape(units, 4, 4).transpose(1, 0, 2)))
-                .to(key[0]) for a in (self.g_of_c, self.xa))
+            tables = tuple(torch.from_numpy(unit_major(a)).to(key[0])
+                           for a in (self.g_of_c, self.xa))
             self._device_cache[key] = tables
         return tables
 
-    def device_row_ranges(self, device, rows_per_block: int) -> torch.Tensor:
+    def device_row_ranges(self, device, rows_per_block: int,
+                          tile_h: int | None = None) -> torch.Tensor:
         """:meth:`row_ranges` on ``device``, cached with the arrays."""
-        key = (torch.device(device), "row_ranges", rows_per_block)
+        key = (torch.device(device), "row_ranges", rows_per_block, tile_h)
         ranges = self._device_cache.get(key)
         if ranges is None:
-            ranges = torch.from_numpy(self.row_ranges(rows_per_block)).to(key[0])
+            ranges = torch.from_numpy(
+                self.row_ranges(rows_per_block, tile_h)).to(key[0])
             self._device_cache[key] = ranges
         return ranges
+
+
+def unit_major(a: np.ndarray) -> np.ndarray:
+    """A per-column table (W,) reordered by 16-pixel unit, (4, W // 16, 4):
+    entry [j, u, k] is column 16*u + 4*j + k, so the lanes of a warp that
+    map consecutive units read consecutive 16-byte pieces.  The columns past
+    the last whole unit are left out."""
+    units = a.shape[0] // 16
+    return np.ascontiguousarray(
+        a[:units * 16].reshape(units, 4, 4).transpose(1, 0, 2))
 
 
 def _pair_ids(lo: np.ndarray, hi: np.ndarray, tiles: int) -> np.ndarray:
@@ -739,22 +760,22 @@ def fused_interp_hist_fits(plan) -> bool:
     return not (plan.pad_bottom or plan.pad_right)
 
 
-def _fused_grid(plan, frames: int) -> tuple[int, int]:
-    """K7's (rows_per_block, tiles_per_block).  The rows are the largest
-    divisor of tile_h up to 16, so that no block straddles a tile row (15
-    for the 270 and 135 rows of 4K and 1080p); the tile columns are split
-    into the fewest equal groups that bring the grid to
-    ``_FUSED_TARGET_BLOCKS``."""
-    rows = max(d for d in range(1, min(plan.tile_h, 16) + 1)
-               if plan.tile_h % d == 0)
-    row_blocks = plan.height // rows * frames
-    for groups in range(1, plan.tiles_x + 1):
-        per_block = plan.tiles_x // groups
-        if (plan.tiles_x % groups == 0
-                and per_block <= _FUSED_MAX_TILES_PER_BLOCK
-                and row_blocks * groups >= _FUSED_TARGET_BLOCKS):
-            return rows, per_block
-    return rows, 1
+def fused_vec(y: torch.Tensor, out: torch.Tensor, plan) -> bool:
+    """Whether K7 maps 16-byte units: both bases and all four strides are
+    multiples of 16 (:func:`interp_vec`), and so is the tile width, so that
+    a unit never straddles a tile column."""
+    return interp_vec(y, out) and plan.tile_w % 16 == 0
+
+
+def fused_rows_per_block(frames: int, plan) -> int:
+    """K7's rows per block for ``frames`` frames: as many as
+    ``_FUSED_PASSES`` passes of the block's threads map, two rows of a
+    16-byte unit each (48 at 4K), or fewer down to 2 where the grid of
+    (range of rows, tile column) would otherwise have fewer than
+    ``_FUSED_TARGET_BLOCKS`` blocks (32 at 1080p)."""
+    passes = 2 * _FUSED_PASSES * max(1, _THREADS // max(1, plan.tile_w // 16))
+    enough = frames * plan.tiles_x * plan.height // _FUSED_TARGET_BLOCKS
+    return max(2, min(passes, enough, plan.tile_h))
 
 
 def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
@@ -783,25 +804,30 @@ def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
     if not _on_card(y):
         res, hists = clahe_interp_and_hist_ref(y, luts, plan)
         return (res if out is None else out.copy_(res)), hists
-    if not luts.is_contiguous():
-        raise ValueError("luts must be contiguous")
+    if not luts.is_contiguous() or luts.data_ptr() % 4:
+        raise ValueError("luts must be contiguous and 4-byte aligned")
     lib = _build.load()
     n = y.shape[0]
     if out is None:
         out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
     hists = torch.zeros((n, plan.num_tiles, 256), dtype=torch.int32,
                         device=y.device)
-    ty1, ty2, ya, tx1, tx2, xa = plan.device_arrays(y.device)
-    rows, tiles_per_block = _fused_grid(plan, n)
+    spec = _pack_spec_of(plan)
+    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y.device)
+    g_units, xa_units = spec.unit_tables(y.device)
+    ranges = spec.device_row_ranges(
+        y.device, fused_rows_per_block(n, plan), plan.tile_h)
     if n:
         with torch.cuda.device(y.device):
             err = lib.interp_hist_launch(
                 y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
-                plan.height, plan.tiles_y, plan.tiles_x, plan.tile_h,
-                plan.tile_w, ty1.data_ptr(), ty2.data_ptr(), ya.data_ptr(),
-                tx1.data_ptr(), tx2.data_ptr(), xa.data_ptr(), out.data_ptr(),
-                out.stride(0), out.stride(1), rows, tiles_per_block,
-                hists.data_ptr(), _stream(y.device))
+                plan.width, plan.tiles_y, plan.tiles_x, plan.tile_h,
+                plan.tile_w, ranges.data_ptr(), ranges.shape[0],
+                rp_of_r.data_ptr(), ya.data_ptr(), g_of_c.data_ptr(),
+                xa.data_ptr(), g_units.data_ptr(), xa_units.data_ptr(),
+                out.data_ptr(), out.stride(0), out.stride(1),
+                int(fused_vec(y, out, plan)), hists.data_ptr(),
+                _stream(y.device))
         _raise_on(err, "interp_hist_kernel")
         clahe_interp_and_hist.launches += 1
     return out, hists

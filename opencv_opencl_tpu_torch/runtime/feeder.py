@@ -121,7 +121,6 @@ class FrameFeeder:
         self._staging_free: list[np.ndarray] = []
         self._staging_shape: tuple[int, ...] | None = None
         self._thread: threading.Thread | None = None
-        self._stopping = threading.Event()
 
     # ---- input side (any thread) ----
 
@@ -219,9 +218,10 @@ class FrameFeeder:
                 got = self._inq.get_batch(self.batch_size - len(pending),
                                           timeout=_POP_TIMEOUT_S)
             except TimeoutError:
-                if self._stopping.is_set():
-                    break
-                # idle: retire in-flight work so latency stays low
+                # idle: retire in-flight work so latency stays low.  Not a
+                # reason to stop, even once stop() has begun: a frame put
+                # just after this timeout would be lost; the closed queue
+                # raises Closed once it is drained
                 while self._inflight:
                     self._retire_oldest()
                 continue
@@ -252,7 +252,6 @@ class FrameFeeder:
     def start(self) -> "FrameFeeder":
         if self._thread is not None:
             raise RuntimeError("feeder already started")
-        self._stopping.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="torch-feeder")
         self._thread.start()
@@ -269,7 +268,6 @@ class FrameFeeder:
             return
         if not drain:
             self._inq.clear()
-        self._stopping.set()
         self._inq.close()  # queued frames still drain; get raises Closed after
         self._thread.join(timeout=timeout)
         if self._thread.is_alive():

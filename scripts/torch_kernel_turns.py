@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1 and K3 kernels (and the steps around them) of two or
-more trees in turns on one CUDA card.
+"""Time the port's K1, K3, K6 and K7 kernels (and the steps around them) of
+two or more trees in turns on one CUDA card.
 
 Each tree is a checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into the git-ignored ``_checkout/``).  For each
@@ -9,16 +9,19 @@ and turn, in the order A B ... B A, so that a drift of the card's clock
 shows as a difference between the two readings of the same tree.  Each
 process imports ``opencv_opencl_tpu_torch`` from its tree (``PYTHONPATH``),
 builds that tree's kernels, and times device-alone CUDA-event medians at 4K
-batch 4 over the Y rows of an NV12 batch:
+batch 4 over the Y rows of an NV12 batch (K7 per 4K frame, as the streaming
+step launches it):
 
     python3 scripts/torch_kernel_turns.py _checkout/parent .
 
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
 also times K3 of the trees whose wrapper has ``interp_rows_per_block`` at
-each of those rows per block; ``--ptxas`` prints what ``nvcc -Xptxas -v``
-says of each tree's ``csrc/natural.cu`` (registers, shared memory, spills)
-for K1 and K3.  The last line is one JSON object with every reading and the
-card's name and power limit.
+each of those rows per block, ``--fused-rows 8,16,32`` K7 of the trees with
+``fused_rows_per_block`` and ``--cells-rows 8,16,32`` K6 of the trees with
+``lut.cells_rows_per_block``; ``--ptxas`` prints what ``nvcc -Xptxas -v``
+says of each tree's ``csrc/natural.cu`` and ``csrc/lut.cu`` (registers,
+shared memory, spills) for K1, K3, K6 and K7.  The last line is one JSON
+object with every reading and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ import subprocess
 import sys
 
 WIDTH, HEIGHT, BATCH = 3840, 2160, 4
-KERNEL_NAMES = ("tile_hist_kernel", "interp_kernel")
+KERNEL_NAMES = ("tile_hist_kernel", "interp_kernel", "interp_hist_kernel",
+                "interp_cells_kernel")
+SOURCES = ("natural.cu", "lut.cu")
 
 
 def make_content(kind: str, seed: int = 2024):
@@ -76,10 +81,29 @@ def device_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def child(content: str, interp_rows: list[int]) -> dict:
+def sweep(res: dict, module, name: str, rows_list: list[int], label: str,
+          run, equal) -> None:
+    """Time ``run`` with ``module.name`` (a rows-per-block function) giving
+    each of ``rows_list`` in turn, where the tree's module has it."""
+    if not rows_list or not hasattr(module, name):
+        return
+    chosen = getattr(module, name)
+    for rows in rows_list:
+        setattr(module, name, lambda *args, rows=rows: rows)
+        run()
+        res[f"{label}_equal_rows_{rows}"] = equal()
+        res[f"{label}_rows_{rows}"] = device_ms(run)
+    setattr(module, name, chosen)
+
+
+def child(content: str, interp_rows: list[int], fused_rows: list[int],
+          cells_rows: list[int]) -> dict:
     """Time the kernels and steps of the package on ``sys.path``."""
     import torch
 
+    from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
+    from opencv_opencl_tpu_torch.models import enhancer
+    from opencv_opencl_tpu_torch.ops import auto_clahe
     from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
     from opencv_opencl_tpu_torch.ops import histogram
     from opencv_opencl_tpu_torch.ops.cuda import lut, natural
@@ -88,16 +112,38 @@ def child(content: str, interp_rows: list[int]) -> dict:
     batch = torch.from_numpy(make_content(content)).to(device)
     y = batch[:, :HEIGHT]
     plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, 2.0, (8, 8))
+    spec = lut.make_interp_spec(HEIGHT, WIDTH, 2.0, (8, 8))
     hists = natural.tile_histograms_ref(y, plan)
     luts = natural.build_luts_ref(hists, plan.clip, plan.lut_scale)
     out = torch.empty_like(y)
     natural.clahe_interpolate(y, luts, plan, out=out)
     work = batch.clone()
+    # K7 on one frame, with the LUTs of another frame (the previous one)
+    frame, frame_luts = y[:1], luts[1:2].contiguous()
+    frame_out = torch.empty_like(frame)
+    frame_ref = natural.clahe_interp_and_hist_ref(frame, frame_luts, plan)
+    cells_ref = lut.clahe_interpolate_cells_ref(y, luts, spec)
+
+    def k7_equal() -> bool:
+        got = natural.clahe_interp_and_hist(frame, frame_luts, plan, out=frame_out)
+        return torch.equal(got[0], frame_ref[0]) and torch.equal(got[1], frame_ref[1])
+
+    def k6_equal() -> bool:
+        lut.clahe_interpolate_cells(y, luts, spec, out=out)
+        return torch.equal(out, cells_ref)
+
+    cfg = enhancer.EnhancerConfig(op="clahe", clip_limit=2.0, tile_grid=(8, 8),
+                                  chroma=ChromaPolicy.PASSTHROUGH)
+    stream_fn, _ = enhancer.build_streaming_clahe_fn(
+        cfg, FrameSpec(width=WIDTH, height=HEIGHT))
+    state = enhancer.initial_hists(plan, device)
     # whether the outputs equal the plain versions (a copy of a tree with a
     # part of a kernel taken out, to see what bounds it, does not)
     res = {
         "k1_equal": torch.equal(natural.tile_histograms(y, plan), hists),
         "k3_equal": torch.equal(out, natural.clahe_interpolate_ref(y, luts, plan)),
+        "k7_equal": k7_equal(),
+        "k6_equal": k6_equal(),
         "tile_hist_kernel": device_ms(lambda: natural.tile_histograms(y, plan)),
         "tile_hist_kernel_1x1": device_ms(lambda: histogram.hist256(y)),
         "interp_kernel": device_ms(
@@ -105,11 +151,29 @@ def child(content: str, interp_rows: list[int]) -> dict:
         "interp_kernel_in_place": device_ms(
             lambda: natural.clahe_interpolate(work[:, :HEIGHT], luts, plan,
                                               out=work[:, :HEIGHT])),
+        "interp_hist_kernel": device_ms(
+            lambda: natural.clahe_interp_and_hist(frame, frame_luts, plan,
+                                                  out=frame_out)),
+        "interp_hist_kernel_in_place": device_ms(
+            lambda: natural.clahe_interp_and_hist(work[:1, :HEIGHT], frame_luts,
+                                                  plan, out=work[:1, :HEIGHT])),
+        "k3_then_k1_per_frame": device_ms(
+            lambda: (natural.tile_histograms(frame, plan),
+                     natural.clahe_interpolate(frame, frame_luts, plan,
+                                               out=frame_out))),
+        "interp_cells_kernel": device_ms(
+            lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
+        "interp_cells_kernel_in_place": device_ms(
+            lambda: lut.clahe_interpolate_cells(work[:, :HEIGHT], luts, spec,
+                                                out=work[:, :HEIGHT])),
         "clahe_step": device_ms(
             lambda: clahe_ops.clahe_apply(work[:, :HEIGHT], plan,
                                           out=work[:, :HEIGHT])),
         "cell_grid_step": device_ms(
             lambda: clahe_ops.clahe_apply(y, plan, backend="pallas", out=out)),
+        "streaming_step": device_ms(lambda: stream_fn(work, state)),
+        "auto_step": device_ms(
+            lambda: auto_clahe.clahe_auto(y, (8, 8), device=device)),
     }
     res["histeq_step"] = device_ms(
         lambda: lut.apply_lut(work[:, :HEIGHT], histogram.equalize_lut(
@@ -126,26 +190,35 @@ def child(content: str, interp_rows: list[int]) -> dict:
                 lambda: natural.clahe_interpolate(y, luts, plan, out=out))
         natural.interp_rows_per_block = chosen
         res["interp_rows_chosen"] = chosen(BATCH, HEIGHT)
+    sweep(res, natural, "fused_rows_per_block", fused_rows, "interp_hist_kernel",
+          lambda: natural.clahe_interp_and_hist(frame, frame_luts, plan,
+                                                out=frame_out), k7_equal)
+    sweep(res, lut, "cells_rows_per_block", cells_rows, "interp_cells_kernel",
+          lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out), k6_equal)
     return res
 
 
 def ptxas(tree: str) -> list[str]:
-    """nvcc -Xptxas -v on the tree's natural.cu: the lines of K1 and K3."""
+    """nvcc -Xptxas -v on the tree's natural.cu and lut.cu: the lines of K1,
+    K3, K6 and K7."""
     sys.path.insert(0, os.path.abspath(tree))
     from opencv_opencl_tpu_torch.ops.cuda import _build
 
-    src = os.path.join(tree, "opencv_opencl_tpu_torch", "csrc", "natural.cu")
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
-    res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
-                          os.devnull, src], capture_output=True, text=True)
+    keep = []
+    for source in SOURCES:
+        src = os.path.join(tree, "opencv_opencl_tpu_torch", "csrc", source)
+        res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              os.devnull, src], capture_output=True, text=True)
+        name = None
+        for line in (res.stdout + res.stderr).splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                # the longest name first: one may hold another
+                name = next((k for k in sorted(KERNEL_NAMES, key=len, reverse=True)
+                             if k in line), None)
+            if name and ("Used" in line or "spill" in line or "Compiling" in line):
+                keep.append(f"{name}: {line.strip()}")
     sys.path.pop(0)
-    lines = (res.stdout + res.stderr).splitlines()
-    keep, name = [], None
-    for line in lines:
-        if "Compiling entry function" in line or "Function properties for" in line:
-            name = next((k for k in KERNEL_NAMES if k in line), None)
-        if name and ("Used" in line or "spill" in line or "Compiling" in line):
-            keep.append(f"{name}: {line.strip()}")
     return keep
 
 
@@ -160,12 +233,15 @@ def main() -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--contents", default="structured,random,constant")
     ap.add_argument("--interp-rows", default="")
+    ap.add_argument("--fused-rows", default="")
+    ap.add_argument("--cells-rows", default="")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    rows = [int(r) for r in args.interp_rows.split(",") if r]
+    sweeps = [[int(r) for r in arg.split(",") if r]
+              for arg in (args.interp_rows, args.fused_rows, args.cells_rows)]
     if args.child is not None:
-        print(json.dumps(child(args.child, rows)), flush=True)
+        print(json.dumps(child(args.child, *sweeps)), flush=True)
         return 0
 
     import torch
@@ -189,7 +265,8 @@ def main() -> int:
             env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--child", content,
-                 "--interp-rows", args.interp_rows],
+                 "--interp-rows", args.interp_rows, "--fused-rows", args.fused_rows,
+                 "--cells-rows", args.cells_rows],
                 cwd=os.path.abspath(tree), env=env, capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stdout, res.stderr, file=sys.stderr)

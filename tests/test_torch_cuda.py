@@ -7,7 +7,8 @@ machine with a card and no JAX, run it without the JAX test configuration:
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
 outputs (K1, K8 and K10 histograms, K2 LUTs with one clip or one per frame,
-K3, K4, K6 and K6r frames, K7 frames and histograms, K5, K3v1 and K9 bands,
+K3, K4, K6 and K6r frames, K7 frames and histograms (both on their 16-byte
+and byte paths), K5, K3v1 and K9 bands,
 K1 on bands of tile rows) must equal the plain PyTorch versions on the same CUDA
 inputs exactly, and the CLAHE (every backend), auto-CLAHE, histeq,
 streaming and sharded steps must equal ``core.golden`` and the same steps
@@ -41,6 +42,11 @@ def _frames(seed, n, h, w, content="random"):
     rng = np.random.default_rng(seed)
     if content == "constant":
         return np.full((n, h, w), 77, np.uint8)
+    if content == "structured":     # gradient plus noise
+        base = (np.linspace(0, 200, w, dtype=np.float32)[None, :]
+                + np.linspace(0, 55, h, dtype=np.float32)[:, None])
+        noise = rng.normal(0, 18, (n, h, w)).astype(np.float32)
+        return np.clip(base[None] + noise, 0, 255).astype(np.uint8)
     y = rng.integers(0, 256, (n, h, w), dtype=np.uint8)
     if content == "nv12":
         uv = rng.integers(0, 256, (n, h // 2, w), dtype=np.uint8)
@@ -231,7 +237,10 @@ def test_histeq_step_on_card_equals_cpu(device, kw):
     (2, 80, 120, (5, 4), "random"),
     (1, 1080, 1920, (8, 8), "random"),     # 15-row blocks
     (2, 96, 128, (8, 8), "constant"),
-    (1, 64, 64, (16, 16), "random"),       # 256 tiles: LUTs read via __ldg
+    (1, 64, 64, (16, 16), "random"),       # 256 tiles, tile width 4: bytes
+    (1, 2160, 3840, (8, 8), "structured"),  # 4K: 16-byte units, 16-row blocks
+    (1, 2160, 3840, (8, 8), "constant"),
+    (2, 1080, 1920, (8, 8), "nv12"),       # groups change inside units
 ])
 def test_interp_and_hist_equals_plain(device, n, h, w, grid, content):
     batch = torch.from_numpy(_frames(8, n, h, w, content)).to(device)
@@ -252,6 +261,42 @@ def test_interp_and_hist_equals_plain(device, n, h, w, grid, content):
                                                 out=inplace[:, :h])
     assert torch.equal(inplace[:, :h], out_ref) and torch.equal(hists_in, hists_ref)
     assert torch.equal(inplace[:, h:], batch[:, h:])
+    torch.cuda.synchronize(device)
+
+
+@pytest.mark.parametrize("h,w,grid", [(1080, 1920, (8, 8)), (96, 128, (8, 8)),
+                                      (270, 480, (2, 2)), (80, 120, (5, 4))])
+def test_k7_k6_on_views_that_take_the_byte_paths(device, h, w, grid):
+    """K7 and K6 (and K9) on a view from column 1 (base and rows off 16
+    bytes: the byte paths throughout) and on an aligned view of a wider
+    buffer, in place and out of place, against the plain versions."""
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    wide = torch.from_numpy(_frames(21, 2, h, 16 * (w // 16 + 2), "structured")).to(device)
+    luts = natural.build_luts_ref(natural.tile_histograms_ref(
+        torch.from_numpy(_frames(22, 2, h, w)).to(device), plan), plan.clip, plan.lut_scale)
+    for col0 in (1, 0):
+        y = wide[:, :, col0:col0 + w]
+        assert natural.interp_vec(y, y) == (col0 == 0)
+        out_ref, hists_ref = natural.clahe_interp_and_hist_ref(y, luts, plan)
+        out, hists = natural.clahe_interp_and_hist(y, luts, plan)
+        assert torch.equal(out, out_ref) and torch.equal(hists, hists_ref)
+        want = lut.clahe_interpolate_cells_ref(y, luts, spec)
+        assert torch.equal(want, out_ref)
+        assert torch.equal(lut.clahe_interpolate_cells(y, luts, spec), want)
+        assert torch.equal(lut.clahe_interpolate_cells_band(
+            y[:, h // 3:], luts, spec, h // 3), want[:, h // 3:])
+        for fn in ("k7", "k6"):
+            inplace = wide.clone()
+            view = inplace[:, :, col0:col0 + w]
+            if fn == "k7":
+                _, hists_in = natural.clahe_interp_and_hist(view, luts, plan, out=view)
+                assert torch.equal(hists_in, hists_ref)
+            else:
+                lut.clahe_interpolate_cells(view, luts, spec, out=view)
+            assert torch.equal(view, want)
+            assert torch.equal(inplace[:, :, :col0], wide[:, :, :col0])
+            assert torch.equal(inplace[:, :, col0 + w:], wide[:, :, col0 + w:])
     torch.cuda.synchronize(device)
 
 
@@ -301,6 +346,9 @@ def test_streaming_on_card_equals_cpu_and_golden(device, spec, fused):
     (2, 64, 64, (16, 16), "random"),
     (3, 6, 6, (8, 8), "random"),           # cells of one row
     (2, 33, 47, (3, 5), "random"),
+    (2, 1080, 1920, (8, 8), "nv12"),       # 8 head and 8 tail bytes a cell
+    (1, 2160, 3840, (8, 8), "structured"),  # 4K: whole units only
+    (1, 2160, 3840, (8, 8), "constant"),
 ])
 def test_interpolate_cells_equals_plain_and_k3(device, n, h, w, grid, content):
     batch = torch.from_numpy(_frames(12, n, h, w, content)).to(device)
@@ -481,6 +529,7 @@ def test_pallas_backend_on_card_equals_cpu_and_counts_launches(device, h, w, gri
 BAND_CASES = [
     # (n, h, w, grid, content)
     (2, 96, 128, (8, 8), "nv12"),       # strided Y rows of NV12
+    (1, 1080, 1920, (8, 8), "nv12"),    # K9's head, unit and tail columns
     (1, 1079, 1919, (8, 8), "random"),  # odd geometry
     (2, 67, 131, (5, 3), "random"),     # odd grid
     (2, 64, 128, (8, 8), "constant"),

@@ -1,16 +1,25 @@
-"""The launch planning of K1 and K3 in pure Python (no kernel runs here).
+"""The launch planning of K1, K3, K6 and K7 in pure Python (no kernel runs
+here).
 
 - K3 (``interp_kernel``): the per-block row ranges cover every row once,
   in order, each inside one row pair of ``PackSpec.rp_of_r``, and the
   unit-major column tables hold the plan's values;
-- the choice between the 16-byte and the byte paths of K1 and K3 on
-  aligned NV12 views, ``y[..., 1:]``, 1919x1079 and tile widths that 16
+- K7 (``interp_hist_kernel``): its blocks (row ranges cut at row pairs and
+  tile rows, times the tile columns) cover every (row, tile column) of a
+  frame once, each inside one row pair, one tile row and one tile column,
+  whose columns lie in two column groups;
+- K6 (``interp_cells_kernel``): each cell column's head bytes, 16-byte
+  units and tail bytes cover its columns once, the units 16-aligned, and
+  its unit-major ``xa`` holds the plan's values;
+- the choice between the 16-byte and the byte paths of K1, K3, K6 and K7
+  on aligned NV12 views, ``y[..., 1:]``, 1919x1079 and tile widths that 16
   does not divide;
 - K1's interior tiles, which it reads without reflect-101 index math:
   exactly the tiles whose rows and columns all lie inside the frame.
 
 At 4K, 1080p, 1919x1079, 6x6 and 3x3 on an 8x8 grid, and 97x131 on a 3x5
-grid.  The card runs the same geometries in ``tests/test_torch_cuda.py``.
+grid (K7: the tile-divisible ones, and more).  The card runs the same
+geometries in ``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -19,7 +28,7 @@ import torch
 
 from opencv_opencl_tpu_torch.core.golden import reflect101_indices
 from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
-from opencv_opencl_tpu_torch.ops.cuda import natural
+from opencv_opencl_tpu_torch.ops.cuda import lut, natural
 
 GEOMETRIES = [
     # (height, width, tile grid (x, y))
@@ -136,3 +145,130 @@ def test_k1_interior_tiles_are_those_without_reflection(h, w, grid):
         assert np.array_equal(cols[c], c) == (tx < inner_cols)
     if not (plan.pad_bottom or plan.pad_right):
         assert (inner_rows, inner_cols) == (plan.tiles_y, plan.tiles_x)
+
+
+# tile-divisible geometries, K7's contract: (height, width, tile grid (x, y))
+FUSED_GEOMETRIES = [
+    (2160, 3840, (8, 8)),    # tile 270x480: row pairs cut at 135 + 270k
+    (1080, 1920, (8, 8)),    # tile 135x240: group boundaries inside units
+    (96, 128, (8, 8)),
+    (80, 120, (5, 4)),       # tile width 24: the byte path
+    (64, 64, (16, 16)),
+    (68, 120, (8, 4)),       # odd tile sizes, 17x15
+]
+FUSED_IDS = [f"{h}x{w}_grid{g[0]}x{g[1]}" for h, w, g in FUSED_GEOMETRIES]
+
+
+@pytest.mark.parametrize("h,w,grid", FUSED_GEOMETRIES, ids=FUSED_IDS)
+def test_k7_blocks_cover_every_row_and_tile_column_once(h, w, grid):
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    assert natural.fused_interp_hist_fits(plan)
+    spec = _spec(h, w, grid)
+    tile_rows = np.arange(h) // plan.tile_h
+    for frames in (1, 4):
+        rows = natural.fused_rows_per_block(frames, plan)
+        ranges = spec.row_ranges(rows, plan.tile_h)
+        covered = np.zeros((h, plan.tiles_x), np.int32)
+        for lo, hi in ranges:
+            assert 0 < hi - lo <= rows
+            assert len(set(spec.rp_of_r[lo:hi].tolist())) == 1
+            assert len(set(tile_rows[lo:hi].tolist())) == 1
+            for tx in range(plan.tiles_x):      # the grid's second axis
+                covered[lo:hi, tx] += 1
+        assert np.all(covered == 1)
+        assert np.array_equal(ranges[1:, 0], ranges[:-1, 1])   # in order
+    # a block stages the two column groups tx and tx + 1 of its tile column
+    for tx in range(plan.tiles_x):
+        groups = spec.g_of_c[tx * plan.tile_w:(tx + 1) * plan.tile_w]
+        assert set(groups.tolist()) <= {tx, tx + 1}
+
+
+def test_k7_rows_per_block_fill_the_card_with_one_frame():
+    def blocks(h, w, frames):
+        plan = torch_clahe.make_clahe_plan(h, w, 2.0, (8, 8))
+        rows = natural.fused_rows_per_block(frames, plan)
+        return rows, len(_spec(h, w, (8, 8)).row_ranges(rows, plan.tile_h)) * 8
+
+    # 4K: three passes of 256 threads map 24 pairs of rows of 30 units; 16
+    # stretches of 135 rows, 3 ranges of 45 rows each, times 8 tile columns
+    assert blocks(2160, 3840, 1) == (48, 384)
+    assert blocks(2160, 3840, 4) == (48, 384)
+    # 1080p: 32 rows a block keep one frame at 384 blocks
+    assert blocks(1080, 1920, 1) == (32, 384)
+    assert blocks(96, 128, 1) == (2, 384)
+
+
+CELL_GEOMETRIES = GEOMETRIES + [(1080, 1919, (8, 8)), (64, 64, (16, 16))]
+CELL_IDS = [f"{h}x{w}_grid{g[0]}x{g[1]}" for h, w, g in CELL_GEOMETRIES]
+
+
+@pytest.mark.parametrize("h,w,grid", CELL_GEOMETRIES, ids=CELL_IDS)
+def test_k6_column_parts_cover_each_cell_once(h, w, grid):
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    assert spec is not None
+    parts = spec.column_parts()
+    assert parts.dtype == np.int32 and parts.shape == (spec.cx, 4)
+    covered = np.zeros(w, np.int32)
+    cell_of = (np.arange(w) + spec.pad_left) // spec.tile_w
+    for cx, (c0, a, b, c1) in enumerate(parts):
+        assert c0 <= a <= b <= c1
+        assert a % 16 == 0 or a == c1           # the units start 16-aligned
+        assert b % 16 == 0 or b == a            # ... and end so
+        assert a - c0 < 16 and c1 - b < 16      # at most 15 head, 15 tail
+        assert np.all(cell_of[c0:c1] == cx)
+        covered[c0:c1] += 1
+    assert np.all(covered == 1)
+    assert lut.cells_rows_per_block(spec) <= spec.tile_h
+
+
+def test_k6_column_parts_at_4k_and_1080p():
+    four_k = lut.make_interp_spec(2160, 3840, 2.0, (8, 8)).column_parts()
+    # cell columns start at 240 + 480k: no head or tail bytes
+    assert np.all(four_k[:, 0] == four_k[:, 1]) and np.all(four_k[:, 2] == four_k[:, 3])
+    hd = lut.make_interp_spec(1080, 1920, 2.0, (8, 8)).column_parts()
+    # at 120 + 240k: 8 head and 8 tail bytes in every cell but the edges
+    assert np.all(hd[1:, 1] - hd[1:, 0] == 8) and np.all(hd[:-1, 3] - hd[:-1, 2] == 8)
+    assert lut.cells_rows_per_block(lut.make_interp_spec(2160, 3840, 2.0, (8, 8))) == 32
+    assert lut.cells_rows_per_block(lut.make_interp_spec(1080, 1920, 2.0, (8, 8))) == 68
+
+
+@pytest.mark.parametrize("h,w,grid", CELL_GEOMETRIES, ids=CELL_IDS)
+def test_k6_unit_xa_holds_the_plan_values_by_unit(h, w, grid):
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    col_parts, xa_units = spec.unit_tables("cpu")
+    assert np.array_equal(col_parts.numpy(), spec.column_parts())
+    units = w // 16
+    assert tuple(xa_units.shape) == (4, units, 4) and xa_units.dtype == torch.float32
+    for j in range(4):
+        for k in range(4):
+            cols = 16 * np.arange(units) + 4 * j + k
+            assert np.array_equal(xa_units[j, :, k].numpy().view(np.uint32),
+                                  spec.xa[cols].view(np.uint32))
+    # the same values as K3's table
+    assert torch.equal(xa_units, _spec(h, w, grid).unit_tables("cpu")[1])
+    assert spec.unit_tables("cpu")[1] is xa_units       # cached
+
+
+def test_k7_k6_path_choice_on_the_named_cases():
+    """K7 maps 16-byte units when the bases, the strides and the tile width
+    are multiples of 16; K6 (interp_vec, as K3) when the bases and strides
+    are, whatever the width."""
+    four_k = torch.zeros((4, 3240, 3840), dtype=torch.uint8)
+    plan = torch_clahe.make_clahe_plan(2160, 3840, 2.0, (8, 8))
+    y = four_k[:, :2160]
+    assert natural.fused_vec(y, y, plan) and natural.interp_vec(y, y)
+    view = four_k[:, :2160, 1:]
+    view_plan = torch_clahe.make_clahe_plan(2160, 3839, 2.0, (8, 8))
+    assert not natural.fused_vec(view, view, view_plan)
+    assert not natural.interp_vec(view, view)
+    hd = torch.zeros((4, 1620, 1920), dtype=torch.uint8)[:, :1080]
+    assert natural.fused_vec(hd, hd, torch_clahe.make_clahe_plan(1080, 1920, 2.0, (8, 8)))
+    # tile width 24 (120 / 5): K7 reads bytes, K6 still 16-byte units
+    small = torch.zeros((2, 120, 128), dtype=torch.uint8)[:, :80, :120]
+    small_plan = torch_clahe.make_clahe_plan(80, 120, 2.0, (5, 4))
+    assert not natural.fused_vec(small, small, small_plan)
+    assert natural.interp_vec(small, small)
+    odd = torch.zeros((2, 1079, 1919), dtype=torch.uint8)
+    assert not natural.interp_vec(odd, odd)
+    # an aligned input with an output off 16 bytes: both take bytes
+    assert not natural.fused_vec(y, view[:, :, :3824], plan)

@@ -8,6 +8,7 @@ out the C++ staging ring, so a truthy ``native_staging`` raises.
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -133,3 +134,31 @@ def test_metrics_equal_jax():
                         t.avg_total_ms, t.percentile_total_ms(95),
                         t.window_report(), t.final_report(), printed))
     assert reports[0] == reports[1]
+
+
+def test_feeder_drains_a_frame_queued_as_its_pop_times_out():
+    """stop(drain=True) right after the last submit emits that frame even
+    when the feeder's idle pop timed out just before the frame was queued
+    and stop() began (the pop is made to time out then, once)."""
+    outs = []
+    f = feeder.FrameFeeder(_step, batch_size=2, depth=1,
+                           on_output=lambda seq, frame, meta: outs.append(seq))
+    real = f._inq.get_batch
+    timed_out = threading.Event()
+
+    def get_batch(max_items, timeout=None):
+        if not timed_out.is_set():
+            deadline = time.monotonic() + 10.0
+            while not f._inq._closed and time.monotonic() < deadline:
+                time.sleep(0.001)
+            timed_out.set()
+            raise TimeoutError("queue get timed out")
+        return real(max_items, timeout)
+
+    f._inq.get_batch = get_batch
+    f.start()
+    f.submit(np.zeros((4, 6), np.uint8))
+    f.stop(drain=True, timeout=10.0)
+    assert timed_out.is_set()
+    assert outs == [0] and f.stats["emitted"] == 1
+    assert f.stats.get("processing_errors", 0) == 0

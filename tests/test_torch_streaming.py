@@ -224,15 +224,18 @@ def test_interp_and_hist_rejects_padded_geometry():
 
 
 @pytest.mark.parametrize("h,w,grid,frames,want", [
-    (2160, 3840, (8, 8), 1, (15, 2)),     # 576 blocks per 4K frame
-    (1080, 1920, (8, 8), 1, (15, 1)),
-    (2160, 3840, (8, 8), 4, (15, 8)),
-    (96, 128, (8, 8), 2, (12, 1)),
-    (80, 120, (5, 4), 1, (10, 1)),
-    (68, 120, (8, 4), 1, (1, 1)),        # tile_h 17: one row per block
+    (2160, 3840, (8, 8), 1, (48, 384)),     # 384 blocks per 4K frame
+    (1080, 1920, (8, 8), 1, (32, 384)),
+    (2160, 3840, (8, 8), 4, (48, 1536)),
+    (96, 128, (8, 8), 2, (5, 512)),
+    (80, 120, (5, 4), 1, (2, 200)),
+    (68, 120, (8, 4), 1, (2, 288)),         # tile_h 17
 ])
 def test_fused_grid_keeps_blocks_inside_a_tile_row(h, w, grid, frames, want):
+    """K7's grid: (row ranges cut at row pairs and tile rows) x tile columns
+    x frames; no range leaves its tile row."""
     plan = torch_clahe.make_clahe_plan(h, w, CLIP, grid)
-    rows, tiles_per_block = natural._fused_grid(plan, frames)
-    assert (rows, tiles_per_block) == want
-    assert plan.tile_h % rows == 0 and plan.tiles_x % tiles_per_block == 0
+    rows = natural.fused_rows_per_block(frames, plan)
+    ranges = natural.make_pack_spec(h, w, CLIP, grid).row_ranges(rows, plan.tile_h)
+    assert (rows, len(ranges) * plan.tiles_x * frames) == want
+    assert np.all(ranges[:, 0] // plan.tile_h == (ranges[:, 1] - 1) // plan.tile_h)
