@@ -8,7 +8,9 @@ Run from the repository root, on a machine with one NVIDIA card:
 Phases, each of which raises (exit code != 0) when it fails:
 
 1. device   the card, and its name and power limit from nvidia-smi;
-2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``;
+2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
+            what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1) and K2
+            (registers, shared memory, spills);
 3. kernels  every kernel against its plain PyTorch version on the card,
             exact: K1, K2 and K3 over 4K batches (structured, random and
             ladder NV12 rows, and a view from column 1 whose base and rows
@@ -25,14 +27,16 @@ Phases, each of which raises (exit code != 0) when it fails:
             1919x1079, on a 4K ladder batch, on a view of the 4K batch from
             column 1 and on a constant frame in place over NV12 Y rows, and
             against K3; K8
-            at 4K b4 on an 8x8 and a 1x1 grid, and against K1; K5 (the band
-            interpolation) on a 4K b4 NV12 batch cut into 2, 3 and 4 bands
-            of the sharded geometry (the last one short), in place, at
-            1080p, 1079x1919 and on a constant frame, against its plain
-            version and against K3; K3v1 (K5's kernel over whole frames)
-            against K3; K9 (K6's kernel on a band) on the same bands
-            against K6 and K5; K1 per band of tile rows (space 3, with fake
-            tile rows) against K1 on the whole frame; K10 (the row-batched,
+            at 4K b4 on an 8x8 and a 1x1 grid, and against K1; K5 (K3's
+            kernel with a row origin) on a 4K b4 NV12 batch cut into 2, 3
+            and 4 bands of the sharded geometry (the last one short; at 4K
+            the bands of 2 start inside a row pair), in place, on a band at
+            row 13 and one past the frame, at 1080p, 1079x1919 and on a
+            constant frame, against its plain version and against K3; K3v1
+            (the same kernel over whole frames) against K3; K9 (K6's kernel
+            on a band) on the same bands against K6 and K5; K1 per band of
+            tile rows (space 3, with fake tile rows) against K1 on the
+            whole frame; K10 (the row-batched,
             warp-aggregated tile histograms) at 4K b4 on an 8x8 and a 1x1
             grid for batch_rows 2, 4 and 8 on structured, random and
             constant content, on a 1919x1079 frame extended to its tile
@@ -81,7 +85,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             frames each;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
-            PyTorch call that computes the same function; K6 beside K3, K8
+            PyTorch call that computes the same function; K2 also as a run
+            of launches back to back over the count, beside an empty
+            kernel launched the same way (the floor of a launch) and
+            torch.profiler's device time per call; K6 beside K3, K8
             beside K1, K2 with a clip tensor beside K2 with an int, K5 and
             K3v1 beside K3 and K9 beside K6, in turns; the 1x1 sharded step
             beside the CLAHE step; each rank's time for its part of the 2x2
@@ -173,10 +180,10 @@ KERNELS = (
     ("tile_hist_private_kernel", "tile_histograms_extended",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:142"),
-    ("interp_pack_kernel", "clahe_interpolate_band",
+    ("interp_kernel:band", "clahe_interpolate_band",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:525"),
-    ("interp_pack_kernel:variant1", "clahe_interpolate_pack",
+    ("interp_kernel:variant1", "clahe_interpolate_pack",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/natural.py:273"),
     ("interp_cells_kernel:band", "clahe_interpolate_cells_band",
@@ -194,6 +201,8 @@ KERNELS = (
 OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
             "clahe_interpolate_cells_band", "tile_histograms_batched",
             "clahe_interpolate_cells_radix")
+# K2 launches a timed run queues behind one spin of the card
+K2_LAUNCHES = 200
 # batches per configuration on the spawned 2x2 and 1x4 meshes
 SHARDED_BATCHES = 4
 RELAY_FRAMES = 64
@@ -326,16 +335,16 @@ def kernel_cases(rng):
 
 
 def residual_edge_hists(plan) -> np.ndarray:
-    """Histograms whose redistribution residual is 0, 1 and 255, one bin
-    holding everything, and a uniform one."""
+    """Histograms whose redistribution residual is 0, 1 and 255 and the
+    non-divisors 3, 100 and 129 of 256 (steps 85, 2 and 1), one bin holding
+    everything, and a uniform one."""
     hists = np.zeros((1, plan.num_tiles, 256), np.int32)
     h, c, area = hists[0], plan.clip, plan.tile_area
     h[0, 0] = area
     h[1, :] = area // 256
     h[1, 0] += area - h[1].sum()
-    h[2, :2] = [c + 255, area - (c + 255)]
-    h[3, :2] = [c + 256, area - (c + 256)]
-    h[4, :2] = [c + 1, area - (c + 1)]
+    for row, e in enumerate((255, 256, 1, 3, 100, 129), start=2):
+        h[row, :2] = [c + e, area - (c + e)]
     return hists
 
 
@@ -576,7 +585,7 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
     ]
     natural.clahe_interpolate_pack.launches = 0
     lut.clahe_interpolate_cells_band.launches = 0
-    errs = {"interp_pack_kernel": 0, "interp_pack_kernel:variant1": 0,
+    errs = {"interp_kernel:band": 0, "interp_kernel:variant1": 0,
             "interp_cells_kernel:band": 0, "tile_hist_kernel": 0}
     for label, frames_np, h, w in cases:
         plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
@@ -593,6 +602,7 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
         e_v1 = max_err(natural.clahe_interpolate_pack(y, luts, plan), k3)
         e_v1 = max(e_v1, max_err(natural.clahe_interpolate_pack_ref(y, luts, plan), k3))
         e_k5 = e_k5_k3 = e_k9 = 0
+        vec = set()
         for space in (2, 3, 4):
             inplace5, inplace9 = batch.clone(), batch.clone()
             for row0, row1 in sharded_bands(plan, space):
@@ -609,13 +619,15 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
                                       (inplace9, lut.clahe_interpolate_cells_band, spec)):
                     view = buf[:, row0:row1]
                     fn(view, luts, geom, row0, out=view)
+                vec.add(natural.interp_vec(inplace5[:, row0:row1], inplace5[:, row0:row1]))
             # the bands written in place make up the whole frame; the chroma
             # rows stay untouched
             e_k5 = max(e_k5, max_err(inplace5[:, :h], k3),
                        max_err(inplace5[:, h:], batch[:, h:]))
             e_k9 = max(e_k9, max_err(inplace9[:, :h], k3),
                        max_err(inplace9[:, h:], batch[:, h:]))
-        # a band at a row0 that is no multiple of 8, and one that runs past
+        # a band at a row0 that is no multiple of 8 (inside a row pair, as
+        # the 4K bands at row0 1080 of space 2 are), and one that runs past
         # the frame's last row (those rows are not written)
         for row0, rows in ((13, 700), (h - 37, 64)):
             src = torch.cat([y[:, row0:], y[:, :64]], dim=1)[:, :rows].contiguous()
@@ -644,9 +656,10 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
         torch.cuda.synchronize(device)
         print(f"kernels {label}: K5 {e_k5} vs plain, {e_k5_k3} vs K3; K3v1 {e_v1} vs "
               f"K3; K9 {e_k9} vs K6, K5 and plain; K1 per band {e_k1} vs whole "
-              f"(max abs err)", flush=True)
-        for name, e in (("interp_pack_kernel", max(e_k5, e_k5_k3)),
-                        ("interp_pack_kernel:variant1", e_v1),
+              f"(max abs err; K5's bands in place on the 16-byte path: "
+              f"{sorted(vec)})", flush=True)
+        for name, e in (("interp_kernel:band", max(e_k5, e_k5_k3)),
+                        ("interp_kernel:variant1", e_v1),
                         ("interp_cells_kernel:band", e_k9), ("tile_hist_kernel", e_k1)):
             errs[name] = max(errs[name], e)
     return errs, {"clahe_interpolate_pack": natural.clahe_interpolate_pack.launches,
@@ -1354,6 +1367,38 @@ def device_ms(fn) -> float:
     return time_ms(fn, busy=True)
 
 
+def per_launch_ms(fn, launches: int = K2_LAUNCHES, reps: int = 7) -> float:
+    """Median over ``reps`` runs of the device time of ``launches`` calls
+    back to back, over the count: the card spins while the host queues the
+    start event, the calls and the end event behind it."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / launches)
+    return statistics.median(runs)
+
+
+def profile_us(fn, kernel: str, calls: int = 20) -> float:
+    """torch.profiler's device time of ``kernel`` per call of ``fn``, in us."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(evt.device_time_total for evt in prof.key_averages()
+               if kernel in evt.key) / calls
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it: each
     input read once and each output written once at the HBM rate, or the
@@ -1466,14 +1511,14 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
             lambda: lut.tile_histograms_extended_ref(y, *tiles), None,
             px + nbytes(hists), px),
         # K5 and K9 on the band of a 2x2 mesh's second space position: two
-        # frames, rows [1080, 2160), in place; K3v1 over the whole batch
-        "interp_pack_kernel": (
+        # frames, rows [1080, 2160); K3v1 over the whole batch
+        "interp_kernel:band": (
             lambda: natural.clahe_interpolate_band(band, band_luts, plan, band_row0,
                                                    out=band_out),
             lambda: natural.clahe_interpolate_band_ref(band, band_luts, plan,
                                                        band_row0), None,
             2 * band.numel() + nbytes(band_luts, *pack_arrays), 10 * band.numel()),
-        "interp_pack_kernel:variant1": (
+        "interp_kernel:variant1": (
             lambda: natural.clahe_interpolate_pack(y, luts, plan, out=out),
             lambda: natural.clahe_interpolate_pack_ref(y, luts, plan), None,
             2 * px + nbytes(luts, *pack_arrays), 10 * px),
@@ -1545,10 +1590,10 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K2 build_luts_kernel clip tensor vs int": (
             lambda: natural.build_luts(hists, clips, plan.lut_scale),
             lambda: natural.build_luts(hists, plan.clip, plan.lut_scale)),
-        "K5 interp_pack_kernel, the batch as one band, vs K3 interp_kernel": (
+        "K5 interp_kernel:band, the batch as one band, vs K3 interp_kernel": (
             lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out),
             lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
-        "K3v1 interp_pack_kernel vs K3 interp_kernel": (
+        "K3v1 interp_kernel:variant1 vs K3 interp_kernel": (
             lambda: natural.clahe_interpolate_pack(y, luts, plan, out=out),
             lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
         "K9 interp_cells_kernel, the batch as one band, vs K6": (
@@ -1557,7 +1602,7 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K6r interp_cells_radix_kernel vs K6 interp_cells_kernel": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
-        "K6r interp_cells_radix_kernel vs K5 interp_pack_kernel, the batch as one "
+        "K6r interp_cells_radix_kernel vs K5 interp_kernel:band, the batch as one "
         "band": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
             lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out)),
@@ -1588,10 +1633,24 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         print(f"time tile histograms 4K b{BATCH} {label} content, in turns: "
               + "; ".join(f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in reads.items())
               + f" ms on the device [{card}]", flush=True)
-    pack_spec = natural.make_pack_spec(HEIGHT, WIDTH, CLIP, GRID)
-    print(f"time build_lut_pack 4K b{BATCH} (the gather and permute inside K5's "
-          f"wrapper): {device_ms(lambda: natural.build_lut_pack(luts, pack_spec)):.4f}"
-          f" ms on the device [{card}]", flush=True)
+    # K2 as a run of launches (one call between events is mostly the
+    # events), beside an empty kernel launched the same way and the
+    # profiler's device time per call
+    k2 = times["build_luts_kernel"]
+    k2["one_call_ms"] = k2["ms"]
+    k2["ms"] = per_launch_ms(lambda: natural.build_luts(hists, plan.clip,
+                                                        plan.lut_scale))
+    k2["launch_floor_ms"] = per_launch_ms(lambda: natural.launch_floor(hists))
+    k2["profiler_us"] = profile_us(
+        lambda: natural.build_luts(hists, plan.clip, plan.lut_scale), "build_luts_kernel")
+    k2["launch_floor_profiler_us"] = profile_us(
+        lambda: natural.launch_floor(hists), "launch_floor_kernel")
+    print(f"time build_luts_kernel 4K b{BATCH}, {K2_LAUNCHES} launches back to back: "
+          f"{k2['ms']:.5f} ms a launch (one call between events {k2['one_call_ms']:.4f}; "
+          f"profiler {k2['profiler_us']:.2f} us a call); an empty kernel launched "
+          f"the same way {k2['launch_floor_ms']:.5f} ms (profiler "
+          f"{k2['launch_floor_profiler_us']:.2f} us); bound {k2['bound_ms']:.5f} ms "
+          f"[{card}]", flush=True)
 
     # the 1x1 sharded step (the glue and two world-size-1 NCCL collectives)
     # beside the single-card step, on the Y rows of a batch on the card
@@ -1668,6 +1727,8 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
+    for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel")):
+        print(f"ptxas {line}", flush=True)
 
     # phase 3: kernels
     rng = np.random.default_rng(2024)

@@ -1,6 +1,7 @@
-// The bilinear blend of four tile-LUT values at one pixel, shared by K3, K5
-// and K7 (natural.cu) and K6, K6r and K9 (lut.cu), so that they are equal bit
-// for bit; and the interleaved LUT pack word that K3, K6 and K7 stage.
+// The bilinear blend of four tile-LUT values at one pixel, shared by K3
+// (also K5 and K3v1) and K7 (natural.cu) and K6, K6r and K9 (lut.cu), so that
+// they are equal bit for bit; and the interleaved LUT pack word that K3, K6
+// and K7 stage.
 //
 // OpenCV's mul-then-add order: r1 = l11*(1-fx) + l12*fx, r2 = l21*(1-fx) +
 // l22*fx, res = r1*fy1 + r2*fy, every product rounded to f32 before its add.

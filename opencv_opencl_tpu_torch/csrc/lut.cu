@@ -283,9 +283,8 @@ interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
 // cell's four 256-byte LUTs it interleaves them in shared memory as 256
 // uchar4 words (l11, l12, l21, l22), word index hi*16 + lo = v, and each
 // pixel then does ONE 32-bit shared-memory load where K6 does four byte
-// loads.  It is K5's single gather (there from L1 through __ldg, out of a
-// pack that torch builds per launch) with K6's per-cell staging, so no pack
-// is built outside the kernel.  Bound: the read and write of the frames
+// loads, the gather K3 (and K5) make from their staged row-pair pack, with
+// K6's per-cell staging, so no pack is built outside the kernel.  Bound: the read and write of the frames
 // (2 bytes per pixel, 66.4 MB for a 4K batch of 4).  Staging: thread t reads
 // byte t of each of the four LUTs (a warp reads 32 consecutive bytes of each)
 // and writes word t, so a warp's stores go to 32 consecutive banks; the

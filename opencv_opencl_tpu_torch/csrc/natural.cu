@@ -5,15 +5,14 @@
 //   K2 build_luts_kernel  OpenCV clip + redistribution, int32 inclusive scan,
 //                         LUT = clip(rint(cdf * lut_scale), 0, 255)
 //   K3 interp_kernel      bilinear blend of the four neighbouring tile LUTs,
-//                         in OpenCV's mul-then-add f32 order
+//                         in OpenCV's mul-then-add f32 order, on whole
+//                         frames or on a band of rows that starts at a
+//                         global row; the same kernel is K5 (the sharded
+//                         step's band) and K3v1 (the TPU package's
+//                         variant 1 of K3)
 //   K7 interp_hist_kernel K3's blend with the previous frame's LUTs plus
 //                         K1's histograms of the frame it reads, in one pass
 //                         (the streaming step, tile-divisible geometry)
-//   K5 interp_pack_kernel K3's blend on a band of rows that starts at a
-//                         global row, reading the four LUT entries of a
-//                         pixel as one 32-bit word of an interleaved pack
-//                         (the sharded step; over a whole frame it is the
-//                         TPU package's variant 1 of K3)
 //   K10 tile_hist_batched_kernel  K1's contract on an already extended
 //                         frame, batch_rows rows of a tile per warp step,
 //                         counted warp-aggregated without atomics
@@ -186,14 +185,26 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
 // ----------------------------------------------------------------- K2 ----
 // Replaces natural.py build_lut_pack_pallas / _lut_pack_kernel (without its
 // bf16 interpolation pack: K3 reads the (T, 256) LUTs by direct index).
-// Bound: launch latency; the work is 256 integers per tile.  Design: one
-// block of 256 threads per (frame, tile), one thread per bin, integer
-// arithmetic up to the single f32 multiply of the scale; the excess is a
-// block reduction and the CDF an inclusive int32 warp-shuffle scan, both
-// exact in any order.  With `clips` set (auto-CLAHE, the counterpart of
-// ops/auto_clahe.py _luts_with_traced_clip), the clip is per frame and
-// lives on the device: row blockIdx.x belongs to frame blockIdx.x / tiles
-// and takes clips[that frame] in place of the host `clip`.
+// Bound: launch latency; the work is 256 integers per tile (320 KB in and
+// out at 4K b4, 0.1 us at the HBM rate).  Design: one warp per (frame, tile)
+// row, kLutWarps warps a block, no shared memory and no barrier.  Lane l owns
+// the 8 bins [8l, 8l + 8): two int4 loads, so the warp reads the row's 1 KB
+// in one coalesced pass.  The excess is summed in registers and reduced with
+// one __shfl_xor_sync butterfly, so every lane holds the total; each bin's
+// share and bump follow from its index as in ops/clahe.py _clip_histograms.
+// The CDF is a lane-local inclusive prefix over the 8 bins plus one warp
+// inclusive scan of the lanes' totals, exact in any order (int32).  Each
+// bin then takes one rounded f32 multiply and round half to even, and the
+// lane stores its 8 LUT bytes as one uint2.  With `clips` set (auto-CLAHE,
+// the counterpart of ops/auto_clahe.py _luts_with_traced_clip), the clip is
+// per frame and lives on the device: row r belongs to frame r / tiles and
+// takes clips[that frame] in place of the host `clip`.  On an NVIDIA H100
+// 80GB HBM3 (700 W) a 4K b4 call takes 1.83 us of device time, an empty
+// kernel with its grid 0.84, the block-per-row form it replaced 2.07
+// (torch.profiler, scripts/torch_kernel_turns.py).
+constexpr int kLutWarps = 4;
+constexpr int kLutBins = kBins / 32;      // bins a lane owns
+
 __device__ __forceinline__ int warp_inclusive_scan(int v) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -204,65 +215,79 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
     return v;
 }
 
-__global__ void __launch_bounds__(kBins)
-build_luts_kernel(const int* __restrict__ hists, int clip,
+__global__ void __launch_bounds__(kLutWarps * 32)
+build_luts_kernel(const int* __restrict__ hists, int rows, int clip,
                   const int* __restrict__ clips, int tiles, float lut_scale,
                   uint8_t* __restrict__ luts) {
-    __shared__ int warp_sums[kBins / 32];
-    __shared__ int total;
-    const int bin = threadIdx.x;
-    const int lane = bin & 31;
-    const int warp = bin >> 5;
-    const long long row = (long long)blockIdx.x * kBins;
-    int h = hists[row + bin];
-    if (clips != nullptr) clip = __ldg(&clips[blockIdx.x / tiles]);
+    // a warp's lanes share its row, so a whole warp leaves here or none
+    const int row = blockIdx.x * kLutWarps + (threadIdx.x >> 5);
+    if (row >= rows) return;
+    const int lane = threadIdx.x & 31;
+    const int4* src = reinterpret_cast<const int4*>(hists + (long long)row * kBins)
+                      + 2 * lane;
+    const int4 q0 = __ldg(src);
+    const int4 q1 = __ldg(src + 1);
+    int h[kLutBins] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    if (clips != nullptr) clip = __ldg(&clips[row / tiles]);
 
     if (clip > 0) {
-        // ops/clahe.py _clip_histograms: the excess is shared as
-        // excess // 256 to every bin, the residual one count at a time with
-        // stride max(256 // residual, 1) from bin 0
-        int excess = h > clip ? h - clip : 0;
+        // the excess is shared as excess // 256 to every bin, the residual
+        // one count at a time with stride max(256 // residual, 1) from bin 0
+        int excess = 0;
+#pragma unroll
+        for (int j = 0; j < kLutBins; ++j) excess += h[j] > clip ? h[j] - clip : 0;
 #pragma unroll
         for (int s = 16; s > 0; s >>= 1)
             excess += __shfl_xor_sync(0xffffffffu, excess, s);
-        if (lane == 0) warp_sums[warp] = excess;
-        __syncthreads();
-        if (bin == 0) {
-            int t = 0;
-            for (int w = 0; w < kBins / 32; ++w) t += warp_sums[w];
-            total = t;
-        }
-        __syncthreads();
-        const int clipped = total;
-        const int redist = clipped / kBins;
-        const int residual = clipped - kBins * redist;
+        const int redist = excess / kBins;
+        const int residual = excess - kBins * redist;
         const int step = max(kBins / max(residual, 1), 1);
-        const int bump = (bin % step == 0 && bin / step < residual) ? 1 : 0;
-        h = min(h, clip) + redist + bump;
+#pragma unroll
+        for (int j = 0; j < kLutBins; ++j) {
+            const int bin = kLutBins * lane + j;
+            const int bump = (bin % step == 0 && bin / step < residual) ? 1 : 0;
+            h[j] = min(h[j], clip) + redist + bump;
+        }
     }
 
-    int cdf = warp_inclusive_scan(h);
-    if (lane == 31) warp_sums[warp] = cdf;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) cdf += warp_sums[w];
-
-    // int -> f32 is exact below 2^24; one rounded f32 multiply, then
-    // round half to even like jnp.rint / cvRound
-    const int v = __float2int_rn(__fmul_rn(__int2float_rn(cdf), lut_scale));
-    luts[row + bin] = (uint8_t)min(max(v, 0), 255);
+#pragma unroll
+    for (int j = 1; j < kLutBins; ++j) h[j] += h[j - 1];
+    const int before = warp_inclusive_scan(h[kLutBins - 1]) - h[kLutBins - 1];
+    uint32_t word[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < kLutBins; ++j) {
+        // int -> f32 is exact below 2^24; one rounded f32 multiply, then
+        // round half to even like jnp.rint / cvRound
+        const int v = __float2int_rn(__fmul_rn(__int2float_rn(before + h[j]),
+                                               lut_scale));
+        word[j >> 2] |= (uint32_t)min(max(v, 0), 255) << (8 * (j & 3));
+    }
+    reinterpret_cast<uint2*>(luts + (long long)row * kBins)[lane] =
+        make_uint2(word[0], word[1]);
 }
 
-// ----------------------------------------------------------------- K3 ----
+// Does nothing: launched like K2, it gives the card's floor for a launch
+__global__ void launch_floor_kernel() {}
+
+// ------------------------------------------------------- K3, K5, K3v1 ----
 // Replaces natural.py clahe_interpolate_natural (variant 2) /
-// _natural_interp_kernel_v2.  Bound: the read and write of the Y plane (2
+// _natural_interp_kernel_v2 (K3), and the one Pallas body
+// _natural_interp_kernel behind clahe_interpolate_natural_band (K5, the
+// sharded step's band) and clahe_interpolate_natural(variant=1) (K3v1): the
+// three compute the same blend, and here they are one kernel with three
+// entry points.  The input and output hold the rows [row0, row0 + rows) of
+// the plan's frames (row0 = 0 for whole frames); the row tables (row pair,
+// ya) and the ranges are indexed by global row, the frames at row - row0.
+// Bound: the read and write of the Y plane (2
 // bytes per pixel, 66 MB for a 4K batch of 4); after it, one shared-memory
 // gather per pixel (its bank is the pixel's value mod 32, so lanes
 // conflict).  A design for Hopper; nothing of the TPU kernel's one-hot dots
 // carries over:
 // - Grid: one block per (range of rows, frame).  The wrapper's table
-//   `ranges` holds each block's [start, end) rows, and every range lies
-//   inside one row pair of the PackSpec (the rows between two tile centres),
-//   so a block needs only that pair's LUTs.
+//   `ranges` holds each block's [start, end) global rows, and every range
+//   lies inside one row pair of the PackSpec (the rows between two tile
+//   centres), so a block needs only that pair's LUTs.  A band's first range
+//   starts at row0, which may lie inside a pair.
 // - Staging: the block builds its row pair's interleaved pack in shared
 //   memory: for column group g (the columns between two tile centres) and
 //   value v, the uchar4 (l11, l12, l21, l22) at g*256 + v, (tiles_x + 1) KB
@@ -288,7 +313,10 @@ build_luts_kernel(const int* __restrict__ hists, int clip,
 // - Per pixel: one 32-bit shared load of the pack word, its four bytes to
 //   f32 exactly (no I2F), blend4 (blend.cuh).  Per row: ya.
 // Each pixel is read and then written by the same thread and depends only on
-// itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).
+// itself and the LUTs, so `out` may alias `y` (the in-place NV12 step).  On
+// an NVIDIA H100 80GB HBM3 (700 W) a 4K b4 batch takes 0.049 ms and a 2x2
+// mesh's band (two frames, rows [1080, 2160)) 0.018, where the pack kernel
+// it replaced for K5 took 0.033 (scripts/torch_kernel_turns.py).
 
 // The row pair's LUTs seen by one block: la and lb are the frame's LUTs of
 // its two tile rows; pack is the staged interleaved pack, or null
@@ -378,7 +406,7 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
               const float* __restrict__ xa, const int4* __restrict__ g_units,
               const float4* __restrict__ xa_units, uint8_t* out,
               long long out_frame_stride, long long out_row_stride, int vec,
-              int staged) {
+              int staged, int row0) {
     extern __shared__ __align__(16) uint32_t pack[];
     const int frame = blockIdx.y;
     const int2 range = __ldg(&ranges[blockIdx.x]);
@@ -395,9 +423,9 @@ interp_kernel(const uint8_t* y, long long y_frame_stride,
 
     const int rows = range.y - range.x;
     const uint8_t* src = y + frame * y_frame_stride
-                         + (long long)range.x * y_row_stride;
+                         + (long long)(range.x - row0) * y_row_stride;
     uint8_t* dst = out + frame * out_frame_stride
-                   + (long long)range.x * out_row_stride;
+                   + (long long)(range.x - row0) * out_row_stride;
     const int units = vec ? width >> 4 : 0;
     if (units > 0) {
         // (p, u) is the thread's flattened position: unit u of rows 2p and
@@ -610,54 +638,6 @@ interp_hist_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
-// ------------------------------------------------------------ K5, K3v1 ----
-// Replaces natural.py clahe_interpolate_natural_band (the sharded step's
-// band interpolation) and clahe_interpolate_natural(variant=1): the JAX
-// package has one kernel body, _natural_interp_kernel, behind both, and so
-// has the port.  The TPU body multiplies a 4*G-row LUT pack of the row's
-// tile-row pair by a one-hot of the pixel values and selects each column's
-// group with masks.  Contract here: K3's blend of a band of `rows` rows
-// whose first row is global row `row0` of the plan; rows at or beyond
-// `height` are not written.  Bound: the read and write of the band (2 bytes
-// per pixel).  Design: the pack is interleaved, (frame, row pair, column
-// group, 256) of uchar4 = (l11, l12, l21, l22), so one 32-bit load at the
-// pixel's value gives all four LUT entries where K3 does four byte loads;
-// it is read through __ldg (a block's rows touch one or two row pairs, 9 KB
-// each at 8 column groups, which stay in L1), so nothing is staged and a
-// block may be as small as one row.  The row tables (row pair, ya) are
-// indexed at row0 + r, the column tables (group, xa) per column.  The blend
-// is blend4, K3's bit for bit.  Each pixel is read and then written by one
-// thread, so `out` may alias `y`.
-__global__ void __launch_bounds__(kThreads)
-interp_pack_kernel(const uint8_t* y, long long y_frame_stride,
-                   long long y_row_stride, const uchar4* __restrict__ pack,
-                   int groups, long long pack_frame_stride, int row0,
-                   int rows, int height, int width,
-                   const int* __restrict__ rp_of_r,
-                   const float* __restrict__ ya,
-                   const int* __restrict__ g_of_c,
-                   const float* __restrict__ xa, uint8_t* out,
-                   long long out_frame_stride, long long out_row_stride,
-                   int rows_per_block) {
-    const int frame = blockIdx.y;
-    const uchar4* frame_pack = pack + frame * pack_frame_stride;
-    const int r0 = blockIdx.x * rows_per_block;
-    const int r1 = min(min(r0 + rows_per_block, rows), height - row0);
-    for (int r = r0; r < r1; ++r) {
-        const uint8_t* src_row = y + frame * y_frame_stride + r * y_row_stride;
-        uint8_t* dst_row = out + frame * out_frame_stride + r * out_row_stride;
-        const uchar4* row_pack =
-            frame_pack + (long long)__ldg(&rp_of_r[row0 + r]) * groups * kBins;
-        const float fy = __ldg(&ya[row0 + r]);
-        const float fy1 = __fsub_rn(1.0f, fy);
-        for (int c = threadIdx.x; c < width; c += blockDim.x) {
-            const uchar4 q =
-                __ldg(&row_pack[__ldg(&g_of_c[c]) * kBins + src_row[c]]);
-            dst_row[c] = blend4(q.x, q.y, q.z, q.w, __ldg(&xa[c]), fy, fy1);
-        }
-    }
-}
-
 // ---------------------------------------------------------------- K10 ----
 // Replaces experiments.py tile_histograms_radix_batched /
 // _tile_hist_radixn_kernel (and _tile_hist_radix8_kernel): K1's contract on
@@ -810,19 +790,34 @@ extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
 }
 
 // clips: nullptr for one host clip for every row, else one int32 clip per
-// frame of `tiles` rows (rows / tiles of them; the wrapper checks it)
+// frame of `tiles` rows (rows / tiles of them; the wrapper checks it).  The
+// histograms must be 16-byte aligned and the LUTs 8-byte aligned (a lane
+// reads its bins as two int4 and stores its LUT bytes as one uint2); a
+// launch on others is refused with cudaErrorInvalidValue.
 extern "C" int build_luts_launch(const int* hists, int rows, int clip,
                                  const int* clips, int tiles,
                                  float lut_scale, uint8_t* luts,
                                  void* stream) {
-    build_luts_kernel<<<rows, kBins, 0, (cudaStream_t)stream>>>(
-        hists, clip, clips, tiles, lut_scale, luts);
+    if (reinterpret_cast<uintptr_t>(hists) % 16
+        || reinterpret_cast<uintptr_t>(luts) % 8)
+        return (int)cudaErrorInvalidValue;
+    const int blocks = (rows + kLutWarps - 1) / kLutWarps;
+    build_luts_kernel<<<blocks, kLutWarps * 32, 0, (cudaStream_t)stream>>>(
+        hists, rows, clip, clips, tiles, lut_scale, luts);
     return (int)cudaGetLastError();
 }
 
-// ranges: blocks (start, end) row pairs, each inside one row pair of
-// rp_of_r; the pack of (tiles_x + 1) KB is staged when it fits in the shared
-// memory a block gets without opting in to more.  vec (the 16-byte path) is
+// K2's grid for `rows` LUT rows, of empty blocks: the floor of a launch
+extern "C" int launch_floor_launch(int rows, void* stream) {
+    const int blocks = (rows + kLutWarps - 1) / kLutWarps;
+    launch_floor_kernel<<<blocks, kLutWarps * 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
+// ranges: blocks (start, end) global rows, each inside one row pair of
+// rp_of_r and inside [row0, row0 + the rows of y and out); the pack of
+// (tiles_x + 1) KB is staged when it fits in the shared memory a block gets
+// without opting in to more.  vec (the 16-byte path) is
 // the wrapper's choice; a launch that claims it on a base or stride that 16
 // does not divide is refused with cudaErrorInvalidValue.
 extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
@@ -834,7 +829,7 @@ extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
                              const int* g_units, const float* xa_units,
                              uint8_t* out,
                              long long out_frame_stride,
-                             long long out_row_stride, int vec,
+                             long long out_row_stride, int vec, int row0,
                              void* stream) {
     if (vec && (reinterpret_cast<uintptr_t>(y) % 16
                 || reinterpret_cast<uintptr_t>(out) % 16
@@ -851,7 +846,7 @@ extern "C" int interp_launch(const uint8_t* y, long long y_frame_stride,
         reinterpret_cast<const int2*>(ranges), rp_of_r, ya, g_of_c, xa,
         reinterpret_cast<const int4*>(g_units),
         reinterpret_cast<const float4*>(xa_units), out, out_frame_stride,
-        out_row_stride, vec, staged);
+        out_row_stride, vec, staged, row0);
     return (int)cudaGetLastError();
 }
 
@@ -885,26 +880,6 @@ extern "C" int interp_hist_launch(const uint8_t* y, long long y_frame_stride,
         reinterpret_cast<const int4*>(g_units),
         reinterpret_cast<const float4*>(xa_units), out, out_frame_stride,
         out_row_stride, vec, hists);
-    return (int)cudaGetLastError();
-}
-
-// pack: (frames, row_pairs, groups, 256) uchar4, contiguous; the band has
-// `rows` rows from global row row0 on
-extern "C" int interp_pack_launch(const uint8_t* y, long long y_frame_stride,
-                                  long long y_row_stride, const void* pack,
-                                  int frames, int row_pairs, int groups,
-                                  int row0, int rows, int height, int width,
-                                  const int* rp_of_r, const float* ya,
-                                  const int* g_of_c, const float* xa,
-                                  uint8_t* out, long long out_frame_stride,
-                                  long long out_row_stride,
-                                  int rows_per_block, void* stream) {
-    dim3 grid((rows + rows_per_block - 1) / rows_per_block, frames);
-    interp_pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        y, y_frame_stride, y_row_stride, (const uchar4*)pack, groups,
-        (long long)row_pairs * groups * kBins, row0, rows, height, width,
-        rp_of_r, ya, g_of_c, xa, out, out_frame_stride, out_row_stride,
-        rows_per_block);
     return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["NVCC_FLAGS", "library_path", "load", "is_built"]
+__all__ = ["NVCC_FLAGS", "library_path", "load", "is_built", "ptxas_report"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -38,15 +38,14 @@ _SIGNATURES = {
     "tile_hist_launch": (_P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _P, _P),
     "build_luts_launch": (_P, _I, _I, _P, _I, ctypes.c_float, _P, _P),
+    "launch_floor_launch": (_I, _P),
     "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
-                      _P, _P, _P, _P, _LL, _LL, _I, _P),
+                      _P, _P, _P, _P, _LL, _LL, _I, _I, _P),
     "interp_hist_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                            _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P),
     "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),
     "interp_cells_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _I, _P, _LL, _LL, _I, _P),
-    "interp_pack_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                           _P, _P, _P, _P, _LL, _LL, _I, _P),
     "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,
                                  _P),
     "tile_hist_batched_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
@@ -135,3 +134,23 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def ptxas_report(kernels: tuple[str, ...], csrc: str = _CSRC) -> list[str]:
+    """What ``nvcc -Xptxas -v`` says of the named kernels in the ``*.cu``
+    sources of ``csrc`` (registers, shared memory, spills), one
+    ``"<kernel>: <line>"`` each.  Compiles to no output file."""
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    keep = []
+    for src in sorted(glob.glob(os.path.join(csrc, "*.cu"))):
+        res = subprocess.run([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              os.devnull, src], capture_output=True, text=True)
+        name = None
+        for line in (res.stdout + res.stderr).splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                # the longest name first: one may hold another
+                name = next((k for k in sorted(kernels, key=len, reverse=True)
+                             if k in line), None)
+            if name and ("Used" in line or "spill" in line or "Compiling" in line):
+                keep.append(f"{name}: {line.strip()}")
+    return keep

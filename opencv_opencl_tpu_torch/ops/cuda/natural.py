@@ -20,11 +20,13 @@ tile_histograms_    tile_histograms_     experiments.tile_histograms_radix_
 batched             batched_ref          batched (K10)
 ==================  ===================  =====================================
 
-K5 and K3v1 are one kernel, ``interp_pack_kernel``, as the JAX package has
-one Pallas body behind both: K3's blend with the four LUT entries of a pixel
-read as one 32-bit word of an interleaved pack (:func:`build_lut_pack`,
-geometry in :class:`PackSpec`).  K5 runs it on a band of rows that starts
-at a global row ``row0`` (the sharded step), K3v1 on whole frames.
+K3, K5 and K3v1 are one kernel, ``interp_kernel``, with three entry points
+(the JAX package has one Pallas body behind K5 and K3v1, and K3's computes
+the same blend): K3 and K3v1 run it on whole frames, K5 on a band of rows
+that starts at a global row ``row0`` (the sharded step).  Its blocks are
+ranges of rows inside one row pair (:meth:`PackSpec.row_ranges`), each
+staging its pair's interleaved LUT pack, whose plain form is
+:func:`build_lut_pack`.
 ``tile_histograms`` also takes a band: ``tile_rows`` of the plan, read from
 a slab of the frame that starts at ``slab_row0``.  K10 is K1's contract on
 an already extended frame with ``batch_rows`` rows of a tile per warp step,
@@ -63,6 +65,7 @@ __all__ = [
     "tile_histograms_ref",
     "build_luts",
     "build_luts_ref",
+    "launch_floor",
     "clahe_interpolate",
     "clahe_interpolate_ref",
     "clahe_interp_and_hist",
@@ -102,10 +105,6 @@ _HIST_TARGET_BLOCKS = 8 * 132
 _INTERP_TARGET_BLOCKS = 16 * 132
 _INTERP_MIN_ROWS = 4
 _INTERP_MAX_ROWS = 32
-# K5 rows per block: nothing is staged, so a block is small; fewer rows
-# still where a band would otherwise give the card less than one block per
-# SM slot (_HIST_TARGET_BLOCKS)
-_PACK_ROWS_PER_BLOCK = 4
 # K7 runs on one frame at a time in the streaming step, so its grid is
 # (range of rows, tile column): the rows per block are as many as
 # _FUSED_PASSES passes of the block's 256 threads map in 16-byte units of
@@ -279,21 +278,21 @@ def clahe_interpolate_ref(y: torch.Tensor, luts: torch.Tensor,
     return clahe_interpolate_band_ref(y, luts, plan, 0)
 
 
-# ----------------------------------------------------- the LUT pack (K5) ----
+# ------------------------------------------- the LUT pack (K3, K5, K7) ----
 
 
 @dataclasses.dataclass(frozen=True)
 class PackSpec:
-    """Static geometry of the pack interpolation (K5, K3v1), the Hopper
-    form of the JAX package's ``NaturalSpec`` (variant 1).
+    """Static geometry of the pack interpolation (K3, K5, K3v1 and K7),
+    the Hopper form of the JAX package's ``NaturalSpec`` (variant 1).
 
     Row r lies in row pair ``rp_of_r[r]`` (tile rows clip(rp-1), clip(rp)),
     column c in group ``g_of_c[c]`` likewise; ``pack_idx[rp, g]`` holds the
     flat tile ids of the four LUTs (l11, l12, l21, l22) that apply there.
     ``ya`` and ``xa`` are the plan's f32 weights.  ``device_arrays`` caches
     the arrays as tensors, once per device, and so do ``unit_tables`` and
-    ``device_row_ranges`` (the column tables by unit and the blocks of K3
-    and K7)."""
+    ``device_row_ranges`` (the column tables by unit and the blocks of K3,
+    K5 and K7)."""
 
     height: int
     width: int
@@ -326,19 +325,28 @@ class PackSpec:
             self._device_cache[device] = arrays
         return arrays
 
-    def row_ranges(self, rows_per_block: int,
-                   tile_h: int | None = None) -> np.ndarray:
+    def row_ranges(self, rows_per_block: int, tile_h: int | None = None,
+                   span: tuple[int, int] | None = None) -> np.ndarray:
         """K3's blocks: (B, 2) int32 [start, end) rows in order, the rows
         of each row pair cut into ceil(len / rows_per_block) ranges whose
         lengths differ by at most one, so no range leaves its row pair.
         With ``tile_h`` (K7's blocks) the rows are also cut at every
-        multiple of ``tile_h``, so no range leaves its tile row either."""
+        multiple of ``tile_h``, so no range leaves its tile row either.
+        With ``span=(lo, hi)`` (K5's blocks on a band) only the global rows
+        [lo, hi) are cut, the first range starting at ``lo`` even inside a
+        row pair; the whole frame is ``(0, height)``."""
+        first, last = (0, self.height) if span is None else span
+        if not 0 <= first <= last <= self.height:
+            raise ValueError(f"span {span} outside the plan's {self.height} rows")
         cuts = set(np.flatnonzero(np.diff(self.rp_of_r)) + 1)
         if tile_h is not None:
             cuts |= set(range(tile_h, self.height, tile_h))
-        bounds = np.array([0, *sorted(cuts), self.height])
+        bounds = np.array([first, *sorted(c for c in cuts if first < c < last),
+                           last])
         parts = []
         for lo, hi in zip(bounds[:-1], bounds[1:]):
+            if hi == lo:        # an empty span
+                continue
             n = -(-(hi - lo) // rows_per_block)
             edges = lo + np.arange(n + 1) * (hi - lo) // n
             parts.append(np.stack([edges[:-1], edges[1:]], axis=1))
@@ -359,13 +367,14 @@ class PackSpec:
         return tables
 
     def device_row_ranges(self, device, rows_per_block: int,
-                          tile_h: int | None = None) -> torch.Tensor:
+                          tile_h: int | None = None,
+                          span: tuple[int, int] | None = None) -> torch.Tensor:
         """:meth:`row_ranges` on ``device``, cached with the arrays."""
-        key = (torch.device(device), "row_ranges", rows_per_block, tile_h)
+        key = (torch.device(device), "row_ranges", rows_per_block, tile_h, span)
         ranges = self._device_cache.get(key)
         if ranges is None:
             ranges = torch.from_numpy(
-                self.row_ranges(rows_per_block, tile_h)).to(key[0])
+                self.row_ranges(rows_per_block, tile_h, span)).to(key[0])
             self._device_cache[key] = ranges
         return ranges
 
@@ -601,8 +610,8 @@ def build_luts(hists: torch.Tensor, clip: int | torch.Tensor,
         _check_clips(clip, hists)
     if not _on_card(hists):
         return build_luts_ref(hists, clip, lut_scale)
-    if not hists.is_contiguous():
-        raise ValueError("hists must be contiguous")
+    if not hists.is_contiguous() or hists.data_ptr() % 16:
+        raise ValueError("hists must be contiguous and 16-byte aligned")
     if per_frame and not clip.is_contiguous():
         raise ValueError("clip must be contiguous")
     lib = _build.load()
@@ -617,6 +626,17 @@ def build_luts(hists: torch.Tensor, clip: int | torch.Tensor,
         _raise_on(err, "build_luts_kernel")
         build_luts.launches += 1
     return luts
+
+
+def launch_floor(hists: torch.Tensor) -> None:
+    """Launch an empty kernel with the grid :func:`build_luts` gives
+    ``hists`` (a CUDA tensor): the card's floor for such a launch, timed
+    beside K2.  Counted nowhere; no path calls it."""
+    lib = _build.load()
+    with torch.cuda.device(hists.device):
+        err = lib.launch_floor_launch(hists.shape[0] * hists.shape[1],
+                                      _stream(hists.device))
+    _raise_on(err, "launch_floor_kernel")
 
 
 def clahe_interpolate(y: torch.Tensor, luts: torch.Tensor, plan,
@@ -640,29 +660,8 @@ def clahe_interpolate(y: torch.Tensor, luts: torch.Tensor, plan,
         if out is None:
             return res
         return out.copy_(res)
-    if not luts.is_contiguous() or luts.data_ptr() % 4:
-        raise ValueError("luts must be contiguous and 4-byte aligned")
-    lib = _build.load()
-    if out is None:
-        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
-    n = y.shape[0]
-    spec = _pack_spec_of(plan)
-    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y.device)
-    g_units, xa_units = spec.unit_tables(y.device)
-    ranges = spec.device_row_ranges(y.device,
-                                    interp_rows_per_block(n, plan.height))
-    if n and ranges.shape[0]:
-        with torch.cuda.device(y.device):
-            err = lib.interp_launch(
-                y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
-                plan.width, plan.tiles_y, plan.tiles_x, ranges.data_ptr(),
-                ranges.shape[0], rp_of_r.data_ptr(), ya.data_ptr(),
-                g_of_c.data_ptr(), xa.data_ptr(), g_units.data_ptr(),
-                xa_units.data_ptr(), out.data_ptr(),
-                out.stride(0), out.stride(1), int(interp_vec(y, out)),
-                _stream(y.device))
-        _raise_on(err, "interp_kernel")
-        clahe_interpolate.launches += 1
+    out, launched = _interpolate(y, luts, plan, 0, out)
+    clahe_interpolate.launches += launched
     return out
 
 
@@ -675,34 +674,37 @@ def _check_luts(luts: torch.Tensor, y: torch.Tensor, plan) -> None:
         raise ValueError(f"luts on {luts.device}, frames on {y.device}")
 
 
-def _interpolate_pack(y_band: torch.Tensor, luts: torch.Tensor, plan,
-                      row0: int, out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
-    """Launch ``interp_pack_kernel`` on a band on the card; returns the
-    output and whether a launch was made (the callers count it)."""
-    if not luts.is_contiguous():
-        raise ValueError("luts must be contiguous")
+def _interpolate(y: torch.Tensor, luts: torch.Tensor, plan, row0: int,
+                 out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
+    """Launch ``interp_kernel`` on the card over (N, rows, W) frames whose
+    first row is global row ``row0`` (K3 and K3v1: 0; K5: its band's);
+    returns the output and whether a launch was made (the callers count it).
+    Rows at or beyond the frame's height are not written."""
+    if not luts.is_contiguous() or luts.data_ptr() % 4:
+        raise ValueError("luts must be contiguous and 4-byte aligned")
     lib = _build.load()
-    n, rows, _ = y_band.shape
+    n, rows, _ = y.shape
     live = live_rows(rows, plan.height, row0)
     if out is None:
-        out = torch.empty(y_band.shape, dtype=torch.uint8, device=y_band.device)
+        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
         if live < rows:
-            out[:, live:].copy_(y_band[:, live:])
+            out[:, live:].copy_(y[:, live:])
     if not (n and live and plan.width):
         return out, False
     spec = _pack_spec_of(plan)
-    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y_band.device)
-    pack = build_lut_pack(luts, spec)
-    rows_per_block = max(1, min(_PACK_ROWS_PER_BLOCK,
-                                n * live // _HIST_TARGET_BLOCKS))
-    with torch.cuda.device(y_band.device):
-        err = lib.interp_pack_launch(
-            y_band.data_ptr(), y_band.stride(0), y_band.stride(1),
-            pack.data_ptr(), n, spec.row_pairs, spec.groups, row0, live,
-            plan.height, plan.width, rp_of_r.data_ptr(), ya.data_ptr(),
-            g_of_c.data_ptr(), xa.data_ptr(), out.data_ptr(), out.stride(0),
-            out.stride(1), rows_per_block, _stream(y_band.device))
-    _raise_on(err, "interp_pack_kernel")
+    rp_of_r, ya, g_of_c, xa, _ = spec.device_arrays(y.device)
+    g_units, xa_units = spec.unit_tables(y.device)
+    ranges = spec.device_row_ranges(y.device, interp_rows_per_block(n, live),
+                                    span=(row0, row0 + live))
+    with torch.cuda.device(y.device):
+        err = lib.interp_launch(
+            y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
+            plan.width, plan.tiles_y, plan.tiles_x, ranges.data_ptr(),
+            ranges.shape[0], rp_of_r.data_ptr(), ya.data_ptr(),
+            g_of_c.data_ptr(), xa.data_ptr(), g_units.data_ptr(),
+            xa_units.data_ptr(), out.data_ptr(), out.stride(0), out.stride(1),
+            int(interp_vec(y, out)), row0, _stream(y.device))
+    _raise_on(err, "interp_kernel")
     return out, True
 
 
@@ -730,7 +732,7 @@ def clahe_interpolate_band(y_band: torch.Tensor, luts: torch.Tensor, plan,
     if not _on_card(y_band):
         res = clahe_interpolate_band_ref(y_band, luts, plan, row0)
         return res if out is None else out.copy_(res)
-    out, launched = _interpolate_pack(y_band, luts, plan, row0, out)
+    out, launched = _interpolate(y_band, luts, plan, row0, out)
     clahe_interpolate_band.launches += launched
     return out
 
@@ -738,8 +740,8 @@ def clahe_interpolate_band(y_band: torch.Tensor, luts: torch.Tensor, plan,
 def clahe_interpolate_pack(y: torch.Tensor, luts: torch.Tensor, plan,
                            out: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`clahe_interpolate` in the JAX package's variant 1: whole
-    (N, H, W) uint8 frames through the pack kernel (K5's, at ``row0 = 0``).
-    K3's output, bit for bit.  ``out`` may be ``y`` itself."""
+    (N, H, W) uint8 frames through K5's kernel at ``row0 = 0``, which is
+    K3's.  K3's output, bit for bit.  ``out`` may be ``y`` itself."""
     _check_frames(y, plan)
     _check_luts(luts, y, plan)
     if out is not None:
@@ -749,7 +751,7 @@ def clahe_interpolate_pack(y: torch.Tensor, luts: torch.Tensor, plan,
     if not _on_card(y):
         res = clahe_interpolate_pack_ref(y, luts, plan)
         return res if out is None else out.copy_(res)
-    out, launched = _interpolate_pack(y, luts, plan, 0, out)
+    out, launched = _interpolate(y, luts, plan, 0, out)
     clahe_interpolate_pack.launches += launched
     return out
 

@@ -24,9 +24,9 @@ reflect-101 sources of a bottom pad can lie above the band's own first
 row) and of its interpolation band.
 
 On the card a position runs the hand-written kernels: K1 on its band of
-tile rows, K2, and K5 (``interp_pack_kernel``) in place on its band for
-CLAHE; K1 on its band and K4 for histeq.  ``backend="xla"`` selects the
-plain band versions instead.
+tile rows, K2, and K5 (``interp_kernel`` with a row origin) in place on
+its band for CLAHE; K1 on its band and K4 for histeq.  ``backend="xla"``
+selects the plain band versions instead.
 
 The per-position work is written as plain functions of the position, with
 the collective passed in.  A ``(D, S)`` tuple in place of a ``DeviceMesh``

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K3, K6 and K7 kernels (and the steps around them) of
-two or more trees in turns on one CUDA card.
+"""Time the port's K1, K2, K3 (with K5 and K3v1), K6 and K7 kernels (and the
+steps around them) of two or more trees in turns on one CUDA card.
 
 Each tree is a checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into the git-ignored ``_checkout/``).  For each
@@ -10,17 +10,25 @@ shows as a difference between the two readings of the same tree.  Each
 process imports ``opencv_opencl_tpu_torch`` from its tree (``PYTHONPATH``),
 builds that tree's kernels, and times device-alone CUDA-event medians at 4K
 batch 4 over the Y rows of an NV12 batch (K7 per 4K frame, as the streaming
-step launches it):
+step launches it; K5 on the band of a 2x2 mesh, two frames of rows [1080,
+2160), and over the batch as one band; K3v1).  K2 is timed as a run of
+``K2_LAUNCHES`` launches queued behind a spin of the card, over the count,
+beside ``torch.profiler``'s device time per call and, in a tree that has
+it, an empty kernel launched the same way (``natural.launch_floor``, the
+card's floor for a launch).  The 1x1 sharded CLAHE Y step runs on a
+process group of one rank (NCCL), timed device alone and from an idle
+card, with the profiler's device time per step by kernel:
 
     python3 scripts/torch_kernel_turns.py _checkout/parent .
 
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
-also times K3 of the trees whose wrapper has ``interp_rows_per_block`` at
-each of those rows per block, ``--fused-rows 8,16,32`` K7 of the trees with
-``fused_rows_per_block`` and ``--cells-rows 8,16,32`` K6 of the trees with
-``lut.cells_rows_per_block``; ``--ptxas`` prints what ``nvcc -Xptxas -v``
-says of each tree's ``csrc/natural.cu`` and ``csrc/lut.cu`` (registers,
-shared memory, spills) for K1, K3, K6 and K7.  The last line is one JSON
+also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
+``interp_rows_per_block`` at each of those rows per block, ``--fused-rows
+8,16,32`` K7 of the trees with ``fused_rows_per_block`` and ``--cells-rows
+8,16,32`` K6 of the trees with ``lut.cells_rows_per_block``; ``--ptxas``
+prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
+(registers, shared memory, spills) for K1, K2, K3, K6, K7 and
+``interp_pack_kernel`` (K5 in older trees).  The last line is one JSON
 object with every reading and the card's name and power limit.
 """
 
@@ -32,11 +40,14 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, BATCH = 3840, 2160, 4
-KERNEL_NAMES = ("tile_hist_kernel", "interp_kernel", "interp_hist_kernel",
-                "interp_cells_kernel")
-SOURCES = ("natural.cu", "lut.cu")
+KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
+                "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel")
+# K2 launches a timed run queues behind one spin of the card
+K2_LAUNCHES = 200
 
 
 def make_content(kind: str, seed: int = 2024):
@@ -79,6 +90,50 @@ def device_ms(fn, reps: int = 30, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def per_launch_ms(fn, launches: int = K2_LAUNCHES, reps: int = 7) -> float:
+    """Median over ``reps`` runs of the device time of ``launches`` calls
+    back to back, over the count: the card spins while the host queues
+    the start event, the calls and the end event behind it, so neither
+    the events nor the host's launch work are in the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / launches)
+    return statistics.median(runs)
+
+
+def profile_us(fn, calls: int = 20) -> dict[str, float]:
+    """torch.profiler's device time per call of ``fn``, in us, by kernel
+    (and collective), over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {evt.key: evt.device_time_total / calls for evt in prof.key_averages()
+            if getattr(evt, "device_time_total", 0) > 0}
+
+
+def pick(us: dict[str, float], part: str) -> float:
+    """The summed device us of the profiler keys that hold ``part``."""
+    return sum(v for k, v in us.items() if part in k)
 
 
 def sweep(res: dict, module, name: str, rows_list: list[int], label: str,
@@ -179,8 +234,14 @@ def child(content: str, interp_rows: list[int], fused_rows: list[int],
         lambda: lut.apply_lut(work[:, :HEIGHT], histogram.equalize_lut(
             histogram.hist256(work[:, :HEIGHT]), HEIGHT * WIDTH),
             out=work[:, :HEIGHT]))
+    res.update(band_and_lut_readings(y, hists, luts, plan, out))
+    res.update(sharded_readings(batch.clone(), device))
     if interp_rows and hasattr(natural, "interp_rows_per_block"):
         chosen = natural.interp_rows_per_block
+        band = y[:BATCH // 2, HEIGHT // 2:]
+        band_luts = luts[:BATCH // 2].contiguous()
+        band_out = torch.empty_like(band)
+        band_ref = natural.clahe_interpolate_band_ref(band, band_luts, plan, HEIGHT // 2)
         for rows in interp_rows:
             natural.interp_rows_per_block = lambda n, h, rows=rows: rows
             natural.clahe_interpolate(y, luts, plan, out=out)
@@ -188,6 +249,14 @@ def child(content: str, interp_rows: list[int], fused_rows: list[int],
                 out, natural.clahe_interpolate_ref(y, luts, plan))
             res[f"interp_kernel_rows_{rows}"] = device_ms(
                 lambda: natural.clahe_interpolate(y, luts, plan, out=out))
+            # K5 on a 2x2 mesh's band (the same kernel, in the trees where
+            # the band takes K3's rows per block)
+            natural.clahe_interpolate_band(band, band_luts, plan, HEIGHT // 2,
+                                           out=band_out)
+            res[f"k5_equal_rows_{rows}"] = torch.equal(band_out, band_ref)
+            res[f"interp_kernel_band_2x2_rows_{rows}"] = device_ms(
+                lambda: natural.clahe_interpolate_band(band, band_luts, plan,
+                                                       HEIGHT // 2, out=band_out))
         natural.interp_rows_per_block = chosen
         res["interp_rows_chosen"] = chosen(BATCH, HEIGHT)
     sweep(res, natural, "fused_rows_per_block", fused_rows, "interp_hist_kernel",
@@ -198,28 +267,103 @@ def child(content: str, interp_rows: list[int], fused_rows: list[int],
     return res
 
 
+def band_and_lut_readings(y, hists, luts, plan, out) -> dict:
+    """K5 on a 2x2 mesh's band and as one band, K3v1, and K2 as one call,
+    as a run of launches and by the profiler, with the launch floor."""
+    import torch
+
+    from opencv_opencl_tpu_torch.ops.cuda import natural
+
+    band = y[:BATCH // 2, HEIGHT // 2:]
+    band_luts = luts[:BATCH // 2].contiguous()
+    band_out = torch.empty_like(band)
+    res = {
+        "k5_equal": torch.equal(
+            natural.clahe_interpolate_band(band, band_luts, plan, HEIGHT // 2),
+            natural.clahe_interpolate_band_ref(band, band_luts, plan, HEIGHT // 2)),
+        "k2_equal": torch.equal(natural.build_luts(hists, plan.clip, plan.lut_scale),
+                                natural.build_luts_ref(hists, plan.clip,
+                                                       plan.lut_scale)),
+        "interp_kernel_band_2x2": device_ms(
+            lambda: natural.clahe_interpolate_band(band, band_luts, plan,
+                                                   HEIGHT // 2, out=band_out)),
+        "interp_kernel_one_band": device_ms(
+            lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out)),
+        "interp_kernel_variant1": device_ms(
+            lambda: natural.clahe_interpolate_pack(y, luts, plan, out=out)),
+    }
+    k2 = lambda: natural.build_luts(hists, plan.clip, plan.lut_scale)  # noqa: E731
+    res["build_luts_kernel_one_call"] = device_ms(k2)
+    res["build_luts_kernel_per_launch"] = per_launch_ms(k2)
+    res["build_luts_kernel_profiler_us"] = pick(profile_us(k2), "build_luts_kernel")
+    if hasattr(natural, "launch_floor"):
+        floor = lambda: natural.launch_floor(hists)  # noqa: E731
+        res["launch_floor_per_launch"] = per_launch_ms(floor)
+        res["launch_floor_profiler_us"] = pick(profile_us(floor), "launch_floor_kernel")
+    return res
+
+
+def sharded_readings(batch, device) -> dict:
+    """The 1x1 sharded CLAHE Y step (a process group of one rank on NCCL)
+    beside the single-card Y step, device alone and from an idle card, and
+    the profiler's device us per step by kernel."""
+    import torch.distributed as dist
+
+    from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
+    from opencv_opencl_tpu_torch.models.enhancer import EnhancerConfig, make_enhance_y
+    from opencv_opencl_tpu_torch.parallel import launch, sharded
+
+    cfg = EnhancerConfig(op="clahe", clip_limit=2.0, tile_grid=(8, 8),
+                         chroma=ChromaPolicy.PASSTHROUGH)
+    spec = FrameSpec(width=WIDTH, height=HEIGHT)
+    slab = batch[:, :HEIGHT]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="turns_") as rendezvous:
+        launch.init_process_group(0, 1, os.path.join(rendezvous, "rendezvous"), "cuda")
+        try:
+            step = sharded.ShardedEnhancer(cfg, spec, shape=(1, 1), device=device)._y_step
+            single, _ = make_enhance_y(cfg, spec)
+            res["sharded_1x1_backend"] = dist.get_backend()
+            res["sharded_1x1_clahe_step"] = device_ms(lambda: step.step_slab(slab))
+            res["sharded_1x1_clahe_step_idle"] = idle_ms(lambda: step.step_slab(slab))
+            res["single_card_clahe_y_step"] = device_ms(lambda: single(slab, slab))
+            us = profile_us(lambda: step.step_slab(slab), calls=10)
+            res["sharded_1x1_profiler_us"] = {k: round(v, 2) for k, v in sorted(
+                us.items(), key=lambda kv: -kv[1])[:8]}
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
+def idle_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+    """Median time of one call from an idle card: the host's launch work
+    up to each launch is in it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def ptxas(tree: str) -> list[str]:
-    """nvcc -Xptxas -v on the tree's natural.cu and lut.cu: the lines of K1,
-    K3, K6 and K7."""
-    sys.path.insert(0, os.path.abspath(tree))
+    """nvcc -Xptxas -v on the tree's csrc/*.cu: the lines of the kernels in
+    KERNEL_NAMES."""
+    sys.path.insert(0, REPO)
     from opencv_opencl_tpu_torch.ops.cuda import _build
 
-    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
-    keep = []
-    for source in SOURCES:
-        src = os.path.join(tree, "opencv_opencl_tpu_torch", "csrc", source)
-        res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
-                              os.devnull, src], capture_output=True, text=True)
-        name = None
-        for line in (res.stdout + res.stderr).splitlines():
-            if "Compiling entry function" in line or "Function properties for" in line:
-                # the longest name first: one may hold another
-                name = next((k for k in sorted(KERNEL_NAMES, key=len, reverse=True)
-                             if k in line), None)
-            if name and ("Used" in line or "spill" in line or "Compiling" in line):
-                keep.append(f"{name}: {line.strip()}")
     sys.path.pop(0)
-    return keep
+    return _build.ptxas_report(
+        KERNEL_NAMES, os.path.join(tree, "opencv_opencl_tpu_torch", "csrc"))
 
 
 def card() -> str:

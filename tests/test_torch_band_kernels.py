@@ -11,7 +11,9 @@ port on CPU tensors, where the wrappers run their plain versions:
   every band of the sharded geometry for ``space`` 2, 3 and 4, with
   ``assert_clahe_close`` (the JAX CPU backend FMA-contracts the blend,
   tests/conftest.py); against ``core/golden.py`` and K3's plain version at
-  0 LSB;
+  0 LSB; and K5's blocks as ``interp_kernel`` walks them (the band's row
+  ranges, each blending its rows with the one row pair's pack it stages)
+  against golden at 0 LSB;
 - K3v1 against ``clahe_interpolate_natural(variant=1)`` the same way;
 - K9 against ``lut_kernels.clahe_interpolate_pallas_band`` in interpret
   mode on bands at ``row0`` that are and are not multiples of ``tile_h``,
@@ -141,6 +143,50 @@ def test_band_equals_jax_kernel_golden_and_k3(h, w, grid, space):
             jnp.asarray(luts_np.reshape(-1, 256)), nspec, row0, interpret=True))
         if live:
             assert_clahe_close(got, jax_band[:live])
+
+
+def _k5_blocks(band: torch.Tensor, luts: torch.Tensor, plan, row0: int) -> torch.Tensor:
+    """K5 as ``interp_kernel`` computes it, block by block: the band's row
+    ranges (global rows), each blended with the pack of the row pair of its
+    first row (what the block stages), read at ``row - row0``."""
+    spec = natural.make_pack_spec(plan.height, plan.width, CLIP,
+                                  (plan.tiles_x, plan.tiles_y))
+    n, rows, _ = band.shape
+    live = natural.live_rows(rows, plan.height, row0)
+    pack = natural.build_lut_pack(luts, spec).to(torch.float32)   # (N, R, G, 256, 4)
+    groups = torch.from_numpy(spec.g_of_c).long()[None, None, :]
+    frames = torch.arange(n)[:, None, None]
+    out = band.clone()
+    if not live:            # the wrapper launches nothing
+        return out
+    ranges = spec.row_ranges(natural.interp_rows_per_block(n, live),
+                             span=(row0, row0 + live))
+    for lo, hi in ranges:
+        staged = pack[:, spec.rp_of_r[lo]]                      # (N, G, 256, 4)
+        four = staged[frames, groups, band[:, lo - row0:hi - row0].long()]
+        ya = torch.from_numpy(spec.ya[lo:hi])[None, :, None]
+        out[:, lo - row0:hi - row0] = natural.blend(
+            four[..., 0], four[..., 1], four[..., 2], four[..., 3],
+            torch.from_numpy(spec.xa), ya)
+    return out
+
+
+@pytest.mark.parametrize("space", [2, 3, 4])
+@pytest.mark.parametrize("h,w,grid", GEOMETRIES + [(270, 480, (8, 8))])
+def test_band_blocks_of_the_kernel_equal_golden(h, w, grid, space):
+    y = _frames(10, 2, h, w)
+    plan = torch_clahe.make_clahe_plan(h, w, CLIP, grid)
+    want = np.stack([golden.clahe(f, CLIP, grid) for f in y])
+    yt = torch.from_numpy(y)
+    luts = _luts(yt, plan)
+    bands = _bands(h, space) + [(h // 2 + 1, h), (h - 3, 8)]   # inside a pair, past the end
+    for row0, rows in bands:
+        band = torch.cat([yt[:, row0:], yt[:, :rows]], dim=1)[:, :rows]
+        live = natural.live_rows(rows, h, row0)
+        got = _k5_blocks(band, luts, plan, row0)
+        assert np.array_equal(got[:, :live].numpy(), want[:, row0:row0 + live]), row0
+        assert torch.equal(got[:, live:], band[:, live:])
+        assert torch.equal(got, natural.clahe_interpolate_band(band, luts, plan, row0))
 
 
 def test_band_any_row0_in_place_and_past_the_frame():

@@ -126,12 +126,19 @@ def test_lut_build_residual_edge_cases(device):
     hists[0, 0, 0] = area
     hists[0, 1, :] = area // 256
     hists[0, 1, 0] += area - hists[0, 1].sum()
-    hists[0, 2, :2] = [c + 255, area - (c + 255)]
-    hists[0, 3, :2] = [c + 256, area - (c + 256)]
-    hists[0, 4, :2] = [c + 1, area - (c + 1)]
+    # residuals 255, 0, 1 and the non-divisors 3, 100 and 129 of 256
+    for row, e in enumerate((255, 256, 1, 3, 100, 129), start=2):
+        hists[0, row, :2] = [c + e, area - (c + e)]
     h = torch.from_numpy(hists).to(device)
     assert torch.equal(natural.build_luts(h, plan.clip, plan.lut_scale),
                        natural.build_luts_ref(h, plan.clip, plan.lut_scale))
+    # a row count that leaves the last block's warps partly idle (K2 runs
+    # one warp per row), and the empty kernel launched with its grid
+    odd = h[:, :7].contiguous()
+    assert torch.equal(natural.build_luts(odd, plan.clip, plan.lut_scale),
+                       natural.build_luts_ref(odd, plan.clip, plan.lut_scale))
+    natural.launch_floor(odd)
+    torch.cuda.synchronize(device)
 
 
 def test_step_equals_golden_and_counts_launches(device):

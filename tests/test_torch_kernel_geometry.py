@@ -1,9 +1,18 @@
-"""The launch planning of K1, K3, K6 and K7 in pure Python (no kernel runs
-here).
+"""The launch planning of K1, K2, K3 (with K5 and K3v1), K6 and K7 in pure
+Python (no kernel runs here).
 
 - K3 (``interp_kernel``): the per-block row ranges cover every row once,
   in order, each inside one row pair of ``PackSpec.rp_of_r``, and the
   unit-major column tables hold the plan's values;
+- K5 (the same kernel on a band at ``row0``): the ranges of the sharded
+  step's bands, of a band at a ``row0`` inside a row pair and of a band
+  that runs past the frame cover the band's live rows once, in order, each
+  inside one row pair; a band cut from a position's slab takes the 16-byte
+  path where 16 divides the width;
+- K2 (``build_luts_kernel``): a numpy model of its warp (8 bins a lane, a
+  butterfly sum of the excess, a lane prefix plus a warp scan of the
+  lanes' totals) equals ``build_luts_ref`` on the residual edge cases, a
+  clip tensor and random histograms;
 - K7 (``interp_hist_kernel``): its blocks (row ranges cut at row pairs and
   tile rows, times the tile columns) cover every (row, tile column) of a
   frame once, each inside one row pair, one tile row and one tile column,
@@ -29,6 +38,7 @@ import torch
 from opencv_opencl_tpu_torch.core.golden import reflect101_indices
 from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
 from opencv_opencl_tpu_torch.ops.cuda import lut, natural
+from opencv_opencl_tpu_torch.parallel import sharded
 
 GEOMETRIES = [
     # (height, width, tile grid (x, y))
@@ -77,6 +87,85 @@ def test_k3_rows_per_block_keep_the_grid_at_four_waves():
     assert natural.interp_rows_per_block(4, 1080) == 4
     assert natural.interp_rows_per_block(1, 6) == 4
     assert natural.interp_rows_per_block(64, 2160) == 32
+
+
+def _clahe_bands(h, w, space):
+    """The sharded CLAHE step's bands for ``space`` positions: (row0, rows)."""
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, (8, 8))
+    bands = sharded._ClaheBands(plan, space, "natural")
+    return [(r0, r1 - r0) for r0, r1 in map(bands.rows, range(space))]
+
+
+# (height, width, frames, bands (row0, rows)): the sharded step's bands, a
+# band at a row0 inside a row pair, and bands that run past the frame
+BAND_CASES = [
+    (2160, 3840, 2, _clahe_bands(2160, 3840, 2)),   # row0 1080: inside [945, 1215)
+    (2160, 3840, 1, _clahe_bands(2160, 3840, 4)),
+    (1080, 1920, 2, _clahe_bands(1080, 1920, 2)),
+    (1080, 1920, 4, _clahe_bands(1080, 1920, 3)),
+    (1079, 1919, 1, _clahe_bands(1079, 1919, 3)),   # the last band short
+    (1080, 1920, 1, [(13, 700), (0, 1080), (1079, 1)]),
+    (97, 131, 2, [(90, 16), (96, 8), (97, 8), (40, 0)]),
+]
+BAND_IDS = [f"{h}x{w}_n{n}_{len(b)}bands" for h, w, n, b in BAND_CASES]
+
+
+@pytest.mark.parametrize("h,w,frames,bands", BAND_CASES, ids=BAND_IDS)
+def test_k5_band_ranges_cover_the_live_rows_once_inside_one_row_pair(
+        h, w, frames, bands):
+    spec = _spec(h, w, (8, 8))
+    for row0, rows in bands:
+        live = natural.live_rows(rows, h, row0)
+        per_block = natural.interp_rows_per_block(frames, live)
+        ranges = spec.row_ranges(per_block, span=(row0, row0 + live))
+        assert ranges.dtype == np.int32 and ranges.shape[1] == 2
+        if not live:
+            assert ranges.shape == (0, 2)
+            continue
+        assert ranges[0, 0] == row0 and ranges[-1, 1] == row0 + live
+        assert np.array_equal(ranges[1:, 0], ranges[:-1, 1])      # in order
+        assert np.all(ranges[:, 1] > ranges[:, 0])
+        assert np.all(ranges[:, 1] - ranges[:, 0] <= per_block)
+        for lo, hi in ranges:
+            assert len(set(spec.rp_of_r[lo:hi].tolist())) == 1
+    assert np.array_equal(spec.row_ranges(4, span=(0, h)), spec.row_ranges(4))
+    with pytest.raises(ValueError, match="span"):
+        spec.row_ranges(4, span=(0, h + 1))
+
+
+def test_k5_band_ranges_at_4k_on_a_2x2_mesh():
+    spec = _spec(2160, 3840, (8, 8))
+    (row0, rows), = [b for b in _clahe_bands(2160, 3840, 2) if b[0]]
+    assert (row0, rows) == (1080, 1080)
+    ranges = spec.row_ranges(natural.interp_rows_per_block(2, rows),
+                             span=(row0, row0 + rows))
+    # 4 rows a block: [1080, 1215) is the second half of the row pair
+    # [945, 1215) (34 ranges), then three whole pairs of 270 rows (68 each)
+    # and the last pair, [2025, 2160), of 135 rows (34): 272 ranges, 544
+    # blocks over two frames
+    assert natural.interp_rows_per_block(2, rows) == 4
+    assert len(ranges) == 34 + 3 * 68 + 34
+    assert spec.rp_of_r[1079] == spec.rp_of_r[1080] == spec.rp_of_r[1214]
+    cached = spec.device_row_ranges("cpu", 4, span=(row0, row0 + rows))
+    assert np.array_equal(cached.numpy(), ranges)
+    assert spec.device_row_ranges("cpu", 4, span=(row0, row0 + rows)) is cached
+
+
+@pytest.mark.parametrize("h,w,space", [(1080, 1920, 2), (2160, 3840, 2),
+                                       (2160, 3840, 4), (1079, 1919, 3)])
+def test_k5_band_of_a_slab_takes_the_16_byte_path_where_16_divides_the_width(
+        h, w, space):
+    """The sharded step writes each position's band in place, a row slice
+    of the slab it uploaded (``sharded._upload``)."""
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, (8, 8))
+    bands = sharded._ClaheBands(plan, space, "natural")
+    frames = torch.zeros((2, h, w), dtype=torch.uint8)
+    for s in range(space):
+        part = sharded._part(bands, 0, s, 1)
+        slab = sharded._upload(frames, part, torch.device("cpu"))
+        band = slab[:, part.rows[0] - part.slab[0]:part.rows[1] - part.slab[0]]
+        assert band.shape[1] == part.rows[1] - part.rows[0] > 0
+        assert natural.interp_vec(band, band) == (w % 16 == 0), s
 
 
 @pytest.mark.parametrize("h,w,grid", GEOMETRIES, ids=IDS)
@@ -272,3 +361,80 @@ def test_k7_k6_path_choice_on_the_named_cases():
     assert not natural.interp_vec(odd, odd)
     # an aligned input with an output off 16 bytes: both take bytes
     assert not natural.fused_vec(y, view[:, :, :3824], plan)
+
+
+# ------------------------------------------------------------------ K2 ----
+
+
+def _k2_warp_model(hists: np.ndarray, clips: np.ndarray,
+                   lut_scale: float) -> np.ndarray:
+    """K2's arithmetic laid out as its warp computes it, one row per warp:
+    lane l holds bins [8l, 8l + 8); the excess summed in the lane, then a
+    butterfly over the lanes (__shfl_xor_sync 16, 8, 4, 2, 1); each bin's
+    share and bump from its index; a lane-local inclusive prefix plus a
+    warp inclusive scan (__shfl_up_sync 1, 2, 4, 8, 16) of the lanes'
+    totals; one rounded f32 product, round half to even, clamp."""
+    rows = hists.shape[0]
+    h = hists.reshape(rows, 32, 8).astype(np.int32)
+    clip = clips.astype(np.int32)[:, None, None]
+    lane = np.arange(32)
+    excess = np.where(h > clip, h - clip, 0).sum(axis=2, dtype=np.int32)
+    for s in (16, 8, 4, 2, 1):
+        excess = excess + excess[:, lane ^ s]
+    total = excess[:, :, None]               # every lane holds the sum
+    redist = total // 256
+    residual = total - 256 * redist
+    step = np.maximum(256 // np.maximum(residual, 1), 1)
+    bins = (8 * lane[:, None] + np.arange(8)[None, :])[None]
+    bump = ((bins % step == 0) & (bins // step < residual)).astype(np.int32)
+    h = np.where(clip > 0, np.minimum(h, clip) + redist + bump, h)
+    prefix = np.cumsum(h, axis=2, dtype=np.int32)
+    scan = prefix[:, :, -1].copy()
+    for s in (1, 2, 4, 8, 16):
+        shifted = np.zeros_like(scan)
+        shifted[:, s:] = scan[:, :-s]
+        scan = scan + shifted
+    cdf = (scan - prefix[:, :, -1])[:, :, None] + prefix
+    v = np.rint(cdf.astype(np.float32) * np.float32(lut_scale))
+    return np.clip(v, 0, 255).astype(np.uint8).reshape(rows, 256)
+
+
+def _residual_edge_hists(clip: int, area: int) -> np.ndarray:
+    """Rows whose redistribution residual is 0, 1, 255 and the
+    non-divisors 3, 100 and 129 of 256 (steps 85, 2 and 1), one bin holding
+    everything, a uniform row, and an excess of 7 * 256 + 5."""
+    rows = [[area], None]
+    rows += [[clip + e, area - clip - e] for e in (255, 256, 1, 3, 100, 129)]
+    rows += [[clip + 7 * 256 + 5, area - clip - 7 * 256 - 5]]
+    out = np.zeros((len(rows), 256), np.int32)
+    for i, r in enumerate(rows):
+        if r is None:
+            out[i] = area // 256
+            out[i, 0] += area - out[i].sum()
+        else:
+            out[i, :len(r)] = r
+    return out
+
+
+@pytest.mark.parametrize("h,w,grid", [(2160, 3840, (8, 8)), (96, 128, (8, 8)),
+                                      (97, 131, (3, 5))])
+def test_k2_warp_layout_equals_the_plain_lut_build(h, w, grid):
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    edge = _residual_edge_hists(plan.clip, plan.tile_area)
+    assert (edge.sum(axis=1) == plan.tile_area).all()
+    rng = np.random.default_rng(7)
+    random = rng.multinomial(plan.tile_area, np.full(256, 1 / 256), size=6)
+    skewed = rng.multinomial(plan.tile_area, rng.dirichlet(np.full(256, 0.05)), size=6)
+    for hists in (edge, random.astype(np.int32), skewed.astype(np.int32)):
+        got = _k2_warp_model(hists, np.full(len(hists), plan.clip), plan.lut_scale)
+        want = natural.build_luts_ref(torch.from_numpy(hists[None]), plan.clip,
+                                      plan.lut_scale)[0].numpy()
+        assert np.array_equal(got, want)
+    # one clip per frame (auto-CLAHE): 0 (no clipping), 1, the plan's, huge
+    hists = np.concatenate([edge, random.astype(np.int32)])[:8]
+    frames = hists.reshape(4, 2, 256)
+    clips = np.array([0, 1, plan.clip, 1 << 30], np.int32)
+    got = _k2_warp_model(hists, np.repeat(clips, 2), plan.lut_scale)
+    want = natural.build_luts_ref(torch.from_numpy(frames), torch.from_numpy(clips),
+                                  plan.lut_scale).numpy().reshape(8, 256)
+    assert np.array_equal(got, want)
