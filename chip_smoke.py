@@ -9,8 +9,9 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 1. device   the card, and its name and power limit from nvidia-smi;
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
-            what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1) and K2
-            (registers, shared memory, spills);
+            what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1), K2 and
+            K1's three instances (``tile_hist_kernel<4>``, and ``<2>``,
+            ``<8>`` for K10) (registers, shared memory, spills);
 3. kernels  every kernel against its plain PyTorch version on the card,
             exact: K1, K2 and K3 over 4K batches (structured, random and
             ladder NV12 rows, and a view from column 1 whose base and rows
@@ -36,15 +37,14 @@ Phases, each of which raises (exit code != 0) when it fails:
             (the same kernel over whole frames) against K3; K9 (K6's kernel
             on a band) on the same bands against K6 and K5; K1 per band of
             tile rows (space 3, with fake tile rows) against K1 on the
-            whole frame; K10 (the row-batched,
-            warp-aggregated tile histograms) at 4K b4 on an 8x8 and a 1x1
-            grid for batch_rows 2, 4 and 8 on structured, random and
-            constant content, on a 1919x1079 frame extended to its tile
+            whole frame; K10 (the tile histograms of an extended frame,
+            K1's kernel with batch_rows loads in flight) at 4K b4 on an 8x8
+            and a 1x1 grid for batch_rows 2, 4 and 8 on structured, random
+            and constant content, on a 1919x1079 frame extended to its tile
             multiple and on an unaligned view, against its plain version,
-            K1 and K8; K6r (the cell-grid blend with the cell's LUTs
-            interleaved in shared memory) at 4K b4, 1080p, 1919x1079 and on
-            a constant frame in place over NV12 Y rows, against its plain
-            version, K6 and K3;
+            K1 and K8; K6r (the radix variant, K6's kernel) at 4K b4,
+            1080p, 1919x1079 and on a constant frame in place over NV12 Y
+            rows, against its plain version, K6 and K3;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -189,10 +189,10 @@ KERNELS = (
     ("interp_cells_kernel:band", "clahe_interpolate_cells_band",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:356"),
-    ("tile_hist_batched_kernel", "tile_histograms_batched",
+    ("tile_hist_kernel:batched", "tile_histograms_batched",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/experiments.py:116"),
-    ("interp_cells_radix_kernel", "clahe_interpolate_cells_radix",
+    ("interp_cells_kernel:radix", "clahe_interpolate_cells_radix",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477:radix"),
 )
@@ -670,9 +670,10 @@ def phase_band_kernels(device, rng) -> tuple[dict[str, int], dict[str, int]]:
 def phase_batched_hist_kernel(device, rng) -> tuple[int, int]:
     """K10 against its plain version, K1 and K8, for batch_rows 2, 4 and 8:
     4K b4 (structured NV12 Y rows, random, constant) on an 8x8 and a 1x1
-    grid, a 1919x1079 frame reflect-extended to its tile multiple, and an
-    unaligned view with 30-wide tiles (the byte path, partial warps);
-    returns the error and K10's launches here."""
+    grid (K1's 16-byte path with 2, 4 and 8 loads in flight), a 1919x1079
+    frame reflect-extended to its tile multiple, and an unaligned view with
+    30-wide tiles (K1's byte path); returns the error and K10's launches
+    here."""
     frames = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
     natural.tile_histograms_batched.launches = 0
     cases = [("4k_b4_structured_nv12", frames[:, :HEIGHT], (GRID, (1, 1))),
@@ -1530,11 +1531,11 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
             2 * band.numel() + nbytes(band_luts, *spec.device_arrays(device)),
             10 * band.numel()),
         # K10 (batch_rows 8, its default) and K6r over the whole batch
-        "tile_hist_batched_kernel": (
+        "tile_hist_kernel:batched": (
             lambda: natural.tile_histograms_batched(y, *tiles),
             lambda: natural.tile_histograms_batched_ref(y, *tiles), None,
             px + nbytes(hists), px),
-        "interp_cells_radix_kernel": (
+        "interp_cells_kernel:radix": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
             lambda: lut.clahe_interpolate_cells_ref(y, luts, spec, radix=True), None,
             2 * px + nbytes(luts, *spec.device_arrays(device)), 10 * px),
@@ -1599,10 +1600,10 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K9 interp_cells_kernel, the batch as one band, vs K6": (
             lambda: lut.clahe_interpolate_cells_band(y, luts, spec, 0, out=out),
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
-        "K6r interp_cells_radix_kernel vs K6 interp_cells_kernel": (
+        "K6r interp_cells_kernel:radix vs K6 interp_cells_kernel": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out)),
-        "K6r interp_cells_radix_kernel vs K5 interp_kernel:band, the batch as one "
+        "K6r interp_cells_kernel:radix vs K5 interp_kernel:band, the batch as one "
         "band": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True),
             lambda: natural.clahe_interpolate_band(y, luts, plan, 0, out=out)),
@@ -1618,7 +1619,8 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
               f"{reads[1]:.4f} / {reads[2]:.4f} ms on the device [{card}]", flush=True)
         if label.startswith("K2"):
             times["build_luts_kernel"]["clip_tensor_ms"] = min(reads[0], reads[3])
-    # K10 for each batch_rows beside K1 and K8, by content, in turns
+    # K10 (K1's kernel with batch_rows loads in flight) for each batch_rows
+    # beside K1 (4 loads) and K8, by content, in turns
     random_frames = torch.from_numpy(random_y(rng, BATCH, HEIGHT, WIDTH)).to(device)
     for label, frames in (("structured", y), ("random", random_frames), ("constant", const)):
         fns = [(f"K10 rows {r}", lambda r=r: natural.tile_histograms_batched(
@@ -1628,7 +1630,7 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         reads = {name: [] for name, _ in fns}
         for name, fn in fns + fns[::-1]:
             reads[name].append(device_ms(fn))
-        times["tile_hist_batched_kernel"][f"{label}_ms"] = {
+        times["tile_hist_kernel:batched"][f"{label}_ms"] = {
             name: min(v) for name, v in reads.items()}
         print(f"time tile histograms 4K b{BATCH} {label} content, in turns: "
               + "; ".join(f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in reads.items())
@@ -1727,7 +1729,8 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
-    for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel")):
+    for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
+                                     "tile_hist_kernel")):
         print(f"ptxas {line}", flush=True)
 
     # phase 3: kernels
@@ -1742,10 +1745,10 @@ def main() -> int:
         phase_private_hist_kernel(device, rng)
     band_errs, off_path_launches = phase_band_kernels(device, rng)
     off_path_launches["tile_histograms_extended"] = k8_launches
-    errs["tile_hist_batched_kernel"], \
+    errs["tile_hist_kernel:batched"], \
         off_path_launches["tile_histograms_batched"] = \
         phase_batched_hist_kernel(device, rng)
-    errs["interp_cells_radix_kernel"], \
+    errs["interp_cells_kernel:radix"], \
         off_path_launches["clahe_interpolate_cells_radix"] = \
         phase_radix_cell_kernel(device, rng)
     errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],

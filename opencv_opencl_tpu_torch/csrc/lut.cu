@@ -4,10 +4,9 @@
 //   K6 interp_cells_kernel       CLAHE's bilinear blend of four tile LUTs,
 //                                one block per (frame, cell, row chunk),
 //                                16-byte units of two rows a thread; on a
-//                                band of rows at a global row it is K9
-//   K6r interp_cells_radix_kernel  K6 with the cell's four LUTs
-//                                interleaved in shared memory as uchar4
-//                                words: one 32-bit load per pixel
+//                                band of rows at a global row it is K9, and
+//                                on whole frames it is also K6r (the radix
+//                                variant)
 //   K8 tile_hist_private_kernel  per-tile 256-bin histograms of an already
 //                                extended frame, per-warp private bins
 //
@@ -140,6 +139,17 @@ apply_lut_kernel(const uint8_t* y, long long y_frame_stride,
 // cell-aligned copy with dynamic slices of zero-padded tables around the
 // kernel; none of that is needed here.  K6 is row0 = 0, cy0 = 0, row_end =
 // height.
+//
+// K6r: the same kernel, on whole frames, replaces
+// clahe_interpolate_pallas(radix=True) / _interp_kernel_radix.  The TPU
+// variant re-lays the cell's four LUTs as a (4*16, 16) pack so that a
+// pixel's value v = 16*hi + lo selects its entries with two 16-wide
+// one-hots around an MXU dot, where K6's body needs one 256-wide one-hot: an
+// answer to an expensive gather.  On Hopper that answer is the interleaved
+// pack in shared memory that this kernel already stages, one 32-bit load
+// per pixel, so the radix variant takes it as it is (0.0464 ms at 4K b4 on
+// an NVIDIA H100 80GB HBM3, 700 W, where its own kernel, one byte a thread
+// and step, took 0.0911; scripts/torch_kernel_turns.py).
 constexpr int kLutWords = kBins / 4;    // 32-bit words per LUT
 static_assert(kThreads >= kLutWords, "one staging word of each LUT per thread");
 
@@ -272,87 +282,6 @@ interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
-// ---------------------------------------------------------------- K6r ----
-// Replaces lut_kernels.py clahe_interpolate_pallas(radix=True) /
-// _interp_kernel_radix.  The TPU variant re-lays a cell's four LUTs as a
-// (4*16, 16) pack, row j*16 + lo and column hi, so that a pixel's value
-// v = 16*hi + lo selects its four entries in two cheap stages (a 16-wide
-// one-hot dot, then a 16-wide masked sum) where K6's body needs one 256-wide
-// one-hot.  The Hopper counterpart of "re-lay the pack so that selection is
-// cheaper": K6's contract, grid and walk, but while a block stages its
-// cell's four 256-byte LUTs it interleaves them in shared memory as 256
-// uchar4 words (l11, l12, l21, l22), word index hi*16 + lo = v, and each
-// pixel then does ONE 32-bit shared-memory load where K6 does four byte
-// loads, the gather K3 (and K5) make from their staged row-pair pack, with
-// K6's per-cell staging, so no pack is built outside the kernel.  Bound: the read and write of the frames
-// (2 bytes per pixel, 66.4 MB for a 4K batch of 4).  Staging: thread t reads
-// byte t of each of the four LUTs (a warp reads 32 consecutive bytes of each)
-// and writes word t, so a warp's stores go to 32 consecutive banks; the
-// gather's bank is v % 32, as conflict-prone as K6's byte loads were.  The
-// blend is blend4, K3's bit for bit.  Each pixel is read and then written by
-// one thread, so `out` may alias `y`.  Whole frames only: the JAX package's
-// band kernel has no radix variant.
-static_assert(kThreads == kBins, "one interleaved word per thread");
-
-__global__ void __launch_bounds__(kThreads)
-interp_cells_radix_kernel(const uint8_t* y, long long y_frame_stride,
-                          long long y_row_stride,
-                          const uint8_t* __restrict__ luts, int num_tiles,
-                          const int* __restrict__ cell_lut_idx, int cells_x,
-                          int height, int width, int tile_h, int tile_w,
-                          int pad_top, int pad_left, int rows_per_block,
-                          int chunks, const float* __restrict__ ya,
-                          const float* __restrict__ xa, uint8_t* out,
-                          long long out_frame_stride,
-                          long long out_row_stride) {
-    __shared__ uchar4 pack[kBins];
-    const int cy = blockIdx.x / chunks;
-    const int chunk = blockIdx.x % chunks;
-    const int cx = blockIdx.y;
-    const int frame = blockIdx.z;
-
-    const int g0 = cy * tile_h + chunk * rows_per_block;
-    const int r0 = max(g0 - pad_top, 0);
-    const int r1 = min(min(g0 + rows_per_block, (cy + 1) * tile_h) - pad_top,
-                       height);
-    const int c0 = max(cx * tile_w - pad_left, 0);
-    const int c1 = min((cx + 1) * tile_w - pad_left, width);
-    if (r0 >= r1 || c0 >= c1) return;  // the same for every thread
-
-    {
-        const int* four = cell_lut_idx + (cy * cells_x + cx) * 4;
-        const uint8_t* frame_luts = luts + (long long)frame * num_tiles * kBins;
-        uchar4 q;
-        q.x = __ldg(&frame_luts[(long long)__ldg(&four[0]) * kBins + threadIdx.x]);
-        q.y = __ldg(&frame_luts[(long long)__ldg(&four[1]) * kBins + threadIdx.x]);
-        q.z = __ldg(&frame_luts[(long long)__ldg(&four[2]) * kBins + threadIdx.x]);
-        q.w = __ldg(&frame_luts[(long long)__ldg(&four[3]) * kBins + threadIdx.x]);
-        pack[threadIdx.x] = q;
-    }
-    __syncthreads();
-
-    const uint8_t* src = y + frame * y_frame_stride + c0;
-    uint8_t* dst = out + frame * out_frame_stride + c0;
-    const int cols = c1 - c0;
-    int r = r0 + (int)threadIdx.x / cols;
-    int c = (int)threadIdx.x % cols;
-    const int step_rows = kThreads / cols;
-    const int step_cols = kThreads % cols;
-    while (r < r1) {
-        const uchar4 q = pack[src[r * y_row_stride + c]];
-        const float fy = __ldg(&ya[r]);
-        dst[r * out_row_stride + c] = blend4(q.x, q.y, q.z, q.w,
-                                             __ldg(&xa[c0 + c]), fy,
-                                             __fsub_rn(1.0f, fy));
-        r += step_rows;
-        c += step_cols;
-        if (c >= cols) {
-            c -= cols;
-            ++r;
-        }
-    }
-}
-
 // ----------------------------------------------------------------- K8 ----
 // Replaces lut_kernels.py tile_histograms_pallas / _tile_hist_kernel, which
 // counts a tile by a 256-row one-hot compare summed over lanes, on tiles
@@ -480,25 +409,5 @@ extern "C" int tile_hist_private_launch(const uint8_t* ext, int frames,
     dim3 grid(tiles_y * tiles_x * slices, frames);
     tile_hist_private_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices, out);
-    return (int)cudaGetLastError();
-}
-
-// K6's launch without a band: whole frames of `height` rows
-extern "C" int interp_cells_radix_launch(
-        const uint8_t* y, long long y_frame_stride, long long y_row_stride,
-        const uint8_t* luts, int frames, int num_tiles,
-        const int* cell_lut_idx, int cells_x, int height, int width,
-        int tile_h, int tile_w, int pad_top, int pad_left, int rows_per_block,
-        const float* ya, const float* xa, uint8_t* out,
-        long long out_frame_stride, long long out_row_stride, void* stream) {
-    if (height <= 0) return 0;
-    const int chunks = (tile_h + rows_per_block - 1) / rows_per_block;
-    const int cells_y = (height - 1 + pad_top) / tile_h + 1;
-    dim3 grid(cells_y * chunks, cells_x, frames);
-    interp_cells_radix_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        y, y_frame_stride, y_row_stride, luts, num_tiles, cell_lut_idx,
-        cells_x, height, width, tile_h, tile_w, pad_top, pad_left,
-        rows_per_block, chunks, ya, xa, out, out_frame_stride,
-        out_row_stride);
     return (int)cudaGetLastError();
 }

@@ -13,9 +13,9 @@
 //   K7 interp_hist_kernel K3's blend with the previous frame's LUTs plus
 //                         K1's histograms of the frame it reads, in one pass
 //                         (the streaming step, tile-divisible geometry)
-//   K10 tile_hist_batched_kernel  K1's contract on an already extended
-//                         frame, batch_rows rows of a tile per warp step,
-//                         counted warp-aggregated without atomics
+//   K10                   K1's tile_hist_kernel<batch_rows> on an already
+//                         extended, tile-divisible frame, where every tile
+//                         is interior: batch_rows 16-byte loads in flight
 //                         (experiments.py tile_histograms_radix_batched)
 //
 // Each kernel computes exactly what its TPU kernel in
@@ -66,8 +66,8 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 //   and tile_w are multiples of 16, decided by the wrapper).  The slice's
 //   (row, 16-byte unit) pairs are walked as one flattened index with a
 //   running counter (a 4K tile row is 30 units, so one warp per row would
-//   leave lanes idle), and each thread issues kHistLoads uint4 loads before
-//   it counts any of them;
+//   leave lanes idle), and each thread issues R uint4 loads before it
+//   counts any of them (the template argument: K1 launches 4);
 // - the byte path, for border tiles and unaligned input: one byte per thread
 //   and step, padded positions mapped to their source with reflect-101
 //   index math, so the extended frame is never materialised.
@@ -77,8 +77,21 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 // slab_row0 (the sharded step: a rank holds only the rows its band reads);
 // the whole-frame call is ty0 = 0, slab_row0 = 0.  The wrapper checks that
 // every source row of the launch lies inside the slab.
+//
+// K10: the same kernel replaces experiments.py tile_histograms_radix_batched
+// / _tile_hist_radixn_kernel (and _tile_hist_radix8_kernel), K1's contract
+// on a frame that is already extended to whole tiles.  On the TPU
+// batch_rows is the number of rows per MXU dot of radix-16 one-hots; here it
+// is R, the 16-byte loads a thread keeps in flight before it counts them.
+// The counts do not depend on it.  The launch (natural.batched_hist_args)
+// takes the frame as its own extension: height and width are the tile
+// multiples, so every tile is interior and reflect101 returns at once on the
+// byte path, which a tile width or a view that 16 does not divide takes.  On
+// an NVIDIA H100 80GB HBM3 (700 W) a 4K b4 call reads K1's time with 2 and 4
+// loads (0.0215 ms structured, 0.0247 random) and 4-5% more with 8, at 61
+// registers against 40: the shared atomics bound it, not the loads
+// (scripts/torch_kernel_turns.py).
 constexpr int kWarps = kThreads / 32;
-constexpr int kHistLoads = 4;
 
 __device__ __forceinline__ void count_bytes(int* mine, uint32_t w) {
     atomicAdd(&mine[w & 0xffu], 1);
@@ -87,6 +100,7 @@ __device__ __forceinline__ void count_bytes(int* mine, uint32_t w) {
     atomicAdd(&mine[w >> 24], 1);
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
                  long long frame_stride, long long row_stride,
@@ -127,10 +141,10 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
         const int step_k = kThreads / units;
         const int step_u = kThreads % units;
         while (k < nk) {
-            uint4 q[kHistLoads];
+            uint4 q[R];
             int loaded = 0;
 #pragma unroll
-            for (int j = 0; j < kHistLoads; ++j) {
+            for (int j = 0; j < R; ++j) {
                 if (k < nk) {
                     q[j] = __ldg(reinterpret_cast<const uint4*>(tile0 + k * step) + u);
                     loaded = j + 1;
@@ -143,7 +157,7 @@ tile_hist_kernel(const uint8_t* __restrict__ y, int height, int width,
                 }
             }
 #pragma unroll
-            for (int j = 0; j < kHistLoads; ++j) {
+            for (int j = 0; j < R; ++j) {
                 if (j < loaded) {
                     count_bytes(mine, q[j].x);
                     count_bytes(mine, q[j].y);
@@ -638,152 +652,35 @@ interp_hist_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
-// ---------------------------------------------------------------- K10 ----
-// Replaces experiments.py tile_histograms_radix_batched /
-// _tile_hist_radixn_kernel (and _tile_hist_radix8_kernel): K1's contract on
-// an already extended, tile-divisible frame, with `batch_rows` rows of a tile
-// taken per step.  On the TPU that is batch_rows rows per MXU dot of radix-16
-// one-hots, trading FLOP overshoot against fewer dot issues; none of that
-// carries over.  Here the question the variant asks is how many rows one
-// unit of work takes per step: a warp takes R = batch_rows rows of its tile
-// at a time and each lane issues R independent loads (16 bytes each on the
-// aligned path) before it counts any of them, so R loads are in flight per
-// lane.  Bound: the read of the frames (1 byte per pixel, 33.2 MB for a 4K
-// batch of 4).  Counting is the third formulation beside K1 (one shared
-// atomic per pixel into one histogram per block) and K8 (per-warp private
-// bins, still one atomic per pixel): warp-aggregated and without atomics.
-// For each byte position the lanes of the warp find the lanes that hold the
-// same value (__match_any_sync over the active lanes), and the lowest lane of
-// each group adds the group's size (__popc) to the warp's private 256-bin
-// histogram with a plain add: the leaders of one step hold distinct values,
-// so they touch distinct bins, and __syncwarp orders one step's adds before
-// the next.  A constant frame costs one add per 32 pixels.  Grid: K8's, one
-// block per (tile, slice of the tile's rows), frame; the 8 warps of a block
-// take the slice's groups of R rows in turn; at the end the block sums the 8
-// private histograms per bin and adds each non-zero bin to the zeroed global
-// (N, T, 256) histogram with one global atomic (several blocks share a tile).
-// The 16-byte path needs the base, both strides and the tile width to be
-// multiples of 16 (`vec`, decided by the launcher); otherwise each lane
-// loads one byte per row and step, and a partial warp at a tile's right
-// edge passes its active mask to __match_any_sync.
-
-__device__ __forceinline__ void count_aggregated(int* mine, unsigned mask,
-                                                 int lane, unsigned v) {
-    const unsigned peers = __match_any_sync(mask, v);
-    if (lane == __ffs(peers) - 1) mine[v] += __popc(peers);
-    __syncwarp(mask);
-}
-
-__device__ __forceinline__ void count_word(int* mine, unsigned mask, int lane,
-                                           uint32_t w) {
-    count_aggregated(mine, mask, lane, w & 0xffu);
-    count_aggregated(mine, mask, lane, (w >> 8) & 0xffu);
-    count_aggregated(mine, mask, lane, (w >> 16) & 0xffu);
-    count_aggregated(mine, mask, lane, w >> 24);
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-tile_hist_batched_kernel(const uint8_t* __restrict__ ext,
-                         long long frame_stride, long long row_stride,
-                         int tiles_x, int tile_h, int tile_w, int slices,
-                         int vec, int* __restrict__ out) {
-    __shared__ int bins[kWarps][kBins];
-    int* flat = &bins[0][0];
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
-    __syncthreads();
-
-    const int num_tiles = gridDim.x / slices;
-    const int tile = blockIdx.x / slices;
-    const int slice = blockIdx.x % slices;
-    const int frame = blockIdx.y;
-    const int ty = tile / tiles_x;
-    const int tx = tile % tiles_x;
-    const int k0 = (int)((long long)tile_h * slice / slices);
-    const int k1 = (int)((long long)tile_h * (slice + 1) / slices);
-    const uint8_t* base = ext + frame * frame_stride
-                          + (long long)ty * tile_h * row_stride
-                          + (long long)tx * tile_w;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    int* mine = bins[warp];
-    const unsigned full = 0xffffffffu;
-
-    // the slice's groups of R rows, one group per warp and step
-    for (int k = k0 + warp * R; k < k1; k += kWarps * R) {
-        const int nrows = min(R, k1 - k);
-        const uint8_t* rows = base + (long long)k * row_stride;
-        if (vec) {
-            const int units = tile_w >> 4;
-            for (int u0 = 0; u0 < units; u0 += 32) {
-                const int u = u0 + lane;
-                const bool active = u < units;
-                const unsigned mask = __ballot_sync(full, active);
-                if (!active) continue;
-                uint4 q[R];
-#pragma unroll
-                for (int r = 0; r < R; ++r)
-                    if (r < nrows)
-                        q[r] = __ldg(reinterpret_cast<const uint4*>(
-                                         rows + r * row_stride) + u);
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    if (r < nrows) {
-                        count_word(mine, mask, lane, q[r].x);
-                        count_word(mine, mask, lane, q[r].y);
-                        count_word(mine, mask, lane, q[r].z);
-                        count_word(mine, mask, lane, q[r].w);
-                    }
-                }
-            }
-        } else {
-            for (int c0 = 0; c0 < tile_w; c0 += 32) {
-                const int c = c0 + lane;
-                const bool active = c < tile_w;
-                const unsigned mask = __ballot_sync(full, active);
-                if (!active) continue;
-                unsigned v[R];
-#pragma unroll
-                for (int r = 0; r < R; ++r)
-                    if (r < nrows) v[r] = rows[r * row_stride + c];
-#pragma unroll
-                for (int r = 0; r < R; ++r)
-                    if (r < nrows) count_aggregated(mine, mask, lane, v[r]);
-            }
-        }
-    }
-    __syncthreads();
-
-    int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
-    for (int b = threadIdx.x; b < kBins; b += kThreads) {
-        int v = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
-        if (v) atomicAdd(&dst[b], v);
-    }
-}
-
 }  // namespace
 
 // Shared memory a block may use without opting in to more.
 constexpr int kStaticSmemLimit = 48 * 1024;
 
 // tile_rows tile rows from ty0 on; y is the slab that starts at frame row
-// slab_row0 (see the kernel).  vec (the 16-byte path) is the wrapper's
-// choice; a launch that claims it on a base, stride or tile width that 16
-// does not divide is refused with cudaErrorInvalidValue.
+// slab_row0 (see the kernel); loads is the kernel's R, 2, 4 or 8 (K1 takes
+// 4, K10 its batch_rows).  vec (the 16-byte path) is the wrapper's choice; a
+// launch that claims it on a base, stride or tile width that 16 does not
+// divide, or asks for other loads, is refused with cudaErrorInvalidValue.
 extern "C" int tile_hist_launch(const uint8_t* y, int frames, int height,
                                 int width, long long frame_stride,
                                 long long row_stride, int tile_rows,
                                 int tiles_x, int tile_h, int tile_w,
                                 int rowstep, int slices, int ty0,
                                 int slab_row0, int inner_rows, int inner_cols,
-                                int vec, int* out, void* stream) {
+                                int vec, int loads, int* out, void* stream) {
     if (vec && (reinterpret_cast<uintptr_t>(y) % 16 || frame_stride % 16
                 || row_stride % 16 || tile_w % 16))
         return (int)cudaErrorInvalidValue;
+    decltype(&tile_hist_kernel<4>) kernel;
+    switch (loads) {
+    case 2: kernel = tile_hist_kernel<2>; break;
+    case 4: kernel = tile_hist_kernel<4>; break;
+    case 8: kernel = tile_hist_kernel<8>; break;
+    default: return (int)cudaErrorInvalidValue;
+    }
     dim3 grid(tile_rows * tiles_x * slices, frames);
-    tile_hist_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         y, height, width, frame_stride, row_stride, tiles_x, tile_h, tile_w,
         rowstep, slices, ty0, slab_row0, inner_rows, inner_cols, vec, out);
     return (int)cudaGetLastError();
@@ -880,40 +777,5 @@ extern "C" int interp_hist_launch(const uint8_t* y, long long y_frame_stride,
         reinterpret_cast<const int4*>(g_units),
         reinterpret_cast<const float4*>(xa_units), out, out_frame_stride,
         out_row_stride, vec, hists);
-    return (int)cudaGetLastError();
-}
-
-// ext: (frames, tiles_y * tile_h, tiles_x * tile_w), already extended;
-// batch_rows is 2, 4 or 8 (the wrapper checks it); out is zeroed
-extern "C" int tile_hist_batched_launch(const uint8_t* ext, int frames,
-                                        long long frame_stride,
-                                        long long row_stride, int tiles_y,
-                                        int tiles_x, int tile_h, int tile_w,
-                                        int slices, int batch_rows, int* out,
-                                        void* stream) {
-    const int vec = (reinterpret_cast<uintptr_t>(ext) % 16 == 0
-                     && frame_stride % 16 == 0 && row_stride % 16 == 0
-                     && tile_w % 16 == 0) ? 1 : 0;
-    dim3 grid(tiles_y * tiles_x * slices, frames);
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (batch_rows) {
-    case 2:
-        tile_hist_batched_kernel<2><<<grid, kThreads, 0, s>>>(
-            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
-            vec, out);
-        break;
-    case 4:
-        tile_hist_batched_kernel<4><<<grid, kThreads, 0, s>>>(
-            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
-            vec, out);
-        break;
-    case 8:
-        tile_hist_batched_kernel<8><<<grid, kThreads, 0, s>>>(
-            ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices,
-            vec, out);
-        break;
-    default:
-        return (int)cudaErrorInvalidValue;
-    }
     return (int)cudaGetLastError();
 }

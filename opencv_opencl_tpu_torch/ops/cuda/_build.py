@@ -15,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,7 +37,7 @@ _LL = ctypes.c_longlong
 # Python int as a 32-bit int and cut the address
 _SIGNATURES = {
     "tile_hist_launch": (_P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _P, _P),
+                         _I, _I, _I, _I, _I, _I, _P, _P),
     "build_luts_launch": (_P, _I, _I, _P, _I, ctypes.c_float, _P, _P),
     "launch_floor_launch": (_I, _P),
     "interp_launch": (_P, _LL, _LL, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
@@ -48,10 +49,6 @@ _SIGNATURES = {
                             _I, _I, _P, _P, _P, _P, _I, _P, _LL, _LL, _I, _P),
     "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,
                                  _P),
-    "tile_hist_batched_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
-                                 _P),
-    "interp_cells_radix_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _P, _P, _P, _LL, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -136,10 +133,22 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def _kernel_of(line: str, kernels: tuple[str, ...]) -> str | None:
+    """The kernel of ``kernels`` that a ptxas line names, the longest name
+    first (one may hold another), with its template argument where the
+    mangled name has one: ``tile_hist_kernel<4>``."""
+    for k in sorted(kernels, key=len, reverse=True):
+        if k in line:
+            arg = re.search(re.escape(k) + r"ILi(-?\d+)E", line)
+            return f"{k}<{arg.group(1)}>" if arg else k
+    return None
+
+
 def ptxas_report(kernels: tuple[str, ...], csrc: str = _CSRC) -> list[str]:
     """What ``nvcc -Xptxas -v`` says of the named kernels in the ``*.cu``
     sources of ``csrc`` (registers, shared memory, spills), one
-    ``"<kernel>: <line>"`` each.  Compiles to no output file."""
+    ``"<kernel>: <line>"`` each, a template's instances apart.  Compiles to
+    no output file."""
     flags = [f for f in NVCC_FLAGS if f != "-shared"]
     keep = []
     for src in sorted(glob.glob(os.path.join(csrc, "*.cu"))):
@@ -148,9 +157,7 @@ def ptxas_report(kernels: tuple[str, ...], csrc: str = _CSRC) -> list[str]:
         name = None
         for line in (res.stdout + res.stderr).splitlines():
             if "Compiling entry function" in line or "Function properties for" in line:
-                # the longest name first: one may hold another
-                name = next((k for k in sorted(kernels, key=len, reverse=True)
-                             if k in line), None)
+                name = _kernel_of(line, kernels)
             if name and ("Used" in line or "spill" in line or "Compiling" in line):
                 keep.append(f"{name}: {line.strip()}")
     return keep

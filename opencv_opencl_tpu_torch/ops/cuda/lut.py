@@ -15,7 +15,8 @@ tile_histograms_extended  tile_histograms_extended_    tile_histograms_pallas
 clahe_interpolate_cells_  clahe_interpolate_cells_     clahe_interpolate_pallas_
 band                      band_ref                     band (K9; K6's kernel)
 clahe_interpolate_cells   clahe_interpolate_cells_ref  clahe_interpolate_pallas,
-(radix=True)              (radix=True)                 radix=True (K6r)
+(radix=True)              (radix=True)                 radix=True (K6r; K6's
+                                                       kernel)
 ========================  ===========================  ==========================
 
 As in ``ops/cuda/natural.py``: a wrapper takes its plain version only for
@@ -35,10 +36,12 @@ is the per-warp-bins formulation of the tile histograms, timed beside K1.
 K9 is K6's kernel on a band of rows that starts at a global row, as the
 JAX package has one Pallas body behind both; no path of either package
 runs it (the sharded step takes K5), and it is checked and timed beside K5.
-K6r is K6's contract through ``interp_cells_radix_kernel``: the cell's four
-LUTs interleaved in shared memory as 256 four-byte words, one 32-bit load
-per pixel; only the tests of the JAX package run its TPU kernel, and here it
-is checked and timed beside K6, K3 and K5.
+K6r, the JAX module's radix-16 variant, is K6's kernel on whole frames
+(``clahe_interpolate_cells(radix=True)``, counted apart): the radix
+selection answered an expensive gather on the TPU, and K6 already reads a
+pixel's four LUT entries as one 32-bit word of the cell's interleaved pack
+in shared memory.  Only the tests of the JAX package run its TPU kernel;
+here it is checked and timed beside K6, K3 and K5.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ import torch
 
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import (
-    _HIST_TARGET_BLOCKS,
     _THREADS,
     _check,
     _check_band,
@@ -63,6 +65,7 @@ from opencv_opencl_tpu_torch.ops.cuda.natural import (
     _stream,
     bincount_tiles,
     blend,
+    hist_slices,
     interp_vec,
     live_rows,
     unit_major,
@@ -88,10 +91,6 @@ __all__ = [
 # K4 rows per block: one row per warp of the 8-warp block, so a 4K batch of
 # 4 gives 1080 blocks, about 8 per SM of an H100's 132
 _ROWS_PER_BLOCK = 8
-# K6r pixels per block: a block covers as many rows of its cell as make
-# about this many pixels (17 rows of a 480-pixel 4K cell), so a 4K batch of
-# 4 gives some 5,000 blocks
-_CELL_PX_PER_BLOCK = 8192
 # K6 rows per block: as many as this many passes of the block's 256 threads
 # map in 16-byte units of two rows of a cell (32 rows of a 4K cell).  On an
 # H100 (700 W) K6 took 0.0520 ms at 4K b4 with 16 rows a block, 0.0504 with
@@ -320,8 +319,8 @@ def clahe_interpolate_cells_band_ref(y_band: torch.Tensor, luts: torch.Tensor,
 def build_cell_pack(luts: torch.Tensor, spec: InterpSpec) -> torch.Tensor:
     """(N, T, 256) uint8 LUTs -> (N, CY, CX, 16, 16, 4): ``pack[n, cy, cx,
     hi, lo]`` holds the four LUT entries (l11, l12, l21, l22) of cell
-    (cy, cx) at value ``16*hi + lo``, the layout K6r's blocks build in
-    shared memory."""
+    (cy, cx) at value ``16*hi + lo``, the layout K6's blocks (and so
+    K6r's) stage in shared memory."""
     cell_lut_idx = spec.device_arrays(luts.device)[0].long()
     pack = luts[:, cell_lut_idx].permute(0, 1, 2, 4, 3)     # (N, CY, CX, 256, 4)
     return pack.reshape(*pack.shape[:3], 16, 16, 4)
@@ -362,28 +361,24 @@ def clahe_interpolate_cells(y: torch.Tensor, luts: torch.Tensor,
     """CLAHE bilinear LUT interpolation of (N, H, W) uint8 frames on the
     cell grid of ``spec``, with (N, T, 256) uint8 ``luts``: K3's output, bit
     for bit.  ``out`` (same shape, unit column stride) may be ``y`` itself.
+    On the card the LUTs must be contiguous and 4-byte aligned (the kernel
+    stages them as 32-bit words); others raise.
 
-    ``radix=True`` (the JAX module's radix-16 kernel variant) takes K6r,
-    ``interp_cells_radix_kernel``, and gives the same output; its launches
-    are counted in ``clahe_interpolate_cells.radix_launches``."""
+    ``radix=True`` (the JAX module's radix-16 kernel variant, K6r) gives
+    the same output through the same kernel and the same launch; its
+    launches are counted in ``clahe_interpolate_cells.radix_launches``."""
     _check_frames(y, spec)
     _check_luts(luts, y, spec)
     _check_out(out, y)
     if not _on_card(y):
         res = clahe_interpolate_cells_ref(y, luts, spec, radix)
         return res if out is None else out.copy_(res)
-    if radix:
-        out, launched = _interpolate_cells_radix(y, luts, spec, out)
-        clahe_interpolate_cells.radix_launches += launched
-        return out
     out, launched = _interpolate_cells(y, luts, spec, 0, out)
-    clahe_interpolate_cells.launches += launched
+    if radix:
+        clahe_interpolate_cells.radix_launches += launched
+    else:
+        clahe_interpolate_cells.launches += launched
     return out
-
-
-def _rows_per_block(spec: InterpSpec) -> int:
-    """K6r's rows per block."""
-    return max(1, min(spec.tile_h, _CELL_PX_PER_BLOCK // spec.tile_w))
 
 
 def cells_rows_per_block(spec: InterpSpec) -> int:
@@ -398,32 +393,6 @@ def _check_cell_grid(spec: InterpSpec, n: int) -> None:
     if spec.cx > 65535 or n > 65535:
         raise ValueError(f"{spec.cx} cell columns or {n} frames exceed the "
                          "launch grid")
-
-
-def _interpolate_cells_radix(y: torch.Tensor, luts: torch.Tensor,
-                             spec: InterpSpec,
-                             out: torch.Tensor | None) -> tuple[torch.Tensor, bool]:
-    """Launch ``interp_cells_radix_kernel`` on whole frames on the card;
-    returns the output and whether a launch was made."""
-    if not luts.is_contiguous():
-        raise ValueError("luts must be contiguous")
-    n = y.shape[0]
-    _check_cell_grid(spec, n)
-    lib = _build.load()
-    if out is None:
-        out = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
-    if not (n and spec.height and spec.width):
-        return out, False
-    cell_lut_idx, ya, xa = spec.device_arrays(y.device)
-    with torch.cuda.device(y.device):
-        err = lib.interp_cells_radix_launch(
-            y.data_ptr(), y.stride(0), y.stride(1), luts.data_ptr(), n,
-            spec.num_tiles, cell_lut_idx.data_ptr(), spec.cx, spec.height,
-            spec.width, spec.tile_h, spec.tile_w, spec.pad_top, spec.pad_left,
-            _rows_per_block(spec), ya.data_ptr(), xa.data_ptr(),
-            out.data_ptr(), out.stride(0), out.stride(1), _stream(y.device))
-    _raise_on(err, "interp_cells_radix_kernel")
-    return out, True
 
 
 def _interpolate_cells(y_band: torch.Tensor, luts: torch.Tensor,
@@ -508,7 +477,7 @@ def tile_histograms_extended(ext: torch.Tensor, tiles_y: int, tiles_x: int,
     num_tiles = tiles_y * tiles_x
     out = torch.zeros((n, num_tiles, 256), dtype=torch.int32, device=ext.device)
     if n and num_tiles and tile_h and tile_w:
-        slices = max(1, min(tile_h, -(-_HIST_TARGET_BLOCKS // (n * num_tiles))))
+        slices = hist_slices(n, num_tiles, tile_h)
         with torch.cuda.device(ext.device):
             err = lib.tile_hist_private_launch(
                 ext.data_ptr(), n, ext.stride(0), ext.stride(1), tiles_y,

@@ -29,10 +29,10 @@ staging its pair's interleaved LUT pack, whose plain form is
 :func:`build_lut_pack`.
 ``tile_histograms`` also takes a band: ``tile_rows`` of the plan, read from
 a slab of the frame that starts at ``slab_row0``.  K10 is K1's contract on
-an already extended frame with ``batch_rows`` rows of a tile per warp step,
-counted warp-aggregated; no path runs it (nor does any path of the JAX
-package): it is the third formulation of the tile histograms, checked and
-timed beside K1 and K8.
+an already extended frame, and here K1's kernel, ``tile_hist_kernel<R>``,
+with ``batch_rows`` as R, the 16-byte loads a thread keeps in flight
+(:func:`batched_hist_args`; K1 itself takes 4); no path runs it (nor does
+any path of the JAX package), and it is checked and timed beside K1 and K8.
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel on the current stream or raises; it
@@ -74,6 +74,9 @@ __all__ = [
     "fused_rows_per_block",
     "fused_vec",
     "interior_tiles",
+    "hist_slices",
+    "tile_hist_args",
+    "batched_hist_args",
     "tile_hist_vec",
     "interp_vec",
     "interp_rows_per_block",
@@ -95,6 +98,10 @@ __all__ = [
 # K1 cuts each tile into row slices until the grid has about this many
 # blocks: 8 per SM of an H100's 132
 _HIST_TARGET_BLOCKS = 8 * 132
+# K1's 16-byte loads in flight a thread (tile_hist_kernel<R>); K10 takes
+# its batch_rows, one of _BATCH_ROWS
+_HIST_LOADS = 4
+_BATCH_ROWS = (2, 4, 8)
 # K3 rows per block: as many as keep the grid at about _INTERP_TARGET_BLOCKS
 # blocks (16 per SM: four waves or more of the five 256-thread blocks an SM
 # holds at 48 registers), within [_INTERP_MIN_ROWS, _INTERP_MAX_ROWS]: a
@@ -514,6 +521,71 @@ def interior_tiles(plan) -> tuple[int, int]:
             min(plan.tiles_x, plan.width // plan.tile_w))
 
 
+def hist_slices(frames: int, tiles: int, rows: int) -> int:
+    """K1's row slices per tile for ``frames`` frames of ``tiles`` tiles of
+    ``rows`` counted rows: enough blocks for about ``_HIST_TARGET_BLOCKS``,
+    at most one slice a row."""
+    return max(1, min(rows, -(-_HIST_TARGET_BLOCKS // (frames * tiles))))
+
+
+# the arguments of tile_hist_launch between the frame count and `out`
+_TILE_HIST_ARGS = ("height", "width", "frame_stride", "row_stride",
+                   "tile_rows", "tiles_x", "tile_h", "tile_w", "rowstep",
+                   "slices", "ty0", "slab_row0", "inner_rows", "inner_cols",
+                   "vec", "loads")
+
+
+def tile_hist_args(y: torch.Tensor, plan, rowstep: int = 1,
+                   tile_rows: tuple[int, int] | None = None,
+                   slab_row0: int = 0) -> dict[str, int]:
+    """K1's launch over (N, rows, W) frames or a slab of them (see
+    :func:`tile_histograms`), by the names of ``tile_hist_launch``'s
+    arguments: the plan's geometry, :func:`hist_slices`, the interior
+    tiles, :func:`tile_hist_vec` and ``_HIST_LOADS`` loads in flight."""
+    ty0, ty1 = (0, plan.tiles_y) if tile_rows is None else tile_rows
+    inner_rows, inner_cols = interior_tiles(plan)
+    return {
+        "height": plan.height, "width": plan.width,
+        "frame_stride": y.stride(0), "row_stride": y.stride(1),
+        "tile_rows": ty1 - ty0, "tiles_x": plan.tiles_x, "tile_h": plan.tile_h,
+        "tile_w": plan.tile_w, "rowstep": rowstep,
+        "slices": hist_slices(y.shape[0], (ty1 - ty0) * plan.tiles_x,
+                              plan.tile_h // rowstep),
+        "ty0": ty0, "slab_row0": slab_row0, "inner_rows": inner_rows,
+        "inner_cols": inner_cols, "vec": int(tile_hist_vec(y, plan)),
+        "loads": _HIST_LOADS,
+    }
+
+
+def batched_hist_args(ext: torch.Tensor, tiles_y: int, tiles_x: int,
+                      tile_h: int, tile_w: int, batch_rows: int) -> dict[str, int]:
+    """K10's launch of K1's kernel on (N, He, We) frames already extended
+    to ``tiles_y`` x ``tiles_x`` tiles of ``tile_h`` x ``tile_w``, by the
+    names of ``tile_hist_launch``'s arguments: the frame is its own
+    extension (its height and width are the tile multiples), so every tile
+    is interior; one rowstep, no band; K1's slices; the 16-byte path when
+    the base, both strides and the tile width are multiples of 16 (as
+    :func:`tile_hist_vec`); ``batch_rows`` (2, 4 or 8) loads in flight."""
+    _check_batch_rows(batch_rows)
+    return {
+        "height": tiles_y * tile_h, "width": tiles_x * tile_w,
+        "frame_stride": ext.stride(0), "row_stride": ext.stride(1),
+        "tile_rows": tiles_y, "tiles_x": tiles_x, "tile_h": tile_h,
+        "tile_w": tile_w, "rowstep": 1,
+        "slices": hist_slices(ext.shape[0], tiles_y * tiles_x, tile_h),
+        "ty0": 0, "slab_row0": 0, "inner_rows": tiles_y, "inner_cols": tiles_x,
+        "vec": int(_aligned16(ext.data_ptr(), ext.stride(0), ext.stride(1),
+                              tile_w)),
+        "loads": batch_rows,
+    }
+
+
+def _check_batch_rows(batch_rows: int) -> None:
+    if batch_rows not in _BATCH_ROWS:
+        raise ValueError(
+            f"batch_rows must be one of (2, 4, 8), got {batch_rows}")
+
+
 def tile_hist_vec(y: torch.Tensor, plan) -> bool:
     """Whether K1 reads the interior tiles of ``y`` with 16-byte loads:
     the base, both strides and the tile width are multiples of 16."""
@@ -572,25 +644,25 @@ def tile_histograms(y: torch.Tensor, plan, rowstep: int = 1,
         raise ValueError(f"rowstep={rowstep} must divide tile_h ({plan.tile_h})")
     if not _on_card(y):
         return tile_histograms_ref(y, plan, rowstep, tile_rows, slab_row0)
-    lib = _build.load()
     n = y.shape[0]
     tiles = (tile_rows[1] - tile_rows[0]) * plan.tiles_x
     out = torch.zeros((n, tiles, 256), dtype=torch.int32, device=y.device)
     if n == 0 or tiles == 0:
         return out
-    rows = plan.tile_h // rowstep
-    slices = max(1, min(rows, -(-_HIST_TARGET_BLOCKS // (n * tiles))))
-    inner_rows, inner_cols = interior_tiles(plan)
-    with torch.cuda.device(y.device):
-        err = lib.tile_hist_launch(
-            y.data_ptr(), n, plan.height, plan.width, y.stride(0), y.stride(1),
-            tile_rows[1] - tile_rows[0], plan.tiles_x, plan.tile_h,
-            plan.tile_w, rowstep, slices, tile_rows[0], slab_row0, inner_rows,
-            inner_cols, int(tile_hist_vec(y, plan)), out.data_ptr(),
-            _stream(y.device))
-    _raise_on(err, "tile_hist_kernel")
+    _tile_hist(y, out, tile_hist_args(y, plan, rowstep, tile_rows, slab_row0))
     tile_histograms.launches += 1
     return out
+
+
+def _tile_hist(y: torch.Tensor, out: torch.Tensor, args: dict[str, int]) -> None:
+    """Launch ``tile_hist_kernel<args["loads"]>`` on the card over the
+    frames ``y`` into the zeroed histograms ``out`` (K1 and K10)."""
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        err = lib.tile_hist_launch(
+            y.data_ptr(), y.shape[0], *(args[k] for k in _TILE_HIST_ARGS),
+            out.data_ptr(), _stream(y.device))
+    _raise_on(err, "tile_hist_kernel")
 
 
 def build_luts(hists: torch.Tensor, clip: int | torch.Tensor,
@@ -837,8 +909,6 @@ def clahe_interp_and_hist(y: torch.Tensor, luts: torch.Tensor, plan,
 
 # ----------------------------------------------------------------- K10 ----
 
-_BATCH_ROWS = (2, 4, 8)
-
 
 def tile_histograms_batched_ref(ext: torch.Tensor, tiles_y: int, tiles_x: int,
                                 tile_h: int, tile_w: int) -> torch.Tensor:
@@ -855,10 +925,9 @@ def tile_histograms_batched(ext: torch.Tensor, tiles_y: int, tiles_x: int,
     """An already reflect-extended, tile-divisible uint8 plane
     (tiles_y*tile_h, tiles_x*tile_w) -> (T, 256) int32 histograms of its
     tiles in row-major order, or (N, He, We) frames -> (N, T, 256): K1's
-    counts, with ``batch_rows`` rows (2, 4 or 8) of a tile per warp step."""
-    if batch_rows not in _BATCH_ROWS:
-        raise ValueError(
-            f"batch_rows must be one of (2, 4, 8), got {batch_rows}")
+    counts, through K1's kernel with ``batch_rows`` (2, 4 or 8) 16-byte
+    loads in flight a thread (:func:`batched_hist_args`)."""
+    _check_batch_rows(batch_rows)
     if not isinstance(ext, torch.Tensor) or ext.ndim not in (2, 3):
         raise ValueError("ext must be a (He, We) or (N, He, We) tensor")
     batch = ext if ext.ndim == 3 else ext[None]
@@ -868,18 +937,12 @@ def tile_histograms_batched(ext: torch.Tensor, tiles_y: int, tiles_x: int,
                          f"{tiles_y}x{tiles_x} tiles of {tile_h}x{tile_w}")
     if not _on_card(batch):
         return tile_histograms_batched_ref(ext, tiles_y, tiles_x, tile_h, tile_w)
-    lib = _build.load()
     n = batch.shape[0]
     num_tiles = tiles_y * tiles_x
     out = torch.zeros((n, num_tiles, 256), dtype=torch.int32, device=ext.device)
     if n and num_tiles and tile_h and tile_w:
-        slices = max(1, min(tile_h, -(-_HIST_TARGET_BLOCKS // (n * num_tiles))))
-        with torch.cuda.device(ext.device):
-            err = lib.tile_hist_batched_launch(
-                batch.data_ptr(), n, batch.stride(0), batch.stride(1), tiles_y,
-                tiles_x, tile_h, tile_w, slices, batch_rows, out.data_ptr(),
-                _stream(ext.device))
-        _raise_on(err, "tile_hist_batched_kernel")
+        _tile_hist(batch, out, batched_hist_args(batch, tiles_y, tiles_x, tile_h,
+                                                 tile_w, batch_rows))
         tile_histograms_batched.launches += 1
     return out if ext.ndim == 3 else out[0]
 

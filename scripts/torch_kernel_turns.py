@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3 (with K5 and K3v1), K6 and K7 kernels (and the
-steps around them) of two or more trees in turns on one CUDA card.
+"""Time the port's K1, K2, K3 (with K5 and K3v1), K6, K7, K8, K10 and K6r
+kernels (and the steps around them) of two or more trees in turns on one
+CUDA card.
 
 Each tree is a checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into the git-ignored ``_checkout/``).  For each
@@ -11,7 +12,9 @@ process imports ``opencv_opencl_tpu_torch`` from its tree (``PYTHONPATH``),
 builds that tree's kernels, and times device-alone CUDA-event medians at 4K
 batch 4 over the Y rows of an NV12 batch (K7 per 4K frame, as the streaming
 step launches it; K5 on the band of a 2x2 mesh, two frames of rows [1080,
-2160), and over the batch as one band; K3v1).  K2 is timed as a run of
+2160), and over the batch as one band; K3v1; K10 for each batch_rows 2, 4
+and 8 and K8 beside K1, on the batch's Y rows as an extended frame; K6r
+beside K6).  K2 is timed as a run of
 ``K2_LAUNCHES`` launches queued behind a spin of the card, over the count,
 beside ``torch.profiler``'s device time per call and, in a tree that has
 it, an empty kernel launched the same way (``natural.launch_floor``, the
@@ -27,8 +30,10 @@ also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
 8,16,32`` K7 of the trees with ``fused_rows_per_block`` and ``--cells-rows
 8,16,32`` K6 of the trees with ``lut.cells_rows_per_block``; ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
-(registers, shared memory, spills) for K1, K2, K3, K6, K7 and
-``interp_pack_kernel`` (K5 in older trees).  The last line is one JSON
+(registers, shared memory, spills) for K1 (each instance of
+``tile_hist_kernel<R>``: 4 for K1, 2, 4 and 8 for K10), K2, K3, K6, K7, and
+in older trees ``interp_pack_kernel`` (K5), ``tile_hist_batched_kernel``
+(K10) and ``interp_cells_radix_kernel`` (K6r).  The last line is one JSON
 object with every reading and the card's name and power limit.
 """
 
@@ -45,7 +50,8 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, BATCH = 3840, 2160, 4
 KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
-                "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel")
+                "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel",
+                "tile_hist_batched_kernel", "interp_cells_radix_kernel")
 # K2 launches a timed run queues behind one spin of the card
 K2_LAUNCHES = 200
 
@@ -235,6 +241,7 @@ def child(content: str, interp_rows: list[int], fused_rows: list[int],
             histogram.hist256(work[:, :HEIGHT]), HEIGHT * WIDTH),
             out=work[:, :HEIGHT]))
     res.update(band_and_lut_readings(y, hists, luts, plan, out))
+    res.update(hist_and_radix_readings(y, hists, luts, plan, spec, out, cells_ref))
     res.update(sharded_readings(batch.clone(), device))
     if interp_rows and hasattr(natural, "interp_rows_per_block"):
         chosen = natural.interp_rows_per_block
@@ -300,6 +307,34 @@ def band_and_lut_readings(y, hists, luts, plan, out) -> dict:
         floor = lambda: natural.launch_floor(hists)  # noqa: E731
         res["launch_floor_per_launch"] = per_launch_ms(floor)
         res["launch_floor_profiler_us"] = pick(profile_us(floor), "launch_floor_kernel")
+    return res
+
+
+def hist_and_radix_readings(y, hists, luts, plan, spec, out, cells_ref) -> dict:
+    """K10 for each batch_rows and K8 on the Y rows as an extended frame
+    (4K is tile-divisible), K1 once more between them, and K6r: whether
+    each equals the plain version, and its device ms."""
+    import torch
+
+    from opencv_opencl_tpu_torch.ops.cuda import lut, natural
+
+    tiles = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+    res = {}
+    for rows in (2, 4, 8):
+        k10 = lambda rows=rows: natural.tile_histograms_batched(  # noqa: E731
+            y, *tiles, batch_rows=rows)
+        res[f"k10_equal_rows_{rows}"] = torch.equal(k10(), hists)
+        res[f"tile_hist_batched_rows_{rows}"] = device_ms(k10)
+    res["tile_hist_kernel_again"] = device_ms(lambda: natural.tile_histograms(y, plan))
+    res["k8_equal"] = torch.equal(lut.tile_histograms_extended(y, *tiles), hists)
+    res["tile_hist_private_kernel"] = device_ms(
+        lambda: lut.tile_histograms_extended(y, *tiles))
+    lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True)
+    res["k6r_equal"] = torch.equal(out, cells_ref)
+    res["interp_cells_radix"] = device_ms(
+        lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True))
+    res["interp_cells_kernel_again"] = device_ms(
+        lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out))
     return res
 
 

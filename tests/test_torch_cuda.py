@@ -376,8 +376,8 @@ def test_interpolate_cells_equals_plain_and_k3(device, n, h, w, grid, content):
 
 
 def test_interpolate_cells_rejects_the_radix_variant(device):
-    """The radix variant is no longer refused: on the card it launches K6r
-    (and only K6r) and gives K6's output."""
+    """The radix variant is no longer refused: on the card it launches K6's
+    kernel, counted as K6r's launch and not K6's, and gives K6's output."""
     spec = lut.make_interp_spec(32, 32, 2.0, (4, 4))
     y = torch.from_numpy(_frames(16, 1, 32, 32)).to(device)
     luts = torch.from_numpy(
@@ -449,6 +449,27 @@ def test_batched_hists_equal_plain_k1_and_k8(device, n, h, w, grid, content, bat
     assert torch.equal(got[0], natural.tile_histograms_batched(
         ext[0], *args, batch_rows=batch_rows))
     torch.cuda.synchronize(device)
+
+
+def test_tile_hist_launch_refuses_loads_other_than_2_4_8(device):
+    """K1's launcher takes 2, 4 or 8 loads in flight (K10's batch_rows) and
+    refuses any other number with cudaErrorInvalidValue, launching nothing."""
+    h, w = 96, 128
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, (8, 8))
+    y = torch.from_numpy(_frames(22, 2, h, w)).to(device)
+    lib = _build.load()
+    names = natural._TILE_HIST_ARGS
+    for loads, want_err in ((2, 0), (4, 0), (8, 0), (3, 1), (16, 1), (0, 1)):
+        out = torch.zeros((2, plan.num_tiles, 256), dtype=torch.int32, device=device)
+        args = dict(natural.tile_hist_args(y, plan), loads=loads)
+        err = lib.tile_hist_launch(y.data_ptr(), 2, *(args[k] for k in names),
+                                   out.data_ptr(), natural._stream(device))
+        torch.cuda.synchronize(device)
+        assert err == want_err, loads
+        if want_err:
+            assert not out.any()
+        else:
+            assert torch.equal(out, natural.tile_histograms_ref(y, plan))
 
 
 def test_batched_hists_on_an_unaligned_view_and_bad_batch_rows(device):

@@ -24,12 +24,23 @@ Python (no kernel runs here).
   on aligned NV12 views, ``y[..., 1:]``, 1919x1079 and tile widths that 16
   does not divide;
 - K1's interior tiles, which it reads without reflect-101 index math:
-  exactly the tiles whose rows and columns all lie inside the frame.
+  exactly the tiles whose rows and columns all lie inside the frame;
+- K1's flattened (row, 16-byte unit) walk with R loads a round (R = 2, 4,
+  8: ``tile_hist_kernel<R>``) visits every (row, unit) of every slice
+  once, at 4K (30 units a tile row), 1080p (15) and past 256 units;
+- K10 (``tile_histograms_batched``): K1's launch on the extended frame,
+  every tile interior, ``batch_rows`` loads in flight, the 16-byte path
+  where 16 divides the base, the strides and the tile width; K6r
+  (``clahe_interpolate_cells(radix=True)``): K6's launch, counted apart.
+  The routing tests run the wrappers' card branch against a recording
+  stand-in for the kernel library.
 
 At 4K, 1080p, 1919x1079, 6x6 and 3x3 on an 8x8 grid, and 97x131 on a 3x5
 grid (K7: the tile-divisible ones, and more).  The card runs the same
 geometries in ``tests/test_torch_cuda.py``.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -37,7 +48,7 @@ import torch
 
 from opencv_opencl_tpu_torch.core.golden import reflect101_indices
 from opencv_opencl_tpu_torch.ops import clahe as torch_clahe
-from opencv_opencl_tpu_torch.ops.cuda import lut, natural
+from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
 from opencv_opencl_tpu_torch.parallel import sharded
 
 GEOMETRIES = [
@@ -438,3 +449,175 @@ def test_k2_warp_layout_equals_the_plain_lut_build(h, w, grid):
     want = natural.build_luts_ref(torch.from_numpy(frames), torch.from_numpy(clips),
                                   plan.lut_scale).numpy().reshape(8, 256)
     assert np.array_equal(got, want)
+
+
+# ------------------------------------------------------------ K1 and K10 ----
+
+
+def _k1_walk(nk: int, units: int, loads: int) -> tuple[np.ndarray, np.ndarray]:
+    """K1's 16-byte path over one slice of ``nk`` rows of ``units`` units,
+    as its 256 threads run it: thread t starts at (t // units, t % units)
+    and steps by 256 positions with a running counter; each round it loads
+    up to ``loads`` units (while k < nk) and then counts those it loaded.
+    Returns how often each (row, unit) was loaded and counted."""
+    threads = 256
+    t = np.arange(threads)
+    k, u = t // units, t % units
+    step_k, step_u = threads // units, threads % units
+    loaded = np.zeros((nk, units), np.int64)
+    counted = np.zeros((nk, units), np.int64)
+    while np.any(k < nk):
+        got = []
+        for _ in range(loads):
+            live = k < nk
+            np.add.at(loaded, (k[live], u[live]), 1)
+            got.append((k[live], u[live]))
+            k, u = k + step_k, u + step_u
+            wrap = u >= units
+            u, k = np.where(wrap, u - units, u), np.where(wrap, k + 1, k)
+        for kk, uu in got:              # j < loaded: the loads of this round
+            np.add.at(counted, (kk, uu), 1)
+    return loaded, counted
+
+
+# (frames, tile rows, tiles, tile width): 4K b4 8x8 (30 units a row), 1080p
+# b4 8x8 (15), 4K b4 1x1 (240), 7680 wide on 1x1 (480 units: step_k 0)
+WALK_CASES = [(4, 270, 64, 480), (4, 135, 64, 240), (4, 2160, 1, 3840),
+              (1, 64, 1, 7680)]
+
+
+@pytest.mark.parametrize("loads", [2, 4, 8])
+@pytest.mark.parametrize("frames,tile_h,tiles,tile_w", WALK_CASES,
+                         ids=[f"{c[3] // 16}units" for c in WALK_CASES])
+def test_k1_walk_visits_every_row_and_unit_of_every_slice_once(
+        frames, tile_h, tiles, tile_w, loads):
+    units = tile_w // 16
+    slices = natural.hist_slices(frames, tiles, tile_h)
+    bounds = [tile_h * s // slices for s in range(slices + 1)]
+    assert bounds[0] == 0 and bounds[-1] == tile_h     # the slices cover the tile
+    for nk in sorted({hi - lo for lo, hi in zip(bounds[:-1], bounds[1:])}):
+        loaded, counted = _k1_walk(nk, units, loads)
+        assert np.all(loaded == 1) and np.all(counted == 1), (nk, units)
+
+
+def _extended(h, w, grid, frames=2):
+    """Frames extended to the plan's tile multiple, and their tile args."""
+    plan = torch_clahe.make_clahe_plan(h, w, 2.0, grid)
+    y = torch.zeros((frames, h + h // 2, w), dtype=torch.uint8)[:, :h]
+    ext = natural.extend(y, plan)
+    return ext, (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
+
+
+@pytest.mark.parametrize("h,w,grid,vec", [
+    (2160, 3840, (8, 8), True),      # tiles 270x480, NV12 Y rows
+    (1080, 1920, (8, 8), True),      # tiles 135x240
+    (1079, 1919, (8, 8), True),      # extended to 1080x1920 (a copy)
+    (2160, 3840, (1, 1), True),      # one tile, 240 units a row
+    (48, 120, (4, 4), False),        # tile width 30: the byte path
+])
+def test_k10_launch_is_k1s_on_the_extended_frame(h, w, grid, vec):
+    ext, tiles = _extended(h, w, grid)
+    tiles_y, tiles_x, tile_h, tile_w = tiles
+    ext_plan = torch_clahe.make_clahe_plan(tiles_y * tile_h, tiles_x * tile_w,
+                                           2.0, grid)
+    k1 = natural.tile_hist_args(ext, ext_plan)
+    assert k1["loads"] == 4
+    for batch_rows in (2, 4, 8):
+        args = natural.batched_hist_args(ext, *tiles, batch_rows)
+        assert list(args) == list(natural._TILE_HIST_ARGS)
+        assert args == dict(k1, loads=batch_rows)
+        # every tile interior, the whole frame, no rowstep, no band
+        assert (args["inner_rows"], args["inner_cols"]) == (tiles_y, tiles_x)
+        assert (args["height"], args["width"]) == tuple(ext.shape[1:])
+        assert (args["rowstep"], args["ty0"], args["slab_row0"]) == (1, 0, 0)
+        assert args["tile_rows"] == tiles_y and args["vec"] == int(vec)
+    # a view from column 1 lies off 16 bytes: the byte path
+    wide = torch.zeros((2, ext.shape[1], ext.shape[2] + 16), dtype=torch.uint8)
+    view = wide[:, :, 1:1 + ext.shape[2]]
+    assert natural.batched_hist_args(view, *tiles, 4)["vec"] == 0
+    assert natural.batched_hist_args(ext[0][None], *tiles, 8)["vec"] == int(vec)
+
+
+def test_k10_batch_rows_outside_2_4_8_raise():
+    ext, tiles = _extended(96, 128, (8, 8))
+    for batch_rows in (0, 1, 3, 16):
+        with pytest.raises(ValueError, match="batch_rows must be one of"):
+            natural.batched_hist_args(ext, *tiles, batch_rows)
+        with pytest.raises(ValueError, match="batch_rows must be one of"):
+            natural.tile_histograms_batched(ext, *tiles, batch_rows=batch_rows)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each launch's arguments
+    and returns success, so the wrappers' card branch runs on the CPU."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    lib = _Recorder()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    for module in (natural, lut):
+        monkeypatch.setattr(module, "_on_card", lambda t: True)
+        monkeypatch.setattr(module, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    natural.reset_launch_counts()
+    lut.reset_launch_counts()
+    yield lib
+    natural.reset_launch_counts()
+    lut.reset_launch_counts()
+
+
+@pytest.mark.parametrize("h,w,grid", [(2160, 3840, (8, 8)), (1079, 1919, (8, 8)),
+                                      (48, 120, (4, 4))])
+def test_k10_launches_k1s_kernel_with_batch_rows_loads(recorder, h, w, grid):
+    ext, tiles = _extended(h, w, grid)
+    ext_plan = torch_clahe.make_clahe_plan(ext.shape[1], ext.shape[2], 2.0, grid)
+    natural.tile_histograms(ext, ext_plan)
+    for batch_rows in (2, 4, 8):
+        natural.tile_histograms_batched(ext, *tiles, batch_rows=batch_rows)
+    names = [name for name, _ in recorder.calls]
+    assert names == ["tile_hist_launch"] * 4
+    # (y, frames, *the named args, out, stream): all but `out` and the loads
+    # equal K1's launch
+    k1 = recorder.calls[0][1]
+    loads = 2 + natural._TILE_HIST_ARGS.index("loads")
+    assert k1[loads] == 4
+    for batch_rows, (_, args) in zip((2, 4, 8), recorder.calls[1:]):
+        assert args[loads] == batch_rows
+        assert args[:loads] == k1[:loads] and args[-1] == k1[-1]
+    counts = natural.launch_counts()
+    assert counts["tile_histograms"] == 1 and counts["tile_histograms_batched"] == 3
+
+
+@pytest.mark.parametrize("h,w,grid", [(2160, 3840, (8, 8)), (1080, 1920, (8, 8)),
+                                      (1079, 1919, (8, 8)), (64, 64, (16, 16))])
+def test_k6r_takes_k6s_launch(recorder, h, w, grid):
+    spec = lut.make_interp_spec(h, w, 2.0, grid)
+    y = torch.zeros((2, h, w), dtype=torch.uint8)
+    out = torch.empty_like(y)
+    luts = torch.zeros((2, spec.num_tiles, 256), dtype=torch.uint8)
+    lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True)
+    lut.clahe_interpolate_cells(y, luts, spec, out=out)
+    (name_r, radix), (name_k6, k6) = recorder.calls
+    assert name_r == name_k6 == "interp_cells_launch"
+    # the same rows per block, column parts, unit tables and pointers
+    assert radix == k6
+    col_parts, xa_units = spec.unit_tables("cpu")
+    assert lut.cells_rows_per_block(spec) in radix
+    assert col_parts.data_ptr() in radix and xa_units.data_ptr() in radix
+    counts = lut.launch_counts()
+    assert counts["clahe_interpolate_cells_radix"] == 1
+    assert counts["clahe_interpolate_cells"] == 1
+    # K6's refusal holds on the radix route: LUTs off 4 bytes
+    odd = torch.zeros(2 * spec.num_tiles * 256 + 1, dtype=torch.uint8)[1:]
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        lut.clahe_interpolate_cells(y, odd.view(2, spec.num_tiles, 256), spec,
+                                    radix=True)
