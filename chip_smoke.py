@@ -10,8 +10,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 1. device   the card, and its name and power limit from nvidia-smi;
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
             what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1), K2 and
-            K1's three instances (``tile_hist_kernel<4>``, and ``<2>``,
-            ``<8>`` for K10) (registers, shared memory, spills);
+            K1's three instances (``tile_hist_kernel<4>``, also K8's, and
+            ``<2>``, ``<8>`` for K10) (registers, shared memory, spills);
+            the native C++ runtime from ``opencv_opencl_tpu_torch/native``
+            (g++; seconds and path), which the relay's last runs need;
 3. kernels  every kernel against its plain PyTorch version on the card,
             exact: K1, K2 and K3 over 4K batches (structured, random and
             ladder NV12 rows, and a view from column 1 whose base and rows
@@ -27,8 +29,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             one clip per frame in a device tensor; K6 at 4K b4, 1080p,
             1919x1079, on a 4K ladder batch, on a view of the 4K batch from
             column 1 and on a constant frame in place over NV12 Y rows, and
-            against K3; K8
-            at 4K b4 on an 8x8 and a 1x1 grid, and against K1; K5 (K3's
+            against K3; K8 (the tile histograms of an extended frame, K1's
+            kernel with 4 loads in flight) at 4K b4 on an 8x8 and a 1x1
+            grid on structured, random and constant content, and against
+            K1; K5 (K3's
             kernel with a row origin) on a 4K b4 NV12 batch cut into 2, 3
             and 4 bands of the sharded geometry (the last one short; at 4K
             the bands of 2 start inside a row pair), in place, on a band at
@@ -77,12 +81,14 @@ Phases, each of which raises (exit code != 0) when it fails:
             passthrough to a raw NV12 file that is compared frame by frame
             with the plain versions on the same ``TestSource`` frames, (c)
             ``--ref-frame``, (d) ``--mesh=1x1`` (the app starts its own
-            one-rank NCCL group) and (e) ``--sink=rtp+raw://`` on loopback
-            with a receiver thread that reassembles frames and compares
-            them (the source paced at 1 fps, which the Python packetizer
-            keeps up with; at 1080p as well if the host is slower than
-            that); and ``apps.multi_relay.run`` with 4 streams of 1080p, 32
-            frames each;
+            one-rank NCCL group), (e) ``--sink=rtp+raw://`` on loopback,
+            unpaced, the sink sending through the C++ packetizer
+            (``rtp_send_raw``), with a receiver thread that reassembles
+            frames and compares them, and (f) the same with ``--native``
+            (the C++ staging ring, which the relay's started line must
+            name); and ``apps.multi_relay.run`` with 4 streams of 1080p, 32
+            frames each, on the Python queue and with ``--native
+            --priorities``;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
             PyTorch call that computes the same function; K2 also as a run
@@ -92,9 +98,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             beside K1, K2 with a clip tensor beside K2 with an int, K5 and
             K3v1 beside K3 and K9 beside K6, in turns; the 1x1 sharded step
             beside the CLAHE step; each rank's time for its part of the 2x2
-            and 1x4 steps; the feeder's end-to-end rates; torch.profiler's
-            device time per kernel for each step; the relay's and the
-            multi-stream relay's own ``Shutdown`` rates; K10 for each
+            and 1x4 steps; the feeder's end-to-end rates, on the Python
+            queue and on the C++ ring; torch.profiler's device time per
+            kernel for each step; the relay's and the multi-stream relay's
+            own ``Shutdown`` rates; K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -111,6 +118,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import sys
 import tempfile
@@ -122,11 +130,12 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
+from opencv_opencl_tpu_torch import native
 from opencv_opencl_tpu_torch.apps import multi_relay, relay
 from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
-from opencv_opencl_tpu_torch.io.rtp import RtpUdpReceiver
+from opencv_opencl_tpu_torch.io.rtp import RtpUdpReceiver, RtpUdpSink
 from opencv_opencl_tpu_torch.io.videofile import TestSource
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer,
@@ -177,8 +186,8 @@ KERNELS = (
     ("interp_cells_kernel", "clahe_interpolate_cells",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477"),
-    ("tile_hist_private_kernel", "tile_histograms_extended",
-     "opencv_opencl_tpu_torch/csrc/lut.cu",
+    ("tile_hist_kernel:extended", "tile_histograms_extended",
+     "opencv_opencl_tpu_torch/csrc/natural.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:142"),
     ("interp_kernel:band", "clahe_interpolate_band",
      "opencv_opencl_tpu_torch/csrc/natural.cu",
@@ -206,11 +215,10 @@ K2_LAUNCHES = 200
 # batches per configuration on the spawned 2x2 and 1x4 meshes
 SHARDED_BATCHES = 4
 RELAY_FRAMES = 64
-# the pace of the relay's source when its sink is raw RTP at 4K (see
-# relay_over_rtp): the Python packetizer sent 1.6 4K frames a second on the
-# H100's host
-RTP_PACE_FPS = 1.0
 MULTI_STREAMS, MULTI_FRAMES = 4, 32
+# the raw RTP receiver's socket buffer: a 4K frame leaves the C++ sender
+# as one burst of ~13,000 datagrams (~30 MB of kernel buffers on loopback)
+RECEIVER_BUFFER = 1 << 26
 SPAWN_TIMEOUT = 420.0
 
 
@@ -539,16 +547,18 @@ def phase_cell_kernel(device, rng) -> int:
     return worst
 
 
-def phase_private_hist_kernel(device, rng) -> tuple[int, int]:
-    """K8 against its plain version and against K1 on the same
-    tile-divisible 4K b4 frames (structured NV12 Y rows and constant), at an
-    8x8 and a 1x1 grid; returns the error and K8's launches here."""
+def phase_extended_hist_kernel(device, rng) -> tuple[int, int]:
+    """K8 (K1's kernel on an extended frame) against its plain version and
+    against K1 on the same tile-divisible 4K b4 frames (structured NV12 Y
+    rows, random and constant), at an 8x8 and a 1x1 grid; returns the error
+    and K8's launches here."""
     frames = torch.from_numpy(nv12_batch(rng, BATCH, HEIGHT, WIDTH)).to(device)
+    noise = torch.from_numpy(random_y(rng, BATCH, HEIGHT, WIDTH)).to(device)
     const = torch.full((BATCH, HEIGHT, WIDTH), 77, dtype=torch.uint8, device=device)
     lut.tile_histograms_extended.launches = 0
     worst = 0
     for label, y in (("4k_b4_structured_nv12", frames[:, :HEIGHT]),
-                     ("4k_b4_constant", const)):
+                     ("4k_b4_random", noise), ("4k_b4_constant", const)):
         for grid in (GRID, (1, 1)):
             plan = clahe_ops.make_clahe_plan(HEIGHT, WIDTH, CLIP, grid)
             args = (plan.tiles_y, plan.tiles_x, plan.tile_h, plan.tile_w)
@@ -1148,7 +1158,13 @@ class RawFrameCatcher(threading.Thread):
         # position
         self.rx = RtpUdpReceiver(host="127.0.0.1", port=0, kind="raw",
                                  frame_shape=(rows, width), timeout=0.5,
-                                 rtcp=False)
+                                 rtcp=False, buffer_size=RECEIVER_BUFFER)
+        # past the host's rmem_max where the process may (CAP_NET_ADMIN)
+        with contextlib.suppress(OSError):
+            self.rx.sock.setsockopt(socket.SOL_SOCKET,
+                                    getattr(socket, "SO_RCVBUFFORCE", 33),
+                                    RECEIVER_BUFFER)
+        self.buffer = self.rx.sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
         self.port = self.rx.port
         self.kept: list[np.ndarray] = []
         self.keep = keep
@@ -1169,49 +1185,64 @@ class RawFrameCatcher(threading.Thread):
 
 
 def relay_over_rtp(w: int, h: int, want: np.ndarray,
-                   pace_fps: float) -> tuple[float, dict]:
-    """Configuration (e): CLAHE passthrough to ``rtp+raw://127.0.0.1:<port>``
-    with a receiver thread on loopback, the source paced at ``pace_fps``
-    like a camera (``--realtime``): the sink packetizes in Python on the
-    feeder's output thread, some 13,000 ``sendto`` calls per 4K frame, and a
-    source faster than that makes the relay's leaky queue drop frames, as
-    it is meant to.  Every complete frame the receiver kept must equal one
-    of the expected frames, in order.  The sender and
-    the receiver share this process's interpreter lock, so the lock's switch
-    interval is shortened for the run: a sender that kept the lock for the
-    default 5 ms would overrun the socket buffer between two turns of the
-    receiver."""
+                   staging: bool = False) -> tuple[float, dict]:
+    """Configurations (e) and (f): CLAHE passthrough to
+    ``rtp+raw://127.0.0.1:<port>``, unpaced, with a receiver thread on
+    loopback; (f) adds ``--native``, whose started line must name the C++
+    ring.  The sink must send every frame through ``native.rtp_send_raw``
+    (counted here by a wrapper): one GIL-free call of sendmmsg batches per
+    frame.  Every complete frame the receiver kept must equal one of the
+    expected frames, in order.  The receiver shares this process's
+    interpreter lock with the relay, so the lock's switch interval is
+    shortened for the run."""
+    label = f"relay ({'f' if staging else 'e'}) {w}x{h}"
     catcher = RawFrameCatcher(h * 3 // 2, w)
     interval = sys.getswitchinterval()
+    sends = []      # each call's seconds
+    send_raw = native.rtp_send_raw
+
+    def counted(*args):
+        t0 = time.perf_counter()
+        try:
+            return send_raw(*args)
+        finally:
+            sends.append(time.perf_counter() - t0)
+
+    native.rtp_send_raw = counted
     sys.setswitchinterval(2e-4)
     catcher.start()
     try:
         text = run_app(relay, [
             "--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
             f"--max-frames={RELAY_FRAMES}", "--op=clahe", "--chroma=passthrough",
-            f"--fps={pace_fps:g}", "--realtime",
-            f"--sink=rtp+raw://127.0.0.1:{catcher.port}", "--status-interval=60"],
-            f"relay (e) {w}x{h}")
+            f"--sink=rtp+raw://127.0.0.1:{catcher.port}", "--status-interval=60"]
+            + (["--native"] if staging else []), label)
         counts = cuda_ops.launch_counts()
         time.sleep(0.3)          # what is still in the socket buffer
     finally:
+        native.rtp_send_raw = send_raw
         sys.setswitchinterval(interval)
         catcher.finish()
-    fps, emitted = relay_shutdown(text, f"relay (e) {w}x{h}", RELAY_FRAMES,
-                                  must_emit_all=False)
+    fps, emitted = relay_shutdown(text, label, RELAY_FRAMES, must_emit_all=False)
+    word = "native C++ ring" if staging else "python queue"
+    check(f"staging={word})" in text, f"{label}: the started line names no {word}")
+    check(len(sends) == emitted, f"{label}: {len(sends)} rtp_send_raw calls for "
+          f"{emitted} frames emitted")
     last = -1
     for frame in catcher.kept:
         hits = [k for k in range(last + 1, RELAY_FRAMES)
                 if np.array_equal(frame, want[k])]
-        check(bool(hits), f"relay (e) {w}x{h}: a reassembled frame equals no "
-              f"expected frame after frame {last}")
+        check(bool(hits), f"{label}: a reassembled frame equals no expected "
+              f"frame after frame {last}")
         last = hits[0]
-    print(f"relay (e) {w}x{h}: the receiver reassembled {len(catcher.kept)} "
-          f"complete frames (stream frames up to {last}; "
-          f"{catcher.rx.frames_dropped} before them dropped for lost packets), "
-          f"each equal to the plain versions' frame", flush=True)
+    print(f"{label}: the receiver reassembled {len(catcher.kept)} complete "
+          f"frames (stream frames up to {last}; {catcher.rx.frames_dropped} "
+          f"before them dropped for lost packets; receive buffer "
+          f"{catcher.buffer} bytes), each equal to the plain versions' frame; "
+          f"{len(sends)} frames sent by rtp_send_raw, "
+          f"{1e3 * statistics.median(sends):.2f} ms a frame (median)", flush=True)
     return fps, {"complete": len(catcher.kept), "counts": counts,
-                 "emitted": emitted}
+                 "emitted": emitted, "send_ms": 1e3 * statistics.median(sends)}
 
 
 def expected_relay_frames(device, w: int, h: int) -> np.ndarray:
@@ -1273,56 +1304,76 @@ def phase_relay_paths(device, h=HEIGHT, w=WIDTH):
               f"versions on the same TestSource frames", flush=True)
         del got
 
-    # (e) over loopback: 4K paced at 1 fps; at 1080p and 3 fps as well if the
-    # host was too slow for that (frames dropped by the relay's queue) or no
-    # 4K frame arrived whole
-    name = "relay_e_clahe_rtp_raw"
-    rates[name], info = relay_over_rtp(w, h, want, RTP_PACE_FPS)
+    # (e) and (f) over loopback, unpaced, at 4K; at 1080p as well if the
+    # relay dropped frames or no 4K frame arrived whole
+    for name, staging in (("relay_e_clahe_rtp_raw", False),
+                          ("relay_f_clahe_rtp_raw_native", True)):
+        rates[name], info = relay_over_rtp(w, h, want, staging)
+        if info["complete"] == 0 or info["emitted"] != RELAY_FRAMES:
+            print(f"{name}: at 4K the relay emitted {info['emitted']} of "
+                  f"{RELAY_FRAMES} frames and {info['complete']} arrived whole; "
+                  f"at 1080p:", flush=True)
+            rates[name + "_1080p"], info = relay_over_rtp(
+                1920, 1080, expected_relay_frames(device, 1920, 1080), staging)
+            check(info["complete"] > 0 and info["emitted"] == RELAY_FRAMES,
+                  f"{name} at 1080p: emitted {info['emitted']}, "
+                  f"{info['complete']} frames arrived whole")
+        per_path[name] = info["counts"]
+        check(all(per_path[name][k] > 0 for k in
+                  ("tile_histograms", "build_luts", "clahe_interpolate")),
+              f"{name} launched no K1, K2 or K3: {per_path[name]}")
     del want
-    if info["complete"] == 0 or info["emitted"] != RELAY_FRAMES:
-        print(f"relay (e): at 4K the relay emitted {info['emitted']} of "
-              f"{RELAY_FRAMES} frames and {info['complete']} arrived whole; at "
-              f"1080p:", flush=True)
-        rates[name + "_1080p"], info = relay_over_rtp(
-            1920, 1080, expected_relay_frames(device, 1920, 1080), 3.0)
-        check(info["complete"] > 0 and info["emitted"] == RELAY_FRAMES,
-              f"relay (e) at 1080p: emitted {info['emitted']}, "
-              f"{info['complete']} frames arrived whole")
-    per_path[name] = info["counts"]
-    check(all(per_path[name][k] > 0 for k in
-              ("tile_histograms", "build_luts", "clahe_interpolate")),
-          f"{name} launched no K1, K2 or K3: {per_path[name]}")
 
-    # the multi-stream relay: 4 streams of 1080p through one StreamMux
-    name = "multi_relay_4x1080p_clahe"
-    text = run_app(multi_relay, [
-        f"--streams={MULTI_STREAMS}", "--width=1920", "--height=1080",
-        "--fps=1000", f"--max-frames={MULTI_FRAMES}", f"--batch={BATCH}",
-        "--op=clahe", "--chroma=passthrough", "--sink=null",
-        "--status-interval=1"], name)
-    per_path[name] = cuda_ops.launch_counts()
-    m = re.search(r"Shutdown: (\d+) frames across (\d+) streams in [\d.]+s "
-                  r"\(([\d.]+) fps aggregate\)", text)
-    check(m is not None, f"{name}: no Shutdown line")
-    per_stream = re.findall(r"#\d+=(\d+)/(\d+)", text)
-    total = MULTI_STREAMS * MULTI_FRAMES
-    check(int(m.group(1)) == total and int(m.group(2)) == MULTI_STREAMS
-          and per_stream == [(str(MULTI_FRAMES),) * 2] * MULTI_STREAMS,
-          f"{name}: {m.group(0)}; per stream {per_stream}")
-    check(all(e == "0" for e in re.findall(r"errors=(\d+)", text)),
-          f"{name}: processing errors in its status lines")
-    check(all(per_path[name][k] > 0 for k in
-              ("tile_histograms", "build_luts", "clahe_interpolate")),
-          f"{name} launched no K1, K2 or K3: {per_path[name]}")
-    rates[name] = float(m.group(3))
+    # the multi-stream relay: 4 streams of 1080p through one StreamMux, on
+    # the Python queue, then on the C++ ring with a priority per stream
+    ring_class, rings = native.NativeRing, []
+
+    class CountedRing(ring_class):
+        def __init__(self, *args):
+            super().__init__(*args)
+            rings.append(self)
+
+    for name, extra in (("multi_relay_4x1080p_clahe", []),
+                        ("multi_relay_4x1080p_clahe_native_priorities",
+                         ["--native", "--priorities=3,2,1,0"])):
+        native.NativeRing = CountedRing
+        try:
+            text = run_app(multi_relay, [
+                f"--streams={MULTI_STREAMS}", "--width=1920", "--height=1080",
+                "--fps=1000", f"--max-frames={MULTI_FRAMES}", f"--batch={BATCH}",
+                "--op=clahe", "--chroma=passthrough", "--sink=null",
+                "--status-interval=1"] + extra, name)
+        finally:
+            native.NativeRing = ring_class
+        per_path[name] = cuda_ops.launch_counts()
+        check(len(rings) == (1 if extra else 0),
+              f"{name}: {len(rings)} C++ rings made for the mux's feeder")
+        m = re.search(r"Shutdown: (\d+) frames across (\d+) streams in [\d.]+s "
+                      r"\(([\d.]+) fps aggregate\)", text)
+        check(m is not None, f"{name}: no Shutdown line")
+        per_stream = re.findall(r"#\d+=(\d+)/(\d+)", text)
+        total = MULTI_STREAMS * MULTI_FRAMES
+        check(int(m.group(1)) == total and int(m.group(2)) == MULTI_STREAMS
+              and per_stream == [(str(MULTI_FRAMES),) * 2] * MULTI_STREAMS,
+              f"{name}: {m.group(0)}; per stream {per_stream}")
+        check(all(e == "0" for e in re.findall(r"errors=(\d+)", text)),
+              f"{name}: processing errors in its status lines")
+        check(all(per_path[name][k] > 0 for k in
+                  ("tile_histograms", "build_luts", "clahe_interpolate")),
+              f"{name} launched no K1, K2 or K3: {per_path[name]}")
+        rates[name] = float(m.group(3))
     return per_path, rates
 
 
-def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> float:
+def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES,
+               staging: bool = False) -> float:
     """Frames per second through the FrameFeeder, host frames in and host
-    frames out (H2D, the step, D2H and the feeder's own copies)."""
+    frames out (H2D, the step, D2H and the feeder's own copies), on the
+    Python queue or (``staging``) on the C++ ring."""
     feeder = FrameFeeder(process_batch, batch_size=batch, depth=2,
-                         queue_capacity=2 * n_frames)
+                         queue_capacity=2 * n_frames,
+                         native_staging=frames.shape[1:] if staging else False)
+    check(not staging or feeder._native is not None, "no C++ ring in the feeder")
     feeder.warmup(frames.shape[1:])
     t0 = time.perf_counter()
     feeder.start()
@@ -1337,6 +1388,29 @@ def feeder_fps(process_batch, frames, batch=BATCH, n_frames=FEEDER_FRAMES) -> fl
 
 
 # ------------------------------------------------------------- phase 6 ----
+
+
+def sink_write_ms(frame: np.ndarray) -> dict[str, list[float]]:
+    """Host ms of the raw RTP sink's ``write`` of one NV12 frame to a
+    socket on loopback (nothing reads it: the kernel drops what overflows
+    its buffer), through the C++ packetizer and the Python one, in turns."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    sink = RtpUdpSink("127.0.0.1", rx.getsockname()[1], kind="raw", rtcp=False)
+    check(sink._use_native, "the raw RTP sink did not take rtp_send_raw")
+    reads = {"rtp_send_raw": [], "python": []}
+    try:
+        for use_native in (True, False, False, True):
+            sink._use_native = use_native
+            t0 = time.perf_counter()
+            sink.write(frame)
+            reads["rtp_send_raw" if use_native else "python"].append(
+                1e3 * (time.perf_counter() - t0))
+    finally:
+        sink.close()
+        rx.close()
+    return reads
+
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 5, busy: bool = False) -> float:
@@ -1507,7 +1581,7 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out),
             lambda: lut.clahe_interpolate_cells_ref(y, luts, spec), None,
             2 * px + nbytes(luts, *spec.device_arrays(device)), 10 * px),
-        "tile_hist_private_kernel": (
+        "tile_hist_kernel:extended": (
             lambda: lut.tile_histograms_extended(y, *tiles),
             lambda: lut.tile_histograms_extended_ref(y, *tiles), None,
             px + nbytes(hists), px),
@@ -1579,13 +1653,13 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
         "K6 interp_cells_kernel vs K3 interp_kernel": (
             lambda: lut.clahe_interpolate_cells(y, luts, spec, out=out),
             lambda: natural.clahe_interpolate(y, luts, plan, out=out)),
-        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 8x8": (
+        "K8 tile_hist_kernel:extended vs K1 tile_hist_kernel, 8x8": (
             lambda: lut.tile_histograms_extended(y, *tiles),
             lambda: natural.tile_histograms(y, plan)),
-        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 8x8 constant": (
+        "K8 tile_hist_kernel:extended vs K1 tile_hist_kernel, 8x8 constant": (
             lambda: lut.tile_histograms_extended(const, *tiles),
             lambda: natural.tile_histograms(const, plan)),
-        "K8 tile_hist_private_kernel vs K1 tile_hist_kernel, 1x1": (
+        "K8 tile_hist_kernel:extended vs K1 tile_hist_kernel, 1x1": (
             lambda: lut.tile_histograms_extended(y, 1, 1, HEIGHT, WIDTH),
             lambda: natural.tile_histograms(y, whole)),
         "K2 build_luts_kernel clip tensor vs int": (
@@ -1732,6 +1806,11 @@ def main() -> int:
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
                                      "tile_hist_kernel")):
         print(f"ptxas {line}", flush=True)
+    t0 = time.perf_counter()
+    check(native.available(), f"the native runtime did not build: "
+          f"{native.build_error()}")
+    print(f"build native runtime: {time.perf_counter() - t0:.1f} s -> "
+          f"{native.loaded_path()}", flush=True)
 
     # phase 3: kernels
     rng = np.random.default_rng(2024)
@@ -1741,8 +1820,8 @@ def main() -> int:
     errs["build_luts_kernel"] = max(errs["build_luts_kernel"],
                                     phase_clip_tensor(device, rng))
     errs["interp_cells_kernel"] = phase_cell_kernel(device, rng)
-    errs["tile_hist_private_kernel"], k8_launches = \
-        phase_private_hist_kernel(device, rng)
+    errs["tile_hist_kernel:extended"], k8_launches = \
+        phase_extended_hist_kernel(device, rng)
     band_errs, off_path_launches = phase_band_kernels(device, rng)
     off_path_launches["tile_histograms_extended"] = k8_launches
     errs["tile_hist_kernel:batched"], \
@@ -1791,6 +1870,13 @@ def main() -> int:
                 print(f"time {name}: the app's own Shutdown rate {fps:.1f} fps "
                       f"(TestSource on the host, H2D, step, D2H and the sink) "
                       f"[{card}]", flush=True)
+            sink_ms = sink_write_ms(nv12_batch(rng, 1, HEIGHT, WIDTH)[0])
+            print(f"time raw RTP sink write of one 4K NV12 frame on loopback, "
+                  f"host ms in turns: C++ rtp_send_raw "
+                  f"{' / '.join(f'{t:.2f}' for t in sink_ms['rtp_send_raw'])}, "
+                  f"Python packetizer "
+                  f"{' / '.join(f'{t:.2f}' for t in sink_ms['python'])} [{card}]",
+                  flush=True)
             frames = nv12_batch(rng, DISTINCT_FRAMES, HEIGHT, WIDTH)
             spec, cfg = clahe_config()
             for label, process_batch in (
@@ -1799,10 +1885,16 @@ def main() -> int:
                     ("streaming", StreamingEnhancer(cfg, spec, device).process_batch),
                     ("sharded 1x1 clahe", sharded.ShardedEnhancer(
                         cfg, spec, shape=(1, 1), device=device).process_batch)):
-                fps = feeder_fps(process_batch, frames)
+                # the Python queue and the C++ ring in turns on the two
+                # single-card steps
+                turns = ((False, True, True, False) if label in ("clahe", "histeq")
+                         else (False,))
+                fps = [feeder_fps(process_batch, frames, staging=staging)
+                       for staging in turns]
+                names = " / ".join("C++ ring" if t else "Python queue" for t in turns)
                 print(f"time feeder end to end {label} 4K b{BATCH} (H2D + step + "
-                      f"D2H): {fps:.1f} fps over {FEEDER_FRAMES} frames [{card}]",
-                      flush=True)
+                      f"D2H), {names}: {' / '.join(f'{x:.1f}' for x in fps)} fps "
+                      f"over {FEEDER_FRAMES} frames [{card}]", flush=True)
             phase_profile(device, rng)
         finally:
             dist.destroy_process_group()

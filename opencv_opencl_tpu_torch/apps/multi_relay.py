@@ -21,6 +21,10 @@ Usage:
                          # important): overload evicts the lowest class
                          # first, so premium streams survive congestion
       [--hist-downsample=N]  # APPROXIMATE fast-histogram mode (see relay)
+      [--native]         # GIL-free C++ staging ring; composes with
+                         # --priorities (fp_ring_push_prio evicts the
+                         # lowest class and reports whose frame it was,
+                         # keeping per-stream drop accounting truthful)
       [--device=cuda|cpu]  # the step runs on the card; ``cpu`` is for tests
 
 The serving extension of ``relay``: one card enhances frames faster than one
@@ -34,8 +38,8 @@ RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
 Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks and ``--native``; ``--encoder`` is read only for an
-encoded sink, as in the JAX package, and ignored otherwise.  ``--mesh`` takes a
+``rtp+h265://`` sinks; ``--encoder`` is read only for an encoded sink, as
+in the JAX package, and ignored otherwise.  ``--mesh`` takes a
 mesh of one position (``1x1`` or ``auto``) here: the mux cuts batches by
 arrival, which several ranks would not do alike.
 """
@@ -206,7 +210,9 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
                     priorities=priorities,
                     batch_size=opts.get("batch", 4),
                     depth=opts.get("workers", 2),
-                    queue_capacity=max(8, 4 * n))
+                    queue_capacity=max(8, 4 * n),
+                    native_staging=((spec.buffer_rows, spec.width)
+                                    if opts.get("native") else False))
     src_path = opts.get("source", "test")
     sources = []
     for s in range(n):

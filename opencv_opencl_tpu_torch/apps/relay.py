@@ -44,11 +44,16 @@ The frames are then cut into whole batches whatever the timing, so that
 every rank makes the same collective calls; the time-driven flags
 (``--duration``, ``--max-rate``, ``--adaptive-rate``) are refused there.
 
+``--native`` stages the frames through the C++ ring of the port's
+``native`` package (built with g++ at first use; where it cannot be built
+the Python queue takes over, as in the JAX package, and the started line
+says ``staging=python queue``).  It composes with ``--mesh``: the ring too
+gives the feeder whole batches only.
+
 Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks, ``--fused-encode`` (the H.264 device encoder),
-``--io=gst`` and ``--native`` (the C++ staging ring).  ``--encoder`` is
-read only for an encoded sink, as in the JAX package: with any other sink
-it is ignored.
+``rtp+h265://`` sinks, ``--fused-encode`` (the H.264 device encoder) and
+``--io=gst``.  ``--encoder`` is read only for an encoded sink, as in the
+JAX package: with any other sink it is ignored.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -72,7 +77,6 @@ from opencv_opencl_tpu_torch.apps._cli import (
 
 _NOT_PORTED = {
     "fused-encode": "--fused-encode (the fused enhance + encode program)",
-    "native": "--native (the C++ staging ring)",
 }
 
 
@@ -343,6 +347,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         counters=counters,
         # several ranks: the same batches on every rank, whatever the timing
         whole_batches=world > 1,
+        native_staging=((spec.buffer_rows, spec.width)
+                        if opts.get("native") else False),
     )
     reporter = StatusReporter(
         counters, interval_s=interval, num_workers=workers,
@@ -357,10 +363,11 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         # warmup ran zero frames through the stateful streaming enhancer —
         # restore the documented identity-like initial histogram state
         enhancer.reset()
+    staging = "native C++ ring" if feeder._native is not None else "python queue"
     say(f"NV12 {op} relay pipeline started "
         f"({spec.width}x{spec.height}@{fps:g}, codec={codec}, "
         f"bitrate={bitrate} kbps, workers={workers}, chroma={chroma.value}, "
-        f"staging=python queue)")
+        f"staging={staging})")
     say("(with frame ordering)")
 
     if opts.get("adaptive-rate"):

@@ -7,8 +7,9 @@
 //                                band of rows at a global row it is K9, and
 //                                on whole frames it is also K6r (the radix
 //                                variant)
-//   K8 tile_hist_private_kernel  per-tile 256-bin histograms of an already
-//                                extended frame, per-warp private bins
+//
+// K8 (tile_histograms_pallas, the tile histograms of an already extended
+// frame) has no kernel here: lut.py launches natural.cu's tile_hist_kernel<4>.
 //
 // Their plain PyTorch versions are in opencv_opencl_tpu_torch/ops/cuda/lut.py.
 // Every launcher is extern "C", launches on the stream it is given, does
@@ -282,70 +283,6 @@ interp_cells_kernel(const uint8_t* y, long long y_frame_stride,
     }
 }
 
-// ----------------------------------------------------------------- K8 ----
-// Replaces lut_kernels.py tile_histograms_pallas / _tile_hist_kernel, which
-// counts a tile by a 256-row one-hot compare summed over lanes, on tiles
-// re-laid out to (8, 128)-aligned slots whose zero padding is then taken
-// out of bin 0.  Its contract: the per-tile 256-bin int32 histograms of an
-// already extended, tile-divisible frame.  No path of the JAX package
-// runs it; here it is the second formulation of K1's contract, measured
-// beside K1 (natural.cu tile_hist_kernel), which counts into one shared
-// 256-bin histogram per block with one shared atomic per pixel.  Bound: the
-// read of the frames (1 byte per pixel) and one shared-memory atomic per
-// pixel.  Design: K1's grid (one block per (tile, slice of the tile's
-// rows), frame), K1's byte loads and running counters, but every warp
-// counts into its own private 256-bin int32 histogram (8 warps x 1 KB),
-// so atomics contend only within a warp; at the end the block sums the 8
-// sub-histograms per bin and adds each non-zero bin to the zeroed global
-// (N, T, 256) histogram with one global atomic.  No reflect math: the
-// input is already extended.
-__global__ void __launch_bounds__(kThreads)
-tile_hist_private_kernel(const uint8_t* __restrict__ ext,
-                         long long frame_stride, long long row_stride,
-                         int tiles_x, int tile_h, int tile_w, int slices,
-                         int* __restrict__ out) {
-    __shared__ int bins[kWarps][kBins];
-    int* flat = &bins[0][0];
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads) flat[i] = 0;
-    __syncthreads();
-
-    const int num_tiles = gridDim.x / slices;
-    const int tile = blockIdx.x / slices;
-    const int slice = blockIdx.x % slices;
-    const int frame = blockIdx.y;
-    const int ty = tile / tiles_x;
-    const int tx = tile % tiles_x;
-    const int k0 = (int)((long long)tile_h * slice / slices);
-    const int k1 = (int)((long long)tile_h * (slice + 1) / slices);
-    const uint8_t* base = ext + frame * frame_stride
-                          + (long long)ty * tile_h * row_stride
-                          + (long long)tx * tile_w;
-    int* mine = bins[threadIdx.x >> 5];
-
-    int k = k0 + (int)threadIdx.x / tile_w;
-    int c = (int)threadIdx.x % tile_w;
-    const int step_rows = kThreads / tile_w;
-    const int step_cols = kThreads % tile_w;
-    while (k < k1) {
-        atomicAdd(&mine[base[k * row_stride + c]], 1);
-        k += step_rows;
-        c += step_cols;
-        if (c >= tile_w) {
-            c -= tile_w;
-            ++k;
-        }
-    }
-    __syncthreads();
-
-    int* dst = out + ((long long)frame * num_tiles + tile) * kBins;
-    for (int b = threadIdx.x; b < kBins; b += kThreads) {
-        int v = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += bins[w][b];
-        if (v) atomicAdd(&dst[b], v);
-    }
-}
-
 }  // namespace
 
 extern "C" int apply_lut_launch(const uint8_t* y, long long y_frame_stride,
@@ -398,16 +335,5 @@ extern "C" int interp_cells_launch(const uint8_t* y, long long y_frame_stride,
         reinterpret_cast<const int4*>(col_parts), ya, xa,
         reinterpret_cast<const float4*>(xa_units), units, out,
         out_frame_stride, out_row_stride, vec);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int tile_hist_private_launch(const uint8_t* ext, int frames,
-                                        long long frame_stride,
-                                        long long row_stride, int tiles_y,
-                                        int tiles_x, int tile_h, int tile_w,
-                                        int slices, int* out, void* stream) {
-    dim3 grid(tiles_y * tiles_x * slices, frames);
-    tile_hist_private_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        ext, frame_stride, row_stride, tiles_x, tile_h, tile_w, slices, out);
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """RTP-over-UDP data plane for GStreamer-less hosts.
 
 The port's own copy of ``opencv_opencl_tpu/io/rtp.py`` (host code on
-sockets and numpy; the same frames give the same packets), without the C++
-packetizer, which the reference's sink takes by itself when its library is
-built: here the sink always packetizes in Python.
+sockets and numpy; the same frames give the same packets).  As in the JAX
+package, the raw sink sends through the C++ packetizer of the port's
+``native`` package (``rtp_send_raw``: sendmmsg batches, GIL-free) when that
+library builds, and packetizes in Python otherwise.
 
 The reference's emit side really puts media packets on the wire
 (``udpsink host=192.168.25.69 port=5004`` with 60 MB socket buffers and
@@ -379,6 +380,13 @@ class RtpUdpSink:
                                        remote=(host, port + 1),
                                        schedule=rtcp_schedule)
         self.payload_octets = 0
+        # raw frames go out through the C++ packetizer (sendmmsg) where
+        # the native library builds; the Python one sends the same bytes
+        self._use_native = False
+        if kind == "raw":
+            from opencv_opencl_tpu_torch import native
+
+            self._use_native = native.available()
         self.frames = 0
         self.packets = 0
         self.bytes = 0
@@ -386,11 +394,40 @@ class RtpUdpSink:
 
     def write(self, nv12: np.ndarray) -> None:
         nv12 = np.asarray(nv12)
+        if self._use_native:
+            self._write_native(nv12)
+            return
         for pkt in self.payloader.packetize(nv12):
             self.sock.sendto(pkt, self.addr)
             self.packets += 1
             self.bytes += len(pkt)
             self.payload_octets += len(pkt) - 12
+        self.frames += 1
+        self._rtcp_tick()
+
+    def _write_native(self, nv12: np.ndarray) -> None:
+        """GIL-free C++ send: header arena + zero-copy payload iovecs +
+        sendmmsg (the Python packetizer makes ~13,000 ``sendto`` calls per
+        4K frame)."""
+        from opencv_opencl_tpu_torch import native
+
+        p = self.payloader
+        try:
+            n = native.rtp_send_raw(self.sock.fileno(), nv12, p.mtu, p.seq,
+                                    p.ts, p.ssrc, PT_RAW, self.addr[0],
+                                    self.addr[1])
+        except OSError as e:
+            # a partial frame may be on the wire; NEVER re-send with stale
+            # sequence numbers — skip the frame, stay consistent
+            n = getattr(e, "packets_sent", 0)
+            self.send_errors += 1
+        self.packets += n
+        p.seq = (p.seq + max(n, 0)) & 0xFFFF
+        p.last_ts = p.ts
+        p.ts = (p.ts + p.ts_step) & 0xFFFFFFFF
+        # headers (20 bytes a packet) and the payload bytes that went out
+        self.bytes += max(n, 0) * 20 + (nv12.nbytes if n > 0 else 0)
+        self.payload_octets += max(n, 0) * 8 + (nv12.nbytes if n > 0 else 0)
         self.frames += 1
         self._rtcp_tick()
 

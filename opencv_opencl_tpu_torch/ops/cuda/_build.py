@@ -47,8 +47,6 @@ _SIGNATURES = {
     "apply_lut_launch": (_P, _LL, _LL, _P, _I, _I, _I, _P, _LL, _LL, _I, _P),
     "interp_cells_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _I, _P, _LL, _LL, _I, _P),
-    "tile_hist_private_launch": (_P, _I, _LL, _LL, _I, _I, _I, _I, _I, _P,
-                                 _P),
 }
 
 _lib: ctypes.CDLL | None = None

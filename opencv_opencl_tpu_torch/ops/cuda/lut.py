@@ -32,7 +32,8 @@ of the JAX module without its TPU layout fields (the (8, 128)-aligned cell
 padding, ``rows_sub``, ``row_block_live`` and the padded weight tables),
 which the Hopper kernel does not use.  K8 is K1's contract on an already
 extended frame; no path runs it (nor does any path of the JAX package): it
-is the per-warp-bins formulation of the tile histograms, timed beside K1.
+is K1's kernel, ``tile_hist_kernel<4>`` in ``csrc/natural.cu``, launched as
+K10 launches it, and checked and timed beside K1.
 K9 is K6's kernel on a band of rows that starts at a global row, as the
 JAX package has one Pallas body behind both; no path of either package
 runs it (the sharded step takes K5), and it is checked and timed beside K5.
@@ -54,6 +55,7 @@ import torch
 
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import (
+    _HIST_LOADS,
     _THREADS,
     _check,
     _check_band,
@@ -63,9 +65,10 @@ from opencv_opencl_tpu_torch.ops.cuda.natural import (
     _on_card,
     _raise_on,
     _stream,
+    _tile_hist,
+    batched_hist_args,
     bincount_tiles,
     blend,
-    hist_slices,
     interp_vec,
     live_rows,
     unit_major,
@@ -465,25 +468,21 @@ def tile_histograms_extended(ext: torch.Tensor, tiles_y: int, tiles_x: int,
     """(N, tiles_y*tile_h, tiles_x*tile_w) uint8 frames, already extended
     to the tile-divisible size -> (N, T, 256) int32 histograms of their
     tiles in row-major order (``tile_histograms_pallas`` with a batch
-    axis)."""
+    axis): K1's kernel with K1's loads in flight, planned by
+    ``natural.batched_hist_args`` (every tile interior, one rowstep, no
+    band), counted here apart from K1 and K10."""
     _check_unit_cols(ext, "ext")
     if tuple(ext.shape[1:]) != (tiles_y * tile_h, tiles_x * tile_w):
         raise ValueError(f"ext frames are {tuple(ext.shape[1:])}, not "
                          f"{tiles_y}x{tiles_x} tiles of {tile_h}x{tile_w}")
     if not _on_card(ext):
         return tile_histograms_extended_ref(ext, tiles_y, tiles_x, tile_h, tile_w)
-    lib = _build.load()
     n = ext.shape[0]
     num_tiles = tiles_y * tiles_x
     out = torch.zeros((n, num_tiles, 256), dtype=torch.int32, device=ext.device)
     if n and num_tiles and tile_h and tile_w:
-        slices = hist_slices(n, num_tiles, tile_h)
-        with torch.cuda.device(ext.device):
-            err = lib.tile_hist_private_launch(
-                ext.data_ptr(), n, ext.stride(0), ext.stride(1), tiles_y,
-                tiles_x, tile_h, tile_w, slices, out.data_ptr(),
-                _stream(ext.device))
-        _raise_on(err, "tile_hist_private_kernel")
+        _tile_hist(ext, out, batched_hist_args(ext, tiles_y, tiles_x, tile_h,
+                                               tile_w, _HIST_LOADS))
         tile_histograms_extended.launches += 1
     return out
 

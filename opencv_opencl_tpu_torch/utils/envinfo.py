@@ -2,7 +2,8 @@
 
 Counterpart of ``opencv_opencl_tpu/utils/envinfo.py``: one call that says
 which PyTorch and CUDA this process has, which card it sees and at what
-power limit, and whether the kernel library is built.
+power limit, whether the kernel library is built, and whether the native
+C++ runtime builds (and if not, why).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import subprocess
 import torch
 
 import opencv_opencl_tpu_torch
+from opencv_opencl_tpu_torch import native
 from opencv_opencl_tpu_torch.ops.cuda import _build
 
 __all__ = ["nvidia_smi_name_power", "env_report", "print_env_report"]
@@ -35,7 +37,7 @@ def nvidia_smi_name_power() -> str | None:
 def env_report() -> dict:
     cuda = torch.cuda.is_available()
     count = torch.cuda.device_count() if cuda else 0
-    return {
+    report = {
         "framework_version": opencv_opencl_tpu_torch.__version__,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
@@ -44,7 +46,11 @@ def env_report() -> dict:
         "devices": [torch.cuda.get_device_name(i) for i in range(count)],
         "name_power_limit": nvidia_smi_name_power(),
         "kernels_built": _build.is_built(),
+        "native_runtime": native.available(),
     }
+    if not native.available():
+        report["native_build_error"] = (native.build_error() or "")[:200]
+    return report
 
 
 def print_env_report() -> None:
@@ -56,6 +62,7 @@ def print_env_report() -> None:
           f"({', '.join(r['devices']) or 'no CUDA device'})")
     print(f"Power limit:    {r['name_power_limit'] or 'nvidia-smi unavailable'}")
     print(f"CUDA kernels:   {'built' if r['kernels_built'] else 'not built'}")
+    print(f"Native runtime: {'available' if r['native_runtime'] else 'unavailable'}")
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ builds that tree's kernels, and times device-alone CUDA-event medians at 4K
 batch 4 over the Y rows of an NV12 batch (K7 per 4K frame, as the streaming
 step launches it; K5 on the band of a 2x2 mesh, two frames of rows [1080,
 2160), and over the batch as one band; K3v1; K10 for each batch_rows 2, 4
-and 8 and K8 beside K1, on the batch's Y rows as an extended frame; K6r
-beside K6).  K2 is timed as a run of
+and 8 and K8 (``lut.tile_histograms_extended``: K1's kernel, or
+``tile_hist_private_kernel`` in older trees) beside K1, on the
+batch's Y rows as an extended frame; K6r beside K6).  K2 is timed as a run of
 ``K2_LAUNCHES`` launches queued behind a spin of the card, over the count,
 beside ``torch.profiler``'s device time per call and, in a tree that has
 it, an empty kernel launched the same way (``natural.launch_floor``, the
@@ -33,7 +34,8 @@ prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
 (registers, shared memory, spills) for K1 (each instance of
 ``tile_hist_kernel<R>``: 4 for K1, 2, 4 and 8 for K10), K2, K3, K6, K7, and
 in older trees ``interp_pack_kernel`` (K5), ``tile_hist_batched_kernel``
-(K10) and ``interp_cells_radix_kernel`` (K6r).  The last line is one JSON
+(K10), ``interp_cells_radix_kernel`` (K6r) and ``tile_hist_private_kernel``
+(K8).  The last line is one JSON
 object with every reading and the card's name and power limit.
 """
 
@@ -51,7 +53,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDTH, HEIGHT, BATCH = 3840, 2160, 4
 KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
                 "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel",
-                "tile_hist_batched_kernel", "interp_cells_radix_kernel")
+                "tile_hist_batched_kernel", "interp_cells_radix_kernel",
+                "tile_hist_private_kernel")
 # K2 launches a timed run queues behind one spin of the card
 K2_LAUNCHES = 200
 
@@ -327,7 +330,7 @@ def hist_and_radix_readings(y, hists, luts, plan, spec, out, cells_ref) -> dict:
         res[f"tile_hist_batched_rows_{rows}"] = device_ms(k10)
     res["tile_hist_kernel_again"] = device_ms(lambda: natural.tile_histograms(y, plan))
     res["k8_equal"] = torch.equal(lut.tile_histograms_extended(y, *tiles), hists)
-    res["tile_hist_private_kernel"] = device_ms(
+    res["tile_histograms_extended"] = device_ms(
         lambda: lut.tile_histograms_extended(y, *tiles))
     lut.clahe_interpolate_cells(y, luts, spec, out=out, radix=True)
     res["k6r_equal"] = torch.equal(out, cells_ref)

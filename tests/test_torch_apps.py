@@ -217,8 +217,8 @@ def _catch_datagrams(send, timeout=2.0):
 
 
 def test_rtp_raw_sink_packets_equal_jax_byte_for_byte(monkeypatch):
-    # the JAX sink's optional C++ packetizer is a second implementation of
-    # the same wire format; hold the port to the Python one
+    # the JAX sink packetizes in Python; the port's sends through its C++
+    # packetizer where the native library builds: the same datagrams
     monkeypatch.setattr("opencv_opencl_tpu.native.available", lambda: False)
     frames = list(videofile.TestSource(FrameSpec(width=64, height=48), 3, seed=3))
 
@@ -446,9 +446,11 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
     and one line.  ``--encoder`` is read only for an rtp+h264:// or
     rtp+h265:// sink, as in the JAX package: with any other sink both
     packages run and print the same lines (the relay's first line says how
-    the device program is made, which differs)."""
+    the device program is made, which differs).  ``--native`` is ported:
+    both packages run it and print the same lines, the relay's staging word
+    included."""
     args = ["--width=64", "--height=32"]
-    if extra == ["--encoder=tpu:qp=40"]:
+    if extra in (["--encoder=tpu:qp=40"], ["--native"]):
         args += extra + _RUN_ARGS[app]
         rc = app.run(args + ["--device=cpu"])
         got = capsys.readouterr()
@@ -640,8 +642,8 @@ def test_mux_priorities_and_bad_arguments():
         StreamMux(lambda x: x, 0)
     with pytest.raises(ValueError):
         StreamMux(lambda x: x, 2, priorities=[1])
-    with pytest.raises(NotImplementedError):
-        StreamMux(lambda x: x, 2, native_staging=(72, 64))
+    with pytest.raises(ValueError):
+        StreamMux(lambda x: x, 2, native_staging=True)
 
 
 def _shutdown_counts(text):

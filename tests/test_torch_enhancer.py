@@ -26,6 +26,7 @@ from opencv_opencl_tpu.core import golden
 from opencv_opencl_tpu.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu.models import enhancer as jax_enhancer
 from opencv_opencl_tpu.runtime import feeder as jax_feeder
+from opencv_opencl_tpu_torch import native as torch_native
 from opencv_opencl_tpu_torch.models import enhancer as torch_enhancer
 from opencv_opencl_tpu_torch.runtime import feeder as torch_feeder
 from opencv_opencl_tpu_torch.runtime.handoff import DeviceBatch
@@ -138,12 +139,15 @@ def test_op_none_equals_jax(chroma, donate):
 
 
 def test_unported_modes_raise():
-    """What the port still leaves out: the feeder's C++ staging ring."""
+    """The feeder stages through the C++ ring (ported) given the frame
+    shape, and refuses a ``native_staging`` that names none."""
     enh = torch_enhancer.Enhancer(torch_enhancer.EnhancerConfig(), PAD_SPEC,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="native_staging"):
-        torch_feeder.FrameFeeder(enh.process_batch,
-                                 native_staging=(PAD_SPEC.buffer_rows, PAD_SPEC.width))
+    with pytest.raises(ValueError, match="native_staging"):
+        torch_feeder.FrameFeeder(enh.process_batch, native_staging=True)
+    fed = torch_feeder.FrameFeeder(
+        enh.process_batch, native_staging=(PAD_SPEC.buffer_rows, PAD_SPEC.width))
+    assert (fed._native is not None) == torch_native.available()
 
 
 @pytest.mark.parametrize("kwargs", [dict(op="sharpen"), dict(hist_downsample=0)])
@@ -287,7 +291,7 @@ def test_import_scan_tells_module_level_from_lazy_imports(tmp_path):
     for needed in ("apps/relay.py", "apps/multi_relay.py", "apps/_cli.py",
                    "io/videofile.py", "io/rtp.py", "io/rtcp.py", "io/sdp.py",
                    "io/gst.py", "models/presets.py", "runtime/governor.py",
-                   "runtime/mux.py", "__main__.py"):
+                   "runtime/mux.py", "__main__.py", "native/__init__.py"):
         assert needed in paths, needed
 
 

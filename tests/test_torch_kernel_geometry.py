@@ -31,7 +31,9 @@ Python (no kernel runs here).
 - K10 (``tile_histograms_batched``): K1's launch on the extended frame,
   every tile interior, ``batch_rows`` loads in flight, the 16-byte path
   where 16 divides the base, the strides and the tile width; K6r
-  (``clahe_interpolate_cells(radix=True)``): K6's launch, counted apart.
+  (``clahe_interpolate_cells(radix=True)``): K6's launch, counted apart;
+  K8 (``lut.tile_histograms_extended``): K1's launch as K10 plans it with
+  4 loads, counted apart.
   The routing tests run the wrappers' card branch against a recording
   stand-in for the kernel library.
 
@@ -595,6 +597,29 @@ def test_k10_launches_k1s_kernel_with_batch_rows_loads(recorder, h, w, grid):
         assert args[:loads] == k1[:loads] and args[-1] == k1[-1]
     counts = natural.launch_counts()
     assert counts["tile_histograms"] == 1 and counts["tile_histograms_batched"] == 3
+
+
+@pytest.mark.parametrize("h,w,grid", [(2160, 3840, (8, 8)), (2160, 3840, (1, 1)),
+                                      (1079, 1919, (8, 8)), (48, 120, (4, 4))])
+def test_k8_launches_k1s_kernel_as_k10_plans_it(recorder, h, w, grid):
+    """K8 (``lut.tile_histograms_extended``) makes K1's launch with
+    ``batched_hist_args(..., 4)``: every tile interior, one rowstep, no
+    band, K1's 4 loads in flight, the 16-byte path where it holds; counted
+    under its own wrapper, apart from K1 and K10."""
+    ext, tiles = _extended(h, w, grid)
+    lut.tile_histograms_extended(ext, *tiles)
+    natural.tile_histograms_batched(ext, *tiles, batch_rows=4)
+    (name, k8), (name10, k10) = recorder.calls
+    assert name == name10 == "tile_hist_launch"
+    plan = natural.batched_hist_args(ext, *tiles, 4)
+    # (y, frames, *the named args, out, stream)
+    assert k8[0] == ext.data_ptr() and k8[1] == ext.shape[0]
+    assert list(k8[2:-2]) == [plan[k] for k in natural._TILE_HIST_ARGS]
+    assert k8[:-2] == k10[:-2] and k8[-1] == k10[-1]
+    assert plan["loads"] == natural._HIST_LOADS == 4
+    assert lut.launch_counts()["tile_histograms_extended"] == 1
+    assert natural.launch_counts()["tile_histograms_batched"] == 1
+    assert natural.launch_counts()["tile_histograms"] == 0
 
 
 @pytest.mark.parametrize("h,w,grid", [(2160, 3840, (8, 8)), (1080, 1920, (8, 8)),
