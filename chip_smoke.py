@@ -86,8 +86,20 @@ Phases, each of which raises (exit code != 0) when it fails:
             (``rtp_send_raw``), with a receiver thread that reassembles
             frames and compares them, and (f) the same with ``--native``
             (the C++ staging ring, which the relay's started line must
-            name); and ``apps.multi_relay.run`` with 4 streams of 1080p, 32
-            frames each, on the Python queue and with ``--native
+            name); (g) ``--sink=rtp+h264://`` with ``--encoder=cavlc`` (the
+            native C++ CAVLC rows, which the sink's encoder must be on), 16
+            frames, received by the port's ``rtp_receiver`` app in a child
+            process, which must record every access unit, and (h) the same
+            with ``--encoder=pcm`` (lossless I_PCM, ~12.4 MB an access
+            unit), received by an ``H26xRtpReceiver`` thread, which counts
+            what it loses; in both every frame the encoder takes must be an
+            expected frame, every access unit sent must equal what a new
+            encoder makes from those frames, and every access unit received
+            must be the next one sent; the Python CAVLC oracle, in a child
+            process started before (a), encodes the first two expected
+            frames, which must give the native rows' access units (and (g)'s
+            first two); and ``apps.multi_relay.run`` with 4 streams of
+            1080p, 32 frames each, on the Python queue and with ``--native
             --priorities``;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
@@ -101,7 +113,9 @@ Phases, each of which raises (exit code != 0) when it fails:
             and 1x4 steps; the feeder's end-to-end rates, on the Python
             queue and on the C++ ring; torch.profiler's device time per
             kernel for each step; the relay's and the multi-stream relay's
-            own ``Shutdown`` rates; K10 for each
+            own ``Shutdown`` rates (and, in phase 5, the encoded relays'
+            host encode ms a 4K frame, and the native CAVLC rows' and the
+            Python oracle's); K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -114,12 +128,14 @@ versions and the port's ``core/golden.py``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
 import re
 import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -132,6 +148,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from opencv_opencl_tpu_torch import native
 from opencv_opencl_tpu_torch.apps import multi_relay, relay
+from opencv_opencl_tpu_torch.io import encoder as encoder_io
+from opencv_opencl_tpu_torch.io import rtp_h26x
+from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder
 from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
@@ -220,6 +239,17 @@ MULTI_STREAMS, MULTI_FRAMES = 4, 32
 # as one burst of ~13,000 datagrams (~30 MB of kernel buffers on loopback)
 RECEIVER_BUFFER = 1 << 26
 SPAWN_TIMEOUT = 420.0
+# relays (g) and (h), the encoded RTP sinks: frames each, the encoder's frame
+# rate and bitrate (the relay's defaults, given as flags), the receive
+# buffer (a 4K I_PCM access unit is ~12.4 MB, ~10,400 datagrams), and the
+# frames the Python CAVLC oracle encodes (~90 s a 4K frame on one host core,
+# in a child process while the relays run)
+ENCODED_FRAMES = 16
+ENCODED_FPS, ENCODED_KBPS = 60.0, 20000
+ENCODED_BUFFER = 1 << 27
+ORACLE_FRAMES = 2
+ORACLE_TIMEOUT = 600.0
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def clahe_config(h=HEIGHT, w=WIDTH) -> tuple[FrameSpec, EnhancerConfig]:
@@ -1259,50 +1289,319 @@ def expected_relay_frames(device, w: int, h: int) -> np.ndarray:
     return want
 
 
-def phase_relay_paths(device, h=HEIGHT, w=WIDTH):
+# the Python CAVLC oracle on the expected frames in a child process: the
+# frames in, the access units and the seconds of each frame out
+ORACLE_CHILD = r"""
+import sys, time
+import numpy as np
+from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder
+
+frames = np.load(sys.argv[1])
+h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+enc = CavlcH264Encoder(w, h, qp=30, bitrate_kbps=int(sys.argv[4]),
+                       fps=float(sys.argv[3]), native="never")
+aus, secs = [], []
+for frame in frames:
+    t0 = time.perf_counter()
+    aus += enc.encode(frame)
+    secs.append(time.perf_counter() - t0)
+np.savez(sys.argv[2], blob=np.frombuffer(b"".join(aus), np.uint8),
+         lens=np.array([len(a) for a in aus]), secs=np.array(secs))
+"""
+
+# the port's rtp_receiver app with its socket's buffer raised past the
+# host's rmem_max where the process may (CAP_NET_ADMIN)
+RECEIVER_CHILD = r"""
+import contextlib, socket, sys
+from opencv_opencl_tpu_torch.apps import rtp_receiver
+from opencv_opencl_tpu_torch.io import rtp_h26x
+
+class Receiver(rtp_h26x.H26xRtpReceiver):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        with contextlib.suppress(OSError):
+            self.sock.setsockopt(socket.SOL_SOCKET,
+                                 getattr(socket, "SO_RCVBUFFORCE", 33),
+                                 int(sys.argv[1]))
+        print("receive buffer", self.sock.getsockopt(socket.SOL_SOCKET,
+                                                     socket.SO_RCVBUF), flush=True)
+
+rtp_h26x.H26xRtpReceiver = Receiver
+sys.exit(rtp_receiver.run(sys.argv[2:]))
+"""
+
+
+@contextlib.contextmanager
+def child(code: str, args: list[str]):
+    """A Python child process running ``code`` from the repository root,
+    its output on a pipe; killed on the way out if it is still running."""
+    proc = subprocess.Popen([sys.executable, "-u", "-c", code, *args], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+def oracle_result(proc, path: str) -> tuple[list[bytes], list[float]]:
+    """The Python oracle child's access units and seconds a frame."""
+    try:
+        out, _ = proc.communicate(timeout=ORACLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"the Python CAVLC oracle took more than {ORACLE_TIMEOUT} s")
+    check(proc.returncode == 0, f"the Python CAVLC oracle failed: {out[-2000:]}")
+    data = np.load(path)
+    blob, aus, pos = data["blob"].tobytes(), [], 0
+    for n in data["lens"]:
+        aus.append(blob[pos:pos + int(n)])
+        pos += int(n)
+    return aus, [float(t) for t in data["secs"]]
+
+
+class AccessUnitCatcher(threading.Thread):
+    """The port's ``H26xRtpReceiver`` on 127.0.0.1 in a thread, its socket's
+    buffer raised past the host's rmem_max where the process may: keeps every
+    access unit that arrives whole (the depacketizer drops an AU with a lost
+    packet whole, never torn)."""
+
+    def __init__(self):
+        super().__init__(daemon=True, name="rtp-h264-catcher")
+        self.rx = rtp_h26x.H26xRtpReceiver(host="127.0.0.1", port=0, codec="h264",
+                                           timeout=0.5, rtcp=False,
+                                           buffer_size=ENCODED_BUFFER)
+        with contextlib.suppress(OSError):
+            self.rx.sock.setsockopt(socket.SOL_SOCKET,
+                                    getattr(socket, "SO_RCVBUFFORCE", 33),
+                                    ENCODED_BUFFER)
+        self.buffer = self.rx.sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+        self.port = self.rx.port
+        self.aus: list[bytes] = []
+        self._done = threading.Event()
+
+    def run(self) -> None:
+        while True:
+            try:
+                self.aus.append(self.rx.recv_access_unit())
+            except OSError:      # the socket's timeout: nothing on the wire
+                if self._done.is_set():
+                    return
+
+    def finish(self) -> None:
+        """Stop once the socket has been quiet for its timeout: what the
+        sender sent before is still read (a thread that shares the
+        interpreter lock with the relay lags it by some access units)."""
+        self._done.set()
+        self.join(timeout=120)
+        check(not self.is_alive(), "the H.264 RTP receiver thread did not stop")
+        self.rx.close()
+
+
+def kept_in_order(kept: list[bytes], sent: list[bytes]) -> bool:
+    """Whether ``kept`` is ``sent`` with some access units left out."""
+    it = iter(sent)
+    return all(any(au == s for s in it) for au in kept)
+
+
+def free_udp_port() -> int:
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
+                  tmp: str) -> tuple[float, dict]:
+    """Configurations (g) and (h): CLAHE passthrough to
+    ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
+    each frame enhanced by K1, K2 and K3 on the card and encoded on the host.
+    (g) (``cavlc``) is received by the port's ``rtp_receiver`` app in a child
+    process, which must record every access unit; (h) (``pcm``) by an
+    ``H26xRtpReceiver`` thread, which counts what it loses.  The sink's
+    encoder is watched: each frame it takes must be one of the expected
+    frames, in order, and the access units it sends must equal those a new
+    encoder of the same spec makes from those expected frames."""
+    fingerprints = {hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
+    made, inputs, sent, encode_s = [], [], [], []
+    build = encoder_io.encoded_rtp_sink_from_url
+
+    def watched(*args, **kwargs):
+        sink = build(*args, **kwargs)
+        made.append((sink, kwargs))
+        write, encode = sink.write, sink.encoder.encode
+
+        def timed_encode(nv12):
+            t0 = time.perf_counter()
+            try:
+                return encode(nv12)
+            finally:
+                encode_s.append(time.perf_counter() - t0)
+
+        def recorded_write(nv12):
+            key = hashlib.sha1(np.ascontiguousarray(nv12)).digest()
+            inputs.append(fingerprints.get(key, -1))
+            write(nv12)
+
+        sink.encoder.encode = timed_encode
+        sink.write = recorded_write
+        sink.au_tap = sent.append
+        return sink
+
+    by_app = spec.startswith("cavlc")
+    out = os.path.join(tmp, f"{label}.h264")
+    port = free_udp_port() if by_app else None
+    catcher = None if by_app else AccessUnitCatcher()
+    receiver = (child(RECEIVER_CHILD, [str(ENCODED_BUFFER), f"--port={port}",
+                                       "--host=127.0.0.1", "--kind=h264",
+                                       f"--max-frames={ENCODED_FRAMES}",
+                                       "--timeout=20", f"--output={out}"])
+                if by_app else contextlib.nullcontext())
+    interval = sys.getswitchinterval()
+    with receiver as proc:
+        lines = []
+        if by_app:
+            while not any(line.startswith("Listening for h264 RTP") for line in lines):
+                line = proc.stdout.readline()
+                check(bool(line), f"{label}: rtp_receiver ended before it listened: "
+                      f"{lines}")
+                lines.append(line.rstrip())
+        else:
+            port = catcher.port
+            sys.setswitchinterval(2e-4)
+            catcher.start()
+        encoder_io.encoded_rtp_sink_from_url = watched
+        try:
+            text = run_app(relay, [
+                "--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
+                f"--max-frames={ENCODED_FRAMES}", "--op=clahe",
+                "--chroma=passthrough", f"--fps={ENCODED_FPS:g}",
+                f"--bitrate={ENCODED_KBPS}", f"--sink=rtp+h264://127.0.0.1:{port}",
+                f"--encoder={spec}", "--status-interval=60"], label)
+            counts = cuda_ops.launch_counts()
+        finally:
+            encoder_io.encoded_rtp_sink_from_url = build
+            sys.setswitchinterval(interval)
+            if by_app:
+                # every AU arrived: the app stops at --max-frames; else stop it
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.terminate()
+                rest, _ = proc.communicate(timeout=30)
+                lines += rest.splitlines()
+            else:
+                catcher.finish()
+    for line in lines:
+        print(f"{label} | rtp_receiver | {line}", flush=True)
+    fps, emitted = relay_shutdown(text, label, ENCODED_FRAMES, must_emit_all=False)
+    check(len(made) == 1, f"{label}: {len(made)} encoded sinks made")
+    sink, kwargs = made[0]
+    enc = sink.encoder
+    check(f"Encoder: {type(enc).__name__} (h264)" in text, f"{label}: no Encoder line")
+    if by_app:
+        check(native.available() and native.has_cavlc(),
+              f"{label}: the native CAVLC rows did not build: {native.build_error()}")
+        check(enc._native and not enc.i4 and not enc.chromah,
+              f"{label}: the sink's encoder is not on the native CAVLC rows")
+    check(all(per > 0 for per in (counts["tile_histograms"], counts["build_luts"],
+                                  counts["clahe_interpolate"])),
+          f"{label} launched no K1, K2 or K3: {counts}")
+    check(len(inputs) == emitted and all(k >= 0 for k in inputs)
+          and inputs == sorted(set(inputs)),
+          f"{label}: the encoder took frames {inputs} of the expected ones "
+          f"({emitted} emitted)")
+    ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
+                                  bitrate_kbps=kwargs["bitrate_kbps"])
+    expected = [au for k in inputs for au in ref.encode(want[k])] + ref.flush()
+    check(sent == expected, f"{label}: the sink sent access units other than "
+          f"those a new encoder makes from the expected frames")
+    if by_app:
+        recorded = open(out, "rb").read()
+        kept = rtp_h26x.split_access_units(recorded, "h264")
+        check(recorded == b"".join(sent), f"{label}: rtp_receiver recorded "
+              f"{len(kept)} access units, {len(recorded)} bytes, not the "
+              f"{len(sent)} sent ({sum(map(len, sent))} bytes)")
+        buffer = next((line for line in lines if line.startswith("receive buffer")),
+                      "receive buffer unknown")
+    else:
+        kept = catcher.aus
+        check(kept_in_order(kept, sent), f"{label}: an access unit the receiver "
+              f"kept is not the next one sent")
+        buffer = f"receive buffer {catcher.buffer}"
+    info = {"emitted": emitted, "kept": len(kept), "lost": len(sent) - len(kept),
+            "encode_ms": 1e3 * statistics.median(encode_s), "counts": counts,
+            "inputs": inputs, "sent": sent, "au_bytes": statistics.median(map(len, sent))}
+    print(f"{label}: {type(enc).__name__} encoded {len(encode_s)} frames, "
+          f"{info['encode_ms']:.1f} ms a 4K frame (median, host), AUs of "
+          f"{info['au_bytes']:.0f} bytes (median); {len(sent)} AUs sent, "
+          f"{len(kept)} kept and {info['lost']} lost on loopback ({buffer}); every "
+          f"one equal to the encoder's on the expected frames", flush=True)
+    return fps, info
+
+
+def phase_relay_paths(device, card: str, h=HEIGHT, w=WIDTH):
     """This slice's path: the relay apps as a user starts them, at 4K batch
     4 on ``TestSource`` frames.  Returns each configuration's launch counts
     and the apps' own rates."""
     check(not dist.is_initialized(), "the relay's --mesh=1x1 starts its own group")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_relay_") as tmp:
+        want = expected_relay_frames(device, w, h)
+        # the Python CAVLC oracle takes minutes at 4K: it starts now, on the
+        # frames relay (g) encodes first, and is read after (g)
+        oracle_in = os.path.join(tmp, "oracle_in.npy")
+        oracle_out = os.path.join(tmp, "oracle_out.npz")
+        np.save(oracle_in, want[:ORACLE_FRAMES])
+        with child(ORACLE_CHILD, [oracle_in, oracle_out, f"{ENCODED_FPS:g}",
+                                  str(ENCODED_KBPS)]) as oracle:
+            return relay_paths(device, card, want, oracle, oracle_out, tmp, h, w)
+
+
+def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
+    """Relays (a) to (h) and the two multi-stream runs; ``want`` holds the
+    frames the CLAHE configurations must give, ``oracle`` is the Python
+    CAVLC oracle's child process, which writes ``oracle_out``."""
     base = ["--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
             f"--max-frames={RELAY_FRAMES}", "--status-interval=60"]
-    want = expected_relay_frames(device, w, h)
     per_path, rates = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_relay_") as tmp:
-        raw = os.path.join(tmp, "clahe.nv12")
-        configs = [
-            ("relay_a_histeq_gray_null",
-             ["--op=histeq", "--chroma=gray", "--sink=null"],
-             ("tile_histograms", "apply_lut")),
-            ("relay_b_clahe_rawfile",
-             ["--op=clahe", "--chroma=passthrough", f"--sink={raw}"],
-             ("tile_histograms", "build_luts", "clahe_interpolate")),
-            ("relay_c_clahe_ref_frame",
-             ["--op=clahe", "--chroma=passthrough", "--ref-frame", "--sink=null"],
-             ("build_luts", "clahe_interp_and_hist")),
-            ("relay_d_clahe_mesh_1x1",
-             ["--op=clahe", "--chroma=passthrough", "--mesh=1x1", "--sink=null"],
-             ("tile_histograms", "build_luts", "clahe_interpolate_band")),
-        ]
-        for name, extra, need in configs:
-            text = run_app(relay, base + extra, name)
-            per_path[name] = cuda_ops.launch_counts()
-            rates[name], _ = relay_shutdown(text, name, RELAY_FRAMES)
-            check(all(per_path[name][k] > 0 for k in need),
-                  f"{name} did not launch {need}: {per_path[name]}")
-            if "mesh" in name:
-                check("Sharded over mesh {'data': 1, 'space': 1} (1 devices)" in text
-                      and not dist.is_initialized(),
-                      f"{name}: no mesh line, or the app left its group open")
-        got = np.fromfile(raw, np.uint8)
-        check(got.size == want.size, f"the raw sink holds {got.size} bytes, not "
-              f"{want.size}")
-        got = got.reshape(want.shape)
-        bad = [k for k in range(RELAY_FRAMES) if not np.array_equal(got[k], want[k])]
-        check(not bad, f"relay (b): frames {bad} differ from the plain versions")
-        print(f"relay (b): all {RELAY_FRAMES} frames of the raw file equal the plain "
-              f"versions on the same TestSource frames", flush=True)
-        del got
+    raw = os.path.join(tmp, "clahe.nv12")
+    configs = [
+        ("relay_a_histeq_gray_null",
+         ["--op=histeq", "--chroma=gray", "--sink=null"],
+         ("tile_histograms", "apply_lut")),
+        ("relay_b_clahe_rawfile",
+         ["--op=clahe", "--chroma=passthrough", f"--sink={raw}"],
+         ("tile_histograms", "build_luts", "clahe_interpolate")),
+        ("relay_c_clahe_ref_frame",
+         ["--op=clahe", "--chroma=passthrough", "--ref-frame", "--sink=null"],
+         ("build_luts", "clahe_interp_and_hist")),
+        ("relay_d_clahe_mesh_1x1",
+         ["--op=clahe", "--chroma=passthrough", "--mesh=1x1", "--sink=null"],
+         ("tile_histograms", "build_luts", "clahe_interpolate_band")),
+    ]
+    for name, extra, need in configs:
+        text = run_app(relay, base + extra, name)
+        per_path[name] = cuda_ops.launch_counts()
+        rates[name], _ = relay_shutdown(text, name, RELAY_FRAMES)
+        check(all(per_path[name][k] > 0 for k in need),
+              f"{name} did not launch {need}: {per_path[name]}")
+        if "mesh" in name:
+            check("Sharded over mesh {'data': 1, 'space': 1} (1 devices)" in text
+                  and not dist.is_initialized(),
+                  f"{name}: no mesh line, or the app left its group open")
+    got = np.fromfile(raw, np.uint8)
+    check(got.size == want.size, f"the raw sink holds {got.size} bytes, not "
+          f"{want.size}")
+    got = got.reshape(want.shape)
+    bad = [k for k in range(RELAY_FRAMES) if not np.array_equal(got[k], want[k])]
+    check(not bad, f"relay (b): frames {bad} differ from the plain versions")
+    print(f"relay (b): all {RELAY_FRAMES} frames of the raw file equal the plain "
+          f"versions on the same TestSource frames", flush=True)
+    del got
 
     # (e) and (f) over loopback, unpaced, at 4K; at 1080p as well if the
     # relay dropped frames or no 4K frame arrived whole
@@ -1322,6 +1621,41 @@ def phase_relay_paths(device, h=HEIGHT, w=WIDTH):
         check(all(per_path[name][k] > 0 for k in
                   ("tile_histograms", "build_luts", "clahe_interpolate")),
               f"{name} launched no K1, K2 or K3: {per_path[name]}")
+
+    # (g) and (h): the encoded RTP sinks, CAVLC on the native C++ rows and
+    # lossless I_PCM, encoded on the host after K1, K2 and K3 on the card
+    encoded = {}
+    for name, spec in (("relay_g_clahe_rtp_h264_cavlc", "cavlc"),
+                       ("relay_h_clahe_rtp_h264_pcm", "pcm")):
+        rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp)
+        per_path[name] = encoded[name]["counts"]
+        print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
+              f"{encoded[name]['emitted']} of {ENCODED_FRAMES} frames emitted, "
+              f"{encoded[name]['kept']} AUs kept, {encoded[name]['lost']} lost, "
+              f"host encode {encoded[name]['encode_ms']:.1f} ms a frame [{card}]",
+              flush=True)
+    # the native rows against the Python oracle on the first expected frames
+    oracle_aus, oracle_s = oracle_result(oracle, oracle_out)
+    enc = CavlcH264Encoder(w, h, qp=30, bitrate_kbps=ENCODED_KBPS, fps=ENCODED_FPS,
+                           native="require")
+    native_aus, native_s = [], []
+    for k in range(ORACLE_FRAMES):
+        t0 = time.perf_counter()
+        native_aus += enc.encode(want[k])
+        native_s.append(time.perf_counter() - t0)
+    check(native_aus == oracle_aus, "the native CAVLC rows and the Python oracle "
+          "made different access units from the same 4K frames")
+    g = encoded["relay_g_clahe_rtp_h264_cavlc"]
+    first = g["inputs"][:ORACLE_FRAMES] == list(range(ORACLE_FRAMES))
+    check(not first or g["sent"][:ORACLE_FRAMES] == oracle_aus,
+          "relay (g)'s first access units differ from the Python oracle's")
+    print(f"relay (g): the {ORACLE_FRAMES} first access units "
+          f"{'of the relay ' if first else 'of the expected frames '}equal the "
+          f"Python oracle's (CavlcH264Encoder native='never'), "
+          f"{' / '.join(str(len(a)) for a in oracle_aus)} bytes", flush=True)
+    print(f"time CAVLC encode of a 4K frame, host ms: native C++ rows "
+          f"{' / '.join(f'{1e3 * t:.1f}' for t in native_s)}, Python oracle "
+          f"{' / '.join(f'{1e3 * t:.1f}' for t in oracle_s)} [{card}]", flush=True)
     del want
 
     # the multi-stream relay: 4 streams of 1080p through one StreamMux, on
@@ -1841,8 +2175,8 @@ def main() -> int:
     per_path = phase_main_paths(device, rng)               # phase 5
     per_path.update(phase_slice3_paths(device, rng))
     # the relay apps first: their --mesh=1x1 starts and ends a group of its own
-    relay_paths, relay_rates = phase_relay_paths(device)
-    per_path.update(relay_paths)
+    paths_of_relays, relay_rates = phase_relay_paths(device, card)
+    per_path.update(paths_of_relays)
     # the 1x1 mesh of the sharded path lives in this process: a process
     # group of one rank on NCCL, until the script ends
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as rendezvous:

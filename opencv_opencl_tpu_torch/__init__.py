@@ -21,8 +21,11 @@ runtime   the frame feeder, queues and resequencer, the device-to-host
           handoff the feeder materialises, the rate governors and the
           stream mux
 io        sources and sinks of NV12 frames (synthetic, file, raw), the native
-          RTP/RTCP data plane, SDP, and the GStreamer pipeline strings
-apps      the command-line apps: ``relay`` and ``multi_relay``
+          RTP/RTCP data plane, SDP, the GStreamer pipeline strings, the host
+          H.264 encoders (I_PCM, CAVLC intra and GOP, over the C++ rows of
+          ``native``), RFC 6184/7798 RTP, the encoder factory and MP4
+apps      the command-line apps: ``relay``, ``multi_relay``,
+          ``rtp_receiver`` and ``h26x_stream``
 metrics   streaming counters and timing
 utils     environment report (torch, CUDA, card, power limit, kernels)
 """

@@ -11,7 +11,9 @@ def main() -> None:
     print("\nApps (python -m opencv_opencl_tpu_torch.apps.<name>):")
     for name, ref in [
         ("relay", "OpenCVequalHist family / OpenCLequalHist / improvement"),
+        ("rtp_receiver", "PC-side RTP player/recorder (extension)"),
         ("multi_relay", "N streams / one card serving (extension)"),
+        ("h26x_stream", "replay recorded H.26x ES over RTP (extension)"),
     ]:
         print(f"  {name:<14} <- {ref}")
     print("\nPresets (relay --preset=<name>):")

@@ -9,8 +9,10 @@ Usage:
       [--chroma=gray|passthrough] [--clipLimit=2.0] [--tile=8]
       [--batch=4] [--workers=2] [--max-frames=N] [--duration=s]
       [--source=test|<video file>]      # one source replicated per stream
-      [--sink=null|rtp://host:port|rtp+raw://host:port]
+      [--sink=null|rtp://host:port|rtp+raw://host:port|rtp+h264://host:port|rtp+h265://host:port]
                          # rtp: stream i goes to port+2*i
+      [--encoder=auto|pcm|cavlc[:...]|ffmpeg|gi]  # for rtp+h26x sinks:
+                         # one encoder + RTP session per stream
       [--status-interval=2]
       [--mesh=auto|DxS]  # several cards: shard the stream batch over a
                          # (data, space) mesh of processes (see relay)
@@ -37,11 +39,11 @@ each relay binary owns one stream.
 RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
-Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks; ``--encoder`` is read only for an encoded sink, as
-in the JAX package, and ignored otherwise.  ``--mesh`` takes a
-mesh of one position (``1x1`` or ``auto``) here: the mux cuts batches by
-arrival, which several ranks would not do alike.
+Not ported yet, refused with return code 2: ``--encoder=tpu...`` with an
+encoded sink (the H.264 device encoders).  ``--encoder`` is read only for
+an encoded sink, as in the JAX package, and ignored otherwise.  ``--mesh``
+takes a mesh of one position (``1x1`` or ``auto``) here: the mux cuts
+batches by arrival, which several ranks would not do alike.
 """
 
 from __future__ import annotations
@@ -167,6 +169,25 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
                 rtcp_schedule=opts.get("rtcp-schedule", "tick")))
         print(f"Sinks: {scheme}://{host}:{port}..{int(port) + 2 * (n - 1)} "
               f"(stride 2: RTCP companions)")
+    elif sink_spec.startswith(("rtp+h264://", "rtp+h265://")):
+        # encoded emit per stream (OpenCVequalHist.cpp:308-332 chain),
+        # one encoder + RTP session per stream, same 2-port stride
+        from opencv_opencl_tpu_torch.io.encoder import encoded_rtp_sink_from_url
+
+        try:
+            for s in range(n):
+                sinks.append(encoded_rtp_sink_from_url(
+                    sink_spec, spec.width, spec.height, fps=fps,
+                    backend=opts.get("encoder", "auto"),
+                    rtcp_schedule=opts.get("rtcp-schedule", "tick"),
+                    port_offset=2 * s))
+        except ValueError as e:
+            for snk in sinks:
+                snk.close()
+            print(str(e), file=sys.stderr)
+            return 2
+        print(f"Sinks: encoded RTP {sink_spec} .. +{2 * (n - 1)} "
+              f"(encoder={type(sinks[0].encoder).__name__})")
     else:
         sinks = [NullSink() for _ in range(n)]
     for snk in sinks:

@@ -11,9 +11,16 @@ Usage:
       [--op=histeq|clahe|none] [--chroma=gray|passthrough]
       [--clipLimit=2.0] [--tile=8] [--batch=4]
       [--source=test|<video file>] [--sink=null|<output file>]
-                   # sinks also accept rtp://host:port (JPEG/RTP) and
-                   # rtp+raw://host:port (raw NV12 lines); *.nv12 / *.raw
+                   # sinks also accept rtp://host:port (JPEG/RTP),
+                   # rtp+raw://host:port (raw NV12 lines), and
+                   # rtp+h264://host:port / rtp+h265://host:port
+                   # (encoded RFC 6184/7798 — the full reference emit
+                   # chain, encoder chosen via --encoder); *.nv12 / *.raw
                    # files take the raw frames
+      [--encoder=auto|pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N][:search=R][:halfpel|:quarterpel|:fastsub]|ffmpeg|gi]
+                   # encoder for rtp+h26x sinks (io.encoder; pcm = in-repo
+                   # lossless I_PCM, cavlc = in-repo compressed, both with
+                   # the C++ fast path of the port's native library)
       [--hist-downsample=N]  # APPROXIMATE throughput mode: histograms
                    # from every Nth row, counts rescaled (selective
                    # downsampling, arXiv:1709.04583); default 1 = exact
@@ -50,10 +57,11 @@ the Python queue takes over, as in the JAX package, and the started line
 says ``staging=python queue``).  It composes with ``--mesh``: the ring too
 gives the feeder whole batches only.
 
-Not ported yet, refused with return code 2: the ``rtp+h264://`` and
-``rtp+h265://`` sinks, ``--fused-encode`` (the H.264 device encoder) and
+Not ported yet, refused with return code 2: ``--encoder=tpu...`` with an
+encoded sink and ``--fused-encode`` (the H.264 device encoders), and
 ``--io=gst``.  ``--encoder`` is read only for an encoded sink, as in the
-JAX package: with any other sink it is ignored.
+JAX package: with any other sink it is ignored.  The encoded sinks encode
+on the host, after the card has enhanced the frames.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -84,8 +92,10 @@ def not_ported(opts: dict, sink: str) -> str | None:
     """The one-line refusal for a flag or sink this package does not have
     yet, or None."""
     what = None
-    if sink.startswith(("rtp+h264://", "rtp+h265://")):
-        what = f"--sink={sink.split('://', 1)[0]}:// (the encoded RTP sinks)"
+    encoder = opts.get("encoder", "auto")
+    if (sink.startswith(("rtp+h264://", "rtp+h265://"))
+            and (encoder == "tpu" or encoder.startswith("tpu:"))):
+        what = f"--encoder={encoder} (the H.264 device encoders)"
     elif opts.get("io") == "gst":
         what = "--io=gst (the GStreamer appsink/appsrc bridge)"
     else:
@@ -268,6 +278,32 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             with open(opts["sdp-file"], "w") as f:
                 f.write(build_rtp_session_sdp(
                     rtp_host, int(rtp_port), kind,
+                    width=spec.width, height=spec.height))
+            print(f"SDP written: {opts['sdp-file']}")
+    elif sink_path.startswith(("rtp+h264://", "rtp+h265://")):
+        # full reference emit chain: encode -> RFC 6184/7798 payload ->
+        # UDP (OpenCVequalHist.cpp:308-332), behind the pluggable
+        # encoder boundary (io.encoder: pcm | cavlc | ffmpeg | gi | auto)
+        from opencv_opencl_tpu_torch.io.encoder import encoded_rtp_sink_from_url
+
+        es_codec = "h264" if sink_path.startswith("rtp+h264://") else "h265"
+        try:
+            sink = encoded_rtp_sink_from_url(
+                sink_path, spec.width, spec.height, fps=fps,
+                bitrate_kbps=bitrate, backend=opts.get("encoder", "auto"),
+                rtcp_schedule=opts.get("rtcp-schedule", "tick"))
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 2
+        rtp_host, rtp_port = sink.rtp.addr[0], sink.rtp.addr[1]
+        print(f"Encoder: {type(sink.encoder).__name__} ({es_codec})")
+        if "sdp-file" in opts:
+            # hand stock players (ffplay/VLC) the session description
+            from opencv_opencl_tpu_torch.io.sdp import build_rtp_session_sdp
+
+            with open(opts["sdp-file"], "w") as f:
+                f.write(build_rtp_session_sdp(
+                    rtp_host, int(rtp_port), es_codec,
                     width=spec.width, height=spec.height))
             print(f"SDP written: {opts['sdp-file']}")
     elif sink_path.endswith(".nv12") or sink_path.endswith(".raw"):

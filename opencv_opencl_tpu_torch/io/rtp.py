@@ -381,12 +381,16 @@ class RtpUdpSink:
                                        schedule=rtcp_schedule)
         self.payload_octets = 0
         # raw frames go out through the C++ packetizer (sendmmsg) where
-        # the native library builds; the Python one sends the same bytes
+        # the native library builds and loads; the Python one sends the
+        # same bytes, also where asking for the library fails
         self._use_native = False
         if kind == "raw":
-            from opencv_opencl_tpu_torch import native
+            try:
+                from opencv_opencl_tpu_torch import native
 
-            self._use_native = native.available()
+                self._use_native = native.available()
+            except Exception:
+                pass
         self.frames = 0
         self.packets = 0
         self.bytes = 0

@@ -33,13 +33,6 @@ import threading
 
 import numpy as np
 
-from opencv_opencl_tpu_torch.native.slice_heads import (
-    BitWriter,
-    packed,
-    slice_head_cavlc,
-    slice_head_p,
-)
-
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "framepipe.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
@@ -122,7 +115,13 @@ def _load():
         if err is not None:
             _build_error = err
             return None
-        lib = ctypes.CDLL(path)
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            # a file at the hashed path that will not load (one carried
+            # from another host): the callers take their Python paths
+            _build_error = f"{path} does not load: {e}"
+            return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.fp_ring_new.restype = ctypes.c_void_p
@@ -497,6 +496,12 @@ def pcm_encode_au(nv12: np.ndarray, width: int, height: int,
     return out[: int(n)].tobytes()
 
 
+def _packed(w) -> tuple[np.ndarray, int]:
+    """A slice header's bits (``io.h264_pcm._BitWriter``) packed MSB first,
+    and their count."""
+    return np.packbits(np.asarray(w._bits, dtype=np.uint8)), len(w._bits)
+
+
 def cavlc_encode_frame(nv12: np.ndarray, width: int, height: int, qp: int,
                        idr_pic_id: int,
                        workspace: dict | None = None) -> bytes:
@@ -512,9 +517,12 @@ def cavlc_encode_frame(nv12: np.ndarray, width: int, height: int, qp: int,
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native runtime unavailable: {_build_error}")
-    w = BitWriter()
-    slice_head_cavlc(w, idr_pic_id, qp)
-    head, nbits = packed(w)
+    from opencv_opencl_tpu_torch.io.h264_cavlc import _slice_head_cavlc
+    from opencv_opencl_tpu_torch.io.h264_pcm import _BitWriter
+
+    w = _BitWriter()
+    _slice_head_cavlc(w, idr_pic_id, qp)
+    head, nbits = _packed(w)
     nv12 = np.ascontiguousarray(nv12)
     mb = (width // 16) * (height // 16)
     # worst-case RBSP: ~2200 B/MB (dense max-level CAVLC exceeds raw
@@ -550,16 +558,19 @@ def cavlc_encode_slices(nv12: np.ndarray, width: int, height: int,
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native runtime unavailable: {_build_error}")
+    from opencv_opencl_tpu_torch.io.h264_cavlc import _slice_head_cavlc
+    from opencv_opencl_tpu_torch.io.h264_pcm import _BitWriter
+
     nv12 = np.ascontiguousarray(nv12)
     mb_w, mb_h = width // 16, height // 16
     slices = max(1, min(int(slices), mb_h))
     bounds = [round(i * mb_h / slices) for i in range(slices + 1)]
     heads, nbits = [], []
     for i in range(slices):
-        w = BitWriter()
-        slice_head_cavlc(w, idr_pic_id, qp, first_mb=bounds[i] * mb_w,
-                         deblock=deblock)
-        head, n = packed(w)
+        w = _BitWriter()
+        _slice_head_cavlc(w, idr_pic_id, qp, first_mb=bounds[i] * mb_w,
+                          deblock=deblock)
+        head, n = _packed(w)
         heads.append(head)
         nbits.append(n)
     blob = np.concatenate(heads)
@@ -616,6 +627,9 @@ def cavlc_entropy_rows(zdc: np.ndarray, acz: np.ndarray,
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native runtime unavailable: {_build_error}")
+    from opencv_opencl_tpu_torch.io.h264_cavlc import _slice_head_cavlc
+    from opencv_opencl_tpu_torch.io.h264_pcm import _BitWriter
+
     zdc = np.ascontiguousarray(zdc, dtype=np.int16)
     acz = np.ascontiguousarray(acz, dtype=np.int16)
     czdc = np.ascontiguousarray(czdc, dtype=np.int16)
@@ -629,10 +643,10 @@ def cavlc_entropy_rows(zdc: np.ndarray, acz: np.ndarray,
     mb_h, mb_w = zdc.shape[:2]
     heads, nbits = [], []
     for i in range(mb_h):
-        w = BitWriter()
-        slice_head_cavlc(w, idr_pic_id, qp, first_mb=i * mb_w,
-                         deblock=deblock)
-        head, n = packed(w)
+        w = _BitWriter()
+        _slice_head_cavlc(w, idr_pic_id, qp, first_mb=i * mb_w,
+                          deblock=deblock)
+        head, n = _packed(w)
         heads.append(head)
         nbits.append(n)
     blob = np.concatenate(heads)
@@ -698,6 +712,9 @@ def cavlc_entropy_rows_p(mode: np.ndarray, zdc: np.ndarray,
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native runtime unavailable: {_build_error}")
+    from opencv_opencl_tpu_torch.io.h264_inter import _slice_head_p
+    from opencv_opencl_tpu_torch.io.h264_pcm import _BitWriter
+
     mode = np.ascontiguousarray(mode, dtype=np.int16)
     zdc = np.ascontiguousarray(zdc, dtype=np.int16)
     acz = np.ascontiguousarray(acz, dtype=np.int16)
@@ -715,11 +732,11 @@ def cavlc_entropy_rows_p(mode: np.ndarray, zdc: np.ndarray,
     mb_h, mb_w = mode.shape[:2]
     heads, nbits = [], []
     for i in range(mb_h):
-        w = BitWriter()
-        slice_head_p(w, qp, frame_num, first_mb=i * mb_w,
-                     active_refs=active_refs, deblock=deblock,
-                     slice_local=slice_local)
-        head, n = packed(w)
+        w = _BitWriter()
+        _slice_head_p(w, qp, frame_num, first_mb=i * mb_w,
+                      active_refs=active_refs, deblock=deblock,
+                      slice_local=slice_local)
+        head, n = _packed(w)
         heads.append(head)
         nbits.append(n)
     blob = np.concatenate(heads)

@@ -284,7 +284,8 @@ def test_main_lists_the_ported_apps_and_presets(capsys):
     entry.main()
     out = capsys.readouterr().out
     assert "opencv_opencl_tpu_torch environment" in out
-    assert "relay" in out and "multi_relay" in out
+    for name in ("relay", "multi_relay", "rtp_receiver", "h26x_stream"):
+        assert f"  {name} " in out
     for name in presets.PRESETS:
         assert name in out
 
@@ -439,32 +440,54 @@ _RUN_ARGS = {relay: ["--source=test", "--max-frames=4", "--sink=null",
     ["--sink=null", "--fused-encode"],
     ["--io=gst"],
     ["--native"],
-], ids=["h264_sink", "h265_sink", "encoder", "fused_encode", "io_gst", "native"])
+    ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40"],
+], ids=["h264_sink", "h265_sink", "encoder", "fused_encode", "io_gst", "native",
+        "tpu_encoder_sink"])
 @pytest.mark.parametrize("app", [relay, multi_relay], ids=["relay", "multi_relay"])
 def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
-    """The encoded sinks and the flags of parts not ported refuse with rc 2
-    and one line.  ``--encoder`` is read only for an rtp+h264:// or
-    rtp+h265:// sink, as in the JAX package: with any other sink both
-    packages run and print the same lines (the relay's first line says how
-    the device program is made, which differs).  ``--native`` is ported:
-    both packages run it and print the same lines, the relay's staging word
+    """The flags of parts not ported refuse with rc 2 and one line:
+    ``--encoder=tpu...`` with an encoded sink, ``--fused-encode`` and
+    ``--io=gst``.  The encoded sinks are ported: with the in-repo encoders
+    both packages run an ``rtp+h264://`` sink (``auto`` is the PCM encoder
+    on a host without gi or ffmpeg) and print the same lines, and refuse
+    ``cavlc`` for ``rtp+h265://`` with the same line.  ``--encoder`` is
+    read only for an encoded sink, as in the JAX package: with any other
+    sink both packages run and print the same lines (the relay's line on
+    how the device program is made differs).  ``--native`` is ported: both
+    packages run it and print the same lines, the relay's staging word
     included."""
     args = ["--width=64", "--height=32"]
-    if extra in (["--encoder=tpu:qp=40"], ["--native"]):
-        args += extra + _RUN_ARGS[app]
+    jax_app = {relay: jax_relay, multi_relay: jax_multi_relay}[app]
+    if extra in (["--encoder=tpu:qp=40"], ["--native"],
+                 ["--sink=rtp+h264://127.0.0.1:56470"]):
+        args += _RUN_ARGS[app] + extra
         rc = app.run(args + ["--device=cpu"])
         got = capsys.readouterr()
-        jax_app = {relay: jax_relay, multi_relay: jax_multi_relay}[app]
         jax_rc = jax_app.run(args)
         want = capsys.readouterr()
         assert rc == jax_rc == 0
         assert got.err == want.err == ""
-        skip = 1 if app is relay else 0
-        assert _printed_lines(got.out)[skip:] == _printed_lines(want.out)[skip:]
-        assert "Encoder:" not in got.out
+
+        def lines(out):
+            return [line for line in _printed_lines(out)
+                    if not line.startswith(("Building the kernels",
+                                            "Compiling device program"))]
+
+        assert lines(got.out) == lines(want.out)
+        encoded = extra[0].startswith("--sink=rtp+h264")
+        assert ("Encoder: PcmH264Encoder (h264)" in got.out) == (
+            encoded and app is relay)
+        return
+    if extra == ["--sink=rtp+h265://127.0.0.1:56470", "--encoder=cavlc:qp=40"]:
+        rc = app.run(args + ["--device=cpu"] + extra)
+        err = capsys.readouterr().err
+        assert rc == jax_app.run(args + extra) == 2
+        assert err == capsys.readouterr().err
+        assert err == "the in-repo CAVLC encoder is h264-only\n"
         return
     if app is multi_relay and extra[-1] in ("--fused-encode", "--io=gst"):
-        extra = ["--sink=rtp+h264://127.0.0.1:56470"]   # flags relay alone has
+        # flags relay alone has: the device encoder's refusal in their place
+        extra = ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40"]
     rc = app.run(args + ["--device=cpu"] + extra)
     err = capsys.readouterr().err
     assert rc == 2

@@ -1,0 +1,226 @@
+"""The port's relays with an encoded RTP sink against the JAX package's.
+
+``relay`` and ``multi_relay`` of both packages run on the same
+``TestSource`` frames (histeq, gray chroma: byte-equal in both packages;
+the port on ``--device=cpu``) with ``--sink=rtp+h264://`` and the in-repo
+encoders, and put the same datagrams on loopback, in the same order, with
+the same ``Encoder:`` and ``Sinks:`` lines; the SDP file of an encoded sink
+is the same; the refusals are the same, line for line.  The rows of
+``tests/test_flag_matrix.py`` that need no device encoder run against the
+port's relay; the rows of the device encoders (``--encoder=tpu...``,
+``--fused-encode``) refuse with rc 2 and "not ported yet".
+"""
+
+import contextlib
+import re
+import socket
+
+import pytest
+
+from opencv_opencl_tpu.apps import multi_relay as jax_multi_relay
+from opencv_opencl_tpu.apps import relay as jax_relay
+from opencv_opencl_tpu.io import encoder as jax_encoder
+from opencv_opencl_tpu_torch.apps import multi_relay, relay
+from opencv_opencl_tpu_torch.io import encoder
+
+RELAY_BASE = ["--source=test", "--width=64", "--height=48", "--op=histeq",
+              "--chroma=gray", "--batch=2", "--max-frames=6",
+              "--status-interval=60"]
+MULTI_BASE = ["--streams=2", "--width=64", "--height=48", "--op=histeq",
+              "--chroma=gray", "--batch=2", "--max-frames=4", "--fps=200",
+              "--status-interval=60"]
+
+
+@contextlib.contextmanager
+def catchers(n):
+    """``n`` UDP sockets on 127.0.0.1 at ports ``p, p + 2, ...``."""
+    for _ in range(50):
+        socks = []
+        try:
+            first = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            socks.append(first)
+            first.bind(("127.0.0.1", 0))
+            base = first.getsockname()[1]
+            for i in range(1, n):
+                s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                socks.append(s)
+                s.bind(("127.0.0.1", base + 2 * i))
+        except OSError:
+            for s in socks:
+                s.close()
+            continue
+        for s in socks:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+            s.settimeout(0.2)
+        try:
+            yield base, socks
+        finally:
+            for s in socks:
+                s.close()
+        return
+    raise RuntimeError("no free ports at a stride of 2")
+
+
+def drain(sock):
+    got = []
+    while True:
+        try:
+            got.append(sock.recv(65536))
+        except OSError:
+            return got
+
+
+def _lines(out, *prefixes):
+    return [line for line in out.splitlines() if line.startswith(prefixes)]
+
+
+ENCODERS = {"cavlc": "CavlcH264Encoder", "pcm": "PcmH264Encoder",
+            "cavlc:qp=30:gop=3:search=1": "GopCavlcEncoder"}
+
+
+@pytest.mark.parametrize("spec", list(ENCODERS))
+def test_relay_streams_the_jax_datagrams(spec, capsys):
+    runs = []
+    with catchers(1) as (port, (sock,)):
+        argv = RELAY_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}", f"--encoder={spec}"]
+        for app, extra in ((relay, ["--device=cpu"]), (jax_relay, [])):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            assert "6 frames emitted" in out and "errors=0" in out
+            runs.append((drain(sock), _lines(out, "Encoder:")))
+    assert runs[0] == runs[1]
+    assert len(runs[0][0]) >= 6
+    assert runs[0][1] == [f"Encoder: {ENCODERS[spec]} (h264)"]
+
+
+@pytest.mark.parametrize("spec", ["cavlc", "pcm"])
+def test_multi_relay_streams_the_jax_datagrams_per_stream(spec, capsys):
+    runs = []
+    with catchers(2) as (port, socks):
+        argv = MULTI_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}", f"--encoder={spec}"]
+        for app, extra in ((multi_relay, ["--device=cpu"]), (jax_multi_relay, [])):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            per = re.findall(r"#\d+=(\d+)/(\d+)", out)
+            assert per == [("4", "4")] * 2, out
+            runs.append(([drain(s) for s in socks], _lines(out, "Sinks:")))
+    assert runs[0] == runs[1]
+    assert all(len(d) >= 4 for d in runs[0][0])
+    assert runs[0][1] == [f"Sinks: encoded RTP rtp+h264://127.0.0.1:{port} .. +2 "
+                          f"(encoder={ENCODERS[spec]})"]
+
+
+def test_relay_encoded_sink_writes_the_jax_sdp(tmp_path, capsys):
+    texts = []
+    for app, extra in ((relay, ["--device=cpu"]), (jax_relay, [])):
+        path = tmp_path / f"{app.__name__}.sdp"
+        rc = app.run(RELAY_BASE + ["--max-frames=2", "--encoder=pcm",
+                                   "--sink=rtp+h264://127.0.0.1:15704",
+                                   f"--sdp-file={path}"] + extra)
+        assert rc == 0 and f"SDP written: {path}" in capsys.readouterr().out
+        # the origin line carries a random session id
+        texts.append(re.sub(r"(?m)^o=- \d+ ", "o=- <id> ", path.read_text()))
+    assert texts[0] == texts[1]
+    assert "H264/90000" in texts[0] and "packetization-mode=1" in texts[0]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--sink=rtp+h265://127.0.0.1:56470", "--encoder=cavlc:qp=40"],
+    ["--sink=rtp+h265://127.0.0.1:56470", "--encoder=pcm"],
+    ["--sink=rtp+h265://127.0.0.1:56470"],
+    ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=ffmpeg"],
+    ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=cavlc:qp=99"],
+    ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=nope"],
+    ["--sink=rtp+h264://127.0.0.1:56470", "--rtcp-schedule=cron"],
+    ["--sink=rtp+h264://127.0.0.1:port"],
+], ids=["cavlc_h265", "pcm_h265", "auto_h265", "ffmpeg_missing", "cavlc_qp",
+        "unknown_backend", "rtcp_schedule", "bad_port"])
+@pytest.mark.parametrize("apps", [(relay, jax_relay), (multi_relay, jax_multi_relay)],
+                         ids=["relay", "multi_relay"])
+def test_encoded_sink_refusals_equal_jax(apps, extra, capsys, monkeypatch):
+    """A ValueError of the encoder factory: rc 2 and the same one line."""
+    for mod in (encoder, jax_encoder):
+        monkeypatch.setattr(mod.shutil, "which", lambda name: None)
+    base = RELAY_BASE if apps[0] is relay else MULTI_BASE
+    rc = apps[0].run(base + extra + ["--device=cpu"])
+    got = capsys.readouterr().err
+    assert rc == apps[1].run(base + extra) == 2
+    want = capsys.readouterr().err
+    assert got == want and len(got.strip().splitlines()) == 1
+
+
+# ---------------------------------------- tests/test_flag_matrix.py's rows ----
+
+MATRIX_BASE = ["--source=test", "--width=64", "--height=48", "--fps=30",
+               "--max-frames=2", "--batch=2", "--workers=1", "--status-interval=60",
+               "--device=cpu"]
+NOT_PORTED = "not ported yet"
+MATRIX = [
+    ("plain", ["--sink=null"], 0, None),
+    ("clahe_ref_frame", ["--sink=null", "--op=clahe", "--ref-frame"], 0, None),
+    ("hist_downsample", ["--sink=null", "--op=clahe", "--hist-downsample=2"], 0, None),
+    ("encoded_sink_cavlc", ["--sink=rtp+h264://127.0.0.1:56470",
+                            "--encoder=cavlc:qp=40"], 0, None),
+    ("encoded_cpb", ["--sink=rtp+h264://127.0.0.1:56473", "--bitrate=800",
+                     "--encoder=cavlc:cpb=500"], 0, None),
+    ("encoded_tpu_gop_deblock", ["--sink=rtp+h264://127.0.0.1:56471",
+                                 "--encoder=tpu:qp=40:gop=4:deblock"], 2, NOT_PORTED),
+    ("encoded_tpu_gdr", ["--sink=rtp+h264://127.0.0.1:56472",
+                         "--encoder=tpu:qp=40:gdr=3"], 2, NOT_PORTED),
+    ("encoded_tpu_gdr_search", ["--sink=rtp+h264://127.0.0.1:56481",
+                                "--encoder=tpu:qp=40:gdr=3:search=2"], 2, NOT_PORTED),
+    ("encoded_tpu_fastsub", ["--sink=rtp+h264://127.0.0.1:56482",
+                             "--encoder=tpu:qp=40:gop=4:search=2:fastsub"],
+     2, NOT_PORTED),
+    ("encoded_tpu_parts", ["--sink=rtp+h264://127.0.0.1:56487",
+                           "--encoder=tpu:qp=40:gop=4:search=2:parts"], 2, NOT_PORTED),
+    ("fused_intra", ["--sink=rtp+h264://127.0.0.1:56474", "--encoder=tpu:qp=40",
+                     "--fused-encode"], 2, NOT_PORTED),
+    ("fused_gop", ["--sink=rtp+h264://127.0.0.1:56475", "--encoder=tpu:qp=40:gop=4",
+                   "--fused-encode"], 2, NOT_PORTED),
+    ("fused_bitpack", ["--sink=rtp+h264://127.0.0.1:56483",
+                       "--encoder=tpu:qp=40:gop=4:bitpack", "--fused-encode"],
+     2, NOT_PORTED),
+    ("downsample_x_mesh", ["--sink=null", "--hist-downsample=2", "--mesh=2x1"],
+     2, "not supported"),
+    ("downsample_x_ref", ["--sink=null", "--op=clahe", "--hist-downsample=2",
+                          "--ref-frame"], 2, "not supported"),
+    ("fused_x_null_sink", ["--sink=null", "--fused-encode"], 2, NOT_PORTED),
+    ("fused_mesh_intra", ["--sink=rtp+h264://127.0.0.1:56476", "--encoder=tpu:qp=40",
+                          "--mesh=2x1", "--fused-encode"], 2, NOT_PORTED),
+    ("fused_x_ref_frame", ["--sink=rtp+h264://127.0.0.1:56477", "--op=clahe",
+                           "--ref-frame", "--encoder=tpu:qp=40", "--fused-encode"],
+     2, NOT_PORTED),
+    ("fused_x_cpu_encoder", ["--sink=rtp+h264://127.0.0.1:56478",
+                             "--encoder=cavlc:qp=40", "--fused-encode"], 2, NOT_PORTED),
+]
+
+
+@pytest.mark.parametrize("name,extra,rc,msg", MATRIX, ids=[m[0] for m in MATRIX])
+def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
+    got = relay.run(MATRIX_BASE + extra)
+    err = capsys.readouterr().err
+    assert got == rc, f"{name}: rc {got} != {rc}; stderr: {err[-400:]}"
+    if msg is not None:
+        assert msg in err and len(err.strip().splitlines()) == 1, err
+
+
+SPEC_REFUSALS = [
+    ("cavlc:qp=30:gdr=3:gop=8", "replaces gop"),
+    ("tpu:qp=30:gdr=3:search=2:refs=2", NOT_PORTED),
+    ("tpu:qp=30:cpb=500", NOT_PORTED),
+    ("tpu:gop=8:cpb=500:overlap", NOT_PORTED),
+    ("cavlc:initdelay=100", "initdelay requires cpb"),
+    ("cavlc:qp=30:search=2", "need a gop"),
+    ("tpu:qp=30:halfpel", NOT_PORTED),
+    ("cavlc:qp=30:gop=8:halfpel", "require search"),
+    ("cavlc:qp=30:gop=8:refs=2", "requires search"),
+    ("tpu:qp=30:gop=8:fastsub", NOT_PORTED),
+    ("tpu:qp=30:gop=8:search=2:fastsub:quarterpel", NOT_PORTED),
+]
+
+
+@pytest.mark.parametrize("spec,msg", SPEC_REFUSALS, ids=[s[0] for s in SPEC_REFUSALS])
+def test_encoder_spec_refusals_on_the_port(spec, msg):
+    with pytest.raises(ValueError, match=msg):
+        encoder.make_encoder(spec, 64, 48, bitrate_kbps=400)

@@ -291,7 +291,12 @@ def test_import_scan_tells_module_level_from_lazy_imports(tmp_path):
     for needed in ("apps/relay.py", "apps/multi_relay.py", "apps/_cli.py",
                    "io/videofile.py", "io/rtp.py", "io/rtcp.py", "io/sdp.py",
                    "io/gst.py", "models/presets.py", "runtime/governor.py",
-                   "runtime/mux.py", "__main__.py", "native/__init__.py"):
+                   "runtime/mux.py", "__main__.py", "native/__init__.py",
+                   "io/h264_pcm.py", "io/h264_hrd.py", "io/h264_cavlc.py",
+                   "io/h264_deblock.py", "io/h264_inter.py", "io/rtp_h26x.py",
+                   "io/mp4.py", "io/gst_adapter.py", "io/gst_encoder.py",
+                   "io/encoder.py", "apps/h26x_stream.py",
+                   "apps/rtp_receiver.py"):
         assert needed in paths, needed
 
 

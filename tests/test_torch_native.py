@@ -279,6 +279,25 @@ def test_build_tries_again_without_march_native(tmp_path, monkeypatch):
     assert native._build() == (None, "no g++")
 
 
+def test_a_library_that_will_not_load_leaves_the_runtime_unavailable(
+        tmp_path, monkeypatch):
+    """A file at the hashed path that ``ctypes.CDLL`` refuses (built for
+    another host): ``available()`` is false and ``build_error()`` says why,
+    so every caller takes its Python path."""
+    bad = tmp_path / "libframepipe_0000000000000000.so"
+    bad.write_bytes(b"not an ELF file")
+    monkeypatch.setattr(native, "_build", lambda: (str(bad), None))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_lib_path", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    assert not native.available() and not native.has_cavlc()
+    assert native.loaded_path() is None
+    assert native.build_error().startswith(f"{bad} does not load: ")
+    sink = rtp.RtpUdpSink("127.0.0.1", 9, kind="raw", fps=30.0, rtcp=False)
+    assert sink._use_native is False
+    sink.close()
+
+
 def test_concurrent_builds_leave_one_whole_library(tmp_path, monkeypatch):
     """Builds that start together each write a temporary file and rename
     it: every one gets the same loadable library, no temporary is left."""
@@ -788,8 +807,8 @@ def test_mux_priorities_on_the_ring():
 # ------------------------------------------------------- the raw RTP sink ----
 
 
-def _sink_run(monkeypatch, use_native, frames, mtu=256):
-    monkeypatch.setattr(native, "available", lambda: use_native)
+def _sink_run(monkeypatch, use_native, frames, mtu=256, available=None):
+    monkeypatch.setattr(native, "available", available or (lambda: use_native))
 
     def send(fd, port):
         sink = rtp.RtpUdpSink("127.0.0.1", port, kind="raw", fps=25.0, mtu=mtu,
@@ -855,6 +874,20 @@ def test_rtp_raw_sink_partial_send_skips_the_frame_and_keeps_the_sequence(
     assert calls == [(0, 0), (5, 3000)]
     assert sink.packets == 12 and sink.payloader.seq == 12 and sink.frames == 2
     sink.close()
+
+
+def test_rtp_raw_sink_falls_back_to_python_when_the_library_will_not_load(
+        monkeypatch):
+    """A library file at the hashed path that ``ctypes.CDLL`` refuses makes
+    ``native.available()`` raise ``OSError``: the sink is built on the
+    Python packetizer, as the reference's is, and sends its datagrams."""
+    def broken():
+        raise OSError("libframepipe.so: invalid ELF header")
+
+    frames = list(videofile.TestSource(FrameSpec(width=64, height=48), 2, seed=9))
+    got = _sink_run(monkeypatch, False, frames, available=broken)
+    want = _sink_run(monkeypatch, False, frames)
+    assert got == want and len(got[0]) == 2 * 72
 
 
 # ------------------------------------------------------------- the apps ----
