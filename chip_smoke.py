@@ -11,7 +11,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
             what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1), K2 and
             K1's three instances (``tile_hist_kernel<4>``, also K8's, and
-            ``<2>``, ``<8>`` for K10) (registers, shared memory, spills);
+            ``<2>``, ``<8>`` for K10) and H1 ``intra_levels_kernel``
+            (registers, shared memory, spills);
             the native C++ runtime from ``opencv_opencl_tpu_torch/native``
             (g++; seconds and path), which the relay's last runs need;
 3. kernels  every kernel against its plain PyTorch version on the card,
@@ -48,7 +49,17 @@ Phases, each of which raises (exit code != 0) when it fails:
             multiple and on an unaligned view, against its plain version,
             K1 and K8; K6r (the radix variant, K6's kernel) at 4K b4,
             1080p, 1919x1079 and on a constant frame in place over NV12 Y
-            rows, against its plain version, K6 and K3;
+            rows, against its plain version, K6 and K3; H1 (the intra level
+            stage of the H.264 device encoder) against its plain version,
+            every output (levels, modes, reconstructed planes): at 4K for the
+            default, ``chromah`` and ``full_recon`` at QP 0 and 30 on
+            structured and random content, the default on a constant frame,
+            and Intra_4x4 (with ``full_recon``) and Intra_4x4 + chroma
+            HORIZONTAL at 1920x1088 on all three; then the device encoder's streams: ``tpu`` at 4K equal
+            to ``CavlcH264Encoder(slices=135)`` on the native rows, with and
+            without ``overlap``, and ``tpu:i4:chromah`` at 4K equal to the
+            plain version's levels entropy-coded on the native rows and at
+            256x144 to the Python ``CavlcH264Encoder(slices=9, i4, chromah)``;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -76,7 +87,7 @@ Phases, each of which raises (exit code != 0) when it fails:
             every assembled batch and every position's band compared with
             the single-card ``Enhancer``'s inside each rank; then the relay
             apps as a user starts them, in this process:
-            ``apps.relay.run`` at 3840x2160, batch 4, ``--source=test``, 64
+            ``apps.relay.run`` at 3840x2160, batch 4, ``--source=test``, 48
             frames, for (a) histeq gray to the null sink, (b) CLAHE
             passthrough to a raw NV12 file that is compared frame by frame
             with the plain versions on the same ``TestSource`` frames, (c)
@@ -95,7 +106,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             what it loses; in both every frame the encoder takes must be an
             expected frame, every access unit sent must equal what a new
             encoder makes from those frames, and every access unit received
-            must be the next one sent; the Python CAVLC oracle, in a child
+            must be the next one sent; (i) ``--encoder=tpu`` (H1 on the
+            card, entropy coding on the native rows), received by the
+            ``rtp_receiver`` app, every access unit equal to a new
+            ``CavlcH264Encoder(slices=135)``'s on the frames the encoder
+            took; the Python CAVLC oracle, in a child
             process started before (a), encodes the first two expected
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
@@ -115,7 +130,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             kernel for each step; the relay's and the multi-stream relay's
             own ``Shutdown`` rates (and, in phase 5, the encoded relays'
             host encode ms a 4K frame, and the native CAVLC rows' and the
-            Python oracle's); K10 for each
+            Python oracle's); H1 per 4K frame, default and ``i4:chromah``,
+            beside its plain version and its bound, the levels' copy to the
+            host, the host entropy coding, ``CudaCavlcEncoder.encode`` with
+            and without ``overlap`` and the native ``cavlc`` encoders on the
+            same frames; K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -150,7 +169,7 @@ from opencv_opencl_tpu_torch import native
 from opencv_opencl_tpu_torch.apps import multi_relay, relay
 from opencv_opencl_tpu_torch.io import encoder as encoder_io
 from opencv_opencl_tpu_torch.io import rtp_h26x
-from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder
+from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder, CudaCavlcEncoder
 from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
@@ -170,8 +189,10 @@ from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
 from opencv_opencl_tpu_torch.ops import color
 from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
 from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
+from opencv_opencl_tpu_torch.ops import h264_levels as levels_ops
 from opencv_opencl_tpu_torch.ops import histogram
 from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
 from opencv_opencl_tpu_torch.parallel import launch, sharded
 from opencv_opencl_tpu_torch.runtime.feeder import FrameFeeder
 from opencv_opencl_tpu_torch.utils.envinfo import nvidia_smi_name_power
@@ -223,6 +244,10 @@ KERNELS = (
     ("interp_cells_kernel:radix", "clahe_interpolate_cells_radix",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477:radix"),
+    # H1: the JAX function is an XLA lax.scan (:631), not a Pallas kernel
+    ("intra_levels_kernel", "encode_levels",
+     "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:279"),
 )
 # K8, K3v1, K9, K10 and K6r lie on no path (nor do their TPU kernels on any
 # path of the JAX package): their launches are those of their phase-3 checks
@@ -233,7 +258,9 @@ OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
 K2_LAUNCHES = 200
 # batches per configuration on the spawned 2x2 and 1x4 meshes
 SHARDED_BATCHES = 4
-RELAY_FRAMES = 64
+# frames of relays (a)-(f): 48 since the device encoder's checks came in
+# (64 before), each relay reads TestSource's ~3-5 fps
+RELAY_FRAMES = 48
 MULTI_STREAMS, MULTI_FRAMES = 4, 32
 # the raw RTP receiver's socket buffer: a 4K frame leaves the C++ sender
 # as one burst of ~13,000 datagrams (~30 MB of kernel buffers on loopback)
@@ -249,6 +276,15 @@ ENCODED_FPS, ENCODED_KBPS = 60.0, 20000
 ENCODED_BUFFER = 1 << 27
 ORACLE_FRAMES = 2
 ORACLE_TIMEOUT = 600.0
+# H1's check: the QPs at 4K (0 reaches the level clamp), the QP and the
+# geometry of its Intra_4x4 cases (the plain Intra_4x4 version launches
+# thousands of small ops a MB column: seconds at 1080p), the frames each
+# encoder stream check encodes, and the geometry where the Python oracle
+# holds the Intra_4x4 + chroma HORIZONTAL stream
+INTRA_QPS = (0, 30)
+INTRA_I4_QP, INTRA_I4_SHAPE = 26, (1088, 1920)
+INTRA_FRAMES = 2
+INTRA_ORACLE_SHAPE = (144, 256)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -787,6 +823,125 @@ def phase_radix_cell_kernel(device, rng) -> tuple[int, int]:
               f"(max abs err)", flush=True)
         worst = max(worst, e_plain, e_k6, e_k3)
     return worst, lut.clahe_interpolate_cells.radix_launches
+
+
+def content_nv12(rng, kind: str, h: int, w: int) -> np.ndarray:
+    """One NV12 frame of structured (gradient plus noise), random or
+    constant content."""
+    if kind == "constant":
+        return np.full((h * 3 // 2, w), 77, np.uint8)
+    return nv12_batch(rng, 1, h, w, random_y if kind == "random" else structured_y)[0]
+
+
+def intra_planes(frame: torch.Tensor, h: int):
+    """The Y plane and the interleaved Cb, Cr views of an NV12 frame."""
+    uv = frame[h:].view(h // 2, frame.shape[1] // 2, 2)
+    return frame[:h], uv[:, :, 0], uv[:, :, 1]
+
+
+def intra_outputs(out) -> list[torch.Tensor]:
+    """Every tensor of an ``encode_levels`` result, in order."""
+    arrays = []
+    for o in out:
+        arrays += list(o) if isinstance(o, tuple) else [o]
+    return arrays
+
+
+def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
+    """H1 ``intra_levels_kernel`` against ``encode_levels_plain`` on the
+    card, every output (levels, modes, reconstructed planes): at 4K for the
+    default, ``chromah`` and ``full_recon`` at each of ``INTRA_QPS`` (on a
+    constant frame the default only), and ``i4`` (with ``full_recon``) and
+    ``i4`` + ``chromah`` at 1920x1088, on structured, random and constant
+    content.  Returns the largest absolute difference and the kernel's
+    launches."""
+    levels_kernel.reset_launch_counts()
+    cases = [((HEIGHT, WIDTH), flags, qp)
+             for flags in ({}, {"chromah": True}, {"full_recon": True})
+             for qp in INTRA_QPS]
+    cases += [(INTRA_I4_SHAPE, flags, INTRA_I4_QP)
+              for flags in ({"i4": True, "full_recon": True},
+                            {"i4": True, "chromah": True})]
+    err, checked = 0, 0
+    for kind in ("structured", "random", "constant"):
+        frames = {shape: torch.from_numpy(content_nv12(rng, kind, *shape)).to(device)
+                  for shape in {c[0] for c in cases}}
+        for shape, flags, qp in cases:
+            if kind == "constant" and shape == (HEIGHT, WIDTH) and flags:
+                continue
+            checked += 1
+            planes = intra_planes(frames[shape], shape[0])
+            t0 = time.perf_counter()
+            got = intra_outputs(levels_ops.encode_levels(*planes, qp, **flags))
+            want = intra_outputs(levels_ops.encode_levels_plain(*planes, qp, **flags))
+            check(len(got) == len(want), f"H1 gave {len(got)} outputs, the plain "
+                  f"version {len(want)}")
+            e = max(max_err(a, b) for a, b in zip(got, want))
+            err = max(err, e)
+            print(f"kernel intra_levels_kernel {shape[1]}x{shape[0]} {kind} qp {qp} "
+                  f"{'+'.join(flags) or 'default'}: max abs err {e} over {len(got)} "
+                  f"outputs ({time.perf_counter() - t0:.1f} s with the plain "
+                  f"version)", flush=True)
+    launches = levels_kernel.launch_counts()["encode_levels"]
+    check(launches == checked, f"H1 launched {launches} times for {checked} checks")
+    return err, launches
+
+
+def au_of(nals: list[bytes], parameter_sets: CavlcH264Encoder) -> bytes:
+    """An access unit: the SPS and PPS of ``parameter_sets``, then ``nals``."""
+    return b"".join(b"\x00\x00\x00\x01" + bytes(n) for n in
+                    (parameter_sets._sps, parameter_sets._pps, *nals))
+
+
+def phase_intra_streams(device, rng) -> None:
+    """The device encoder's access units.  ``tpu`` at 4K (QP 30) equals
+    ``CavlcH264Encoder(slices=mb_h)`` on the native C++ rows, with and
+    without ``overlap`` (one frame late, drained by ``flush``).
+    ``tpu:i4:chromah``, whose host oracle is the Python encoder (minutes a
+    4K frame), equals at 4K the access unit entropy-coded on the native
+    rows from the plain version's levels, and at 256x144 the Python
+    ``CavlcH264Encoder(slices=mb_h, i4=True, chromah=True)``."""
+    h, w = HEIGHT, WIDTH
+    frames = [content_nv12(rng, kind, h, w) for kind in ("structured", "random")]
+    frames = frames[:INTRA_FRAMES]
+    ref = CavlcH264Encoder(w, h, qp=30, slices=h // 16, threads=os.cpu_count() or 1,
+                           native="require")
+    want = [au for f in frames for au in ref.encode(f)]
+    for overlap in (False, True):
+        enc = CudaCavlcEncoder(w, h, qp=30, overlap=overlap)
+        check(enc.device.type == "cuda" and enc._native,
+              f"the device encoder is on {enc.device}, native {enc._native}")
+        got = [au for f in frames for au in enc.encode(f)] + enc.flush()
+        check(got == want, f"tpu{':overlap' if overlap else ''} at 4K: access units "
+              f"other than CavlcH264Encoder(slices={h // 16})'s")
+    print(f"stream tpu at 4K: {len(want)} access units ({[len(a) for a in want]} "
+          f"bytes) equal CavlcH264Encoder(slices={h // 16}) on the native rows, "
+          f"with and without overlap", flush=True)
+
+    enc = CudaCavlcEncoder(w, h, qp=30, i4=True, chromah=True)
+    got = enc.encode(frames[0])
+    planes = intra_planes(torch.from_numpy(frames[0]).to(device), h)
+    lv, imode, i4modes, cmode = levels_ops.encode_levels_plain(
+        *planes, 30, i4=True, chromah=True)
+    nals = native.cavlc_entropy_rows(
+        *(a.cpu().numpy() for a in lv), 30, 0, threads=os.cpu_count() or 1,
+        imode=imode.cpu().numpy(), i4modes=i4modes.cpu().numpy(),
+        cmode=cmode.cpu().numpy())
+    i4_mbs = int((imode == 0).sum())
+    check(got == [au_of(nals, ref)] and i4_mbs > 0,
+          f"tpu:i4:chromah at 4K: not the plain version's access unit "
+          f"({i4_mbs} Intra_4x4 MBs)")
+    sh, sw = INTRA_ORACLE_SHAPE
+    small = content_nv12(rng, "structured", sh, sw)
+    oracle = CavlcH264Encoder(sw, sh, qp=26, slices=sh // 16, i4=True, chromah=True,
+                              native="never")
+    check(CudaCavlcEncoder(sw, sh, qp=26, i4=True, chromah=True).encode(small)
+          == oracle.encode(small), f"tpu:i4:chromah at {sw}x{sh}: access units other "
+          f"than the Python oracle's")
+    print(f"stream tpu:i4:chromah: at 4K equal to the plain version's levels on the "
+          f"native rows ({len(got[0])} bytes, {i4_mbs} Intra_4x4 MBs), at {sw}x{sh} "
+          f"to the Python CavlcH264Encoder(slices={sh // 16}, i4, chromah)",
+          flush=True)
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -1417,15 +1572,18 @@ def free_udp_port() -> int:
 
 def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
                   tmp: str) -> tuple[float, dict]:
-    """Configurations (g) and (h): CLAHE passthrough to
+    """Configurations (g), (h) and (i): CLAHE passthrough to
     ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
-    each frame enhanced by K1, K2 and K3 on the card and encoded on the host.
-    (g) (``cavlc``) is received by the port's ``rtp_receiver`` app in a child
-    process, which must record every access unit; (h) (``pcm``) by an
-    ``H26xRtpReceiver`` thread, which counts what it loses.  The sink's
-    encoder is watched: each frame it takes must be one of the expected
-    frames, in order, and the access units it sends must equal those a new
-    encoder of the same spec makes from those expected frames."""
+    each frame enhanced by K1, K2 and K3 on the card, then encoded on the
+    host ((g) ``cavlc``, (h) ``pcm``) or by H1 on the card and entropy-coded
+    on the host ((i) ``tpu``).  (g) and (i) are received by the port's
+    ``rtp_receiver`` app in a child process, which must record every access
+    unit; (h) by an ``H26xRtpReceiver`` thread, which counts what it loses.
+    The sink's encoder is watched: each frame it takes must be one of the
+    expected frames, in order, and the access units it sends must equal
+    those a new encoder of the same spec makes from those expected frames
+    ((i): a new ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the
+    host oracle of the device encoder; rate control is the same)."""
     fingerprints = {hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
     made, inputs, sent, encode_s = [], [], [], []
     build = encoder_io.encoded_rtp_sink_from_url
@@ -1452,7 +1610,8 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
         sink.au_tap = sent.append
         return sink
 
-    by_app = spec.startswith("cavlc")
+    by_app = spec.startswith(("cavlc", "tpu"))
+    device_encoder = spec.startswith("tpu")
     out = os.path.join(tmp, f"{label}.h264")
     port = free_udp_port() if by_app else None
     catcher = None if by_app else AccessUnitCatcher()
@@ -1508,6 +1667,12 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
               f"{label}: the native CAVLC rows did not build: {native.build_error()}")
         check(enc._native and not enc.i4 and not enc.chromah,
               f"{label}: the sink's encoder is not on the native CAVLC rows")
+    if device_encoder:
+        check(isinstance(enc, CudaCavlcEncoder) and enc.device.type == "cuda",
+              f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
+        check(counts["encode_levels"] == len(encode_s) > 0,
+              f"{label}: H1 launched {counts['encode_levels']} times for "
+              f"{len(encode_s)} frames encoded")
     check(all(per > 0 for per in (counts["tile_histograms"], counts["build_luts"],
                                   counts["clahe_interpolate"])),
           f"{label} launched no K1, K2 or K3: {counts}")
@@ -1515,8 +1680,13 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
           and inputs == sorted(set(inputs)),
           f"{label}: the encoder took frames {inputs} of the expected ones "
           f"({emitted} emitted)")
-    ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
-                                  bitrate_kbps=kwargs["bitrate_kbps"])
+    if device_encoder:
+        ref = CavlcH264Encoder(w, h, qp=30, bitrate_kbps=kwargs["bitrate_kbps"],
+                               fps=kwargs["fps"], slices=-(-h // 16),
+                               threads=os.cpu_count() or 1, native="require")
+    else:
+        ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
+                                      bitrate_kbps=kwargs["bitrate_kbps"])
     expected = [au for k in inputs for au in ref.encode(want[k])] + ref.flush()
     check(sent == expected, f"{label}: the sink sent access units other than "
           f"those a new encoder makes from the expected frames")
@@ -1622,11 +1792,14 @@ def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
                   ("tile_histograms", "build_luts", "clahe_interpolate")),
               f"{name} launched no K1, K2 or K3: {per_path[name]}")
 
-    # (g) and (h): the encoded RTP sinks, CAVLC on the native C++ rows and
-    # lossless I_PCM, encoded on the host after K1, K2 and K3 on the card
+    # (g), (h) and (i): the encoded RTP sinks, CAVLC on the native C++ rows
+    # and lossless I_PCM, encoded on the host after K1, K2 and K3 on the
+    # card, and the device intra encoder (H1 on the card, entropy coding on
+    # the native rows)
     encoded = {}
     for name, spec in (("relay_g_clahe_rtp_h264_cavlc", "cavlc"),
-                       ("relay_h_clahe_rtp_h264_pcm", "pcm")):
+                       ("relay_h_clahe_rtp_h264_pcm", "pcm"),
+                       ("relay_i_clahe_rtp_h264_tpu", "tpu")):
         rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp)
         per_path[name] = encoded[name]["counts"]
         print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
@@ -2080,6 +2253,98 @@ def phase_timings(device, rng, card: str) -> dict[str, dict]:
     return times
 
 
+def intra_ops(mb_h: int, mb_w: int, i4: bool = False, chromah: bool = False) -> int:
+    """Integer operations H1's arithmetic needs for one frame, counted from
+    the algorithm, not from the kernel's threads: a 2-D 4x4 transform is 8
+    one-dimensional ones of 10 operations; a quantization 6 (abs, multiply,
+    add, shift, sign, clamp), a cost term 3, a dequantization 2, a
+    reconstructed pixel 3 (add, two clamps); every candidate is evaluated,
+    whatever the data, so the count does not depend on it."""
+    block = 80
+    luma = 2 * (16 * block + 256 * 6 + 256 * 3 + 16 * 6)     # DC and HORIZONTAL
+    chroma = (8 * block + 128 * 6 + 128 * 3 + 8 * 6) * (2 if chromah else 1)
+    recon = 24 * block + 384 * 2 + 384 * 3
+    trial = 0
+    if i4:
+        per_mode = 16 * 4 + block + 16 * 6 + 16 * 3        # predict, transform, quantize, cost
+        trial = 16 * (9 * per_mode + block + 16 * 5)       # 16 sub-blocks, reconstruction
+    return mb_h * mb_w * (luma + chroma + recon + trial)
+
+
+def intra_timings(device, rng, card: str) -> dict[str, dict]:
+    """H1 per 4K frame (device alone), default and ``i4:chromah``, beside
+    the plain version and the bound; the levels' copy to pinned host
+    memory; the host entropy coding on the native rows (every host thread);
+    ``CudaCavlcEncoder.encode`` with and without ``overlap``; and the native
+    ``cavlc`` encoder on the same frames, on one core (relay (g)'s) and on
+    ``mb_h`` slices over every thread.  No single PyTorch call computes the
+    function: library ms is none."""
+    h, w = HEIGHT, WIDTH
+    mb_h, mb_w = h // 16, w // 16
+    threads = os.cpu_count() or 1
+    frames = [content_nv12(rng, kind, h, w) for kind in ("structured", "random")]
+    frame = torch.from_numpy(frames[0]).to(device)
+    planes = intra_planes(frame, h)
+    times = {}
+    for flags in ({}, {"i4": True, "chromah": True}):
+        out = torch.empty(levels_kernel.level_words(mb_h, mb_w, **flags),
+                          dtype=torch.int16, device=device)
+        ms = device_ms(lambda: levels_kernel.intra_levels(*planes, 30, out, **flags))
+        moved = frame.numel() + nbytes(out)
+        bound_ms, bound_by = bound(moved, intra_ops(mb_h, mb_w, **flags))
+        label = "+".join(flags) or "default"
+        print(f"time intra_levels_kernel 4K {label}: {ms:.4f} ms on the device "
+              f"(bound {bound_ms:.4f} ms by {bound_by}: {moved} bytes, "
+              f"{intra_ops(mb_h, mb_w, **flags)} operations) [{card}]", flush=True)
+        if not flags:
+            plain_ms = time_ms(lambda: levels_ops.encode_levels_plain(*planes, 30),
+                               reps=3, warmup=1)
+            times["intra_levels_kernel"] = {"ms": ms, "plain_ms": plain_ms,
+                                            "library_ms": None, "bound_ms": bound_ms,
+                                            "bound_by": bound_by}
+            print(f"time intra_levels_kernel plain version 4K: {plain_ms:.1f} ms "
+                  f"[{card}]", flush=True)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            d2h = device_ms(lambda: host.copy_(out, non_blocking=True))
+            print(f"time intra levels D2H 4K: {d2h:.4f} ms for {nbytes(out)} bytes "
+                  f"into pinned memory [{card}]", flush=True)
+            parts = levels_kernel.split_levels(host.numpy(), mb_h, mb_w)
+            # the encoder's own way: a workspace kept between frames (its
+            # scratch is ~200 MB at 4K), after one call that makes it
+            workspace, entropy = {}, []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                native.cavlc_entropy_rows(parts["zdc"], parts["acz"], parts["czdc"],
+                                          parts["cacz"], 30, 0, threads=threads,
+                                          workspace=workspace, imode=parts["imode"])
+                entropy.append(1e3 * (time.perf_counter() - t0))
+            print(f"time intra entropy 4K on the native rows, {threads} threads: "
+                  f"{statistics.median(entropy[1:]):.1f} ms (median of 5, the "
+                  f"workspace made by a first call of {entropy[0]:.1f} ms) [{card}]",
+                  flush=True)
+    encode = {}
+    for name, make in (
+            ("tpu", lambda: CudaCavlcEncoder(w, h, qp=30)),
+            ("tpu:overlap", lambda: CudaCavlcEncoder(w, h, qp=30, overlap=True)),
+            ("tpu:i4:chromah", lambda: CudaCavlcEncoder(w, h, qp=30, i4=True,
+                                                        chromah=True)),
+            ("cavlc (one core, relay (g))", lambda: CavlcH264Encoder(w, h, qp=30)),
+            (f"cavlc:slices={mb_h} ({threads} threads)",
+             lambda: CavlcH264Encoder(w, h, qp=30, slices=mb_h, threads=threads))):
+        enc, per = make(), []
+        reps = 3 if name.startswith("cavlc") else 8
+        enc.encode(frames[1])
+        for k in range(reps):
+            t0 = time.perf_counter()
+            enc.encode(frames[k % 2])
+            per.append(1e3 * (time.perf_counter() - t0))
+        enc.flush()
+        encode[name] = statistics.median(per)
+    print("time encode a 4K frame, host ms (median): " + ", ".join(
+        f"{name} {ms:.1f}" for name, ms in encode.items()) + f" [{card}]", flush=True)
+    return times
+
+
 def phase_profile(device, rng) -> None:
     """Device time by kernel over ten 4K batch-4 steps of each path
     (torch.profiler)."""
@@ -2138,7 +2403,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
-                                     "tile_hist_kernel")):
+                                     "tile_hist_kernel", "intra_levels_kernel")):
         print(f"ptxas {line}", flush=True)
     t0 = time.perf_counter()
     check(native.available(), f"the native runtime did not build: "
@@ -2167,7 +2432,9 @@ def main() -> int:
     errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
                                    band_errs.pop("tile_hist_kernel"))
     errs.update(band_errs)
+    errs["intra_levels_kernel"], _ = phase_intra_levels_kernel(device, rng)
     check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
+    phase_intra_streams(device, rng)
 
     phase_golden(device, rng)                              # phase 4
     phase_golden_slice3(device, rng)
@@ -2196,6 +2463,7 @@ def main() -> int:
                 launches[wrapper] = off_path_launches[wrapper]
 
             times = phase_timings(device, rng, card)       # phase 6
+            times.update(intra_timings(device, rng, card))
             for name, ms in rank_ms.items():
                 print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
                       f"upload included, four processes on one card: "

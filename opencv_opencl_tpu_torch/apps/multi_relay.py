@@ -11,7 +11,7 @@ Usage:
       [--source=test|<video file>]      # one source replicated per stream
       [--sink=null|rtp://host:port|rtp+raw://host:port|rtp+h264://host:port|rtp+h265://host:port]
                          # rtp: stream i goes to port+2*i
-      [--encoder=auto|pcm|cavlc[:...]|ffmpeg|gi]  # for rtp+h26x sinks:
+      [--encoder=auto|pcm|cavlc[:...]|tpu[:...]|ffmpeg|gi]  # for rtp+h26x sinks:
                          # one encoder + RTP session per stream
       [--status-interval=2]
       [--mesh=auto|DxS]  # several cards: shard the stream batch over a
@@ -39,9 +39,13 @@ each relay binary owns one stream.
 RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
-Not ported yet, refused with return code 2: ``--encoder=tpu...`` with an
-encoded sink (the H.264 device encoders).  ``--encoder`` is read only for
-an encoded sink, as in the JAX package, and ignored otherwise.  ``--mesh``
+Not ported yet, refused with return code 2: with an encoded sink the
+device GOP/GDR encoder and bit packer (``--encoder=tpu:gop=N`` with N > 1,
+``tpu:gdr=N``, ``tpu:bitpack``: the encoder factory's one line); the intra
+device encoder (``--encoder=tpu[:i4][:chromah][:overlap]``,
+``CudaCavlcEncoder``, one per stream) runs on ``--device``.  ``--encoder``
+is read only for an encoded sink, as in the JAX package, and ignored
+otherwise.  ``--mesh``
 takes a mesh of one position (``1x1`` or ``auto``) here: the mux cuts
 batches by arrival, which several ranks would not do alike.
 """
@@ -77,7 +81,7 @@ def run(argv: list[str]) -> int:
     if "max-rate" in opts and opts["max-rate"] <= 0:
         print("--max-rate must be > 0", file=sys.stderr)
         return 2
-    refusal = not_ported(opts, opts.get("sink", "null"))
+    refusal = not_ported(opts)
     if refusal is not None:
         print(refusal, file=sys.stderr)
         return 2
@@ -180,7 +184,7 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
                     sink_spec, spec.width, spec.height, fps=fps,
                     backend=opts.get("encoder", "auto"),
                     rtcp_schedule=opts.get("rtcp-schedule", "tick"),
-                    port_offset=2 * s))
+                    port_offset=2 * s, device=device))
         except ValueError as e:
             for snk in sinks:
                 snk.close()

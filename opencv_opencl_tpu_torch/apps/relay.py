@@ -17,10 +17,12 @@ Usage:
                    # (encoded RFC 6184/7798 — the full reference emit
                    # chain, encoder chosen via --encoder); *.nv12 / *.raw
                    # files take the raw frames
-      [--encoder=auto|pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N][:search=R][:halfpel|:quarterpel|:fastsub]|ffmpeg|gi]
+      [--encoder=auto|pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N][:search=R][:halfpel|:quarterpel|:fastsub]|tpu[:qp=N][:i4][:chromah][:overlap]|ffmpeg|gi]
                    # encoder for rtp+h26x sinks (io.encoder; pcm = in-repo
                    # lossless I_PCM, cavlc = in-repo compressed, both with
-                   # the C++ fast path of the port's native library)
+                   # the C++ fast path of the port's native library; tpu =
+                   # the intra CAVLC encoder with its arithmetic on the
+                   # card, on --device, entropy coding on the host)
       [--hist-downsample=N]  # APPROXIMATE throughput mode: histograms
                    # from every Nth row, counts rescaled (selective
                    # downsampling, arXiv:1709.04583); default 1 = exact
@@ -57,11 +59,15 @@ the Python queue takes over, as in the JAX package, and the started line
 says ``staging=python queue``).  It composes with ``--mesh``: the ring too
 gives the feeder whole batches only.
 
-Not ported yet, refused with return code 2: ``--encoder=tpu...`` with an
-encoded sink and ``--fused-encode`` (the H.264 device encoders), and
-``--io=gst``.  ``--encoder`` is read only for an encoded sink, as in the
-JAX package: with any other sink it is ignored.  The encoded sinks encode
-on the host, after the card has enhanced the frames.
+Not ported yet, refused with return code 2: ``--fused-encode`` (the fused
+enhance + encode program), ``--io=gst``, and with an encoded sink the
+device GOP/GDR encoder and bit packer (``--encoder=tpu:gop=N`` with N > 1,
+``tpu:gdr=N``, ``tpu:bitpack``: the encoder factory's one line).
+``--encoder`` is read only for an encoded sink, as in the JAX package: with
+any other sink it is ignored.  The encoded sinks encode after the card has
+enhanced the frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` (the intra
+encoder, ``CudaCavlcEncoder``) on ``--device`` with its entropy coding on
+the host.  The ``Encoder:`` line names the port's class.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -88,15 +94,11 @@ _NOT_PORTED = {
 }
 
 
-def not_ported(opts: dict, sink: str) -> str | None:
-    """The one-line refusal for a flag or sink this package does not have
-    yet, or None."""
+def not_ported(opts: dict) -> str | None:
+    """The one-line refusal for a flag this package does not have yet, or
+    None (the encoder factory refuses the device encoders not ported)."""
     what = None
-    encoder = opts.get("encoder", "auto")
-    if (sink.startswith(("rtp+h264://", "rtp+h265://"))
-            and (encoder == "tpu" or encoder.startswith("tpu:"))):
-        what = f"--encoder={encoder} (the H.264 device encoders)"
-    elif opts.get("io") == "gst":
+    if opts.get("io") == "gst":
         what = "--io=gst (the GStreamer appsink/appsrc bridge)"
     else:
         for key, text in _NOT_PORTED.items():
@@ -173,7 +175,7 @@ def run(argv: list[str]) -> int:
     if "max-rate" in opts and opts["max-rate"] <= 0:
         print("--max-rate must be > 0", file=sys.stderr)
         return 2
-    refusal = not_ported(opts, opts.get("sink", "null"))
+    refusal = not_ported(opts)
     if refusal is not None:
         print(refusal, file=sys.stderr)
         return 2
@@ -283,7 +285,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     elif sink_path.startswith(("rtp+h264://", "rtp+h265://")):
         # full reference emit chain: encode -> RFC 6184/7798 payload ->
         # UDP (OpenCVequalHist.cpp:308-332), behind the pluggable
-        # encoder boundary (io.encoder: pcm | cavlc | ffmpeg | gi | auto)
+        # encoder boundary (io.encoder: pcm | cavlc | tpu | ffmpeg | gi |
+        # auto)
         from opencv_opencl_tpu_torch.io.encoder import encoded_rtp_sink_from_url
 
         es_codec = "h264" if sink_path.startswith("rtp+h264://") else "h265"
@@ -291,7 +294,7 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             sink = encoded_rtp_sink_from_url(
                 sink_path, spec.width, spec.height, fps=fps,
                 bitrate_kbps=bitrate, backend=opts.get("encoder", "auto"),
-                rtcp_schedule=opts.get("rtcp-schedule", "tick"))
+                rtcp_schedule=opts.get("rtcp-schedule", "tick"), device=device)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 2

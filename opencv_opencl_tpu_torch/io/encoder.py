@@ -12,9 +12,13 @@ Hosts differ in what encoder they offer, so the relay's
   ``--bitrate`` via closed-loop QP adaptation; ``cavlc:qp=N`` fixes the
   quantizer, ``:slices=M`` splits frames into M independent slice bands
   (threaded on multi-core hosts, like the reference's num-slices=8).
-- ``tpu``    — the CAVLC encoder with its arithmetic on the accelerator
-  (the JAX package's ``TpuCavlcEncoder``/``TpuGopEncoder``): not ported
-  yet, ``make_encoder`` raises ``ValueError``.
+- ``tpu``    — the CAVLC encoder with its arithmetic on the card
+  (io.h264_cavlc.CudaCavlcEncoder, the JAX package's ``TpuCavlcEncoder``:
+  prediction, transforms and quantization in one kernel launch a frame,
+  entropy coding on every host thread); ``:i4``, ``:chromah``,
+  ``:overlap``, ``:deblock``, ``:cpb=``, ``:initdelay=`` as in the JAX
+  package.  ``:gop=N`` (N > 1), ``:gdr=N`` (``TpuGopEncoder``) and
+  ``:bitpack`` are not ported yet: ``make_encoder`` raises ``ValueError``.
 - ``ffmpeg`` — an external ``ffmpeg`` process fed raw NV12 on stdin,
   Annex-B H.264/H.265 on stdout (x264-class compression when the host
   ships ffmpeg).
@@ -33,8 +37,10 @@ Access units carry 4-byte start codes, ready for
 :class:`opencv_opencl_tpu_torch.io.rtp_h26x.H26xRtpSink`.
 
 The port's own copy of ``opencv_opencl_tpu/io/encoder.py``: the same
-backends but ``tpu``, and no ``EncodedRtpSink.write_packed`` (the fused
-enhance + encode program's entry, not ported yet).
+backends, ``tpu`` intra only (its class is ``CudaCavlcEncoder``, where the
+JAX package names ``TpuCavlcEncoder``), and no
+``EncodedRtpSink.write_packed`` (the fused enhance + encode program's
+entry, not ported yet).
 """
 
 from __future__ import annotations
@@ -261,12 +267,14 @@ def encoded_rtp_sink_from_url(url: str, width: int, height: int, *,
                               fps: float = 30.0, bitrate_kbps: int = 2000,
                               backend: str = "auto",
                               rtcp_schedule: str = "tick",
-                              port_offset: int = 0) -> EncodedRtpSink:
+                              port_offset: int = 0,
+                              device=None) -> EncodedRtpSink:
     """Parse ``rtp+h264://host:port`` / ``rtp+h265://...`` and build the
     full encoded emit chain — the ONE construction every app shares
     (relay, multi_relay, clahe_video), so validation and option
     forwarding cannot drift between them.  Raises ValueError with a
-    user-facing message on a bad scheme/schedule/backend."""
+    user-facing message on a bad scheme/schedule/backend.  ``device`` goes
+    to :func:`make_encoder`."""
     if rtcp_schedule not in ("tick", "rfc3550"):
         raise ValueError(
             f"rtcp-schedule={rtcp_schedule!r} invalid: tick|rfc3550")
@@ -282,15 +290,19 @@ def encoded_rtp_sink_from_url(url: str, width: int, height: int, *,
     except ValueError:
         raise ValueError(f"bad host:port in {url!r}")
     enc = make_encoder(backend, width, height, fps=fps, codec=codec,
-                       bitrate_kbps=bitrate_kbps)
+                       bitrate_kbps=bitrate_kbps, device=device)
     return EncodedRtpSink(enc, host, port + port_offset, fps=fps,
                           rtcp_schedule=rtcp_schedule)
 
 
 def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
-                 codec: str = "h264", bitrate_kbps: int = 2000) -> Any:
+                 codec: str = "h264", bitrate_kbps: int = 2000, *,
+                 device=None) -> Any:
     """Build a FrameEncoder; ``backend`` is
-    pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N]|ffmpeg|gi|auto.
+    pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N]|tpu[:qp=N][:i4]...|ffmpeg|gi|auto.
+
+    ``device`` is where the ``tpu`` encoder runs (default: the card; "cpu"
+    runs its kernel's plain version); the other backends do not read it.
 
     ``auto`` tries each available backend IN ORDER and falls through on
     construction failure (e.g. python-gi present but the encoder element
@@ -303,7 +315,8 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
         for cand in candidates:
             try:
                 return make_encoder(cand, width, height, fps=fps,
-                                    codec=codec, bitrate_kbps=bitrate_kbps)
+                                    codec=codec, bitrate_kbps=bitrate_kbps,
+                                    device=device)
             except Exception as e:  # element missing, process spawn, ...
                 errors.append(f"{cand}: {e}")
         raise ValueError(
@@ -472,9 +485,130 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
                                 bitrate_kbps=bitrate_kbps, fps=fps,
                                 **kw)
     if backend == "tpu" or backend.startswith("tpu:"):
-        # the CAVLC encoders with their arithmetic on the accelerator
-        # (TpuCavlcEncoder, TpuGopEncoder) have no counterpart here yet
-        raise ValueError(f"--encoder={backend}: not ported yet")
+        # the CAVLC encoder with its arithmetic on the card (one launch of
+        # the intra level kernel a frame, ops/h264_levels.py); the host
+        # does entropy coding only.  Streams are byte-identical to
+        # cavlc:slices=<mb rows>.  The GOP/GDR encoder and the device bit
+        # packer are not ported yet.
+        if codec != "h264":
+            raise ValueError("the TPU CAVLC encoder is h264-only")
+        from opencv_opencl_tpu_torch.io.h264_cavlc import CudaCavlcEncoder
+
+        qp = None
+        gop = None
+        gdr = 0
+        overlap = False
+        search = 0
+        refs = 1
+        halfpel = False
+        quarterpel = False
+        fastsub = False
+        parts = False
+        bitpack = False
+        deblock = False
+        i4 = False
+        chromah = False
+        cpb_ms = None
+        initdelay_ms = None
+        for opt in backend.split(":")[1:]:
+            key, _, val = opt.partition("=")
+            if key == "overlap" and not val:
+                overlap = True
+                continue
+            if key in ("cpb", "initdelay") and val:
+                try:
+                    ms = int(val)
+                except ValueError:
+                    raise ValueError(f"bad tpu {key} in {backend!r}")
+                if key == "cpb":
+                    cpb_ms = ms
+                else:
+                    initdelay_ms = ms
+                continue
+            if key == "halfpel" and not val:
+                halfpel = True
+                continue
+            if key == "quarterpel" and not val:
+                quarterpel = True
+                continue
+            if key == "fastsub" and not val:
+                fastsub = True
+                continue
+            if key == "bitpack" and not val:
+                bitpack = True
+                continue
+            if key == "parts" and not val:
+                parts = True
+                continue
+            if key == "deblock" and not val:
+                deblock = True
+                continue
+            if key == "i4" and not val:
+                i4 = True
+                continue
+            if key == "chromah" and not val:
+                chromah = True
+                continue
+            if key == "gop" and val:
+                try:
+                    gop = int(val)
+                except ValueError:
+                    raise ValueError(f"bad tpu gop in {backend!r}")
+                if gop < 1:
+                    raise ValueError(f"tpu gop must be >= 1, got {gop}")
+                continue
+            if key == "gdr" and val:
+                try:
+                    gdr = int(val)
+                except ValueError:
+                    raise ValueError(f"bad tpu gdr in {backend!r}")
+                if gdr < 1:
+                    raise ValueError(f"tpu gdr must be >= 1, got {gdr}")
+                continue
+            if key == "search" and val:
+                try:
+                    search = int(val)
+                except ValueError:
+                    raise ValueError(f"bad tpu search in {backend!r}")
+                continue
+            if key == "refs" and val:
+                try:
+                    refs = int(val)
+                except ValueError:
+                    raise ValueError(f"bad tpu refs in {backend!r}")
+                continue
+            if key != "qp" or not val:
+                raise ValueError(
+                    f"bad tpu option {opt!r} (qp=N|gop=N|gdr=N|"
+                    "search=N|refs=N|cpb=MS|initdelay=MS|halfpel|"
+                    "quarterpel|fastsub|parts|deblock|bitpack|"
+                    "overlap|i4|chromah)")
+            try:
+                qp = int(val)
+            except ValueError:
+                raise ValueError(f"bad tpu qp in {backend!r}")
+            if not 0 <= qp <= 51:
+                raise ValueError(f"tpu qp must be 0..51, got {qp}")
+        if gdr and gop is not None:
+            raise ValueError(
+                "tpu gdr=N replaces gop=N (GDR streams have no "
+                "periodic IDR) — give one or the other")
+        if gdr or (gop is not None and gop > 1) or bitpack:
+            # the GOP/GDR encoder with device-resident reconstruction and
+            # the device bit packer have no counterpart here yet
+            raise ValueError(f"--encoder={backend}: not ported yet")
+        if (search or halfpel or quarterpel or fastsub or parts
+                or refs > 1):
+            raise ValueError(
+                "tpu search=N/halfpel/quarterpel/fastsub/parts need a "
+                "gop=N option (motion search is a P-frame feature)")
+        kw = dict(overlap=overlap, deblock=deblock, cpb_ms=cpb_ms,
+                  initial_delay_ms=initdelay_ms, i4=i4, chromah=chromah,
+                  device=device)
+        if qp is not None:
+            return CudaCavlcEncoder(width, height, qp=qp, **kw)
+        return CudaCavlcEncoder(width, height, qp=30,
+                                bitrate_kbps=bitrate_kbps, fps=fps, **kw)
     if backend == "ffmpeg":
         if not shutil.which("ffmpeg"):
             raise ValueError("ffmpeg not on PATH (try --encoder=pcm)")

@@ -32,8 +32,11 @@ Layout/infrastructure (bit writer, SPS, escaping, start codes) is
 shared with io.h264_pcm.
 
 The port's own copy of ``opencv_opencl_tpu/io/h264_cavlc.py`` up to
-``CavlcH264Encoder``: the same bytes. ``TpuCavlcEncoder`` (the level
-stage on the accelerator) is not ported yet.
+``CavlcH264Encoder``: the same bytes.  ``CudaCavlcEncoder`` is the port's
+counterpart of ``TpuCavlcEncoder``: the level stage on the card
+(ops/h264_levels.py), without the device bit packer (``bitpack``) and
+without ``encode_from_packed`` (the fused enhance + encode program), which
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from opencv_opencl_tpu_torch.io.h264_pcm import (
     build_sps,
 )
 
-__all__ = ["CavlcH264Encoder", "encode_frame_cavlc",
+__all__ = ["CavlcH264Encoder", "CudaCavlcEncoder", "encode_frame_cavlc",
            "encode_frame_cavlc_slices", "encode_frame_from_levels",
            "build_pps_cavlc"]
 
@@ -1384,8 +1387,8 @@ class CavlcH264Encoder:
     def _encode_nals(self, padded: np.ndarray, w16: int, h16: int,
                      idr: int, qp: int) -> list[bytes]:
         """Produce the slice NALs of one padded frame (the overridable
-        compute stage — the JAX package's TpuCavlcEncoder replaces it
-        with the TPU level computation)."""
+        compute stage — CudaCavlcEncoder replaces it with the level
+        computation on the card)."""
         if self._native and not self.i4 and not self.chromah:
             # the native C++ rows do not speak Intra_4x4 / chroma
             # HORIZONTAL yet — those flags take the tested Python
@@ -1455,3 +1458,178 @@ class CavlcH264Encoder:
     def close(self) -> None:
         pass
 
+
+
+class CudaCavlcEncoder(CavlcH264Encoder):
+    """CAVLC intra encoder with the arithmetic on the card (the JAX
+    package's ``TpuCavlcEncoder``).
+
+    The compute stage (prediction, 4x4 transforms, DC Hadamards,
+    quantization, edge reconstruction) is one launch of
+    ``intra_levels_kernel`` (ops/h264_levels.py: one thread block per MB
+    row walking its columns); the host does entropy coding only (native
+    ``fp_cavlc_entropy_rows`` on every host thread, or the Python fallback
+    where the library does not build).  Streams are byte-identical to
+    ``CavlcH264Encoder(slices=mb_h)``: one IDR slice per MB row, the
+    granularity that makes rows independent on the card.
+
+    It runs on the card unless ``device="cpu"`` (the plain PyTorch version
+    of the kernel, for the tests); with no device and no card it raises.
+    ``encode`` takes host NV12 as every encoder does: the frame goes up
+    through a pinned buffer, the levels of the frame (one int16 buffer,
+    ~0.8 KB a MB) come back into another.
+
+    ``overlap=True`` adds a depth-1 software pipeline: ``encode`` launches
+    the frame's kernel and its levels' copy to the host, records an event,
+    and returns the access unit of the PREVIOUS frame, whose event it waits
+    on, so the card computes frame N while the host entropy-codes frame N-1.
+    The stream gains exactly one frame of latency (``flush`` drains the
+    tail) and the closed-loop rate control reacts one frame later; the
+    emitted bytes per frame are unchanged.
+
+    ``bitpack`` (the device bit packer) is not ported yet: it raises.
+    """
+
+    def __init__(self, width: int, height: int, qp: int = 30,
+                 bitrate_kbps: int | None = None, fps: float = 30.0,
+                 native: str = "auto", threads: int = 0,
+                 overlap: bool = False, deblock: bool = False,
+                 bitpack: bool = False, cpb_ms: int | None = None,
+                 initial_delay_ms: int | None = None,
+                 i4: bool = False, chromah: bool = False,
+                 device=None) -> None:
+        if bitpack:
+            raise ValueError("bitpack (the device bit packer): not ported yet")
+        h16 = -(-height // 16) * 16
+        if threads == 0:
+            import os
+
+            threads = os.cpu_count() or 1
+        if overlap and cpb_ms is not None:
+            raise ValueError(
+                "cpb does not compose with overlap (the CPB re-encode "
+                "loop is synchronous per frame)")
+        super().__init__(width, height, qp=qp, bitrate_kbps=bitrate_kbps,
+                         fps=fps, native=native, slices=h16 // 16,
+                         threads=threads, deblock=deblock,
+                         cpb_ms=cpb_ms,
+                         initial_delay_ms=initial_delay_ms, i4=i4,
+                         chromah=chromah)
+        import torch
+
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CudaCavlcEncoder runs on the card and torch.cuda.is_available() "
+                "is false; device='cpu' runs the kernel's plain version")
+        self._overlap = bool(overlap)
+        self._pending = None  # (levels handle, idr, qp)
+        # on the card: two (pinned upload, pinned levels, event) slots, so
+        # that frame N+1 goes up while frame N's levels are entropy-coded
+        self._slots: list[dict] = []
+        self._flip = 0
+
+    def _card_buffers(self, rows: int, w16: int, words: int) -> None:
+        import torch
+
+        dev = self.device
+        self._dev_frame = torch.empty((rows, w16), dtype=torch.uint8, device=dev)
+        self._dev_levels = torch.empty(words, dtype=torch.int16, device=dev)
+        self._slots = [{"frame": torch.empty((rows, w16), dtype=torch.uint8,
+                                             pin_memory=True),
+                        "levels": torch.empty(words, dtype=torch.int16,
+                                              pin_memory=True),
+                        "event": None} for _ in range(2)]
+
+    def _dispatch_levels(self, padded: np.ndarray, w16: int, h16: int,
+                         qp: int):
+        """Start the level computation of one padded frame: (event or
+        None, the levels by name as host arrays, valid once the event has
+        completed)."""
+        import torch
+
+        from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
+
+        mb_h, mb_w = h16 // 16, w16 // 16
+        if self.device.type != "cuda":
+            frame = torch.from_numpy(np.array(padded, copy=True)).to(self.device)
+            uv = frame[h16:].reshape(h16 // 2, w16 // 2, 2)
+            lv, *rest = kernel.encode_levels(frame[:h16], uv[:, :, 0],
+                                             uv[:, :, 1], qp, i4=self.i4,
+                                             chromah=self.chromah)
+            names = ["imode"] + ["i4modes"] * self.i4 + ["cmode"] * self.chromah
+            return None, {name: a.numpy() for name, a in
+                          zip([*lv._fields, *names], [*lv, *rest])}
+        words = kernel.level_words(mb_h, mb_w, self.i4, self.chromah)
+        if not self._slots or self._dev_levels.numel() != words:
+            self._card_buffers(padded.shape[0], w16, words)
+        slot = self._slots[self._flip]
+        self._flip ^= 1
+        if slot["event"] is not None:
+            slot["event"].synchronize()   # its upload and copy are done
+        np.copyto(slot["frame"].numpy(), padded)
+        frame = self._dev_frame
+        frame.copy_(slot["frame"], non_blocking=True)
+        uv = frame[h16:].view(h16 // 2, w16 // 2, 2)
+        kernel.intra_levels(frame[:h16], uv[:, :, 0], uv[:, :, 1], qp,
+                            self._dev_levels, i4=self.i4, chromah=self.chromah)
+        slot["levels"].copy_(self._dev_levels, non_blocking=True)
+        slot["event"] = torch.cuda.Event()
+        slot["event"].record(torch.cuda.current_stream(self.device))
+        return slot["event"], kernel.split_levels(
+            slot["levels"].numpy(), mb_h, mb_w, self.i4, self.chromah)
+
+    def _entropy_nals(self, lv, idr: int, qp: int) -> list[bytes]:
+        """Entropy-code the levels of one :meth:`_dispatch_levels` once
+        they are on the host."""
+        event, parts = lv
+        if event is not None:
+            event.synchronize()
+        zdc, acz, czdc, cacz = (parts[k] for k in ("zdc", "acz", "czdc", "cacz"))
+        imode, i4modes, cmode = (parts.get(k) for k in ("imode", "i4modes", "cmode"))
+        if self._native:
+            from opencv_opencl_tpu_torch import native
+
+            return native.cavlc_entropy_rows(
+                zdc, acz, czdc, cacz, qp, idr, threads=self._threads,
+                workspace=self._workspace, imode=imode,
+                deblock=self.deblock, i4modes=i4modes, cmode=cmode)
+        return encode_frame_from_levels(zdc, acz, czdc, cacz, qp, idr,
+                                        imode=imode,
+                                        deblock=self.deblock,
+                                        i4modes=i4modes,
+                                        cmode=cmode)
+
+    def _encode_nals(self, padded: np.ndarray, w16: int, h16: int,
+                     idr: int, qp: int) -> list[bytes]:
+        return self._entropy_nals(
+            self._dispatch_levels(padded, w16, h16, qp), idr, qp)
+
+    def _assemble_au(self, lv, idr: int, qp: int) -> bytes:
+        nals = self._entropy_nals(lv, idr, qp)
+        au = (_START4 + self._sps + _START4 + self._pps +
+              b"".join(_START4 + bytes(n) for n in nals))
+        if self.bitrate_kbps:
+            self._rate_control(len(au))
+        return au
+
+    def encode(self, nv12: np.ndarray) -> list[bytes]:
+        if not self._overlap:
+            return super().encode(nv12)
+        rows = self.height * 3 // 2
+        arr = np.asarray(nv12, dtype=np.uint8).reshape(rows, self.width)
+        padded, w16, h16 = self._pad(arr)
+        idr = self._idr_pic_id
+        self._idr_pic_id ^= 1
+        self.frames += 1
+        prev, self._pending = self._pending, (
+            self._dispatch_levels(padded, w16, h16, self.qp), idr, self.qp)
+        if prev is None:
+            return []
+        return [self._assemble_au(*prev)]
+
+    def flush(self) -> list[bytes]:
+        prev, self._pending = self._pending, None
+        if prev is None:
+            return []
+        return [self._assemble_au(*prev)]

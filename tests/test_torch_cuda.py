@@ -6,7 +6,9 @@ machine with a card and no JAX, run it without the JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
-outputs (K1, K8 and K10 histograms, K2 LUTs with one clip or one per frame,
+outputs (H1's levels, modes and reconstructions, and the device encoder's
+access units against the host oracle's; K1, K8 and K10 histograms, K2 LUTs
+with one clip or one per frame,
 K3, K4, K6 and K6r frames, K7 frames and histograms (both on their 16-byte
 and byte paths), K5, K3v1 and K9 bands,
 K1 on bands of tile rows) must equal the plain PyTorch versions on the same CUDA
@@ -663,3 +665,48 @@ def test_sharded_enhancer_on_a_process_group_sharing_the_card(device):
         assert res["launches"]["clahe_interpolate_band"] == 2    # assembled + local
         assert res["part"].rows == ((0, 48), (48, 96))[rank]
         assert res["loaded"] == []
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16)])
+@pytest.mark.parametrize("flags", [{}, {"full_recon": True}, {"chromah": True},
+                                   {"i4": True, "full_recon": True},
+                                   {"i4": True, "chromah": True}],
+                         ids=["default", "full_recon", "chromah", "i4_full_recon",
+                              "i4_chromah"])
+def test_intra_levels_kernel_equals_plain(device, flags, h, w):
+    """H1 against its plain version on the card, every output, on random,
+    structured and constant NV12 at QP 0, 26 and 51, the chroma planes as
+    the interleaved views of the NV12 frame."""
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
+
+    levels_kernel.reset_launch_counts()
+    for k, (content, qp) in enumerate((("random", 0), ("structured", 26), ("constant", 51))):
+        frame = _frames(30 + k, 1, h * 3 // 2, w, content)[0]
+        f = torch.from_numpy(frame).to(device)
+        uv = f[h:].view(h // 2, w // 2, 2)
+        planes = (f[:h], uv[:, :, 0], uv[:, :, 1])
+        got = torch_levels.encode_levels(*planes, qp, **flags)
+        want = torch_levels.encode_levels_plain(*planes, qp, **flags)
+        flat_got = [a for o in got for a in (o if isinstance(o, tuple) else (o,))]
+        flat_want = [a for o in want for a in (o if isinstance(o, tuple) else (o,))]
+        assert len(flat_got) == len(flat_want)
+        for a, b in zip(flat_got, flat_want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert levels_kernel.launch_counts()["encode_levels"] == 3
+
+
+def test_cuda_cavlc_encoder_on_card_equals_the_host_oracle(device):
+    """The device encoder's access units (upload, H1, the levels' copy to
+    pinned memory, entropy coding) equal CavlcH264Encoder(slices=mb_h)'s,
+    with and without overlap, and with i4 and chromah."""
+    from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder, CudaCavlcEncoder
+
+    w, h = 96, 64
+    frames = [_frames(40 + k, 1, h * 3 // 2, w, "random")[0] for k in range(3)]
+    for kw in ({}, {"i4": True, "chromah": True}):
+        ref = CavlcH264Encoder(w, h, qp=26, slices=h // 16, native="never", **kw)
+        want = [au for f in frames for au in ref.encode(f)]
+        for overlap in (False, True):
+            enc = CudaCavlcEncoder(w, h, qp=26, overlap=overlap, device=device, **kw)
+            assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want

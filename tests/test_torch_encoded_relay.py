@@ -5,10 +5,16 @@
 the port on ``--device=cpu``) with ``--sink=rtp+h264://`` and the in-repo
 encoders, and put the same datagrams on loopback, in the same order, with
 the same ``Encoder:`` and ``Sinks:`` lines; the SDP file of an encoded sink
-is the same; the refusals are the same, line for line.  The rows of
-``tests/test_flag_matrix.py`` that need no device encoder run against the
-port's relay; the rows of the device encoders (``--encoder=tpu...``,
-``--fused-encode``) refuse with rc 2 and "not ported yet".
+is the same; the refusals are the same, line for line.  The intra device
+encoder (``--encoder=tpu:qp=40``) puts the JAX relays' datagrams on
+loopback too (its ``Encoder:`` line names the port's class,
+``CudaCavlcEncoder``, where the JAX package's names ``TpuCavlcEncoder``);
+``tpu:qp=40:i4:chromah`` is held to the port's own oracle, the relay with
+``cavlc:qp=40:slices=<mb rows>:i4:chromah``, so that JAX compiles no second
+Intra_4x4 program here.  The rows of ``tests/test_flag_matrix.py`` run
+against the port's relay: those of the GOP/GDR device encoder
+(``--encoder=tpu:gop=N``, ``tpu:gdr=N``) and of ``--fused-encode`` refuse
+with rc 2 and "not ported yet".
 """
 
 import contextlib
@@ -93,6 +99,49 @@ def test_relay_streams_the_jax_datagrams(spec, capsys):
     assert runs[0][1] == [f"Encoder: {ENCODERS[spec]} (h264)"]
 
 
+# the intra device encoder: (spec, the relay run beside the port's, the
+# oracle's spec); at 64x48 a frame has 3 MB rows
+TPU_RELAYS = {"tpu:qp=40": (jax_relay, "tpu:qp=40"),
+              "tpu:qp=40:i4:chromah": (relay, "cavlc:qp=40:slices=3:i4:chromah")}
+
+
+@pytest.mark.parametrize("spec", list(TPU_RELAYS))
+def test_relay_tpu_streams_the_jax_datagrams(spec, capsys):
+    """``--encoder=tpu...`` with ``--device=cpu`` (the kernel's plain
+    version) sends the datagrams of the JAX relay's ``TpuCavlcEncoder``, or
+    of the port's host oracle; the ``Encoder:`` lines differ by the class
+    name alone."""
+    oracle_app, oracle_spec = TPU_RELAYS[spec]
+    runs = []
+    with catchers(1) as (port, (sock,)):
+        argv = RELAY_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}"]
+        for app, extra in ((relay, [f"--encoder={spec}", "--device=cpu"]),
+                           (oracle_app, [f"--encoder={oracle_spec}"]
+                            + (["--device=cpu"] if oracle_app is relay else []))):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            assert "6 frames emitted" in out and "errors=0" in out
+            runs.append((drain(sock), _lines(out, "Encoder:")))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) >= 6
+    assert runs[0][1] == ["Encoder: CudaCavlcEncoder (h264)"]
+    assert runs[1][1] == [f"Encoder: {'TpuCavlcEncoder' if oracle_app is jax_relay else 'CavlcH264Encoder'} (h264)"]
+
+
+def test_multi_relay_tpu_streams_the_jax_datagrams_per_stream(capsys):
+    runs = []
+    with catchers(2) as (port, socks):
+        argv = MULTI_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}", "--encoder=tpu:qp=40"]
+        for app, extra in ((multi_relay, ["--device=cpu"]), (jax_multi_relay, [])):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            assert re.findall(r"#\d+=(\d+)/(\d+)", out) == [("4", "4")] * 2, out
+            runs.append(([drain(s) for s in socks], _lines(out, "Sinks:")))
+    assert runs[0][0] == runs[1][0] and all(len(d) >= 4 for d in runs[0][0])
+    assert [line.replace("TpuCavlcEncoder", "CudaCavlcEncoder") for line in runs[1][1]] \
+        == runs[0][1] == [f"Sinks: encoded RTP rtp+h264://127.0.0.1:{port} .. +2 "
+                          f"(encoder=CudaCavlcEncoder)"]
+
+
 @pytest.mark.parametrize("spec", ["cavlc", "pcm"])
 def test_multi_relay_streams_the_jax_datagrams_per_stream(spec, capsys):
     runs = []
@@ -163,6 +212,13 @@ MATRIX = [
                             "--encoder=cavlc:qp=40"], 0, None),
     ("encoded_cpb", ["--sink=rtp+h264://127.0.0.1:56473", "--bitrate=800",
                      "--encoder=cavlc:cpb=500"], 0, None),
+    ("encoded_tpu_intra", ["--sink=rtp+h264://127.0.0.1:56479",
+                           "--encoder=tpu:qp=40"], 0, None),
+    ("encoded_tpu_intra_i4_chromah_overlap", ["--sink=rtp+h264://127.0.0.1:56480",
+                                              "--encoder=tpu:qp=40:i4:chromah:overlap"],
+     0, None),
+    ("encoded_tpu_bitpack", ["--sink=rtp+h264://127.0.0.1:56484",
+                             "--encoder=tpu:qp=40:bitpack"], 2, NOT_PORTED),
     ("encoded_tpu_gop_deblock", ["--sink=rtp+h264://127.0.0.1:56471",
                                  "--encoder=tpu:qp=40:gop=4:deblock"], 2, NOT_PORTED),
     ("encoded_tpu_gdr", ["--sink=rtp+h264://127.0.0.1:56472",
@@ -208,11 +264,11 @@ def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
 SPEC_REFUSALS = [
     ("cavlc:qp=30:gdr=3:gop=8", "replaces gop"),
     ("tpu:qp=30:gdr=3:search=2:refs=2", NOT_PORTED),
-    ("tpu:qp=30:cpb=500", NOT_PORTED),
+    ("tpu:qp=30:cpb=500", "cpb needs bitrate control"),
     ("tpu:gop=8:cpb=500:overlap", NOT_PORTED),
     ("cavlc:initdelay=100", "initdelay requires cpb"),
     ("cavlc:qp=30:search=2", "need a gop"),
-    ("tpu:qp=30:halfpel", NOT_PORTED),
+    ("tpu:qp=30:halfpel", "need a gop"),
     ("cavlc:qp=30:gop=8:halfpel", "require search"),
     ("cavlc:qp=30:gop=8:refs=2", "requires search"),
     ("tpu:qp=30:gop=8:fastsub", NOT_PORTED),

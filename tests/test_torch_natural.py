@@ -221,7 +221,7 @@ def test_clahe_apply_equals_golden_and_cv2(h, w, clip, grid):
 
 
 def test_wrappers_launch_nothing_on_cpu():
-    from opencv_opencl_tpu_torch.ops import cuda, histeq
+    from opencv_opencl_tpu_torch.ops import cuda, h264_levels, histeq
 
     cuda.reset_launch_counts()
     plan = torch_clahe.make_clahe_plan(32, 32, 2.0, (4, 4))
@@ -233,13 +233,16 @@ def test_wrappers_launch_nothing_on_cpu():
     natural.clahe_interpolate_band(y[:, 8:24], luts, plan, 8)
     natural.clahe_interpolate_pack(y, luts, plan)
     histeq.equalize_hist_batch(y, device="cpu")
+    nv12 = torch.from_numpy(_frames(11, 1, 48, 32))[0]
+    uv = nv12[32:].view(16, 16, 2)
+    h264_levels.encode_levels(nv12[:32], uv[:, :, 0], uv[:, :, 1], 26, i4=True)
     assert cuda.launch_counts() == {
         "tile_histograms": 0, "build_luts": 0, "clahe_interpolate": 0,
         "clahe_interp_and_hist": 0, "clahe_interpolate_band": 0,
         "clahe_interpolate_pack": 0, "apply_lut": 0,
         "clahe_interpolate_cells": 0, "tile_histograms_extended": 0,
         "clahe_interpolate_cells_band": 0, "tile_histograms_batched": 0,
-        "clahe_interpolate_cells_radix": 0}
+        "clahe_interpolate_cells_radix": 0, "encode_levels": 0}
 
 
 def test_wrappers_reject_bad_inputs():
