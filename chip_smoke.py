@@ -11,8 +11,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
             what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1), K2 and
             K1's three instances (``tile_hist_kernel<4>``, also K8's, and
-            ``<2>``, ``<8>`` for K10) and H1 ``intra_levels_kernel``
-            (registers, shared memory, spills);
+            ``<2>``, ``<8>`` for K10), H1 ``intra_levels_kernel`` and the
+            GOP encoder's H2 ``p_levels_kernel``, H3
+            ``subpel_planes_kernel``, H4 ``motion_search_kernel`` and H5
+            ``deblock_kernel`` (registers, shared memory, spills);
             the native C++ runtime from ``opencv_opencl_tpu_torch/native``
             (g++; seconds and path), which the relay's last runs need;
 3. kernels  every kernel against its plain PyTorch version on the card,
@@ -60,6 +62,22 @@ Phases, each of which raises (exit code != 0) when it fails:
             without ``overlap``, and ``tpu:i4:chromah`` at 4K equal to the
             plain version's levels entropy-coded on the native rows and at
             256x144 to the Python ``CavlcH264Encoder(slices=9, i4, chromah)``;
+            H3, H4, H2 and H5 (the GOP encoder's P frames) against their
+            plain versions, every output, 0 difference, on moving
+            structured, random and constant content: H3 at 4K with margins
+            9 (16 planes) and 5 (4 planes); H4 at 4K full-pel and
+            ``fastsub`` at search 8 with one and two references and under
+            the GDR clean-row rule, and at 1920x1088 the exhaustive half-
+            and quarter-pel lattices at search 2; H2 (after the search) at
+            4K at QP 0 and 30, with and without motion and with a GDR band;
+            H5 at 4K on an IDR and on a P frame's own metadata, with and
+            without ``slice_local``; then the GOP encoder's streams on the
+            card: at 640x368 over four frames (IDR, P, P, IDR) equal to the
+            Python ``GopCavlcEncoder(slices=23)``'s for
+            ``gop=3:search=4:fastsub:deblock`` and
+            ``gop=3:search=2:quarterpel:refs=2``, and at 1920x1088 over
+            three frames equal to ``CudaGopEncoder(device="cpu")``'s, both
+            oracles in child processes while the card works;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -110,7 +128,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             card, entropy coding on the native rows), received by the
             ``rtp_receiver`` app, every access unit equal to a new
             ``CavlcH264Encoder(slices=135)``'s on the frames the encoder
-            took; the Python CAVLC oracle, in a child
+            took; (j) ``--encoder=tpu:gop=30:search=8:fastsub:deblock`` (H1
+            on the IDR, H3, H4, H2 and H5 on each P frame, entropy coding on
+            the native rows), received the same way, every access unit
+            equal to a new ``CudaGopEncoder``'s of the same spec on the
+            frames the encoder took; the Python CAVLC oracle, in a child
             process started before (a), encodes the first two expected
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
@@ -134,7 +156,12 @@ Phases, each of which raises (exit code != 0) when it fails:
             beside its plain version and its bound, the levels' copy to the
             host, the host entropy coding, ``CudaCavlcEncoder.encode`` with
             and without ``overlap`` and the native ``cavlc`` encoders on the
-            same frames; K10 for each
+            same frames; per 4K P frame H3 (16 planes), H4 (``fastsub`` at
+            search 8 and the exhaustive quarter-pel lattice at search 4), H2
+            and H5 beside their plain versions and bounds, the P levels'
+            copy to the host, the P entropy coding and
+            ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
+            ``overlap``; K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -170,6 +197,7 @@ from opencv_opencl_tpu_torch.apps import multi_relay, relay
 from opencv_opencl_tpu_torch.io import encoder as encoder_io
 from opencv_opencl_tpu_torch.io import rtp_h26x
 from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder, CudaCavlcEncoder
+from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
 from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
@@ -189,9 +217,12 @@ from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
 from opencv_opencl_tpu_torch.ops import color
 from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
 from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
+from opencv_opencl_tpu_torch.ops import h264_deblock as deblock_ops
 from opencv_opencl_tpu_torch.ops import h264_levels as levels_ops
 from opencv_opencl_tpu_torch.ops import histogram
 from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.ops.cuda import h264_deblock as deblock_kernel
+from opencv_opencl_tpu_torch.ops.cuda import h264_inter as inter_kernel
 from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
 from opencv_opencl_tpu_torch.parallel import launch, sharded
 from opencv_opencl_tpu_torch.runtime.feeder import FrameFeeder
@@ -244,10 +275,24 @@ KERNELS = (
     ("interp_cells_kernel:radix", "clahe_interpolate_cells_radix",
      "opencv_opencl_tpu_torch/csrc/lut.cu",
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477:radix"),
-    # H1: the JAX function is an XLA lax.scan (:631), not a Pallas kernel
+    # H1-H5: the JAX functions are XLA programs (H1's and H2's lax.scans
+    # over the MB columns, H4's fori_loop over the candidates, H5's scan
+    # over the anti-diagonals), not Pallas kernels
     ("intra_levels_kernel", "encode_levels",
      "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
      "opencv_opencl_tpu/ops/h264_levels.py:279"),
+    ("p_levels_kernel", "encode_p_levels",
+     "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:1487"),
+    ("subpel_planes_kernel", "subpel_planes",
+     "opencv_opencl_tpu_torch/csrc/h264_inter.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:703"),
+    ("motion_search_kernel", "motion_search",
+     "opencv_opencl_tpu_torch/csrc/h264_inter.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:838"),
+    ("deblock_kernel", "deblock_planes",
+     "opencv_opencl_tpu_torch/csrc/h264_deblock.cu",
+     "opencv_opencl_tpu/ops/h264_deblock.py:226"),
 )
 # K8, K3v1, K9, K10 and K6r lie on no path (nor do their TPU kernels on any
 # path of the JAX package): their launches are those of their phase-3 checks
@@ -285,6 +330,24 @@ INTRA_QPS = (0, 30)
 INTRA_I4_QP, INTRA_I4_SHAPE = 26, (1088, 1920)
 INTRA_FRAMES = 2
 INTRA_ORACLE_SHAPE = (144, 256)
+# H2-H5's checks: the search radius of relay (j) and of the 4K checks, the
+# exhaustive lattices' radius and geometry, the GDR clean rows of the 4K
+# checks; the streams: the GOP encoder on the card against the host oracle
+# GopCavlcEncoder(slices=mb_h) at P_STREAM_SHAPE over P_STREAM_FRAMES frames
+# (IDR, P, P, IDR) for each of P_STREAMS, and against the same class on the
+# CPU at CPU_STREAM_SHAPE, both oracles in child processes while the card
+# works; relay (j)'s spec (docs/ENCODER.md's fastsub line with the in-loop
+# filter); the radius of the exhaustive quarter-pel search that is timed
+P_SEARCH = 8
+P_EXHAUSTIVE_SEARCH, P_EXHAUSTIVE_SHAPE = 2, (1088, 1920)
+P_CLEAN_ROWS = 45
+P_STREAM_SHAPE, P_STREAM_FRAMES = (368, 640), 4
+P_STREAMS = (dict(qp=30, gop=3, search=4, fastsub=True, deblock=True),
+             dict(qp=30, gop=3, search=2, quarterpel=True, refs=2))
+CPU_STREAM_SHAPE, CPU_STREAM_FRAMES = (1088, 1920), 3
+CPU_STREAM = dict(qp=30, gop=3, search=P_SEARCH, fastsub=True, deblock=True)
+GOP_SPEC = f"tpu:gop=30:search={P_SEARCH}:fastsub:deblock"
+P_TIMED_QPEL_SEARCH = 4
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -944,6 +1007,264 @@ def phase_intra_streams(device, rng) -> None:
           flush=True)
 
 
+def moving_nv12(rng, h: int, w: int, n: int) -> list[np.ndarray]:
+    """``n`` NV12 frames of one structured picture moving by (1, 2) luma
+    pixels a frame, its left quarter still (MBs that skip) and a block of
+    noise that jumps from frame to frame (MBs that go intra)."""
+    ycan = structured_y(rng, 1, h + 2 * n, w + 2 * n)[0]
+    uvcan = rng.integers(96, 160, (h // 2 + n, w + 2 * n), dtype=np.uint8)
+    out = []
+    for i in range(n):
+        y = ycan[i:i + h, 2 * i:2 * i + w].copy()
+        uv = uvcan[i // 2:i // 2 + h // 2, 2 * i:2 * i + w].copy()
+        y[:, :w // 4] = ycan[:h, :w // 4]
+        uv[:, :w // 4] = uvcan[:h // 2, :w // 4]
+        r0, c0 = (37 * i) % max(h - 32, 1), (101 * i) % max(w - 64, 1)
+        y[r0:r0 + 32, c0:c0 + 64] = rng.integers(0, 256, (32, 64), dtype=np.uint8)
+        out.append(np.concatenate([y, uv]))
+    return out
+
+
+def p_planes(device, frame: np.ndarray) -> tuple[torch.Tensor, ...]:
+    """The three planes of an NV12 frame on the card, each contiguous (a
+    reference picture's layout)."""
+    h = frame.shape[0] * 2 // 3
+    return tuple(p.contiguous() for p in
+                 intra_planes(torch.from_numpy(frame).to(device), h))
+
+
+def p_content(device, rng, kind: str, h: int, w: int):
+    """A source picture and two references on the card: ``moving`` content
+    (the references the two frames before), ``random`` (the references the
+    source moved and with noise), or ``constant``."""
+    if kind == "moving":
+        f = moving_nv12(rng, h, w, 3)
+        return p_planes(device, f[2]), p_planes(device, f[1]), p_planes(device, f[0])
+    if kind == "constant":
+        f = content_nv12(rng, "constant", h, w)
+        return (p_planes(device, f),) * 3
+    src = content_nv12(rng, "random", h, w)
+    noise = rng.integers(-3, 4, src.shape)
+    ref1 = np.clip(np.roll(src, (2, -6), (0, 1)).astype(np.int32) + noise, 0, 255)
+    ref2 = np.roll(src, (-4, 2), (0, 1))
+    return (p_planes(device, src), p_planes(device, ref1.astype(np.uint8)),
+            p_planes(device, ref2))
+
+
+def deblock_meta(plv, mb_h: int, mb_w: int, device) -> tuple[torch.Tensor, ...]:
+    """A P frame's own deblocking metadata (intra, nnz4, mv, ref) from its
+    levels, or an IDR's (all intra) for ``plv`` None."""
+    zero_mv = torch.zeros((mb_h, mb_w, 2), dtype=torch.int16, device=device)
+    zero_ref = torch.zeros((mb_h, mb_w), dtype=torch.int16, device=device)
+    if plv is None:
+        return (torch.ones((mb_h, mb_w), dtype=torch.bool, device=device),
+                torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.bool, device=device),
+                zero_mv, zero_ref)
+    return (plv.mode >= 2, deblock_ops.nnz4_grid(plv.acz), zero_mv if plv.mv is None else plv.mv,
+            zero_ref if plv.ref is None else plv.ref)
+
+
+def phase_p_kernels(device, rng) -> dict[str, int]:
+    """H3, H4, H2 and H5 against their plain versions on the card, every
+    output, with 0 difference, on moving structured, random and constant
+    content (fewer cases on the last two): H3 at 4K with margins 9 (16
+    planes, quarter-pel at search 8) and 5 (4 planes, half-pel); H4 at 4K,
+    full-pel and ``fastsub`` at search 8, one reference, two references and
+    one reference under the GDR clean-row rule, and at 1920x1088 the
+    exhaustive half-pel and quarter-pel lattices at search 2; H2 (through
+    ``encode_p_levels``, the search's kernels before it) at 4K at QP 0 and
+    30, with and without motion and with a GDR band; H5 at 4K on an IDR
+    (all intra) and on a P frame's own metadata, with and without
+    ``slice_local`` (not on the constant frame, where it changes nothing).
+    Returns the largest absolute difference by kernel."""
+    for module in (levels_kernel, inter_kernel, deblock_kernel):
+        module.reset_launch_counts()
+    errs = dict.fromkeys(("p_levels_kernel", "subpel_planes_kernel",
+                          "motion_search_kernel", "deblock_kernel"), 0)
+    h, w = HEIGHT, WIDTH
+    mb_h, mb_w = h // 16, w // 16
+
+    def compare(kernel: str, label: str, got, want, plain: float) -> None:
+        got = [g for g in (got if isinstance(got, tuple) else (got,)) if g is not None]
+        want = [g for g in (want if isinstance(want, tuple) else (want,)) if g is not None]
+        check(len(got) == len(want), f"{kernel} {label}: {len(got)} outputs, the "
+              f"plain version {len(want)}")
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        errs[kernel] = max(errs[kernel], e)
+        print(f"kernel {kernel} {label}: max abs err {e} over {len(got)} outputs "
+              f"({plain:.1f} s in the plain version)", flush=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for kind in ("moving", "random", "constant"):
+        src, ref1, ref2 = p_content(device, rng, kind, h, w)
+        full = kind == "moving"
+        for margin, n in ((P_SEARCH + 1, 16), (5, 4))[:2 if kind != "constant" else 1]:
+            want, secs = timed(lambda: levels_ops.subpel_planes_plain(ref1[0], margin, n))
+            compare("subpel_planes_kernel", f"4K {kind} margin {margin} {n} planes",
+                    levels_ops.subpel_planes(ref1[0], margin, n), want, secs)
+        cases = [(0, [ref1], None), (3, [ref1, ref2], None)]
+        if full:
+            cases += [(3, [ref1], None), (0, [ref1, ref2], None),
+                      (0, [ref1], P_CLEAN_ROWS), (3, [ref1], P_CLEAN_ROWS)]
+        if kind == "constant":
+            cases = cases[:1]
+        for subpel, refs, clean in cases:
+            label = (f"4K {kind} {'fastsub' if subpel else 'full-pel'} search {P_SEARCH} "
+                     f"{len(refs)} ref{'s' if len(refs) > 1 else ''}"
+                     + (f" clean rows {clean}" if clean else ""))
+            want, secs = timed(lambda: levels_ops.motion_search_plain(
+                src[0], refs, P_SEARCH, subpel, clean))
+            compare("motion_search_kernel", label, levels_ops.motion_search(
+                src[0], refs, P_SEARCH, subpel, clean), want, secs)
+        pcases = [(30, 0, 0, None), (30, P_SEARCH, 3, None)]
+        if full:
+            pcases += [(0, P_SEARCH, 0, None), (30, P_SEARCH, 3, (P_CLEAN_ROWS, 70))]
+        if kind == "constant":
+            pcases = pcases[:1]
+        last = None
+        for qp, search, subpel, band in pcases:
+            label = (f"4K {kind} qp {qp} " + (f"search {P_SEARCH} "
+                     f"{'fastsub' if subpel else 'full-pel'}" if search else "zero motion")
+                     + (f" GDR band {band}" if band else ""))
+            args = (*src, *ref1, qp, search, subpel)
+            want, secs = timed(lambda: levels_ops.encode_p_levels_plain(
+                *args, gdr_band=band))
+            got = levels_ops.encode_p_levels(*args, gdr_band=band)
+            compare("p_levels_kernel", label, tuple(got), tuple(want), secs)
+            modes = torch.bincount(got.mode.flatten().to(torch.int64), minlength=4)
+            print(f"kernel p_levels_kernel {label}: modes skip/inter/intra DC/intra H "
+                  f"{modes.tolist()}", flush=True)
+            last = got
+        metas = {"moving": [("IDR", None, False), ("P", last, False),
+                            ("P slice_local", last, True)],
+                 "random": [("P slice_local", last, True)],
+                 "constant": []}[kind]
+        recon = (last.recon_y, last.recon_cb, last.recon_cr)
+        for label, plv, slice_local in metas:
+            meta = deblock_meta(plv, mb_h, mb_w, device)
+            want, secs = timed(lambda: deblock_ops.deblock_planes_plain(
+                *recon, 30, *meta, slice_local=slice_local))
+            got = deblock_ops.deblock_planes(*recon, 30, *meta, slice_local=slice_local)
+            changed = int((got[0] != recon[0]).sum())
+            compare("deblock_kernel", f"4K {kind} {label} ({changed} luma samples "
+                    f"filtered)", got, want, secs)
+    # the exhaustive sub-pel lattices at 1080p
+    eh, ew = P_EXHAUSTIVE_SHAPE
+    for kind in ("moving", "random"):
+        src, ref1, ref2 = p_content(device, rng, kind, eh, ew)
+        for subpel, refs in ((1, [ref1]), (2, [ref1, ref2])):
+            want, secs = timed(lambda: levels_ops.motion_search_plain(
+                src[0], refs, P_EXHAUSTIVE_SEARCH, subpel))
+            compare("motion_search_kernel", f"{ew}x{eh} {kind} "
+                    f"{'half' if subpel == 1 else 'quarter'}-pel search "
+                    f"{P_EXHAUSTIVE_SEARCH} {len(refs)} ref(s)", levels_ops.motion_search(
+                        src[0], refs, P_EXHAUSTIVE_SEARCH, subpel), want, secs)
+    counts = {**levels_kernel.launch_counts(), **inter_kernel.launch_counts(),
+              **deblock_kernel.launch_counts()}
+    check(all(counts[k] > 0 for k in ("encode_p_levels", "subpel_planes",
+                                       "motion_search", "deblock_planes")),
+          f"a P-frame kernel was not launched by its checks: {counts}")
+    print(f"kernels H2-H5 checked: launches {counts}", flush=True)
+    return errs
+
+
+# the GOP encoder's oracles in a child process: the frames, the output
+# path, "host" (GopCavlcEncoder(slices=mb_h), Python) or "cpu" (the same
+# class on the CPU, the kernels' plain versions) and the encoders' options
+# as JSON in; every stream's access units out
+GOP_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder, GopCavlcEncoder
+
+torch.set_num_threads(2)
+frames = np.load(sys.argv[1])
+h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+streams = []
+for kw in json.loads(sys.argv[4]):
+    enc = (GopCavlcEncoder(w, h, slices=h // 16, **kw) if sys.argv[3] == "host"
+           else CudaGopEncoder(w, h, device="cpu", **kw))
+    streams.append([au for f in frames for au in enc.encode(f)] + enc.flush())
+aus = [au for s in streams for au in s]
+np.savez(sys.argv[2], blob=np.frombuffer(b"".join(aus), np.uint8),
+         lens=np.array([len(a) for a in aus]), counts=np.array([len(s) for s in streams]))
+"""
+
+
+@contextlib.contextmanager
+def gop_oracles(tmp: str):
+    """Start the GOP encoder's two oracle children on seed-made frames:
+    ``GopCavlcEncoder(slices=mb_h)`` for each of ``P_STREAMS`` at
+    ``P_STREAM_SHAPE``, and ``CudaGopEncoder(device="cpu")`` for
+    ``CPU_STREAM`` at ``CPU_STREAM_SHAPE``; yields {name: (frames, child,
+    output path, options)}."""
+    rng = np.random.default_rng(13)
+    runs = {"host": (P_STREAM_SHAPE, P_STREAM_FRAMES, list(P_STREAMS)),
+            "cpu": (CPU_STREAM_SHAPE, CPU_STREAM_FRAMES, [CPU_STREAM])}
+    with contextlib.ExitStack() as stack:
+        out = {}
+        for name, ((h, w), n, kws) in runs.items():
+            frames = np.stack(moving_nv12(rng, h, w, n))
+            path_in = os.path.join(tmp, f"gop_{name}_in.npy")
+            path_out = os.path.join(tmp, f"gop_{name}_out.npz")
+            np.save(path_in, frames)
+            proc = stack.enter_context(child(GOP_CHILD, [path_in, path_out, name,
+                                                         json.dumps(kws)]))
+            out[name] = (frames, proc, path_out, kws)
+        yield out
+
+
+def gop_oracle_streams(proc, path: str) -> list[list[bytes]]:
+    """A GOP oracle child's streams of access units."""
+    try:
+        text, _ = proc.communicate(timeout=ORACLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"a GOP oracle took more than {ORACLE_TIMEOUT} s")
+    check(proc.returncode == 0, f"a GOP oracle failed: {text[-2000:]}")
+    data = np.load(path)
+    blob, aus, pos = data["blob"].tobytes(), [], 0
+    for n in data["lens"]:
+        aus.append(blob[pos:pos + int(n)])
+        pos += int(n)
+    streams, pos = [], 0
+    for n in data["counts"]:
+        streams.append(aus[pos:pos + int(n)])
+        pos += int(n)
+    return streams
+
+
+def phase_p_streams(oracles) -> None:
+    """The GOP encoder's access units on the card: at 640x368 over four
+    frames (IDR, P, P, IDR) equal to ``GopCavlcEncoder(slices=mb_h)``'s for
+    each of ``P_STREAMS``, and at 1920x1088 over three frames equal to the
+    same class's on the CPU (the kernels' plain versions)."""
+    for name, label in (("host", "GopCavlcEncoder(slices=mb_h)"),
+                        ("cpu", "CudaGopEncoder(device='cpu')")):
+        frames, proc, path, kws = oracles[name]
+        h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+        t0 = time.perf_counter()
+        want = gop_oracle_streams(proc, path)
+        waited = time.perf_counter() - t0
+        for kw, stream in zip(kws, want):
+            enc = CudaGopEncoder(w, h, **kw)
+            check(enc.device.type == "cuda", f"the GOP encoder is on {enc.device}")
+            got = [au for f in frames for au in enc.encode(f)] + enc.flush()
+            spec = ":".join(f"{k}={v}" if v is not True else k for k, v in kw.items())
+            check(got == stream, f"stream tpu:{spec} at {w}x{h}: access units other "
+                  f"than {label}'s")
+            print(f"stream tpu:{spec} at {w}x{h}: {len(got)} access units "
+                  f"({[len(a) for a in got]} bytes) equal {label}'s (waited "
+                  f"{waited:.1f} s for the oracle)", flush=True)
+
+
 # ------------------------------------------------------------- phase 4 ----
 
 
@@ -1572,18 +1893,21 @@ def free_udp_port() -> int:
 
 def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
                   tmp: str) -> tuple[float, dict]:
-    """Configurations (g), (h) and (i): CLAHE passthrough to
+    """Configurations (g) to (j): CLAHE passthrough to
     ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
     each frame enhanced by K1, K2 and K3 on the card, then encoded on the
-    host ((g) ``cavlc``, (h) ``pcm``) or by H1 on the card and entropy-coded
-    on the host ((i) ``tpu``).  (g) and (i) are received by the port's
-    ``rtp_receiver`` app in a child process, which must record every access
-    unit; (h) by an ``H26xRtpReceiver`` thread, which counts what it loses.
-    The sink's encoder is watched: each frame it takes must be one of the
-    expected frames, in order, and the access units it sends must equal
-    those a new encoder of the same spec makes from those expected frames
-    ((i): a new ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the
-    host oracle of the device encoder; rate control is the same)."""
+    host ((g) ``cavlc``, (h) ``pcm``), by H1 on the card and entropy-coded
+    on the host ((i) ``tpu``), or by the GOP encoder ((j) ``tpu:gop=30:...``:
+    H1 on the IDR, H3, H4, H2 and H5 on each P frame, entropy coding on the
+    host).  (g), (i) and (j) are received by the port's ``rtp_receiver`` app
+    in a child process, which must record every access unit; (h) by an
+    ``H26xRtpReceiver`` thread, which counts what it loses.  The sink's
+    encoder is watched: each frame it takes must be one of the expected
+    frames, in order, and the access units it sends must equal those a new
+    encoder of the same spec makes from those expected frames ((i): a new
+    ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the host oracle of
+    the device encoder; (j): a new ``CudaGopEncoder`` of the same spec; rate
+    control is the same)."""
     fingerprints = {hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
     made, inputs, sent, encode_s = [], [], [], []
     build = encoder_io.encoded_rtp_sink_from_url
@@ -1612,6 +1936,7 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
 
     by_app = spec.startswith(("cavlc", "tpu"))
     device_encoder = spec.startswith("tpu")
+    gop_encoder = spec.startswith("tpu:gop=")
     out = os.path.join(tmp, f"{label}.h264")
     port = free_udp_port() if by_app else None
     catcher = None if by_app else AccessUnitCatcher()
@@ -1665,9 +1990,19 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     if by_app:
         check(native.available() and native.has_cavlc(),
               f"{label}: the native CAVLC rows did not build: {native.build_error()}")
-        check(enc._native and not enc.i4 and not enc.chromah,
+        check(getattr(enc, "_intra", enc)._native and not enc.i4 and not enc.chromah,
               f"{label}: the sink's encoder is not on the native CAVLC rows")
-    if device_encoder:
+    if gop_encoder:
+        idrs = -(-len(encode_s) // enc.gop)
+        check(isinstance(enc, CudaGopEncoder) and enc.device.type == "cuda",
+              f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
+        check(counts["encode_levels"] == idrs and len(encode_s) > idrs
+              and all(counts[k] == len(encode_s) - idrs for k in
+                      ("encode_p_levels", "motion_search", "subpel_planes"))
+              and counts["deblock_planes"] == len(encode_s),
+              f"{label}: {len(encode_s)} frames encoded ({idrs} IDR), launches "
+              f"{counts}")
+    elif device_encoder:
         check(isinstance(enc, CudaCavlcEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
         check(counts["encode_levels"] == len(encode_s) > 0,
@@ -1680,7 +2015,11 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
           and inputs == sorted(set(inputs)),
           f"{label}: the encoder took frames {inputs} of the expected ones "
           f"({emitted} emitted)")
-    if device_encoder:
+    if gop_encoder:
+        ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
+                                      bitrate_kbps=kwargs["bitrate_kbps"],
+                                      device="cuda")
+    elif device_encoder:
         ref = CavlcH264Encoder(w, h, qp=30, bitrate_kbps=kwargs["bitrate_kbps"],
                                fps=kwargs["fps"], slices=-(-h // 16),
                                threads=os.cpu_count() or 1, native="require")
@@ -1792,14 +2131,16 @@ def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
                   ("tile_histograms", "build_luts", "clahe_interpolate")),
               f"{name} launched no K1, K2 or K3: {per_path[name]}")
 
-    # (g), (h) and (i): the encoded RTP sinks, CAVLC on the native C++ rows
+    # (g) to (j): the encoded RTP sinks, CAVLC on the native C++ rows
     # and lossless I_PCM, encoded on the host after K1, K2 and K3 on the
-    # card, and the device intra encoder (H1 on the card, entropy coding on
-    # the native rows)
+    # card, the device intra encoder (H1 on the card, entropy coding on the
+    # native rows) and the device GOP encoder (H1 on the IDR; H3, H4, H2
+    # and H5 on the P frames)
     encoded = {}
     for name, spec in (("relay_g_clahe_rtp_h264_cavlc", "cavlc"),
                        ("relay_h_clahe_rtp_h264_pcm", "pcm"),
-                       ("relay_i_clahe_rtp_h264_tpu", "tpu")):
+                       ("relay_i_clahe_rtp_h264_tpu", "tpu"),
+                       ("relay_j_clahe_rtp_h264_tpu_gop", GOP_SPEC)):
         rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp)
         per_path[name] = encoded[name]["counts"]
         print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
@@ -2345,6 +2686,153 @@ def intra_timings(device, rng, card: str) -> dict[str, dict]:
     return times
 
 
+def p_ops(mb_h: int, mb_w: int) -> int:
+    """Integer operations H2's arithmetic needs for one P frame, counted as
+    ``intra_ops`` counts H1's: the I_16x16 DC and HORIZONTAL candidates, the
+    inter candidate (a residual, 16 full-block transforms, quantizations
+    and cost terms), both chroma candidates, the decision, and one
+    reconstruction; every candidate is evaluated whatever the data."""
+    block = 80
+    intra = 2 * (256 + 16 * block + 256 * 6 + 256 * 3 + 16 * 6)
+    inter = 256 + 16 * block + 256 * 6 + 256 * 3
+    chroma = 2 * (128 + 8 * block + 128 * 6 + 128 * 3 + 8 * 6)
+    recon = 24 * block + 384 * 2 + 384 * 3
+    return mb_h * mb_w * (intra + inter + chroma + 16 + recon)
+
+
+def planes_ops(oh: int, ow: int, nplanes: int) -> int:
+    """H3's operations: per output position a horizontal and a vertical
+    6-tap (11 each), their rounding and clipping (4 each), j's 6-tap of the
+    vertical sums (15), and 3 for each average of the quarter planes."""
+    return oh * ow * (15 * 2 + 15 + (12 * 3 if nplanes == 16 else 0))
+
+
+def deblock_ops_count(mb_h: int, mb_w: int) -> int:
+    """H5's operations: every line across every edge (16 luma lines x 8
+    edges, 8 chroma lines x 4 edges x 2 planes a MB) tested and filtered,
+    about 30 each, and a bS of 16 segments x 2 directions, about 10 each."""
+    return mb_h * mb_w * ((16 * 8 + 8 * 4 * 2) * 30 + 32 * 10)
+
+
+def gop_timings(device, rng, card: str) -> dict[str, dict]:
+    """Per 4K P frame (moving content, QP 30), device alone: H3 (16 planes at
+    margin 9), H4 (``fastsub`` at search 8, relay (j)'s, and the exhaustive
+    quarter-pel lattice at search 4), H2 and H5, each beside its plain
+    version and its bound; the P levels' copy to pinned host memory; the
+    host entropy coding of a P frame on the native rows; and
+    ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
+    ``overlap``.  No single PyTorch call computes any of these functions:
+    library ms is none."""
+    h, w = HEIGHT, WIDTH
+    mb_h, mb_w = h // 16, w // 16
+    threads = os.cpu_count() or 1
+    src, ref1, _ = p_content(device, rng, "moving", h, w)
+    times = {}
+
+    def record(name: str, ms: float, plain_ms: float, moved: int, ops: int,
+               what: str) -> None:
+        bound_ms, bound_by = bound(moved, ops)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"time {name} 4K P frame {what}: {ms:.4f} ms on the device, plain "
+              f"version {plain_ms:.1f} ms (bound {bound_ms:.4f} ms by {bound_by}: "
+              f"{moved} bytes, {ops} operations) [{card}]", flush=True)
+
+    # H3
+    P, margin = levels_ops.search_plan(P_SEARCH, 3)
+    stack = torch.empty((P, h + 2 * margin, w + 2 * margin), dtype=torch.uint8,
+                        device=device)
+    ms = device_ms(lambda: inter_kernel.planes_into(ref1[0], margin, P, stack))
+    plain = time_ms(lambda: levels_ops.subpel_planes_plain(ref1[0], margin, P), reps=3,
+                    warmup=1)
+    record("subpel_planes_kernel", ms, plain, nbytes(ref1[0], stack),
+           planes_ops(*stack.shape[1:], P), f"(16 planes, margin {margin})")
+
+    # H4: relay (j)'s fastsub, then the exhaustive quarter-pel lattice
+    mv = torch.empty((mb_h, mb_w, 2), dtype=torch.int16, device=device)
+    pred = (torch.empty((h, w), dtype=torch.uint8, device=device),
+            torch.empty((h // 2, w // 2), dtype=torch.uint8, device=device),
+            torch.empty((h // 2, w // 2), dtype=torch.uint8, device=device))
+    for search, subpel in ((P_SEARCH, 3), (P_TIMED_QPEL_SEARCH, 2)):
+        P, margin = levels_ops.search_plan(search, subpel)
+        stack = levels_ops.subpel_planes(ref1[0], margin, P)
+        ms = device_ms(lambda: inter_kernel.search_stack_into(
+            src[0], stack, [ref1], search, subpel, None, mv, None, *pred))
+        plain = time_ms(lambda: levels_ops.search_stack_plain(
+            src[0], stack, [ref1], search, subpel), reps=1, warmup=1)
+        n = len(levels_ops.search_candidates(search, subpel)) + (49 if subpel == 3 else 0)
+        moved = nbytes(src[0], stack, ref1[1], ref1[2], mv, *pred)
+        what = (f"(fastsub, search {search}, {n} candidates)" if subpel == 3 else
+                f"(exhaustive quarter-pel, search {search}, {n} candidates)")
+        if subpel == 3:
+            record("motion_search_kernel", ms, plain, moved, 3 * n * h * w, what)
+        else:
+            bound_ms, bound_by = bound(moved, 3 * n * h * w)
+            print(f"time motion_search_kernel 4K P frame {what}: {ms:.4f} ms on the "
+                  f"device, plain version {plain:.1f} ms (bound {bound_ms:.4f} ms by "
+                  f"{bound_by}) [{card}]", flush=True)
+
+    # H2 on relay (j)'s prediction, then H5 on its recon
+    out = torch.empty(levels_kernel.p_level_words(mb_h, mb_w), dtype=torch.int16,
+                      device=device)
+    parts = levels_kernel.split_p_levels(out, mb_h, mb_w)
+    inter_kernel.search_into(src[0], [ref1], P_SEARCH, 3, None, parts["mv"], None, *pred)
+    ms = device_ms(lambda: levels_kernel.p_levels_into(*src, *pred, 30, out, motion=True))
+    mv_zero = (parts["mv"] == 0).all(-1)
+    plain = time_ms(lambda: levels_ops.p_levels_plain(*src, *pred, mv_zero, 30), reps=1,
+                    warmup=0)
+    moved = nbytes(*src, *pred, out) + nbytes(*pred)
+    record("p_levels_kernel", ms, plain, moved, p_ops(mb_h, mb_w), "(QP 30, fastsub)")
+    recon = levels_kernel.p_levels_into(*src, *pred, 30, out, motion=True)
+    plv = levels_ops.PLevelArrays(parts["mode"], parts["zdc"], parts["acz"],
+                                  parts["czdc"], parts["cacz"], *recon, parts["mv"])
+    meta = deblock_meta(plv, mb_h, mb_w, device)
+    work = tuple(p.clone() for p in recon)
+    ms = device_ms(lambda: deblock_kernel.deblock_into(*work, 30, *meta))
+    plain = time_ms(lambda: deblock_ops.deblock_planes_plain(*recon, 30, *meta), reps=1,
+                    warmup=0)
+    moved = 2 * nbytes(*recon) + nbytes(*meta)
+    record("deblock_kernel", ms, plain, moved, deblock_ops_count(mb_h, mb_w),
+           "(its own metadata)")
+
+    # the levels down, and the host entropy coding
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    d2h = device_ms(lambda: host.copy_(out, non_blocking=True))
+    print(f"time P levels D2H 4K: {d2h:.4f} ms for {nbytes(out)} bytes into pinned "
+          f"memory [{card}]", flush=True)
+    lv = levels_kernel.split_p_levels(host.numpy(), mb_h, mb_w)
+    workspace, entropy = {}, []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        native.cavlc_entropy_rows_p(lv["mode"], lv["zdc"], lv["acz"], lv["czdc"],
+                                    lv["cacz"], 30, 1, threads=threads,
+                                    workspace=workspace, mv=lv["mv"], deblock=True)
+        entropy.append(1e3 * (time.perf_counter() - t0))
+    modes = np.bincount(lv["mode"].ravel(), minlength=4).tolist()
+    print(f"time P entropy 4K on the native rows, {threads} threads: "
+          f"{statistics.median(entropy[1:]):.1f} ms (median of 5, the workspace made "
+          f"by a first call of {entropy[0]:.1f} ms; modes skip/inter/intra DC/intra H "
+          f"{modes}) [{card}]", flush=True)
+
+    # the encoder, a frame at a time, P frames after one IDR
+    frames = moving_nv12(rng, h, w, 9)
+    encode = {}
+    for name, overlap in (("tpu:gop", False), ("tpu:gop:overlap", True)):
+        enc = encoder_io.make_encoder(GOP_SPEC + (":overlap" if overlap else ""), w, h,
+                                      fps=ENCODED_FPS, device="cuda")
+        enc.encode(frames[0])
+        per = []
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            enc.encode(f)
+            per.append(1e3 * (time.perf_counter() - t0))
+        enc.flush()
+        encode[name] = statistics.median(per)
+    print(f"time encode a 4K P frame, host ms (median of 8), {GOP_SPEC}: " + ", ".join(
+        f"{name} {ms:.1f}" for name, ms in encode.items()) + f" [{card}]", flush=True)
+    return times
+
+
 def phase_profile(device, rng) -> None:
     """Device time by kernel over ten 4K batch-4 steps of each path
     (torch.profiler)."""
@@ -2403,7 +2891,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
-                                     "tile_hist_kernel", "intra_levels_kernel")):
+                                     "tile_hist_kernel", "intra_levels_kernel",
+                                     "p_levels_kernel", "subpel_planes_kernel",
+                                     "motion_search_kernel", "deblock_kernel")):
         print(f"ptxas {line}", flush=True)
     t0 = time.perf_counter()
     check(native.available(), f"the native runtime did not build: "
@@ -2433,8 +2923,12 @@ def main() -> int:
                                    band_errs.pop("tile_hist_kernel"))
     errs.update(band_errs)
     errs["intra_levels_kernel"], _ = phase_intra_levels_kernel(device, rng)
-    check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
-    phase_intra_streams(device, rng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gop_") as tmp, \
+            gop_oracles(tmp) as oracles:
+        errs.update(phase_p_kernels(device, rng))
+        check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
+        phase_intra_streams(device, rng)
+        phase_p_streams(oracles)
 
     phase_golden(device, rng)                              # phase 4
     phase_golden_slice3(device, rng)
@@ -2464,6 +2958,7 @@ def main() -> int:
 
             times = phase_timings(device, rng, card)       # phase 6
             times.update(intra_timings(device, rng, card))
+            times.update(gop_timings(device, rng, card))
             for name, ms in rank_ms.items():
                 print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
                       f"upload included, four processes on one card: "

@@ -40,10 +40,11 @@ RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
 Not ported yet, refused with return code 2: with an encoded sink the
-device GOP/GDR encoder and bit packer (``--encoder=tpu:gop=N`` with N > 1,
-``tpu:gdr=N``, ``tpu:bitpack``: the encoder factory's one line); the intra
-device encoder (``--encoder=tpu[:i4][:chromah][:overlap]``,
-``CudaCavlcEncoder``, one per stream) runs on ``--device``.  ``--encoder``
+device encoder's partition modes and bit packer
+(``--encoder=tpu:...:parts``, ``tpu:...:bitpack``: the encoder factory's
+one line); the device encoders (``--encoder=tpu[:i4][:chromah][:overlap]``,
+``CudaCavlcEncoder``, and with ``gop=N`` or ``gdr=N`` ``CudaGopEncoder``,
+one per stream) run on ``--device``.  ``--encoder``
 is read only for an encoded sink, as in the JAX package, and ignored
 otherwise.  ``--mesh``
 takes a mesh of one position (``1x1`` or ``auto``) here: the mux cuts

@@ -17,12 +17,14 @@ Usage:
                    # (encoded RFC 6184/7798 — the full reference emit
                    # chain, encoder chosen via --encoder); *.nv12 / *.raw
                    # files take the raw frames
-      [--encoder=auto|pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N][:search=R][:halfpel|:quarterpel|:fastsub]|tpu[:qp=N][:i4][:chromah][:overlap]|ffmpeg|gi]
+      [--encoder=auto|pcm[:slices]|cavlc[:qp=N][:slices=M][:gop=N][:search=R][:halfpel|:quarterpel|:fastsub]|tpu[:qp=N][:gop=N|:gdr=N][:search=R][:halfpel|:quarterpel|:fastsub][:refs=2][:deblock][:i4][:chromah][:overlap]|ffmpeg|gi]
                    # encoder for rtp+h26x sinks (io.encoder; pcm = in-repo
                    # lossless I_PCM, cavlc = in-repo compressed, both with
                    # the C++ fast path of the port's native library; tpu =
-                   # the intra CAVLC encoder with its arithmetic on the
-                   # card, on --device, entropy coding on the host)
+                   # the CAVLC encoder with its arithmetic on the card, on
+                   # --device, entropy coding on the host: intra, or with
+                   # gop=N / gdr=N the GOP encoder with the reference
+                   # pictures on the card)
       [--hist-downsample=N]  # APPROXIMATE throughput mode: histograms
                    # from every Nth row, counts rescaled (selective
                    # downsampling, arXiv:1709.04583); default 1 = exact
@@ -61,13 +63,15 @@ gives the feeder whole batches only.
 
 Not ported yet, refused with return code 2: ``--fused-encode`` (the fused
 enhance + encode program), ``--io=gst``, and with an encoded sink the
-device GOP/GDR encoder and bit packer (``--encoder=tpu:gop=N`` with N > 1,
-``tpu:gdr=N``, ``tpu:bitpack``: the encoder factory's one line).
-``--encoder`` is read only for an encoded sink, as in the JAX package: with
-any other sink it is ignored.  The encoded sinks encode after the card has
-enhanced the frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` (the intra
-encoder, ``CudaCavlcEncoder``) on ``--device`` with its entropy coding on
-the host.  The ``Encoder:`` line names the port's class.
+device encoder's partition modes and bit packer (``--encoder=tpu:...:parts``,
+``tpu:...:bitpack``: the encoder factory's one line).  ``--encoder`` is
+read only for an encoded sink, as in the JAX package: with any other sink
+it is ignored.  The encoded sinks encode after the card has enhanced the
+frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` on ``--device`` with its
+entropy coding on the host (the intra encoder ``CudaCavlcEncoder``, or with
+``gop=N`` (N > 1) or ``gdr=N`` the GOP encoder ``CudaGopEncoder``, whose
+reference pictures stay on the card).  The ``Encoder:`` line names the
+port's class.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -96,7 +100,8 @@ _NOT_PORTED = {
 
 def not_ported(opts: dict) -> str | None:
     """The one-line refusal for a flag this package does not have yet, or
-    None (the encoder factory refuses the device encoders not ported)."""
+    None (the encoder factory refuses the device encoder options not
+    ported)."""
     what = None
     if opts.get("io") == "gst":
         what = "--io=gst (the GStreamer appsink/appsrc bridge)"

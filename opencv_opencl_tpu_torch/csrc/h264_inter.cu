@@ -1,0 +1,318 @@
+// H3 subpel_planes_kernel and H4 motion_search_kernel: the sub-sample
+// planes of a reference picture and the per-macroblock (MB) motion search
+// with motion compensation, for the P frames of the H.264 device GOP
+// encoder, on Hopper.
+//
+// H3 replaces opencv_opencl_tpu/ops/h264_levels.py:703 _base_planes_jax
+// with :733 halfpel_planes_jax and :738 quarterpel_planes_jax; H4 replaces
+// :838 motion_search_mc, :958 motion_search_mc_fast, :1086
+// motion_search_mc_fast_multi and :1399 motion_search_mc_multi.  They are
+// XLA programs, no Pallas kernels.  The plain PyTorch versions are
+// subpel_planes_plain and motion_search_plain in
+// opencv_opencl_tpu_torch/ops/h264_levels.py, the wrappers subpel_planes,
+// motion_search and search_into in
+// opencv_opencl_tpu_torch/ops/cuda/h264_inter.py.
+//
+// H3: spec 8.4.2.2.1 over the edge-extended reference (every sample
+// coordinate clamped into the picture, as a decoder clamps): G, the 6-tap
+// halves b (horizontal) and h (vertical), each Clip1((x + 16) >> 5), and j,
+// the horizontal 6-tap of the UNROUNDED vertical sums, Clip1((j1 + 512) >>
+// 10); with 16 planes the 12 quarter positions are rounding averages of G,
+// b, h, j and the neighbours G right and below, h right (m) and b below (s).
+// Planes of 1 (G alone), 4 ([G, b, h, j]) or 16 ((fy, fx) raster), each
+// (H + 2m) x (W + 2m), uint8.  Bound: bytes.  At 4K with margin 9 it reads
+// 8.3 MB and writes 16 planes of 2178 x 3858 (134 MB): about 143 MB, 0.043
+// ms at 3.35 TB/s.  Design: one thread per output position, a block of
+// 32 x 8 positions with the clamped reference tile it reads (14 x 38
+// samples) in shared memory; a thread recomputes the 6-taps its averages
+// need (cheaper than a second pass).
+//
+// H4: for each MB the least key sad * 8192 + candidate index over the
+// candidates (quarter-pel (dy, dx), in the oracle's order), references
+// searched in turn with the earlier kept on equal keys; a candidate that
+// the GDR clean-region rule excludes gets the key 2^31 - 1.  With the 49
+// fastsub offsets (offs) a second loop refines around the full-pel winner
+// on the winner's reference.  Then the MB's luma prediction from the
+// winner's plane and its 8x8 chroma with the spec 8.4.2.2.2 bilinear (mvC
+// = mv in 1/8 samples: integer part mv >> 3, arithmetic, fraction mv & 7,
+// coordinates clamped).  SADs are int32 sums.  Bound: operations.  fastsub
+// at search 8 on a 4K frame: 338 candidates x 8,294,400 pixels x 3
+// operations (difference, absolute value, sum) = 8.4 G, 0.125 ms at 67 T
+// operations/s; exhaustive quarter-pel at search 4 (1,089 candidates)
+// 27 G, 0.40 ms.  Design: one block of 256 threads per MB with the current
+// MB in shared memory; warp w takes candidates w, w + 8, ..., a lane sums
+// 8 of the 256 absolute differences and a warp sum gives the SAD; each
+// warp keeps its least (key, reference) and one block reduce ends the
+// search (the keys carry the index, so the result does not depend on the
+// order of evaluation).  Searching several MBs a block, packed byte SADs
+// (__vsadu4) and fusing with H2 are for a later change.
+//
+// All arithmetic is int32 and exact; `>>` of a signed int is arithmetic.
+// The launchers are extern "C", launch on the stream they are given, do not
+// synchronise, allocate nothing, and return cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------------ H3 ----
+
+constexpr int kTileX = 32, kTileY = 8;
+// the reference tile a block reads: two samples before its first output
+// and three (plus one for the neighbour right / below) after its last
+constexpr int kSx = kTileX + 6, kSy = kTileY + 6;
+
+__device__ __forceinline__ int tap6(int a, int b, int c, int d, int e, int f) {
+    return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
+}
+
+__device__ __forceinline__ int clip255(int x) { return max(0, min(255, x)); }
+
+__global__ void __launch_bounds__(kTileX * kTileY)
+subpel_planes_kernel(const uint8_t* __restrict__ ref, int H, int W, int margin,
+                     int nplanes, uint8_t* __restrict__ out) {
+    __shared__ int t[kSy][kSx];
+    const int oh = H + 2 * margin, ow = W + 2 * margin;
+    const int r0 = blockIdx.y * kTileY, c0 = blockIdx.x * kTileX;
+    const int tid = threadIdx.y * kTileX + threadIdx.x;
+    // t[ty][tx] = ref[clamp(r0 - margin - 2 + ty), clamp(c0 - margin - 2 + tx)]
+    for (int i = tid; i < kSy * kSx; i += kTileX * kTileY) {
+        const int ty = i / kSx, tx = i % kSx;
+        const int ry = min(max(r0 - margin - 2 + ty, 0), H - 1);
+        const int rx = min(max(c0 - margin - 2 + tx, 0), W - 1);
+        t[ty][tx] = ref[(long long)ry * W + rx];
+    }
+    __syncthreads();
+    const int yy = threadIdx.y, xx = threadIdx.x;
+    const int r = r0 + yy, c = c0 + xx;
+    if (r >= oh || c >= ow) return;
+    const long long plane = (long long)oh * ow;
+    uint8_t* o = out + (long long)r * ow + c;
+    // the sample (r, c) of the extended plane is t[yy + 2][xx + 2]
+    const int G = t[yy + 2][xx + 2];
+    if (nplanes == 1) {
+        o[0] = (uint8_t)G;
+        return;
+    }
+    // b at row offset dy: the 6-tap along the row
+#define BH(dy) clip255((tap6(t[yy + 2 + (dy)][xx], t[yy + 2 + (dy)][xx + 1],          \
+                             t[yy + 2 + (dy)][xx + 2], t[yy + 2 + (dy)][xx + 3],      \
+                             t[yy + 2 + (dy)][xx + 4], t[yy + 2 + (dy)][xx + 5]) + 16) >> 5)
+    // the unrounded vertical 6-tap at column offset dx
+#define V1(dx) tap6(t[yy][xx + 2 + (dx)], t[yy + 1][xx + 2 + (dx)],                  \
+                    t[yy + 2][xx + 2 + (dx)], t[yy + 3][xx + 2 + (dx)],              \
+                    t[yy + 4][xx + 2 + (dx)], t[yy + 5][xx + 2 + (dx)])
+    const int B = BH(0);
+    const int v0 = V1(0), v1 = V1(1);
+    const int Hh = clip255((v0 + 16) >> 5);
+    const int J = clip255((tap6(V1(-2), V1(-1), v0, v1, V1(2), V1(3)) + 512) >> 10);
+    if (nplanes == 4) {
+        o[0] = (uint8_t)G;
+        o[plane] = (uint8_t)B;
+        o[2 * plane] = (uint8_t)Hh;
+        o[3 * plane] = (uint8_t)J;
+        return;
+    }
+    const int Gr = t[yy + 2][xx + 3], Gd = t[yy + 3][xx + 2];
+    const int m = clip255((v1 + 16) >> 5);   // h one column right
+    const int s = BH(1);                      // b one row below
+#undef BH
+#undef V1
+    const int q[16] = {G, (G + B + 1) >> 1, B, (Gr + B + 1) >> 1,
+                       (G + Hh + 1) >> 1, (B + Hh + 1) >> 1, (B + J + 1) >> 1,
+                       (B + m + 1) >> 1,
+                       Hh, (Hh + J + 1) >> 1, J, (J + m + 1) >> 1,
+                       (Gd + Hh + 1) >> 1, (Hh + s + 1) >> 1, (J + s + 1) >> 1,
+                       (m + s + 1) >> 1};
+#pragma unroll
+    for (int p = 0; p < 16; ++p) o[p * plane] = (uint8_t)q[p];
+}
+
+// ------------------------------------------------------------------ H4 ----
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRadix = 8192;                 // io.h264_inter.SEARCH_KEY_RADIX
+constexpr int kBadKey = 0x7fffffff;          // io.h264_inter._BAD_KEY
+__constant__ int kRowExt[4] = {0, 3, 3, 4};  // io.h264_inter._MC_ROW_EXT
+
+__device__ __forceinline__ int plane_of(int fy, int fx, int nplanes) {
+    return nplanes == 16 ? fy * 4 + fx : nplanes == 4 ? (fy >> 1) * 2 + (fx >> 1) : 0;
+}
+
+// (key, ref) < (key2, ref2) in lexicographic order
+__device__ __forceinline__ bool better(int key, int r, int key2, int r2) {
+    return key < key2 || (key == key2 && r < r2);
+}
+
+struct Search {
+    const uint8_t* stack;   // (nrefs * nplanes, hp, wp)
+    long long plane;        // hp * wp
+    int wp, nplanes, margin;
+};
+
+// the SAD of the MB (mby, mbx) against plane `p` at integer offset
+// (oy, ox), summed over a warp: lane l takes row l / 2, 8 columns
+__device__ __forceinline__ int warp_sad(const Search& s, const int* cur, int p,
+                                        int mby, int mbx, int oy, int ox, int lane) {
+    const int row = lane >> 1, col = (lane & 1) * 8;
+    const uint8_t* src = s.stack + p * s.plane
+        + (long long)(s.margin + 16 * mby + row + oy) * s.wp
+        + s.margin + 16 * mbx + col + ox;
+    const int* c = cur + row * 16 + col;
+    int sad = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sad += abs(c[i] - (int)src[i]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sad += __shfl_xor_sync(0xffffffffu, sad, o);
+    return sad;
+}
+
+// the GDR clean-region rule: an MB row above the wave must not read at or
+// below it, the interpolation's reach included
+__device__ __forceinline__ bool excluded(int mby, int qy_total, int frac_y,
+                                         int clean_rows) {
+    return clean_rows >= 0 && mby < clean_rows
+           && 16 * mby + 15 + (qy_total >> 2) + kRowExt[frac_y] > 16 * clean_rows - 1;
+}
+
+__global__ void __launch_bounds__(kThreads)
+motion_search_kernel(const uint8_t* __restrict__ y, long long y_rs, Search s,
+                     int nrefs, const int* __restrict__ cands, int n,
+                     const int* __restrict__ offs, int clean_rows,
+                     const uint8_t* __restrict__ cb0, const uint8_t* __restrict__ cr0,
+                     const uint8_t* __restrict__ cb1, const uint8_t* __restrict__ cr1,
+                     int16_t* __restrict__ mv_out, int16_t* __restrict__ ref_out,
+                     uint8_t* __restrict__ pred_y, uint8_t* __restrict__ pred_cb,
+                     uint8_t* __restrict__ pred_cr) {
+    __shared__ int cur[256];
+    __shared__ int wkey[kWarps], wref[kWarps];
+    __shared__ int win[4];   // key, ref, dy, dx of the winner
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int mbx = blockIdx.x, mby = blockIdx.y, mb_w = gridDim.x;
+    const int W = mb_w * 16;
+    cur[tid] = y[(long long)(16 * mby + (tid >> 4)) * y_rs + 16 * mbx + (tid & 15)];
+    __syncthreads();
+
+    // ---- the candidates, references in turn
+    int bk = kBadKey, br = 0;
+    for (int i = warp; i < nrefs * n; i += kWarps) {
+        const int r = i / n, idx = i - r * n;
+        const int qy = cands[2 * idx], qx = cands[2 * idx + 1];
+        const int p = r * s.nplanes + plane_of(qy & 3, qx & 3, s.nplanes);
+        const int sad = warp_sad(s, cur, p, mby, mbx, qy >> 2, qx >> 2, lane);
+        const int key = excluded(mby, qy, qy & 3, clean_rows) ? kBadKey : sad * kRadix + idx;
+        if (better(key, r, bk, br)) {
+            bk = key;
+            br = r;
+        }
+    }
+    if (lane == 0) {
+        wkey[warp] = bk;
+        wref[warp] = br;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        int k = wkey[0], r = wref[0];
+        for (int w = 1; w < kWarps; ++w)
+            if (better(wkey[w], wref[w], k, r)) {
+                k = wkey[w];
+                r = wref[w];
+            }
+        win[0] = k;
+        win[1] = r;
+        win[2] = cands[2 * (k & (kRadix - 1))];
+        win[3] = cands[2 * (k & (kRadix - 1)) + 1];
+    }
+    __syncthreads();
+
+    // ---- fastsub: the 49 quarter-pel offsets around the full-pel winner
+    if (offs != nullptr) {
+        const int r = win[1], vy = win[2], vx = win[3];
+        bk = kBadKey;
+        for (int j = warp; j < 49; j += kWarps) {
+            const int qy = offs[2 * j], qx = offs[2 * j + 1];
+            const int p = r * 16 + (qy & 3) * 4 + (qx & 3);
+            const int sad = warp_sad(s, cur, p, mby, mbx, (vy >> 2) + (qy >> 2),
+                                     (vx >> 2) + (qx >> 2), lane);
+            const int key = excluded(mby, vy + qy, qy & 3, clean_rows) ? kBadKey
+                                                                       : sad * kRadix + j;
+            bk = min(bk, key);
+        }
+        if (lane == 0) wkey[warp] = bk;
+        __syncthreads();
+        if (tid == 0) {
+            int k = wkey[0];
+            for (int w = 1; w < kWarps; ++w) k = min(k, wkey[w]);
+            const int j = k & (kRadix - 1);
+            win[2] = vy + offs[2 * j];
+            win[3] = vx + offs[2 * j + 1];
+        }
+        __syncthreads();
+    }
+
+    // ---- the winner out, and the MB's motion-compensated prediction
+    const int r = win[1], dy = win[2], dx = win[3];
+    const long long mb = (long long)mby * mb_w + mbx;
+    if (tid == 0) {
+        mv_out[2 * mb] = (int16_t)dy;
+        mv_out[2 * mb + 1] = (int16_t)dx;
+        if (ref_out != nullptr) ref_out[mb] = (int16_t)r;
+    }
+    {
+        const int py = tid >> 4, px = tid & 15;
+        const int p = r * s.nplanes + plane_of(dy & 3, dx & 3, s.nplanes);
+        pred_y[(long long)(16 * mby + py) * W + 16 * mbx + px] =
+            s.stack[p * s.plane + (long long)(s.margin + 16 * mby + py + (dy >> 2)) * s.wp
+                    + s.margin + 16 * mbx + px + (dx >> 2)];
+    }
+    if (tid < 128) {
+        const int comp = tid >> 6, cy = (tid >> 3) & 7, cx = tid & 7;
+        const int ch = gridDim.y * 8, cw = mb_w * 8;
+        const uint8_t* src = comp ? (r ? cr1 : cr0) : (r ? cb1 : cb0);
+        const int fy = dy & 7, fx = dx & 7;
+        const int rr = 8 * mby + cy + (dy >> 3), cc = 8 * mbx + cx + (dx >> 3);
+        const int ra = min(max(rr, 0), ch - 1), rb = min(max(rr + 1, 0), ch - 1);
+        const int ca = min(max(cc, 0), cw - 1), cb_ = min(max(cc + 1, 0), cw - 1);
+        const int v = ((8 - fx) * (8 - fy) * src[(long long)ra * cw + ca]
+                       + fx * (8 - fy) * src[(long long)ra * cw + cb_]
+                       + (8 - fx) * fy * src[(long long)rb * cw + ca]
+                       + fx * fy * src[(long long)rb * cw + cb_] + 32) >> 6;
+        (comp ? pred_cr : pred_cb)[(long long)(8 * mby + cy) * cw + 8 * mbx + cx] =
+            (uint8_t)v;
+    }
+}
+
+}  // namespace
+
+extern "C" int subpel_planes_launch(const uint8_t* ref, int H, int W, int margin,
+                                    int nplanes, uint8_t* out, void* stream) {
+    const int oh = H + 2 * margin, ow = W + 2 * margin;
+    if (H > 0 && W > 0) {
+        const dim3 grid((ow + kTileX - 1) / kTileX, (oh + kTileY - 1) / kTileY);
+        subpel_planes_kernel<<<grid, dim3(kTileX, kTileY), 0, (cudaStream_t)stream>>>(
+            ref, H, W, margin, nplanes, out);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int motion_search_launch(const uint8_t* y, long long y_rs, int mb_h, int mb_w,
+                                    const uint8_t* stack, int nplanes, int margin,
+                                    int nrefs, const int* cands, int n, const int* offs,
+                                    int clean_rows, const uint8_t* cb0, const uint8_t* cr0,
+                                    const uint8_t* cb1, const uint8_t* cr1,
+                                    int16_t* mv, int16_t* ref, uint8_t* pred_y,
+                                    uint8_t* pred_cb, uint8_t* pred_cr, void* stream) {
+    Search s;
+    s.stack = stack;
+    s.wp = mb_w * 16 + 2 * margin;
+    s.plane = (long long)(mb_h * 16 + 2 * margin) * s.wp;
+    s.nplanes = nplanes;
+    s.margin = margin;
+    if (mb_h > 0 && mb_w > 0)
+        motion_search_kernel<<<dim3(mb_w, mb_h), kThreads, 0, (cudaStream_t)stream>>>(
+            y, y_rs, s, nrefs, cands, n, offs, clean_rows, cb0, cr0, cb1, cr1, mv, ref,
+            pred_y, pred_cb, pred_cr);
+    return (int)cudaGetLastError();
+}

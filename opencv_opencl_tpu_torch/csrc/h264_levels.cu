@@ -1,5 +1,6 @@
 // H1 intra_levels_kernel: the quantized CAVLC levels of one H.264 intra
-// frame, one slice per macroblock (MB) row, on Hopper.
+// frame, one slice per macroblock (MB) row, on Hopper.  H2 p_levels_kernel,
+// those of a P frame, is at the end of the file.
 //
 // Replaces opencv_opencl_tpu/ops/h264_levels.py:279 encode_levels, an XLA
 // lax.scan over the MB columns (:631), vectorised over the MB rows: no
@@ -36,196 +37,20 @@
 // (mb_h, mb_w, ...) layouts.  Several frames a launch, more MB rows a block
 // and fewer barriers are for a later change.
 //
-// The launcher is extern "C", launches on the stream it is given, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// The launchers are extern "C", launch on the stream they are given, do not
+// synchronise, allocate nothing, and return cudaGetLastError().  The device
+// helpers both kernels use are in h264_common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "h264_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kClamp = 2063;      // the 12-bit CAVLC level escape
 constexpr int kBig = 1 << 30;     // the cost of a mode that is not available
-
-// the quantizer constants of one QP, computed on the host from the tables
-// (ops/cuda/h264_levels.plan_words): mf and v by position class
-struct Plan {
-    int qp, qpc, qbits, qbits_c, f_y, f_c;
-    int mf_y[3], mf_c[3], v_y[3], v_c[3];
-};
-
-// coefficient position class: 0 both even, 1 both odd, 2 mixed
-__device__ __forceinline__ int pos_class(int u, int v) {
-    return ((u | v) & 1) == 0 ? 0 : ((u & v) & 1) ? 1 : 2;
-}
-
-// output k of the forward core transform CF on (x0, x1, x2, x3):
-// rows (1,1,1,1), (2,1,-1,-2), (1,-1,-1,1), (1,-2,2,-1)
-__device__ __forceinline__ int cf_pick(int x0, int x1, int x2, int x3, int k) {
-    const int s0 = x0 + x3, s1 = x1 + x2, s2 = x1 - x2, s3 = x0 - x3;
-    switch (k) {
-        case 0: return s0 + s1;
-        case 1: return 2 * s3 + s2;
-        case 2: return s0 - s1;
-        default: return s3 - 2 * s2;
-    }
-}
-
-// coefficient (u, v) of the forward transform of the 4x4 block at `res`,
-// rows `rs` apart (exact integer sums: the order does not matter)
-__device__ __forceinline__ int fwd_coef(const int* res, int rs, int u, int v) {
-    int c[4];
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-        const int* r = res + y * rs;
-        c[y] = cf_pick(r[0], r[1], r[2], r[3], v);
-    }
-    return cf_pick(c[0], c[1], c[2], c[3], u);
-}
-
-// output k of one pass of the spec 8.5.12.3 inverse core transform
-__device__ __forceinline__ int inv_pick(int d0, int d1, int d2, int d3, int k) {
-    const int e0 = d0 + d2, e1 = d0 - d2;
-    const int e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
-    switch (k) {
-        case 0: return e0 + e3;
-        case 1: return e1 + e2;
-        case 2: return e1 - e2;
-        default: return e0 - e3;
-    }
-}
-
-// the rounded residual ((x + 32) >> 6) at (yy, xx) of the inverse transform
-// of the dequantized 4x4 block `d` (raster): rows first, then columns
-__device__ __forceinline__ int inv_pixel(const int* d, int yy, int xx) {
-    int h[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-        h[u] = inv_pick(d[u * 4], d[u * 4 + 1], d[u * 4 + 2], d[u * 4 + 3], xx);
-    return (inv_pick(h[0], h[1], h[2], h[3], yy) + 32) >> 6;
-}
-
-// sign(w) * ((|w| * mf + f) >> qbits), clamped to the escape range
-__device__ __forceinline__ int quant(int w, int mf, int f, int qbits) {
-    const int q = (abs(w) * mf + f) >> qbits;
-    const int s = (w > 0) - (w < 0);
-    return max(-kClamp, min(kClamp, s * q));
-}
-
-// the CAVLC bit-cost proxy of one level: 2|l| + (l != 0)
-__device__ __forceinline__ int level_cost(int l) {
-    const int a = abs(l);
-    return 2 * a + (a != 0);
-}
-
-__device__ __forceinline__ int clamp255(int x) { return max(0, min(255, x)); }
-
-// entry (i, r) of the Hadamard H4: rows (1,1,1,1), (1,1,-1,-1),
-// (1,-1,-1,1), (1,-1,1,-1)
-__device__ __forceinline__ int h4(int i, int r) {
-    switch (i) {
-        case 0: return 1;
-        case 1: return r < 2 ? 1 : -1;
-        case 2: return (r == 0 || r == 3) ? 1 : -1;
-        default: return (r == 0 || r == 2) ? 1 : -1;
-    }
-}
-
-// entry (i, j) of H4 @ x @ H4 for the 4x4 raster x
-__device__ __forceinline__ int hadamard4(const int* x, int i, int j) {
-    int s = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s += h4(i, r) * h4(j, c) * x[r * 4 + c];
-    return s;
-}
-
-// entry (i, j) of H2 @ x @ H2 for the 2x2 raster x
-__device__ __forceinline__ int hadamard2(const int* x, int i, int j) {
-    return x[0] + (j ? -x[1] : x[1]) + (i ? -x[2] : x[2])
-           + ((i ^ j) ? -x[3] : x[3]);
-}
-
-// spec 8.5.10, the luma DC dequantization
-__device__ __forceinline__ int luma_dc_dequant(int c, const Plan& p) {
-    const int ls = 16 * p.v_y[0];
-    const int k = p.qp / 6;
-    if (p.qp >= 36) return (c * ls) * (1 << (k - 6));
-    return (c * ls + (1 << (5 - k))) >> (6 - k);
-}
-
-// spec 8.5.11.2, the chroma DC dequantization
-__device__ __forceinline__ int chroma_dc_dequant(int c, const Plan& p) {
-    return ((c * (16 * p.v_c[0])) * (1 << (p.qpc / 6))) >> 5;
-}
-
-// the z-scan of the 4x4 luma blocks of a MB: block z is (bx, by)
-__device__ __forceinline__ int scan_bx(int z) { return (z & 1) | ((z >> 1) & 2); }
-__device__ __forceinline__ int scan_by(int z) { return ((z >> 1) & 1) | ((z >> 2) & 2); }
-__device__ __forceinline__ int z_of(int bx, int by) {
-    return (bx & 1) | ((by & 1) << 1) | ((bx & 2) << 1) | ((by & 2) << 2);
-}
-
-// spec 8.3.1.2 Intra_4x4 prediction of mode m (not 2) at (yy, xx) from the
-// top row t8 (p[0..7, -1], top-right substituted), the left column l4 and
-// the corner c
-__device__ int i4_pred(int m, int yy, int xx, const int* t8, const int* l4,
-                       int c) {
-#define T(i) ((i) < 0 ? c : t8[(i)])
-#define L(i) ((i) < 0 ? c : l4[(i)])
-    switch (m) {
-        case 0: return T(xx);
-        case 1: return L(yy);
-        case 3:
-            if (xx == 3 && yy == 3) return (T(6) + 3 * T(7) + 2) >> 2;
-            return (T(xx + yy) + 2 * T(xx + yy + 1) + T(xx + yy + 2) + 2) >> 2;
-        case 4:
-            if (xx > yy)
-                return (T(xx - yy - 2) + 2 * T(xx - yy - 1) + T(xx - yy) + 2) >> 2;
-            if (xx < yy)
-                return (L(yy - xx - 2) + 2 * L(yy - xx - 1) + L(yy - xx) + 2) >> 2;
-            return (T(0) + 2 * c + L(0) + 2) >> 2;
-        case 5: {
-            const int z = 2 * xx - yy, i = xx - (yy >> 1);
-            if (z >= 0 && (z & 1) == 0) return (T(i - 1) + T(i) + 1) >> 1;
-            if (z >= 0) return (T(i - 2) + 2 * T(i - 1) + T(i) + 2) >> 2;
-            if (z == -1) return (L(0) + 2 * c + T(0) + 2) >> 2;
-            return (L(yy - 2 * xx - 1) + 2 * L(yy - 2 * xx - 2)
-                    + L(yy - 2 * xx - 3) + 2) >> 2;
-        }
-        case 6: {
-            const int z = 2 * yy - xx, i = yy - (xx >> 1);
-            if (z >= 0 && (z & 1) == 0) return (L(i - 1) + L(i) + 1) >> 1;
-            if (z >= 0) return (L(i - 2) + 2 * L(i - 1) + L(i) + 2) >> 2;
-            if (z == -1) return (L(0) + 2 * c + T(0) + 2) >> 2;
-            return (T(xx - 2 * yy - 1) + 2 * T(xx - 2 * yy - 2)
-                    + T(xx - 2 * yy - 3) + 2) >> 2;
-        }
-        case 7: {
-            const int i = xx + (yy >> 1);
-            if ((yy & 1) == 0) return (T(i) + T(i + 1) + 1) >> 1;
-            return (T(i) + 2 * T(i + 1) + T(i + 2) + 2) >> 2;
-        }
-        default: {  // 8
-            const int z = xx + 2 * yy, i = yy + (xx >> 1);
-            if (z < 5 && (z & 1) == 0) return (L(i) + L(i + 1) + 1) >> 1;
-            if (z < 5) return (L(i) + 2 * L(i + 1) + L(i + 2) + 2) >> 2;
-            if (z == 5) return (L(2) + 3 * L(3) + 2) >> 2;
-            return L(3);
-        }
-    }
-#undef T
-#undef L
-}
-
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
 
 __global__ void __launch_bounds__(kThreads)
 intra_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
@@ -514,6 +339,239 @@ intra_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// H2 p_levels_kernel: the levels, mode decisions and reconstruction of one P
+// frame, one slice per MB row.
+//
+// Replaces opencv_opencl_tpu/ops/h264_levels.py:1487 encode_p_levels, an XLA
+// lax.scan over the MB columns (:1785) after the motion search: no Pallas
+// kernel.  Its plain PyTorch version is p_levels_plain in
+// opencv_opencl_tpu_torch/ops/h264_levels.py (encode_p_levels_plain with the
+// search), the wrapper encode_p_levels / p_levels_into in
+// opencv_opencl_tpu_torch/ops/cuda/h264_levels.py.
+//
+// For each MB: the I_16x16 DC and HORIZONTAL candidates with DC chroma (the
+// intra rounding offset, a third) and the inter candidate against the
+// motion-compensated prediction (full 4x4 luma blocks, DC included, no
+// Hadamard; the inter offset, a sixth, chroma too); the decision in the
+// oracle's order: P_Skip where the inter levels are all zero and the MB's
+// (mv, ref) is ((0, 0), 0), else intra where cost_i + INTRA_BIAS < cost_p
+// (I_16x16 HORIZONTAL where left_ok and cost_h < cost_d), else inter; the
+// rows of a GDR band are intra regardless of cost and never skip.  The
+// chosen mode's levels and reconstruction are written; the reconstruction's
+// right column is the next MB's left edge (the intra candidate predicts from
+// the left MB's recon in the mode that MB chose).
+//
+// Bound: bytes.  At 4K it reads the source (12.4 MB of NV12) and the
+// prediction (12.4 MB) and writes 818 bytes a MB of int16 levels and mode
+// (26.5 MB) and the reconstruction (12.4 MB): about 64 MB, 0.019 ms at
+// 3.35 TB/s.  What really bounds this simple kernel is the dependent chain
+// of 240 columns along a row.  Design: H1's, one block of 256 threads per MB
+// row walking its columns with the carried right columns (16 luma, 2 x 8
+// chroma) in shared memory, threads over pixels and coefficients, costs
+// summed with warp shuffles, the outputs written straight into their
+// (mb_h, mb_w, ...) layouts.
+constexpr int kIntraBias = 8;     // io.h264_inter._INTRA_BIAS
+
+__global__ void __launch_bounds__(kThreads)
+p_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
+                const uint8_t* __restrict__ cb, long long cb_rs, long long cb_cs,
+                const uint8_t* __restrict__ cr, long long cr_rs, long long cr_cs,
+                const uint8_t* __restrict__ py_, const uint8_t* __restrict__ pcb,
+                const uint8_t* __restrict__ pcr, int mb_w, Plan p,
+                const int16_t* __restrict__ mv, const int16_t* __restrict__ ref,
+                int band_lo, int band_hi, int16_t* __restrict__ zdc_out,
+                int16_t* __restrict__ acz_out, int16_t* __restrict__ czdc_out,
+                int16_t* __restrict__ cacz_out, int16_t* __restrict__ mode_out,
+                uint8_t* __restrict__ ry, uint8_t* __restrict__ rcb,
+                uint8_t* __restrict__ rcr) {
+    // the MB's source and prediction: luma 16x16, chroma cb then cr 8x8
+    __shared__ int ys[256], cs[128], ps[256], pcs[128];
+    // the carry: the left MB's reconstructed right columns (cb 0..7, cr 8..15)
+    __shared__ int yedge[16], cedge[16];
+    // luma residuals of DC [0], HORIZONTAL [1] and inter [2]; chroma of
+    // intra DC [0] and inter [1]
+    __shared__ int res[3][256], cres[2][128];
+    __shared__ int wdc[2][16], zdcs[2][16], cwdc[2][2][4], czdcs[2][2][4];
+    __shared__ int red[kWarps][5];
+    __shared__ int dq[256], cdq[128], yrec[256], crec[128];
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int mby = blockIdx.x;
+    const int py = tid >> 4, px = tid & 15;
+    const int b = tid >> 4, k = tid & 15, u = k >> 2, v = k & 3;
+    const int bby = b >> 2, bbx = b & 3;
+    // chroma roles: candidate (0 intra, 1 inter), comp, pixel; block, coef
+    const int ccand = tid >> 7, ct = tid & 127, comp = ct >> 6;
+    const int cpr = (ct & 63) >> 3, cpc = ct & 7;
+    const int cblk = (ct >> 4) & 3, ck = ct & 15;
+    const int qsh = 1 << (p.qp / 6), qsh_c = 1 << (p.qpc / 6);
+    const int f_y_p = (1 << p.qbits) / 6, f_c_p = (1 << p.qbits_c) / 6;
+    const long long row0 = (long long)mby * 16, crow0 = (long long)mby * 8;
+    const long long yw = (long long)mb_w * 16, cw = (long long)mb_w * 8;
+    const bool inband = mby >= band_lo && mby < band_hi;
+
+    if (tid < 16) {
+        yedge[tid] = 0;
+        cedge[tid] = 0;
+    }
+
+    for (int mbx = 0; mbx < mb_w; ++mbx) {
+        const bool left_ok = mbx > 0;
+        const long long mb = (long long)mby * mb_w + mbx;
+        ys[tid] = y[(row0 + py) * y_rs + mbx * 16 + px];
+        ps[tid] = py_[(row0 + py) * yw + mbx * 16 + px];
+        if (tid < 128) {
+            const uint8_t* src = comp ? cr : cb;
+            const long long rs = comp ? cr_rs : cb_rs, cs_ = comp ? cr_cs : cb_cs;
+            cs[tid] = src[(crow0 + cpr) * rs + (long long)(mbx * 8 + cpc) * cs_];
+            pcs[tid] = (comp ? pcr : pcb)[(crow0 + cpr) * cw + mbx * 8 + cpc];
+        }
+        __syncthreads();
+
+        // ---- residuals of the candidates (the edges are the left MB's)
+        int ysum = 0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) ysum += yedge[i];
+        const int pd = left_ok ? (ysum + 8) >> 4 : 128;
+        res[0][tid] = ys[tid] - pd;
+        res[1][tid] = ys[tid] - yedge[py];
+        res[2][tid] = ys[tid] - ps[tid];
+        const int* ce = cedge + comp * 8;
+        const int half = cpr >> 2;
+        const int cdc = left_ok
+            ? (ce[4 * half] + ce[4 * half + 1] + ce[4 * half + 2] + ce[4 * half + 3] + 2) >> 2
+            : 128;
+        if (tid < 128) {
+            cres[0][tid] = cs[tid] - cdc;
+            cres[1][tid] = cs[tid] - pcs[tid];
+        }
+        __syncthreads();
+
+        // ---- forward transforms and quantization
+        const int cls = pos_class(u, v);
+        const int t_d = fwd_coef(res[0] + bby * 64 + bbx * 4, 16, u, v);
+        const int t_h = fwd_coef(res[1] + bby * 64 + bbx * 4, 16, u, v);
+        const int t_p = fwd_coef(res[2] + bby * 64 + bbx * 4, 16, u, v);
+        const int q_d = k ? quant(t_d, p.mf_y[cls], p.f_y, p.qbits) : 0;
+        const int q_h = k ? quant(t_h, p.mf_y[cls], p.f_y, p.qbits) : 0;
+        const int q_p = quant(t_p, p.mf_y[cls], f_y_p, p.qbits);
+        if (k == 0) {
+            wdc[0][b] = t_d;
+            wdc[1][b] = t_h;
+        }
+        const int f_cand = ccand ? f_c_p : p.f_c;
+        const int cu = ck >> 2, cv = ck & 3;
+        const int tc = fwd_coef(cres[ccand] + comp * 64 + (cblk >> 1) * 32 + (cblk & 1) * 4,
+                                8, cu, cv);
+        const int cq = ck ? quant(tc, p.mf_c[pos_class(cu, cv)], f_cand, p.qbits_c) : 0;
+        if (ck == 0) cwdc[ccand][comp][cblk] = tc;
+        __syncthreads();
+
+        // ---- the DC Hadamards and their quantization
+        if (tid < 32) {
+            const int cand = tid >> 4, idx = tid & 15;
+            const int s = hadamard4(wdc[cand], idx >> 2, idx & 3) >> 1;
+            zdcs[cand][idx] = quant(s, p.mf_y[0], 2 * p.f_y, p.qbits + 1);
+        } else if (tid < 48) {
+            const int q = tid - 32, cand = q >> 3, cc = (q >> 2) & 1, idx = q & 3;
+            const int s = hadamard2(cwdc[cand][cc], idx >> 1, idx & 1);
+            czdcs[cand][cc][idx] =
+                quant(s, p.mf_c[0], 2 * (cand ? f_c_p : p.f_c), p.qbits_c + 1);
+        }
+        __syncthreads();
+
+        // ---- the costs of the candidates, summed over the block
+        int c_d = level_cost(q_d), c_h = level_cost(q_h), c_p = level_cost(q_p);
+        int c_c = level_cost(cq);
+        if (tid < 16) {
+            c_d += level_cost(zdcs[0][tid]);
+            c_h += level_cost(zdcs[1][tid]);
+        }
+        if (ct < 8) c_c += level_cost(czdcs[ccand][ct >> 2][ct & 3]);
+        c_d = warp_sum(c_d);
+        c_h = warp_sum(c_h);
+        c_p = warp_sum(c_p);
+        c_c = warp_sum(c_c);
+        if (lane == 0) {
+            red[warp][0] = c_d;
+            red[warp][1] = c_h;
+            red[warp][2] = c_p;
+            red[warp][3] = c_c;
+        }
+        __syncthreads();
+        int cost_d = 0, cost_h = 0, cost_lp = 0, cost_ci = 0, cost_cp = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+            cost_d += red[w][0];
+            cost_h += red[w][1];
+            cost_lp += red[w][2];
+            if (w < kWarps / 2) cost_ci += red[w][3];
+            else cost_cp += red[w][3];
+        }
+        const bool use_h = left_ok && cost_h < cost_d;
+        const int cost_i = (use_h ? cost_h : cost_d) + cost_ci + kIntraBias;
+        const int cost_p = cost_lp + cost_cp;
+        const bool mvz = mv == nullptr ||
+            (mv[2 * mb] == 0 && mv[2 * mb + 1] == 0 && (ref == nullptr || ref[mb] == 0));
+        const bool skip = cost_p == 0 && mvz && !inband;
+        const bool intra = (!skip && cost_i < cost_p) || inband;
+        const int mode = skip ? 0 : intra ? (use_h ? 3 : 2) : 1;
+        const int csel = intra ? 0 : 1;   // the chosen chroma candidate
+
+        // ---- the chosen levels, dequantized
+        const int lq = intra ? (use_h ? q_h : q_d) : q_p;
+        if (intra) {
+            if (k) dq[tid] = lq * p.v_y[cls] * qsh;
+            if (tid < 16)
+                dq[tid * 16] = luma_dc_dequant(hadamard4(zdcs[use_h], tid >> 2, tid & 3), p);
+        } else {
+            dq[tid] = lq * p.v_y[cls] * qsh;
+        }
+        if (tid >= 16 && tid < 24) {
+            const int q = tid - 16, cc = q >> 2, idx = q & 3;
+            cdq[cc * 64 + idx * 16] =
+                chroma_dc_dequant(hadamard2(czdcs[csel][cc], idx >> 1, idx & 1), p);
+        }
+        if (ccand == csel && ck) cdq[ct] = cq * p.v_c[pos_class(ck >> 2, ck & 3)] * qsh_c;
+        __syncthreads();
+
+        // ---- the reconstruction, a pixel a thread
+        const int lpred = intra ? (use_h ? yedge[py] : pd) : ps[tid];
+        yrec[tid] = skip ? ps[tid]
+                         : clamp255(inv_pixel(dq + ((py >> 2) * 4 + (px >> 2)) * 16,
+                                              py & 3, px & 3) + lpred);
+        if (tid < 128) {
+            const int cpred = intra ? cdc : pcs[tid];
+            crec[tid] = skip ? pcs[tid]
+                             : clamp255(inv_pixel(cdq + comp * 64
+                                                  + ((cpr >> 2) * 2 + (cpc >> 2)) * 16,
+                                                  cpr & 3, cpc & 3) + cpred);
+        }
+        // ---- the chosen levels, in their (mb_h, mb_w, ...) layouts
+        if (tid < 16) zdc_out[mb * 16 + tid] = (int16_t)(intra ? zdcs[use_h][tid] : 0);
+        acz_out[mb * 256 + tid] = (int16_t)(skip ? 0 : lq);
+        if (tid < 8)
+            czdc_out[mb * 8 + tid] = (int16_t)(skip ? 0 : czdcs[csel][tid >> 2][tid & 3]);
+        if (ccand == csel) cacz_out[mb * 128 + ct] = (int16_t)(skip ? 0 : cq);
+        if (tid == 0) mode_out[mb] = (int16_t)mode;
+        __syncthreads();
+
+        // ---- the reconstruction out, and the carry
+        ry[(row0 + py) * yw + mbx * 16 + px] = (uint8_t)yrec[tid];
+        if (tid < 128)
+            (comp ? rcr : rcb)[(crow0 + cpr) * cw + mbx * 8 + cpc] = (uint8_t)crec[tid];
+        if (tid < 16) {
+            yedge[tid] = yrec[tid * 16 + 15];
+        } else if (tid < 32) {
+            const int q = tid - 16;
+            cedge[q] = crec[(q >> 3) * 64 + (q & 7) * 8 + 7];
+        }
+        __syncthreads();
+    }
+}
+
 }  // namespace
 
 extern "C" int intra_levels_launch(const uint8_t* y, long long y_rs,
@@ -545,5 +603,37 @@ extern "C" int intra_levels_launch(const uint8_t* y, long long y_rs,
             y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, mb_w, p, i4, chromah,
             out, out + 16 * n, out + 272 * n, out + 280 * n, out + 408 * n, i4m,
             cmode, ry, rcb, rcr);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int p_levels_launch(const uint8_t* y, long long y_rs, const uint8_t* cb,
+                               long long cb_rs, long long cb_cs, const uint8_t* cr,
+                               long long cr_rs, long long cr_cs, const uint8_t* py,
+                               const uint8_t* pcb, const uint8_t* pcr, int mb_h,
+                               int mb_w, const int* plan, int motion, int two_refs,
+                               int band_lo, int band_hi, int16_t* out, uint8_t* ry,
+                               uint8_t* rcb, uint8_t* rcr, void* stream) {
+    Plan p;
+    p.qp = plan[0];
+    p.qpc = plan[1];
+    p.qbits = plan[2];
+    p.qbits_c = plan[3];
+    p.f_y = plan[4];
+    p.f_c = plan[5];
+    for (int i = 0; i < 3; ++i) {
+        p.mf_y[i] = plan[6 + i];
+        p.mf_c[i] = plan[9 + i];
+        p.v_y[i] = plan[12 + i];
+        p.v_c[i] = plan[15 + i];
+    }
+    // the segments of ops/cuda/h264_levels.p_level_layout
+    const long long n = (long long)mb_h * mb_w;
+    const int16_t* mv = motion ? out + 409 * n : nullptr;
+    const int16_t* ref = two_refs ? out + 411 * n : nullptr;
+    if (mb_h > 0 && mb_w > 0)
+        p_levels_kernel<<<mb_h, kThreads, 0, (cudaStream_t)stream>>>(
+            y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, py, pcb, pcr, mb_w, p, mv,
+            ref, band_lo, band_hi, out, out + 16 * n, out + 272 * n, out + 280 * n,
+            out + 408 * n, ry, rcb, rcr);
     return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@ Hosts differ in what encoder they offer, so the relay's
   prediction, transforms and quantization in one kernel launch a frame,
   entropy coding on every host thread); ``:i4``, ``:chromah``,
   ``:overlap``, ``:deblock``, ``:cpb=``, ``:initdelay=`` as in the JAX
-  package.  ``:gop=N`` (N > 1), ``:gdr=N`` (``TpuGopEncoder``) and
+  package.  ``:gop=N`` (N > 1) and ``:gdr=N`` build the GOP encoder with
+  the reference pictures on the card (io.h264_inter.CudaGopEncoder, the
+  JAX package's ``TpuGopEncoder``), with ``:search=R``, ``:halfpel``,
+  ``:quarterpel``, ``:fastsub``, ``:refs=2`` as there.  ``:parts`` and
   ``:bitpack`` are not ported yet: ``make_encoder`` raises ``ValueError``.
 - ``ffmpeg`` — an external ``ffmpeg`` process fed raw NV12 on stdin,
   Annex-B H.264/H.265 on stdout (x264-class compression when the host
@@ -37,8 +40,9 @@ Access units carry 4-byte start codes, ready for
 :class:`opencv_opencl_tpu_torch.io.rtp_h26x.H26xRtpSink`.
 
 The port's own copy of ``opencv_opencl_tpu/io/encoder.py``: the same
-backends, ``tpu`` intra only (its class is ``CudaCavlcEncoder``, where the
-JAX package names ``TpuCavlcEncoder``), and no
+backends (``tpu``'s classes are ``CudaCavlcEncoder`` and ``CudaGopEncoder``,
+where the JAX package names ``TpuCavlcEncoder`` and ``TpuGopEncoder``; their
+``parts`` and ``bitpack`` options are not ported yet), and no
 ``EncodedRtpSink.write_packed`` (the fused enhance + encode program's
 entry, not ported yet).
 """
@@ -488,8 +492,10 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
         # the CAVLC encoder with its arithmetic on the card (one launch of
         # the intra level kernel a frame, ops/h264_levels.py); the host
         # does entropy coding only.  Streams are byte-identical to
-        # cavlc:slices=<mb rows>.  The GOP/GDR encoder and the device bit
-        # packer are not ported yet.
+        # cavlc:slices=<mb rows>.  gop=N > 1 and gdr=N build the GOP
+        # encoder (io/h264_inter.CudaGopEncoder: the P-frame kernels,
+        # the reference pictures on the card).  The device bit packer and
+        # the partition modes are not ported yet.
         if codec != "h264":
             raise ValueError("the TPU CAVLC encoder is h264-only")
         from opencv_opencl_tpu_torch.io.h264_cavlc import CudaCavlcEncoder
@@ -589,14 +595,32 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
                 raise ValueError(f"bad tpu qp in {backend!r}")
             if not 0 <= qp <= 51:
                 raise ValueError(f"tpu qp must be 0..51, got {qp}")
-        if gdr and gop is not None:
-            raise ValueError(
-                "tpu gdr=N replaces gop=N (GDR streams have no "
-                "periodic IDR) — give one or the other")
-        if gdr or (gop is not None and gop > 1) or bitpack:
-            # the GOP/GDR encoder with device-resident reconstruction and
-            # the device bit packer have no counterpart here yet
+        if bitpack:
+            # the device bit packer has no counterpart here yet
             raise ValueError(f"--encoder={backend}: not ported yet")
+        if gdr or (gop is not None and gop > 1):
+            # the GOP stream with the reference pictures on the card (its
+            # partition modes raise "not ported yet")
+            from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
+
+            if gdr and gop is not None:
+                raise ValueError(
+                    "tpu gdr=N replaces gop=N (GDR streams have no "
+                    "periodic IDR) — give one or the other")
+            kw = dict(overlap=overlap, search=search, halfpel=halfpel,
+                      quarterpel=quarterpel, fastsub=fastsub,
+                      refs=refs, parts=parts, bitpack=bitpack,
+                      deblock=deblock, cpb_ms=cpb_ms,
+                      initial_delay_ms=initdelay_ms, i4=i4, chromah=chromah,
+                      device=device)
+            if gdr:
+                kw["gdr"] = gdr
+            else:
+                kw["gop"] = gop
+            if qp is not None:
+                return CudaGopEncoder(width, height, qp=qp, **kw)
+            return CudaGopEncoder(width, height, qp=30,
+                                  bitrate_kbps=bitrate_kbps, fps=fps, **kw)
         if (search or halfpel or quarterpel or fastsub or parts
                 or refs > 1):
             raise ValueError(

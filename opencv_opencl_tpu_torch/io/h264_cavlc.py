@@ -36,7 +36,8 @@ The port's own copy of ``opencv_opencl_tpu/io/h264_cavlc.py`` up to
 counterpart of ``TpuCavlcEncoder``: the level stage on the card
 (ops/h264_levels.py), without the device bit packer (``bitpack``) and
 without ``encode_from_packed`` (the fused enhance + encode program), which
-are not ported yet.
+are not ported yet; the GOP encoder that builds on it is
+``io.h264_inter.CudaGopEncoder``.
 """
 
 from __future__ import annotations

@@ -47,9 +47,11 @@ redundancy; this module adds the missing inter path with a
 
 Python here is the tested oracle, like io.h264_cavlc.
 
-The port's own copy of ``opencv_opencl_tpu/io/h264_inter.py`` without
-``TpuGopEncoder`` and its fused-GOP helpers (not ported yet): the same
-bytes.
+The port's own copy of ``opencv_opencl_tpu/io/h264_inter.py``: the same
+bytes.  ``CudaGopEncoder`` is its ``TpuGopEncoder`` (the device GOP
+encoder on the card), without the ``parts`` and ``bitpack`` options and
+the fused-GOP helpers (``initial_recon``, ``encode_from_packed``), which
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ __all__ = ["build_sps_gop", "build_recovery_point_sei",
            "search_candidates",
            "search_candidates_qpel", "halfpel_planes",
            "quarterpel_planes", "motion_search", "mc_planes",
-           "SEARCH_KEY_RADIX"]
+           "SEARCH_KEY_RADIX", "CudaGopEncoder"]
 
 
 def build_sps_gop(width: int, height: int, refs: int = 1,
@@ -2208,4 +2210,418 @@ def _gop_rate_control(enc, used: int) -> None:
 
         delta = round(6 * math.log2(mean / target))
         enc.qp = min(51, max(10, enc.qp + min(6, max(-3, delta))))
+
+
+
+class CudaGopEncoder:
+    """Low-delay-P GOP encoder with the pixel arithmetic on the card and the
+    reference pictures in device memory (io.encoder protocol;
+    ``--encoder=tpu:gop=N`` / ``tpu:gdr=N``; the JAX package's
+    ``TpuGopEncoder``).
+
+    Per frame: at a GOP start ``intra_levels_kernel`` with the full
+    reconstruction (ops/h264_levels.encode_levels); otherwise, with
+    ``search``, ``subpel_planes_kernel`` and ``motion_search_kernel``, then
+    ``p_levels_kernel`` (the per-MB skip / inter / intra decision);
+    ``deblock_kernel`` then filters the new reference in place.  Only the
+    levels (one int16 buffer a frame, with the mode, MV and reference
+    fields) come down to the host, which does the entropy coding (the
+    native ``cavlc_entropy_rows_p`` rows, or ``encode_frame_p_from_levels``
+    where the library does not build).  The reconstruction chain never
+    leaves the card.  Streams are byte-identical to
+    ``GopCavlcEncoder(slices=mb_h)``.
+
+    It runs on the card unless ``device="cpu"`` (the kernels' plain
+    versions, for the tests); with no device and no card it raises.
+
+    ``overlap=True`` adds the depth-1 pipeline of ``CudaCavlcEncoder``: the
+    card computes frame N while the host entropy-codes frame N-1 (one frame
+    of latency, bytes unchanged; ``flush`` drains the tail).  ``cpb_ms``
+    re-encodes a frame over the leaky-bucket budget at a higher QP from a
+    snapshot of the chain: the kernels never write a reference picture in
+    place, so the snapshot stays valid.  ``parts`` (sub-16x16 partitions)
+    and ``bitpack`` (the device bit packer) are not ported yet: they raise.
+    """
+
+    codec = "h264"
+
+    def __init__(self, width: int, height: int, qp: int = 30,
+                 gop: int = 30, bitrate_kbps: int | None = None,
+                 fps: float = 30.0, native: str = "auto",
+                 threads: int = 0, overlap: bool = False,
+                 search: int = 0, halfpel: bool = False,
+                 quarterpel: bool = False, fastsub: bool = False,
+                 refs: int = 1, parts: bool = False,
+                 deblock: bool = False, gdr: int = 0,
+                 bitpack: bool = False, cpb_ms: int | None = None,
+                 initial_delay_ms: int | None = None,
+                 i4: bool = False, chromah: bool = False,
+                 device=None) -> None:
+        import torch
+
+        from opencv_opencl_tpu_torch.io.h264_cavlc import CudaCavlcEncoder
+
+        if gop < 1:
+            raise ValueError(f"gop must be >= 1, got {gop}")
+        # Intra_4x4 / chroma HORIZONTAL on IDR frames (the P-frame intra
+        # candidate stays I_16x16 with DC chroma)
+        self.i4 = bool(i4)
+        self.chromah = bool(chromah)
+        # GDR horizontal intra refresh: the wave band rides into the P
+        # kernel as two ints
+        self.gdr = int(gdr)
+        if self.gdr:
+            if refs > 1:
+                raise ValueError("gdr requires refs=1")
+            mb_h = -(-height // 16)
+            self._gdr_period = min(self.gdr, mb_h)
+            self._gdr_rows = -(-mb_h // self._gdr_period)
+            gop = 1 << 30  # one IDR ever; refresh rides the wave
+        self.search = int(search)
+        if fastsub and (halfpel or quarterpel):
+            raise ValueError("fastsub replaces halfpel/quarterpel "
+                             "(it IS a quarter-pel mode)")
+        self.subpel = (3 if fastsub
+                       else 2 if quarterpel else (1 if halfpel else 0))
+        if (halfpel or quarterpel or fastsub) and not search:
+            raise ValueError("halfpel/quarterpel/fastsub require "
+                             "search=R > 0")
+        if search:
+            search_candidates_qpel(search, 0 if fastsub else self.subpel)
+        if not 1 <= refs <= 2:
+            raise ValueError(
+                f"TPU GOP refs must be 1 or 2, got {refs}")
+        if refs > 1 and not search:
+            raise ValueError("refs > 1 requires search=R > 0")
+        self.refs = int(refs)
+        if parts:
+            if not search:
+                raise ValueError("parts requires search=R > 0")
+            if fastsub:
+                raise ValueError("parts does not compose with fastsub")
+            if gdr:
+                raise ValueError("parts requires no gdr")
+            raise ValueError("parts (sub-16x16 inter partitions): not ported yet")
+        if bitpack:
+            raise ValueError("bitpack (the device bit packer): not ported yet")
+        if cpb_ms is None and initial_delay_ms is not None:
+            raise ValueError("initdelay requires cpb")
+        if cpb_ms is not None:
+            if not bitrate_kbps:
+                raise ValueError(
+                    "cpb needs bitrate control (bitrate_kbps), not a "
+                    "fixed qp")
+            if overlap:
+                raise ValueError(
+                    "cpb does not compose with overlap (the CPB "
+                    "re-encode loop is synchronous per frame)")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CudaGopEncoder runs on the card and torch.cuda.is_available() "
+                "is false; device='cpu' runs the kernels' plain versions")
+        # the intra machinery (padding, native/Python entropy, parameter
+        # sets) is the intra device encoder's, with the GOP SPS
+        self._intra = CudaCavlcEncoder(width, height, qp=qp, native=native,
+                                       threads=threads, deblock=deblock,
+                                       device=self.device)
+        self.width, self.height = width, height
+        self.qp = int(qp)
+        self.gop = int(gop)
+        self.bitrate_kbps = bitrate_kbps
+        self.fps = fps
+        self.frames = 0
+        self._frame_num = 0
+        self._recon = None
+        self._ref_list: list = []
+        self._au_window: list[int] = []
+        self._overlap = bool(overlap)
+        self._pending = None
+        self._cpb = None
+        if cpb_ms is not None:
+            from opencv_opencl_tpu_torch.io.h264_hrd import CpbModel
+
+            self._cpb = CpbModel(
+                bitrate_kbps, cpb_ms,
+                cpb_ms // 2 if initial_delay_ms is None
+                else initial_delay_ms, fps)
+        self._intra._sps = build_sps_gop(
+            width, height, refs=self.refs,
+            hrd=None if self._cpb is None else self._cpb.params)
+        # in-loop deblocking: every reference picture is the filtered
+        # reconstruction, filtered on the card; GDR + deblock filters P
+        # pictures slice-locally (idc=2), the IDR keeps idc=0
+        self.deblock = bool(deblock)
+        self._deblock_slice_local = bool(self.gdr and deblock)
+        self._card: dict = {}      # the card's buffers, by geometry
+        self._slots: list[dict] = []
+        self._flip = 0
+
+    # ------------------------------------------------------------ card --
+
+    def _buffers(self, rows: int, w16: int, h16: int) -> dict:
+        """The per-geometry device buffers and the two pinned slots
+        (upload, levels, event), made at the first frame."""
+        import torch
+
+        from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kl
+
+        key = (rows, w16)
+        if self._card.get("key") != key:
+            mb_h, mb_w = h16 // 16, w16 // 16
+            dev = self.device
+            words = max(kl.level_words(mb_h, mb_w, self.i4, self.chromah),
+                        kl.p_level_words(mb_h, mb_w))
+            self._card = {
+                "key": key,
+                "frame": torch.empty((rows, w16), dtype=torch.uint8, device=dev),
+                "intra": torch.empty(kl.level_words(mb_h, mb_w, self.i4, self.chromah),
+                                     dtype=torch.int16, device=dev),
+                "p": torch.empty(kl.p_level_words(mb_h, mb_w), dtype=torch.int16,
+                                 device=dev),
+                "pred": (torch.empty((h16, w16), dtype=torch.uint8, device=dev),
+                         torch.empty((h16 // 2, w16 // 2), dtype=torch.uint8, device=dev),
+                         torch.empty((h16 // 2, w16 // 2), dtype=torch.uint8, device=dev)),
+                # the all-intra metadata of an IDR picture's filter
+                "idr_intra": torch.ones((mb_h, mb_w), dtype=torch.uint8, device=dev),
+                "idr_nnz": torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.uint8, device=dev),
+            }
+            self._slots = [{"frame": torch.empty((rows, w16), dtype=torch.uint8,
+                                                 pin_memory=True),
+                            "levels": torch.empty(words, dtype=torch.int16,
+                                                  pin_memory=True),
+                            "event": None} for _ in range(2)]
+        return self._card
+
+    def _upload(self, padded: np.ndarray, h16: int, w16: int):
+        """The padded frame on the device: (y, cb, cr) views and, on the
+        card, the pinned slot this frame's levels come back into."""
+        import torch
+
+        if self.device.type != "cuda":
+            frame = torch.from_numpy(np.array(padded, copy=True)).to(self.device)
+            slot = None
+        else:
+            card = self._buffers(padded.shape[0], w16, h16)
+            slot = self._slots[self._flip]
+            self._flip ^= 1
+            if slot["event"] is not None:
+                slot["event"].synchronize()   # its upload and copy are done
+            np.copyto(slot["frame"].numpy(), padded)
+            frame = card["frame"]
+            frame.copy_(slot["frame"], non_blocking=True)
+        uv = frame[h16:].view(h16 // 2, w16 // 2, 2)
+        return frame[:h16], uv[:, :, 0], uv[:, :, 1], slot
+
+    def _download(self, slot, flat, split):
+        """Start the levels' copy into the slot's pinned buffer: (event,
+        the levels by name as host arrays, valid once the event has
+        completed)."""
+        import torch
+
+        n = flat.numel()
+        slot["levels"][:n].copy_(flat, non_blocking=True)
+        slot["event"] = torch.cuda.Event()
+        slot["event"].record(torch.cuda.current_stream(self.device))
+        return slot["event"], split(slot["levels"].numpy()[:n])
+
+    def _deblocked(self, recon, qp: int, intra, nnz4, mv=None, ref=None,
+                   slice_local: bool = False):
+        """The filtered reference: in place on the card (the recon is the
+        frame's own, fresh), a new picture on the CPU."""
+        from opencv_opencl_tpu_torch.ops import h264_deblock
+        from opencv_opencl_tpu_torch.ops.cuda import h264_deblock as kd
+
+        if self.device.type == "cuda":
+            kd.deblock_into(*recon, qp, intra, nnz4, mv, ref, slice_local=slice_local)
+            return recon
+        import torch
+
+        mb_h, mb_w = intra.shape
+        if mv is None:
+            mv = torch.zeros((mb_h, mb_w, 2), dtype=torch.int16)
+        if ref is None:
+            ref = torch.zeros((mb_h, mb_w), dtype=torch.int16)
+        return h264_deblock.deblock_planes_plain(*recon, qp, intra, nnz4, mv, ref,
+                                                 slice_local=slice_local)
+
+    # --------------------------------------------------------- encoding --
+
+    def _dispatch(self, nv12: np.ndarray, qp_override: int | None = None):
+        """Launch one frame's kernels and start its levels' copy; returns
+        the pending tuple (kind, levels handle, number, qp, active
+        references, prefix).  ``qp_override`` serves the CPB loop."""
+        from opencv_opencl_tpu_torch.ops import h264_deblock
+        from opencv_opencl_tpu_torch.ops.cuda import h264_inter as ki
+        from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kl
+
+        rows = self.height * 3 // 2
+        arr = np.asarray(nv12, dtype=np.uint8).reshape(rows, self.width)
+        padded, w16, h16 = self._intra._pad(arr)
+        mb_h, mb_w = h16 // 16, w16 // 16
+        y, cb, cr, slot = self._upload(padded, h16, w16)
+        qp = self.qp if qp_override is None else qp_override
+        card = self.device.type == "cuda"
+        prefix = b""
+        if self.frames % self.gop == 0:
+            if card:
+                out = self._card["intra"]
+                recon = kl.intra_levels(y, cb, cr, qp, out, full_recon=True,
+                                        i4=self.i4, chromah=self.chromah)
+                handle = self._download(slot, out, lambda a: kl.split_levels(
+                    a, mb_h, mb_w, self.i4, self.chromah))
+                intra, nnz4 = self._card["idr_intra"], self._card["idr_nnz"]
+            else:
+                import torch
+
+                lv, ry, rcb, rcr, imode, *extra = kl.encode_levels(
+                    y, cb, cr, qp, full_recon=True, i4=self.i4,
+                    chromah=self.chromah)
+                recon = (ry, rcb, rcr)
+                names = ["i4modes"] * self.i4 + ["cmode"] * self.chromah
+                handle = (None, {**{k: a.numpy() for k, a in zip(lv._fields, lv)},
+                                 "imode": imode.numpy(),
+                                 **{k: a.numpy() for k, a in zip(names, extra)}})
+                intra = torch.ones((mb_h, mb_w), dtype=torch.bool)
+                nnz4 = torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.bool)
+            recon = tuple(recon)
+            if self.deblock:
+                recon = self._deblocked(recon, qp, intra, nnz4)
+            self._recon = recon
+            self._ref_list = [recon]
+            num = self._intra._idr_pic_id
+            self._intra._idr_pic_id ^= 1
+            self._frame_num = 1
+            pending = ("i", handle, num, qp, 1, b"")
+        else:
+            two = self.refs > 1 and len(self._ref_list) >= 2
+            refs = self._ref_list[:2] if two else [self._recon]
+            active = 2 if two else 1
+            band = None
+            if self.gdr:
+                m = (self.frames - 1) % self._gdr_period
+                band = (m * self._gdr_rows, min((m + 1) * self._gdr_rows, mb_h))
+                if m == 0:
+                    prefix = (_START4 + self._intra._sps + _START4 +
+                              self._intra._pps + _START4 +
+                              build_recovery_point_sei(self._gdr_period - 1))
+            if card:
+                out = self._card["p"]
+                parts = kl.split_p_levels(out, mb_h, mb_w)
+                pred = refs[0]
+                if self.search:
+                    pred = self._card["pred"]
+                    ki.search_into(y, refs, self.search, self.subpel,
+                                   None if band is None else band[0],
+                                   parts["mv"], parts["ref"] if two else None, *pred)
+                recon = kl.p_levels_into(y, cb, cr, *pred, qp, out,
+                                         motion=self.search > 0, two_refs=two,
+                                         band=band)
+                handle = self._download(slot, out, lambda a: kl.split_p_levels(
+                    a, mb_h, mb_w))
+                mode, acz = parts["mode"], parts["acz"]
+                mv = parts["mv"] if self.search else None
+                ref = parts["ref"] if two else None
+            else:
+                second = refs[1] if two else (None, None, None)
+                plv = kl.encode_p_levels(y, cb, cr, *refs[0], qp, self.search,
+                                         self.subpel, *second, gdr_band=band)
+                recon = (plv.recon_y, plv.recon_cb, plv.recon_cr)
+                mode, acz, mv, ref = plv.mode, plv.acz, plv.mv, plv.ref
+                handle = (None, {name: None if a is None else a.numpy() for name, a in
+                                 zip(("mode", "zdc", "acz", "czdc", "cacz", "mv", "ref"),
+                                     (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz,
+                                      plv.mv, plv.ref))})
+            if self.deblock:
+                recon = self._deblocked(recon, qp, mode >= 2, h264_deblock.nnz4_grid(acz),
+                                        mv, ref, slice_local=self._deblock_slice_local)
+            self._recon = recon
+            self._ref_list = ([recon] + self._ref_list)[:self.refs]
+            pending = ("p", handle, self._frame_num, qp, active, prefix)
+            self._frame_num = (self._frame_num + 1) % 16
+        self.frames += 1
+        return pending
+
+    def _p_entropy_nals(self, parts: dict, qp: int, num: int,
+                        active_refs: int) -> list[bytes]:
+        """P-frame entropy stage: the native C++ rows where the library
+        builds, the Python oracle otherwise."""
+        mode, zdc, acz, czdc, cacz = (parts[k] for k in
+                                      ("mode", "zdc", "acz", "czdc", "cacz"))
+        mv = parts["mv"] if self.search else None
+        ref = parts["ref"] if active_refs > 1 else None
+        if self._intra._native:
+            from opencv_opencl_tpu_torch import native
+
+            if hasattr(native._load(), "fp_cavlc_entropy_rows_p"):
+                return native.cavlc_entropy_rows_p(
+                    mode, zdc, acz, czdc, cacz, qp, num,
+                    threads=self._intra._threads,
+                    workspace=self._intra._workspace,
+                    active_refs=active_refs, deblock=self.deblock,
+                    slice_local=self._deblock_slice_local, mv=mv, ref=ref)
+        return encode_frame_p_from_levels(
+            mode, zdc, acz, czdc, cacz, qp, num, mv=mv, ref=ref,
+            active_refs=active_refs, deblock=self.deblock,
+            slice_local=self._deblock_slice_local)
+
+    def _assemble(self, kind: str, handle, num: int, qp: int,
+                  active_refs: int = 1, prefix: bytes = b"",
+                  do_rc: bool = True) -> bytes:
+        event, parts = handle
+        if event is not None:
+            event.synchronize()
+        if kind == "i":
+            nals = self._intra._entropy_nals((None, parts), num, qp)
+            au = (_START4 + self._intra._sps + _START4 + self._intra._pps +
+                  b"".join(_START4 + bytes(n) for n in nals))
+        else:
+            nals = self._p_entropy_nals(parts, qp, num, active_refs)
+            # GDR wave starts carry SPS + PPS + the recovery point SEI
+            au = prefix + b"".join(_START4 + bytes(n) for n in nals)
+        if do_rc and self.bitrate_kbps:
+            _gop_rate_control(self, len(au))
+        return au
+
+    def encode(self, nv12: np.ndarray) -> list[bytes]:
+        if self._cpb is not None:
+            # synchronous CPB loop: snapshot the chain, dispatch and
+            # entropy-code, retry at a higher QP while the AU exceeds the
+            # leaky-bucket budget
+            snap = (self._recon, list(self._ref_list), self._frame_num,
+                    self.frames, self._intra._idr_pic_id)
+            qp = self.qp
+            while True:
+                au = self._assemble(*self._dispatch(nv12, qp_override=qp),
+                                    do_rc=False)
+                if qp >= 51:
+                    break
+                budget = self._cpb.budget_bits()
+                if 8 * len(au) <= budget:
+                    break
+                (self._recon, self._ref_list, self._frame_num,
+                 self.frames, self._intra._idr_pic_id) = snap
+                snap = (snap[0], list(snap[1])) + snap[2:]
+                qp = self._intra._cpb_bump(qp, 8 * len(au), budget)
+            self._cpb.add_frame(8 * len(au))
+            self.qp = qp  # the forced QP carries forward
+            if self.bitrate_kbps:
+                _gop_rate_control(self, len(au))
+            return [au]
+        pending = self._dispatch(nv12)
+        if not self._overlap:
+            return [self._assemble(*pending)]
+        prev, self._pending = self._pending, pending
+        if prev is None:
+            return []
+        return [self._assemble(*prev)]
+
+    def flush(self) -> list[bytes]:
+        prev, self._pending = self._pending, None
+        if prev is None:
+            return []
+        return [self._assemble(*prev)]
+
+    def close(self) -> None:
+        pass
 

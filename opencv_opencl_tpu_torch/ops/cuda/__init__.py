@@ -1,21 +1,27 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version
 (counterpart of ``opencv_opencl_tpu.ops.pallas``): K1-K3, K5 (with K3v1),
-K7 and K10 in ``natural``, K4, K6 (with K9), K6r and K8 in ``lut``; and H1,
-the H.264 intra level kernel (counterpart of the XLA scan of
-``opencv_opencl_tpu.ops.h264_levels``), in ``h264_levels``."""
+K7 and K10 in ``natural``, K4, K6 (with K9), K6r and K8 in ``lut``; and the H.264 device encoder's kernels (counterparts of
+XLA programs of ``opencv_opencl_tpu.ops.h264_levels`` and
+``.h264_deblock``): H1 and H2, the intra and P level kernels, in
+``h264_levels``, H3 and H4, the sub-pel planes and the motion search, in
+``h264_inter``, H5, the deblocking filter, in ``h264_deblock``."""
 
-from opencv_opencl_tpu_torch.ops.cuda import h264_levels, lut, natural
+from opencv_opencl_tpu_torch.ops.cuda import (
+    h264_deblock, h264_inter, h264_levels, lut, natural)
+
+_MODULES = (natural, lut, h264_levels, h264_inter, h264_deblock)
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches by wrapper name since the last reset, every kernel."""
-    return {**natural.launch_counts(), **lut.launch_counts(),
-            **h264_levels.launch_counts()}
+    counts: dict[str, int] = {}
+    for module in _MODULES:
+        counts.update(module.launch_counts())
+    return counts
 
 
 def reset_launch_counts() -> None:
-    natural.reset_launch_counts()
-    lut.reset_launch_counts()
-    h264_levels.reset_launch_counts()
+    for module in _MODULES:
+        module.reset_launch_counts()

@@ -1,0 +1,208 @@
+"""The sub-pel plane and motion search kernels of the H.264 device GOP
+encoder, beside their plain PyTorch versions.
+
+Counterparts of XLA programs of ``opencv_opencl_tpu/ops/h264_levels.py``
+(no Pallas kernels).  The kernels are CUDA C++ for Hopper in
+``opencv_opencl_tpu_torch/csrc/h264_inter.cu``:
+
+=============  =============================================  ==================
+wrapper        plain version                                  replaces
+=============  =============================================  ==================
+subpel_planes  ``ops.h264_levels.subpel_planes_plain``        h264_levels.py:703
+               (``subpel_planes_kernel``, H3)                 (:733, :738)
+motion_search  ``ops.h264_levels.motion_search_plain``        h264_levels.py:838
+               (``motion_search_kernel``, H4)                 (:958, :1086,
+                                                              :1399)
+=============  =============================================  ==================
+
+As in ``ops/cuda/natural.py``: each wrapper takes its plain version only
+for tensors on the CPU; for CUDA tensors it launches its kernel on the
+current stream or raises, and counts its launches in ``<wrapper>.launches``.
+:func:`search_into` is the launcher the GOP encoder calls (the planes, then
+:func:`search_stack_into`): it writes the MV field and the reference index
+straight into a frame's level buffer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opencv_opencl_tpu_torch.ops import h264_levels as levels
+from opencv_opencl_tpu_torch.ops.cuda import _build
+from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _stream
+
+__all__ = ["subpel_planes", "motion_search", "search_into", "search_stack_into",
+           "planes_into", "launch_counts", "reset_launch_counts"]
+
+# candidate tables on the card, by (device, search, subpel)
+_TABLES: dict = {}
+
+
+def _check_plane(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.uint8 or t.ndim != 2 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D uint8 plane, got "
+                         f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+
+
+def planes_into(ry: torch.Tensor, margin: int, nplanes: int,
+                out: torch.Tensor) -> None:
+    """Launch ``subpel_planes_kernel``: the ``nplanes`` (1, 4 or 16)
+    planes of the CUDA luma plane ``ry`` into ``out``, a contiguous uint8
+    (nplanes, H + 2*margin, W + 2*margin) tensor (or a slice of a larger
+    stack of that shape)."""
+    if not _on_card(ry):
+        raise ValueError(f"planes_into launches on a CUDA device, got {ry.device}")
+    _check_plane(ry, "ry")
+    if nplanes not in (1, 4, 16) or margin < 0:
+        raise ValueError(f"nplanes must be 1, 4 or 16 and margin >= 0, got "
+                         f"{nplanes}, {margin}")
+    H, W = ry.shape
+    shape = (nplanes, H + 2 * margin, W + 2 * margin)
+    if (tuple(out.shape) != shape or out.dtype != torch.uint8
+            or not out.is_contiguous() or out.device != ry.device):
+        raise ValueError(f"out must be a contiguous uint8 {shape} tensor on {ry.device}")
+    lib = _build.load()
+    with torch.cuda.device(ry.device):
+        err = lib.subpel_planes_launch(ry.data_ptr(), H, W, margin, nplanes,
+                                       out.data_ptr(), _stream(ry.device))
+    _raise_on(err, "subpel_planes_kernel")
+    subpel_planes.launches += 1
+
+
+def subpel_planes(ry: torch.Tensor, margin: int, nplanes: int) -> torch.Tensor:
+    """:func:`ops.h264_levels.subpel_planes`: the kernel for a CUDA plane,
+    the plain version for a CPU one."""
+    if not isinstance(ry, torch.Tensor) or ry.dtype != torch.uint8 or ry.ndim != 2:
+        raise ValueError("ry must be a 2-D uint8 tensor")
+    if not _on_card(ry):
+        return levels.subpel_planes_plain(ry, margin, nplanes)
+    H, W = ry.shape
+    out = torch.empty((nplanes, H + 2 * margin, W + 2 * margin), dtype=torch.uint8,
+                      device=ry.device)
+    planes_into(ry.contiguous(), margin, nplanes, out)
+    return out
+
+
+def _tables(device: torch.device, search: int, subpel: int):
+    """(candidates (n, 2) int32, fastsub offsets (49, 2) int32 or None) on
+    the card, made once a configuration."""
+    key = (str(device), search, subpel)
+    if key not in _TABLES:
+        cands = torch.from_numpy(levels.search_candidates(search, subpel)).to(device)
+        offs = (torch.from_numpy(levels.fastsub_offsets()).to(device)
+                if subpel == 3 else None)
+        _TABLES[key] = (cands.contiguous(), offs)
+    return _TABLES[key]
+
+
+def search_into(y: torch.Tensor, refs, search: int, subpel: int,
+                clean_rows: int | None, mv: torch.Tensor, ref: torch.Tensor | None,
+                pred_y: torch.Tensor, pred_cb: torch.Tensor,
+                pred_cr: torch.Tensor) -> None:
+    """Build each reference's plane stack (``subpel_planes_kernel``), then
+    :func:`search_stack_into`."""
+    levels._check_search(y, refs, search, subpel, clean_rows)
+    if not _on_card(y):
+        raise ValueError(f"search_into launches on a CUDA device, got {y.device}")
+    H, W = y.shape
+    P, margin = levels.search_plan(search, subpel)
+    stack = torch.empty((len(refs) * P, H + 2 * margin, W + 2 * margin),
+                        dtype=torch.uint8, device=y.device)
+    for i, r in enumerate(refs):
+        _check_plane(r[0], "ry")
+        planes_into(r[0], margin, P, stack[i * P:(i + 1) * P])
+    search_stack_into(y, stack, refs, search, subpel, clean_rows, mv, ref,
+                      pred_y, pred_cb, pred_cr)
+
+
+def search_stack_into(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
+                      subpel: int, clean_rows: int | None, mv: torch.Tensor,
+                      ref: torch.Tensor | None, pred_y: torch.Tensor,
+                      pred_cb: torch.Tensor, pred_cr: torch.Tensor) -> None:
+    """Launch ``motion_search_kernel`` over CUDA planes and the references'
+    stacked planes ``stack`` ((len(refs) * P, H + 2m, W + 2m) uint8,
+    :func:`ops.h264_levels.search_plan`'s P and m): ``mv`` (mb_h, mb_w, 2)
+    and ``ref`` (mb_h, mb_w, two references only) int16 and the prediction
+    planes are written in place (``mv`` and ``ref`` may be strided views of
+    a level buffer, each MB's values contiguous)."""
+    levels._check_search(y, refs, search, subpel, clean_rows)
+    if not _on_card(y):
+        raise ValueError(f"search_stack_into launches on a CUDA device, got {y.device}")
+    if y.stride(1) != 1:
+        raise ValueError(f"y must have unit pixel stride, got {y.stride()}")
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    P, margin = levels.search_plan(search, subpel)
+    shape = (len(refs) * P, H + 2 * margin, W + 2 * margin)
+    if (tuple(stack.shape) != shape or stack.dtype != torch.uint8
+            or not stack.is_contiguous() or stack.device != y.device):
+        raise ValueError(f"stack must be a contiguous uint8 {shape} tensor on {y.device}")
+    for r in refs:
+        for name, t in zip(("ry", "rcb", "rcr"), r):
+            _check_plane(t, name)
+    for name, t, shape in (("pred_y", pred_y, (H, W)), ("pred_cb", pred_cb, (H // 2, W // 2)),
+                           ("pred_cr", pred_cr, (H // 2, W // 2))):
+        _check_plane(t, name)
+        if tuple(t.shape) != shape or t.device != y.device:
+            raise ValueError(f"{name} must be {shape} on {y.device}")
+    two = len(refs) > 1
+    if (mv.dtype != torch.int16 or tuple(mv.shape) != (mb_h, mb_w, 2)
+            or mv.stride(2) != 1 or mv.stride(1) != 2 or mv.stride(0) != 2 * mb_w):
+        raise ValueError("mv must be an int16 (mb_h, mb_w, 2) tensor with "
+                         "contiguous rows")
+    if two and (ref is None or ref.dtype != torch.int16
+                or tuple(ref.shape) != (mb_h, mb_w) or not ref.is_contiguous()):
+        raise ValueError("ref must be a contiguous int16 (mb_h, mb_w) tensor "
+                         "with two references")
+    cands, offs = _tables(y.device, search, subpel)
+    lib = _build.load()
+    second = refs[1] if two else refs[0]
+    with torch.cuda.device(y.device):
+        err = lib.motion_search_launch(
+            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin,
+            len(refs), cands.data_ptr(), cands.shape[0],
+            None if offs is None else offs.data_ptr(),
+            -1 if clean_rows is None else int(clean_rows),
+            refs[0][1].data_ptr(), refs[0][2].data_ptr(), second[1].data_ptr(),
+            second[2].data_ptr(), mv.data_ptr(), ref.data_ptr() if two else None,
+            pred_y.data_ptr(), pred_cb.data_ptr(), pred_cr.data_ptr(),
+            _stream(y.device))
+    _raise_on(err, "motion_search_kernel")
+    motion_search.launches += 1
+
+
+def motion_search(y: torch.Tensor, refs, search: int, subpel: int = 0,
+                  clean_rows: int | None = None):
+    """:func:`ops.h264_levels.motion_search`: the kernels for CUDA planes,
+    the plain version for CPU ones."""
+    levels._check_search(y, refs, search, subpel, clean_rows)
+    if not _on_card(y):
+        return levels.motion_search_plain(y, refs, search, subpel, clean_rows)
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    dev = y.device
+    refs = [tuple(t.contiguous() for t in r) for r in refs]
+    mv = torch.empty((mb_h, mb_w, 2), dtype=torch.int16, device=dev)
+    ref = (torch.empty((mb_h, mb_w), dtype=torch.int16, device=dev)
+           if len(refs) > 1 else None)
+    pred = (torch.empty((H, W), dtype=torch.uint8, device=dev),
+            torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
+            torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev))
+    search_into(y if y.stride(1) == 1 else y.contiguous(), refs, search, subpel,
+                clean_rows, mv, ref, *pred)
+    return (mv, ref, *pred) if ref is not None else (mv, *pred)
+
+
+_WRAPPERS = (subpel_planes, motion_search)
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+reset_launch_counts()

@@ -1,24 +1,28 @@
-"""The intra level kernel of the H.264 device encoder, beside its plain
-PyTorch version.
+"""The level kernels of the H.264 device encoder, beside their plain
+PyTorch versions.
 
-Counterpart of ``opencv_opencl_tpu/ops/h264_levels.py:279 encode_levels``,
-which is no Pallas kernel but an XLA ``lax.scan`` over the MB columns.
-The kernel is CUDA C++ for Hopper in
+Counterparts of ``opencv_opencl_tpu/ops/h264_levels.py:279 encode_levels``
+and ``:1487 encode_p_levels``, which are no Pallas kernels but XLA
+``lax.scan``s over the MB columns.  The kernels are CUDA C++ for Hopper in
 ``opencv_opencl_tpu_torch/csrc/h264_levels.cu``:
 
-=============  ==========================================  ===================
-wrapper        plain version                               replaces
-=============  ==========================================  ===================
-encode_levels  ``ops.h264_levels.encode_levels_plain``     h264_levels.py:279
-               (``intra_levels_kernel``)                   (H1)
-=============  ==========================================  ===================
+===============  ========================================  ====================
+wrapper          plain version                             replaces
+===============  ========================================  ====================
+encode_levels    ``ops.h264_levels.encode_levels_plain``   h264_levels.py:279
+                 (``intra_levels_kernel``)                 (H1)
+encode_p_levels  ``ops.h264_levels.encode_p_levels_plain`` h264_levels.py:1487
+                 (``p_levels_kernel``, after the search)   (H2)
+===============  ========================================  ====================
 
 As in ``ops/cuda/natural.py``: the wrapper takes its plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel on the current
 stream or raises, and counts its launches in ``encode_levels.launches``.
 The kernel writes every output of a frame into one int16 buffer,
 :func:`level_layout`'s segments, so that the host can fetch them in one
-copy (:func:`split_levels` cuts a tensor or a numpy array of that layout).
+copy (:func:`split_levels` cuts a tensor or a numpy array of that layout);
+a P frame's buffer (:func:`p_level_layout`) adds the search's MV field and
+reference index, which ``motion_search_kernel`` writes there.
 """
 
 from __future__ import annotations
@@ -29,11 +33,13 @@ import torch
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _stream
 from opencv_opencl_tpu_torch.ops.h264_levels import (
-    LevelArrays, _check_planes, encode_levels_plain, level_plan)
+    LevelArrays, PLevelArrays, _check_p_call, _check_planes,
+    _search_refs, encode_levels_plain, encode_p_levels_plain, level_plan)
 
 __all__ = ["encode_levels", "intra_levels", "level_layout", "level_words",
-           "split_levels", "plan_words", "launch_counts",
-           "reset_launch_counts"]
+           "split_levels", "plan_words", "encode_p_levels", "p_levels_into",
+           "p_level_layout", "p_level_words", "split_p_levels",
+           "launch_counts", "reset_launch_counts"]
 
 # the kernel's int32 plan: the order of csrc/h264_levels.cu's Plan
 _PLAN_KEYS = ("qp", "qpc", "qbits", "qbits_c", "f_y", "f_c", "mf_y", "mf_c",
@@ -158,7 +164,119 @@ def encode_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                        recon)
 
 
-_WRAPPERS = (encode_levels,)
+def p_level_layout(mb_h: int, mb_w: int) -> list[tuple[str, tuple, int]]:
+    """The segments of a P frame's int16 level buffer, in order: (name,
+    shape, offset in elements): H1's first four, then ``mode``, the MV
+    field ``mv`` (dy, dx) and the reference index ``ref``."""
+    segs = [("zdc", (16,)), ("acz", (16, 16)), ("czdc", (2, 4)),
+            ("cacz", (2, 4, 16)), ("mode", ()), ("mv", (2,)), ("ref", ())]
+    out, off = [], 0
+    for name, shape in segs:
+        out.append((name, (mb_h, mb_w) + shape, off))
+        off += mb_h * mb_w * int(np.prod(shape, dtype=np.int64))
+    return out
+
+
+def p_level_words(mb_h: int, mb_w: int) -> int:
+    """int16 elements of a P frame's level buffer (412 a MB)."""
+    return 412 * mb_h * mb_w
+
+
+def split_p_levels(flat, mb_h: int, mb_w: int) -> dict:
+    """Views of a P level buffer (a tensor or a numpy array), by name."""
+    out = {}
+    for name, shape, off in p_level_layout(mb_h, mb_w):
+        n = int(np.prod(shape, dtype=np.int64))
+        out[name] = flat[off:off + n].reshape(shape)
+    return out
+
+
+def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                  pred_y: torch.Tensor, pred_cb: torch.Tensor,
+                  pred_cr: torch.Tensor, qp: int, out: torch.Tensor,
+                  motion: bool = False, two_refs: bool = False,
+                  band: tuple[int, int] | None = None):
+    """Launch ``p_levels_kernel`` over CUDA planes into ``out``, a contiguous
+    int16 buffer of :func:`p_level_words` elements whose ``mv`` (with
+    ``motion``) and ``ref`` (with ``two_refs``) segments already hold the
+    search's field: an MB may skip only where they are zero.  ``pred_*``
+    are the motion-compensated planes (the reference at zero motion),
+    contiguous; ``band`` the GDR intra rows [lo, hi).  Returns the new
+    reconstructed planes ``(ry, rcb, rcr)``; the predictions are only read."""
+    mb_h, mb_w = _check_planes(y, cb, cr)
+    if not _on_card(y):
+        raise ValueError(f"p_levels_into launches on a CUDA device, got {y.device}")
+    if y.stride(1) != 1:
+        raise ValueError(f"y must have unit pixel stride, got {y.stride()}")
+    _check_strides(cb, "cb")
+    _check_strides(cr, "cr")
+    _check_planes(pred_y, pred_cb, pred_cr)
+    for name, t, like in (("pred_y", pred_y, y), ("pred_cb", pred_cb, cb),
+                          ("pred_cr", pred_cr, cr)):
+        if (tuple(t.shape) != tuple(like.shape) or not t.is_contiguous()
+                or t.device != y.device):
+            raise ValueError(f"{name} must be a contiguous {tuple(like.shape)} "
+                             f"plane on {y.device}")
+    need = p_level_words(mb_h, mb_w)
+    if (out.dtype != torch.int16 or out.device != y.device
+            or not out.is_contiguous() or out.numel() != need):
+        raise ValueError(f"out must be a contiguous int16 buffer of {need} "
+                         f"elements on {y.device}")
+    H, W = y.shape
+    recon = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
+             torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
+             torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
+    lo, hi = (0, 0) if band is None else (int(band[0]), int(band[1]))
+    plan = plan_words(qp)
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        err = lib.p_levels_launch(
+            y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0), cb.stride(1),
+            cr.data_ptr(), cr.stride(0), cr.stride(1), pred_y.data_ptr(),
+            pred_cb.data_ptr(), pred_cr.data_ptr(), mb_h, mb_w, plan.ctypes.data,
+            int(motion), int(two_refs), lo, hi, out.data_ptr(),
+            *(t.data_ptr() for t in recon), _stream(y.device))
+    _raise_on(err, "p_levels_kernel")
+    encode_p_levels.launches += 1
+    return recon
+
+
+def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
+                    subpel: int = 0, ry2=None, rcb2=None, rcr2=None,
+                    gdr_band: tuple | None = None, parts: int = 0) -> PLevelArrays:
+    """:func:`ops.h264_levels.encode_p_levels`: the kernels for CUDA planes
+    (the search's two, then ``p_levels_kernel``), the plain version for CPU
+    ones."""
+    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts)
+    if not _on_card(y):
+        return encode_p_levels_plain(y, cb, cr, ry, rcb, rcr, qp, search, subpel,
+                                     ry2, rcb2, rcr2, gdr_band)
+    from opencv_opencl_tpu_torch.ops.cuda import h264_inter
+
+    y = y if y.stride(1) == 1 else y.contiguous()
+    out = torch.empty(p_level_words(mb_h, mb_w), dtype=torch.int16, device=y.device)
+    parts_ = split_p_levels(out, mb_h, mb_w)
+    refs = [tuple(t.contiguous() for t in r)
+            for r in _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2)]
+    two = search > 0 and len(refs) > 1
+    if search:
+        H, W = y.shape
+        pred = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
+                torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
+                torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
+        h264_inter.search_into(y, refs if two else refs[:1], search, subpel,
+                               None if gdr_band is None else int(gdr_band[0]),
+                               parts_["mv"], parts_["ref"] if two else None, *pred)
+    else:
+        pred = refs[0]
+    recon = p_levels_into(y, cb, cr, *pred, qp, out, motion=search > 0,
+                          two_refs=two, band=gdr_band)
+    return PLevelArrays(parts_["mode"], parts_["zdc"], parts_["acz"], parts_["czdc"],
+                        parts_["cacz"], *recon, parts_["mv"] if search else None,
+                        parts_["ref"] if two else None)
+
+
+_WRAPPERS = (encode_levels, encode_p_levels)
 
 
 def reset_launch_counts() -> None:

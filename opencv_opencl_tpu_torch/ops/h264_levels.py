@@ -1,5 +1,5 @@
-"""H.264 intra CAVLC quantized levels on the card (counterpart of
-``opencv_opencl_tpu/ops/h264_levels.py``, its intra part).
+"""H.264 CAVLC quantized levels on the card (counterpart of
+``opencv_opencl_tpu/ops/h264_levels.py``).
 
 The arithmetic of the CAVLC intra encoder: prediction (I_16x16 DC and
 HORIZONTAL, optionally Intra_4x4 and chroma HORIZONTAL), the 4x4 integer
@@ -9,7 +9,7 @@ only dependency left is the reconstructed right edge of the macroblock to
 the left.  The host keeps the entropy coding
 (``native.cavlc_entropy_rows`` or ``io.h264_cavlc.encode_frame_from_levels``).
 
-:func:`encode_levels` is the entry point.  On a CUDA tensor it launches
+:func:`encode_levels` is the intra entry point.  On a CUDA tensor it launches
 ``intra_levels_kernel`` (``csrc/h264_levels.cu``, one thread block per MB
 row walking its columns; wrapper ``ops/cuda/h264_levels.py``) or raises; on
 a CPU tensor it runs :func:`encode_levels_plain`, a port of the JAX
@@ -22,6 +22,16 @@ levels, modes and reconstructions equal the JAX function's, and a stream
 entropy-coded from them equals ``CavlcH264Encoder(slices=mb_h)``'s byte
 for byte.
 
+The P part (the device GOP encoder's frames between IDRs):
+:func:`subpel_planes` (the spec 8.4.2.2.1 sub-sample planes,
+``subpel_planes_kernel``), :func:`motion_search` (per-MB SAD search and
+motion compensation, ``motion_search_kernel`` after the planes) and
+:func:`encode_p_levels` (the per-MB skip / inter / intra decision, the
+chosen levels and the reconstruction, ``p_levels_kernel`` after the
+search), each beside its plain version (``*_plain``), which the wrappers
+of ``ops/cuda/h264_inter.py`` and ``ops/cuda/h264_levels.py`` run for CPU
+tensors only.  Their streams equal ``GopCavlcEncoder(slices=mb_h)``'s.
+
 The tables are the port's own copies of the JAX module's (and of
 ``io/h264_cavlc.py``'s, the oracle's).
 """
@@ -33,9 +43,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# the search's contract with the host oracle: the candidate order, the
+# selection key sad * SEARCH_KEY_RADIX + index, the key of a candidate the
+# GDR clean-region rule excludes, and the rows an MC block reads below its
+# bottom sample by vertical quarter fraction
+from opencv_opencl_tpu_torch.io.h264_inter import (
+    _BAD_KEY, _MC_ROW_EXT, FASTSUB_OFFSETS, SEARCH_KEY_RADIX, search_candidates_qpel)
+
 __all__ = ["LevelArrays", "encode_levels", "encode_levels_plain",
            "encode_levels_nv12", "level_plan", "PACKED_LANES", "pack_levels",
-           "unpack_levels_host"]
+           "unpack_levels_host", "INTRA_BIAS", "PLevelArrays",
+           "subpel_planes", "subpel_planes_plain", "halfpel_planes",
+           "quarterpel_planes", "motion_search", "motion_search_plain",
+           "search_stack_plain",
+           "encode_p_levels", "encode_p_levels_plain", "p_levels_plain"]
 
 # _MF/_V per qp%6 by coefficient-position class; position-class matrix;
 # chroma QP mapping (spec Table 8-15); level clamp for the 12-bit CAVLC
@@ -654,3 +675,552 @@ def unpack_levels_host(packed: np.ndarray) -> tuple[LevelArrays, int]:
         packed[:, :, 272:280].reshape(mbh, mbw, 2, 4),
         packed[:, :, 280:408].reshape(mbh, mbw, 2, 4, 16),
     ), int(packed[0, 0, 408])
+
+
+# ------------------------------------------------------ the P frames ----
+
+INTRA_BIAS = 8  # intra syntax overhead in cost-proxy units (the oracle's
+#                 io.h264_inter._INTRA_BIAS: the two must stay equal)
+
+
+
+class PLevelArrays(NamedTuple):
+    """Per-MB chosen-mode levels of one P frame (raster layouts like
+    LevelArrays) plus the mode plane and the full reconstruction.
+
+    mode: (mb_h, mb_w) int16 — 0 P_Skip, 1 P_L0_16x16, 2 I_16x16 DC,
+          3 I_16x16 HORIZONTAL.
+    zdc:  (mb_h, mb_w, 16)      intra luma DC (zeros for inter/skip)
+    acz:  (mb_h, mb_w, 16, 16)  intra: AC with DC slot zeroed;
+                                inter: full 4x4 levels; skip: zeros
+    czdc: (mb_h, mb_w, 2, 4)
+    cacz: (mb_h, mb_w, 2, 4, 16)
+    recon_y/cb/cr: the reconstructed planes (uint8), the next frame's
+        reference.
+    mv:   (mb_h, mb_w, 2) int16 (dy, dx) quarter-pel MVs of the search
+          (None with search=0).
+    ref:  (mb_h, mb_w) int16 reference index (None with one reference).
+    pmode: the partition modes (the ``parts`` configuration, not ported
+          yet: always None).
+    """
+
+    mode: torch.Tensor
+    zdc: torch.Tensor
+    acz: torch.Tensor
+    czdc: torch.Tensor
+    cacz: torch.Tensor
+    recon_y: torch.Tensor
+    recon_cb: torch.Tensor
+    recon_cr: torch.Tensor
+    mv: torch.Tensor | None = None
+    ref: torch.Tensor | None = None
+    pmode: torch.Tensor | None = None
+
+
+def search_plan(search: int, subpel: int) -> tuple[int, int]:
+    """(planes, margin) of the reference stack a search reads: the full-pel
+    grid reads the edge-padded picture (1 plane, margin ``search``), the
+    half-pel lattice the [G, b, h, j] planes (4), the quarter-pel lattice
+    and ``fastsub`` (``subpel=3``) all 16 (margin ``search + 1``)."""
+    if subpel not in (0, 1, 2, 3):
+        raise ValueError(f"subpel must be 0, 1, 2 or 3, got {subpel}")
+    if not subpel:
+        return 1, search
+    return (4 if subpel == 1 else 16), search + 1
+
+
+def search_candidates(search: int, subpel: int) -> np.ndarray:
+    """The candidates of the search's first stage in quarter-pel units,
+    (n, 2) int32 (dy, dx), in the oracle's order
+    (``io.h264_inter.search_candidates_qpel``; ``fastsub`` sweeps the
+    full-pel grid)."""
+    return np.asarray(search_candidates_qpel(search, 0 if subpel == 3 else subpel),
+                      np.int32)
+
+
+def fastsub_offsets() -> np.ndarray:
+    """The 49 refinement offsets of ``fastsub`` (49, 2) int32, in the
+    oracle's order (``io.h264_inter.FASTSUB_OFFSETS``)."""
+    return np.asarray(FASTSUB_OFFSETS, np.int32)
+
+
+def _edge_pad(p: torch.Tensor, pad: int) -> torch.Tensor:
+    """``p`` extended by ``pad`` replicated samples on every side (the
+    decoder's clamping of every sample coordinate), int32."""
+    H, W = p.shape
+    r = torch.arange(-pad, H + pad, device=p.device).clamp(0, H - 1)
+    c = torch.arange(-pad, W + pad, device=p.device).clamp(0, W - 1)
+    return p[r][:, c].to(torch.int32)
+
+
+def _base_planes_plain(ry: torch.Tensor, margin: int,
+                       extra: int = 0) -> list[torch.Tensor]:
+    """[G, b, h, j] of spec 8.4.2.2.1 over the edge-extended reference,
+    each (H+2m+extra, W+2m+extra) int32 (the JAX ``_base_planes_jax``)."""
+    t = (1, -5, 20, 20, -5, 1)
+    ext = _edge_pad(ry, margin + 3 + extra)
+    eh = ext.shape[0]
+    H, W = ry.shape
+    oh, ow = H + 2 * margin + extra, W + 2 * margin + extra
+    o = 3 + extra
+    g = ext[o:o + oh, o:o + ow]
+    b1 = sum(c * ext[o:o + oh, o - 2 + k:o - 2 + k + ow] for k, c in enumerate(t))
+    b = torch.clamp((b1 + 16) >> 5, 0, 255)
+    h1f = sum(c * ext[k:eh - 5 + k, :] for k, c in enumerate(t))
+    h = torch.clamp((h1f[o - 2:o - 2 + oh, o:o + ow] + 16) >> 5, 0, 255)
+    j1 = sum(c * h1f[o - 2:o - 2 + oh, o - 2 + k:o - 2 + k + ow]
+             for k, c in enumerate(t))
+    j = torch.clamp((j1 + 512) >> 10, 0, 255)
+    return [g, b, h, j]
+
+
+def subpel_planes_plain(ry: torch.Tensor, margin: int,
+                        nplanes: int) -> torch.Tensor:
+    """Plain version of :func:`subpel_planes`, on ``ry``'s device."""
+    if nplanes == 1:
+        return _edge_pad(ry, margin).to(torch.uint8)[None]
+    if nplanes == 4:
+        return torch.stack(_base_planes_plain(ry, margin)).to(torch.uint8)
+    if nplanes != 16:
+        raise ValueError(f"nplanes must be 1, 4 or 16, got {nplanes}")
+    g2, b2, h2, j2 = _base_planes_plain(ry, margin, extra=1)
+    G, B = g2[:-1, :-1], b2[:-1, :-1]
+    Hh, J = h2[:-1, :-1], j2[:-1, :-1]
+    Gr, Gd = g2[:-1, 1:], g2[1:, :-1]
+    m_, s_ = h2[:-1, 1:], b2[1:, :-1]
+    return torch.stack([
+        G, (G + B + 1) >> 1, B, (Gr + B + 1) >> 1,
+        (G + Hh + 1) >> 1, (B + Hh + 1) >> 1, (B + J + 1) >> 1,
+        (B + m_ + 1) >> 1,
+        Hh, (Hh + J + 1) >> 1, J, (J + m_ + 1) >> 1,
+        (Gd + Hh + 1) >> 1, (Hh + s_ + 1) >> 1, (J + s_ + 1) >> 1,
+        (m_ + s_ + 1) >> 1,
+    ]).to(torch.uint8)
+
+
+def subpel_planes(ry: torch.Tensor, margin: int, nplanes: int) -> torch.Tensor:
+    """The stacked sub-sample planes of a reference luma plane ``ry``
+    (uint8 (H, W)), ``(nplanes, H + 2*margin, W + 2*margin)`` uint8, each
+    over the edge-extended picture: 1 is G alone (the padded picture), 4
+    the half-sample [G, b, h, j], 16 every quarter position in (fy, fx)
+    raster order (the JAX ``halfpel_planes_jax`` / ``quarterpel_planes_jax``
+    order).  On a CUDA tensor it launches ``subpel_planes_kernel``; on a
+    CPU tensor it runs :func:`subpel_planes_plain`."""
+    from opencv_opencl_tpu_torch.ops.cuda import h264_inter as kernel
+
+    return kernel.subpel_planes(ry, margin, nplanes)
+
+
+def halfpel_planes(ry: torch.Tensor, margin: int) -> torch.Tensor:
+    """The stacked [G, b, h, j] half-sample planes (4, H+2m, W+2m)."""
+    return subpel_planes(ry, margin, 4)
+
+
+def quarterpel_planes(ry: torch.Tensor, margin: int) -> torch.Tensor:
+    """All 16 sub-sample planes in (fy, fx) raster order (16, H+2m, W+2m)."""
+    return subpel_planes(ry, margin, 16)
+
+
+def _plane_of(fy, fx, nplanes: int):
+    """Plane index of fraction (fy, fx) in a stack of 1, 4 or 16 planes
+    (the oracle's ``_plane_index``)."""
+    if nplanes == 16:
+        return fy * 4 + fx
+    if nplanes == 4:
+        return fy // 2 * 2 + fx // 2
+    return fy * 0
+
+
+def _check_search(y: torch.Tensor, refs, search: int, subpel: int,
+                  clean_rows) -> None:
+    if not 1 <= len(refs) <= 2:
+        raise ValueError(f"motion_search takes 1 or 2 references, got {len(refs)}")
+    H, W = y.shape
+    for r in refs:
+        _check_planes(r[0], r[1], r[2])
+        if tuple(r[0].shape) != (H, W) or r[0].device != y.device:
+            raise ValueError(f"references must be ({H}, {W}) planes on {y.device}")
+    if search < 1:
+        raise ValueError(f"motion_search needs search >= 1, got {search}")
+    search_plan(search, subpel)
+    if clean_rows is not None and len(refs) > 1:
+        raise ValueError("clean_rows (GDR) does not compose with two references")
+
+
+def _mc_chroma(refs, mv: torch.Tensor, refsel: torch.Tensor | None):
+    """The spec 8.4.2.2.2 chroma prediction at a per-MB quarter-pel field:
+    mvC = mv in 1/8 chroma samples, integer part ``mv >> 3``, fraction
+    ``mv & 7``, clamped coordinates (= the edge extension), uint8."""
+    H, W = refs[0][0].shape
+    ch, cw = H // 2, W // 2
+    dev = mv.device
+    mvg = mv.to(torch.int32).repeat_interleave(8, 0).repeat_interleave(8, 1)
+    cdy, cdx = mvg[..., 0] >> 3, mvg[..., 1] >> 3
+    fy, fx = mvg[..., 0] & 7, mvg[..., 1] & 7
+    rbase = torch.arange(ch, device=dev)[:, None] + cdy
+    cbase = torch.arange(cw, device=dev)[None, :] + cdx
+    r0, r1 = rbase.clamp(0, ch - 1), (rbase + 1).clamp(0, ch - 1)
+    c0, c1 = cbase.clamp(0, cw - 1), (cbase + 1).clamp(0, cw - 1)
+    wa, wb = (8 - fx) * (8 - fy), fx * (8 - fy)
+    wc, wd = (8 - fx) * fy, fx * fy
+    rg = (torch.zeros_like(r0) if refsel is None else
+          refsel.to(torch.long).repeat_interleave(8, 0).repeat_interleave(8, 1))
+    out = []
+    for comp in (1, 2):
+        p = torch.stack([r[comp] for r in refs]).to(torch.int32)
+        out.append(((wa * p[rg, r0, c0] + wb * p[rg, r0, c1] + wc * p[rg, r1, c0]
+                     + wd * p[rg, r1, c1] + 32) >> 6).to(torch.uint8))
+    return out
+
+
+def motion_search_plain(y: torch.Tensor, refs, search: int, subpel: int = 0,
+                        clean_rows: int | None = None):
+    """Plain version of :func:`motion_search`: the references' plane stack
+    (:func:`subpel_planes_plain`), then :func:`search_stack_plain`."""
+    _check_search(y, refs, search, subpel, clean_rows)
+    P, margin = search_plan(search, subpel)
+    stack = torch.cat([subpel_planes_plain(r[0], margin, P) for r in refs])
+    return search_stack_plain(y, stack, refs, search, subpel, clean_rows)
+
+
+def search_stack_plain(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
+                       subpel: int = 0, clean_rows: int | None = None):
+    """Plain version of ``motion_search_kernel`` over the references' stacked
+    planes ``stack`` ((len(refs) * P, H + 2m, W + 2m), :func:`search_plan`'s
+    P and m): a loop over the candidates, each a full-frame SAD field summed
+    in int32, with the strict ``<`` of the JAX loops; ``fastsub`` refines
+    with per-MB gathers.  Returns :func:`motion_search`'s tuple."""
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    dev = y.device
+    P, margin = search_plan(search, subpel)
+    cur = y.to(torch.int32).reshape(mb_h, 16, mb_w, 16)
+    cands = search_candidates(search, subpel)
+    rows = torch.arange(mb_h, device=dev)
+    big = torch.iinfo(torch.int32).max
+    best_key = torch.full((mb_h, mb_w), big, dtype=torch.int64, device=dev)
+    best_idx = torch.zeros((mb_h, mb_w), dtype=torch.int64, device=dev)
+    best_ref = torch.zeros((mb_h, mb_w), dtype=torch.int64, device=dev)
+
+    def restrict(key, maxrow):
+        """The GDR rule: an MB row above the wave must not read at or below
+        it (``maxrow``, (mb_h, 1) or (mb_h, mb_w): the last reference row a
+        candidate's block reads, its interpolation included)."""
+        if clean_rows is None:
+            return key
+        bad = (rows < clean_rows)[:, None] & (maxrow > 16 * clean_rows - 1)
+        return torch.where(bad, _BAD_KEY, key)
+
+    for r in range(len(refs)):
+        for idx, (qy, qx) in enumerate(cands.tolist()):
+            p = r * P + _plane_of(qy & 3, qx & 3, P)
+            iy, ix = margin + (qy >> 2), margin + (qx >> 2)
+            ref = stack[p, iy:iy + H, ix:ix + W].to(torch.int32)
+            sad = (cur - ref.reshape(mb_h, 16, mb_w, 16)).abs().sum(
+                (1, 3), dtype=torch.int32).to(torch.int64)
+            key = restrict(sad * SEARCH_KEY_RADIX + idx,
+                           (16 * rows + 15 + (qy >> 2) + _MC_ROW_EXT[qy & 3])[:, None])
+            take = key < best_key
+            best_key = torch.where(take, key, best_key)
+            best_idx = torch.where(take, idx, best_idx)
+            best_ref = torch.where(take, r, best_ref)
+    mv = torch.as_tensor(cands, device=dev).to(torch.int64)[best_idx]
+
+    ri = (16 * rows[:, None, None] + torch.arange(16, device=dev)[None, None, :])
+    ci = (16 * torch.arange(mb_w, device=dev)[None, :, None]
+          + torch.arange(16, device=dev)[None, None, :])
+    if subpel == 3:
+        # the 49 quarter-pel offsets around each MB's full-pel winner, on
+        # its reference
+        curb = cur.permute(0, 2, 1, 3)                     # (mb_h, mb_w, 16, 16)
+        v = mv >> 2
+        rows0 = margin + ri + v[:, :, 0:1]                 # (mb_h, mb_w, 16)
+        cols0 = margin + ci + v[:, :, 1:2]
+        best_key = torch.full((mb_h, mb_w), big, dtype=torch.int64, device=dev)
+        best_j = torch.zeros((mb_h, mb_w), dtype=torch.int64, device=dev)
+        offs = fastsub_offsets()
+        for j, (qy, qx) in enumerate(offs.tolist()):
+            pg = best_ref * 16 + (qy & 3) * 4 + (qx & 3)
+            ref = stack[pg[:, :, None, None], (rows0 + (qy >> 2))[:, :, :, None],
+                        (cols0 + (qx >> 2))[:, :, None, :]].to(torch.int32)
+            sad = (curb - ref).abs().sum((2, 3), dtype=torch.int32).to(torch.int64)
+            ty = mv[:, :, 0] + qy
+            key = restrict(sad * SEARCH_KEY_RADIX + j,
+                           16 * rows[:, None] + 15 + (ty >> 2) + _MC_ROW_EXT[qy & 3])
+            take = key < best_key
+            best_key = torch.where(take, key, best_key)
+            best_j = torch.where(take, j, best_j)
+        mv = mv + torch.as_tensor(offs, device=dev).to(torch.int64)[best_j]
+
+    # luma MC: the winner's plane at the winner's integer offset
+    pg = best_ref * P + _plane_of(mv[:, :, 0] & 3, mv[:, :, 1] & 3, P)
+    pred_y = stack[pg[:, :, None, None],
+                   (margin + ri + (mv[:, :, 0:1] >> 2))[:, :, :, None],
+                   (margin + ci + (mv[:, :, 1:2] >> 2))[:, :, None, :]]
+    pred_y = pred_y.permute(0, 2, 1, 3).reshape(H, W)
+    two = len(refs) > 1
+    pred_cb, pred_cr = _mc_chroma(refs, mv, best_ref if two else None)
+    mv16 = mv.to(torch.int16)
+    if two:
+        return mv16, best_ref.to(torch.int16), pred_y, pred_cb, pred_cr
+    return mv16, pred_y, pred_cb, pred_cr
+
+
+def motion_search(y: torch.Tensor, refs, search: int, subpel: int = 0,
+                  clean_rows: int | None = None):
+    """Per-MB motion search and motion compensation of the luma plane ``y``
+    against one or two references, ``refs`` a list of ``(ry, rcb, rcr)``
+    uint8 planes (the most recent first), radius ``search`` in pixels
+    over the full-pel grid (``subpel=0``), the exhaustive half-pel (1) or
+    quarter-pel (2) lattice, or ``fastsub`` (3: the full-pel grid, then
+    the 49 quarter-pel offsets around each MB's winner).  Each MB keeps
+    the least key ``sad * 8192 + candidate index`` in the oracle's
+    candidate order (``io.h264_inter.search_candidates_qpel``), with two
+    references the earlier on equal keys; ``clean_rows`` is the GDR
+    clean-region rule (one reference only).
+
+    Returns the JAX functions' tuples: ``(mv, pred_y, pred_cb, pred_cr)``,
+    or ``(mv, ref, pred_y, pred_cb, pred_cr)`` with two references; ``mv``
+    (mb_h, mb_w, 2) int16 (dy, dx) in quarter-pel units, ``ref`` int16,
+    the predictions uint8 planes.  On CUDA tensors it launches
+    ``subpel_planes_kernel`` for each reference, then
+    ``motion_search_kernel``; on CPU tensors it runs
+    :func:`motion_search_plain`."""
+    from opencv_opencl_tpu_torch.ops.cuda import h264_inter as kernel
+
+    return kernel.motion_search(y, refs, search, subpel, clean_rows=clean_rows)
+
+
+def p_levels_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+                   pred_y: torch.Tensor, pred_cb: torch.Tensor,
+                   pred_cr: torch.Tensor, mv_zero: torch.Tensor, qp: int,
+                   band: tuple[int, int] | None = None) -> tuple:
+    """Plain version of ``p_levels_kernel``: the JAX ``encode_p_levels``
+    scan step as a Python loop over MB columns, vectorised over MB rows.
+    ``pred_*`` are the motion-compensated planes (the reference itself at
+    zero motion), ``mv_zero`` (mb_h, mb_w) bool marks the MBs whose
+    (mv, ref) is ((0, 0), 0), ``band`` the GDR rows [lo, hi) that are
+    intra regardless of cost.  Returns (mode, zdc, acz, czdc, cacz,
+    recon_y, recon_cb, recon_cr)."""
+    mb_h, mb_w = _check_planes(y, cb, cr)
+    H, W = y.shape
+    plan = level_plan(int(qp))
+    qp, qpc = plan["qp"], plan["qpc"]
+    dev = y.device
+    pos = torch.as_tensor(_POS_CLASS, dtype=torch.long, device=dev)
+
+    def per_pos(vals):
+        return torch.as_tensor(vals, dtype=torch.int32, device=dev)[pos]
+
+    mf_y, mf_c = per_pos(plan["mf_y"]), per_pos(plan["mf_c"])
+    v_y, v_c = per_pos(plan["v_y"]), per_pos(plan["v_c"])
+    qbits, qbits_c = plan["qbits"], plan["qbits_c"]
+    f_y_i, f_c_i = plan["f_y"], plan["f_c"]
+    f_y_p, f_c_p = (1 << qbits) // 6, (1 << qbits_c) // 6
+    mf0_y, mf0_c = plan["mf_y"][0], plan["mf_c"][0]
+    inband = torch.zeros(mb_h, dtype=torch.bool, device=dev)
+    if band is not None:
+        rows = torch.arange(mb_h, device=dev)
+        inband = (rows >= int(band[0])) & (rows < int(band[1]))
+
+    def cols(a, n):
+        return a.reshape(mb_h, n, mb_w, n).permute(2, 0, 1, 3).to(torch.int32)
+
+    ycols, cbcols, crcols = cols(y, 16), cols(cb, 8), cols(cr, 8)
+    rycols, rcbcols, rcrcols = cols(pred_y, 16), cols(pred_cb, 8), cols(pred_cr, 8)
+    mvzcols = mv_zero.permute(1, 0)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.int32, device=dev)
+
+    def intra_luma(res):
+        t = _cf1d(_cf1d(res.reshape(mb_h, 4, 4, 4, 4), 2), 4)
+        wdc = t[:, :, 0, :, 0]
+        acz = _quant(t, mf_y, f_y_i, qbits)
+        acz[:, :, 0, :, 0] = 0
+        ydc = _h1d(_h1d(wdc, 1), 2) >> 1
+        zq = (torch.abs(ydc) * mf0_y + 2 * f_y_i) >> (qbits + 1)
+        return _clip_sign(ydc, zq), acz
+
+    def chroma_levels(res, f):
+        t = _cf1d(_cf1d(res.reshape(mb_h, 2, 4, 2, 4), 2), 4)
+        cwdc = t[:, :, 0, :, 0]
+        acz = _quant(t, mf_c, f, qbits_c)
+        acz[:, :, 0, :, 0] = 0
+        fdc = _h2_2d(cwdc)
+        zq = (torch.abs(fdc) * mf0_c + 2 * f) >> (qbits_c + 1)
+        return _clip_sign(fdc, zq), acz
+
+    def chroma_intra_pred(edge, left_ok):
+        v0 = (edge[:, 0:4].sum(1) + 2) >> 2
+        v1 = (edge[:, 4:8].sum(1) + 2) >> 2
+        if not left_ok:
+            v0, v1 = torch.full_like(v0, 128), torch.full_like(v1, 128)
+        return torch.cat([v0[:, None, None].expand(mb_h, 4, 8),
+                          v1[:, None, None].expand(mb_h, 4, 8)], 1)
+
+    def chroma_recon(czdc, acz, pred):
+        cdcd = _chroma_dc_dequant(_h2_2d(czdc), qpc)
+        d = _shl(acz * v_c[None, None, :, None, :], qpc // 6)
+        d[:, :, 0, :, 0] = cdcd
+        return torch.clamp(_inv_blocks(d) + pred.reshape(mb_h, 2, 4, 2, 4),
+                           0, 255).reshape(mb_h, 8, 8)
+
+    y_edge = full((mb_h, 16), 0)
+    cb_edge = full((mb_h, 8), 0)
+    cr_edge = full((mb_h, 8), 0)
+    outs = []
+    for mbx in range(mb_w):
+        ysrc, cbsrc, crsrc = ycols[mbx], cbcols[mbx], crcols[mbx]
+        yref, cbref, crref = rycols[mbx], rcbcols[mbx], rcrcols[mbx]
+        left_ok = mbx > 0
+
+        # intra candidates: I_16x16 DC, and HORIZONTAL with a left MB;
+        # chroma DC
+        ipred_dc = ((y_edge.sum(1) + 8) >> 4 if left_ok else full((mb_h,), 128))
+        pred_dc_full = ipred_dc[:, None, None].expand(mb_h, 16, 16)
+        zdc_d, acz_d = intra_luma(ysrc - pred_dc_full)
+        pred_h_full = y_edge[:, :, None].expand(mb_h, 16, 16)
+        zdc_h, acz_h = intra_luma(ysrc - pred_h_full)
+        cost_d, cost_h = _cost_of(zdc_d, acz_d), _cost_of(zdc_h, acz_h)
+        use_h = (cost_h < cost_d) & left_ok
+        zdc_i = torch.where(use_h[:, None, None], zdc_h, zdc_d)
+        acz_i = torch.where(use_h[:, None, None, None, None], acz_h, acz_d)
+        ipred_full = torch.where(use_h[:, None, None], pred_h_full, pred_dc_full)
+        pred_cb_i = chroma_intra_pred(cb_edge, left_ok)
+        pred_cr_i = chroma_intra_pred(cr_edge, left_ok)
+        czdc_cb_i, cacz_cb_i = chroma_levels(cbsrc - pred_cb_i, f_c_i)
+        czdc_cr_i, cacz_cr_i = chroma_levels(crsrc - pred_cr_i, f_c_i)
+
+        # inter candidate: full 4x4 luma levels (DC included), inter offset
+        t_p = _cf1d(_cf1d((ysrc - yref).reshape(mb_h, 4, 4, 4, 4), 2), 4)
+        lz = _quant(t_p, mf_y, f_y_p, qbits)
+        czdc_cb_p, cacz_cb_p = chroma_levels(cbsrc - cbref, f_c_p)
+        czdc_cr_p, cacz_cr_p = chroma_levels(crsrc - crref, f_c_p)
+
+        # the decision: skip first (zero cost at (mv, ref) = ((0, 0), 0)),
+        # then intra on cost_i + INTRA_BIAS < cost_p; GDR rows are intra
+        cost_p = _cost_of(lz, czdc_cb_p, czdc_cr_p, cacz_cb_p, cacz_cr_p)
+        cost_i = _cost_of(zdc_i, acz_i, czdc_cb_i, czdc_cr_i, cacz_cb_i,
+                          cacz_cr_i) + INTRA_BIAS
+        skip = (cost_p == 0) & mvzcols[mbx] & ~inband
+        use_intra = (~skip & (cost_i < cost_p)) | inband
+        mode = torch.where(skip, 0, torch.where(use_intra, torch.where(use_h, 3, 2), 1))
+
+        # reconstructions of both candidates, then the chosen one
+        dcd = _luma_dc_dequant(_h1d(_h1d(zdc_i, 1), 2), qp)
+        d_i = _shl(acz_i * v_y[None, None, :, None, :], qp // 6)
+        d_i[:, :, 0, :, 0] = dcd
+        yref_blk = yref.reshape(mb_h, 4, 4, 4, 4)
+        recon_y_i = torch.clamp(_inv_blocks(d_i) + ipred_full.reshape(mb_h, 4, 4, 4, 4),
+                                0, 255)
+        d_p = _shl(lz * v_y[None, None, :, None, :], qp // 6)
+        recon_y_p = torch.clamp(_inv_blocks(d_p) + yref_blk, 0, 255)
+        m4 = mode[:, None, None, None, None]
+        recon_y = torch.where(m4 >= 2, recon_y_i,
+                              torch.where(m4 == 1, recon_y_p, yref_blk)
+                              ).reshape(mb_h, 16, 16)
+        m3 = mode[:, None, None]
+        recon_c = []
+        for czdc_i, cacz_i, pred_i, czdc_p, cacz_p, cref in (
+                (czdc_cb_i, cacz_cb_i, pred_cb_i, czdc_cb_p, cacz_cb_p, cbref),
+                (czdc_cr_i, cacz_cr_i, pred_cr_i, czdc_cr_p, cacz_cr_p, crref)):
+            recon_c.append(torch.where(
+                m3 >= 2, chroma_recon(czdc_i, cacz_i, pred_i),
+                torch.where(m3 == 1, chroma_recon(czdc_p, cacz_p, cref), cref)))
+
+        # the chosen mode's levels
+        acz_sel = torch.where(m4 >= 2, acz_i, torch.where(m4 == 1, lz, 0))
+        czdc = [torch.where(m3 >= 2, a, torch.where(m3 == 1, b, 0))
+                for a, b in ((czdc_cb_i, czdc_cb_p), (czdc_cr_i, czdc_cr_p))]
+        cacz = [torch.where(m4 >= 2, a, torch.where(m4 == 1, b, 0))
+                for a, b in ((cacz_cb_i, cacz_cb_p), (cacz_cr_i, cacz_cr_p))]
+        zdc_flat = torch.where((mode >= 2)[:, None], zdc_i.reshape(mb_h, 16), 0)
+        outs.append([
+            mode.to(torch.int16), zdc_flat.to(torch.int16),
+            acz_sel.permute(0, 1, 3, 2, 4).reshape(mb_h, 16, 16).to(torch.int16),
+            torch.stack(czdc, 1).reshape(mb_h, 2, 4).to(torch.int16),
+            torch.stack([c.permute(0, 1, 3, 2, 4) for c in cacz], 1)
+            .reshape(mb_h, 2, 4, 16).to(torch.int16),
+            recon_y.to(torch.uint8), recon_c[0].to(torch.uint8),
+            recon_c[1].to(torch.uint8)])
+        y_edge = recon_y[:, :, 15]
+        cb_edge = recon_c[0][:, :, 7]
+        cr_edge = recon_c[1][:, :, 7]
+
+    mode, zdc, acz, czdc, cacz, ry, rcb, rcr = (torch.stack(p, 1) for p in zip(*outs))
+    return (mode, zdc, acz, czdc, cacz,
+            ry.permute(0, 2, 1, 3).reshape(H, W),
+            rcb.permute(0, 2, 1, 3).reshape(H // 2, W // 2),
+            rcr.permute(0, 2, 1, 3).reshape(H // 2, W // 2))
+
+
+def _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts) -> tuple[int, int]:
+    mb = _check_planes(y, cb, cr)
+    _check_planes(ry, rcb, rcr)
+    if tuple(ry.shape) != tuple(y.shape) or ry.device != y.device:
+        raise ValueError(f"the reference must be {tuple(y.shape)} planes on {y.device}")
+    if gdr_band is not None and ry2 is not None:
+        raise ValueError("gdr_band does not compose with two references")
+    if parts:
+        raise ValueError("parts (sub-16x16 inter partitions): not ported yet")
+    return mb
+
+
+def _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2) -> list:
+    return [(ry, rcb, rcr)] + ([] if ry2 is None else [(ry2, rcb2, rcr2)])
+
+
+def _mv_zero(mv: torch.Tensor, ref: torch.Tensor | None) -> torch.Tensor:
+    z = (mv[..., 0] == 0) & (mv[..., 1] == 0)
+    return z if ref is None else z & (ref == 0)
+
+
+def encode_p_levels_plain(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
+                          subpel: int = 0, ry2=None, rcb2=None, rcr2=None,
+                          gdr_band: tuple | None = None,
+                          parts: int = 0) -> PLevelArrays:
+    """Plain version of :func:`encode_p_levels`: :func:`motion_search_plain`
+    (with ``search``), then :func:`p_levels_plain`, on the planes' device."""
+    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts)
+    mv = refsel = None
+    if search:
+        refs = _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2)
+        out = motion_search_plain(y, refs, search, subpel, clean_rows=(
+            None if gdr_band is None else int(gdr_band[0])))
+        if len(refs) > 1:
+            mv, refsel, pred_y, pred_cb, pred_cr = out
+        else:
+            mv, pred_y, pred_cb, pred_cr = out
+        mv_zero = _mv_zero(mv, refsel)
+    else:
+        pred_y, pred_cb, pred_cr = ry, rcb, rcr
+        mv_zero = torch.ones((mb_h, mb_w), dtype=torch.bool, device=y.device)
+    out = p_levels_plain(y, cb, cr, pred_y, pred_cb, pred_cr, mv_zero, qp,
+                         band=gdr_band)
+    return PLevelArrays(*out, mv, refsel)
+
+
+def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
+                    subpel: int = 0, ry2=None, rcb2=None, rcr2=None,
+                    gdr_band: tuple | None = None, parts: int = 0) -> PLevelArrays:
+    """Levels, mode decisions and reconstruction of one P frame with one
+    slice per MB row (the JAX ``encode_p_levels``; its oracle
+    ``io.h264_inter.encode_frame_p_slices`` at ``slices=mb_h``).
+
+    y: (H, W) uint8 16-aligned source; cb, cr: (H/2, W/2) uint8 (any
+    strides); ry, rcb, rcr: the reconstructed previous picture (uint8,
+    contiguous), and ry2, rcb2, rcr2 the one before it for two references;
+    qp: int; search: radius in pixels (0 = zero motion); subpel: 0
+    full-pel, 1 half-pel, 2 quarter-pel, 3 ``fastsub``; gdr_band: the GDR
+    intra rows ``(lo, hi)`` (one reference only).  ``parts`` (sub-16x16
+    partitions) is not ported yet: it raises.  The references are read,
+    never written.
+
+    On CUDA tensors: ``subpel_planes_kernel`` and ``motion_search_kernel``
+    with ``search``, then ``p_levels_kernel``; on CPU tensors
+    :func:`encode_p_levels_plain`."""
+    from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
+
+    return kernel.encode_p_levels(y, cb, cr, ry, rcb, rcr, qp, search, subpel,
+                                  ry2, rcb2, rcr2, gdr_band, parts)

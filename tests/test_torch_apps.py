@@ -442,19 +442,22 @@ _RUN_ARGS = {relay: ["--source=test", "--max-frames=4", "--sink=null",
     ["--native"],
     ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40"],
     ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40:gop=4"],
+    ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40:gop=4:search=2:parts"],
 ], ids=["h264_sink", "h265_sink", "encoder", "fused_encode", "io_gst", "native",
-        "tpu_encoder_sink", "tpu_gop_sink"])
+        "tpu_encoder_sink", "tpu_gop_sink", "tpu_parts_sink"])
 @pytest.mark.parametrize("app", [relay, multi_relay], ids=["relay", "multi_relay"])
 def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
     """The flags of parts not ported refuse with rc 2 and one line: the
-    device GOP encoder (``--encoder=tpu:gop=N``) with an encoded sink,
-    ``--fused-encode`` and ``--io=gst``.  The encoded sinks are ported: with
+    device GOP encoder's partition modes (``--encoder=tpu:...:parts``) with
+    an encoded sink, ``--fused-encode`` and ``--io=gst``.  The encoded sinks are ported: with
     the in-repo encoders both packages run an ``rtp+h264://`` sink (``auto``
     is the PCM encoder on a host without gi or ffmpeg) and print the same
     lines, and refuse ``cavlc`` for ``rtp+h265://`` with the same line.  The
     intra device encoder (``--encoder=tpu:qp=40``) is ported: both packages
     run it and print the same lines, the encoder's class name aside
-    (``CudaCavlcEncoder`` for ``TpuCavlcEncoder``).  ``--encoder`` is read
+    (``CudaCavlcEncoder`` for ``TpuCavlcEncoder``), and so is the GOP device
+    encoder (``--encoder=tpu:qp=40:gop=4``, ``CudaGopEncoder`` for
+    ``TpuGopEncoder``).  ``--encoder`` is read
     only for an encoded sink, as in the JAX package: with any other sink
     both packages run and print the same lines (the relay's line on how the
     device program is made differs).  ``--native`` is ported: both packages
@@ -463,7 +466,8 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
     jax_app = {relay: jax_relay, multi_relay: jax_multi_relay}[app]
     if extra in (["--encoder=tpu:qp=40"], ["--native"],
                  ["--sink=rtp+h264://127.0.0.1:56470"],
-                 ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40"]):
+                 ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40"],
+                 ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40:gop=4"]):
         args += _RUN_ARGS[app] + extra
         rc = app.run(args + ["--device=cpu"])
         got = capsys.readouterr()
@@ -474,6 +478,7 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
 
         def lines(out):
             return [line.replace("TpuCavlcEncoder", "CudaCavlcEncoder")
+                    .replace("TpuGopEncoder", "CudaGopEncoder")
                     for line in _printed_lines(out)
                     if not line.startswith(("Building the kernels",
                                             "Compiling device program"))]
@@ -483,7 +488,8 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
         tpu = extra[-1].startswith("--encoder=tpu") and encoded
         assert ("Encoder: PcmH264Encoder (h264)" in got.out) == (
             encoded and not tpu and app is relay)
-        assert ("CudaCavlcEncoder" in got.out) == tpu
+        tpu_class = "CudaGopEncoder" if "gop=" in extra[-1] else "CudaCavlcEncoder"
+        assert (tpu_class in got.out) == tpu
         return
     if extra == ["--sink=rtp+h265://127.0.0.1:56470", "--encoder=cavlc:qp=40"]:
         rc = app.run(args + ["--device=cpu"] + extra)
@@ -493,8 +499,9 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
         assert err == "the in-repo CAVLC encoder is h264-only\n"
         return
     if app is multi_relay and extra[-1] in ("--fused-encode", "--io=gst"):
-        # flags relay alone has: the device GOP encoder's refusal in their place
-        extra = ["--sink=rtp+h264://127.0.0.1:56470", "--encoder=tpu:qp=40:gop=4"]
+        # flags relay alone has: the partition modes' refusal in their place
+        extra = ["--sink=rtp+h264://127.0.0.1:56470",
+                 "--encoder=tpu:qp=40:gop=4:search=2:parts"]
     rc = app.run(args + ["--device=cpu"] + extra)
     err = capsys.readouterr().err
     assert rc == 2

@@ -6,8 +6,9 @@ machine with a card and no JAX, run it without the JAX test configuration:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
-outputs (H1's levels, modes and reconstructions, and the device encoder's
-access units against the host oracle's; K1, K8 and K10 histograms, K2 LUTs
+outputs (H1's levels, modes and reconstructions, H2-H5's levels, modes,
+motion fields, predictions, planes and filtered pictures, and the device
+encoders' access units against the host oracles'; K1, K8 and K10 histograms, K2 LUTs
 with one clip or one per frame,
 K3, K4, K6 and K6r frames, K7 frames and histograms (both on their 16-byte
 and byte paths), K5, K3v1 and K9 bands,
@@ -709,4 +710,82 @@ def test_cuda_cavlc_encoder_on_card_equals_the_host_oracle(device):
         want = [au for f in frames for au in ref.encode(f)]
         for overlap in (False, True):
             enc = CudaCavlcEncoder(w, h, qp=26, overlap=overlap, device=device, **kw)
+            assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
+
+
+def _p_inputs(device, seed, h, w, content):
+    """A source NV12 frame (its planes, chroma as interleaved views) and two
+    contiguous reference pictures on the card."""
+    frames = [_frames(seed + k, 1, h * 3 // 2, w, content)[0] for k in range(3)]
+    frames[1] = np.roll(frames[0], (2, -3), (0, 1)) if content != "constant" else frames[0]
+    out = []
+    for k, frame in enumerate(frames):
+        f = torch.from_numpy(frame).to(device)
+        uv = f[h:].view(h // 2, w // 2, 2)
+        planes = (f[:h], uv[:, :, 0], uv[:, :, 1])
+        out.append(planes if k == 0 else tuple(p.contiguous() for p in planes))
+    return out
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16)])
+@pytest.mark.parametrize("content", ["random", "structured", "constant"])
+def test_p_frame_kernels_equal_plain(device, h, w, content):
+    """H3, H4, H2 and H5 against their plain versions on the card, every
+    output: the sub-pel planes, each search (full-pel, half-pel,
+    quarter-pel, fastsub; one and two references; the GDR rule), the P
+    levels (zero motion and fastsub, a GDR band) and the deblocking of the
+    result, with and without slice_local."""
+    from opencv_opencl_tpu_torch.ops import h264_deblock as torch_deblock
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    src, r1, r2 = _p_inputs(device, 50, h, w, content)
+    for margin, n in ((3, 16), (5, 4), (2, 1)):
+        assert torch.equal(torch_levels.subpel_planes(r1[0], margin, n),
+                           torch_levels.subpel_planes_plain(r1[0], margin, n))
+    for subpel in range(4):
+        for refs, clean in (([r1], None), ([r1, r2], None), ([r1], 1)):
+            got = torch_levels.motion_search(src[0], refs, 2, subpel, clean)
+            want = torch_levels.motion_search_plain(src[0], refs, 2, subpel, clean)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for qp, search, subpel, band in ((0, 0, 0, None), (30, 2, 3, None), (51, 2, 0, (0, 1))):
+        got = torch_levels.encode_p_levels(*src, *r1, qp, search, subpel, gdr_band=band)
+        want = torch_levels.encode_p_levels_plain(*src, *r1, qp, search, subpel,
+                                                  gdr_band=band)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        mb_h, mb_w = h // 16, w // 16
+        nnz4 = torch_deblock.nnz4_grid(got.acz)
+        mv = got.mv if got.mv is not None else torch.zeros(
+            (mb_h, mb_w, 2), dtype=torch.int16, device=device)
+        ref = torch.zeros((mb_h, mb_w), dtype=torch.int16, device=device)
+        recon = (got.recon_y, got.recon_cb, got.recon_cr)
+        for slice_local in (False, True):
+            meta = (got.mode >= 2, nnz4, mv, ref)
+            a = torch_deblock.deblock_planes(*recon, qp, *meta, slice_local=slice_local)
+            b = torch_deblock.deblock_planes_plain(*recon, qp, *meta, slice_local=slice_local)
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    counts = kernels.launch_counts()
+    assert counts["encode_p_levels"] == 3 and counts["deblock_planes"] == 6
+    assert counts["motion_search"] == 12 + 2 and counts["subpel_planes"] > 14
+
+
+def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):
+    """The GOP encoder's access units on the card equal
+    GopCavlcEncoder(slices=mb_h)'s: search with each sub-pel mode, two
+    references, deblock, GDR, overlap."""
+    from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder, GopCavlcEncoder
+
+    w, h = 64, 48
+    base = _frames(60, 1, h * 3 // 2 + 8, w + 8, "structured")[0]
+    frames = [np.ascontiguousarray(base[k:k + h * 3 // 2, 2 * k:2 * k + w]) for k in range(4)]
+    for kw in (dict(gop=3, search=2, fastsub=True, deblock=True),
+               dict(gop=3, search=2, quarterpel=True, refs=2),
+               dict(gop=4, search=1, halfpel=True),
+               dict(gdr=2, search=1, deblock=True)):
+        oracle = GopCavlcEncoder(w, h, qp=28, slices=h // 16, **kw)
+        want = [au for f in frames for au in oracle.encode(f)]
+        for overlap in (False, True):
+            enc = CudaGopEncoder(w, h, qp=28, overlap=overlap, device=device, **kw)
             assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want

@@ -11,10 +11,13 @@ loopback too (its ``Encoder:`` line names the port's class,
 ``CudaCavlcEncoder``, where the JAX package's names ``TpuCavlcEncoder``);
 ``tpu:qp=40:i4:chromah`` is held to the port's own oracle, the relay with
 ``cavlc:qp=40:slices=<mb rows>:i4:chromah``, so that JAX compiles no second
-Intra_4x4 program here.  The rows of ``tests/test_flag_matrix.py`` run
-against the port's relay: those of the GOP/GDR device encoder
-(``--encoder=tpu:gop=N``, ``tpu:gdr=N``) and of ``--fused-encode`` refuse
-with rc 2 and "not ported yet".
+Intra_4x4 program here.  The GOP device encoder
+(``--encoder=tpu:qp=40:gop=4:search=2``, ``CudaGopEncoder`` for
+``TpuGopEncoder``) puts the JAX relays' datagrams on loopback from both
+relays.  The rows of ``tests/test_flag_matrix.py`` run against the port's
+relay: the GOP/GDR device encoder's run (``--encoder=tpu:gop=N``,
+``tpu:gdr=N``), those of its partition modes, of the device bit packer and
+of ``--fused-encode`` refuse with rc 2 and "not ported yet".
 """
 
 import contextlib
@@ -102,15 +105,23 @@ def test_relay_streams_the_jax_datagrams(spec, capsys):
 # the intra device encoder: (spec, the relay run beside the port's, the
 # oracle's spec); at 64x48 a frame has 3 MB rows
 TPU_RELAYS = {"tpu:qp=40": (jax_relay, "tpu:qp=40"),
-              "tpu:qp=40:i4:chromah": (relay, "cavlc:qp=40:slices=3:i4:chromah")}
+              "tpu:qp=40:i4:chromah": (relay, "cavlc:qp=40:slices=3:i4:chromah"),
+              "tpu:qp=40:gop=4:search=2": (jax_relay, "tpu:qp=40:gop=4:search=2")}
+# the Encoder: line's class, by package and by spec
+TPU_CLASSES = {"gop=": ("CudaGopEncoder", "TpuGopEncoder"),
+               "": ("CudaCavlcEncoder", "TpuCavlcEncoder")}
+
+
+def _tpu_classes(spec):
+    return next(v for k, v in TPU_CLASSES.items() if k in spec)
 
 
 @pytest.mark.parametrize("spec", list(TPU_RELAYS))
 def test_relay_tpu_streams_the_jax_datagrams(spec, capsys):
-    """``--encoder=tpu...`` with ``--device=cpu`` (the kernel's plain
-    version) sends the datagrams of the JAX relay's ``TpuCavlcEncoder``, or
-    of the port's host oracle; the ``Encoder:`` lines differ by the class
-    name alone."""
+    """``--encoder=tpu...`` with ``--device=cpu`` (the kernels' plain
+    versions) sends the datagrams of the JAX relay's ``TpuCavlcEncoder`` or
+    ``TpuGopEncoder``, or of the port's host oracle; the ``Encoder:`` lines
+    differ by the class name alone."""
     oracle_app, oracle_spec = TPU_RELAYS[spec]
     runs = []
     with catchers(1) as (port, (sock,)):
@@ -122,9 +133,10 @@ def test_relay_tpu_streams_the_jax_datagrams(spec, capsys):
             out = capsys.readouterr().out
             assert "6 frames emitted" in out and "errors=0" in out
             runs.append((drain(sock), _lines(out, "Encoder:")))
+    port_class, jax_class = _tpu_classes(spec)
     assert runs[0][0] == runs[1][0] and len(runs[0][0]) >= 6
-    assert runs[0][1] == ["Encoder: CudaCavlcEncoder (h264)"]
-    assert runs[1][1] == [f"Encoder: {'TpuCavlcEncoder' if oracle_app is jax_relay else 'CavlcH264Encoder'} (h264)"]
+    assert runs[0][1] == [f"Encoder: {port_class} (h264)"]
+    assert runs[1][1] == [f"Encoder: {jax_class if oracle_app is jax_relay else 'CavlcH264Encoder'} (h264)"]
 
 
 def test_multi_relay_tpu_streams_the_jax_datagrams_per_stream(capsys):
@@ -140,6 +152,23 @@ def test_multi_relay_tpu_streams_the_jax_datagrams_per_stream(capsys):
     assert [line.replace("TpuCavlcEncoder", "CudaCavlcEncoder") for line in runs[1][1]] \
         == runs[0][1] == [f"Sinks: encoded RTP rtp+h264://127.0.0.1:{port} .. +2 "
                           f"(encoder=CudaCavlcEncoder)"]
+
+
+def test_multi_relay_tpu_gop_streams_the_jax_datagrams_per_stream(capsys):
+    """The GOP device encoder with a motion search, one per stream."""
+    runs = []
+    with catchers(2) as (port, socks):
+        argv = MULTI_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}",
+                             "--encoder=tpu:qp=40:gop=4:search=2"]
+        for app, extra in ((multi_relay, ["--device=cpu"]), (jax_multi_relay, [])):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            assert re.findall(r"#\d+=(\d+)/(\d+)", out) == [("4", "4")] * 2, out
+            runs.append(([drain(s) for s in socks], _lines(out, "Sinks:")))
+    assert runs[0][0] == runs[1][0] and all(len(d) >= 4 for d in runs[0][0])
+    assert [line.replace("TpuGopEncoder", "CudaGopEncoder") for line in runs[1][1]] \
+        == runs[0][1] == [f"Sinks: encoded RTP rtp+h264://127.0.0.1:{port} .. +2 "
+                          f"(encoder=CudaGopEncoder)"]
 
 
 @pytest.mark.parametrize("spec", ["cavlc", "pcm"])
@@ -220,14 +249,15 @@ MATRIX = [
     ("encoded_tpu_bitpack", ["--sink=rtp+h264://127.0.0.1:56484",
                              "--encoder=tpu:qp=40:bitpack"], 2, NOT_PORTED),
     ("encoded_tpu_gop_deblock", ["--sink=rtp+h264://127.0.0.1:56471",
-                                 "--encoder=tpu:qp=40:gop=4:deblock"], 2, NOT_PORTED),
+                                 "--encoder=tpu:qp=40:gop=4:deblock"], 0, None),
     ("encoded_tpu_gdr", ["--sink=rtp+h264://127.0.0.1:56472",
-                         "--encoder=tpu:qp=40:gdr=3"], 2, NOT_PORTED),
+                         "--encoder=tpu:qp=40:gdr=3"], 0, None),
     ("encoded_tpu_gdr_search", ["--sink=rtp+h264://127.0.0.1:56481",
-                                "--encoder=tpu:qp=40:gdr=3:search=2"], 2, NOT_PORTED),
+                                "--encoder=tpu:qp=40:gdr=3:search=2"], 0, None),
     ("encoded_tpu_fastsub", ["--sink=rtp+h264://127.0.0.1:56482",
-                             "--encoder=tpu:qp=40:gop=4:search=2:fastsub"],
-     2, NOT_PORTED),
+                             "--encoder=tpu:qp=40:gop=4:search=2:fastsub"], 0, None),
+    ("encoded_tpu_gop_search", ["--sink=rtp+h264://127.0.0.1:56488",
+                                "--encoder=tpu:qp=40:gop=4:search=2"], 0, None),
     ("encoded_tpu_parts", ["--sink=rtp+h264://127.0.0.1:56487",
                            "--encoder=tpu:qp=40:gop=4:search=2:parts"], 2, NOT_PORTED),
     ("fused_intra", ["--sink=rtp+h264://127.0.0.1:56474", "--encoder=tpu:qp=40",
@@ -263,16 +293,16 @@ def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
 
 SPEC_REFUSALS = [
     ("cavlc:qp=30:gdr=3:gop=8", "replaces gop"),
-    ("tpu:qp=30:gdr=3:search=2:refs=2", NOT_PORTED),
+    ("tpu:qp=30:gdr=3:search=2:refs=2", "gdr requires refs=1"),
     ("tpu:qp=30:cpb=500", "cpb needs bitrate control"),
-    ("tpu:gop=8:cpb=500:overlap", NOT_PORTED),
+    ("tpu:gop=8:cpb=500:overlap", "does not compose with overlap"),
     ("cavlc:initdelay=100", "initdelay requires cpb"),
     ("cavlc:qp=30:search=2", "need a gop"),
     ("tpu:qp=30:halfpel", "need a gop"),
     ("cavlc:qp=30:gop=8:halfpel", "require search"),
     ("cavlc:qp=30:gop=8:refs=2", "requires search"),
-    ("tpu:qp=30:gop=8:fastsub", NOT_PORTED),
-    ("tpu:qp=30:gop=8:search=2:fastsub:quarterpel", NOT_PORTED),
+    ("tpu:qp=30:gop=8:fastsub", "require search"),
+    ("tpu:qp=30:gop=8:search=2:fastsub:quarterpel", "replaces halfpel"),
 ]
 
 

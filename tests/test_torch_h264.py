@@ -2,7 +2,8 @@
 
 The port copies ``io/h264_pcm.py``, ``io/h264_hrd.py``, ``io/h264_cavlc.py``
 (up to ``CavlcH264Encoder``), ``io/h264_deblock.py`` and ``io/h264_inter.py``
-(without ``TpuGopEncoder``).  Each case runs a JAX function and the port's
+(``CudaGopEncoder`` in place of ``TpuGopEncoder``, held to the host oracle in
+``tests/test_torch_gop_encoder.py``).  Each case runs a JAX function and the port's
 copy on the same seed-made NV12 frames (32x32 to 64x48, one cropped
 geometry) and asks for the same bytes, the same arrays or the same error
 (tolerance 0):
@@ -147,15 +148,12 @@ def test_h265_is_refused_by_the_in_repo_encoders_as_jax(spec):
 
 @pytest.mark.parametrize("spec", ["tpu", "tpu:qp=30", "tpu:qp=30:gop=8:search=2"])
 def test_the_device_encoders_are_not_ported_yet(spec):
-    """The device GOP encoder is not ported yet; the intra device encoder
-    is, and runs on the card unless asked for the CPU: with no card and no
-    device it raises, it never carries on on the CPU."""
-    if "gop" in spec:
-        with pytest.raises(ValueError, match=r"^--encoder=tpu.*: not ported yet$"):
-            encoder.make_encoder(spec, 64, 48, device="cpu")
-        return
+    """The device encoders, intra and GOP, are ported and run on the card
+    unless asked for the CPU: with no card and no device they raise, they
+    never carry on on the CPU."""
     enc = encoder.make_encoder(spec, 64, 48, device="cpu")
-    assert isinstance(enc, h264_cavlc.CudaCavlcEncoder) and enc.device.type == "cpu"
+    cls = h264_inter.CudaGopEncoder if "gop" in spec else h264_cavlc.CudaCavlcEncoder
+    assert isinstance(enc, cls) and enc.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             encoder.make_encoder(spec, 64, 48)

@@ -25,9 +25,10 @@ import torch
 
 from opencv_opencl_tpu.io import encoder as jax_encoder
 from opencv_opencl_tpu.io import h264_cavlc as jax_cavlc
+from opencv_opencl_tpu.io import h264_inter as jax_inter
 from opencv_opencl_tpu.ops import h264_levels as jax_levels
 from opencv_opencl_tpu_torch import native
-from opencv_opencl_tpu_torch.io import encoder, h264_cavlc
+from opencv_opencl_tpu_torch.io import encoder, h264_cavlc, h264_inter
 from opencv_opencl_tpu_torch.ops import h264_levels
 from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
 
@@ -207,7 +208,7 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu_only():
     kernel.reset_launch_counts()
     assert_same(kernel.encode_levels(y, cb, cr, 20, chromah=True),
                 h264_levels.encode_levels_plain(y, cb, cr, 20, chromah=True))
-    assert kernel.launch_counts() == {"encode_levels": 0}
+    assert kernel.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.intra_levels(y, cb, cr, 20, torch.empty(kernel.level_words(2, 2),
                                                         dtype=torch.int16))
@@ -344,9 +345,9 @@ def outcome(fn):
 
 @pytest.mark.parametrize("spec", TPU_SPECS)
 def test_make_encoder_tpu_specs_as_jax(spec):
-    """The port's class for the JAX package's TpuCavlcEncoder, "not ported
-    yet" for its TpuGopEncoder and the bit packer, and its ValueError
-    elsewhere."""
+    """The port's classes for the JAX package's TpuCavlcEncoder and
+    TpuGopEncoder (the same options and the host oracle's access units),
+    "not ported yet" for the bit packer, and its ValueError elsewhere."""
     ours = outcome(lambda: encoder.make_encoder(spec, 64, 48, fps=30.0,
                                                 bitrate_kbps=300, device="cpu"))
     theirs = outcome(lambda: jax_encoder.make_encoder(spec, 64, 48, fps=30.0,
@@ -357,6 +358,15 @@ def test_make_encoder_tpu_specs_as_jax(spec):
             theirs.qp, theirs.i4, theirs.chromah, theirs.deblock, theirs._overlap)
         cavlc = ":".join(["cavlc", "slices=3"] + [o for o in spec.split(":")[1:]
                                                   if o != "overlap"])
+        frames = [nv12(64, 48, s, "random" if s % 2 else "smooth") for s in range(3)]
+        ref = jax_encoder.make_encoder(cavlc, 64, 48, fps=30.0, bitrate_kbps=300)
+        got = [au for f in frames for au in ours.encode(f)] + ours.flush()
+        assert got == [au for f in frames for au in ref.encode(f)] + ref.flush()
+    elif isinstance(theirs, jax_inter.TpuGopEncoder) and not theirs._bitpack:
+        assert isinstance(ours, h264_inter.CudaGopEncoder)
+        keys = ("qp", "gop", "gdr", "search", "subpel", "refs", "deblock", "_overlap")
+        assert [getattr(ours, k) for k in keys] == [getattr(theirs, k) for k in keys]
+        cavlc = ":".join(["cavlc", "slices=3"] + spec.split(":")[1:])
         frames = [nv12(64, 48, s, "random" if s % 2 else "smooth") for s in range(3)]
         ref = jax_encoder.make_encoder(cavlc, 64, 48, fps=30.0, bitrate_kbps=300)
         got = [au for f in frames for au in ours.encode(f)] + ours.flush()

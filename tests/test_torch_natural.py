@@ -242,7 +242,9 @@ def test_wrappers_launch_nothing_on_cpu():
         "clahe_interpolate_pack": 0, "apply_lut": 0,
         "clahe_interpolate_cells": 0, "tile_histograms_extended": 0,
         "clahe_interpolate_cells_band": 0, "tile_histograms_batched": 0,
-        "clahe_interpolate_cells_radix": 0, "encode_levels": 0}
+        "clahe_interpolate_cells_radix": 0, "encode_levels": 0,
+        "encode_p_levels": 0, "subpel_planes": 0, "motion_search": 0,
+        "deblock_planes": 0}
 
 
 def test_wrappers_reject_bad_inputs():
