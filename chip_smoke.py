@@ -13,8 +13,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             K1's three instances (``tile_hist_kernel<4>``, also K8's, and
             ``<2>``, ``<8>`` for K10), H1 ``intra_levels_kernel`` and the
             GOP encoder's H2 ``p_levels_kernel``, H3
-            ``subpel_planes_kernel``, H4 ``motion_search_kernel`` and H5
-            ``deblock_kernel`` (registers, shared memory, spills);
+            ``subpel_planes_kernel``, H4 ``motion_search_kernel``, H5
+            ``deblock_kernel``, H6 ``parts_search_kernel``, H7
+            ``pack_i_kernel`` and H8 ``pack_p_kernel`` (registers, shared
+            memory, spills);
             the native C++ runtime from ``opencv_opencl_tpu_torch/native``
             (g++; seconds and path), which the relay's last runs need;
 3. kernels  every kernel against its plain PyTorch version on the card,
@@ -77,7 +79,18 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``gop=3:search=4:fastsub:deblock`` and
             ``gop=3:search=2:quarterpel:refs=2``, and at 1920x1088 over
             three frames equal to ``CudaGopEncoder(device="cpu")``'s, both
-            oracles in child processes while the card works;
+            oracles in child processes while the card works; H6
+            (``parts_search_kernel``) at 4K at full- and half-pel search 8,
+            quarter-pel search 4 and two references at quarter-pel search
+            3, H2 on the ``parts`` layout and H5 on quadrant fields, H7
+            (``pack_i_kernel``) on H1's levels and H8 (``pack_p_kernel``) on
+            H2's (P_16x16 and parts, one and two references), at 64 words an
+            MB and at a cap of 3, against their plain versions; the streams
+            ``gop=3:search=4:parts:deblock:bitpack`` (also at ``nw_mb=3``,
+            where frames overflow the cap and take the host entropy path)
+            and ``gop=3:search=2:quarterpel:refs=2:parts`` against the
+            Python oracle, and ``tpu:bitpack`` and ``tpu:i4:chromah:bitpack``
+            at 4K against the streams without the packer;
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -132,7 +145,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             on the IDR, H3, H4, H2 and H5 on each P frame, entropy coding on
             the native rows), received the same way, every access unit
             equal to a new ``CudaGopEncoder``'s of the same spec on the
-            frames the encoder took; the Python CAVLC oracle, in a child
+            frames the encoder took; (k)
+            ``--encoder=tpu:gop=30:search=8:parts:deblock:bitpack`` (H1 and
+            H7 on the IDR; H3, H6, H2, H5 and H8 on each P frame; the host
+            assembles the packed bits), checked as (j), no frame over the
+            cap; the Python CAVLC oracle, in a child
             process started before (a), encodes the first two expected
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
@@ -161,7 +178,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             and H5 beside their plain versions and bounds, the P levels'
             copy to the host, the P entropy coding and
             ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
-            ``overlap``; K10 for each
+            ``overlap``; H6 (full-pel search 8, half-pel search 8,
+            quarter-pel search 4), H8 on a parts P frame and H7 on an IDR
+            beside their plain versions and bounds, the packed bits' copy to
+            the host beside the levels', and ``encode`` of relay (k)'s spec
+            without the packer, with it, and with it and ``overlap``; K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -217,10 +238,12 @@ from opencv_opencl_tpu_torch.ops import clahe as clahe_ops
 from opencv_opencl_tpu_torch.ops import color
 from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
 from opencv_opencl_tpu_torch.ops import histeq as histeq_ops
+from opencv_opencl_tpu_torch.ops import h264_bitpack as bitpack_ops
 from opencv_opencl_tpu_torch.ops import h264_deblock as deblock_ops
 from opencv_opencl_tpu_torch.ops import h264_levels as levels_ops
 from opencv_opencl_tpu_torch.ops import histogram
 from opencv_opencl_tpu_torch.ops.cuda import _build, lut, natural
+from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as bitpack_kernel
 from opencv_opencl_tpu_torch.ops.cuda import h264_deblock as deblock_kernel
 from opencv_opencl_tpu_torch.ops.cuda import h264_inter as inter_kernel
 from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
@@ -293,6 +316,17 @@ KERNELS = (
     ("deblock_kernel", "deblock_planes",
      "opencv_opencl_tpu_torch/csrc/h264_deblock.cu",
      "opencv_opencl_tpu/ops/h264_deblock.py:226"),
+    # H6-H8: the partition search (two fori_loops over the candidates) and
+    # the CAVLC bit packers, XLA programs too
+    ("parts_search_kernel", "motion_search_parts",
+     "opencv_opencl_tpu_torch/csrc/h264_inter.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:1197"),
+    ("pack_i_kernel", "pack_i_mbs",
+     "opencv_opencl_tpu_torch/csrc/h264_bitpack.cu",
+     "opencv_opencl_tpu/ops/h264_bitpack.py:347"),
+    ("pack_p_kernel", "pack_p_mbs",
+     "opencv_opencl_tpu_torch/csrc/h264_bitpack.cu",
+     "opencv_opencl_tpu/ops/h264_bitpack.py:548"),
 )
 # K8, K3v1, K9, K10 and K6r lie on no path (nor do their TPU kernels on any
 # path of the JAX package): their launches are those of their phase-3 checks
@@ -343,11 +377,20 @@ P_EXHAUSTIVE_SEARCH, P_EXHAUSTIVE_SHAPE = 2, (1088, 1920)
 P_CLEAN_ROWS = 45
 P_STREAM_SHAPE, P_STREAM_FRAMES = (368, 640), 4
 P_STREAMS = (dict(qp=30, gop=3, search=4, fastsub=True, deblock=True),
-             dict(qp=30, gop=3, search=2, quarterpel=True, refs=2))
+             dict(qp=30, gop=3, search=2, quarterpel=True, refs=2),
+             dict(qp=30, gop=3, search=4, parts=True, deblock=True, bitpack=True),
+             dict(qp=30, gop=3, search=2, quarterpel=True, refs=2, parts=True))
 CPU_STREAM_SHAPE, CPU_STREAM_FRAMES = (1088, 1920), 3
 CPU_STREAM = dict(qp=30, gop=3, search=P_SEARCH, fastsub=True, deblock=True)
 GOP_SPEC = f"tpu:gop=30:search={P_SEARCH}:fastsub:deblock"
 P_TIMED_QPEL_SEARCH = 4
+# H6-H8's checks: the partition searches at 4K (search, sub-pel mode,
+# references), the bit packers' cap of the stream that must overflow it,
+# and relay (k)'s spec (the partition modes with the in-loop filter and the
+# device bit packer)
+PARTS_CASES = ((P_SEARCH, 0, 1), (P_SEARCH, 1, 1), (P_TIMED_QPEL_SEARCH, 2, 1), (3, 2, 2))
+CAP_NW_MB = 3
+PARTS_SPEC = f"tpu:gop=30:search={P_SEARCH}:parts:deblock:bitpack"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -963,7 +1006,10 @@ def phase_intra_streams(device, rng) -> None:
     ``tpu:i4:chromah``, whose host oracle is the Python encoder (minutes a
     4K frame), equals at 4K the access unit entropy-coded on the native
     rows from the plain version's levels, and at 256x144 the Python
-    ``CavlcH264Encoder(slices=mb_h, i4=True, chromah=True)``."""
+    ``CavlcH264Encoder(slices=mb_h, i4=True, chromah=True)``.  With the
+    device bit packer, ``tpu:bitpack`` and ``tpu:i4:chromah:bitpack`` at 4K
+    give the same access units as ``tpu`` and ``tpu:i4:chromah``, no frame
+    over the cap."""
     h, w = HEIGHT, WIDTH
     frames = [content_nv12(rng, kind, h, w) for kind in ("structured", "random")]
     frames = frames[:INTRA_FRAMES]
@@ -994,6 +1040,17 @@ def phase_intra_streams(device, rng) -> None:
     check(got == [au_of(nals, ref)] and i4_mbs > 0,
           f"tpu:i4:chromah at 4K: not the plain version's access unit "
           f"({i4_mbs} Intra_4x4 MBs)")
+    for kw, stream, refs in ((dict(), want, frames), (dict(i4=True, chromah=True), got,
+                                                      frames[:1])):
+        enc = CudaCavlcEncoder(w, h, qp=30, bitpack=True, **kw)
+        bits = [au for f in refs for au in enc.encode(f)] + enc.flush()
+        spec = ":".join(["tpu", *kw, "bitpack"])
+        check(bits == stream and enc._bits_overflows == 0,
+              f"{spec} at 4K: access units other than without the bit packer's, or "
+              f"{enc._bits_overflows} frames over its cap")
+        print(f"stream {spec} at 4K: {len(bits)} access units equal "
+              f"{'tpu:i4:chromah' if kw else 'tpu'}'s, no frame over the cap",
+              flush=True)
     sh, sw = INTRA_ORACLE_SHAPE
     small = content_nv12(rng, "structured", sh, sw)
     oracle = CavlcH264Encoder(sw, sh, qp=26, slices=sh // 16, i4=True, chromah=True,
@@ -1173,6 +1230,133 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     return errs
 
 
+def quad_meta(plv, mb_h: int, mb_w: int, device) -> tuple[torch.Tensor, ...]:
+    """A partitioned P frame's own deblocking metadata: intra, nnz4, and its
+    quadrant fields as the (2 mb_h, 2 mb_w) grid of 8x8 blocks (ref 0 with
+    one reference)."""
+    ref = (torch.zeros((2 * mb_h, 2 * mb_w), dtype=torch.int16, device=device)
+           if plv.ref is None else deblock_ops.block_grid(plv.ref))
+    return (plv.mode >= 2, deblock_ops.nnz4_grid(plv.acz),
+            deblock_ops.block_grid(plv.mv), ref)
+
+
+def packed(out) -> tuple[torch.Tensor, torch.Tensor]:
+    """A packer's (words, nbits) with the uint32 words as their int32 bits."""
+    return out[0].view(torch.int32), out[1]
+
+
+def pack_p_args(plv, active: int):
+    """pack_p_mbs's arguments for a P frame's levels (the partition fields
+    where it has them)."""
+    lv = (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz)
+    if plv.pmode is None:
+        return (*lv, plv.mv, plv.ref, active), {}
+    return (*lv, None, None, active), dict(pmode=plv.pmode, mv4=plv.mv, ref4=plv.ref)
+
+
+def phase_parts_kernels(device, rng) -> dict[str, int]:
+    """H6, H2 on the ``parts`` layout, H5 with quadrant fields, H7 and H8
+    against their plain versions on the card, every output, 0 difference,
+    at 4K on moving structured content: H6 at full-pel and half-pel search
+    8, quarter-pel search 4, and with two references at quarter-pel search
+    3 (``PARTS_CASES``); H2 (through ``encode_p_levels(parts=1)``, H3 and H6
+    before it) at QP 30 at full-pel search 8 and with two references at
+    quarter-pel search 3, and H5 on the second frame's own quadrant fields; H7 on
+    H1's levels (default, and ``i4`` + ``chromah``) at 64 words an MB and at
+    ``CAP_NW_MB``; H8 on H2's levels: zero motion, ``fastsub`` at search 8
+    with one and two references, and both partitioned frames, at 64 words
+    and one at ``CAP_NW_MB``.  For a packer, equal words over every word
+    and equal bit counts.  Returns the largest absolute difference by
+    kernel."""
+    for module in (levels_kernel, inter_kernel, deblock_kernel, bitpack_kernel):
+        module.reset_launch_counts()
+    errs = dict.fromkeys(("parts_search_kernel", "p_levels_kernel", "deblock_kernel",
+                          "pack_i_kernel", "pack_p_kernel"), 0)
+    h, w = HEIGHT, WIDTH
+    mb_h, mb_w = h // 16, w // 16
+
+    def compare(kernel: str, label: str, got, want, secs: float) -> None:
+        got = [g for g in got if g is not None]
+        want = [g for g in want if g is not None]
+        check(len(got) == len(want), f"{kernel} {label}: {len(got)} outputs, the "
+              f"plain version {len(want)}")
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        errs[kernel] = max(errs[kernel], e)
+        print(f"kernel {kernel} {label}: max abs err {e} over {len(got)} outputs "
+              f"({secs:.1f} s in the plain version)", flush=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    src, ref1, ref2 = p_content(device, rng, "moving", h, w)
+    for search, subpel, nrefs in PARTS_CASES:
+        refs = [ref1, ref2][:nrefs]
+        label = (f"4K moving {('full', 'half', 'quarter')[subpel]}-pel search {search} "
+                 f"{nrefs} ref{'s' if nrefs > 1 else ''}")
+        want, secs = timed(lambda: levels_ops.motion_search_parts_plain(
+            src[0], refs, search, subpel, 30))
+        got = levels_ops.motion_search_parts(src[0], refs, search, subpel, 30)
+        compare("parts_search_kernel", label, got, want, secs)
+        modes = torch.bincount(got[0].flatten().to(torch.int64), minlength=4)
+        print(f"kernel parts_search_kernel {label}: partition modes 16x16/16x8/8x16/8x8 "
+              f"{modes.tolist()}", flush=True)
+
+    # H2 on the parts layout, H5 on its quadrant fields, H8 on its levels
+    frames = []
+    for search, subpel, nrefs in ((P_SEARCH, 0, 1), (3, 2, 2)):
+        args = (*src, *ref1, 30, search, subpel, *(ref2 if nrefs > 1 else (None,) * 3))
+        label = f"4K moving qp 30 parts search {search} sub-pel {subpel} {nrefs} ref(s)"
+        want, secs = timed(lambda: levels_ops.encode_p_levels_plain(*args, parts=1))
+        got = levels_ops.encode_p_levels(*args, parts=1)
+        compare("p_levels_kernel", label, tuple(got), tuple(want), secs)
+        frames.append((got, nrefs))
+        if nrefs == 1:
+            continue        # the plain H5 takes seconds a 4K frame: one case
+        recon = (got.recon_y, got.recon_cb, got.recon_cr)
+        meta = quad_meta(got, mb_h, mb_w, device)
+        want, secs = timed(lambda: deblock_ops.deblock_planes_plain(*recon, 30, *meta))
+        compare("deblock_kernel", f"{label}, its quadrant fields",
+                deblock_ops.deblock_planes(*recon, 30, *meta), want, secs)
+    for qp, search, subpel, nrefs in ((30, 0, 0, 1), (30, P_SEARCH, 3, 1),
+                                      (30, P_SEARCH, 3, 2)):
+        second = ref2 if nrefs > 1 else (None,) * 3
+        frames.append((levels_ops.encode_p_levels(*src, *ref1, qp, search, subpel, *second),
+                       nrefs))
+    for k, (plv, nrefs) in enumerate(frames):
+        a, kw = pack_p_args(plv, nrefs)
+        for nw in (64, CAP_NW_MB)[:2 if k == 0 else 1]:
+            label = (f"4K P frame {'parts' if plv.pmode is not None else 'P_16x16'} "
+                     f"{nrefs} active ref(s) {nw} words")
+            want, secs = timed(lambda: bitpack_ops.pack_p_mbs_plain(*a, nw, **kw))
+            got = bitpack_ops.pack_p_mbs(*a, nw, **kw)
+            compare("pack_p_kernel", label, packed(got), packed(want), secs)
+            print(f"kernel pack_p_kernel {label}: {int(got[1].sum())} bits, "
+                  f"{int((got[1] > 32 * nw).sum())} MBs over the cap", flush=True)
+
+    # H7 on H1's levels
+    frame = torch.from_numpy(content_nv12(rng, "structured", h, w)).to(device)
+    for flags in ({}, {"i4": True, "chromah": True}):
+        lv, imode, *extra = levels_kernel.encode_levels(*intra_planes(frame, h), 30, **flags)
+        ex = dict(zip(["i4modes"] * ("i4" in flags) + ["cmode"] * ("chromah" in flags),
+                      extra))
+        for nw in (64, CAP_NW_MB):
+            label = f"4K {'+'.join(flags) or 'default'} {nw} words"
+            want, secs = timed(lambda: bitpack_ops.pack_i_mbs_plain(*lv, imode, nw, **ex))
+            got = bitpack_ops.pack_i_mbs(*lv, imode, nw, **ex)
+            compare("pack_i_kernel", label, packed(got), packed(want), secs)
+    counts = {**levels_kernel.launch_counts(), **inter_kernel.launch_counts(),
+              **deblock_kernel.launch_counts(), **bitpack_kernel.launch_counts()}
+    check(all(counts[k] > 0 for k in ("motion_search_parts", "encode_p_levels",
+                                       "deblock_planes", "pack_i_mbs", "pack_p_mbs")),
+          f"a kernel was not launched by its checks: {counts}")
+    print(f"kernels H6-H8 (and H2, H5 on the parts fields) checked: launches {counts}",
+          flush=True)
+    return errs
+
+
 # the GOP encoder's oracles in a child process: the frames, the output
 # path, "host" (GopCavlcEncoder(slices=mb_h), Python) or "cpu" (the same
 # class on the CPU, the kernels' plain versions) and the encoders' options
@@ -1188,7 +1372,8 @@ frames = np.load(sys.argv[1])
 h, w = frames.shape[1] * 2 // 3, frames.shape[2]
 streams = []
 for kw in json.loads(sys.argv[4]):
-    enc = (GopCavlcEncoder(w, h, slices=h // 16, **kw) if sys.argv[3] == "host"
+    host = {k: v for k, v in kw.items() if k not in ("bitpack", "nw_mb")}
+    enc = (GopCavlcEncoder(w, h, slices=h // 16, **host) if sys.argv[3] == "host"
            else CudaGopEncoder(w, h, device="cpu", **kw))
     streams.append([au for f in frames for au in enc.encode(f)] + enc.flush())
 aus = [au for s in streams for au in s]
@@ -1244,8 +1429,12 @@ def gop_oracle_streams(proc, path: str) -> list[list[bytes]]:
 def phase_p_streams(oracles) -> None:
     """The GOP encoder's access units on the card: at 640x368 over four
     frames (IDR, P, P, IDR) equal to ``GopCavlcEncoder(slices=mb_h)``'s for
-    each of ``P_STREAMS``, and at 1920x1088 over three frames equal to the
-    same class's on the CPU (the kernels' plain versions)."""
+    each of ``P_STREAMS`` (the partition modes and the device bit packer
+    among them; a stream with ``bitpack`` is also made at ``nw_mb=3``, where
+    MBs overflow the cap and their frames take the host entropy path: the
+    same access units, the overflow counter above 0, where it is 0 at 64
+    words), and at 1920x1088 over three frames equal to the same class's on
+    the CPU (the kernels' plain versions)."""
     for name, label in (("host", "GopCavlcEncoder(slices=mb_h)"),
                         ("cpu", "CudaGopEncoder(device='cpu')")):
         frames, proc, path, kws = oracles[name]
@@ -1254,15 +1443,22 @@ def phase_p_streams(oracles) -> None:
         want = gop_oracle_streams(proc, path)
         waited = time.perf_counter() - t0
         for kw, stream in zip(kws, want):
-            enc = CudaGopEncoder(w, h, **kw)
-            check(enc.device.type == "cuda", f"the GOP encoder is on {enc.device}")
-            got = [au for f in frames for au in enc.encode(f)] + enc.flush()
-            spec = ":".join(f"{k}={v}" if v is not True else k for k, v in kw.items())
-            check(got == stream, f"stream tpu:{spec} at {w}x{h}: access units other "
-                  f"than {label}'s")
-            print(f"stream tpu:{spec} at {w}x{h}: {len(got)} access units "
-                  f"({[len(a) for a in got]} bytes) equal {label}'s (waited "
-                  f"{waited:.1f} s for the oracle)", flush=True)
+            runs = [kw] + ([dict(kw, nw_mb=CAP_NW_MB)] if kw.get("bitpack") else [])
+            for run in runs:
+                enc = CudaGopEncoder(w, h, **run)
+                check(enc.device.type == "cuda", f"the GOP encoder is on {enc.device}")
+                got = [au for f in frames for au in enc.encode(f)] + enc.flush()
+                spec = ":".join(f"{k}={v}" if v is not True else k for k, v in run.items())
+                check(got == stream, f"stream tpu:{spec} at {w}x{h}: access units other "
+                      f"than {label}'s")
+                capped = run.get("nw_mb") == CAP_NW_MB
+                check(enc._bits_overflows > 0 if capped else enc._bits_overflows == 0,
+                      f"stream tpu:{spec}: {enc._bits_overflows} frames over the "
+                      f"bit packer's cap")
+                print(f"stream tpu:{spec} at {w}x{h}: {len(got)} access units "
+                      f"({[len(a) for a in got]} bytes) equal {label}'s (waited "
+                      f"{waited:.1f} s for the oracle); frames over the bit packer's "
+                      f"cap {enc._bits_overflows}", flush=True)
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -1893,21 +2089,24 @@ def free_udp_port() -> int:
 
 def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
                   tmp: str) -> tuple[float, dict]:
-    """Configurations (g) to (j): CLAHE passthrough to
+    """Configurations (g) to (k): CLAHE passthrough to
     ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
     each frame enhanced by K1, K2 and K3 on the card, then encoded on the
     host ((g) ``cavlc``, (h) ``pcm``), by H1 on the card and entropy-coded
     on the host ((i) ``tpu``), or by the GOP encoder ((j) ``tpu:gop=30:...``:
     H1 on the IDR, H3, H4, H2 and H5 on each P frame, entropy coding on the
-    host).  (g), (i) and (j) are received by the port's ``rtp_receiver`` app
+    host), or by the GOP encoder with the partition modes and the bit packer
+    ((k) ``tpu:gop=30:...:parts:deblock:bitpack``: H1 and H7 on the IDR,
+    H3, H6, H2, H5 and H8 on each P frame, the host assembling the packed
+    bits).  (g), (i), (j) and (k) are received by the port's ``rtp_receiver`` app
     in a child process, which must record every access unit; (h) by an
     ``H26xRtpReceiver`` thread, which counts what it loses.  The sink's
     encoder is watched: each frame it takes must be one of the expected
     frames, in order, and the access units it sends must equal those a new
     encoder of the same spec makes from those expected frames ((i): a new
     ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the host oracle of
-    the device encoder; (j): a new ``CudaGopEncoder`` of the same spec; rate
-    control is the same)."""
+    the device encoder; (j), (k): a new ``CudaGopEncoder`` of the same spec;
+    rate control is the same)."""
     fingerprints = {hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
     made, inputs, sent, encode_s = [], [], [], []
     build = encoder_io.encoded_rtp_sink_from_url
@@ -1996,12 +2195,25 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
         idrs = -(-len(encode_s) // enc.gop)
         check(isinstance(enc, CudaGopEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
+        # (k): the partition search in place of the search, the bit packers
+        search = "motion_search_parts" if enc.parts else "motion_search"
+        other = "motion_search" if enc.parts else "motion_search_parts"
+        packs = ((idrs, len(encode_s) - idrs) if enc._bitpack else (0, 0))
         check(counts["encode_levels"] == idrs and len(encode_s) > idrs
               and all(counts[k] == len(encode_s) - idrs for k in
-                      ("encode_p_levels", "motion_search", "subpel_planes"))
+                      ("encode_p_levels", search, "subpel_planes"))
+              and counts[other] == 0
+              and (counts["pack_i_mbs"], counts["pack_p_mbs"]) == packs
               and counts["deblock_planes"] == len(encode_s),
               f"{label}: {len(encode_s)} frames encoded ({idrs} IDR), launches "
               f"{counts}")
+        print(f"{label}: launches H1 {counts['encode_levels']}, H3 "
+              f"{counts['subpel_planes']}, H4 {counts['motion_search']}, H6 "
+              f"{counts['motion_search_parts']}, H2 {counts['encode_p_levels']}, H5 "
+              f"{counts['deblock_planes']}, H7 {counts['pack_i_mbs']}, H8 "
+              f"{counts['pack_p_mbs']} for {len(encode_s)} frames ({idrs} IDR); "
+              f"frames over the bit packer's cap (coded on the host entropy path) "
+              f"{getattr(enc, '_bits_overflows', 0)}", flush=True)
     elif device_encoder:
         check(isinstance(enc, CudaCavlcEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
@@ -2131,16 +2343,19 @@ def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
                   ("tile_histograms", "build_luts", "clahe_interpolate")),
               f"{name} launched no K1, K2 or K3: {per_path[name]}")
 
-    # (g) to (j): the encoded RTP sinks, CAVLC on the native C++ rows
+    # (g) to (k): the encoded RTP sinks, CAVLC on the native C++ rows
     # and lossless I_PCM, encoded on the host after K1, K2 and K3 on the
     # card, the device intra encoder (H1 on the card, entropy coding on the
-    # native rows) and the device GOP encoder (H1 on the IDR; H3, H4, H2
-    # and H5 on the P frames)
+    # native rows), the device GOP encoder (H1 on the IDR; H3, H4, H2
+    # and H5 on the P frames), and the GOP encoder with the partition modes
+    # and the bit packer (H1 and H7 on the IDR; H3, H6, H2, H5 and H8 on the
+    # P frames; the host assembles the packed bits)
     encoded = {}
     for name, spec in (("relay_g_clahe_rtp_h264_cavlc", "cavlc"),
                        ("relay_h_clahe_rtp_h264_pcm", "pcm"),
                        ("relay_i_clahe_rtp_h264_tpu", "tpu"),
-                       ("relay_j_clahe_rtp_h264_tpu_gop", GOP_SPEC)):
+                       ("relay_j_clahe_rtp_h264_tpu_gop", GOP_SPEC),
+                       ("relay_k_clahe_rtp_h264_tpu_gop_parts_bitpack", PARTS_SPEC)):
         rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp)
         per_path[name] = encoded[name]["counts"]
         print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
@@ -2814,12 +3029,82 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
           f"by a first call of {entropy[0]:.1f} ms; modes skip/inter/intra DC/intra H "
           f"{modes}) [{card}]", flush=True)
 
+    # H6 at relay (k)'s search, then the sub-pel lattices; H2 on the parts
+    # layout; H8 on its levels; H7 on an IDR's
+    pout = torch.empty(levels_kernel.p_level_words(mb_h, mb_w, True), dtype=torch.int16,
+                       device=device)
+    fields = levels_kernel.split_p_levels(pout, mb_h, mb_w, True)
+    for search, subpel in ((P_SEARCH, 0), (P_SEARCH, 1), (P_TIMED_QPEL_SEARCH, 2)):
+        P, margin = levels_ops.search_plan(search, subpel)
+        stack = levels_ops.subpel_planes(ref1[0], margin, P)
+        ms = device_ms(lambda: inter_kernel.parts_stack_into(
+            src[0], stack, [ref1], search, subpel, 30, fields["pmode"], fields["mv"],
+            None, *pred))
+        plain = time_ms(lambda: levels_ops.parts_stack_plain(
+            src[0], stack, [ref1], search, subpel, 30), reps=1, warmup=1)
+        n = len(levels_ops.search_candidates(search, subpel))
+        moved = nbytes(src[0], stack, ref1[1], ref1[2], fields["pmode"], fields["mv"],
+                       *pred)
+        what = (f"({('full', 'half', 'quarter')[subpel]}-pel, search {search}, "
+                f"{n} candidates)")
+        if subpel == 0:
+            record("parts_search_kernel", ms, plain, moved, 3 * n * h * w, what)
+        else:
+            bound_ms, bound_by = bound(moved, 3 * n * h * w)
+            print(f"time parts_search_kernel 4K P frame {what}: {ms:.4f} ms on the "
+                  f"device, plain version {plain:.1f} ms (bound {bound_ms:.4f} ms by "
+                  f"{bound_by}) [{card}]", flush=True)
+    P, margin = levels_ops.search_plan(P_SEARCH, 0)
+    stack = levels_ops.subpel_planes(ref1[0], margin, P)
+    inter_kernel.parts_stack_into(src[0], stack, [ref1], P_SEARCH, 0, 30, fields["pmode"],
+                                  fields["mv"], None, *pred)
+    levels_kernel.p_levels_into(*src, *pred, 30, pout, motion=True, parts=True)
+    words = torch.empty((mb_h, mb_w, 64), dtype=torch.uint32, device=device)
+    nbits = torch.empty((mb_h, mb_w), dtype=torch.int32, device=device)
+    lv = (fields["mode"], fields["zdc"], fields["acz"], fields["czdc"], fields["cacz"])
+    pkw = dict(pmode=fields["pmode"], mv4=fields["mv"])
+    ms = device_ms(lambda: bitpack_kernel.pack_p_into(*lv, None, None, 1, words, nbits,
+                                                      **pkw))
+    plain = time_ms(lambda: bitpack_ops.pack_p_mbs_plain(*lv, None, None, 1, 64, **pkw),
+                    reps=1, warmup=1)
+    moved = nbytes(pout, words, nbits)
+    record("pack_p_kernel", ms, plain, moved, pack_ops(pout.numel()),
+           f"(parts, search {P_SEARCH}, {int(nbits.sum())} bits)")
+    iout = torch.empty(levels_kernel.level_words(mb_h, mb_w), dtype=torch.int16,
+                       device=device)
+    levels_kernel.intra_levels(*src, 30, iout)
+    iv = levels_kernel.split_levels(iout, mb_h, mb_w)
+    ilv = (iv["zdc"], iv["acz"], iv["czdc"], iv["cacz"], iv["imode"])
+    ms = device_ms(lambda: bitpack_kernel.pack_i_into(*ilv, words, nbits))
+    plain = time_ms(lambda: bitpack_ops.pack_i_mbs_plain(*ilv, 64), reps=1, warmup=1)
+    record("pack_i_kernel", ms, plain, nbytes(iout, words, nbits),
+           pack_ops(iout.numel()), f"(an IDR of the moving content, "
+           f"{int(nbits.sum())} bits)")
+    host_words = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
+    host_nbits = torch.empty(nbits.shape, dtype=nbits.dtype, pin_memory=True)
+    host_mode = torch.empty(fields["mode"].shape, dtype=torch.int16, pin_memory=True)
+    host_levels = torch.empty(pout.shape, dtype=pout.dtype, pin_memory=True)
+
+    def bits_down():
+        host_words.copy_(words, non_blocking=True)
+        host_nbits.copy_(nbits, non_blocking=True)
+        host_mode.copy_(fields["mode"], non_blocking=True)
+
+    d2h_bits = device_ms(bits_down)
+    d2h_levels = device_ms(lambda: host_levels.copy_(pout, non_blocking=True))
+    print(f"time parts P frame D2H 4K: the packed words, bit counts and mode row "
+          f"{nbytes(words, nbits, fields['mode'])} bytes in {d2h_bits:.4f} ms, the "
+          f"levels {nbytes(pout)} bytes in {d2h_levels:.4f} ms, into pinned memory "
+          f"[{card}]", flush=True)
+
     # the encoder, a frame at a time, P frames after one IDR
     frames = moving_nv12(rng, h, w, 9)
     encode = {}
-    for name, overlap in (("tpu:gop", False), ("tpu:gop:overlap", True)):
-        enc = encoder_io.make_encoder(GOP_SPEC + (":overlap" if overlap else ""), w, h,
-                                      fps=ENCODED_FPS, device="cuda")
+    parts_plain = PARTS_SPEC.replace(":bitpack", "")
+    for name, spec in (("tpu:gop", GOP_SPEC), ("tpu:gop:overlap", GOP_SPEC + ":overlap"),
+                       (parts_plain, parts_plain), (PARTS_SPEC, PARTS_SPEC),
+                       (PARTS_SPEC + ":overlap", PARTS_SPEC + ":overlap")):
+        enc = encoder_io.make_encoder(spec, w, h, fps=ENCODED_FPS, device="cuda")
         enc.encode(frames[0])
         per = []
         for f in frames[1:]:
@@ -2827,10 +3112,19 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
             enc.encode(f)
             per.append(1e3 * (time.perf_counter() - t0))
         enc.flush()
-        encode[name] = statistics.median(per)
-    print(f"time encode a 4K P frame, host ms (median of 8), {GOP_SPEC}: " + ", ".join(
-        f"{name} {ms:.1f}" for name, ms in encode.items()) + f" [{card}]", flush=True)
+        encode[name] = (statistics.median(per), enc._bits_overflows)
+    print(f"time encode a 4K P frame, host ms (median of 8; frames over the bit "
+          f"packer's cap): " + ", ".join(f"{name} {ms:.1f} ({over})" for name, (ms, over)
+                                         in encode.items()) + f" [{card}]", flush=True)
     return times
+
+
+def pack_ops(levels: int) -> int:
+    """H7's and H8's operations, counted generously: about ten for each
+    int16 value of the level buffer (its zero test and count, its rank, its
+    token and its bits).  Far below the bytes' time: the packers' bound is
+    their bytes."""
+    return 10 * levels
 
 
 def phase_profile(device, rng) -> None:
@@ -2893,7 +3187,9 @@ def main() -> int:
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
                                      "tile_hist_kernel", "intra_levels_kernel",
                                      "p_levels_kernel", "subpel_planes_kernel",
-                                     "motion_search_kernel", "deblock_kernel")):
+                                     "motion_search_kernel", "deblock_kernel",
+                                     "parts_search_kernel", "pack_i_kernel",
+                                     "pack_p_kernel")):
         print(f"ptxas {line}", flush=True)
     t0 = time.perf_counter()
     check(native.available(), f"the native runtime did not build: "
@@ -2926,6 +3222,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gop_") as tmp, \
             gop_oracles(tmp) as oracles:
         errs.update(phase_p_kernels(device, rng))
+        for name, e in phase_parts_kernels(device, rng).items():
+            errs[name] = max(errs.get(name, 0), e)
         check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
         phase_intra_streams(device, rng)
         phase_p_streams(oracles)

@@ -39,12 +39,9 @@ each relay binary owns one stream.
 RTP port spacing is 2 per stream because each RTP session's RTCP rides
 its companion port (port+1, io/rtcp.py).
 
-Not ported yet, refused with return code 2: with an encoded sink the
-device encoder's partition modes and bit packer
-(``--encoder=tpu:...:parts``, ``tpu:...:bitpack``: the encoder factory's
-one line); the device encoders (``--encoder=tpu[:i4][:chromah][:overlap]``,
+The device encoders (``--encoder=tpu[:i4][:chromah][:overlap][:bitpack]``,
 ``CudaCavlcEncoder``, and with ``gop=N`` or ``gdr=N`` ``CudaGopEncoder``,
-one per stream) run on ``--device``.  ``--encoder``
+with ``:parts`` too, one per stream) run on ``--device``.  ``--encoder``
 is read only for an encoded sink, as in the JAX package, and ignored
 otherwise.  ``--mesh``
 takes a mesh of one position (``1x1`` or ``auto``) here: the mux cuts

@@ -62,16 +62,15 @@ says ``staging=python queue``).  It composes with ``--mesh``: the ring too
 gives the feeder whole batches only.
 
 Not ported yet, refused with return code 2: ``--fused-encode`` (the fused
-enhance + encode program), ``--io=gst``, and with an encoded sink the
-device encoder's partition modes and bit packer (``--encoder=tpu:...:parts``,
-``tpu:...:bitpack``: the encoder factory's one line).  ``--encoder`` is
+enhance + encode program) and ``--io=gst``.  ``--encoder`` is
 read only for an encoded sink, as in the JAX package: with any other sink
 it is ignored.  The encoded sinks encode after the card has enhanced the
 frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` on ``--device`` with its
 entropy coding on the host (the intra encoder ``CudaCavlcEncoder``, or with
 ``gop=N`` (N > 1) or ``gdr=N`` the GOP encoder ``CudaGopEncoder``, whose
-reference pictures stay on the card).  The ``Encoder:`` line names the
-port's class.
+reference pictures stay on the card, with its partition modes
+``:parts``); with ``:bitpack`` the CAVLC bits are packed on the card too
+and the host assembles them.  The ``Encoder:`` line names the port's class.
 
 Defaults mirror the reference live relay (1920x1080 @ 60, h264, 20 Mbps,
 2 workers: ``OpenCVequalHist.cpp:262-266``).  The worker pool + GAsyncQueue +
@@ -100,8 +99,7 @@ _NOT_PORTED = {
 
 def not_ported(opts: dict) -> str | None:
     """The one-line refusal for a flag this package does not have yet, or
-    None (the encoder factory refuses the device encoder options not
-    ported)."""
+    None."""
     what = None
     if opts.get("io") == "gst":
         what = "--io=gst (the GStreamer appsink/appsrc bridge)"

@@ -15,7 +15,10 @@
 // derived here from the MB metadata: 4 on an MB edge with an intra side, 3
 // inside one, 2 where either 4x4 block has coded levels, 1 where the
 // references differ or a motion vector component differs by 4 quarter
-// samples or more, else 0; the picture border is never filtered, and with
+// samples or more, else 0 (the vectors and references one a MB, or with the
+// partition modes one an 8x8 block, :59 bs_grids's g = 2, so that the
+// edges inside a partitioned MB get their motion-driven bS); the picture
+// border is never filtered, and with
 // slice_local neither are the horizontal MB edges (one slice per MB row,
 // disable_deblocking_filter_idc=2).  The filter itself is spec 8.7.2.3 /
 // 8.7.2.4 with alpha, beta and tC0 of the picture QP (luma) and of its
@@ -58,17 +61,20 @@ __device__ __forceinline__ int clip3(int lo, int hi, int x) { return max(lo, min
 
 // the boundary strength of the edge between 4x4 blocks p and q (block
 // coordinates (row, col) on the (4 mb_h, 4 mb_w) grid); mb_edge: the edge is
-// an MB edge
+// an MB edge; quad: mv and ref are one an 8x8 block on the (2 mb_h, 2 mb_w)
+// grid (the partition modes' quadrant fields), else one a MB
 __device__ int bs_of(int pr, int pc, int qr, int qc, bool mb_edge, int mb_w,
                      const uint8_t* intra, const uint8_t* nnz4, const int16_t* mv,
-                     const int16_t* ref) {
+                     const int16_t* ref, int quad) {
     const int pm = (pr >> 2) * mb_w + (pc >> 2), qm = (qr >> 2) * mb_w + (qc >> 2);
     if (intra[pm] || intra[qm]) return mb_edge ? 4 : 3;
     const int w4 = 4 * mb_w;
     if (nnz4[pr * w4 + pc] || nnz4[qr * w4 + qc]) return 2;
-    if (ref != nullptr && ref[pm] != ref[qm]) return 1;
-    if (mv != nullptr && (abs(mv[2 * pm] - mv[2 * qm]) >= 4
-                          || abs(mv[2 * pm + 1] - mv[2 * qm + 1]) >= 4))
+    const int pf = quad ? (pr >> 1) * 2 * mb_w + (pc >> 1) : pm;
+    const int qf = quad ? (qr >> 1) * 2 * mb_w + (qc >> 1) : qm;
+    if (ref != nullptr && ref[pf] != ref[qf]) return 1;
+    if (mv != nullptr && (abs(mv[2 * pf] - mv[2 * qf]) >= 4
+                          || abs(mv[2 * pf + 1] - mv[2 * qf + 1]) >= 4))
         return 1;
     return 0;
 }
@@ -128,7 +134,7 @@ __global__ void __launch_bounds__(32)
 deblock_kernel(uint8_t* y, uint8_t* cb, uint8_t* cr, int mb_h, int mb_w,
                const uint8_t* __restrict__ intra, const uint8_t* __restrict__ nnz4,
                const int16_t* __restrict__ mv, const int16_t* __restrict__ ref,
-               Params prm, int slice_local, int* progress) {
+               int quad, Params prm, int slice_local, int* progress) {
     // the MB's patches: luma rows/cols -4..15 around its origin, chroma -2..7
     __shared__ int ly[20][20], lc[2][10][10];
     __shared__ int bsv[4][4], bsh[4][4];   // [segment][edge], [edge][segment]
@@ -169,11 +175,11 @@ deblock_kernel(uint8_t* y, uint8_t* cb, uint8_t* cr, int mb_h, int mb_w,
             if (lane < 16) {
                 const int br = 4 * i + sg, bc = 4 * j + e;
                 bsv[sg][e] = bc == 0 ? 0
-                    : bs_of(br, bc - 1, br, bc, e == 0, mb_w, intra, nnz4, mv, ref);
+                    : bs_of(br, bc - 1, br, bc, e == 0, mb_w, intra, nnz4, mv, ref, quad);
             } else {
                 const int br = 4 * i + e, bc = 4 * j + sg;
                 bsh[e][sg] = (br == 0 || (slice_local && e == 0)) ? 0
-                    : bs_of(br - 1, bc, br, bc, e == 0, mb_w, intra, nnz4, mv, ref);
+                    : bs_of(br - 1, bc, br, bc, e == 0, mb_w, intra, nnz4, mv, ref, quad);
             }
         }
         __syncwarp();
@@ -227,8 +233,9 @@ deblock_kernel(uint8_t* y, uint8_t* cb, uint8_t* cr, int mb_h, int mb_w,
 
 extern "C" int deblock_launch(uint8_t* y, uint8_t* cb, uint8_t* cr, int mb_h, int mb_w,
                               const uint8_t* intra, const uint8_t* nnz4,
-                              const int16_t* mv, const int16_t* ref, const int* params,
-                              int slice_local, int* progress, void* stream) {
+                              const int16_t* mv, const int16_t* ref, int quad,
+                              const int* params, int slice_local, int* progress,
+                              void* stream) {
     Params prm;
     prm.al = params[0];
     prm.bl = params[1];
@@ -239,7 +246,7 @@ extern "C" int deblock_launch(uint8_t* y, uint8_t* cb, uint8_t* cr, int mb_h, in
         prm.tc[k] = params[7 + k];
     }
     if (mb_h <= 0 || mb_w <= 0) return (int)cudaGetLastError();
-    void* args[] = {&y, &cb, &cr, &mb_h, &mb_w, &intra, &nnz4, &mv, &ref, &prm,
+    void* args[] = {&y, &cb, &cr, &mb_h, &mb_w, &intra, &nnz4, &mv, &ref, &quad, &prm,
                     &slice_local, &progress};
     const cudaError_t err = cudaLaunchCooperativeKernel(
         (const void*)deblock_kernel, dim3(mb_h), dim3(32), args, 0, (cudaStream_t)stream);

@@ -1,6 +1,7 @@
-// H3 subpel_planes_kernel and H4 motion_search_kernel: the sub-sample
-// planes of a reference picture and the per-macroblock (MB) motion search
-// with motion compensation, for the P frames of the H.264 device GOP
+// H3 subpel_planes_kernel, H4 motion_search_kernel and H6
+// parts_search_kernel: the sub-sample planes of a reference picture, the
+// per-macroblock (MB) motion search with motion compensation, and its
+// sub-16x16 partition variant, for the P frames of the H.264 device GOP
 // encoder, on Hopper.
 //
 // H3 replaces opencv_opencl_tpu/ops/h264_levels.py:703 _base_planes_jax
@@ -46,6 +47,35 @@
 // search (the keys carry the index, so the result does not depend on the
 // order of evaluation).  Searching several MBs a block, packed byte SADs
 // (__vsadu4) and fusing with H2 are for a later change.
+//
+// H6 replaces :1197 motion_search_mc_parts (with :800 _sad_quad_fields), two
+// XLA fori_loops over the candidates (:1295, :1378); its plain version is
+// motion_search_parts_plain / parts_stack_plain, the wrappers
+// motion_search_parts and parts_search_into.  For each MB, over the
+// candidates of every reference in ref-major order (flat index i = r * n +
+// idx): nine least keys sad * 8192 + i, for the four 8x8 quadrants, the two
+// 16x8 and the two 8x16 halves and the whole MB; then the partition mode,
+// the least of cost_f = kf / 8192, cost_h = kh0 / 8192 + kh1 / 8192 + lam,
+// cost_v alike and cost_q = the four quadrants' + 3 lam (lam =
+// PART_LAMBDA[clip(qp, 0, 51)]) with a strict < in the order 16x8, 8x16,
+// 8x8; each quadrant takes its partition's winner (a 16x8 MB's quadrants
+// their row's half, an 8x16 MB's their column's), its 8x8 luma from the
+// winner's plane and its 4x4 chroma with the bilinear at the winner's
+// vector on the winner's reference.  The whole-MB SAD is at most 65,280, so
+// a key stays below 2^31 while nrefs * n <= 8192 (the wrapper refuses
+// more).  Bound: operations, as H4: full-pel search 8 (289 candidates) on
+// a 4K frame 289 x 8,294,400 x 3 = 7.2 G, 0.107 ms at 67 T operations/s;
+// half-pel search 8 or quarter-pel search 4 (1,089) 27.1 G, 0.404 ms.
+// Design: H4's, one block of 256 threads per MB with the current MB in
+// shared memory; warp w takes candidates w, w + 8, ...; lanes 8q..8q+7 sum
+// quadrant q's 64 differences (a row of 8 a lane), a segmented shuffle
+// reduce gives the four quadrant SADs in every lane, and each warp keeps
+// the nine keys; one block reduce ends the sweep (the keys carry i, which
+// carries the reference, so a plain key compare is the oracle's order and
+// the result does not depend on the order of evaluation).  What really
+// bounds it is H4's: the byte loads and int32 sums of 256 threads a MB and
+// the 8-way warp split; packed byte SADs (__vsadu4), several MBs a block
+// and fusing with H2 are for a later change.
 //
 // All arithmetic is int32 and exact; `>>` of a signed int is arithmetic.
 // The launchers are extern "C", launch on the stream they are given, do not
@@ -284,6 +314,132 @@ motion_search_kernel(const uint8_t* __restrict__ y, long long y_rs, Search s,
     }
 }
 
+// ------------------------------------------------------------------ H6 ----
+
+// the key of hypothesis j of the nine: quadrants 0..3 (tl, tr, bl, br), the
+// 16x8 halves 4 (top) and 5 (bottom), the 8x16 halves 6 (left) and 7
+// (right), the whole MB 8
+__global__ void __launch_bounds__(kThreads)
+parts_search_kernel(const uint8_t* __restrict__ y, long long y_rs, Search s,
+                    int nrefs, const int* __restrict__ cands, int n, int lam,
+                    const uint8_t* __restrict__ cb0, const uint8_t* __restrict__ cr0,
+                    const uint8_t* __restrict__ cb1, const uint8_t* __restrict__ cr1,
+                    int16_t* __restrict__ pmode_out, int16_t* __restrict__ mv_out,
+                    int16_t* __restrict__ ref_out, uint8_t* __restrict__ pred_y,
+                    uint8_t* __restrict__ pred_cb, uint8_t* __restrict__ pred_cr) {
+    __shared__ int cur[256];
+    __shared__ int wkey[kWarps][9];
+    __shared__ int key[9];
+    __shared__ int win[4][3];   // each quadrant's winner: ref, dy, dx
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int mbx = blockIdx.x, mby = blockIdx.y, mb_w = gridDim.x;
+    const int W = mb_w * 16;
+    cur[tid] = y[(long long)(16 * mby + (tid >> 4)) * y_rs + 16 * mbx + (tid & 15)];
+    __syncthreads();
+
+    // ---- the candidates of every reference: lanes 8q..8q+7 sum quadrant
+    // q's rows, 8 pixels a lane; the halves and the whole MB are sums of
+    // the quadrants'
+    const int quad = lane >> 3;
+    const int row = (quad >> 1) * 8 + (lane & 7), col = (quad & 1) * 8;
+    int k[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) k[j] = kBadKey;
+    for (int i = warp; i < nrefs * n; i += kWarps) {
+        const int r = i / n, idx = i - r * n;
+        const int qy = cands[2 * idx], qx = cands[2 * idx + 1];
+        const int p = r * s.nplanes + plane_of(qy & 3, qx & 3, s.nplanes);
+        const uint8_t* src = s.stack + p * s.plane
+            + (long long)(s.margin + 16 * mby + row + (qy >> 2)) * s.wp
+            + s.margin + 16 * mbx + col + (qx >> 2);
+        const int* c = cur + row * 16 + col;
+        int sad = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sad += abs(c[j] - (int)src[j]);
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) sad += __shfl_xor_sync(0xffffffffu, sad, o);
+        const int q0 = __shfl_sync(0xffffffffu, sad, 0);
+        const int q1 = __shfl_sync(0xffffffffu, sad, 8);
+        const int q2 = __shfl_sync(0xffffffffu, sad, 16);
+        const int q3 = __shfl_sync(0xffffffffu, sad, 24);
+        const int sads[9] = {q0, q1, q2, q3, q0 + q1, q2 + q3, q0 + q2, q1 + q3,
+                             q0 + q1 + q2 + q3};
+#pragma unroll
+        for (int j = 0; j < 9; ++j) k[j] = min(k[j], sads[j] * kRadix + i);
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < 9; ++j) wkey[warp][j] = k[j];
+    }
+    __syncthreads();
+    if (tid < 9) {
+        int m = wkey[0][tid];
+        for (int w = 1; w < kWarps; ++w) m = min(m, wkey[w][tid]);
+        key[tid] = m;
+    }
+    __syncthreads();
+
+    // ---- the partition decision (strict < in the order 16x8, 8x16, 8x8:
+    // ties keep the coarser mode), each quadrant's winner out
+    const long long mb = (long long)mby * mb_w + mbx;
+    if (tid == 0) {
+        const int cost_f = key[8] / kRadix;
+        const int cost_h = key[4] / kRadix + key[5] / kRadix + lam;
+        const int cost_v = key[6] / kRadix + key[7] / kRadix + lam;
+        const int cost_q = key[0] / kRadix + key[1] / kRadix + key[2] / kRadix
+                           + key[3] / kRadix + 3 * lam;
+        int pmode = 0, best = cost_f;
+        if (cost_h < best) { pmode = 1; best = cost_h; }
+        if (cost_v < best) { pmode = 2; best = cost_v; }
+        if (cost_q < best) { pmode = 3; best = cost_q; }
+        pmode_out[mb] = (int16_t)pmode;
+        for (int q = 0; q < 4; ++q) {
+            // a 16x8 MB's quadrants take their row's half, an 8x16 MB's
+            // their column's
+            const int kk = pmode == 0 ? key[8] : pmode == 1 ? key[4 + (q >> 1)]
+                         : pmode == 2 ? key[6 + (q & 1)] : key[q];
+            const int i = kk & (kRadix - 1);
+            const int r = i / n, idx = i - r * n;
+            win[q][0] = r;
+            win[q][1] = cands[2 * idx];
+            win[q][2] = cands[2 * idx + 1];
+            mv_out[8 * mb + 2 * q] = (int16_t)win[q][1];
+            mv_out[8 * mb + 2 * q + 1] = (int16_t)win[q][2];
+            if (ref_out != nullptr) ref_out[4 * mb + q] = (int16_t)r;
+        }
+    }
+    __syncthreads();
+
+    // ---- the prediction: each 8x8 luma quadrant from its winner's plane,
+    // each 4x4 chroma quadrant with the bilinear at its winner's vector
+    {
+        const int py = tid >> 4, px = tid & 15;
+        const int q = (py >> 3) * 2 + (px >> 3);
+        const int r = win[q][0], dy = win[q][1], dx = win[q][2];
+        const int p = r * s.nplanes + plane_of(dy & 3, dx & 3, s.nplanes);
+        pred_y[(long long)(16 * mby + py) * W + 16 * mbx + px] =
+            s.stack[p * s.plane + (long long)(s.margin + 16 * mby + py + (dy >> 2)) * s.wp
+                    + s.margin + 16 * mbx + px + (dx >> 2)];
+    }
+    if (tid < 128) {
+        const int comp = tid >> 6, cy = (tid >> 3) & 7, cx = tid & 7;
+        const int q = (cy >> 2) * 2 + (cx >> 2);
+        const int r = win[q][0], dy = win[q][1], dx = win[q][2];
+        const int ch = gridDim.y * 8, cw = mb_w * 8;
+        const uint8_t* src = comp ? (r ? cr1 : cr0) : (r ? cb1 : cb0);
+        const int fy = dy & 7, fx = dx & 7;
+        const int rr = 8 * mby + cy + (dy >> 3), cc = 8 * mbx + cx + (dx >> 3);
+        const int ra = min(max(rr, 0), ch - 1), rb = min(max(rr + 1, 0), ch - 1);
+        const int ca = min(max(cc, 0), cw - 1), cb_ = min(max(cc + 1, 0), cw - 1);
+        const int v = ((8 - fx) * (8 - fy) * src[(long long)ra * cw + ca]
+                       + fx * (8 - fy) * src[(long long)ra * cw + cb_]
+                       + (8 - fx) * fy * src[(long long)rb * cw + ca]
+                       + fx * fy * src[(long long)rb * cw + cb_] + 32) >> 6;
+        (comp ? pred_cr : pred_cb)[(long long)(8 * mby + cy) * cw + 8 * mbx + cx] =
+            (uint8_t)v;
+    }
+}
+
 }  // namespace
 
 extern "C" int subpel_planes_launch(const uint8_t* ref, int H, int W, int margin,
@@ -313,6 +469,27 @@ extern "C" int motion_search_launch(const uint8_t* y, long long y_rs, int mb_h, 
     if (mb_h > 0 && mb_w > 0)
         motion_search_kernel<<<dim3(mb_w, mb_h), kThreads, 0, (cudaStream_t)stream>>>(
             y, y_rs, s, nrefs, cands, n, offs, clean_rows, cb0, cr0, cb1, cr1, mv, ref,
+            pred_y, pred_cb, pred_cr);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int parts_search_launch(const uint8_t* y, long long y_rs, int mb_h, int mb_w,
+                                   const uint8_t* stack, int nplanes, int margin,
+                                   int nrefs, const int* cands, int n, int lam,
+                                   const uint8_t* cb0, const uint8_t* cr0,
+                                   const uint8_t* cb1, const uint8_t* cr1,
+                                   int16_t* pmode, int16_t* mv, int16_t* ref,
+                                   uint8_t* pred_y, uint8_t* pred_cb, uint8_t* pred_cr,
+                                   void* stream) {
+    Search s;
+    s.stack = stack;
+    s.wp = mb_w * 16 + 2 * margin;
+    s.plane = (long long)(mb_h * 16 + 2 * margin) * s.wp;
+    s.nplanes = nplanes;
+    s.margin = margin;
+    if (mb_h > 0 && mb_w > 0)
+        parts_search_kernel<<<dim3(mb_w, mb_h), kThreads, 0, (cudaStream_t)stream>>>(
+            y, y_rs, s, nrefs, cands, n, lam, cb0, cr0, cb1, cr1, pmode, mv, ref,
             pred_y, pred_cb, pred_cr);
     return (int)cudaGetLastError();
 }

@@ -356,7 +356,9 @@ intra_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
 // motion-compensated prediction (full 4x4 luma blocks, DC included, no
 // Hadamard; the inter offset, a sixth, chroma too); the decision in the
 // oracle's order: P_Skip where the inter levels are all zero and the MB's
-// (mv, ref) is ((0, 0), 0), else intra where cost_i + INTRA_BIAS < cost_p
+// (mv, ref) is ((0, 0), 0) (with the partition modes: the MB is 16x16 and
+// quadrant 0's (mv, ref) is ((0, 0), 0), :1543-1548), else intra where
+// cost_i + INTRA_BIAS < cost_p
 // (I_16x16 HORIZONTAL where left_ok and cost_h < cost_d), else inter; the
 // rows of a GDR band are intra regardless of cost and never skip.  The
 // chosen mode's levels and reconstruction are written; the reconstruction's
@@ -381,7 +383,8 @@ p_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
                 const uint8_t* __restrict__ py_, const uint8_t* __restrict__ pcb,
                 const uint8_t* __restrict__ pcr, int mb_w, Plan p,
                 const int16_t* __restrict__ mv, const int16_t* __restrict__ ref,
-                int band_lo, int band_hi, int16_t* __restrict__ zdc_out,
+                const int16_t* __restrict__ pmode, int band_lo, int band_hi,
+                int16_t* __restrict__ zdc_out,
                 int16_t* __restrict__ acz_out, int16_t* __restrict__ czdc_out,
                 int16_t* __restrict__ cacz_out, int16_t* __restrict__ mode_out,
                 uint8_t* __restrict__ ry, uint8_t* __restrict__ rcb,
@@ -513,8 +516,12 @@ p_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
         const bool use_h = left_ok && cost_h < cost_d;
         const int cost_i = (use_h ? cost_h : cost_d) + cost_ci + kIntraBias;
         const int cost_p = cost_lp + cost_cp;
+        // with parts (pmode given) the fields hold four quadrants a MB and
+        // P_Skip needs the whole-MB hypothesis: pmode 0, quadrant 0 at zero
+        const int fq = pmode != nullptr ? 4 : 1;
         const bool mvz = mv == nullptr ||
-            (mv[2 * mb] == 0 && mv[2 * mb + 1] == 0 && (ref == nullptr || ref[mb] == 0));
+            ((pmode == nullptr || pmode[mb] == 0) && mv[2 * fq * mb] == 0
+             && mv[2 * fq * mb + 1] == 0 && (ref == nullptr || ref[fq * mb] == 0));
         const bool skip = cost_p == 0 && mvz && !inband;
         const bool intra = (!skip && cost_i < cost_p) || inband;
         const int mode = skip ? 0 : intra ? (use_h ? 3 : 2) : 1;
@@ -611,7 +618,8 @@ extern "C" int p_levels_launch(const uint8_t* y, long long y_rs, const uint8_t* 
                                long long cr_rs, long long cr_cs, const uint8_t* py,
                                const uint8_t* pcb, const uint8_t* pcr, int mb_h,
                                int mb_w, const int* plan, int motion, int two_refs,
-                               int band_lo, int band_hi, int16_t* out, uint8_t* ry,
+                               int parts, int band_lo, int band_hi, int16_t* out,
+                               uint8_t* ry,
                                uint8_t* rcb, uint8_t* rcr, void* stream) {
     Plan p;
     p.qp = plan[0];
@@ -626,14 +634,16 @@ extern "C" int p_levels_launch(const uint8_t* y, long long y_rs, const uint8_t* 
         p.v_y[i] = plan[12 + i];
         p.v_c[i] = plan[15 + i];
     }
-    // the segments of ops/cuda/h264_levels.p_level_layout
+    // the segments of ops/cuda/h264_levels.p_level_layout: mv (2 a MB, 8
+    // with parts), ref (1, 4) and with parts pmode
     const long long n = (long long)mb_h * mb_w;
     const int16_t* mv = motion ? out + 409 * n : nullptr;
-    const int16_t* ref = two_refs ? out + 411 * n : nullptr;
+    const int16_t* ref = two_refs ? out + (parts ? 417 : 411) * n : nullptr;
+    const int16_t* pmode = parts ? out + 421 * n : nullptr;
     if (mb_h > 0 && mb_w > 0)
         p_levels_kernel<<<mb_h, kThreads, 0, (cudaStream_t)stream>>>(
             y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, py, pcb, pcr, mb_w, p, mv,
-            ref, band_lo, band_hi, out, out + 16 * n, out + 272 * n, out + 280 * n,
+            ref, pmode, band_lo, band_hi, out, out + 16 * n, out + 272 * n, out + 280 * n,
             out + 408 * n, ry, rcb, rcr);
     return (int)cudaGetLastError();
 }

@@ -20,8 +20,9 @@ Hosts differ in what encoder they offer, so the relay's
   package.  ``:gop=N`` (N > 1) and ``:gdr=N`` build the GOP encoder with
   the reference pictures on the card (io.h264_inter.CudaGopEncoder, the
   JAX package's ``TpuGopEncoder``), with ``:search=R``, ``:halfpel``,
-  ``:quarterpel``, ``:fastsub``, ``:refs=2`` as there.  ``:parts`` and
-  ``:bitpack`` are not ported yet: ``make_encoder`` raises ``ValueError``.
+  ``:quarterpel``, ``:fastsub``, ``:refs=2`` and ``:parts`` (sub-16x16
+  partitions) as there; ``:bitpack`` packs the CAVLC bits on the card too
+  (both encoders).
 - ``ffmpeg`` — an external ``ffmpeg`` process fed raw NV12 on stdin,
   Annex-B H.264/H.265 on stdout (x264-class compression when the host
   ships ffmpeg).
@@ -41,9 +42,8 @@ Access units carry 4-byte start codes, ready for
 
 The port's own copy of ``opencv_opencl_tpu/io/encoder.py``: the same
 backends (``tpu``'s classes are ``CudaCavlcEncoder`` and ``CudaGopEncoder``,
-where the JAX package names ``TpuCavlcEncoder`` and ``TpuGopEncoder``; their
-``parts`` and ``bitpack`` options are not ported yet), and no
-``EncodedRtpSink.write_packed`` (the fused enhance + encode program's
+where the JAX package names ``TpuCavlcEncoder`` and ``TpuGopEncoder``), and
+no ``EncodedRtpSink.write_packed`` (the fused enhance + encode program's
 entry, not ported yet).
 """
 
@@ -494,8 +494,8 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
         # does entropy coding only.  Streams are byte-identical to
         # cavlc:slices=<mb rows>.  gop=N > 1 and gdr=N build the GOP
         # encoder (io/h264_inter.CudaGopEncoder: the P-frame kernels,
-        # the reference pictures on the card).  The device bit packer and
-        # the partition modes are not ported yet.
+        # the reference pictures on the card); bitpack packs the bits on
+        # the card too (ops/h264_bitpack.py).
         if codec != "h264":
             raise ValueError("the TPU CAVLC encoder is h264-only")
         from opencv_opencl_tpu_torch.io.h264_cavlc import CudaCavlcEncoder
@@ -595,12 +595,8 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
                 raise ValueError(f"bad tpu qp in {backend!r}")
             if not 0 <= qp <= 51:
                 raise ValueError(f"tpu qp must be 0..51, got {qp}")
-        if bitpack:
-            # the device bit packer has no counterpart here yet
-            raise ValueError(f"--encoder={backend}: not ported yet")
         if gdr or (gop is not None and gop > 1):
-            # the GOP stream with the reference pictures on the card (its
-            # partition modes raise "not ported yet")
+            # the GOP stream with the reference pictures on the card
             from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
 
             if gdr and gop is not None:
@@ -626,9 +622,9 @@ def make_encoder(backend: str, width: int, height: int, fps: float = 30.0,
             raise ValueError(
                 "tpu search=N/halfpel/quarterpel/fastsub/parts need a "
                 "gop=N option (motion search is a P-frame feature)")
-        kw = dict(overlap=overlap, deblock=deblock, cpb_ms=cpb_ms,
-                  initial_delay_ms=initdelay_ms, i4=i4, chromah=chromah,
-                  device=device)
+        kw = dict(overlap=overlap, deblock=deblock, bitpack=bitpack,
+                  cpb_ms=cpb_ms, initial_delay_ms=initdelay_ms, i4=i4,
+                  chromah=chromah, device=device)
         if qp is not None:
             return CudaCavlcEncoder(width, height, qp=qp, **kw)
         return CudaCavlcEncoder(width, height, qp=30,

@@ -34,10 +34,10 @@ shared with io.h264_pcm.
 The port's own copy of ``opencv_opencl_tpu/io/h264_cavlc.py`` up to
 ``CavlcH264Encoder``: the same bytes.  ``CudaCavlcEncoder`` is the port's
 counterpart of ``TpuCavlcEncoder``: the level stage on the card
-(ops/h264_levels.py), without the device bit packer (``bitpack``) and
-without ``encode_from_packed`` (the fused enhance + encode program), which
-are not ported yet; the GOP encoder that builds on it is
-``io.h264_inter.CudaGopEncoder``.
+(ops/h264_levels.py) and, with ``bitpack``, the bit packer too
+(ops/h264_bitpack.py), without ``encode_from_packed`` (the fused enhance +
+encode program), which is not ported yet; the GOP encoder that builds on
+it is ``io.h264_inter.CudaGopEncoder``.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ from opencv_opencl_tpu_torch.io.h264_pcm import (
 
 __all__ = ["CavlcH264Encoder", "CudaCavlcEncoder", "encode_frame_cavlc",
            "encode_frame_cavlc_slices", "encode_frame_from_levels",
-           "build_pps_cavlc"]
+           "build_pps_cavlc", "intra_bits_nals"]
 
 # ------------------------------------------------------------ transforms ----
 
@@ -1461,6 +1461,27 @@ class CavlcH264Encoder:
 
 
 
+def intra_bits_nals(words: np.ndarray, nbits: np.ndarray, idr: int, qp: int,
+                    nw_mb: int, deblock: bool = False) -> list[bytes] | None:
+    """One IDR slice NAL per MB row from the device-packed MB bit strings
+    (``ops/h264_bitpack.pack_i_mbs``): the host writes the slice headers,
+    concatenates and escapes.  None when an MB overflowed the ``nw_mb``
+    words (its true bit count is larger): the caller codes the frame on
+    the host entropy path instead."""
+    from opencv_opencl_tpu_torch.ops.h264_bitpack import assemble_slices_from_bits
+
+    if int(nbits.max(initial=0)) > 32 * nw_mb:
+        return None
+    mb_w = nbits.shape[1]
+
+    def header_fn(mby):
+        w = _BitWriter()
+        _slice_head_cavlc(w, idr, qp, first_mb=mby * mb_w, deblock=deblock)
+        return w
+
+    return assemble_slices_from_bits(words, nbits, header_fn)
+
+
 class CudaCavlcEncoder(CavlcH264Encoder):
     """CAVLC intra encoder with the arithmetic on the card (the JAX
     package's ``TpuCavlcEncoder``).
@@ -1488,19 +1509,25 @@ class CudaCavlcEncoder(CavlcH264Encoder):
     tail) and the closed-loop rate control reacts one frame later; the
     emitted bytes per frame are unchanged.
 
-    ``bitpack`` (the device bit packer) is not ported yet: it raises.
+    ``bitpack=True`` moves the entropy stage's bit-level work onto the card
+    too (ops/h264_bitpack.py): ``pack_i_kernel`` packs every MB's CAVLC bit
+    string from the level buffer, which stays on the card, and the host
+    fetches the words and bit counts (``nw_mb`` words a MB) and writes only
+    the slice headers, the concatenation, the trailing bits and emulation
+    prevention.  Streams stay byte-identical: a frame where an MB overflows
+    the ``nw_mb`` words goes through the host entropy path from its levels,
+    fetched then (counted in ``_bits_overflows``).
     """
 
     def __init__(self, width: int, height: int, qp: int = 30,
                  bitrate_kbps: int | None = None, fps: float = 30.0,
                  native: str = "auto", threads: int = 0,
                  overlap: bool = False, deblock: bool = False,
-                 bitpack: bool = False, cpb_ms: int | None = None,
+                 bitpack: bool = False, nw_mb: int = 64,
+                 cpb_ms: int | None = None,
                  initial_delay_ms: int | None = None,
                  i4: bool = False, chromah: bool = False,
                  device=None) -> None:
-        if bitpack:
-            raise ValueError("bitpack (the device bit packer): not ported yet")
         h16 = -(-height // 16) * 16
         if threads == 0:
             import os
@@ -1525,30 +1552,49 @@ class CudaCavlcEncoder(CavlcH264Encoder):
                 "is false; device='cpu' runs the kernel's plain version")
         self._overlap = bool(overlap)
         self._pending = None  # (levels handle, idr, qp)
-        # on the card: two (pinned upload, pinned levels, event) slots, so
-        # that frame N+1 goes up while frame N's levels are entropy-coded
+        self._bitpack = bool(bitpack)
+        self._nw_mb = int(nw_mb)
+        # frames whose packed bits overflowed the cap (coded on the host)
+        self._bits_overflows = 0
+        # on the card: two slots (pinned upload, pinned levels or words and
+        # bit counts, event; with bitpack the frame's device buffers too),
+        # so that frame N+1 goes up while frame N is entropy-coded
         self._slots: list[dict] = []
         self._flip = 0
 
-    def _card_buffers(self, rows: int, w16: int, words: int) -> None:
+    def _card_buffers(self, rows: int, w16: int, words: int, mb_h: int,
+                      mb_w: int) -> None:
         import torch
 
         dev = self.device
         self._dev_frame = torch.empty((rows, w16), dtype=torch.uint8, device=dev)
         self._dev_levels = torch.empty(words, dtype=torch.int16, device=dev)
-        self._slots = [{"frame": torch.empty((rows, w16), dtype=torch.uint8,
-                                             pin_memory=True),
-                        "levels": torch.empty(words, dtype=torch.int16,
-                                              pin_memory=True),
-                        "event": None} for _ in range(2)]
+        self._slots = []
+        for _ in range(2):
+            slot = {"frame": torch.empty((rows, w16), dtype=torch.uint8, pin_memory=True),
+                    "levels": torch.empty(words, dtype=torch.int16, pin_memory=True),
+                    "event": None}
+            if self._bitpack:
+                # the levels stay on the card until the frame is coded
+                slot.update(
+                    levels_dev=torch.empty(words, dtype=torch.int16, device=dev),
+                    words_dev=torch.empty((mb_h, mb_w, self._nw_mb), dtype=torch.uint32,
+                                          device=dev),
+                    nbits_dev=torch.empty((mb_h, mb_w), dtype=torch.int32, device=dev),
+                    words=torch.empty((mb_h, mb_w, self._nw_mb), dtype=torch.uint32,
+                                      pin_memory=True),
+                    nbits=torch.empty((mb_h, mb_w), dtype=torch.int32, pin_memory=True))
+            self._slots.append(slot)
 
     def _dispatch_levels(self, padded: np.ndarray, w16: int, h16: int,
                          qp: int):
         """Start the level computation of one padded frame: (event or
         None, the levels by name as host arrays, valid once the event has
-        completed)."""
+        completed; with bitpack the packed ``words`` and ``nbits`` and a
+        function ``levels`` that fetches the levels)."""
         import torch
 
+        from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as packer
         from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
 
         mb_h, mb_w = h16 // 16, w16 // 16
@@ -1559,11 +1605,18 @@ class CudaCavlcEncoder(CavlcH264Encoder):
                                              uv[:, :, 1], qp, i4=self.i4,
                                              chromah=self.chromah)
             names = ["imode"] + ["i4modes"] * self.i4 + ["cmode"] * self.chromah
-            return None, {name: a.numpy() for name, a in
-                          zip([*lv._fields, *names], [*lv, *rest])}
+            parts = dict(zip([*lv._fields, *names], [*lv, *rest]))
+            host = {name: a.numpy() for name, a in parts.items()}
+            if not self._bitpack:
+                return None, host
+            words, nbits = packer.pack_i_mbs(
+                *(parts[k] for k in ("zdc", "acz", "czdc", "cacz", "imode")),
+                self._nw_mb, parts.get("i4modes"), parts.get("cmode"))
+            return None, {"words": words.numpy(), "nbits": nbits.numpy(),
+                          "levels": lambda: host}
         words = kernel.level_words(mb_h, mb_w, self.i4, self.chromah)
         if not self._slots or self._dev_levels.numel() != words:
-            self._card_buffers(padded.shape[0], w16, words)
+            self._card_buffers(padded.shape[0], w16, words, mb_h, mb_w)
         slot = self._slots[self._flip]
         self._flip ^= 1
         if slot["event"] is not None:
@@ -1572,20 +1625,47 @@ class CudaCavlcEncoder(CavlcH264Encoder):
         frame = self._dev_frame
         frame.copy_(slot["frame"], non_blocking=True)
         uv = frame[h16:].view(h16 // 2, w16 // 2, 2)
+        levels = slot["levels_dev"] if self._bitpack else self._dev_levels
         kernel.intra_levels(frame[:h16], uv[:, :, 0], uv[:, :, 1], qp,
-                            self._dev_levels, i4=self.i4, chromah=self.chromah)
-        slot["levels"].copy_(self._dev_levels, non_blocking=True)
+                            levels, i4=self.i4, chromah=self.chromah)
+        if self._bitpack:
+            v = kernel.split_levels(levels, mb_h, mb_w, self.i4, self.chromah)
+            packer.pack_i_into(v["zdc"], v["acz"], v["czdc"], v["cacz"], v["imode"],
+                               slot["words_dev"], slot["nbits_dev"], v.get("i4modes"),
+                               v.get("cmode"))
+            slot["words"].copy_(slot["words_dev"], non_blocking=True)
+            slot["nbits"].copy_(slot["nbits_dev"], non_blocking=True)
+        else:
+            slot["levels"].copy_(levels, non_blocking=True)
         slot["event"] = torch.cuda.Event()
         slot["event"].record(torch.cuda.current_stream(self.device))
+
+        def fetch():
+            # an MB overflowed the cap: the levels come down after all
+            slot["levels"].copy_(levels)
+            return kernel.split_levels(slot["levels"].numpy(), mb_h, mb_w, self.i4,
+                                       self.chromah)
+
+        if self._bitpack:
+            return slot["event"], {"words": slot["words"].numpy(),
+                                   "nbits": slot["nbits"].numpy(), "levels": fetch}
         return slot["event"], kernel.split_levels(
             slot["levels"].numpy(), mb_h, mb_w, self.i4, self.chromah)
 
     def _entropy_nals(self, lv, idr: int, qp: int) -> list[bytes]:
         """Entropy-code the levels of one :meth:`_dispatch_levels` once
-        they are on the host."""
+        they are on the host (with bitpack: assemble the packed bits, or
+        code the levels where an MB overflowed the cap)."""
         event, parts = lv
         if event is not None:
             event.synchronize()
+        if "words" in parts:
+            nals = intra_bits_nals(parts["words"], parts["nbits"], idr, qp, self._nw_mb,
+                                   deblock=self.deblock)
+            if nals is not None:
+                return nals
+            self._bits_overflows += 1
+            parts = parts["levels"]()
         zdc, acz, czdc, cacz = (parts[k] for k in ("zdc", "acz", "czdc", "cacz"))
         imode, i4modes, cmode = (parts.get(k) for k in ("imode", "i4modes", "cmode"))
         if self._native:

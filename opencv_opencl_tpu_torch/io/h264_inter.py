@@ -49,7 +49,7 @@ Python here is the tested oracle, like io.h264_cavlc.
 
 The port's own copy of ``opencv_opencl_tpu/io/h264_inter.py``: the same
 bytes.  ``CudaGopEncoder`` is its ``TpuGopEncoder`` (the device GOP
-encoder on the card), without the ``parts`` and ``bitpack`` options and
+encoder on the card, with its ``parts`` and ``bitpack`` options), without
 the fused-GOP helpers (``initial_recon``, ``encode_from_packed``), which
 are not ported yet.
 """
@@ -2239,8 +2239,20 @@ class CudaGopEncoder:
     of latency, bytes unchanged; ``flush`` drains the tail).  ``cpb_ms``
     re-encodes a frame over the leaky-bucket budget at a higher QP from a
     snapshot of the chain: the kernels never write a reference picture in
-    place, so the snapshot stays valid.  ``parts`` (sub-16x16 partitions)
-    and ``bitpack`` (the device bit packer) are not ported yet: they raise.
+    place, so the snapshot stays valid.
+
+    ``parts=True`` adds the sub-16x16 partitions (16x8, 8x16, 8x8):
+    ``parts_search_kernel`` in place of ``motion_search_kernel``, the
+    partition modes and the quadrant fields in the level buffer, the
+    filter's boundary strengths a quadrant; it needs ``search`` and does
+    not compose with ``fastsub``, ``gdr`` or ``cpb`` (as the reference).
+    ``bitpack=True`` packs every MB's CAVLC bits on the card
+    (``pack_i_kernel`` for IDR frames, ``pack_p_kernel`` for P frames);
+    the host fetches the words (``nw_mb`` a MB), the bit counts and the
+    mode row and writes the slice headers and trailing skip runs.  A frame
+    where an MB overflows the ``nw_mb`` words goes through the host entropy
+    path from its levels, fetched then (byte-identical; counted in
+    ``_bits_overflows``).
     """
 
     codec = "h264"
@@ -2253,7 +2265,8 @@ class CudaGopEncoder:
                  quarterpel: bool = False, fastsub: bool = False,
                  refs: int = 1, parts: bool = False,
                  deblock: bool = False, gdr: int = 0,
-                 bitpack: bool = False, cpb_ms: int | None = None,
+                 bitpack: bool = False, nw_mb: int = 64,
+                 cpb_ms: int | None = None,
                  initial_delay_ms: int | None = None,
                  i4: bool = False, chromah: bool = False,
                  device=None) -> None:
@@ -2294,16 +2307,23 @@ class CudaGopEncoder:
         if refs > 1 and not search:
             raise ValueError("refs > 1 requires search=R > 0")
         self.refs = int(refs)
-        if parts:
+        # sub-16x16 inter partitions (ops/h264_levels parts=1): the level
+        # buffer carries the partition modes and the quadrant fields
+        self.parts = bool(parts)
+        if self.parts:
             if not search:
                 raise ValueError("parts requires search=R > 0")
             if fastsub:
                 raise ValueError("parts does not compose with fastsub")
             if gdr:
                 raise ValueError("parts requires no gdr")
-            raise ValueError("parts (sub-16x16 inter partitions): not ported yet")
-        if bitpack:
-            raise ValueError("bitpack (the device bit packer): not ported yet")
+            if refs > 1 and quarterpel and (
+                    refs * (8 * search + 1) ** 2 > SEARCH_KEY_RADIX):
+                raise ValueError(
+                    "quarter-pel parts with refs=2 needs search <= 7, "
+                    f"got {search}")
+            if cpb_ms is not None:
+                raise ValueError("parts does not compose with cpb")
         if cpb_ms is None and initial_delay_ms is not None:
             raise ValueError("initdelay requires cpb")
         if cpb_ms is not None:
@@ -2353,6 +2373,15 @@ class CudaGopEncoder:
         # pictures slice-locally (idc=2), the IDR keeps idc=0
         self.deblock = bool(deblock)
         self._deblock_slice_local = bool(self.gdr and deblock)
+        # the device bit packer (ops/h264_bitpack.py): IDR frames pack on
+        # pack_i_kernel, P frames on pack_p_kernel; the host fetches the
+        # words, the bit counts and the mode row (the P slice's trailing
+        # skip run), and the levels only where an MB overflowed nw_mb words
+        # (that frame is coded on the host entropy path, counted in
+        # _bits_overflows)
+        self._bitpack = bool(bitpack)
+        self._nw_mb = int(nw_mb)
+        self._bits_overflows = 0
         self._card: dict = {}      # the card's buffers, by geometry
         self._slots: list[dict] = []
         self._flip = 0
@@ -2371,14 +2400,14 @@ class CudaGopEncoder:
             mb_h, mb_w = h16 // 16, w16 // 16
             dev = self.device
             words = max(kl.level_words(mb_h, mb_w, self.i4, self.chromah),
-                        kl.p_level_words(mb_h, mb_w))
+                        kl.p_level_words(mb_h, mb_w, self.parts))
             self._card = {
                 "key": key,
                 "frame": torch.empty((rows, w16), dtype=torch.uint8, device=dev),
                 "intra": torch.empty(kl.level_words(mb_h, mb_w, self.i4, self.chromah),
                                      dtype=torch.int16, device=dev),
-                "p": torch.empty(kl.p_level_words(mb_h, mb_w), dtype=torch.int16,
-                                 device=dev),
+                "p": torch.empty(kl.p_level_words(mb_h, mb_w, self.parts),
+                                 dtype=torch.int16, device=dev),
                 "pred": (torch.empty((h16, w16), dtype=torch.uint8, device=dev),
                          torch.empty((h16 // 2, w16 // 2), dtype=torch.uint8, device=dev),
                          torch.empty((h16 // 2, w16 // 2), dtype=torch.uint8, device=dev)),
@@ -2391,6 +2420,20 @@ class CudaGopEncoder:
                             "levels": torch.empty(words, dtype=torch.int16,
                                                   pin_memory=True),
                             "event": None} for _ in range(2)]
+            if self._bitpack:
+                # a frame's levels stay on the card until it is coded: a
+                # level buffer of each kind a slot
+                for slot in self._slots:
+                    slot.update(
+                        intra_dev=torch.empty_like(self._card["intra"]),
+                        p_dev=torch.empty_like(self._card["p"]),
+                        words_dev=torch.empty((mb_h, mb_w, self._nw_mb),
+                                              dtype=torch.uint32, device=dev),
+                        nbits_dev=torch.empty((mb_h, mb_w), dtype=torch.int32, device=dev),
+                        words=torch.empty((mb_h, mb_w, self._nw_mb), dtype=torch.uint32,
+                                          pin_memory=True),
+                        nbits=torch.empty((mb_h, mb_w), dtype=torch.int32, pin_memory=True),
+                        mode=torch.empty((mb_h, mb_w), dtype=torch.int16, pin_memory=True))
         return self._card
 
     def _upload(self, padded: np.ndarray, h16: int, w16: int):
@@ -2425,6 +2468,35 @@ class CudaGopEncoder:
         slot["event"].record(torch.cuda.current_stream(self.device))
         return slot["event"], split(slot["levels"].numpy()[:n])
 
+    def _download_bits(self, slot, flat, split, mode=None):
+        """Start the copy of the slot's packed words and bit counts (and the
+        P frame's ``mode`` row) into its pinned buffers: (event, the host
+        views, and ``levels``, which fetches the levels in ``flat``)."""
+        import torch
+
+        slot["words"].copy_(slot["words_dev"], non_blocking=True)
+        slot["nbits"].copy_(slot["nbits_dev"], non_blocking=True)
+        if mode is not None:
+            slot["mode"].copy_(mode, non_blocking=True)
+        slot["event"] = torch.cuda.Event()
+        slot["event"].record(torch.cuda.current_stream(self.device))
+        n = flat.numel()
+
+        def fetch():
+            # an MB overflowed the cap: the levels come down after all
+            slot["levels"][:n].copy_(flat)
+            return split(slot["levels"].numpy()[:n])
+
+        return slot["event"], {"words": slot["words"].numpy(),
+                               "nbits": slot["nbits"].numpy(),
+                               "mode": slot["mode"].numpy(), "levels": fetch}
+
+    def _host_bits(self, words, nbits, host: dict, mode=None):
+        """The CPU path's handle with the packed bits."""
+        return None, {"words": words.numpy(), "nbits": nbits.numpy(),
+                      "mode": None if mode is None else mode.numpy(),
+                      "levels": lambda: host}
+
     def _deblocked(self, recon, qp: int, intra, nnz4, mv=None, ref=None,
                    slice_local: bool = False):
         """The filtered reference: in place on the card (the recon is the
@@ -2441,7 +2513,7 @@ class CudaGopEncoder:
         if mv is None:
             mv = torch.zeros((mb_h, mb_w, 2), dtype=torch.int16)
         if ref is None:
-            ref = torch.zeros((mb_h, mb_w), dtype=torch.int16)
+            ref = torch.zeros(mv.shape[:2], dtype=torch.int16)
         return h264_deblock.deblock_planes_plain(*recon, qp, intra, nnz4, mv, ref,
                                                  slice_local=slice_local)
 
@@ -2452,6 +2524,7 @@ class CudaGopEncoder:
         the pending tuple (kind, levels handle, number, qp, active
         references, prefix).  ``qp_override`` serves the CPB loop."""
         from opencv_opencl_tpu_torch.ops import h264_deblock
+        from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as kb
         from opencv_opencl_tpu_torch.ops.cuda import h264_inter as ki
         from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kl
 
@@ -2465,11 +2538,21 @@ class CudaGopEncoder:
         prefix = b""
         if self.frames % self.gop == 0:
             if card:
-                out = self._card["intra"]
+                out = slot["intra_dev"] if self._bitpack else self._card["intra"]
                 recon = kl.intra_levels(y, cb, cr, qp, out, full_recon=True,
                                         i4=self.i4, chromah=self.chromah)
-                handle = self._download(slot, out, lambda a: kl.split_levels(
-                    a, mb_h, mb_w, self.i4, self.chromah))
+
+                def split(a):
+                    return kl.split_levels(a, mb_h, mb_w, self.i4, self.chromah)
+
+                if self._bitpack:
+                    v = split(out)
+                    kb.pack_i_into(v["zdc"], v["acz"], v["czdc"], v["cacz"], v["imode"],
+                                   slot["words_dev"], slot["nbits_dev"], v.get("i4modes"),
+                                   v.get("cmode"))
+                    handle = self._download_bits(slot, out, split)
+                else:
+                    handle = self._download(slot, out, split)
                 intra, nnz4 = self._card["idr_intra"], self._card["idr_nnz"]
             else:
                 import torch
@@ -2479,9 +2562,14 @@ class CudaGopEncoder:
                     chromah=self.chromah)
                 recon = (ry, rcb, rcr)
                 names = ["i4modes"] * self.i4 + ["cmode"] * self.chromah
-                handle = (None, {**{k: a.numpy() for k, a in zip(lv._fields, lv)},
-                                 "imode": imode.numpy(),
-                                 **{k: a.numpy() for k, a in zip(names, extra)}})
+                host = {**{k: a.numpy() for k, a in zip(lv._fields, lv)},
+                        "imode": imode.numpy(),
+                        **{k: a.numpy() for k, a in zip(names, extra)}}
+                handle = (None, host)
+                if self._bitpack:
+                    ex = dict(zip(names, extra))
+                    handle = self._host_bits(*kb.pack_i_mbs(
+                        *lv, imode, self._nw_mb, ex.get("i4modes"), ex.get("cmode")), host)
                 intra = torch.ones((mb_h, mb_w), dtype=torch.bool)
                 nnz4 = torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.bool)
             recon = tuple(recon)
@@ -2506,33 +2594,60 @@ class CudaGopEncoder:
                               self._intra._pps + _START4 +
                               build_recovery_point_sei(self._gdr_period - 1))
             if card:
-                out = self._card["p"]
-                parts = kl.split_p_levels(out, mb_h, mb_w)
+                out = slot["p_dev"] if self._bitpack else self._card["p"]
+                fields = kl.split_p_levels(out, mb_h, mb_w, self.parts)
                 pred = refs[0]
-                if self.search:
+                if self.parts:
+                    pred = self._card["pred"]
+                    ki.parts_search_into(y, refs, self.search, self.subpel, qp,
+                                         fields["pmode"], fields["mv"],
+                                         fields["ref"] if two else None, *pred)
+                elif self.search:
                     pred = self._card["pred"]
                     ki.search_into(y, refs, self.search, self.subpel,
                                    None if band is None else band[0],
-                                   parts["mv"], parts["ref"] if two else None, *pred)
+                                   fields["mv"], fields["ref"] if two else None, *pred)
                 recon = kl.p_levels_into(y, cb, cr, *pred, qp, out,
                                          motion=self.search > 0, two_refs=two,
-                                         band=band)
-                handle = self._download(slot, out, lambda a: kl.split_p_levels(
-                    a, mb_h, mb_w))
-                mode, acz = parts["mode"], parts["acz"]
-                mv = parts["mv"] if self.search else None
-                ref = parts["ref"] if two else None
+                                         band=band, parts=self.parts)
+                mode, acz = fields["mode"], fields["acz"]
+                mv = fields["mv"] if self.search else None
+                ref = fields["ref"] if two else None
+
+                def split(a):
+                    return kl.split_p_levels(a, mb_h, mb_w, self.parts)
+
+                if self._bitpack:
+                    kb.pack_p_into(*self._pack_p_args(fields, mv, ref, active),
+                                   slot["words_dev"], slot["nbits_dev"],
+                                   **self._pack_p_parts(fields, ref))
+                    handle = self._download_bits(slot, out, split, mode)
+                else:
+                    handle = self._download(slot, out, split)
             else:
                 second = refs[1] if two else (None, None, None)
                 plv = kl.encode_p_levels(y, cb, cr, *refs[0], qp, self.search,
-                                         self.subpel, *second, gdr_band=band)
+                                         self.subpel, *second, gdr_band=band,
+                                         parts=int(self.parts))
                 recon = (plv.recon_y, plv.recon_cb, plv.recon_cr)
                 mode, acz, mv, ref = plv.mode, plv.acz, plv.mv, plv.ref
-                handle = (None, {name: None if a is None else a.numpy() for name, a in
-                                 zip(("mode", "zdc", "acz", "czdc", "cacz", "mv", "ref"),
-                                     (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz,
-                                      plv.mv, plv.ref))})
+                fields = dict(zip(("mode", "zdc", "acz", "czdc", "cacz", "mv", "ref",
+                                   "pmode"),
+                                  (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz,
+                                   plv.mv, plv.ref, plv.pmode)))
+                host = {name: None if a is None else a.numpy()
+                        for name, a in fields.items()}
+                handle = (None, host)
+                if self._bitpack:
+                    handle = self._host_bits(*kb.pack_p_mbs(
+                        *self._pack_p_args(fields, mv, ref, active), self._nw_mb,
+                        **self._pack_p_parts(fields, ref)), host, mode)
             if self.deblock:
+                if self.parts:
+                    # the quadrant fields, one an 8x8 block (bS inside a
+                    # partitioned MB follows its partitions' motion)
+                    mv = h264_deblock.block_grid(mv)
+                    ref = None if ref is None else h264_deblock.block_grid(ref)
                 recon = self._deblocked(recon, qp, mode >= 2, h264_deblock.nnz4_grid(acz),
                                         mv, ref, slice_local=self._deblock_slice_local)
             self._recon = recon
@@ -2542,41 +2657,103 @@ class CudaGopEncoder:
         self.frames += 1
         return pending
 
-    def _p_entropy_nals(self, parts: dict, qp: int, num: int,
+    def _pack_p_args(self, fields: dict, mv, ref, active: int) -> tuple:
+        """pack_p_mbs's positional levels, field and reference arguments."""
+        return (fields["mode"], fields["zdc"], fields["acz"], fields["czdc"],
+                fields["cacz"], None if self.parts else mv, None if self.parts else ref,
+                active)
+
+    def _pack_p_parts(self, fields: dict, ref) -> dict:
+        """pack_p_mbs's partition arguments (none without ``parts``)."""
+        if not self.parts:
+            return {}
+        return dict(pmode=fields["pmode"], mv4=fields["mv"], ref4=ref)
+
+    def _p_bits_nals(self, parts: dict, qp: int, num: int,
+                     active_refs: int) -> list[bytes] | None:
+        """One P slice NAL per MB row from the device-packed MB bit strings:
+        the host writes the slice headers and the trailing skip run (from the
+        mode row), concatenates and escapes.  None when an MB overflowed the
+        cap."""
+        from opencv_opencl_tpu_torch.ops.h264_bitpack import assemble_slices_from_bits
+
+        nbits, mode = parts["nbits"], parts["mode"]
+        if int(nbits.max(initial=0)) > 32 * self._nw_mb:
+            return None
+        mb_w = nbits.shape[1]
+
+        def header_fn(mby):
+            w = _BitWriter()
+            _slice_head_p(w, qp, num, first_mb=mby * mb_w, active_refs=active_refs,
+                          deblock=self.deblock, slice_local=self._deblock_slice_local)
+            return w
+
+        def tail_fn(mby):
+            run = 0
+            for mbx in range(mb_w - 1, -1, -1):
+                if mode[mby, mbx] != 0:
+                    break
+                run += 1
+            if not run:
+                return None
+            w = _BitWriter()
+            w.ue(run)
+            return w
+
+        return assemble_slices_from_bits(parts["words"], nbits, header_fn, tail_fn)
+
+    def _p_entropy_nals(self, fields: dict, qp: int, num: int,
                         active_refs: int) -> list[bytes]:
         """P-frame entropy stage: the native C++ rows where the library
-        builds, the Python oracle otherwise."""
-        mode, zdc, acz, czdc, cacz = (parts[k] for k in
+        builds, the Python oracle otherwise (with ``parts`` both take the
+        partition modes and the quadrant fields)."""
+        mode, zdc, acz, czdc, cacz = (fields[k] for k in
                                       ("mode", "zdc", "acz", "czdc", "cacz"))
-        mv = parts["mv"] if self.search else None
-        ref = parts["ref"] if active_refs > 1 else None
+        mv = fields["mv"] if self.search else None
+        ref = fields["ref"] if active_refs > 1 else None
+        pmode = fields["pmode"] if self.parts else None
         if self._intra._native:
             from opencv_opencl_tpu_torch import native
 
             if hasattr(native._load(), "fp_cavlc_entropy_rows_p"):
+                kw = (dict(pmode=pmode, mv4=mv, ref4=ref, mv=None, ref=None)
+                      if self.parts else dict(mv=mv, ref=ref))
                 return native.cavlc_entropy_rows_p(
                     mode, zdc, acz, czdc, cacz, qp, num,
                     threads=self._intra._threads,
                     workspace=self._intra._workspace,
                     active_refs=active_refs, deblock=self.deblock,
-                    slice_local=self._deblock_slice_local, mv=mv, ref=ref)
+                    slice_local=self._deblock_slice_local, **kw)
         return encode_frame_p_from_levels(
             mode, zdc, acz, czdc, cacz, qp, num, mv=mv, ref=ref,
             active_refs=active_refs, deblock=self.deblock,
-            slice_local=self._deblock_slice_local)
+            slice_local=self._deblock_slice_local, pmode=pmode)
 
     def _assemble(self, kind: str, handle, num: int, qp: int,
                   active_refs: int = 1, prefix: bytes = b"",
                   do_rc: bool = True) -> bytes:
+        from opencv_opencl_tpu_torch.io.h264_cavlc import intra_bits_nals
+
         event, parts = handle
         if event is not None:
             event.synchronize()
+        nals = None
+        if "words" in parts:
+            nals = (intra_bits_nals(parts["words"], parts["nbits"], num, qp, self._nw_mb,
+                                    deblock=self.deblock) if kind == "i"
+                    else self._p_bits_nals(parts, qp, num, active_refs))
+            if nals is None:
+                # an MB overflowed the cap: the host entropy path
+                self._bits_overflows += 1
+                parts = parts["levels"]()
         if kind == "i":
-            nals = self._intra._entropy_nals((None, parts), num, qp)
+            if nals is None:
+                nals = self._intra._entropy_nals((None, parts), num, qp)
             au = (_START4 + self._intra._sps + _START4 + self._intra._pps +
                   b"".join(_START4 + bytes(n) for n in nals))
         else:
-            nals = self._p_entropy_nals(parts, qp, num, active_refs)
+            if nals is None:
+                nals = self._p_entropy_nals(parts, qp, num, active_refs)
             # GDR wave starts carry SPS + PPS + the recovery point SEI
             au = prefix + b"".join(_START4 + bytes(n) for n in nals)
         if do_rc and self.bitrate_kbps:

@@ -4,12 +4,14 @@ K7 and K10 in ``natural``, K4, K6 (with K9), K6r and K8 in ``lut``; and the H.26
 XLA programs of ``opencv_opencl_tpu.ops.h264_levels`` and
 ``.h264_deblock``): H1 and H2, the intra and P level kernels, in
 ``h264_levels``, H3 and H4, the sub-pel planes and the motion search, in
-``h264_inter``, H5, the deblocking filter, in ``h264_deblock``."""
+``h264_inter`` with H6, the partition search, H5, the deblocking filter,
+in ``h264_deblock``, and H7 and H8, the CAVLC bit packers of the intra and
+P frames (counterparts of ``.h264_bitpack``), in ``h264_bitpack``."""
 
 from opencv_opencl_tpu_torch.ops.cuda import (
-    h264_deblock, h264_inter, h264_levels, lut, natural)
+    h264_bitpack, h264_deblock, h264_inter, h264_levels, lut, natural)
 
-_MODULES = (natural, lut, h264_levels, h264_inter, h264_deblock)
+_MODULES = (natural, lut, h264_levels, h264_inter, h264_deblock, h264_bitpack)
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 

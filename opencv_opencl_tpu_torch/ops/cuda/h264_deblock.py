@@ -45,12 +45,15 @@ def deblock_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qp: int,
     """Launch ``deblock_kernel`` over contiguous CUDA planes, filtering them
     in place.  ``mv`` int16 (mb_h, mb_w, 2) and ``ref`` int16 (mb_h, mb_w),
     each MB's values contiguous (views of a level buffer will do), or None
-    for zero motion / one reference."""
+    for zero motion / one reference; or both one an 8x8 block, (2*mb_h,
+    2*mb_w, ...) contiguous (the partition modes' quadrant fields)."""
+    H, W = y.shape
+    g = (2 if mv is not None and mv.ndim == 3
+         and tuple(mv.shape[:2]) == (H // 8, W // 8) else 1)
     mb_h, mb_w = deblock._check_deblock(
         y, cb, cr, intra, nnz4,
-        torch.empty((y.shape[0] // 16, y.shape[1] // 16, 2), device=y.device)
-        if mv is None else mv,
-        torch.empty((y.shape[0] // 16, y.shape[1] // 16), device=y.device)
+        torch.empty((H // 16, W // 16, 2), device=y.device) if mv is None else mv,
+        torch.empty((g * (H // 16), g * (W // 16)), device=y.device)
         if ref is None else ref)
     if not _on_card(y):
         raise ValueError(f"deblock_into launches on a CUDA device, got {y.device}")
@@ -58,7 +61,7 @@ def deblock_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qp: int,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous, got strides {t.stride()}")
     if mv is not None and (mv.dtype != torch.int16 or mv.stride(2) != 1
-                           or mv.stride(1) != 2 or mv.stride(0) != 2 * mb_w):
+                           or mv.stride(1) != 2 or mv.stride(0) != 2 * g * mb_w):
         raise ValueError("mv must be int16 with contiguous rows")
     if ref is not None and (ref.dtype != torch.int16 or not ref.is_contiguous()):
         raise ValueError("ref must be a contiguous int16 grid")
@@ -71,7 +74,7 @@ def deblock_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qp: int,
             y.data_ptr(), cb.data_ptr(), cr.data_ptr(), mb_h, mb_w,
             intra_u8.data_ptr(), nnz_u8.data_ptr(),
             None if mv is None else mv.data_ptr(),
-            None if ref is None else ref.data_ptr(), params.ctypes.data,
+            None if ref is None else ref.data_ptr(), int(g == 2), params.ctypes.data,
             int(slice_local), progress.data_ptr(), _stream(y.device))
     _raise_on(err, "deblock_kernel")
     deblock_planes.launches += 1

@@ -13,6 +13,8 @@ subpel_planes  ``ops.h264_levels.subpel_planes_plain``        h264_levels.py:703
 motion_search  ``ops.h264_levels.motion_search_plain``        h264_levels.py:838
                (``motion_search_kernel``, H4)                 (:958, :1086,
                                                               :1399)
+motion_search  ``ops.h264_levels.motion_search_parts_plain``  h264_levels.py:1197
+_parts         (``parts_search_kernel``, H6)
 =============  =============================================  ==================
 
 As in ``ops/cuda/natural.py``: each wrapper takes its plain version only
@@ -20,7 +22,9 @@ for tensors on the CPU; for CUDA tensors it launches its kernel on the
 current stream or raises, and counts its launches in ``<wrapper>.launches``.
 :func:`search_into` is the launcher the GOP encoder calls (the planes, then
 :func:`search_stack_into`): it writes the MV field and the reference index
-straight into a frame's level buffer.
+straight into a frame's level buffer; :func:`parts_search_into` is its
+``parts`` counterpart (the planes, then :func:`parts_stack_into`), writing
+the partition modes and the quadrant fields there.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _stream
 
 __all__ = ["subpel_planes", "motion_search", "search_into", "search_stack_into",
-           "planes_into", "launch_counts", "reset_launch_counts"]
+           "planes_into", "motion_search_parts", "parts_search_into",
+           "parts_stack_into", "launch_counts", "reset_launch_counts"]
 
 # candidate tables on the card, by (device, search, subpel)
 _TABLES: dict = {}
@@ -193,7 +198,105 @@ def motion_search(y: torch.Tensor, refs, search: int, subpel: int = 0,
     return (mv, ref, *pred) if ref is not None else (mv, *pred)
 
 
-_WRAPPERS = (subpel_planes, motion_search)
+def parts_search_into(y: torch.Tensor, refs, search: int, subpel: int, qp: int,
+                      pmode: torch.Tensor, mv: torch.Tensor, ref: torch.Tensor | None,
+                      pred_y: torch.Tensor, pred_cb: torch.Tensor,
+                      pred_cr: torch.Tensor) -> None:
+    """Build each reference's plane stack (``subpel_planes_kernel``), then
+    :func:`parts_stack_into`."""
+    levels._check_parts(y, refs, search, subpel)
+    if not _on_card(y):
+        raise ValueError(f"parts_search_into launches on a CUDA device, got {y.device}")
+    H, W = y.shape
+    P, margin = levels.search_plan(search, subpel)
+    stack = torch.empty((len(refs) * P, H + 2 * margin, W + 2 * margin),
+                        dtype=torch.uint8, device=y.device)
+    for i, r in enumerate(refs):
+        _check_plane(r[0], "ry")
+        planes_into(r[0], margin, P, stack[i * P:(i + 1) * P])
+    parts_stack_into(y, stack, refs, search, subpel, qp, pmode, mv, ref,
+                     pred_y, pred_cb, pred_cr)
+
+
+def parts_stack_into(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
+                     subpel: int, qp: int, pmode: torch.Tensor, mv: torch.Tensor,
+                     ref: torch.Tensor | None, pred_y: torch.Tensor,
+                     pred_cb: torch.Tensor, pred_cr: torch.Tensor) -> None:
+    """Launch ``parts_search_kernel`` over CUDA planes and the references'
+    stacked planes ``stack`` (as :func:`search_stack_into` takes them):
+    ``pmode`` (mb_h, mb_w), ``mv`` (mb_h, mb_w, 4, 2) and ``ref`` (mb_h,
+    mb_w, 4; two references only), contiguous int16 (the segments of a
+    ``parts`` level buffer will do), and the prediction planes are written
+    in place."""
+    n = levels._check_parts(y, refs, search, subpel)
+    if not _on_card(y):
+        raise ValueError(f"parts_stack_into launches on a CUDA device, got {y.device}")
+    if y.stride(1) != 1:
+        raise ValueError(f"y must have unit pixel stride, got {y.stride()}")
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    P, margin = levels.search_plan(search, subpel)
+    shape = (len(refs) * P, H + 2 * margin, W + 2 * margin)
+    if (tuple(stack.shape) != shape or stack.dtype != torch.uint8
+            or not stack.is_contiguous() or stack.device != y.device):
+        raise ValueError(f"stack must be a contiguous uint8 {shape} tensor on {y.device}")
+    for r in refs:
+        for name, t in zip(("ry", "rcb", "rcr"), r):
+            _check_plane(t, name)
+    for name, t, shape in (("pred_y", pred_y, (H, W)), ("pred_cb", pred_cb, (H // 2, W // 2)),
+                           ("pred_cr", pred_cr, (H // 2, W // 2))):
+        _check_plane(t, name)
+        if tuple(t.shape) != shape or t.device != y.device:
+            raise ValueError(f"{name} must be {shape} on {y.device}")
+    two = len(refs) > 1
+    for name, t, shape in (("pmode", pmode, (mb_h, mb_w)), ("mv", mv, (mb_h, mb_w, 4, 2)),
+                           ("ref", ref, (mb_h, mb_w, 4))):
+        if name == "ref" and not two:
+            continue
+        if (t is None or t.dtype != torch.int16 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != y.device):
+            raise ValueError(f"{name} must be a contiguous int16 {shape} tensor "
+                             f"on {y.device}")
+    cands, _ = _tables(y.device, search, subpel)
+    lam = levels.PART_LAMBDA[min(max(int(qp), 0), 51)]
+    lib = _build.load()
+    second = refs[1] if two else refs[0]
+    with torch.cuda.device(y.device):
+        err = lib.parts_search_launch(
+            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin,
+            len(refs), cands.data_ptr(), n, lam,
+            refs[0][1].data_ptr(), refs[0][2].data_ptr(), second[1].data_ptr(),
+            second[2].data_ptr(), pmode.data_ptr(), mv.data_ptr(),
+            ref.data_ptr() if two else None,
+            pred_y.data_ptr(), pred_cb.data_ptr(), pred_cr.data_ptr(),
+            _stream(y.device))
+    _raise_on(err, "parts_search_kernel")
+    motion_search_parts.launches += 1
+
+
+def motion_search_parts(y: torch.Tensor, refs, search: int, subpel: int, qp: int):
+    """:func:`ops.h264_levels.motion_search_parts`: the kernels for CUDA
+    planes, the plain version for CPU ones."""
+    levels._check_parts(y, refs, search, subpel)
+    if not _on_card(y):
+        return levels.motion_search_parts_plain(y, refs, search, subpel, qp)
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    dev = y.device
+    refs = [tuple(t.contiguous() for t in r) for r in refs]
+    pmode = torch.empty((mb_h, mb_w), dtype=torch.int16, device=dev)
+    mv = torch.empty((mb_h, mb_w, 4, 2), dtype=torch.int16, device=dev)
+    ref = (torch.empty((mb_h, mb_w, 4), dtype=torch.int16, device=dev)
+           if len(refs) > 1 else None)
+    pred = (torch.empty((H, W), dtype=torch.uint8, device=dev),
+            torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
+            torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev))
+    parts_search_into(y if y.stride(1) == 1 else y.contiguous(), refs, search, subpel,
+                      qp, pmode, mv, ref, *pred)
+    return (pmode, mv, ref, *pred)
+
+
+_WRAPPERS = (subpel_planes, motion_search, motion_search_parts)
 
 
 def reset_launch_counts() -> None:

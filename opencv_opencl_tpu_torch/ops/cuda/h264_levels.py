@@ -22,7 +22,9 @@ The kernel writes every output of a frame into one int16 buffer,
 :func:`level_layout`'s segments, so that the host can fetch them in one
 copy (:func:`split_levels` cuts a tensor or a numpy array of that layout);
 a P frame's buffer (:func:`p_level_layout`) adds the search's MV field and
-reference index, which ``motion_search_kernel`` writes there.
+reference index, which ``motion_search_kernel`` writes there (with
+``parts`` the quadrant fields and the partition modes, which
+``parts_search_kernel`` writes).
 """
 
 from __future__ import annotations
@@ -164,12 +166,17 @@ def encode_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                        recon)
 
 
-def p_level_layout(mb_h: int, mb_w: int) -> list[tuple[str, tuple, int]]:
+def p_level_layout(mb_h: int, mb_w: int,
+                   parts: bool = False) -> list[tuple[str, tuple, int]]:
     """The segments of a P frame's int16 level buffer, in order: (name,
     shape, offset in elements): H1's first four, then ``mode``, the MV
-    field ``mv`` (dy, dx) and the reference index ``ref``."""
+    field ``mv`` (dy, dx) and the reference index ``ref``.  With ``parts``
+    ``mv`` is the quadrant field (4, 2), ``ref`` one a quadrant (4,), and
+    the partition modes ``pmode`` follow."""
     segs = [("zdc", (16,)), ("acz", (16, 16)), ("czdc", (2, 4)),
-            ("cacz", (2, 4, 16)), ("mode", ()), ("mv", (2,)), ("ref", ())]
+            ("cacz", (2, 4, 16)), ("mode", ())]
+    segs += ([("mv", (4, 2)), ("ref", (4,)), ("pmode", ())] if parts
+             else [("mv", (2,)), ("ref", ())])
     out, off = [], 0
     for name, shape in segs:
         out.append((name, (mb_h, mb_w) + shape, off))
@@ -177,15 +184,16 @@ def p_level_layout(mb_h: int, mb_w: int) -> list[tuple[str, tuple, int]]:
     return out
 
 
-def p_level_words(mb_h: int, mb_w: int) -> int:
-    """int16 elements of a P frame's level buffer (412 a MB)."""
-    return 412 * mb_h * mb_w
+def p_level_words(mb_h: int, mb_w: int, parts: bool = False) -> int:
+    """int16 elements of a P frame's level buffer (412 a MB, 422 with
+    ``parts``)."""
+    return (422 if parts else 412) * mb_h * mb_w
 
 
-def split_p_levels(flat, mb_h: int, mb_w: int) -> dict:
+def split_p_levels(flat, mb_h: int, mb_w: int, parts: bool = False) -> dict:
     """Views of a P level buffer (a tensor or a numpy array), by name."""
     out = {}
-    for name, shape, off in p_level_layout(mb_h, mb_w):
+    for name, shape, off in p_level_layout(mb_h, mb_w, parts):
         n = int(np.prod(shape, dtype=np.int64))
         out[name] = flat[off:off + n].reshape(shape)
     return out
@@ -195,11 +203,14 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                   pred_y: torch.Tensor, pred_cb: torch.Tensor,
                   pred_cr: torch.Tensor, qp: int, out: torch.Tensor,
                   motion: bool = False, two_refs: bool = False,
-                  band: tuple[int, int] | None = None):
+                  band: tuple[int, int] | None = None, parts: bool = False):
     """Launch ``p_levels_kernel`` over CUDA planes into ``out``, a contiguous
-    int16 buffer of :func:`p_level_words` elements whose ``mv`` (with
-    ``motion``) and ``ref`` (with ``two_refs``) segments already hold the
-    search's field: an MB may skip only where they are zero.  ``pred_*``
+    int16 buffer of :func:`p_level_words` elements (of the ``parts``
+    layout with ``parts``) whose ``mv`` (with ``motion``), ``ref`` (with
+    ``two_refs``) and ``pmode`` (with ``parts``) segments already hold the
+    search's fields: an MB may skip only where its (quadrant 0's) vector
+    and reference are zero and, with ``parts``, its partition is 16x16.
+    ``pred_*``
     are the motion-compensated planes (the reference at zero motion),
     contiguous; ``band`` the GDR intra rows [lo, hi).  Returns the new
     reconstructed planes ``(ry, rcb, rcr)``; the predictions are only read."""
@@ -217,7 +228,9 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                 or t.device != y.device):
             raise ValueError(f"{name} must be a contiguous {tuple(like.shape)} "
                              f"plane on {y.device}")
-    need = p_level_words(mb_h, mb_w)
+    if parts and not motion:
+        raise ValueError("parts needs the search's fields (motion=True)")
+    need = p_level_words(mb_h, mb_w, parts)
     if (out.dtype != torch.int16 or out.device != y.device
             or not out.is_contiguous() or out.numel() != need):
         raise ValueError(f"out must be a contiguous int16 buffer of {need} "
@@ -234,7 +247,7 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0), cb.stride(1),
             cr.data_ptr(), cr.stride(0), cr.stride(1), pred_y.data_ptr(),
             pred_cb.data_ptr(), pred_cr.data_ptr(), mb_h, mb_w, plan.ctypes.data,
-            int(motion), int(two_refs), lo, hi, out.data_ptr(),
+            int(motion), int(two_refs), int(parts), lo, hi, out.data_ptr(),
             *(t.data_ptr() for t in recon), _stream(y.device))
     _raise_on(err, "p_levels_kernel")
     encode_p_levels.launches += 1
@@ -247,15 +260,18 @@ def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
     """:func:`ops.h264_levels.encode_p_levels`: the kernels for CUDA planes
     (the search's two, then ``p_levels_kernel``), the plain version for CPU
     ones."""
-    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts)
+    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts,
+                               search, subpel)
     if not _on_card(y):
         return encode_p_levels_plain(y, cb, cr, ry, rcb, rcr, qp, search, subpel,
-                                     ry2, rcb2, rcr2, gdr_band)
+                                     ry2, rcb2, rcr2, gdr_band, parts)
     from opencv_opencl_tpu_torch.ops.cuda import h264_inter
 
+    parts = bool(parts)
     y = y if y.stride(1) == 1 else y.contiguous()
-    out = torch.empty(p_level_words(mb_h, mb_w), dtype=torch.int16, device=y.device)
-    parts_ = split_p_levels(out, mb_h, mb_w)
+    out = torch.empty(p_level_words(mb_h, mb_w, parts), dtype=torch.int16,
+                      device=y.device)
+    fields = split_p_levels(out, mb_h, mb_w, parts)
     refs = [tuple(t.contiguous() for t in r)
             for r in _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2)]
     two = search > 0 and len(refs) > 1
@@ -264,16 +280,23 @@ def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
         pred = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
                 torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
                 torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
-        h264_inter.search_into(y, refs if two else refs[:1], search, subpel,
-                               None if gdr_band is None else int(gdr_band[0]),
-                               parts_["mv"], parts_["ref"] if two else None, *pred)
+        if parts:
+            h264_inter.parts_search_into(y, refs if two else refs[:1], search,
+                                         subpel, qp, fields["pmode"], fields["mv"],
+                                         fields["ref"] if two else None, *pred)
+        else:
+            h264_inter.search_into(y, refs if two else refs[:1], search, subpel,
+                                   None if gdr_band is None else int(gdr_band[0]),
+                                   fields["mv"], fields["ref"] if two else None,
+                                   *pred)
     else:
         pred = refs[0]
     recon = p_levels_into(y, cb, cr, *pred, qp, out, motion=search > 0,
-                          two_refs=two, band=gdr_band)
-    return PLevelArrays(parts_["mode"], parts_["zdc"], parts_["acz"], parts_["czdc"],
-                        parts_["cacz"], *recon, parts_["mv"] if search else None,
-                        parts_["ref"] if two else None)
+                          two_refs=two, band=gdr_band, parts=parts)
+    return PLevelArrays(fields["mode"], fields["zdc"], fields["acz"], fields["czdc"],
+                        fields["cacz"], *recon, fields["mv"] if search else None,
+                        fields["ref"] if two else None,
+                        fields["pmode"] if parts else None)
 
 
 _WRAPPERS = (encode_levels, encode_p_levels)

@@ -36,7 +36,7 @@ import torch
 
 from opencv_opencl_tpu_torch.io.h264_deblock import ALPHA, BETA, TC0
 
-__all__ = ["bs_grids", "deblock_planes", "deblock_planes_plain",
+__all__ = ["block_grid", "bs_grids", "deblock_planes", "deblock_planes_plain",
            "filter_params", "nnz4_grid"]
 
 _QPC_TAB = np.array(
@@ -64,17 +64,30 @@ def nnz4_grid(acz: torch.Tensor) -> torch.Tensor:
             .reshape(4 * mb_h, 4 * mb_w))
 
 
+def block_grid(field: torch.Tensor) -> torch.Tensor:
+    """A quadrant-major field (mb_h, mb_w, 4[, 2]) (the partition modes'
+    ``mv`` / ``ref``, quadrants q0 top-left, q1 top-right, q2 bottom-left,
+    q3 bottom-right) as the contiguous (2*mb_h, 2*mb_w[, 2]) grid of 8x8
+    blocks that :func:`bs_grids` reads."""
+    mb_h, mb_w = field.shape[:2]
+    tail = tuple(field.shape[3:])
+    return (field.reshape(mb_h, mb_w, 2, 2, *tail).transpose(1, 2)
+            .reshape(2 * mb_h, 2 * mb_w, *tail).contiguous())
+
+
 def bs_grids(intra: torch.Tensor, nnz4: torch.Tensor, mv: torch.Tensor,
              ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Boundary strengths on the 4x4 block grid (the JAX ``bs_grids``, the
     oracle's ``_bs_edges``): ``intra`` (mb_h, mb_w), ``nnz4`` (mb_h*4,
-    mb_w*4), ``mv`` (mb_h, mb_w, 2) quarter-pel, ``ref`` (mb_h, mb_w).
-    Returns (bs_v, bs_h), each (mb_h*4, mb_w*4) int32; entry [b, a] is the
-    edge left of block column a / above block row b.  Column / row 0 (the
-    picture border) is 0."""
+    mb_w*4), ``mv`` (mb_h, mb_w, 2) quarter-pel, ``ref`` (mb_h, mb_w), or
+    both one an 8x8 block, (2*mb_h, 2*mb_w, ...) (the partition modes'
+    quadrant fields).  Returns (bs_v, bs_h), each (mb_h*4, mb_w*4) int32;
+    entry [b, a] is the edge left of block column a / above block row b.
+    Column / row 0 (the picture border) is 0."""
     intra4 = intra.to(torch.bool).repeat_interleave(4, 0).repeat_interleave(4, 1)
-    mv4 = mv.to(torch.int32).repeat_interleave(4, 0).repeat_interleave(4, 1)
-    ref4 = ref.to(torch.int32).repeat_interleave(4, 0).repeat_interleave(4, 1)
+    g = 4 if mv.shape[0] == intra.shape[0] else 2
+    mv4 = mv.to(torch.int32).repeat_interleave(g, 0).repeat_interleave(g, 1)
+    ref4 = ref.to(torch.int32).repeat_interleave(g, 0).repeat_interleave(g, 1)
     nnz = nnz4.to(torch.bool)
     out = []
     for ax in (1, 0):
@@ -194,9 +207,12 @@ def _check_deblock(y, cb, cr, intra, nnz4, mv, ref) -> tuple[int, int]:
     for name, t in (("cb", cb), ("cr", cr)):
         if tuple(t.shape) != (H // 2, W // 2):
             raise ValueError(f"{name} must be ({H // 2}, {W // 2})")
+    # the motion fields are one a MB or one an 8x8 block (quadrant fields)
+    g = 2 if mv.ndim == 3 and tuple(mv.shape[:2]) == (2 * mb_h, 2 * mb_w) else 1
     for name, t, shape in (("intra", intra, (mb_h, mb_w)),
                            ("nnz4", nnz4, (4 * mb_h, 4 * mb_w)),
-                           ("mv", mv, (mb_h, mb_w, 2)), ("ref", ref, (mb_h, mb_w))):
+                           ("mv", mv, (g * mb_h, g * mb_w, 2)),
+                           ("ref", ref, (g * mb_h, g * mb_w))):
         if tuple(t.shape) != shape or t.device != y.device:
             raise ValueError(f"{name} must be {shape} on {y.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
@@ -252,7 +268,9 @@ def deblock_planes(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, qp: int,
     oracle's ``io.h264_deblock.deblock_picture``.  ``y`` (H, W) uint8 with
     H, W 16-aligned, ``cb``/``cr`` (H/2, W/2); ``qp`` int; the metadata as
     the oracle's ``DeblockInfo`` (an all-intra IDR picture: ``intra`` ones
-    and zeros elsewhere).  ``slice_local`` leaves the horizontal MB edges
+    and zeros elsewhere); ``mv`` and ``ref`` may be one an 8x8 block,
+    (2*mb_h, 2*mb_w, ...), the partition modes' quadrant fields.
+    ``slice_local`` leaves the horizontal MB edges
     unfiltered (``disable_deblocking_filter_idc=2`` with one slice per MB
     row).  Returns new uint8 planes; the inputs are not modified.
 

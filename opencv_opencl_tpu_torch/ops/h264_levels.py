@@ -48,14 +48,16 @@ import torch
 # GDR clean-region rule excludes, and the rows an MC block reads below its
 # bottom sample by vertical quarter fraction
 from opencv_opencl_tpu_torch.io.h264_inter import (
-    _BAD_KEY, _MC_ROW_EXT, FASTSUB_OFFSETS, SEARCH_KEY_RADIX, search_candidates_qpel)
+    _BAD_KEY, _MC_ROW_EXT, FASTSUB_OFFSETS, PART_LAMBDA, SEARCH_KEY_RADIX,
+    search_candidates_qpel)
 
 __all__ = ["LevelArrays", "encode_levels", "encode_levels_plain",
            "encode_levels_nv12", "level_plan", "PACKED_LANES", "pack_levels",
            "unpack_levels_host", "INTRA_BIAS", "PLevelArrays",
            "subpel_planes", "subpel_planes_plain", "halfpel_planes",
            "quarterpel_planes", "motion_search", "motion_search_plain",
-           "search_stack_plain",
+           "search_stack_plain", "motion_search_parts",
+           "motion_search_parts_plain", "parts_stack_plain",
            "encode_p_levels", "encode_p_levels_plain", "p_levels_plain"]
 
 # _MF/_V per qp%6 by coefficient-position class; position-class matrix;
@@ -700,8 +702,10 @@ class PLevelArrays(NamedTuple):
     mv:   (mb_h, mb_w, 2) int16 (dy, dx) quarter-pel MVs of the search
           (None with search=0).
     ref:  (mb_h, mb_w) int16 reference index (None with one reference).
-    pmode: the partition modes (the ``parts`` configuration, not ported
-          yet: always None).
+    pmode: (mb_h, mb_w) int16 partition modes of the ``parts``
+          configuration (0 16x16, 1 16x8, 2 8x16, 3 8x8), else None; with
+          ``parts`` ``mv`` is the quadrant-major field (mb_h, mb_w, 4, 2)
+          and ``ref`` (mb_h, mb_w, 4).
     """
 
     mode: torch.Tensor
@@ -847,14 +851,16 @@ def _check_search(y: torch.Tensor, refs, search: int, subpel: int,
         raise ValueError("clean_rows (GDR) does not compose with two references")
 
 
-def _mc_chroma(refs, mv: torch.Tensor, refsel: torch.Tensor | None):
-    """The spec 8.4.2.2.2 chroma prediction at a per-MB quarter-pel field:
-    mvC = mv in 1/8 chroma samples, integer part ``mv >> 3``, fraction
-    ``mv & 7``, clamped coordinates (= the edge extension), uint8."""
+def _mc_chroma(refs, mv: torch.Tensor, refsel: torch.Tensor | None,
+               block: int = 8):
+    """The spec 8.4.2.2.2 chroma prediction at a quarter-pel field of one
+    vector a ``block`` x ``block`` chroma block (8: per MB, 4: per MB
+    quadrant): mvC = mv in 1/8 chroma samples, integer part ``mv >> 3``,
+    fraction ``mv & 7``, clamped coordinates (= the edge extension), uint8."""
     H, W = refs[0][0].shape
     ch, cw = H // 2, W // 2
     dev = mv.device
-    mvg = mv.to(torch.int32).repeat_interleave(8, 0).repeat_interleave(8, 1)
+    mvg = mv.to(torch.int32).repeat_interleave(block, 0).repeat_interleave(block, 1)
     cdy, cdx = mvg[..., 0] >> 3, mvg[..., 1] >> 3
     fy, fx = mvg[..., 0] & 7, mvg[..., 1] & 7
     rbase = torch.arange(ch, device=dev)[:, None] + cdy
@@ -864,7 +870,8 @@ def _mc_chroma(refs, mv: torch.Tensor, refsel: torch.Tensor | None):
     wa, wb = (8 - fx) * (8 - fy), fx * (8 - fy)
     wc, wd = (8 - fx) * fy, fx * fy
     rg = (torch.zeros_like(r0) if refsel is None else
-          refsel.to(torch.long).repeat_interleave(8, 0).repeat_interleave(8, 1))
+          refsel.to(torch.long).repeat_interleave(block, 0)
+          .repeat_interleave(block, 1))
     out = []
     for comp in (1, 2):
         p = torch.stack([r[comp] for r in refs]).to(torch.int32)
@@ -989,6 +996,142 @@ def motion_search(y: torch.Tensor, refs, search: int, subpel: int = 0,
     from opencv_opencl_tpu_torch.ops.cuda import h264_inter as kernel
 
     return kernel.motion_search(y, refs, search, subpel, clean_rows=clean_rows)
+
+
+def _check_parts(y: torch.Tensor, refs, search: int, subpel: int) -> int:
+    """The parts search's refusals (the JAX ``motion_search_mc_parts``'s and
+    ``encode_p_levels(parts=1)``'s); returns the candidate count."""
+    _check_search(y, refs, search, subpel, None)
+    if subpel == 3:
+        raise ValueError("parts does not compose with fastsub")
+    n = len(search_candidates(search, subpel))
+    if len(refs) * n > SEARCH_KEY_RADIX:
+        raise ValueError(
+            f"parts refs={len(refs)} at this sub-pel radius exceeds the "
+            f"key packing ({len(refs)}*{n} > {SEARCH_KEY_RADIX}); "
+            "quarter-pel parts with 2 references needs R <= 7")
+    return n
+
+
+def motion_search_parts_plain(y: torch.Tensor, refs, search: int, subpel: int,
+                              qp: int):
+    """Plain version of :func:`motion_search_parts`: the references' plane
+    stack (:func:`subpel_planes_plain`), then :func:`parts_stack_plain`."""
+    _check_parts(y, refs, search, subpel)
+    P, margin = search_plan(search, subpel)
+    stack = torch.cat([subpel_planes_plain(r[0], margin, P) for r in refs])
+    return parts_stack_plain(y, stack, refs, search, subpel, qp)
+
+
+def parts_stack_plain(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
+                      subpel: int, qp: int):
+    """Plain version of ``parts_search_kernel`` over the references' stacked
+    planes ``stack`` (as :func:`search_stack_plain` takes them): a loop over
+    the candidates in ref-major order (flat index ``r * n + idx``), each
+    giving the four quadrant SADs of every MB summed in int32, the halves
+    and the whole MB their sums, and nine running least keys ``sad * 8192 +
+    i``; then the partition decision and the quadrant-granular motion
+    compensation.  Returns :func:`motion_search_parts`'s tuple."""
+    n = _check_parts(y, refs, search, subpel)
+    H, W = y.shape
+    mb_h, mb_w = H // 16, W // 16
+    dev = y.device
+    P, margin = search_plan(search, subpel)
+    R = SEARCH_KEY_RADIX
+    cur = y.to(torch.int32).reshape(mb_h, 2, 8, mb_w, 2, 8)
+    cands = search_candidates(search, subpel)
+    big = torch.iinfo(torch.int32).max
+    # kq (mb_h, 2, mb_w, 2), kh (mb_h, 2, mb_w), kv (mb_h, mb_w, 2), kf
+    kq = torch.full((mb_h, 2, mb_w, 2), big, dtype=torch.int64, device=dev)
+    kh = torch.full((mb_h, 2, mb_w), big, dtype=torch.int64, device=dev)
+    kv = torch.full((mb_h, mb_w, 2), big, dtype=torch.int64, device=dev)
+    kf = torch.full((mb_h, mb_w), big, dtype=torch.int64, device=dev)
+    for r in range(len(refs)):
+        for idx, (qy, qx) in enumerate(cands.tolist()):
+            i = r * n + idx
+            p = r * P + _plane_of(qy & 3, qx & 3, P)
+            iy, ix = margin + (qy >> 2), margin + (qx >> 2)
+            ref = stack[p, iy:iy + H, ix:ix + W].to(torch.int32)
+            q = (cur - ref.reshape(mb_h, 2, 8, mb_w, 2, 8)).abs().sum(
+                (2, 5), dtype=torch.int32).to(torch.int64)
+            h = q.sum(3)
+            v = q.sum(1)
+            kq = torch.minimum(kq, q * R + i)
+            kh = torch.minimum(kh, h * R + i)
+            kv = torch.minimum(kv, v * R + i)
+            kf = torch.minimum(kf, h.sum(1) * R + i)
+    lam = PART_LAMBDA[min(max(int(qp), 0), 51)]
+    cost_f = kf // R
+    cost_h = (kh // R).sum(1) + lam
+    cost_v = (kv // R).sum(2) + lam
+    cost_q = (kq // R).sum((1, 3)) + 3 * lam
+    pmode = torch.zeros((mb_h, mb_w), dtype=torch.int64, device=dev)
+    best = cost_f
+    for m, c in ((1, cost_h), (2, cost_v), (3, cost_q)):
+        take = c < best                 # strict: ties keep the coarser mode
+        pmode = torch.where(take, m, pmode)
+        best = torch.where(take, c, best)
+    # each quadrant's flat index on the (mb_h, 2, mb_w, 2) grid: a 16x8 MB's
+    # quadrants take their row's half, an 8x16 MB's their column's
+    pm4 = pmode[:, None, :, None]
+    iq = torch.where(pm4 == 0, (kf % R)[:, None, :, None],
+                     torch.where(pm4 == 1, (kh % R)[:, :, :, None],
+                                 torch.where(pm4 == 2, (kv % R)[:, None, :, :],
+                                             kq % R)))
+    iq = iq.expand(mb_h, 2, mb_w, 2)
+    carr = torch.as_tensor(cands, device=dev).to(torch.int64)
+    mv8 = carr[iq % n]                                  # (mb_h, 2, mb_w, 2, 2)
+    ref8 = iq // n
+    # luma: each 8x8 quadrant from its winner's plane at its integer offset
+    ri = (16 * torch.arange(mb_h, device=dev)[:, None, None]
+          + 8 * torch.arange(2, device=dev)[None, :, None]
+          + torch.arange(8, device=dev)[None, None, :])          # (mb_h, 2, 8)
+    ci = (16 * torch.arange(mb_w, device=dev)[:, None, None]
+          + 8 * torch.arange(2, device=dev)[None, :, None]
+          + torch.arange(8, device=dev)[None, None, :])          # (mb_w, 2, 8)
+    pg = ref8 * P + _plane_of(mv8[..., 0] & 3, mv8[..., 1] & 3, P)
+    rows = margin + ri[:, :, None, None, :] + (mv8[..., 0] >> 2)[..., None]
+    cols = margin + ci[None, None, :, :, :] + (mv8[..., 1] >> 2)[..., None]
+    pred_y = stack[pg[..., None, None], rows[..., :, None], cols[..., None, :]]
+    pred_y = pred_y.permute(0, 1, 4, 2, 3, 5).reshape(H, W)
+    two = len(refs) > 1
+    grid = (2 * mb_h, 2 * mb_w)
+    pred_cb, pred_cr = _mc_chroma(refs, mv8.reshape(*grid, 2),
+                                  ref8.reshape(grid) if two else None, block=4)
+    mv4 = mv8.permute(0, 2, 1, 3, 4).reshape(mb_h, mb_w, 4, 2).to(torch.int16)
+    ref4 = (ref8.permute(0, 2, 1, 3).reshape(mb_h, mb_w, 4).to(torch.int16)
+            if two else None)
+    return pmode.to(torch.int16), mv4, ref4, pred_y, pred_cb, pred_cr
+
+
+def motion_search_parts(y: torch.Tensor, refs, search: int, subpel: int,
+                        qp: int):
+    """The sub-16x16 partition search with motion compensation (the JAX
+    ``motion_search_mc_parts``; its oracle ``io.h264_inter.
+    motion_search_parts`` / ``motion_search_parts_multi`` with the block-8
+    ``mc_planes``): one sweep over every reference's candidates
+    (``refs`` a list of one or two ``(ry, rcb, rcr)``; radius ``search`` on
+    the full-pel grid (``subpel=0``), the half-pel (1) or the quarter-pel
+    (2) lattice; flat index ``i = r * n + idx``) keeps nine least keys ``sad
+    * 8192 + i``: the four quadrants, the two 16x8 halves, the two 8x16
+    halves and the whole MB.  The partition mode minimizes the SAD plus
+    ``PART_LAMBDA[qp]`` a vector more than one (16x8 and 8x16 one, 8x8
+    three), ties keeping the coarser mode; each quadrant takes its
+    partition's winner, luma predicted 8x8 from its plane and chroma 4x4
+    with the bilinear.
+
+    Returns ``(pmode (mb_h, mb_w), mv4 (mb_h, mb_w, 4, 2) quarter-pel (dy,
+    dx) quadrant-major (q0 top-left, q1 top-right, q2 bottom-left, q3
+    bottom-right), ref4 (mb_h, mb_w, 4) or None with one reference, pred_y,
+    pred_cb, pred_cr)``, the fields int16, the predictions uint8.  It
+    refuses ``fastsub`` and a key packing that would overflow (``nrefs * n
+    > 8192``: quarter-pel with two references needs ``search <= 7``).  On
+    CUDA tensors it launches ``subpel_planes_kernel`` for each reference
+    (with ``subpel``), then ``parts_search_kernel``; on CPU tensors it runs
+    :func:`motion_search_parts_plain`."""
+    from opencv_opencl_tpu_torch.ops.cuda import h264_inter as kernel
+
+    return kernel.motion_search_parts(y, refs, search, subpel, qp)
 
 
 def p_levels_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
@@ -1155,7 +1298,8 @@ def p_levels_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             rcr.permute(0, 2, 1, 3).reshape(H // 2, W // 2))
 
 
-def _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts) -> tuple[int, int]:
+def _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts, search,
+                  subpel) -> tuple[int, int]:
     mb = _check_planes(y, cb, cr)
     _check_planes(ry, rcb, rcr)
     if tuple(ry.shape) != tuple(y.shape) or ry.device != y.device:
@@ -1163,7 +1307,13 @@ def _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts) -> tuple[int, i
     if gdr_band is not None and ry2 is not None:
         raise ValueError("gdr_band does not compose with two references")
     if parts:
-        raise ValueError("parts (sub-16x16 inter partitions): not ported yet")
+        # the oracle's composition limits (encode_frame_p_slices parts=True)
+        if not search:
+            raise ValueError("parts requires search=R > 0")
+        if subpel == 3:
+            raise ValueError("parts does not compose with fastsub")
+        if gdr_band is not None:
+            raise ValueError("parts requires no gdr")
     return mb
 
 
@@ -1181,10 +1331,19 @@ def encode_p_levels_plain(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
                           gdr_band: tuple | None = None,
                           parts: int = 0) -> PLevelArrays:
     """Plain version of :func:`encode_p_levels`: :func:`motion_search_plain`
-    (with ``search``), then :func:`p_levels_plain`, on the planes' device."""
-    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts)
-    mv = refsel = None
-    if search:
+    (with ``search``; :func:`motion_search_parts_plain` with ``parts``), then
+    :func:`p_levels_plain`, on the planes' device."""
+    mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts,
+                               search, subpel)
+    mv = refsel = pmode = None
+    if parts:
+        refs = _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2)
+        pmode, mv, refsel, pred_y, pred_cb, pred_cr = motion_search_parts_plain(
+            y, refs, search, subpel, qp)
+        # P_Skip needs the whole-MB hypothesis at (0, 0) on reference 0
+        mv_zero = (pmode == 0) & _mv_zero(mv[:, :, 0],
+                                          None if refsel is None else refsel[:, :, 0])
+    elif search:
         refs = _search_refs(ry, rcb, rcr, ry2, rcb2, rcr2)
         out = motion_search_plain(y, refs, search, subpel, clean_rows=(
             None if gdr_band is None else int(gdr_band[0])))
@@ -1198,7 +1357,7 @@ def encode_p_levels_plain(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
         mv_zero = torch.ones((mb_h, mb_w), dtype=torch.bool, device=y.device)
     out = p_levels_plain(y, cb, cr, pred_y, pred_cb, pred_cr, mv_zero, qp,
                          band=gdr_band)
-    return PLevelArrays(*out, mv, refsel)
+    return PLevelArrays(*out, mv, refsel, pmode)
 
 
 def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
@@ -1213,13 +1372,15 @@ def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
     contiguous), and ry2, rcb2, rcr2 the one before it for two references;
     qp: int; search: radius in pixels (0 = zero motion); subpel: 0
     full-pel, 1 half-pel, 2 quarter-pel, 3 ``fastsub``; gdr_band: the GDR
-    intra rows ``(lo, hi)`` (one reference only).  ``parts`` (sub-16x16
-    partitions) is not ported yet: it raises.  The references are read,
-    never written.
+    intra rows ``(lo, hi)`` (one reference only); ``parts`` (1) the
+    sub-16x16 partitions (:func:`motion_search_parts`; with ``search``, not
+    with ``fastsub`` or a GDR band): ``mv`` is then the quadrant field
+    (mb_h, mb_w, 4, 2), ``ref`` (two references) (mb_h, mb_w, 4) and
+    ``pmode`` the partition modes.  The references are read, never written.
 
     On CUDA tensors: ``subpel_planes_kernel`` and ``motion_search_kernel``
-    with ``search``, then ``p_levels_kernel``; on CPU tensors
-    :func:`encode_p_levels_plain`."""
+    (``parts_search_kernel`` with ``parts``) with ``search``, then
+    ``p_levels_kernel``; on CPU tensors :func:`encode_p_levels_plain`."""
     from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
 
     return kernel.encode_p_levels(y, cb, cr, ry, rcb, rcr, qp, search, subpel,

@@ -789,3 +789,116 @@ def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):
         for overlap in (False, True):
             enc = CudaGopEncoder(w, h, qp=28, overlap=overlap, device=device, **kw)
             assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16)])
+@pytest.mark.parametrize("content", ["random", "structured", "constant"])
+def test_parts_kernels_equal_plain(device, h, w, content):
+    """H6 against its plain version on the card (full-, half- and
+    quarter-pel, one and two references, two QPs), H2 on the parts layout
+    and H5 on its quadrant fields, every output."""
+    from opencv_opencl_tpu_torch.ops import cuda as kernels
+    from opencv_opencl_tpu_torch.ops import h264_deblock as torch_deblock
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+
+    kernels.reset_launch_counts()
+    src, r1, r2 = _p_inputs(device, 70, h, w, content)
+    for search, subpel, refs in ((2, 0, [r1]), (2, 1, [r1]), (2, 2, [r1]), (2, 0, [r1, r2]),
+                                 (1, 2, [r1, r2])):
+        for qp in (20, 45):
+            got = torch_levels.motion_search_parts(src[0], refs, search, subpel, qp)
+            want = torch_levels.motion_search_parts_plain(src[0], refs, search, subpel, qp)
+            assert all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, want))
+    mb_h, mb_w = h // 16, w // 16
+    for second in ((None,) * 3, r2):
+        got = torch_levels.encode_p_levels(*src, *r1, 30, 2, 2, *second, parts=1)
+        want = torch_levels.encode_p_levels_plain(*src, *r1, 30, 2, 2, *second, parts=1)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        ref = (torch.zeros((2 * mb_h, 2 * mb_w), dtype=torch.int16, device=device)
+               if got.ref is None else torch_deblock.block_grid(got.ref))
+        meta = (got.mode >= 2, torch_deblock.nnz4_grid(got.acz),
+                torch_deblock.block_grid(got.mv), ref)
+        recon = (got.recon_y, got.recon_cb, got.recon_cr)
+        a = torch_deblock.deblock_planes(*recon, 30, *meta)
+        b = torch_deblock.deblock_planes_plain(*recon, 30, *meta)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    counts = kernels.launch_counts()
+    assert counts["motion_search_parts"] == 10 + 2 and counts["motion_search"] == 0
+    assert counts["encode_p_levels"] == 2 and counts["deblock_planes"] == 2
+
+
+def _packed_equal(got, want):
+    return (torch.equal(got[1], want[1])
+            and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)))
+
+
+@pytest.mark.parametrize("nw_mb", [64, 3])
+@pytest.mark.parametrize("content", ["random", "structured", "constant"])
+def test_bit_packers_equal_plain(device, content, nw_mb):
+    """H7 on H1's levels (default, and Intra_4x4 with chroma HORIZONTAL) and
+    H8 on H2's (zero motion, a search with one and two references, and the
+    partition modes with one and two), words and bit counts, at 64 words
+    an MB and at a cap of 3."""
+    from opencv_opencl_tpu_torch.ops import h264_bitpack as torch_bitpack
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as packers
+
+    packers.reset_launch_counts()
+    h, w = 64, 96
+    src, r1, r2 = _p_inputs(device, 80, h, w, content)
+    for flags in ({}, {"i4": True, "chromah": True}):
+        lv, imode, *extra = torch_levels.encode_levels(*src, 20, **flags)
+        ex = dict(zip(["i4modes"] * ("i4" in flags) + ["cmode"] * ("chromah" in flags), extra))
+        assert _packed_equal(torch_bitpack.pack_i_mbs(*lv, imode, nw_mb, **ex),
+                             torch_bitpack.pack_i_mbs_plain(*lv, imode, nw_mb, **ex))
+    cases = ((0, 0, False, False), (2, 3, False, False), (2, 0, True, False),
+             (2, 2, False, True), (2, 1, True, True))
+    for search, subpel, two, parts in cases:
+        second = r2 if two else (None,) * 3
+        plv = torch_levels.encode_p_levels(*src, *r1, 24, search, subpel, *second,
+                                           parts=int(parts))
+        lv = (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz)
+        active = 2 if two else 1
+        if parts:
+            args, kw = (*lv, None, None, active, nw_mb), dict(pmode=plv.pmode, mv4=plv.mv,
+                                                              ref4=plv.ref)
+        else:
+            args, kw = (*lv, plv.mv, plv.ref, active, nw_mb), {}
+        assert _packed_equal(torch_bitpack.pack_p_mbs(*args, **kw),
+                             torch_bitpack.pack_p_mbs_plain(*args, **kw))
+    assert packers.launch_counts() == {"pack_i_mbs": 2, "pack_p_mbs": 5}
+
+
+def test_device_encoders_with_parts_and_bitpack_equal_the_host_oracle(device):
+    """The GOP encoder with the partition modes and the bit packer (its
+    overflow path at 3 words too) and the intra encoder with the bit packer
+    give GopCavlcEncoder(slices=mb_h)'s / CavlcH264Encoder(slices=mb_h)'s
+    access units."""
+    from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder, CudaCavlcEncoder
+    from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder, GopCavlcEncoder
+
+    w, h = 64, 48
+    base = _frames(90, 1, h * 3 // 2 + 8, w + 8, "structured")[0]
+    frames = [np.ascontiguousarray(base[k:k + h * 3 // 2, 2 * k:2 * k + w]) for k in range(4)]
+    for kw in (dict(gop=3, search=2, parts=True, deblock=True),
+               dict(gop=4, search=1, quarterpel=True, refs=2, parts=True),
+               dict(gop=3, search=2, fastsub=True, bitpack=True),
+               dict(gop=4, search=2, parts=True, refs=2, deblock=True, bitpack=True)):
+        host = {k: v for k, v in kw.items() if k != "bitpack"}
+        oracle = GopCavlcEncoder(w, h, qp=28, slices=h // 16, **host)
+        want = [au for f in frames for au in oracle.encode(f)]
+        for overlap, nw_mb in ((False, 64), (True, 64), (False, 3)):
+            enc = CudaGopEncoder(w, h, qp=28, overlap=overlap, nw_mb=nw_mb, device=device,
+                                 **kw)
+            assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
+            assert (enc._bits_overflows > 0) == (kw.get("bitpack", False) and nw_mb == 3)
+    for kw in ({}, {"i4": True, "chromah": True}):
+        ref = CavlcH264Encoder(w, h, qp=26, slices=h // 16, native="never", **kw)
+        want = [au for f in frames for au in ref.encode(f)]
+        for overlap in (False, True):
+            enc = CudaCavlcEncoder(w, h, qp=26, overlap=overlap, bitpack=True, device=device,
+                                   **kw)
+            assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
+            assert enc._bits_overflows == 0

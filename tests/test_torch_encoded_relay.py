@@ -247,7 +247,7 @@ MATRIX = [
                                               "--encoder=tpu:qp=40:i4:chromah:overlap"],
      0, None),
     ("encoded_tpu_bitpack", ["--sink=rtp+h264://127.0.0.1:56484",
-                             "--encoder=tpu:qp=40:bitpack"], 2, NOT_PORTED),
+                             "--encoder=tpu:qp=40:bitpack"], 0, None),
     ("encoded_tpu_gop_deblock", ["--sink=rtp+h264://127.0.0.1:56471",
                                  "--encoder=tpu:qp=40:gop=4:deblock"], 0, None),
     ("encoded_tpu_gdr", ["--sink=rtp+h264://127.0.0.1:56472",
@@ -259,7 +259,7 @@ MATRIX = [
     ("encoded_tpu_gop_search", ["--sink=rtp+h264://127.0.0.1:56488",
                                 "--encoder=tpu:qp=40:gop=4:search=2"], 0, None),
     ("encoded_tpu_parts", ["--sink=rtp+h264://127.0.0.1:56487",
-                           "--encoder=tpu:qp=40:gop=4:search=2:parts"], 2, NOT_PORTED),
+                           "--encoder=tpu:qp=40:gop=4:search=2:parts"], 0, None),
     ("fused_intra", ["--sink=rtp+h264://127.0.0.1:56474", "--encoder=tpu:qp=40",
                      "--fused-encode"], 2, NOT_PORTED),
     ("fused_gop", ["--sink=rtp+h264://127.0.0.1:56475", "--encoder=tpu:qp=40:gop=4",

@@ -10,8 +10,9 @@ compositions (the cases of ``tests/test_h264_inter_tpu.py`` and
 gives the same bytes one frame late and ``flush`` drains it;
 ``native="require"`` equals ``native="never"``; one configuration equals
 the JAX ``TpuGopEncoder`` itself.  The factory builds the class for
-``tpu:gop=N`` and ``tpu:gdr=N`` and refuses as the reference does; the
-partition modes and the bit packer raise "not ported yet".
+``tpu:gop=N`` and ``tpu:gdr=N`` and refuses as the reference does (the
+partition modes and the bit packer: ``tests/test_torch_h264_parts.py`` and
+``tests/test_torch_h264_bitpack.py``).
 """
 
 import numpy as np
@@ -211,8 +212,8 @@ def test_the_chain_stays_on_the_device_and_is_never_written():
     (dict(cpb_ms=500), "cpb needs bitrate control"),
     (dict(cpb_ms=500, bitrate_kbps=400, overlap=True), "does not compose with overlap"),
     (dict(parts=True), "parts requires search"),
-    (dict(parts=True, search=2), "parts .*not ported yet"),
-    (dict(bitpack=True), "bitpack .*not ported yet"),
+    (dict(parts=True, search=2, fastsub=True), "parts does not compose with fastsub"),
+    (dict(bitpack=True, parts=True, search=2, gdr=3), "parts requires no gdr"),
 ], ids=["gop0", "gdr_refs2", "fastsub_halfpel", "fastsub_no_search", "search16",
         "qpel_radius", "refs3", "refs2_no_search", "initdelay", "cpb_fixed_qp",
         "cpb_overlap", "parts_no_search", "parts", "bitpack"])

@@ -198,8 +198,8 @@ def test_encode_p_levels_refusals_and_no_launch_on_the_cpu():
     args = (t(y), t(cb), t(cr), *map(t, r1), 30)
     with pytest.raises(ValueError, match="two references"):
         h264_levels.encode_p_levels(*args, SEARCH, 0, *map(t, r2), gdr_band=(0, 1))
-    with pytest.raises(ValueError, match="parts .*not ported yet"):
-        h264_levels.encode_p_levels(*args, SEARCH, 0, parts=1)
+    with pytest.raises(ValueError, match="parts requires search"):
+        h264_levels.encode_p_levels(*args, 0, 0, parts=1)
     with pytest.raises(ValueError, match="16-aligned"):
         h264_levels.encode_p_levels(t(y[:24]), t(cb[:12]), t(cr[:12]),
                                     *(t(p[:24 // (1 + (i > 0))]) for i, p in enumerate(r1)),
@@ -218,5 +218,6 @@ def test_encode_p_levels_refusals_and_no_launch_on_the_cpu():
             else:
                 fn(t(y), t(cb), t(cr), *map(t, r1), 30,
                    torch.empty(level_kernels.p_level_words(4, 6), dtype=torch.int16))
-    assert inter_kernels.launch_counts() == {"subpel_planes": 0, "motion_search": 0}
+    assert inter_kernels.launch_counts() == {"subpel_planes": 0, "motion_search": 0,
+                                             "motion_search_parts": 0}
     assert level_kernels.launch_counts()["encode_p_levels"] == 0

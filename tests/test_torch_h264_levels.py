@@ -346,34 +346,35 @@ def outcome(fn):
 @pytest.mark.parametrize("spec", TPU_SPECS)
 def test_make_encoder_tpu_specs_as_jax(spec):
     """The port's classes for the JAX package's TpuCavlcEncoder and
-    TpuGopEncoder (the same options and the host oracle's access units),
-    "not ported yet" for the bit packer, and its ValueError elsewhere."""
+    TpuGopEncoder (the same options, the bit packer's included, and the host
+    oracle's access units), and its ValueError elsewhere."""
     ours = outcome(lambda: encoder.make_encoder(spec, 64, 48, fps=30.0,
                                                 bitrate_kbps=300, device="cpu"))
     theirs = outcome(lambda: jax_encoder.make_encoder(spec, 64, 48, fps=30.0,
                                                       bitrate_kbps=300))
-    if isinstance(theirs, jax_cavlc.TpuCavlcEncoder) and not theirs._bitpack:
+    if isinstance(theirs, jax_cavlc.TpuCavlcEncoder):
         assert isinstance(ours, h264_cavlc.CudaCavlcEncoder)
-        assert (ours.qp, ours.i4, ours.chromah, ours.deblock, ours._overlap) == (
-            theirs.qp, theirs.i4, theirs.chromah, theirs.deblock, theirs._overlap)
-        cavlc = ":".join(["cavlc", "slices=3"] + [o for o in spec.split(":")[1:]
-                                                  if o != "overlap"])
-        frames = [nv12(64, 48, s, "random" if s % 2 else "smooth") for s in range(3)]
-        ref = jax_encoder.make_encoder(cavlc, 64, 48, fps=30.0, bitrate_kbps=300)
-        got = [au for f in frames for au in ours.encode(f)] + ours.flush()
-        assert got == [au for f in frames for au in ref.encode(f)] + ref.flush()
-    elif isinstance(theirs, jax_inter.TpuGopEncoder) and not theirs._bitpack:
-        assert isinstance(ours, h264_inter.CudaGopEncoder)
-        keys = ("qp", "gop", "gdr", "search", "subpel", "refs", "deblock", "_overlap")
+        keys = ("qp", "i4", "chromah", "deblock", "_overlap", "_bitpack", "_nw_mb")
         assert [getattr(ours, k) for k in keys] == [getattr(theirs, k) for k in keys]
-        cavlc = ":".join(["cavlc", "slices=3"] + spec.split(":")[1:])
+        cavlc = ":".join(["cavlc", "slices=3"] + [o for o in spec.split(":")[1:]
+                                                  if o not in ("overlap", "bitpack")])
         frames = [nv12(64, 48, s, "random" if s % 2 else "smooth") for s in range(3)]
         ref = jax_encoder.make_encoder(cavlc, 64, 48, fps=30.0, bitrate_kbps=300)
         got = [au for f in frames for au in ours.encode(f)] + ours.flush()
         assert got == [au for f in frames for au in ref.encode(f)] + ref.flush()
-    elif not isinstance(theirs, tuple):
-        assert ours == ("ValueError", f"--encoder={spec}: not ported yet")
+    elif isinstance(theirs, jax_inter.TpuGopEncoder):
+        assert isinstance(ours, h264_inter.CudaGopEncoder)
+        keys = ("qp", "gop", "gdr", "search", "subpel", "refs", "deblock", "_overlap",
+                "parts", "_bitpack", "_nw_mb")
+        assert [getattr(ours, k) for k in keys] == [getattr(theirs, k) for k in keys]
+        cavlc = ":".join(["cavlc", "slices=3"] + [o for o in spec.split(":")[1:]
+                                                  if o != "bitpack"])
+        frames = [nv12(64, 48, s, "random" if s % 2 else "smooth") for s in range(3)]
+        ref = jax_encoder.make_encoder(cavlc, 64, 48, fps=30.0, bitrate_kbps=300)
+        got = [au for f in frames for au in ours.encode(f)] + ours.flush()
+        assert got == [au for f in frames for au in ref.encode(f)] + ref.flush()
     else:
+        assert isinstance(theirs, tuple), f"no counterpart for {theirs!r}"
         assert ours == theirs and ours[0] == "ValueError"
 
 
