@@ -90,7 +90,16 @@ Phases, each of which raises (exit code != 0) when it fails:
             where frames overflow the cap and take the host entropy path)
             and ``gop=3:search=2:quarterpel:refs=2:parts`` against the
             Python oracle, and ``tpu:bitpack`` and ``tpu:i4:chromah:bitpack``
-            at 4K against the streams without the packer;
+            at 4K against the streams without the packer; the fused
+            enhance + encode step (``models/fused_encode.py``: K1-K4 and
+            H1-H8 one step a batch on device-resident frames) for histeq
+            intra with and without the packer and CLAHE GOPs
+            (``gop=4:search=8:fastsub:deblock``, ``parts:bitpack``,
+            ``refs=2``), at 4K over two batches of 4 and at 1920x1080 over
+            one batch of 3: the AUs that ``encode_from_packed`` assembles
+            equal to the unfused card encoder's on the same enhanced
+            frames, and at 1920x1080 the packed lanes and reference
+            pictures equal to the CPU plain versions' (a child process);
 4. golden   the CUDA paths against the numpy golden models, 0 LSB: CLAHE
             (natural and cell-grid backends) and histeq at 1080p, streaming
             CLAHE over four 1080p frames against golden's previous-frame
@@ -149,7 +158,13 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``--encoder=tpu:gop=30:search=8:parts:deblock:bitpack`` (H1 and
             H7 on the IDR; H3, H6, H2, H5 and H8 on each P frame; the host
             assembles the packed bits), checked as (j), no frame over the
-            cap; the Python CAVLC oracle, in a child
+            cap; (l) relay (j)'s spec and (m) ``--encoder=tpu:bitpack``,
+            each with ``--fused-encode`` (the frames stay on the card, the
+            packed levels come down; every frame the fused step takes must
+            be a source frame, in order, after the warm-up batch, and every
+            access unit must equal a new encoder's on the expected frame at
+            the in-band qp, the frame's launches counted from its index);
+            the Python CAVLC oracle, in a child
             process started before (a), encodes the first two expected
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
@@ -182,7 +197,12 @@ Phases, each of which raises (exit code != 0) when it fails:
             quarter-pel search 4), H8 on a parts P frame and H7 on an IDR
             beside their plain versions and bounds, the packed bits' copy to
             the host beside the levels', and ``encode`` of relay (k)'s spec
-            without the packer, with it, and with it and ``overlap``; K10 for each
+            without the packer, with it, and with it and ``overlap``; the
+            fused step of (l) on 4 P frames and of (m) on a 4K batch, from
+            an idle card and device alone, the packed lanes' copy to the
+            host and ``encode_from_packed`` a frame, beside the CLAHE step,
+            the enhanced batch's copy and the unfused encoder's ``encode``;
+            K10 for each
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
@@ -224,6 +244,7 @@ from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.io.rtp import RtpUdpReceiver, RtpUdpSink
 from opencv_opencl_tpu_torch.io.videofile import TestSource
+from opencv_opencl_tpu_torch.models import fused_encode
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer,
     EnhancerConfig,
@@ -391,6 +412,23 @@ P_TIMED_QPEL_SEARCH = 4
 PARTS_CASES = ((P_SEARCH, 0, 1), (P_SEARCH, 1, 1), (P_TIMED_QPEL_SEARCH, 2, 1), (3, 2, 2))
 CAP_NW_MB = 3
 PARTS_SPEC = f"tpu:gop=30:search={P_SEARCH}:parts:deblock:bitpack"
+# the fused enhance + encode step's checks: the configurations (name, the
+# enhancement, the step's options; with "gop" the GOP step), run at 4K over
+# two batches of 4 and at 1920x1080 (which pads to 1088) over one batch of
+# 3, where a child process computes the plain versions on the CPU while the
+# card works; relays (l) and (m) run the GOP step of relay (j)'s spec and
+# the intra step with the bit packer
+FUSED_CASES = (
+    ("intra_histeq", "histeq", {}),
+    ("intra_histeq_bitpack", "histeq", {"bitpack": 64}),
+    ("gop_fastsub_deblock", "clahe", {"gop": 4, "search": P_SEARCH, "subpel": 3,
+                                      "deblock": True}),
+    ("gop_parts_bitpack", "clahe", {"gop": 4, "search": P_SEARCH, "parts": True,
+                                    "bitpack": 64}),
+    ("gop_refs2", "clahe", {"gop": 4, "search": P_SEARCH, "refs": 2}),
+)
+FUSED_4K_FRAMES, FUSED_CPU_SHAPE, FUSED_CPU_FRAMES = 8, (1080, 1920), 3
+FUSED_GOP_SPEC, FUSED_INTRA_SPEC = GOP_SPEC, "tpu:bitpack"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1382,13 +1420,39 @@ np.savez(sys.argv[2], blob=np.frombuffer(b"".join(aus), np.uint8),
 """
 
 
+# the fused enhance + encode step of each of FUSED_CASES on the CPU (the
+# kernels' plain versions), all frames one batch from the first reference
+# pictures: the packed lanes and the reference pictures out
+FUSED_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke
+
+torch.set_num_threads(2)
+frames = np.load(sys.argv[1])
+h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+out = {}
+for name, op, opts in json.loads(sys.argv[3]):
+    packed, recon = chip_smoke.drive_fused(
+        chip_smoke.fused_step(op, opts, h, w, "cpu"), opts, frames, len(frames),
+        chip_smoke.fused_encoder(opts, h, w, "cpu"))
+    out[name] = packed
+    for i, t in enumerate(recon or ()):
+        out[f"{name}.recon{i}"] = t.numpy()
+np.savez(sys.argv[2], **out)
+"""
+
+
 @contextlib.contextmanager
 def gop_oracles(tmp: str):
     """Start the GOP encoder's two oracle children on seed-made frames:
     ``GopCavlcEncoder(slices=mb_h)`` for each of ``P_STREAMS`` at
     ``P_STREAM_SHAPE``, and ``CudaGopEncoder(device="cpu")`` for
-    ``CPU_STREAM`` at ``CPU_STREAM_SHAPE``; yields {name: (frames, child,
-    output path, options)}."""
+    ``CPU_STREAM`` at ``CPU_STREAM_SHAPE``; and the fused step's plain
+    versions on the CPU for each of ``FUSED_CASES`` at ``FUSED_CPU_SHAPE``
+    (``FUSED_CHILD``); yields {name: (frames, child, output path,
+    options)}."""
     rng = np.random.default_rng(13)
     runs = {"host": (P_STREAM_SHAPE, P_STREAM_FRAMES, list(P_STREAMS)),
             "cpu": (CPU_STREAM_SHAPE, CPU_STREAM_FRAMES, [CPU_STREAM])}
@@ -1402,6 +1466,14 @@ def gop_oracles(tmp: str):
             proc = stack.enter_context(child(GOP_CHILD, [path_in, path_out, name,
                                                          json.dumps(kws)]))
             out[name] = (frames, proc, path_out, kws)
+        # the fused step's plain versions on the CPU at 1920x1080
+        frames = np.stack(moving_nv12(rng, *FUSED_CPU_SHAPE, FUSED_CPU_FRAMES))
+        path_in = os.path.join(tmp, "fused_in.npy")
+        path_out = os.path.join(tmp, "fused_out.npz")
+        np.save(path_in, frames)
+        proc = stack.enter_context(child(FUSED_CHILD, [path_in, path_out,
+                                                       json.dumps(FUSED_CASES)]))
+        out["fused"] = (frames, proc, path_out, FUSED_CASES)
         yield out
 
 
@@ -1459,6 +1531,110 @@ def phase_p_streams(oracles) -> None:
                       f"({[len(a) for a in got]} bytes) equal {label}'s (waited "
                       f"{waited:.1f} s for the oracle); frames over the bit packer's "
                       f"cap {enc._bits_overflows}", flush=True)
+
+
+def fused_step(op: str, opts: dict, h: int, w: int, device):
+    """The fused enhance + encode step of a ``FUSED_CASES`` entry."""
+    spec, cfg = clahe_config(h, w) if op == "clahe" else histeq_config(h, w)
+    kw = dict(opts)
+    if "gop" in kw:
+        return fused_encode.build_enhance_gop_fn(cfg, spec, kw.pop("gop"),
+                                                 device=device, **kw)
+    return fused_encode.build_enhance_levels_fn(cfg, spec, device=device, **kw)
+
+
+def fused_encoder(opts: dict, h: int, w: int, device):
+    """The device encoder whose options match a ``FUSED_CASES`` entry's
+    step (QP 30)."""
+    packer = dict(bitpack=True, nw_mb=opts["bitpack"]) if opts.get("bitpack") else {}
+    if "gop" not in opts:
+        return CudaCavlcEncoder(w, h, qp=30, device=device, **packer)
+    sub = opts.get("subpel", 0)
+    return CudaGopEncoder(w, h, qp=30, gop=opts["gop"], search=opts.get("search", 0),
+                          halfpel=sub == 1, quarterpel=sub == 2, fastsub=sub == 3,
+                          refs=opts.get("refs", 1), parts=opts.get("parts", False),
+                          deblock=opts.get("deblock", False), device=device, **packer)
+
+
+def drive_fused(fn, opts: dict, frames: np.ndarray, batch: int, enc):
+    """Run a fused step over ``frames`` in batches of ``batch`` from the
+    encoder's first reference pictures: (the packed lanes of every frame
+    on the host, the last reference pictures or None)."""
+    recon = enc.initial_recon() if "gop" in opts else None
+    packed = []
+    for lo in range(0, len(frames), batch):
+        if recon is None:
+            out = fn(frames[lo:lo + batch], 30)
+        else:
+            out, *recon = fn(frames[lo:lo + batch], 30, lo, *recon)
+        packed.append(out.cpu().numpy())
+    return np.concatenate(packed), recon
+
+
+def fused_oracle_arrays(proc, path: str) -> dict[str, np.ndarray]:
+    """The fused child's packed lanes and reference pictures, by name."""
+    try:
+        text, _ = proc.communicate(timeout=ORACLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"the fused step's CPU child took more than {ORACLE_TIMEOUT} s")
+    check(proc.returncode == 0, f"the fused step's CPU child failed: {text[-2000:]}")
+    return dict(np.load(path))
+
+
+def phase_fused_encode(device, rng, fused) -> None:
+    """The fused enhance + encode step (models/fused_encode.py) on the card,
+    for each of ``FUSED_CASES``: at 4K over two batches of 4 (the GOP steps'
+    chain carried across them on the card; ``gop=4``: IDRs at frames 0 and
+    4) and at 1920x1080 over one batch of 3.  The access units that the
+    device encoder assembles from the packed lanes (``encode_from_packed``)
+    must equal those of the same encoder, unfused, on the card, from the
+    same frames enhanced by the card's ``Enhancer`` step; at 1920x1080 the
+    packed lanes and the last reference pictures must also equal the CPU
+    plain versions' (a child started with the GOP oracles), exactly."""
+    frames_cpu, proc, path, _ = fused
+    runs = ((np.stack(moving_nv12(rng, HEIGHT, WIDTH, FUSED_4K_FRAMES)), BATCH),
+            (frames_cpu, len(frames_cpu)))
+    oracle = None
+    for frames, batch in runs:
+        h, w = frames.shape[1] * 2 // 3, frames.shape[2]
+        enhanced = {}
+        for name, op, opts in FUSED_CASES:
+            if op not in enhanced:
+                spec, cfg = clahe_config(h, w) if op == "clahe" else histeq_config(h, w)
+                enhanced[op] = build_enhance_fn(cfg, spec, donate=False)(
+                    torch.from_numpy(frames).to(device)).cpu().numpy()
+            enc = fused_encoder(opts, h, w, device)
+            packed, recon = drive_fused(fused_step(op, opts, h, w, device), opts,
+                                        frames, batch, enc)
+            got = [au for p in packed for au in enc.encode_from_packed(p)]
+            ref = fused_encoder(opts, h, w, device)
+            want = [au for f in enhanced[op] for au in ref.encode(f)] + ref.flush()
+            check(got == want, f"fused {name} at {w}x{h}: access units other than "
+                  f"the unfused encoder's")
+            check(enc._bits_overflows == getattr(ref, "_bits_overflows", 0),
+                  f"fused {name} at {w}x{h}: {enc._bits_overflows} frames over the "
+                  f"bit packer's cap, the unfused encoder "
+                  f"{getattr(ref, '_bits_overflows', 0)}")
+            held = "the unfused card encoder's"
+            if frames is frames_cpu:
+                if oracle is None:
+                    t0 = time.perf_counter()
+                    oracle = fused_oracle_arrays(proc, path)
+                    print(f"fused step: waited {time.perf_counter() - t0:.1f} s for "
+                          f"the CPU child", flush=True)
+                check(np.array_equal(packed, oracle[name]), f"fused {name} at {w}x{h}: "
+                      f"packed lanes other than the CPU plain versions'")
+                for i, t in enumerate(recon or ()):
+                    check(np.array_equal(t.cpu().numpy(), oracle[f"{name}.recon{i}"]),
+                          f"fused {name} at {w}x{h}: reference picture {i} other "
+                          f"than the CPU plain versions'")
+                held += " and the CPU plain versions' packed lanes"
+            print(f"fused {name} at {w}x{h}, {len(frames)} frames in batches of "
+                  f"{batch}: packed {packed.shape[-1]} lanes, AUs "
+                  f"{[len(a) for a in got]} bytes, equal to {held}; frames over the "
+                  f"bit packer's cap {enc._bits_overflows}", flush=True)
 
 
 # ------------------------------------------------------------- phase 4 ----
@@ -1961,6 +2137,12 @@ def expected_relay_frames(device, w: int, h: int) -> np.ndarray:
     return want
 
 
+def source_fingerprints(w: int, h: int, n: int) -> dict[bytes, int]:
+    """The first ``n`` ``TestSource`` frames' SHA-1 digests, to their index."""
+    src = TestSource(FrameSpec(width=w, height=h), num_frames=n)
+    return {hashlib.sha1(np.ascontiguousarray(f)).digest(): k for k, f in enumerate(src)}
+
+
 # the Python CAVLC oracle on the expected frames in a child process: the
 # frames in, the access units and the seconds of each frame out
 ORACLE_CHILD = r"""
@@ -2088,7 +2270,7 @@ def free_udp_port() -> int:
 
 
 def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
-                  tmp: str) -> tuple[float, dict]:
+                  tmp: str, sources: dict | None = None) -> tuple[float, dict]:
     """Configurations (g) to (k): CLAHE passthrough to
     ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
     each frame enhanced by K1, K2 and K3 on the card, then encoded on the
@@ -2106,14 +2288,62 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     encoder of the same spec makes from those expected frames ((i): a new
     ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the host oracle of
     the device encoder; (j), (k): a new ``CudaGopEncoder`` of the same spec;
-    rate control is the same)."""
-    fingerprints = {hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
-    made, inputs, sent, encode_s = [], [], [], []
+    rate control is the same).
+
+    With ``sources`` (the ``TestSource`` frames' fingerprints, by index)
+    the relay runs ``--fused-encode``: (l) relay (j)'s spec, (m)
+    ``tpu:bitpack``.  The frames then never come down: the fused step
+    (models/fused_encode.py) is watched, each frame it takes must be one of
+    the source frames, in order, after the warm-up batch, and the sink's
+    ``write_packed`` is watched for the in-band qp of each frame; each access
+    unit must equal a new encoder's of the same spec on the expected frame,
+    at that qp (the step reads the qp at dispatch, before the rate control
+    of the frames still in flight)."""
+    fused = sources is not None
+    fingerprints = ({hashlib.sha1(want[k]).digest(): k for k in range(ENCODED_FRAMES)}
+                    if not fused else sources)
+    made, inputs, sent, encode_s, qps, steps = [], [], [], [], [], []
     build = encoder_io.encoded_rtp_sink_from_url
+    step_makers = {name: getattr(fused_encode, name)
+                for name in ("build_enhance_levels_fn", "build_enhance_gop_fn")}
+
+    def watched_step(name):
+        def build_step(*args, **kwargs):
+            fn = step_makers[name](*args, **kwargs)
+
+            def step(batch, qp, *rest):
+                keys = [fingerprints.get(hashlib.sha1(np.ascontiguousarray(f)).digest(),
+                                         -1) for f in np.asarray(batch)]
+                # (the frame index of the first frame, the source frames)
+                steps.append((rest[0] if rest else None, keys))
+                return fn(batch, qp, *rest)
+
+            return step
+
+        return build_step
 
     def watched(*args, **kwargs):
         sink = build(*args, **kwargs)
         made.append((sink, kwargs))
+        sink.au_tap = sent.append
+        if fused:
+            write_packed = sink.write_packed
+            from_packed = sink.encoder.encode_from_packed
+
+            def recorded_write_packed(packed):
+                qps.append(int(packed[0, 0, 408]))
+                return write_packed(packed)
+
+            def timed_from_packed(packed):
+                t0 = time.perf_counter()
+                try:
+                    return from_packed(packed)
+                finally:
+                    encode_s.append(time.perf_counter() - t0)
+
+            sink.write_packed = recorded_write_packed
+            sink.encoder.encode_from_packed = timed_from_packed
+            return sink
         write, encode = sink.write, sink.encoder.encode
 
         def timed_encode(nv12):
@@ -2130,7 +2360,6 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
 
         sink.encoder.encode = timed_encode
         sink.write = recorded_write
-        sink.au_tap = sent.append
         return sink
 
     by_app = spec.startswith(("cavlc", "tpu"))
@@ -2158,16 +2387,21 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
             sys.setswitchinterval(2e-4)
             catcher.start()
         encoder_io.encoded_rtp_sink_from_url = watched
+        for name in step_makers:
+            setattr(fused_encode, name, watched_step(name))
         try:
             text = run_app(relay, [
                 "--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
                 f"--max-frames={ENCODED_FRAMES}", "--op=clahe",
                 "--chroma=passthrough", f"--fps={ENCODED_FPS:g}",
                 f"--bitrate={ENCODED_KBPS}", f"--sink=rtp+h264://127.0.0.1:{port}",
-                f"--encoder={spec}", "--status-interval=60"], label)
+                f"--encoder={spec}", "--status-interval=60"]
+                + (["--fused-encode"] if fused else []), label)
             counts = cuda_ops.launch_counts()
         finally:
             encoder_io.encoded_rtp_sink_from_url = build
+            for name, fn in step_makers.items():
+                setattr(fused_encode, name, fn)
             sys.setswitchinterval(interval)
             if by_app:
                 # every AU arrived: the app stops at --max-frames; else stop it
@@ -2191,35 +2425,66 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
               f"{label}: the native CAVLC rows did not build: {native.build_error()}")
         check(getattr(enc, "_intra", enc)._native and not enc.i4 and not enc.chromah,
               f"{label}: the sink's encoder is not on the native CAVLC rows")
+    if fused:
+        # the warm-up batch of zero frames first, then the source frames
+        check(len(steps) > 1 and all(k == -1 for k in steps[0][1]),
+              f"{label}: the fused step's first batch is not the warm-up's")
+        # (the intra step's short batches are padded with repeats of their
+        # last frame)
+        inputs = [k for _, keys in steps[1:] for j, k in enumerate(keys)
+                  if j == 0 or k != keys[j - 1]]
+        check("Fused enhance+encode: frames stay in HBM as pixels; the host "
+              "receives quantized levels only" in text, f"{label}: no fused line")
+        if gop_encoder:
+            # the frame index of every frame the GOP step ran: the warm-up
+            # batch from 0, the stream from 0 again after the reset, each
+            # batch where the one before it ended
+            starts = [0, 0]
+            for _, keys in steps[1:-1]:
+                starts.append(starts[-1] + len(keys))
+            check([i0 for i0, _ in steps] == starts,
+                  f"{label}: the GOP step's batches start at "
+                  f"{[i0 for i0, _ in steps]}, not {starts}")
+            frame_idx = [i0 + i for i0, keys in steps for i in range(len(keys))]
+    else:
+        frame_idx = list(range(len(encode_s)))
     if gop_encoder:
-        idrs = -(-len(encode_s) // enc.gop)
+        idrs = sum(i % enc.gop == 0 for i in frame_idx)
+        ps = len(frame_idx) - idrs
         check(isinstance(enc, CudaGopEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
         # (k): the partition search in place of the search, the bit packers
         search = "motion_search_parts" if enc.parts else "motion_search"
         other = "motion_search" if enc.parts else "motion_search_parts"
-        packs = ((idrs, len(encode_s) - idrs) if enc._bitpack else (0, 0))
-        check(counts["encode_levels"] == idrs and len(encode_s) > idrs
-              and all(counts[k] == len(encode_s) - idrs for k in
+        packs = ((idrs, ps) if enc._bitpack else (0, 0))
+        check(counts["encode_levels"] == idrs and ps > 0
+              and all(counts[k] == ps for k in
                       ("encode_p_levels", search, "subpel_planes"))
               and counts[other] == 0
               and (counts["pack_i_mbs"], counts["pack_p_mbs"]) == packs
-              and counts["deblock_planes"] == len(encode_s),
-              f"{label}: {len(encode_s)} frames encoded ({idrs} IDR), launches "
-              f"{counts}")
+              and counts["deblock_planes"] == len(frame_idx),
+              f"{label}: {len(frame_idx)} frames through the kernels ({idrs} IDR), "
+              f"launches {counts}")
         print(f"{label}: launches H1 {counts['encode_levels']}, H3 "
               f"{counts['subpel_planes']}, H4 {counts['motion_search']}, H6 "
               f"{counts['motion_search_parts']}, H2 {counts['encode_p_levels']}, H5 "
               f"{counts['deblock_planes']}, H7 {counts['pack_i_mbs']}, H8 "
-              f"{counts['pack_p_mbs']} for {len(encode_s)} frames ({idrs} IDR); "
+              f"{counts['pack_p_mbs']} for {len(frame_idx)} frames ({idrs} IDR); "
               f"frames over the bit packer's cap (coded on the host entropy path) "
               f"{getattr(enc, '_bits_overflows', 0)}", flush=True)
     elif device_encoder:
         check(isinstance(enc, CudaCavlcEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
-        check(counts["encode_levels"] == len(encode_s) > 0,
-              f"{label}: H1 launched {counts['encode_levels']} times for "
-              f"{len(encode_s)} frames encoded")
+        # fused: H1 (and H7) once a batch, warm-up included
+        launched = len(steps) if fused else len(encode_s)
+        check(counts["encode_levels"] == launched > 0
+              and counts["pack_i_mbs"] == (launched if enc._bitpack else 0),
+              f"{label}: H1 launched {counts['encode_levels']} times, H7 "
+              f"{counts['pack_i_mbs']}, for {launched} {'batches' if fused else 'frames'}")
+        print(f"{label}: launches H1 {counts['encode_levels']}, H7 "
+              f"{counts['pack_i_mbs']} for {len(encode_s)} frames in {launched} "
+              f"{'batches' if fused else 'frames'}; frames over the bit packer's cap "
+              f"{enc._bits_overflows}", flush=True)
     check(all(per > 0 for per in (counts["tile_histograms"], counts["build_luts"],
                                   counts["clahe_interpolate"])),
           f"{label} launched no K1, K2 or K3: {counts}")
@@ -2227,7 +2492,17 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
           and inputs == sorted(set(inputs)),
           f"{label}: the encoder took frames {inputs} of the expected ones "
           f"({emitted} emitted)")
-    if gop_encoder:
+    if fused:
+        # each frame at the qp the step quantized it with
+        check(len(qps) == len(inputs), f"{label}: {len(qps)} packed frames written "
+              f"for {len(inputs)} frames through the step")
+        ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
+                                      device="cuda")
+        expected = []
+        for k, qp in zip(inputs, qps):
+            ref.qp = qp
+            expected += ref.encode(want[k])
+    elif gop_encoder:
         ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
                                       bitrate_kbps=kwargs["bitrate_kbps"],
                                       device="cuda")
@@ -2238,7 +2513,9 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     else:
         ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
                                       bitrate_kbps=kwargs["bitrate_kbps"])
-    expected = [au for k in inputs for au in ref.encode(want[k])] + ref.flush()
+    if not fused:
+        expected = [au for k in inputs for au in ref.encode(want[k])]
+    expected += ref.flush()
     check(sent == expected, f"{label}: the sink sent access units other than "
           f"those a new encoder makes from the expected frames")
     if by_app:
@@ -2256,7 +2533,8 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
         buffer = f"receive buffer {catcher.buffer}"
     info = {"emitted": emitted, "kept": len(kept), "lost": len(sent) - len(kept),
             "encode_ms": 1e3 * statistics.median(encode_s), "counts": counts,
-            "inputs": inputs, "sent": sent, "au_bytes": statistics.median(map(len, sent))}
+            "inputs": inputs, "sent": sent, "au_bytes": statistics.median(map(len, sent)),
+            "qps": qps}
     print(f"{label}: {type(enc).__name__} encoded {len(encode_s)} frames, "
           f"{info['encode_ms']:.1f} ms a 4K frame (median, host), AUs of "
           f"{info['au_bytes']:.0f} bytes (median); {len(sent)} AUs sent, "
@@ -2362,6 +2640,23 @@ def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
               f"{encoded[name]['emitted']} of {ENCODED_FRAMES} frames emitted, "
               f"{encoded[name]['kept']} AUs kept, {encoded[name]['lost']} lost, "
               f"host encode {encoded[name]['encode_ms']:.1f} ms a frame [{card}]",
+              flush=True)
+    # (l) and (m): --fused-encode, the enhancement and the device encoder's
+    # kernels one step a batch on the card, the packed lanes down (l: relay
+    # (j)'s GOP spec; m: the intra encoder with the bit packer)
+    sources = source_fingerprints(w, h, ENCODED_FRAMES)
+    for name, spec in (("relay_l_clahe_rtp_h264_tpu_gop_fused", FUSED_GOP_SPEC),
+                       ("relay_m_clahe_rtp_h264_tpu_bitpack_fused", FUSED_INTRA_SPEC)):
+        rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp,
+                                                   sources=sources)
+        per_path[name] = encoded[name]["counts"]
+        print(f"{name}: the in-band qp of the {len(encoded[name]['qps'])} frames "
+              f"{sorted(set(encoded[name]['qps']))}", flush=True)
+        print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
+              f"{encoded[name]['emitted']} of {ENCODED_FRAMES} frames emitted, "
+              f"{encoded[name]['kept']} AUs kept, {encoded[name]['lost']} lost, "
+              f"host encode_from_packed {encoded[name]['encode_ms']:.1f} ms a frame "
+              f"[{card}]",
               flush=True)
     # the native rows against the Python oracle on the first expected frames
     oracle_aus, oracle_s = oracle_result(oracle, oracle_out)
@@ -3127,6 +3422,73 @@ def pack_ops(levels: int) -> int:
     return 10 * levels
 
 
+def fused_timings(device, rng, card: str) -> None:
+    """The fused enhance + encode step on a 4K batch of 4 held on the card
+    (moving content, QP 30), for relay (l)'s GOP step (every frame a P
+    frame) and relay (m)'s intra step with the bit packer: the step from an
+    idle card and the device alone; the packed lanes' copy to pinned host
+    memory; ``encode_from_packed`` on the host, per frame.  Beside them the
+    unfused path on the same frames: the CLAHE step (device alone), the
+    enhanced batch's copy to pinned host memory, and the unfused card
+    encoder's ``encode`` per frame on the host (upload, kernels, the levels'
+    copy down and the entropy coding)."""
+    h, w = HEIGHT, WIDTH
+    frames = np.stack(moving_nv12(rng, h, w, BATCH + 1))
+    first = torch.from_numpy(frames[:1]).to(device)
+    batch = torch.from_numpy(frames[1:]).to(device)
+    spec, cfg = clahe_config()
+    enhance = build_enhance_fn(cfg, spec, donate=False)
+    enhanced = enhance(batch)
+    enh_host = torch.empty(enhanced.shape, dtype=torch.uint8, pin_memory=True)
+    enh_dev = device_ms(lambda: enhance(batch))
+    enh_d2h = device_ms(lambda: enh_host.copy_(enhanced, non_blocking=True))
+    enh_first = enhance(first).cpu().numpy()[0]
+    print(f"time unfused CLAHE step 4K b{BATCH}: device alone {enh_dev:.4f} ms; the "
+          f"enhanced batch's copy to pinned host memory {enh_d2h:.4f} ms "
+          f"({nbytes(enhanced)} bytes) [{card}]", flush=True)
+    for label, opts, spec_str in (("gop", {"gop": 30, "search": P_SEARCH, "subpel": 3,
+                                           "deblock": True}, FUSED_GOP_SPEC),
+                                  ("intra bitpack", {"bitpack": 64}, FUSED_INTRA_SPEC)):
+        fn = fused_step("clahe", opts, h, w, device)
+        enc = fused_encoder(opts, h, w, "cuda")
+        if "gop" in opts:
+            idr, *recon = fn(first, 30, 0, *enc.initial_recon())
+            enc.encode_from_packed(idr[0].cpu().numpy())
+
+            def call():
+                return fn(batch, 30, 1, *recon)[0]
+        else:
+            def call():
+                return fn(batch, 30)
+        idle = time_ms(call, reps=10, warmup=2)
+        dev = device_ms(call)
+        packed = call()
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        d2h = device_ms(lambda: host.copy_(packed, non_blocking=True))
+        host.copy_(packed)
+        assemble = []
+        for p in host.numpy():
+            t0 = time.perf_counter()
+            enc.encode_from_packed(p)
+            assemble.append(1e3 * (time.perf_counter() - t0))
+        ref = fused_encoder(opts, h, w, "cuda")
+        if "gop" in opts:
+            ref.encode(enh_first)
+        unfused = []
+        for f in enh_host.numpy():
+            t0 = time.perf_counter()
+            ref.encode(f)
+            unfused.append(1e3 * (time.perf_counter() - t0))
+        print(f"time fused step {label} ({spec_str}) 4K b{BATCH}: {idle:.4f} ms/batch "
+              f"from an idle card, device alone {dev:.4f} ms/batch; the packed lanes' "
+              f"copy to pinned host memory {d2h:.4f} ms ({nbytes(packed)} bytes, "
+              f"{packed.shape[-1]} lanes); encode_from_packed host "
+              f"{' / '.join(f'{t:.2f}' for t in assemble)} ms a frame; unfused: the "
+              f"CLAHE step device alone {enh_dev:.4f} ms/batch and the card encoder's "
+              f"encode host {' / '.join(f'{t:.2f}' for t in unfused)} ms a frame "
+              f"[{card}]", flush=True)
+
+
 def phase_profile(device, rng) -> None:
     """Device time by kernel over ten 4K batch-4 steps of each path
     (torch.profiler)."""
@@ -3227,6 +3589,7 @@ def main() -> int:
         check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
         phase_intra_streams(device, rng)
         phase_p_streams(oracles)
+        phase_fused_encode(device, rng, oracles["fused"])
 
     phase_golden(device, rng)                              # phase 4
     phase_golden_slice3(device, rng)
@@ -3257,6 +3620,7 @@ def main() -> int:
             times = phase_timings(device, rng, card)       # phase 6
             times.update(intra_timings(device, rng, card))
             times.update(gop_timings(device, rng, card))
+            fused_timings(device, rng, card)
             for name, ms in rank_ms.items():
                 print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
                       f"upload included, four processes on one card: "

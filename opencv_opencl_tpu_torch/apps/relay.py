@@ -25,6 +25,11 @@ Usage:
                    # --device, entropy coding on the host: intra, or with
                    # gop=N / gdr=N the GOP encoder with the reference
                    # pictures on the card)
+      [--fused-encode]  # with --sink=rtp+h264:// --encoder=tpu[...]:
+                   # enhance + H.264 level computation in one device
+                   # step a batch — frames never return to the host as
+                   # pixels, only quantized levels come down
+                   # (models/fused_encode.py)
       [--hist-downsample=N]  # APPROXIMATE throughput mode: histograms
                    # from every Nth row, counts rescaled (selective
                    # downsampling, arXiv:1709.04583); default 1 = exact
@@ -61,8 +66,16 @@ the Python queue takes over, as in the JAX package, and the started line
 says ``staging=python queue``).  It composes with ``--mesh``: the ring too
 gives the feeder whole batches only.
 
-Not ported yet, refused with return code 2: ``--fused-encode`` (the fused
-enhance + encode program) and ``--io=gst``.  ``--encoder`` is
+``--fused-encode`` runs the enhancement and the device encoder's level
+computation as one step a batch on the card (models/fused_encode.py):
+the packed levels come down, not the frames, and the sink's encoder
+assembles the access units from them (``EncodedRtpSink.write_packed``).
+It needs ``--sink=rtp+h264://`` with ``--encoder=tpu[...]`` and no
+``--ref-frame``, as in the JAX package.
+
+Not ported yet, refused with return code 2: ``--fused-encode`` with
+``--mesh`` (the sharded enhance + encode program,
+``parallel/sharded_encode.py``) and ``--io=gst``.  ``--encoder`` is
 read only for an encoded sink, as in the JAX package: with any other sink
 it is ignored.  The encoded sinks encode after the card has enhanced the
 frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` on ``--device`` with its
@@ -92,22 +105,15 @@ import time
 from opencv_opencl_tpu_torch.apps._cli import (
     install_sigterm_handler, parse_kv_args)
 
-_NOT_PORTED = {
-    "fused-encode": "--fused-encode (the fused enhance + encode program)",
-}
-
-
 def not_ported(opts: dict) -> str | None:
     """The one-line refusal for a flag this package does not have yet, or
     None."""
     what = None
     if opts.get("io") == "gst":
         what = "--io=gst (the GStreamer appsink/appsrc bridge)"
-    else:
-        for key, text in _NOT_PORTED.items():
-            if opts.get(key):
-                what = text
-                break
+    elif opts.get("fused-encode") and "mesh" in opts:
+        what = ("--fused-encode with --mesh (the sharded enhance + encode "
+                "program, parallel/sharded_encode.py)")
     return None if what is None else f"{what}: not ported yet"
 
 
@@ -377,16 +383,40 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             return 2
     counters = FrameRateCounters()
 
+    fused = bool(opts.get("fused-encode"))
+    process_fn = enhancer.process_batch
+    fused_gop = False
+    fused_reset = None
+    if fused:
+        made = _fused_step(cfg, spec, sink, device)
+        if made is None:
+            print("--fused-encode requires --sink=rtp+h264:// with "
+                  "--encoder=tpu[...] (and no --io=gst or "
+                  "--ref-frame)", file=sys.stderr)
+            return 2
+        process_fn, fused_reset = made
+        fused_gop = fused_reset is not None
+        print("Fused enhance+encode: frames stay in HBM as "
+              "pixels; the host receives quantized levels only"
+              + (f" (GOP {sink.encoder.gop}, recon resident in HBM)"
+                 if fused_gop else ""))
+
     def on_output(seq, frame, meta):
+        if fused:
+            nbytes = sink.write_packed(frame)
+            counters.count("encoder_frames")
+            counters.count("encoder_bytes", nbytes)
+            return
         sink.write(frame)
         counters.count("encoder_frames")
         counters.count("encoder_bytes", frame.nbytes)
 
     queue_capacity = 8
     feeder = FrameFeeder(
-        enhancer.process_batch, batch_size=batch, depth=workers,
+        process_fn, batch_size=batch, depth=workers,
         queue_capacity=queue_capacity, on_output=on_output,
         counters=counters,
+        pad_batches=not fused_gop,  # the GOP chain must not see fake frames
         # several ranks: the same batches on every rank, whatever the timing
         whole_batches=world > 1,
         native_staging=((spec.buffer_rows, spec.width)
@@ -405,6 +435,9 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         # warmup ran zero frames through the stateful streaming enhancer —
         # restore the documented identity-like initial histogram state
         enhancer.reset()
+    if fused_reset is not None:
+        # same for the fused GOP chain (reference pictures + frame index)
+        fused_reset()
     staging = "native C++ ring" if feeder._native is not None else "python queue"
     say(f"NV12 {op} relay pipeline started "
         f"({spec.width}x{spec.height}@{fps:g}, codec={codec}, "
@@ -481,6 +514,60 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     if lead:
         feeder.timing.final_report()
     return 0
+
+
+def _fused_step(cfg, spec, sink, device):
+    """The fused enhance + encode step of ``--fused-encode`` for the sink's
+    encoder: ``(process_fn, reset)`` (``reset`` None for the stateless
+    intra step), or None where the sink or the config cannot take it.
+    ``process_fn`` returns the packed levels as a ``DeviceBatch``, their
+    copy to the host under way on a side stream."""
+    from opencv_opencl_tpu_torch.io.encoder import EncodedRtpSink
+    from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
+    from opencv_opencl_tpu_torch.models.enhancer import _d2h_stream
+    from opencv_opencl_tpu_torch.models.fused_encode import (
+        build_enhance_gop_fn, build_enhance_levels_fn)
+    from opencv_opencl_tpu_torch.runtime.handoff import DeviceBatch
+
+    if (cfg.use_ref_frame or not isinstance(sink, EncodedRtpSink)
+            or not hasattr(sink.encoder, "encode_from_packed")):
+        return None
+    enc = sink.encoder
+    d2h = _d2h_stream(device)
+    bitpack = enc._nw_mb if enc._bitpack else 0
+    if not isinstance(enc, CudaGopEncoder):
+        fused_fn = build_enhance_levels_fn(cfg, spec, bitpack=bitpack,
+                                           device=device)
+
+        def process_fn(nv12_batch):
+            # qp is read at dispatch and rides in-band in the packed
+            # levels, so the entropy stage writes the slice-header qp the
+            # levels were quantized with
+            return DeviceBatch(fused_fn(nv12_batch, enc.qp), d2h)
+
+        return process_fn, None
+    # GOP: the step chains the reference pictures and the frame index
+    # across batches; padding would advance them on fake frames (the
+    # filter and the GDR band run inside the step)
+    fused_fn = build_enhance_gop_fn(
+        cfg, spec, enc.gop, search=enc.search, subpel=enc.subpel,
+        refs=enc.refs, deblock=enc.deblock, gdr=enc.gdr, bitpack=bitpack,
+        parts=enc.parts, device=device)
+    state = {}
+
+    def reset():
+        state["recon"] = enc.initial_recon()
+        state["idx"] = 0
+
+    def process_fn(nv12_batch):
+        packed, *rec = fused_fn(nv12_batch, enc.qp, state["idx"],
+                                *state["recon"])
+        state["recon"] = tuple(rec)
+        state["idx"] += int(nv12_batch.shape[0])
+        return DeviceBatch(packed, d2h)
+
+    reset()
+    return process_fn, reset
 
 
 def main() -> None:

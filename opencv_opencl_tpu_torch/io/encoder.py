@@ -43,8 +43,8 @@ Access units carry 4-byte start codes, ready for
 The port's own copy of ``opencv_opencl_tpu/io/encoder.py``: the same
 backends (``tpu``'s classes are ``CudaCavlcEncoder`` and ``CudaGopEncoder``,
 where the JAX package names ``TpuCavlcEncoder`` and ``TpuGopEncoder``), and
-no ``EncodedRtpSink.write_packed`` (the fused enhance + encode program's
-entry, not ported yet).
+``EncodedRtpSink.write_packed``, the entry of the fused enhance + encode
+step (models/fused_encode.py).
 """
 
 from __future__ import annotations
@@ -249,6 +249,16 @@ class EncodedRtpSink:
     def write(self, nv12: np.ndarray) -> None:
         for au in self.encoder.encode(nv12):
             self._ship(au)
+
+    def write_packed(self, packed: np.ndarray) -> int:
+        """Ship the access unit of one fused-step packed level tensor
+        (models/fused_encode.py; the ``tpu`` encoders only).  Returns the
+        AU bytes shipped, for the caller's byte counters."""
+        total = 0
+        for au in self.encoder.encode_from_packed(packed):
+            self._ship(au)
+            total += len(au)
+        return total
 
     @property
     def rtcp(self):

@@ -35,9 +35,9 @@ The port's own copy of ``opencv_opencl_tpu/io/h264_cavlc.py`` up to
 ``CavlcH264Encoder``: the same bytes.  ``CudaCavlcEncoder`` is the port's
 counterpart of ``TpuCavlcEncoder``: the level stage on the card
 (ops/h264_levels.py) and, with ``bitpack``, the bit packer too
-(ops/h264_bitpack.py), without ``encode_from_packed`` (the fused enhance +
-encode program), which is not ported yet; the GOP encoder that builds on
-it is ``io.h264_inter.CudaGopEncoder``.
+(ops/h264_bitpack.py), with ``encode_from_packed`` for the fused enhance +
+encode step (models/fused_encode.py); the GOP encoder that builds on it is
+``io.h264_inter.CudaGopEncoder``.
 """
 
 from __future__ import annotations
@@ -1714,3 +1714,47 @@ class CudaCavlcEncoder(CavlcH264Encoder):
         if prev is None:
             return []
         return [self._assemble_au(*prev)]
+
+    def encode_from_packed(self, packed: np.ndarray) -> list[bytes]:
+        """Assemble one access unit from the packed level tensor of one
+        frame of the fused enhance + encode step
+        (models/fused_encode.build_enhance_levels_fn): the packed bits
+        where they came down and no MB overflowed, else the host entropy
+        path from the levels; SPS/PPS; rate control.  The slice-header qp
+        is the in-band qp the levels were quantized with (rate control may
+        have moved ``self.qp`` since that batch was dispatched).  The
+        levels are I_16x16 whatever ``i4`` and ``chromah`` say, and
+        ``overlap`` and ``cpb`` do not apply, as in the JAX package."""
+        from opencv_opencl_tpu_torch.io.h264_inter import _split_bits_lanes
+        from opencv_opencl_tpu_torch.ops.h264_levels import unpack_levels_host
+
+        packed = np.asarray(packed)
+        # bitpack: the packed MB bit strings ride as lanes after the
+        # 410-lane base (fused_encode._bits_lanes)
+        bits = None
+        if (self._bitpack
+                and packed.shape[-1] == 410 + 1 + 2 * self._nw_mb):
+            bits = _split_bits_lanes(packed[:, :, 410:])
+            packed = packed[:, :, :410]
+        imode = None
+        if packed.shape[-1] == 410:      # + per-MB intra pred mode lane
+            imode = packed[:, :, 409]
+            packed = packed[:, :, :409]
+        idr = self._idr_pic_id
+        self._idr_pic_id ^= 1
+        self.frames += 1
+        if bits is not None:
+            qp = int(packed[0, 0, 408])  # in-band qp lane
+            nals = intra_bits_nals(bits[0], bits[1], idr, qp, self._nw_mb,
+                                   deblock=self.deblock)
+            if nals is not None:
+                au = (_START4 + self._sps + _START4 + self._pps +
+                      b"".join(_START4 + bytes(n) for n in nals))
+                if self.bitrate_kbps:
+                    self._rate_control(len(au))
+                return [au]
+            # an MB overflowed the cap: the host entropy path
+            self._bits_overflows += 1
+        lv, qp = unpack_levels_host(packed)
+        return [self._assemble_au((None, {**lv._asdict(), "imode": imode}),
+                                  idr, qp)]

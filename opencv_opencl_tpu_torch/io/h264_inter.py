@@ -49,9 +49,9 @@ Python here is the tested oracle, like io.h264_cavlc.
 
 The port's own copy of ``opencv_opencl_tpu/io/h264_inter.py``: the same
 bytes.  ``CudaGopEncoder`` is its ``TpuGopEncoder`` (the device GOP
-encoder on the card, with its ``parts`` and ``bitpack`` options), without
-the fused-GOP helpers (``initial_recon``, ``encode_from_packed``), which
-are not ported yet.
+encoder on the card, with its ``parts`` and ``bitpack`` options), with the
+fused-GOP helpers (``initial_recon``, ``encode_from_packed``) as methods
+of the class.
 """
 
 from __future__ import annotations
@@ -2382,6 +2382,8 @@ class CudaGopEncoder:
         self._bitpack = bool(bitpack)
         self._nw_mb = int(nw_mb)
         self._bits_overflows = 0
+        # P frames since the last IDR of encode_from_packed's stream
+        self._since_idr = 0
         self._card: dict = {}      # the card's buffers, by geometry
         self._slots: list[dict] = []
         self._flip = 0
@@ -2801,4 +2803,120 @@ class CudaGopEncoder:
 
     def close(self) -> None:
         pass
+
+    # ------------------------------------------------------ fused GOP --
+    # relay --fused-encode: the device side is
+    # models/fused_encode.build_enhance_gop_fn; the encoder makes its first
+    # reference pictures and assembles AUs from the packed levels that come
+    # down
+
+    def initial_recon(self) -> tuple:
+        """Zero reference pictures on ``self.device`` to seed the fused GOP
+        chain (frame 0 is an IDR, so the P frames never read them): 3
+        planes, or 6 with two references."""
+        import torch
+
+        w16 = -(-self.width // 16) * 16
+        h16 = -(-self.height // 16) * 16
+        shapes = ((h16, w16), (h16 // 2, w16 // 2), (h16 // 2, w16 // 2))
+        return tuple(torch.zeros(s, dtype=torch.uint8, device=self.device)
+                     for s in shapes * self.refs)
+
+    def encode_from_packed(self, packed: np.ndarray) -> list[bytes]:
+        """Assemble one access unit from the packed level tensor of one
+        frame of the fused GOP step (``GOP_PACKED_LANES`` = 409 + the mode
+        lane, whose negative values mark an IDR frame and carry the per-MB
+        intra pred mode: -1 DC, -2 HORIZONTAL; 412 adds the two MV lanes
+        of the search, 413 the reference lane of two references, 419 / 423
+        the partition lanes; with ``bitpack`` the bits lanes follow).  Must
+        be called in stream order: frame_num and idr_pic_id advance a call,
+        as the device chain's frame index does."""
+        from opencv_opencl_tpu_torch.io.h264_cavlc import intra_bits_nals
+        from opencv_opencl_tpu_torch.ops.h264_levels import unpack_levels_host
+
+        packed = np.asarray(packed)
+        base = ((423 if self.refs > 1 else 419) if self.parts
+                else 413 if self.refs > 1
+                else (412 if self.search else 410))
+        bits = None
+        if self._bitpack and packed.shape[-1] == base + 1 + 2 * self._nw_mb:
+            bits = _split_bits_lanes(packed[:, :, base:])
+            packed = packed[:, :, :base]
+        if packed.shape[-1] not in (410, 412, 413, 419, 423):
+            raise ValueError(
+                f"fused GOP packed levels have {packed.shape[-1]} lanes, "
+                "expected 410 (zero motion), 412 (motion search), 413 "
+                "(two references), 419 (partitions) or 423 "
+                "(partitions x two references)")
+        mode = packed[:, :, 409]
+        qp = int(packed[0, 0, 408])       # in-band qp lane (pack_levels)
+        fields = {"mode": mode, "pmode": None}
+        if packed.shape[-1] in (419, 423):  # parts: 8 quadrant-MV lanes +
+            mbh, mbw = mode.shape           # the partition-mode lane
+            fields["mv"] = packed[:, :, 410:418].reshape(mbh, mbw, 4, 2)
+            fields["pmode"] = packed[:, :, 418]
+            # + 4 per-quadrant reference lanes at two references
+            fields["ref"] = (packed[:, :, 419:423] if packed.shape[-1] == 423
+                             else None)
+        else:
+            fields["mv"] = packed[:, :, 410:412] if packed.shape[-1] >= 412 else None
+            fields["ref"] = packed[:, :, 412] if packed.shape[-1] == 413 else None
+        self.frames += 1
+        nals = None
+        if mode[0, 0] <= -1:  # IDR frame marker (-1 DC / -2 HORIZONTAL)
+            num = self._intra._idr_pic_id
+            self._intra._idr_pic_id ^= 1
+            self._frame_num = 1
+            self._since_idr = 0
+            if bits is not None:
+                nals = intra_bits_nals(*bits, num, qp, self._nw_mb,
+                                       deblock=self.deblock)
+            if nals is None:
+                if bits is not None:
+                    self._bits_overflows += 1
+                lv, qp = unpack_levels_host(packed[:, :, :409])
+                nals = self._intra._entropy_nals(
+                    (None, {**lv._asdict(),
+                            "imode": np.where(mode == -2, 1, 2).astype(np.int16)}),
+                    num, qp)
+            au = (_START4 + self._intra._sps + _START4 + self._intra._pps +
+                  b"".join(_START4 + bytes(n) for n in nals))
+        else:
+            # active references follow the device chain: one for the first
+            # P after each IDR, then the configured count (counted apart
+            # from frame_num, which wraps mod 16)
+            self._since_idr += 1
+            active = min(self._since_idr, self.refs)
+            prefix = b""
+            if self.gdr and (self._since_idr - 1) % self._gdr_period == 0:
+                # wave start: parameter sets + recovery point marker for
+                # mid-stream joiners (as _dispatch's GDR prefix)
+                prefix = (_START4 + self._intra._sps + _START4 +
+                          self._intra._pps + _START4 +
+                          build_recovery_point_sei(self._gdr_period - 1))
+            if bits is not None:
+                nals = self._p_bits_nals({"words": bits[0], "nbits": bits[1],
+                                          "mode": mode},
+                                         qp, self._frame_num, active)
+            if nals is None:
+                if bits is not None:
+                    self._bits_overflows += 1
+                lv, qp = unpack_levels_host(packed[:, :, :409])
+                nals = self._p_entropy_nals({**fields, **lv._asdict()}, qp,
+                                            self._frame_num, active)
+            self._frame_num = (self._frame_num + 1) % 16
+            au = prefix + b"".join(_START4 + bytes(n) for n in nals)
+        if self.bitrate_kbps:
+            _gop_rate_control(self, len(au))
+        return [au]
+
+
+def _split_bits_lanes(lanes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host inverse of models.fused_encode._bits_lanes: lane 0 is the
+    per-MB bit count, the remaining 2*nw int16 lanes are the little-endian
+    halves of the packed uint32 words (a contiguous view, no copy beyond
+    the contiguify)."""
+    nbits = lanes[:, :, 0].astype(np.int64)
+    words = np.ascontiguousarray(lanes[:, :, 1:]).view(np.uint32)
+    return words, nbits
 

@@ -448,9 +448,11 @@ _RUN_ARGS = {relay: ["--source=test", "--max-frames=4", "--sink=null",
 @pytest.mark.parametrize("app", [relay, multi_relay], ids=["relay", "multi_relay"])
 def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
     """The flags of parts not ported refuse with rc 2 and one line:
-    ``--fused-encode`` and ``--io=gst`` (flags of the relay alone: the
-    multi-stream relay ignores them, as the JAX one does, and both run and
-    print the same lines).  The encoded sinks are ported: with
+    ``--io=gst`` (a flag of the relay alone: the multi-stream relay ignores
+    it, as the JAX one does, and both run and print the same lines, as they
+    do for ``--fused-encode``).  The relay's ``--fused-encode`` is ported:
+    with no encoded sink both packages refuse it with rc 2 and the same
+    line.  The encoded sinks are ported: with
     the in-repo encoders both packages run an ``rtp+h264://`` sink (``auto``
     is the PCM encoder on a host without gi or ffmpeg) and print the same
     lines, and refuse ``cavlc`` for ``rtp+h265://`` with the same line.  The
@@ -497,6 +499,16 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
             encoded and not tpu and app is relay)
         tpu_class = "CudaGopEncoder" if "gop=" in extra[-1] else "CudaCavlcEncoder"
         assert (tpu_class in got.out) == tpu
+        return
+    if extra == ["--sink=null", "--fused-encode"]:
+        # the relay has the fused step: it refuses a sink without a device
+        # encoder as the JAX relay does
+        rc = app.run(args + ["--device=cpu"] + extra)
+        err = capsys.readouterr().err
+        assert rc == jax_app.run(args + extra) == 2
+        assert err == capsys.readouterr().err == (
+            "--fused-encode requires --sink=rtp+h264:// with --encoder=tpu[...] "
+            "(and no --io=gst or --ref-frame)\n")
         return
     if extra == ["--sink=rtp+h265://127.0.0.1:56470", "--encoder=cavlc:qp=40"]:
         rc = app.run(args + ["--device=cpu"] + extra)

@@ -902,3 +902,35 @@ def test_device_encoders_with_parts_and_bitpack_equal_the_host_oracle(device):
                                    **kw)
             assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
             assert enc._bits_overflows == 0
+
+
+@pytest.mark.parametrize("kind", ["intra", "gop"])
+def test_fused_step_on_card_equals_cpu_at_1080p(device, kind):
+    """The fused enhance + encode step (models/fused_encode.py) at 1920x1080,
+    which pads to 1088 on the card: its packed lanes (and the GOP step's
+    reference pictures) equal the CPU plain versions' exactly.  Intra:
+    histeq with the bit packer; GOP: CLAHE, an IDR then a P frame with a
+    fastsub search and the in-loop filter, with the bit packer."""
+    from opencv_opencl_tpu_torch.models import fused_encode
+
+    h, w = 1080, 1920
+    spec = FrameSpec(width=w, height=h)
+    first = _frames(41, 1, h, w, "nv12")[0]
+    frames = np.stack([first, np.roll(first, 3, 1)])
+    if kind == "intra":
+        cfg = torch_enhancer.EnhancerConfig(op="histeq")
+        got, want = (fused_encode.build_enhance_levels_fn(
+            cfg, spec, bitpack=64, device=d)(frames, 30).cpu() for d in (device, "cpu"))
+        assert torch.equal(got, want)
+        return
+    cfg = torch_enhancer.EnhancerConfig(op="clahe", chroma=ChromaPolicy.PASSTHROUGH)
+    outs = []
+    for d in (device, "cpu"):
+        fn = fused_encode.build_enhance_gop_fn(cfg, spec, 2, search=4, subpel=3,
+                                               deblock=True, bitpack=64, device=d)
+        zero = [torch.zeros(s, dtype=torch.uint8, device=d)
+                for s in ((1088, w), (544, w // 2), (544, w // 2))]
+        outs.append([t.cpu() for t in fn(frames, 30, 0, *zero)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert outs[0][0][1, ..., 410:412].any()     # the search found motion

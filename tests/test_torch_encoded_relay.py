@@ -16,20 +16,29 @@ Intra_4x4 program here.  The GOP device encoder
 ``TpuGopEncoder``) puts the JAX relays' datagrams on loopback from both
 relays.  The rows of ``tests/test_flag_matrix.py`` run against the port's
 relay: the GOP/GDR device encoder's run (``--encoder=tpu:gop=N``,
-``tpu:gdr=N``), those of its partition modes, of the device bit packer and
-of ``--fused-encode`` refuse with rc 2 and "not ported yet".
+``tpu:gdr=N``), those of its partition modes and of the device bit packer
+too, and so do those of ``--fused-encode`` (the fused enhance + encode
+step), which print the JAX relay's "Fused enhance+encode" line; its
+refusals are the JAX relay's, but for ``--mesh``, which refuses with rc 2
+and "not ported yet".  The fused relay puts the JAX fused relay's
+datagrams on loopback (``tpu:qp=40:i4:chromah``, whose ``i4`` and
+``chromah`` the fused step does not read, and a GOP with a search), and
+the port's ``rtp_receiver`` records the same access units from the fused
+relay as from the unfused one.
 """
 
 import contextlib
 import re
 import socket
+import threading
+import time
 
 import pytest
 
 from opencv_opencl_tpu.apps import multi_relay as jax_multi_relay
 from opencv_opencl_tpu.apps import relay as jax_relay
 from opencv_opencl_tpu.io import encoder as jax_encoder
-from opencv_opencl_tpu_torch.apps import multi_relay, relay
+from opencv_opencl_tpu_torch.apps import multi_relay, relay, rtp_receiver
 from opencv_opencl_tpu_torch.io import encoder
 
 RELAY_BASE = ["--source=test", "--width=64", "--height=48", "--op=histeq",
@@ -233,6 +242,11 @@ MATRIX_BASE = ["--source=test", "--width=64", "--height=48", "--fps=30",
                "--max-frames=2", "--batch=2", "--workers=1", "--status-interval=60",
                "--device=cpu"]
 NOT_PORTED = "not ported yet"
+FUSED = ("Fused enhance+encode: frames stay in HBM as pixels; the host "
+         "receives quantized levels only")
+FUSED_GOP = FUSED + " (GOP 4, recon resident in HBM)"
+FUSED_REFUSED = ("--fused-encode requires --sink=rtp+h264:// with "
+                 "--encoder=tpu[...] (and no --io=gst or --ref-frame)")
 MATRIX = [
     ("plain", ["--sink=null"], 0, None),
     ("clahe_ref_frame", ["--sink=null", "--op=clahe", "--ref-frame"], 0, None),
@@ -261,34 +275,102 @@ MATRIX = [
     ("encoded_tpu_parts", ["--sink=rtp+h264://127.0.0.1:56487",
                            "--encoder=tpu:qp=40:gop=4:search=2:parts"], 0, None),
     ("fused_intra", ["--sink=rtp+h264://127.0.0.1:56474", "--encoder=tpu:qp=40",
-                     "--fused-encode"], 2, NOT_PORTED),
+                     "--fused-encode"], 0, FUSED),
     ("fused_gop", ["--sink=rtp+h264://127.0.0.1:56475", "--encoder=tpu:qp=40:gop=4",
-                   "--fused-encode"], 2, NOT_PORTED),
+                   "--fused-encode"], 0, FUSED_GOP),
     ("fused_bitpack", ["--sink=rtp+h264://127.0.0.1:56483",
                        "--encoder=tpu:qp=40:gop=4:bitpack", "--fused-encode"],
-     2, NOT_PORTED),
+     0, FUSED_GOP),
     ("downsample_x_mesh", ["--sink=null", "--hist-downsample=2", "--mesh=2x1"],
      2, "not supported"),
     ("downsample_x_ref", ["--sink=null", "--op=clahe", "--hist-downsample=2",
                           "--ref-frame"], 2, "not supported"),
-    ("fused_x_null_sink", ["--sink=null", "--fused-encode"], 2, NOT_PORTED),
+    ("fused_x_null_sink", ["--sink=null", "--fused-encode"], 2, FUSED_REFUSED),
     ("fused_mesh_intra", ["--sink=rtp+h264://127.0.0.1:56476", "--encoder=tpu:qp=40",
                           "--mesh=2x1", "--fused-encode"], 2, NOT_PORTED),
     ("fused_x_ref_frame", ["--sink=rtp+h264://127.0.0.1:56477", "--op=clahe",
                            "--ref-frame", "--encoder=tpu:qp=40", "--fused-encode"],
-     2, NOT_PORTED),
+     2, FUSED_REFUSED),
     ("fused_x_cpu_encoder", ["--sink=rtp+h264://127.0.0.1:56478",
-                             "--encoder=cavlc:qp=40", "--fused-encode"], 2, NOT_PORTED),
+                             "--encoder=cavlc:qp=40", "--fused-encode"], 2, FUSED_REFUSED),
 ]
 
 
 @pytest.mark.parametrize("name,extra,rc,msg", MATRIX, ids=[m[0] for m in MATRIX])
 def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
+    """A refusal's ``msg`` is its one line on stderr; a run's, a line it
+    prints."""
     got = relay.run(MATRIX_BASE + extra)
-    err = capsys.readouterr().err
+    out, err = capsys.readouterr()
     assert got == rc, f"{name}: rc {got} != {rc}; stderr: {err[-400:]}"
-    if msg is not None:
+    if msg is not None and rc:
         assert msg in err and len(err.strip().splitlines()) == 1, err
+    elif msg is not None:
+        assert msg in out.splitlines() and "errors=0" in out, out
+
+
+@pytest.mark.parametrize("name", ["fused_x_null_sink", "fused_x_ref_frame",
+                                  "fused_x_cpu_encoder"])
+def test_fused_refusals_are_the_jax_relays(name, capsys):
+    extra = next(m[1] for m in MATRIX if m[0] == name)
+    rc = relay.run(MATRIX_BASE + extra)
+    got = capsys.readouterr()
+    jax_rc = jax_relay.run([a for a in MATRIX_BASE if a != "--device=cpu"] + extra)
+    want = capsys.readouterr()
+    assert rc == jax_rc == 2
+    assert got.err == want.err == FUSED_REFUSED + "\n"
+
+
+@pytest.mark.parametrize("spec", ["tpu:qp=40:i4:chromah", "tpu:qp=40:gop=4:search=2"])
+def test_relay_fused_streams_the_jax_datagrams(spec, capsys):
+    """``--fused-encode`` on ``--device=cpu`` sends the JAX fused relay's
+    datagrams and prints its lines (the class name and the line on how the
+    device program is made aside); the JAX relay too runs ``tpu:i4:chromah``
+    as plain ``tpu`` when fused."""
+    runs = []
+    with catchers(1) as (port, (sock,)):
+        argv = RELAY_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}", f"--encoder={spec}",
+                             "--fused-encode"]
+        for app, extra in ((relay, ["--device=cpu"]), (jax_relay, [])):
+            assert app.run(argv + extra) == 0
+            out = capsys.readouterr().out
+            assert "6 frames emitted" in out and "errors=0" in out
+            runs.append((drain(sock), [
+                " ".join(re.sub(r"-?\d+(\.\d+)?", "#", line.replace("Tpu", "Cuda")).split())
+                for line in out.splitlines()
+                if line.strip() and not line.startswith(("Building the kernels",
+                                                         "Compiling device program"))]))
+    assert runs[0][0] == runs[1][0] and len(runs[0][0]) >= 6
+    assert runs[0][1] == runs[1][1]
+    fused_line = FUSED_GOP if "gop=" in spec else FUSED
+    assert re.sub(r"\d+", "#", fused_line) in runs[0][1]
+
+
+def test_rtp_receiver_records_the_fused_relays_access_units(tmp_path, capsys):
+    """The port's ``rtp_receiver`` records the fused relay's stream, and it
+    is the unfused relay's, access unit for access unit."""
+    recordings = []
+    for fused in (["--fused-encode"], []):
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as free:
+            free.bind(("127.0.0.1", 0))
+            port = free.getsockname()[1]
+        out = tmp_path / f"rx{len(recordings)}.h264"
+        result = []
+        rx = threading.Thread(target=lambda: result.append(rtp_receiver.run(
+            ["--kind=h264", "--max-frames=6", "--timeout=15", f"--output={out}",
+             f"--port={port}", "--host=127.0.0.1"])), daemon=True)
+        rx.start()
+        time.sleep(0.3)
+        assert relay.run(RELAY_BASE + [f"--sink=rtp+h264://127.0.0.1:{port}",
+                                       "--encoder=tpu:qp=40:gop=4:search=2:deblock",
+                                       "--device=cpu"] + fused) == 0
+        rx.join(timeout=20)
+        assert not rx.is_alive() and result == [0]
+        printed = capsys.readouterr().out
+        assert "Received 6 access units" in printed
+        assert (FUSED_GOP in printed.splitlines()) == bool(fused)
+        recordings.append(out.read_bytes())
+    assert recordings[0] == recordings[1] and recordings[0]
 
 
 SPEC_REFUSALS = [
