@@ -169,7 +169,28 @@ Phases, each of which raises (exit code != 0) when it fails:
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
             1080p, 32 frames each, on the Python queue and with ``--native
-            --priorities``;
+            --priorities``; then the sharded encoder
+            (``parallel/sharded_encode.py``, ``phase_sharded_encode``): (a)
+            GOP-per-rank fused enhance + encode at 4K CLAHE for the intra
+            encoder with and without ``bitpack`` and
+            ``gop=4:search=8:fastsub:deblock`` over 13 frames (two GOPs a
+            rank of 2x1 and a ragged tail that pads), on a 1x1 mesh on NCCL
+            in this process and a 2x1 mesh of two processes that share the
+            card (gloo), the ranks other than 0 passing another qp, which
+            the broadcast must override; (b) ``BandedCudaGopEncoder`` at 4K
+            over 3 ranks (45 MB rows a band) for ``search=4`` and
+            ``search=2:quarterpel:parts``, an IDR and three P frames; rank
+            0's AUs equal to the single-card ``CudaGopEncoder`` /
+            ``CudaCavlcEncoder``'s on the single-card enhanced frames, every
+            rank's kernels counted; (c) relay (n), ``relay.run`` in a 2x1
+            group with ``--mesh=2x1 --fused-encode
+            --encoder=tpu:qp=30:gop=4:search=8:fastsub:deblock`` on 16
+            ``TestSource`` frames, recorded by the ``rtp_receiver`` child,
+            the recording equal to a single-card ``CudaGopEncoder``'s
+            stream; each rank's ms a 4K block through the fused step, the
+            gather's ms and the banded encoder's ms a P frame are printed
+            with the card (processes sharing one card: no multi-card
+            speed-up);
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
             PyTorch call that computes the same function; K2 also as a run
@@ -429,6 +450,24 @@ FUSED_CASES = (
 )
 FUSED_4K_FRAMES, FUSED_CPU_SHAPE, FUSED_CPU_FRAMES = 8, (1080, 1920), 3
 FUSED_GOP_SPEC, FUSED_INTRA_SPEC = GOP_SPEC, "tpu:bitpack"
+# the sharded encoder (parallel/sharded_encode.py), GOP-per-rank: the
+# encoders (name, mode, options) of the fused step at 4K CLAHE on a 1x1 mesh
+# on NCCL and a 2x1 mesh of two processes sharing the card (gloo), over
+# frames that give each rank of 2x1 two GOPs with a ragged tail; the banded
+# encoder at 4K over 3 ranks (135 MB rows, 45 a band: 135 divides by neither
+# 2 nor 4), an IDR and three P frames; relay (n): --mesh=2x1 --fused-encode
+# with relay (j)'s search at a fixed qp (the stream is held to a single-card
+# encoder's) and GOPs of 4, one GOP a rank a batch
+MESH_ENCODE_CASES = (("intra", "levels", {}),
+                     ("intra_bitpack", "levels", {"bitpack": True, "nw_mb": 64}),
+                     ("gop_fastsub_deblock", "gop",
+                      dict(gop=4, search=P_SEARCH, fastsub=True, deblock=True)))
+MESH_ENCODE_QP, MESH_GOP_FRAMES, MESH_INTRA_FRAMES = 30, 2 * 2 * 4 - 3, 3
+BANDED_RANKS, BANDED_FRAMES = 3, 4
+BANDED_CASES = (("search4", dict(search=4)),
+                ("search2_quarterpel_parts", dict(search=2, quarterpel=True, parts=True)))
+MESH_RELAY_GOP, MESH_RELAY_FRAMES = 4, 16
+MESH_RELAY_SPEC = f"tpu:qp=30:gop={MESH_RELAY_GOP}:search={P_SEARCH}:fastsub:deblock"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1985,6 +2024,214 @@ def phase_sharded_paths(device, rng, h=HEIGHT, w=WIDTH):
         check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in none),
               f"{name} did not run {need} alone: {counts}")
     return per_path, rank_ms
+
+
+def mesh_encode_checks(label: str, ranks: list, names: list[str]) -> dict:
+    """The checks of the sharded encoder's cases on one mesh
+    (``launch.compare_with_encoder``'s results, by rank): rank 0's access
+    units equal the single-card encoder's, no rank loaded JAX, every rank
+    launched its kernels.  Returns each case's launch counts, summed over
+    the ranks."""
+    per_path = {}
+    for i, name in enumerate(names):
+        res = [r[i] for r in ranks]
+        single = next((r["single"] for r in res if r["single"] is not None), None)
+        check(single is not None and res[0].get("aus") == single,
+              f"sharded encoder {label} {name}: rank 0's access units differ from "
+              f"the single-card encoder's")
+        check(all(not r["loaded"] for r in res), f"{label} {name}: JAX was loaded")
+        for rank, r in enumerate(res):
+            counts = r["launches"]
+            check(counts["encode_levels"] > 0,
+                  f"{label} {name}: rank {rank} did not launch H1: {counts}")
+        per_path[f"sharded_encode_{label}_{name}"] = sum_counts([r["launches"] for r in res])
+    return per_path
+
+
+def mesh_block_launches(mode: str, opts: dict, frames: int, ranks: int) -> dict[str, int]:
+    """The launches one rank of a GOP-per-rank call makes on its own block
+    of the padded batch (the wrappers that launch, by count): the enhance
+    kernels and H1 (and H7 with ``bitpack``) once a block for the intra
+    step; for the GOP step the enhance kernels once, H1 on each IDR, H3, H4
+    and H2 on each P frame, H5 on every frame with ``deblock``."""
+    unit = opts.get("gop", 1)
+    per = -(-frames // (ranks * unit)) * unit
+    want = {"tile_histograms": 1, "build_luts": 1, "clahe_interpolate": 1}
+    if mode == "levels":
+        want["encode_levels"] = 1
+        if opts.get("bitpack"):
+            want["pack_i_mbs"] = 1
+        return want
+    idr = per // unit
+    want.update(encode_levels=idr, subpel_planes=per - idr, motion_search=per - idr,
+                encode_p_levels=per - idr)
+    if opts.get("deblock"):
+        want["deblock_planes"] = per
+    return want
+
+
+def phase_sharded_encode(device, rng, card: str, tmp: str) -> dict[str, dict[str, int]]:
+    """The sharded encoder (``parallel/sharded_encode.py``) on the card.
+
+    (a) GOP-per-rank, fused, at 4K CLAHE (clip 2.0, 8x8, passthrough): each
+    of ``MESH_ENCODE_CASES`` on a 1x1 mesh on NCCL in this process and on a
+    2x1 mesh of two spawned processes that share the card (gloo, through
+    the host); the ranks other than 0 pass another qp, which rank 0's
+    broadcast must override; rank 0's access units must equal the
+    single-card ``CudaGopEncoder`` / ``CudaCavlcEncoder``'s on the frames
+    the single-card ``build_enhance_fn`` enhanced.  (b) The banded encoder
+    at 4K over 3 ranks (gloo), for ``BANDED_CASES``: its access units must
+    equal ``CudaGopEncoder``'s.  (c) Relay (n): ``relay.run`` on a 2x1 group
+    (``launch.run_relay``) with ``--mesh=2x1 --fused-encode`` to
+    ``rtp+h264://``, received by the port's ``rtp_receiver`` child: the
+    stream it records must equal a single-card ``CudaGopEncoder``'s on the
+    ``TestSource`` frames the single-card ``Enhancer`` enhanced.  Every
+    rank is held to its kernels' launches; the times are wall times, the
+    processes sharing one card (no multi-card speed-up).  Returns each
+    path's launch counts."""
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1, "the 1x1 mesh needs the NCCL group")
+    from opencv_opencl_tpu_torch.parallel.mesh import make_mesh
+
+    spec, cfg = clahe_config(HEIGHT, WIDTH)
+    frames = np.stack(moving_nv12(rng, HEIGHT, WIDTH, MESH_GOP_FRAMES))
+    cases = [dict(mode=mode, cfg=cfg, spec=spec, enc=opts, qp=MESH_ENCODE_QP,
+                  frames=frames if mode == "gop" else frames[:MESH_INTRA_FRAMES])
+             for _, mode, opts in MESH_ENCODE_CASES]
+    names = [name for name, _, _ in MESH_ENCODE_CASES]
+    per_path = {}
+    for label in ("1x1", "2x1"):
+        t0 = time.perf_counter()
+        if label == "1x1":
+            ranks = [launch.compare_with_encoder(make_mesh(shape=(1, 1)), device, cases,
+                                                 True, True)]
+        else:
+            ranks = launch.run_on_mesh((2, 1), launch.compare_with_encoder,
+                                       (cases, True, True), device_type="cuda",
+                                       timeout=SPAWN_TIMEOUT)
+        elapsed = time.perf_counter() - t0
+        want_backend = "nccl" if label == "1x1" else "gloo"
+        check(all(r[0]["backend"] == want_backend for r in ranks),
+              f"sharded encoder {label}: backend {[r[0]['backend'] for r in ranks]}")
+        paths = mesh_encode_checks(label, ranks, names)
+        for i, (name, mode, opts) in enumerate(MESH_ENCODE_CASES):
+            counts = paths[f"sharded_encode_{label}_{name}"]
+            n = len(cases[i]["frames"])
+            want = mesh_block_launches(mode, opts, n, len(ranks))
+            for rank, r in enumerate(ranks):
+                got = {k: v for k, v in r[i]["launches"].items() if v}
+                check(got == want,
+                      f"sharded encoder {label} {name} rank {rank}: launches {got}, "
+                      f"want {want} (its own block of the padded batch, once)")
+            ms = [r[i]["ms"] for r in ranks]
+            print(f"main path sharded_encode_{label}_{name} ({want_backend}): {n} 4K "
+                  f"frames, rank 0's AUs equal the single-card encoder's, launches "
+                  f"{counts}", flush=True)
+            print(f"time sharded_encode {label} {name} 4K: the mesh call "
+                  f"{[round(m['call'], 2) for m in ms]} ms, in it each rank's block "
+                  f"({-(-n // (len(ranks) * (opts.get('gop', 1)))) * opts.get('gop', 1)} "
+                  f"frames) through the fused step "
+                  f"{[round(m['step'], 2) for m in ms]} ms and the gather of the lanes "
+                  f"to rank 0 {[round(m['gather'], 2) for m in ms]} ms (wall, by rank; "
+                  f"the ranks share one card) [{card}]", flush=True)
+        per_path.update(paths)
+        print(f"main path sharded_encode {label}: {elapsed:.1f} s for the "
+              f"{len(cases)} encoders, spawn and references included", flush=True)
+
+    bspec = FrameSpec(width=WIDTH, height=HEIGHT)
+    bframes = np.stack(moving_nv12(rng, HEIGHT, WIDTH, BANDED_FRAMES))
+    bcases = [dict(mode="banded", spec=bspec, enc=dict(gop=BANDED_FRAMES, **kw),
+                   qp=MESH_ENCODE_QP, frames=bframes) for _, kw in BANDED_CASES]
+    t0 = time.perf_counter()
+    ranks = launch.run_on_mesh((BANDED_RANKS, 1), launch.compare_with_encoder,
+                               (bcases, True, True), device_type="cuda",
+                               timeout=SPAWN_TIMEOUT)
+    elapsed = time.perf_counter() - t0
+    paths = mesh_encode_checks(f"banded_{BANDED_RANKS}x1",
+                               ranks, [name for name, _ in BANDED_CASES])
+    for i, (name, kw) in enumerate(BANDED_CASES):
+        counts = paths[f"sharded_encode_banded_{BANDED_RANKS}x1_{name}"]
+        search = "motion_search_parts" if kw.get("parts") else "motion_search"
+        ps = BANDED_RANKS * (BANDED_FRAMES - 1)
+        check(counts["encode_levels"] == BANDED_RANKS
+              and all(counts[k] == ps for k in (search, "encode_p_levels"))
+              and counts["subpel_planes"] >= ps,
+              f"banded {name}: launches {counts}, want H1 once a rank and H3, "
+              f"{search} and H2 on each of the {ps} (rank, P frame) windows")
+        p_ms = [[round(t, 2) for t in r[i]["ms"]["frames"][1:]] for r in ranks]
+        print(f"main path sharded_encode_banded_{BANDED_RANKS}x1_{name} (gloo): "
+              f"{BANDED_FRAMES} 4K frames, {HEIGHT // 16 // BANDED_RANKS} MB rows a band, "
+              f"rank 0's AUs equal CudaGopEncoder's, launches {counts}", flush=True)
+        print(f"time sharded_encode banded {name} 4K over {BANDED_RANKS} ranks: ms a P "
+              f"frame by rank {p_ms} (wall: upload, the band's kernels, the "
+              f"reference's all-gather and rank 0's entropy stage; the ranks share "
+              f"one card) [{card}]", flush=True)
+    per_path.update(paths)
+    print(f"main path sharded_encode banded: {elapsed:.1f} s, spawn and references "
+          f"included", flush=True)
+    mesh_relay(device, card, tmp)
+    return per_path
+
+
+def mesh_relay(device, card: str, tmp: str) -> None:
+    """Relay (n): ``--mesh=2x1 --fused-encode`` (``MESH_RELAY_SPEC``) at 4K
+    CLAHE passthrough on a 2x1 group of two processes that share the card,
+    ``TestSource`` frames, one batch a GOP a rank; the port's
+    ``rtp_receiver`` child records the stream, which must equal a
+    single-card ``CudaGopEncoder``'s on the ``TestSource`` frames that the
+    single-card ``Enhancer`` enhanced."""
+    w, h = WIDTH, HEIGHT
+    port = free_udp_port()
+    out = os.path.join(tmp, "relay_n.h264")
+    argv = ["--source=test", f"--width={w}", f"--height={h}",
+            f"--batch={2 * MESH_RELAY_GOP}", f"--max-frames={MESH_RELAY_FRAMES}",
+            "--op=clahe", "--chroma=passthrough", f"--fps={ENCODED_FPS:g}",
+            f"--sink=rtp+h264://127.0.0.1:{port}", f"--encoder={MESH_RELAY_SPEC}",
+            "--fused-encode", "--mesh=2x1", "--status-interval=60"]
+    with child(RECEIVER_CHILD, [str(ENCODED_BUFFER), f"--port={port}",
+                                "--host=127.0.0.1", "--kind=h264",
+                                f"--max-frames={MESH_RELAY_FRAMES}",
+                                "--timeout=180", f"--output={out}"]) as proc:
+        lines = []
+        while not any(line.startswith("Listening for h264 RTP") for line in lines):
+            line = proc.stdout.readline()
+            check(bool(line), f"relay (n): rtp_receiver ended before it listened: {lines}")
+            lines.append(line.rstrip())
+        t0 = time.perf_counter()
+        rcs = launch.run_on_mesh((2, 1), launch.run_relay, (argv,), device_type="cuda",
+                                 timeout=SPAWN_TIMEOUT)
+        elapsed = time.perf_counter() - t0
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+        rest, _ = proc.communicate(timeout=30)
+        lines += rest.splitlines()
+    for line in lines:
+        print(f"relay_n | rtp_receiver | {line}", flush=True)
+    check(rcs == [0, 0], f"relay (n): return codes {rcs}")
+    spec, cfg = clahe_config(h, w)
+    src = np.stack(list(TestSource(FrameSpec(width=w, height=h),
+                                   num_frames=MESH_RELAY_FRAMES)))
+    enhancer = Enhancer(cfg, spec, device)
+    enc = CudaGopEncoder(w, h, qp=30, gop=MESH_RELAY_GOP, search=P_SEARCH, fastsub=True,
+                         deblock=True, device=device)
+    want = []
+    for k in range(0, MESH_RELAY_FRAMES, BATCH):
+        for f in np.asarray(enhancer.process_batch(src[k:k + BATCH])):
+            want += enc.encode(f)
+    want += enc.flush()
+    with open(out, "rb") as f:
+        recorded = f.read()
+    check(recorded == b"".join(want),
+          f"relay (n): the recorded stream ({len(recorded)} bytes) is not the "
+          f"single-card encoder's ({sum(len(a) for a in want)} bytes, {len(want)} AUs)")
+    print(f"relay (n) --mesh=2x1 --fused-encode --encoder={MESH_RELAY_SPEC}: "
+          f"{MESH_RELAY_FRAMES} 4K frames, the rtp_receiver's recording equals the "
+          f"single-card CudaGopEncoder's {len(want)} AUs", flush=True)
+    print(f"time relay (n) 4K --mesh=2x1 --fused-encode: {elapsed:.1f} s for "
+          f"{MESH_RELAY_FRAMES} frames, spawn, kernel load and TestSource on the host "
+          f"included [{card}]", flush=True)
 
 
 def run_app(app, argv: list[str], label: str) -> str:
@@ -3607,6 +3854,8 @@ def main() -> int:
             check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
             sharded_paths, rank_ms = phase_sharded_paths(device, rng)
             per_path.update(sharded_paths)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+                per_path.update(phase_sharded_encode(device, rng, card, tmp))
             launches = {wrapper: sum(c[wrapper] for c in per_path.values())
                         for _, wrapper, _, _ in KERNELS}
             check(all(n > 0 for w, n in launches.items() if w not in OFF_PATH),

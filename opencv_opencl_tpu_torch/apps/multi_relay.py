@@ -58,7 +58,7 @@ import contextlib
 from opencv_opencl_tpu_torch.apps._cli import (
     install_sigterm_handler, parse_kv_args)
 from opencv_opencl_tpu_torch.apps.relay import (
-    group_rank_and_size, mesh_for_app, not_ported, resolve_device)
+    group_rank_and_size, mesh_for_app, resolve_device)
 
 
 def run(argv: list[str]) -> int:
@@ -78,10 +78,6 @@ def run(argv: list[str]) -> int:
     )
     if "max-rate" in opts and opts["max-rate"] <= 0:
         print("--max-rate must be > 0", file=sys.stderr)
-        return 2
-    refusal = not_ported(opts)
-    if refusal is not None:
-        print(refusal, file=sys.stderr)
         return 2
     with contextlib.ExitStack() as stack:
         return _run(opts, stack)

@@ -71,13 +71,22 @@ computation as one step a batch on the card (models/fused_encode.py):
 the packed levels come down, not the frames, and the sink's encoder
 assembles the access units from them (``EncodedRtpSink.write_packed``).
 It needs ``--sink=rtp+h264://`` with ``--encoder=tpu[...]`` and no
-``--ref-frame``, as in the JAX package.
+``--ref-frame`` or ``--io=gst``, as in the JAX package.  With ``--mesh`` it
+runs GOP-per-rank (``parallel/sharded_encode.py``): every rank enhances and
+encodes its own whole GOPs of each batch (its own frames with the intra
+encoder), from the encoder that every rank builds from ``--encoder`` at
+rank 0's qp, broadcast each batch; rank 0 gathers the packed levels and
+owns the sink.  ``--batch`` must be a multiple of the mesh's ranks times
+the GOP; ``gdr`` and ``cpb`` are refused there, and a step that fails on
+any rank fails the run on every rank (return code 1).
 
-Not ported yet, refused with return code 2: ``--fused-encode`` with
-``--mesh`` (the sharded enhance + encode program,
-``parallel/sharded_encode.py``) and ``--io=gst``.  ``--encoder`` is
-read only for an encoded sink, as in the JAX package: with any other sink
-it is ignored.  The encoded sinks encode after the card has enhanced the
+``--io=gst`` runs capture and emit as GStreamer pipelines over python-gi
+(``io/gst_adapter.GstAppBridge``: appsink -> the feeder -> appsrc), for
+``--source=test``, ``/dev/video*`` or a file and ``--sink=null``,
+``rtp+raw://``, ``rtp(+h26x)://`` or a file; without python-gi it refuses
+with return code 2, and so it does in a process group of several ranks.
+``--encoder`` is read only for an encoded sink, as in the JAX package: with
+any other sink it is ignored.  The encoded sinks encode after the card has enhanced the
 frames: ``pcm`` and ``cavlc`` on the host, ``tpu`` on ``--device`` with its
 entropy coding on the host (the intra encoder ``CudaCavlcEncoder``, or with
 ``gop=N`` (N > 1) or ``gdr=N`` the GOP encoder ``CudaGopEncoder``, whose
@@ -102,20 +111,10 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 from opencv_opencl_tpu_torch.apps._cli import (
     install_sigterm_handler, parse_kv_args)
-
-def not_ported(opts: dict) -> str | None:
-    """The one-line refusal for a flag this package does not have yet, or
-    None."""
-    what = None
-    if opts.get("io") == "gst":
-        what = "--io=gst (the GStreamer appsink/appsrc bridge)"
-    elif opts.get("fused-encode") and "mesh" in opts:
-        what = ("--fused-encode with --mesh (the sharded enhance + encode "
-                "program, parallel/sharded_encode.py)")
-    return None if what is None else f"{what}: not ported yet"
-
 
 def resolve_device(name: str):
     """``--device`` as a torch device, or None (with a line on stderr) when
@@ -184,10 +183,15 @@ def run(argv: list[str]) -> int:
     if "max-rate" in opts and opts["max-rate"] <= 0:
         print("--max-rate must be > 0", file=sys.stderr)
         return 2
-    refusal = not_ported(opts)
-    if refusal is not None:
-        print(refusal, file=sys.stderr)
-        return 2
+    if opts.get("io") == "gst":
+        from opencv_opencl_tpu_torch.io.gst_adapter import gi_available
+
+        if not gi_available():
+            print("--io=gst unavailable: python-gi with GStreamer 1.0 is "
+                  "not available on this host; use io.videofile "
+                  "sources/sinks or install gir1.2-gstreamer",
+                  file=sys.stderr)
+            return 2
     with contextlib.ExitStack() as stack:
         return _run(opts, stack)
 
@@ -242,9 +246,11 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     rank, world = group_rank_and_size() if "mesh" in opts else (0, 1)
     lead = rank == 0
     say = print if lead else (lambda *args, **kwargs: None)
+    gst_mode = opts.get("io") == "gst"
     if world > 1:
+        # live capture and the clock cut batches apart by rank
         timed = [f"--{k}" for k in ("duration", "max-rate", "adaptive-rate")
-                 if opts.get(k)]
+                 if opts.get(k)] + (["--io=gst"] if gst_mode else [])
         if timed:
             print(f"{', '.join(timed)} not supported in a process group of "
                   f"{world} ranks: every rank must see the same frames",
@@ -256,14 +262,35 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     chroma = (ChromaPolicy.GRAY if chroma_s.lower() == "gray"
               else ChromaPolicy.PASSTHROUGH)
 
-    if source == "test":
+    src = sink = None
+    if gst_mode:
+        # the GStreamer pipelines own capture and emit: no cv2 source or
+        # sink is opened (a FileSink would truncate the very file the gst
+        # filesink writes; sockets and captures would leak)
+        spec = FrameSpec(width=width, height=height, fps=fps)
+    elif source == "test":
         spec = FrameSpec(width=width, height=height, fps=fps)
         src = TestSource(spec, num_frames=max_frames)
     else:
         src = FileSource(source, width=width, height=height)
         spec = FrameSpec(width=src.spec.width, height=src.spec.height, fps=fps)
 
-    if not lead or sink_path == "null":
+    fused = bool(opts.get("fused-encode"))
+    rank_enc = None
+    if gst_mode:
+        pass
+    elif not lead:
+        sink = NullSink()
+        if fused and sink_path.startswith(("rtp+h264://", "rtp+h265://")):
+            # rank 0 owns the encoded sink; the other ranks build its
+            # encoder from the same flags, for its GOP configuration, and
+            # refuse the flags where rank 0 does, before any collective
+            try:
+                rank_enc = _rank_encoder(sink_path, opts, spec, fps, bitrate, device)
+            except ValueError:
+                return 2
+            stack.callback(rank_enc.close)
+    elif sink_path == "null":
         sink = NullSink()
     elif sink_path.startswith(("rtp://", "rtp+raw://")):
         # native RTP/UDP data plane (no GStreamer needed): JPEG/RTP
@@ -327,7 +354,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     def close_sink() -> None:
         if sink_open:
             sink_open.clear()
-            sink.close()
+            if sink is not None:
+                sink.close()
 
     stack.callback(close_sink)  # also on the refusals below
 
@@ -348,11 +376,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             return 2
         say(f"APPROXIMATE histogram mode: every "
             f"{cfg.hist_downsample}th row (not bit-exact vs cv2)")
+    mesh = None
     if "mesh" in opts:
-        # several cards: shard the batch over `data`, rows over `space` —
-        # the scaling analogue of the reference's worker pool, one flag
-        from opencv_opencl_tpu_torch.parallel.sharded import ShardedEnhancer
-
         try:
             # only mesh construction errors belong to the flag; anything
             # the sharded step raises is a real config error
@@ -360,6 +385,15 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 2
+    if mesh is not None and fused:
+        # the enhancement runs inside the mesh encode step
+        # (parallel/sharded_encode.py): no separate sharded enhancer
+        enhancer = None
+    elif mesh is not None:
+        # several cards: shard the batch over `data`, rows over `space` —
+        # the scaling analogue of the reference's worker pool, one flag
+        from opencv_opencl_tpu_torch.parallel.sharded import ShardedEnhancer
+
         enhancer = ShardedEnhancer(cfg, spec, mesh=mesh, device=device)
         ndata, nspace = enhancer.part.ndata, enhancer.part.nspace
         if batch < 1 or batch % ndata:
@@ -383,31 +417,56 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             return 2
     counters = FrameRateCounters()
 
-    fused = bool(opts.get("fused-encode"))
-    process_fn = enhancer.process_batch
+    process_fn = enhancer.process_batch if enhancer is not None else None
     fused_gop = False
     fused_reset = None
+    mesh_failures: list = []
     if fused:
-        made = _fused_step(cfg, spec, sink, device)
-        if made is None:
-            print("--fused-encode requires --sink=rtp+h264:// with "
-                  "--encoder=tpu[...] (and no --io=gst or "
-                  "--ref-frame)", file=sys.stderr)
+        from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
+
+        enc = getattr(sink, "encoder", None) if lead else rank_enc
+        if (gst_mode or cfg.use_ref_frame or enc is None
+                or not hasattr(enc, "encode_from_packed")):
+            say("--fused-encode requires --sink=rtp+h264:// with "
+                "--encoder=tpu[...] (and no --io=gst or "
+                "--ref-frame)", file=sys.stderr)
             return 2
-        process_fn, fused_reset = made
-        fused_gop = fused_reset is not None
-        print("Fused enhance+encode: frames stay in HBM as "
-              "pixels; the host receives quantized levels only"
-              + (f" (GOP {sink.encoder.gop}, recon resident in HBM)"
-                 if fused_gop else ""))
+        fused_gop = isinstance(enc, CudaGopEncoder)
+        if mesh is not None:
+            if fused_gop and (enc.gdr or enc._cpb is not None):
+                say("--fused-encode with --mesh requires IDR GOP "
+                    "boundaries and per-frame-synchronous state to "
+                    "stay on one chip: no gdr, no cpb", file=sys.stderr)
+                return 2
+            process_fn, ndev, unit = _fused_mesh_step(
+                cfg, spec, enc, device, mesh, mesh_failures)
+            if batch < 1 or batch % (ndev * unit):
+                say(f"--batch={batch} must be a positive multiple "
+                    f"of mesh devices x GOP frames "
+                    f"({ndev} x {unit})", file=sys.stderr)
+                return 2
+            say(f"Fused enhance+encode over mesh "
+                f"{{'data': {mesh.size(0)}, 'space': {mesh.size(1)}}} "
+                f"({ndev} devices, "
+                f"{'GOP' if fused_gop else 'frame'}-per-device; "
+                f"frames stay in HBM as pixels)")
+        else:
+            process_fn, fused_reset = _fused_step(cfg, spec, enc, device)
+            print("Fused enhance+encode: frames stay in HBM as "
+                  "pixels; the host receives quantized levels only"
+                  + (f" (GOP {enc.gop}, recon resident in HBM)"
+                     if fused_gop else ""))
 
     def on_output(seq, frame, meta):
         if fused:
+            if not lead:
+                return  # rank 0 alone holds the lanes and the sink
             nbytes = sink.write_packed(frame)
             counters.count("encoder_frames")
             counters.count("encoder_bytes", nbytes)
             return
-        sink.write(frame)
+        if sink is not None:
+            sink.write(frame)
         counters.count("encoder_frames")
         counters.count("encoder_bytes", frame.nbytes)
 
@@ -445,6 +504,10 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         f"staging={staging})")
     say("(with frame ordering)")
 
+    if gst_mode:
+        return _run_gst(feeder, reporter, spec, fps, codec, bitrate, source,
+                        sink_path, width, height, max_frames, duration)
+
     if opts.get("adaptive-rate"):
         # congestion-aware: RTCP receiver reports drive an AIMD rate loop
         # (ceiling = --max-rate or the configured fps)
@@ -468,6 +531,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     n = 0
     try:
         for nv12 in src:
+            if mesh_failures:
+                break  # every rank saw the failure at the same batch
             counters.count("camera_frames")
             if governor is not None and not governor.admit():
                 continue  # videorate drop-only: cap the input rate
@@ -513,46 +578,172 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         f"errors={stats['processing_errors']}")
     if lead:
         feeder.timing.final_report()
+    if mesh_failures:
+        print(f"the fused mesh step failed: {mesh_failures[0]}", file=sys.stderr)
+        return 1
     return 0
 
 
-def _fused_step(cfg, spec, sink, device):
-    """The fused enhance + encode step of ``--fused-encode`` for the sink's
-    encoder: ``(process_fn, reset)`` (``reset`` None for the stateless
-    intra step), or None where the sink or the config cannot take it.
-    ``process_fn`` returns the packed levels as a ``DeviceBatch``, their
-    copy to the host under way on a side stream."""
-    from opencv_opencl_tpu_torch.io.encoder import EncodedRtpSink
+def _run_gst(feeder, reporter, spec, fps, codec, bitrate, source, sink_path,
+             width, height, max_frames, duration) -> int:
+    """``--io=gst``: capture pipeline -> appsink -> the feeder -> appsrc ->
+    emit pipeline over python-gi (the reference's own frame transport,
+    ``OpenCVequalHist.cpp:71-98``), until the capture's end of stream or
+    ``duration``."""
+    from opencv_opencl_tpu_torch.io import gst as gstb
+    from opencv_opencl_tpu_torch.io.gst_adapter import (
+        GstAppBridge, TimestampPolicy)
+
+    if source == "test":
+        cap = gstb.test_capture_pipeline(
+            width=width, height=height, fps=int(fps), num_buffers=max_frames)
+        policy = TimestampPolicy.RELAY
+    elif source.startswith("/dev/video"):
+        cap = gstb.capture_pipeline(device=source, width=width,
+                                    height=height, fps=int(fps))
+        policy = TimestampPolicy.RELAY
+    else:
+        cap = gstb.file_capture_pipeline(source, width=width,
+                                         height=height, fps_num=int(fps))
+        policy = TimestampPolicy.SYNTHESIZE
+    gst_enc = gstb.EncoderConfig(codec=codec, bitrate_kbps=bitrate)
+    raw_caps = (f"appsrc name=my_src format=time is-live=true "
+                f"do-timestamp=true caps=video/x-raw,format=NV12,"
+                f"width={width},height={height},framerate={int(fps)}/1 ")
+    if sink_path == "null":
+        emit = raw_caps + "! fakesink sync=false"
+    elif sink_path.startswith("rtp+raw://"):
+        # raw (unencoded) RTP: rtpvrawpay wants I420
+        h_, p_ = sink_path.split("://", 1)[1].rsplit(":", 1)
+        emit = (raw_caps + "! videoconvert ! video/x-raw,format=I420 ! "
+                f"rtpvrawpay mtu=1200 ! "
+                f"udpsink host={h_} port={p_} sync=false qos-dscp=60")
+    elif "://" in sink_path:
+        h_, p_ = sink_path.split("://", 1)[1].rsplit(":", 1)
+        emit = gstb.emit_pipeline(gst_enc, width=width, height=height,
+                                  fps=int(fps), host=h_, port=int(p_))
+    else:
+        emit = gstb.file_emit_pipeline(gst_enc, width=width, height=height,
+                                       fps_num=int(fps), output_file=sink_path)
+    try:
+        bridge = GstAppBridge.from_gi(cap, emit, feeder,
+                                      (spec.buffer_rows, spec.width), fps=fps,
+                                      policy=policy)
+    except RuntimeError as e:
+        print(f"--io=gst unavailable: {e}", file=sys.stderr)
+        return 2
+    feeder.start()
+    reporter.start()
+    bridge.start()
+    try:
+        bridge.wait(duration)
+    except KeyboardInterrupt:
+        print("\nInterrupted.")
+    bridge.stop()
+    feeder.stop(drain=True)
+    reporter.stop()
+    reporter.tick()
+    stats = feeder.stats
+    print(f"\nShutdown: {stats['emitted']} frames emitted, "
+          f"dropped(late)={stats['dropped_late']}, "
+          f"errors={stats['processing_errors']}")
+    feeder.timing.final_report()
+    return 0
+
+
+def _rank_encoder(sink_path, opts, spec, fps, bitrate, device):
+    """The encoder of rank 0's encoded sink ``sink_path``, built on another
+    rank from the same flags; raises ValueError where rank 0's sink
+    refuses them."""
+    from opencv_opencl_tpu_torch.io.encoder import make_encoder
+
+    return make_encoder(opts.get("encoder", "auto"), spec.width, spec.height,
+                        fps=fps, codec="h264" if sink_path.startswith("rtp+h264://")
+                        else "h265", bitrate_kbps=bitrate, device=device)
+
+
+def _fused_options(enc) -> dict:
+    """The fused step's options for the device encoder ``enc``, the same on
+    one card and on a mesh: its bit packer and, for the GOP encoder
+    (``gop`` among the keys), its GOP configuration."""
     from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
+
+    kw = dict(bitpack=enc._nw_mb if enc._bitpack else 0)
+    if isinstance(enc, CudaGopEncoder):
+        kw.update(gop=enc.gop, search=enc.search, subpel=enc.subpel,
+                  refs=enc.refs, deblock=enc.deblock, parts=enc.parts)
+    return kw
+
+
+def _handoff(packed, d2h):
+    """The packed lanes as a ``DeviceBatch``: their copy to the host under
+    way on the side stream ``d2h`` where they lie on the card."""
+    from opencv_opencl_tpu_torch.runtime.handoff import DeviceBatch
+
+    return DeviceBatch(packed, d2h if packed.is_cuda else None)
+
+
+def _fused_mesh_step(cfg, spec, enc, device, mesh, failures: list):
+    """The fused step of ``--fused-encode --mesh`` for the encoder's
+    configuration (parallel/sharded_encode.py): ``(process_fn, devices,
+    unit)``.  Every rank calls ``process_fn`` with the same batch; on rank 0
+    it returns the batch's packed lanes, on the other ranks None.  A
+    failure on any rank fails the step on every rank and is appended to
+    ``failures``; every later call then raises without a collective, on
+    every rank alike."""
+    from opencv_opencl_tpu_torch.models.enhancer import _d2h_stream
+    from opencv_opencl_tpu_torch.parallel.sharded_encode import (
+        build_mesh_gop_fn, build_mesh_levels_fn, pad_batch_for_mesh)
+
+    kw = _fused_options(enc)
+    build = build_mesh_gop_fn if "gop" in kw else build_mesh_levels_fn
+    mesh_fn, unit = build(cfg, spec, mesh=mesh, device=device, **kw)
+    ndev = mesh.size()
+    d2h = _d2h_stream(device)
+
+    def process_fn(nv12_batch):
+        if failures:
+            raise RuntimeError(f"the mesh step failed before: {failures[0]}")
+        # the steps are stateless, so padding is safe: pad frames come after
+        # every real frame; the tail of a stream encodes a short last GOP
+        padded, real = pad_batch_for_mesh(np.asarray(nv12_batch), ndev, unit)
+        try:
+            # rank 0's qp, broadcast inside the step, rides in-band in the
+            # packed lanes (lane 408)
+            packed = mesh_fn(padded, enc.qp)
+        except Exception as e:
+            failures.append(e)
+            raise
+        return None if packed is None else _handoff(packed[:real], d2h)
+
+    return process_fn, ndev, unit
+
+
+def _fused_step(cfg, spec, enc, device):
+    """The fused enhance + encode step of ``--fused-encode`` for the sink's
+    encoder ``enc``: ``(process_fn, reset)`` (``reset`` None for the
+    stateless intra step).  ``process_fn`` returns the packed levels as a
+    ``DeviceBatch``, their copy to the host under way on a side stream."""
     from opencv_opencl_tpu_torch.models.enhancer import _d2h_stream
     from opencv_opencl_tpu_torch.models.fused_encode import (
         build_enhance_gop_fn, build_enhance_levels_fn)
-    from opencv_opencl_tpu_torch.runtime.handoff import DeviceBatch
 
-    if (cfg.use_ref_frame or not isinstance(sink, EncodedRtpSink)
-            or not hasattr(sink.encoder, "encode_from_packed")):
-        return None
-    enc = sink.encoder
     d2h = _d2h_stream(device)
-    bitpack = enc._nw_mb if enc._bitpack else 0
-    if not isinstance(enc, CudaGopEncoder):
-        fused_fn = build_enhance_levels_fn(cfg, spec, bitpack=bitpack,
-                                           device=device)
+    kw = _fused_options(enc)
+    if "gop" not in kw:
+        fused_fn = build_enhance_levels_fn(cfg, spec, device=device, **kw)
 
         def process_fn(nv12_batch):
             # qp is read at dispatch and rides in-band in the packed
             # levels, so the entropy stage writes the slice-header qp the
             # levels were quantized with
-            return DeviceBatch(fused_fn(nv12_batch, enc.qp), d2h)
+            return _handoff(fused_fn(nv12_batch, enc.qp), d2h)
 
         return process_fn, None
     # GOP: the step chains the reference pictures and the frame index
     # across batches; padding would advance them on fake frames (the
     # filter and the GDR band run inside the step)
-    fused_fn = build_enhance_gop_fn(
-        cfg, spec, enc.gop, search=enc.search, subpel=enc.subpel,
-        refs=enc.refs, deblock=enc.deblock, gdr=enc.gdr, bitpack=bitpack,
-        parts=enc.parts, device=device)
+    fused_fn = build_enhance_gop_fn(cfg, spec, gdr=enc.gdr, device=device, **kw)
     state = {}
 
     def reset():
@@ -564,7 +755,7 @@ def _fused_step(cfg, spec, sink, device):
                                 *state["recon"])
         state["recon"] = tuple(rec)
         state["idx"] += int(nv12_batch.shape[0])
-        return DeviceBatch(packed, d2h)
+        return _handoff(packed, d2h)
 
     reset()
     return process_fn, reset

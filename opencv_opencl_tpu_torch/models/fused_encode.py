@@ -44,7 +44,7 @@ from opencv_opencl_tpu_torch.ops.h264_bitpack import pack_i_mbs, pack_p_mbs
 from opencv_opencl_tpu_torch.ops.h264_levels import (
     LevelArrays, encode_levels, encode_p_levels, pack_levels)
 
-__all__ = ["build_enhance_levels_fn", "build_enhance_gop_fn",
+__all__ = ["build_enhance_levels_fn", "build_enhance_gop_fn", "make_gop_levels",
            "GOP_PACKED_LANES", "GOP_PACKED_LANES_MV",
            "GOP_PACKED_LANES_MREF", "GOP_PACKED_LANES_PARTS",
            "GOP_PACKED_LANES_PARTS_MREF"]
@@ -168,59 +168,24 @@ def build_enhance_levels_fn(cfg: EnhancerConfig, spec: FrameSpec,
     return fn
 
 
-def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
-                         search: int = 0, subpel: int = 0, refs: int = 1,
-                         deblock: bool = False, gdr: int = 0,
-                         bitpack: int = 0, parts: bool = False, device=None):
-    """Fused enhance + low-delay-P GOP encode on ``device`` (None: the
-    card): returns ``fn(nv12_batch: uint8 (N, H*3/2, W), qp: int, idx0:
-    int, *recon) -> (int16 (N, mb_h, mb_w, L), *recon')``.  ``recon`` is
-    the reference pictures, 3 planes (y, cb, cr), or 6 with ``refs=2``
-    (the newest first); they stay on the card from batch to batch, and the
-    encoder's ``initial_recon`` makes the first ones.  Frame ``idx0 + i``
-    is an IDR where ``(idx0 + i) % gop == 0``, else a P frame predicted
-    from the reference pictures (the frame right after each IDR from one).
-    L = 410 lanes, 412 with ``search`` (the MV lanes), 413 with ``refs=2``
-    (the reference lane), 419 / 423 with ``parts``; ``bitpack=nw`` appends
-    1 + 2*nw lanes of packed bits.  ``gdr`` runs the refresh band of frame
-    ``idx`` (``gop`` is then the one-IDR-ever value of the encoder).
-
-    The chain advances once a frame fed through ``fn``: the caller must
-    not pad batches with repeated frames (the relay's ``--fused-encode``
-    sets ``pad_batches=False`` for GOP encoders)."""
-    _refuse_ref_frame(cfg)
-    if gop < 2:
-        raise ValueError("fused GOP needs gop >= 2 (gop=1 is the "
-                         "all-IDR fused path: build_enhance_levels_fn)")
-    if refs not in (1, 2):
-        raise ValueError(f"fused GOP refs must be 1 or 2, got {refs}")
-    if refs > 1 and not search:
-        raise ValueError("fused refs=2 requires search=R > 0")
-    if gdr and refs > 1:
-        raise ValueError("fused gdr requires refs=1")
-    if parts:
-        # same composition limits as CudaGopEncoder(parts=True)
-        if not search:
-            raise ValueError("fused parts requires search=R > 0")
-        if subpel == 3:
-            raise ValueError("parts does not compose with fastsub")
-        if gdr:
-            raise ValueError("fused parts requires no gdr")
-        if refs > 1 and subpel == 2 and (
-                refs * (8 * search + 1) ** 2 > 8192):
-            raise ValueError(
-                "quarter-pel parts with refs=2 needs search <= 7, "
-                f"got {search}")
-    dev = _device(device, "build_enhance_gop_fn")
-    h, w = spec.height, spec.width
-    h16, w16 = -(-h // 16) * 16, -(-w // 16) * 16
-    mbh, mbw = h16 // 16, w16 // 16
+def make_gop_levels(mbh: int, mbw: int, dev: torch.device, search: int = 0,
+                    subpel: int = 0, refs: int = 1, deblock: bool = False,
+                    gdr: int = 0, bitpack: int = 0, parts: bool = False):
+    """The level stage of the GOP step on 16-aligned planes of ``mbh`` x
+    ``mbw`` MBs on ``dev``: ``(do_i, do_p)``.  ``do_i(y, cb, cr, qp) ->
+    (packed, recon)`` codes an IDR picture, ``do_p(y, cb, cr, qp, idx, cur,
+    old) -> (packed, recon)`` a P picture from the reference pictures
+    ``cur`` (and ``old`` with two references, else None); ``packed`` is the
+    (mbh, mbw, L) int16 lanes of :func:`build_enhance_gop_fn`, ``recon``
+    the new reference picture (y, cb, cr).  The options are
+    :func:`build_enhance_gop_fn`'s, unchecked.  One slice per MB row makes
+    the rows independent, so the geometry may be a band of a frame with
+    halo rows (``parallel/sharded_encode.BandedCudaGopEncoder``)."""
     # GDR horizontal intra refresh: the band of frame idx, as the encoder
     # computes it
     gdr_period = min(int(gdr), mbh) if gdr else 0
     gdr_rows = -(-mbh // gdr_period) if gdr else 0
     nw_mb = int(bitpack)
-    planes = _make_planes(cfg, spec, dev)
     # the all-intra metadata of an IDR picture's filter
     idr_info = (torch.ones((mbh, mbw), dtype=torch.bool, device=dev),
                 torch.zeros((4 * mbh, 4 * mbw), dtype=torch.bool, device=dev),
@@ -306,6 +271,59 @@ def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
                 None if parts or not two else plv.ref,
                 2 if two else 1, nw_mb=nw_mb, **pk))], -1)
         return out, rec
+
+    return do_i, do_p
+
+
+def build_enhance_gop_fn(cfg: EnhancerConfig, spec: FrameSpec, gop: int,
+                         search: int = 0, subpel: int = 0, refs: int = 1,
+                         deblock: bool = False, gdr: int = 0,
+                         bitpack: int = 0, parts: bool = False, device=None):
+    """Fused enhance + low-delay-P GOP encode on ``device`` (None: the
+    card): returns ``fn(nv12_batch: uint8 (N, H*3/2, W), qp: int, idx0:
+    int, *recon) -> (int16 (N, mb_h, mb_w, L), *recon')``.  ``recon`` is
+    the reference pictures, 3 planes (y, cb, cr), or 6 with ``refs=2``
+    (the newest first); they stay on the card from batch to batch, and the
+    encoder's ``initial_recon`` makes the first ones.  Frame ``idx0 + i``
+    is an IDR where ``(idx0 + i) % gop == 0``, else a P frame predicted
+    from the reference pictures (the frame right after each IDR from one).
+    L = 410 lanes, 412 with ``search`` (the MV lanes), 413 with ``refs=2``
+    (the reference lane), 419 / 423 with ``parts``; ``bitpack=nw`` appends
+    1 + 2*nw lanes of packed bits.  ``gdr`` runs the refresh band of frame
+    ``idx`` (``gop`` is then the one-IDR-ever value of the encoder).
+
+    The chain advances once a frame fed through ``fn``: the caller must
+    not pad batches with repeated frames (the relay's ``--fused-encode``
+    sets ``pad_batches=False`` for GOP encoders)."""
+    _refuse_ref_frame(cfg)
+    if gop < 2:
+        raise ValueError("fused GOP needs gop >= 2 (gop=1 is the "
+                         "all-IDR fused path: build_enhance_levels_fn)")
+    if refs not in (1, 2):
+        raise ValueError(f"fused GOP refs must be 1 or 2, got {refs}")
+    if refs > 1 and not search:
+        raise ValueError("fused refs=2 requires search=R > 0")
+    if gdr and refs > 1:
+        raise ValueError("fused gdr requires refs=1")
+    if parts:
+        # same composition limits as CudaGopEncoder(parts=True)
+        if not search:
+            raise ValueError("fused parts requires search=R > 0")
+        if subpel == 3:
+            raise ValueError("parts does not compose with fastsub")
+        if gdr:
+            raise ValueError("fused parts requires no gdr")
+        if refs > 1 and subpel == 2 and (
+                refs * (8 * search + 1) ** 2 > 8192):
+            raise ValueError(
+                "quarter-pel parts with refs=2 needs search <= 7, "
+                f"got {search}")
+    dev = _device(device, "build_enhance_gop_fn")
+    h16, w16 = -(-spec.height // 16) * 16, -(-spec.width // 16) * 16
+    planes = _make_planes(cfg, spec, dev)
+    do_i, do_p = make_gop_levels(h16 // 16, w16 // 16, dev, search=search,
+                                 subpel=subpel, refs=refs, deblock=deblock,
+                                 gdr=gdr, bitpack=bitpack, parts=parts)
 
     def fn(nv12_batch, qp, idx0, ry, rcb, rcr, oy=None, ocb=None, ocr=None):
         qp = int(qp)

@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_process_group", "run_on_mesh", "compare_with_enhancer",
-           "run_relay"]
+           "compare_with_encoder", "run_relay"]
 
 
 def init_process_group(rank: int, world_size: int, rendezvous_file: str,
@@ -202,6 +202,132 @@ def compare_with_enhancer(mesh, device, cases, repeats: int = 1,
         if return_outputs:
             result["outputs"] = outputs
         results.append(result)
+    return results
+
+
+# what the ranks other than 0 add to the qp they pass the GOP-per-rank step
+QP_SKEW = 7
+
+
+def _encoder_for(case: dict, device):
+    """The single-card device encoder of a :func:`compare_with_encoder`
+    case."""
+    from opencv_opencl_tpu_torch.io.h264_cavlc import CudaCavlcEncoder
+    from opencv_opencl_tpu_torch.io.h264_inter import CudaGopEncoder
+
+    spec = case["spec"]
+    kw = dict(case["enc"])
+    if case["mode"] == "levels":
+        return CudaCavlcEncoder(spec.width, spec.height, qp=case["qp"],
+                                device=device, **kw)
+    return CudaGopEncoder(spec.width, spec.height, qp=case["qp"], device=device, **kw)
+
+
+def _wall_ms(fn, device):
+    """``fn()`` and its wall time in ms, the card's work included."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def compare_with_encoder(mesh, device, cases, reference: bool = True,
+                         timed: bool = False) -> list[dict]:
+    """A position's run of the sharded encoder (``parallel/sharded_encode.py``)
+    and of the single-card encoders it must equal.  ``cases`` is a list of
+    dicts, the same on every position:
+
+    - ``mode`` "gop" or "levels": ``cfg``, ``spec``, ``enc`` (the kwargs of
+      ``CudaGopEncoder`` / ``CudaCavlcEncoder``), ``qp`` and ``frames``
+      (numpy NV12, any count): the GOP-per-rank step over the frames padded
+      with ``pad_batch_for_mesh``; rank 0 assembles the access units with
+      the encoder's ``encode_from_packed``.  The other ranks pass the step
+      ``qp + QP_SKEW``: it must quantize at rank 0's qp, which it
+      broadcasts;
+    - ``mode`` "banded": ``spec``, ``enc`` (``BandedCudaGopEncoder``'s
+      kwargs), ``qp`` and ``frames``: the banded encoder over the frames;
+      where its constructor refuses the case, ``error`` is the message.
+
+    Returns one dict of host values per case: on rank 0 ``aus`` and, for
+    the GOP-per-rank modes, ``packed`` (the real frames' lanes); with
+    ``reference``, on rank ``i % n`` for case ``i`` ``single``, the access
+    units of the single-card encoder with the same options (on the frames
+    enhanced by the single-card ``build_enhance_fn`` for the GOP-per-rank
+    modes); on every rank ``launches`` (of the sharded calls alone),
+    ``ms`` (wall ms: for the GOP-per-rank modes ``call`` the sharded step,
+    and with ``timed``, after a first call that loads the kernels, also its
+    phases ``step`` and ``gather`` as the call measures them; ``frames``
+    the banded encoder's ms a frame), ``backend`` and ``loaded`` (modules of
+    JAX or the JAX package; must be empty)."""
+    from opencv_opencl_tpu_torch.models.enhancer import build_enhance_fn
+    from opencv_opencl_tpu_torch.ops import cuda as cuda_ops
+    from opencv_opencl_tpu_torch.parallel.sharded_encode import (
+        BandedCudaGopEncoder, build_mesh_gop_fn, build_mesh_levels_fn,
+        pad_batch_for_mesh)
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    results = []
+    for i, case in enumerate(cases):
+        spec, frames, kw = case["spec"], case["frames"], dict(case["enc"])
+        res = {"backend": dist.get_backend(), "single": None, "ms": {}}
+        if case["mode"] == "banded":
+            try:
+                enc = BandedCudaGopEncoder(spec.width, spec.height, mesh,
+                                           qp=case["qp"], device=device, **kw)
+            except ValueError as e:  # a refusal, the same on every rank
+                res["error"] = str(e)
+                results.append(res)
+                continue
+            cuda_ops.reset_launch_counts()
+            aus, times = [], []
+            for f in frames:
+                got, ms = _wall_ms(lambda f=f: enc.encode(f), device)
+                aus += got
+                times.append(ms)
+            aus += enc.flush()
+            if rank == 0:
+                res["aus"] = aus
+            res["launches"] = cuda_ops.launch_counts()
+            res["ms"]["frames"] = times
+            if reference and i % n == rank:
+                single = _encoder_for({**case, "mode": "gop"}, device)
+                res["single"] = [au for f in frames for au in single.encode(f)]
+                res["single"] += single.flush()
+        else:
+            enc = _encoder_for(case, device)
+            bitpack = enc._nw_mb if enc._bitpack else 0
+            if case["mode"] == "gop":
+                fn, unit = build_mesh_gop_fn(
+                    case["cfg"], spec, enc.gop, mesh, search=enc.search,
+                    subpel=enc.subpel, refs=enc.refs, deblock=enc.deblock,
+                    bitpack=bitpack, parts=enc.parts, device=device)
+            else:
+                fn, unit = build_mesh_levels_fn(case["cfg"], spec, mesh,
+                                                bitpack=bitpack, device=device)
+            padded, real = pad_batch_for_mesh(frames, n, unit)
+            qp = case["qp"] + (QP_SKEW if rank else 0)
+            if timed:
+                fn(padded, qp)   # the first call loads the kernels
+            cuda_ops.reset_launch_counts()
+            packed, res["ms"]["call"] = _wall_ms(
+                lambda: fn(padded, qp, times=res["ms"] if timed else None), device)
+            res["launches"] = cuda_ops.launch_counts()
+            if packed is not None:
+                packed = packed[:real].cpu().numpy()
+                res["packed"] = packed
+                res["aus"] = [au for p in packed for au in enc.encode_from_packed(p)]
+            if reference and i % n == rank:
+                enhanced = build_enhance_fn(case["cfg"], spec, donate=False)(
+                    torch.from_numpy(np.ascontiguousarray(frames)).to(device))
+                single = _encoder_for(case, device)
+                res["single"] = [au for f in enhanced.cpu().numpy()
+                                 for au in single.encode(f)] + single.flush()
+        res["loaded"] = sorted(m for m in sys.modules
+                               if m.split(".")[0] in ("jax", "opencv_opencl_tpu"))
+        results.append(res)
     return results
 
 

@@ -79,12 +79,14 @@ class FrameFeeder:
     Parameters
     ----------
     process_batch: callable mapping uint8 (N, rows, W) -> an array-like of
-        the same shape (e.g. ``Enhancer.process_batch``). N may vary per
-        call up to ``batch_size``.
+        the same shape (e.g. ``Enhancer.process_batch``), or None where
+        this process holds no output for the batch. N may vary per call up
+        to ``batch_size``.
     batch_size: max frames fused into one device dispatch.
     depth: in-flight batches (double buffering at 2; reference --workers).
     queue_capacity: input LeakyQueue size (reference max-size-buffers=8).
-    on_output: called with (seq, np.uint8 frame, meta) in seq order.
+    on_output: called with (seq, np.uint8 frame, meta) in seq order; the
+        frame is None where ``process_batch`` returned None.
     native_staging: the frame shape (rows, width): stage frames through
         the C++ preallocated ring (GIL-free memcpy, and the batch popped
         straight into a staging slot; the reference's preallocated
@@ -257,12 +259,14 @@ class FrameFeeder:
     def _retire_oldest(self) -> None:
         entries, device_out, t_dispatch, slot = self._inflight.pop(0)
         t0 = time.perf_counter()
-        host = np.asarray(device_out)  # blocks until device done + D2H copy
+        # blocks until device done + D2H copy; None: the step holds no
+        # output here (a rank of a mesh that does not own the sink)
+        host = None if device_out is None else np.asarray(device_out)
         mem_ms = (time.perf_counter() - t0) * 1e3
         compute_ms = (t0 - t_dispatch) * 1e3
         self.timing.record(compute_ms, mem_ms, compute_ms + mem_ms)
         for i, (seq, meta) in enumerate(entries):
-            self._reseq.push(seq, (host[i], meta))
+            self._reseq.push(seq, (None if host is None else host[i], meta))
         del device_out
         if slot is not None and slot.shape == self._staging_shape:
             # shape-tag check: a mid-stream frame-shape change resets the

@@ -16,6 +16,10 @@
   markers and refusal messages are the same.  ``--mesh=2x2`` and ``2x1``
   run as real gloo process groups (``run_on_mesh``), rank 0's file against
   the JAX relay's on its 8-device CPU mesh.
+- ``--io=gst``: without python-gi both relays refuse with rc 2 and the same
+  line; with ``gi_available`` and ``GstAppBridge.from_gi`` of both packages
+  on ``tests/fake_gst.FakeGst`` they build the same capture and emit
+  pipelines for each source and sink kind and push the same NV12 buffers.
 - ``StreamMux`` on the cases of tests/test_mux.py and ``multi_relay.run``.
 
 Sockets stay on 127.0.0.1 with ports from the OS and short timeouts.
@@ -36,6 +40,7 @@ from opencv_opencl_tpu.apps import relay as jax_relay
 from opencv_opencl_tpu.apps._cli import parse_kv_args as jax_parse_kv_args
 from opencv_opencl_tpu.core import golden
 from opencv_opencl_tpu.core.frames import FrameSpec as JaxFrameSpec
+from opencv_opencl_tpu.io import gst_adapter as jax_gst_adapter
 from opencv_opencl_tpu.io import rtp as jax_rtp
 from opencv_opencl_tpu.io import sdp as jax_sdp
 from opencv_opencl_tpu.io import videofile as jax_videofile
@@ -46,6 +51,7 @@ from opencv_opencl_tpu_torch.apps._cli import get_arg, parse_kv_args
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.io import rtp, sdp, videofile
 from opencv_opencl_tpu_torch.io.gst import EncoderConfig
+from opencv_opencl_tpu_torch.io import gst_adapter
 from opencv_opencl_tpu_torch.models import presets
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer, EnhancerConfig, initial_hists)
@@ -446,11 +452,13 @@ _RUN_ARGS = {relay: ["--source=test", "--max-frames=4", "--sink=null",
 ], ids=["h264_sink", "h265_sink", "encoder", "fused_encode", "io_gst", "native",
         "tpu_encoder_sink", "tpu_gop_sink", "tpu_parts_sink"])
 @pytest.mark.parametrize("app", [relay, multi_relay], ids=["relay", "multi_relay"])
-def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
-    """The flags of parts not ported refuse with rc 2 and one line:
-    ``--io=gst`` (a flag of the relay alone: the multi-stream relay ignores
-    it, as the JAX one does, and both run and print the same lines, as they
-    do for ``--fused-encode``).  The relay's ``--fused-encode`` is ported:
+def test_flags_run_or_refuse_as_the_jax_apps(app, extra, capsys, monkeypatch):
+    """Every flag of the JAX apps runs or refuses as it does there.  The
+    relay's ``--io=gst`` is ported: on a host without python-gi both
+    packages refuse it with rc 2 and the same line (a flag of the relay
+    alone: the multi-stream relay ignores it, as the JAX one does, and both
+    run and print the same lines, as they do for ``--fused-encode``).  The
+    relay's ``--fused-encode`` is ported:
     with no encoded sink both packages refuse it with rc 2 and the same
     line.  The encoded sinks are ported: with
     the in-repo encoders both packages run an ``rtp+h264://`` sink (``auto``
@@ -517,10 +525,15 @@ def test_unported_flags_refuse_with_not_ported_yet(app, extra, capsys):
         assert err == capsys.readouterr().err
         assert err == "the in-repo CAVLC encoder is h264-only\n"
         return
+    assert extra == ["--io=gst"] and app is relay
+    for mod in (gst_adapter, jax_gst_adapter):   # a host without python-gi
+        monkeypatch.setattr(mod, "gi_available", lambda: False)
     rc = app.run(args + ["--device=cpu"] + extra)
     err = capsys.readouterr().err
-    assert rc == 2
-    assert "not ported yet" in err and len(err.strip().splitlines()) == 1
+    assert rc == jax_app.run(args + extra) == 2
+    assert err == capsys.readouterr().err == (
+        "--io=gst unavailable: python-gi with GStreamer 1.0 is not available on "
+        "this host; use io.videofile sources/sinks or install gir1.2-gstreamer\n")
 
 
 def test_relay_without_a_card_fails_and_does_not_fall_back(capsys):
@@ -587,6 +600,81 @@ def test_relay_in_a_group_refuses_the_time_driven_flags():
           "--mesh=2x1", "--batch=2", "--device=cpu", "--duration=5"],),
         device_type="cpu", timeout=110.0)
     assert rcs == [2, 2]
+
+
+# ------------------------------------------------------------ --io=gst ----
+
+
+def _driven_bridge(bridge_cls, fake_gst, frames, made: list):
+    """A ``from_gi`` for ``bridge_cls`` over ``tests/fake_gst.FakeGst``: the
+    bridge it builds, once started, gets ``frames`` through its appsink,
+    then the capture's end of stream (the feeder drains and the appsrc gets
+    its end of stream) and the emit pipeline's (the bridge finishes)."""
+    from tests.fake_gst import MessageType, make_sample
+
+    class Driven(bridge_cls):
+        def start(self):
+            super().start()
+            h, w = self.frame_shape[0] * 2 // 3, self.frame_shape[1]
+            for f in frames:
+                self._appsink.deliver(make_sample(f.tobytes(), w, h))
+            self.capture.get_bus().post(MessageType.EOS)
+            self.emit.get_bus().post(MessageType.EOS)
+            return self
+
+    def from_gi(cls, *args, **kwargs):
+        made.append(Driven(fake_gst(), *args, **kwargs))
+        return made[-1]
+
+    return classmethod(from_gi)
+
+
+GST_CASES = [("test", "null"), ("/dev/video0", "rtp+raw://127.0.0.1:5004"),
+             ("clip.mp4", "rtp://127.0.0.1:5004"), ("test", "rtp+h264://127.0.0.1:5004"),
+             ("/dev/video0", "out.mp4")]
+
+
+@pytest.mark.parametrize("source,sink", GST_CASES, ids=[f"{a}-{b}" for a, b in GST_CASES])
+def test_relay_io_gst_builds_and_feeds_the_jax_relays_pipelines(source, sink, capsys,
+                                                                monkeypatch, tmp_path):
+    """``--io=gst`` over python-gi, with ``gi_available`` and
+    ``GstAppBridge.from_gi`` of both packages on ``tests/fake_gst.FakeGst``:
+    the capture and emit pipelines of each source and sink kind are the JAX
+    relay's, the timestamp policy too, no cv2 source or sink is opened (the
+    file source does not exist), and the NV12 buffers pushed to the appsrc
+    are the JAX relay's, with the same timestamps."""
+    from opencv_opencl_tpu.io.gst_adapter import GstAppBridge as JaxBridge
+    from tests.fake_gst import FakeGst
+
+    rng = np.random.default_rng(16)
+    frames = rng.integers(0, 256, (4, 48, 64), np.uint8)
+    monkeypatch.chdir(tmp_path)
+    made = {}
+    for mod, bridge_cls in ((gst_adapter, gst_adapter.GstAppBridge),
+                            (jax_gst_adapter, JaxBridge)):
+        monkeypatch.setattr(mod, "gi_available", lambda: True)
+        made[mod] = []
+        monkeypatch.setattr(bridge_cls, "from_gi",
+                            _driven_bridge(bridge_cls, FakeGst, frames, made[mod]))
+    args = ["--io=gst", f"--source={source}", f"--sink={sink}", "--width=64",
+            "--height=32", "--batch=2", "--max-frames=4", "--status-interval=60"]
+    rc = relay.run(args + ["--device=cpu"])
+    got = capsys.readouterr()
+    assert rc == jax_relay.run(args) == 0
+    want = capsys.readouterr()
+    assert got.err == want.err == ""
+    assert "4 frames emitted" in got.out and "errors=0" in got.out
+    assert _printed_lines(got.out)[-14:] == _printed_lines(want.out)[-14:]
+    (ours,), (theirs,) = made[gst_adapter], made[jax_gst_adapter]
+    assert ours.capture_desc == theirs.capture_desc
+    assert ours.emit_desc == theirs.emit_desc
+    assert ours.policy.value == theirs.policy.value
+    assert "appsink" in ours.capture_desc and "appsrc name=my_src" in ours.emit_desc
+    pushed = [[(b.data, b.pts, b.dts, b.duration) for b in bridge._appsrc.pushed]
+              for bridge in (ours, theirs)]
+    assert pushed[0] == pushed[1] and len(pushed[0]) == 4
+    assert ours._appsrc.eos_sent and theirs._appsrc.eos_sent
+    assert not list(tmp_path.iterdir())
 
 
 def test_feeder_whole_batches_cut_by_count_not_by_timing():

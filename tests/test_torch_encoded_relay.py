@@ -18,13 +18,17 @@ relays.  The rows of ``tests/test_flag_matrix.py`` run against the port's
 relay: the GOP/GDR device encoder's run (``--encoder=tpu:gop=N``,
 ``tpu:gdr=N``), those of its partition modes and of the device bit packer
 too, and so do those of ``--fused-encode`` (the fused enhance + encode
-step), which print the JAX relay's "Fused enhance+encode" line; its
-refusals are the JAX relay's, but for ``--mesh``, which refuses with rc 2
-and "not ported yet".  The fused relay puts the JAX fused relay's
+step), which print the JAX relay's "Fused enhance+encode" line, and with
+``--mesh=2x1`` on a gloo group of two processes (``launch.run_relay``) its
+"over mesh" line; its refusals are the JAX relay's, those of ``--mesh``
+(``gdr``, ``cpb``, a ``--batch`` that is no multiple of the ranks times the
+GOP) included.  The fused relay puts the JAX fused relay's
 datagrams on loopback (``tpu:qp=40:i4:chromah``, whose ``i4`` and
 ``chromah`` the fused step does not read, and a GOP with a search), and
 the port's ``rtp_receiver`` records the same access units from the fused
-relay as from the unfused one.
+relay as from the unfused one; over a 2x1 gloo group
+(``--mesh=2x1 --fused-encode``) it prints the JAX mesh relay's lines and
+sends the single-card fused relay's datagrams.
 """
 
 import contextlib
@@ -40,6 +44,7 @@ from opencv_opencl_tpu.apps import relay as jax_relay
 from opencv_opencl_tpu.io import encoder as jax_encoder
 from opencv_opencl_tpu_torch.apps import multi_relay, relay, rtp_receiver
 from opencv_opencl_tpu_torch.io import encoder
+from opencv_opencl_tpu_torch.parallel import launch
 
 RELAY_BASE = ["--source=test", "--width=64", "--height=48", "--op=histeq",
               "--chroma=gray", "--batch=2", "--max-frames=6",
@@ -241,12 +246,15 @@ def test_encoded_sink_refusals_equal_jax(apps, extra, capsys, monkeypatch):
 MATRIX_BASE = ["--source=test", "--width=64", "--height=48", "--fps=30",
                "--max-frames=2", "--batch=2", "--workers=1", "--status-interval=60",
                "--device=cpu"]
-NOT_PORTED = "not ported yet"
 FUSED = ("Fused enhance+encode: frames stay in HBM as pixels; the host "
          "receives quantized levels only")
 FUSED_GOP = FUSED + " (GOP 4, recon resident in HBM)"
 FUSED_REFUSED = ("--fused-encode requires --sink=rtp+h264:// with "
                  "--encoder=tpu[...] (and no --io=gst or --ref-frame)")
+FUSED_MESH_INTRA = ("Fused enhance+encode over mesh {'data': 2, 'space': 1} (2 devices, "
+                    "frame-per-device; frames stay in HBM as pixels)")
+FUSED_MESH_STATE = ("--fused-encode with --mesh requires IDR GOP boundaries and "
+                    "per-frame-synchronous state to stay on one chip: no gdr, no cpb")
 MATRIX = [
     ("plain", ["--sink=null"], 0, None),
     ("clahe_ref_frame", ["--sink=null", "--op=clahe", "--ref-frame"], 0, None),
@@ -287,7 +295,15 @@ MATRIX = [
                           "--ref-frame"], 2, "not supported"),
     ("fused_x_null_sink", ["--sink=null", "--fused-encode"], 2, FUSED_REFUSED),
     ("fused_mesh_intra", ["--sink=rtp+h264://127.0.0.1:56476", "--encoder=tpu:qp=40",
-                          "--mesh=2x1", "--fused-encode"], 2, NOT_PORTED),
+                          "--mesh=2x1", "--fused-encode"], 0, FUSED_MESH_INTRA),
+    ("fused_mesh_x_gdr", ["--sink=rtp+h264://127.0.0.1:56489", "--encoder=tpu:qp=40:gdr=3",
+                          "--mesh=1x1", "--fused-encode"], 2, FUSED_MESH_STATE),
+    ("fused_mesh_x_cpb", ["--sink=rtp+h264://127.0.0.1:56490", "--bitrate=800",
+                          "--encoder=tpu:gop=4:cpb=500", "--mesh=1x1", "--fused-encode"],
+     2, FUSED_MESH_STATE),
+    ("fused_mesh_x_batch", ["--sink=rtp+h264://127.0.0.1:56491",
+                            "--encoder=tpu:qp=40:gop=4", "--mesh=1x1", "--fused-encode"],
+     2, "--batch=2 must be a positive multiple of mesh devices x GOP frames (1 x 4)"),
     ("fused_x_ref_frame", ["--sink=rtp+h264://127.0.0.1:56477", "--op=clahe",
                            "--ref-frame", "--encoder=tpu:qp=40", "--fused-encode"],
      2, FUSED_REFUSED),
@@ -297,11 +313,17 @@ MATRIX = [
 
 
 @pytest.mark.parametrize("name,extra,rc,msg", MATRIX, ids=[m[0] for m in MATRIX])
-def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
+def test_flag_matrix_on_the_port(name, extra, rc, msg, capfd):
     """A refusal's ``msg`` is its one line on stderr; a run's, a line it
-    prints."""
-    got = relay.run(MATRIX_BASE + extra)
-    out, err = capsys.readouterr()
+    prints.  A run on a mesh of two takes a gloo group of two processes,
+    whose rank 0 prints."""
+    if "--mesh=2x1" in extra and rc == 0:
+        rcs = launch.run_on_mesh((2, 1), launch.run_relay, (MATRIX_BASE + extra,),
+                                 device_type="cpu", timeout=110.0)
+        got = 0 if rcs == [0, 0] else rcs
+    else:
+        got = relay.run(MATRIX_BASE + extra)
+    out, err = capfd.readouterr()
     assert got == rc, f"{name}: rc {got} != {rc}; stderr: {err[-400:]}"
     if msg is not None and rc:
         assert msg in err and len(err.strip().splitlines()) == 1, err
@@ -310,15 +332,16 @@ def test_flag_matrix_on_the_port(name, extra, rc, msg, capsys):
 
 
 @pytest.mark.parametrize("name", ["fused_x_null_sink", "fused_x_ref_frame",
-                                  "fused_x_cpu_encoder"])
+                                  "fused_x_cpu_encoder", "fused_mesh_x_gdr",
+                                  "fused_mesh_x_cpb", "fused_mesh_x_batch"])
 def test_fused_refusals_are_the_jax_relays(name, capsys):
-    extra = next(m[1] for m in MATRIX if m[0] == name)
+    extra, msg = next((m[1], m[3]) for m in MATRIX if m[0] == name)
     rc = relay.run(MATRIX_BASE + extra)
     got = capsys.readouterr()
     jax_rc = jax_relay.run([a for a in MATRIX_BASE if a != "--device=cpu"] + extra)
     want = capsys.readouterr()
     assert rc == jax_rc == 2
-    assert got.err == want.err == FUSED_REFUSED + "\n"
+    assert got.err == want.err == msg + "\n"
 
 
 @pytest.mark.parametrize("spec", ["tpu:qp=40:i4:chromah", "tpu:qp=40:gop=4:search=2"])
@@ -344,6 +367,43 @@ def test_relay_fused_streams_the_jax_datagrams(spec, capsys):
     assert runs[0][1] == runs[1][1]
     fused_line = FUSED_GOP if "gop=" in spec else FUSED
     assert re.sub(r"\d+", "#", fused_line) in runs[0][1]
+
+
+def test_relay_fused_mesh_streams_the_single_card_datagrams(capfd):
+    """``--mesh=2x1 --fused-encode`` on a gloo group of two processes
+    (``--device=cpu``) prints the JAX relay's lines on its 2x1 CPU mesh (the
+    class names and the line on how the device program is made aside) and
+    sends the datagrams of the port's single-card fused relay, which
+    ``test_relay_fused_streams_the_jax_datagrams`` holds to the JAX fused
+    relay's: one GOP of 4 a rank, rank 0's qp on both ranks.  The JAX mesh
+    relay's own datagrams are not the reference: its feeder cuts batches by
+    timing, and every batch starts a GOP on each device, so where its first
+    batch is short its IDRs move; in a group the port's feeder cuts whole
+    batches."""
+    runs = []
+    with catchers(1) as (port, (sock,)):
+        argv = RELAY_BASE + ["--batch=8", "--max-frames=8",
+                             f"--sink=rtp+h264://127.0.0.1:{port}",
+                             "--encoder=tpu:qp=40:gop=4:search=2", "--fused-encode"]
+        rcs = launch.run_on_mesh((2, 1), launch.run_relay,
+                                 (argv + ["--mesh=2x1", "--device=cpu"],),
+                                 device_type="cpu", timeout=110.0)
+        runs.append((rcs, capfd.readouterr().out, drain(sock)))
+        runs.append(([jax_relay.run(argv + ["--mesh=2x1"])], capfd.readouterr().out,
+                     drain(sock)))
+        runs.append(([relay.run(argv + ["--device=cpu"])], capfd.readouterr().out,
+                     drain(sock)))
+    lines = [[" ".join(re.sub(r"-?\d+(\.\d+)?", "#", line.replace("Tpu", "Cuda")).split())
+              for line in out.splitlines()
+              if line.strip() and not line.startswith(("Building the kernels",
+                                                       "Compiling device program"))]
+             for _, out, _ in runs[:2]]
+    assert [r[0] for r in runs] == [[0, 0], [0], [0]]
+    assert "8 frames emitted" in runs[0][1] and "errors=0" in runs[0][1]
+    assert lines[0] == lines[1]
+    assert ("Fused enhance+encode over mesh {'data': 2, 'space': 1} (2 devices, "
+            "GOP-per-device; frames stay in HBM as pixels)") in runs[0][1].splitlines()
+    assert runs[0][2] == runs[2][2] and len(runs[0][2]) >= 8
 
 
 def test_rtp_receiver_records_the_fused_relays_access_units(tmp_path, capsys):

@@ -147,7 +147,7 @@ def test_h265_is_refused_by_the_in_repo_encoders_as_jax(spec):
 
 
 @pytest.mark.parametrize("spec", ["tpu", "tpu:qp=30", "tpu:qp=30:gop=8:search=2"])
-def test_the_device_encoders_are_not_ported_yet(spec):
+def test_the_device_encoders_run_on_the_card_unless_asked_for_the_cpu(spec):
     """The device encoders, intra and GOP, are ported and run on the card
     unless asked for the CPU: with no card and no device they raise, they
     never carry on on the CPU."""
