@@ -119,6 +119,19 @@ Phases, each of which raises (exit code != 0) when it fails:
             to 0 before each path and read after it, and every kernel of a
             path must have been launched (K8 lies on no path: its launches
             are those of its phase-3 check, as are K3v1's and K9's); then
+            the image and video apps' compute parts (``phase_app_paths``;
+            their ``run`` reads and writes through cv2, which the card's
+            machine lacks), each path's launches counted around the app's
+            own function and its output held at 0 LSB to the same function
+            on the CPU (the plain versions) and to ``core/golden.py``:
+            ``histeq_image.enhance_bgr`` (K1 on a 1x1 grid, K4) and
+            ``clahe_image.clahe_bgr`` (K1-K3, clip 3.0, 4x4 tiles) on a
+            4K BGR image, the latter also at 1919x1079, ``m2_bench``'s two
+            methods (equal to each other), ``parity_bench.device_parity``
+            for histeq and CLAHE (clip 2.0, 8x8; no pixel off golden) and
+            ``clahe_video.enhance_frames`` over 16 ``TestSource`` 4K frames
+            into a ``RawSink`` (every frame the plain versions'), each
+            app's own times printed with the card; then
             the sharded path: ``ShardedEnhancer`` on a 1x1 mesh on NCCL in
             this process, through the ``FrameFeeder`` (CLAHE passthrough and
             histeq gray, 64 frames each), and the same two configurations
@@ -127,7 +140,7 @@ Phases, each of which raises (exit code != 0) when it fails:
             every assembled batch and every position's band compared with
             the single-card ``Enhancer``'s inside each rank; then the relay
             apps as a user starts them, in this process:
-            ``apps.relay.run`` at 3840x2160, batch 4, ``--source=test``, 48
+            ``apps.relay.run`` at 3840x2160, batch 4, ``--source=test``, 32
             frames, for (a) histeq gray to the null sink, (b) CLAHE
             passthrough to a raw NV12 file that is compared frame by frame
             with the plain versions on the same ``TestSource`` frames, (c)
@@ -227,6 +240,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             batch_rows beside K1 and K8 on structured, random and constant
             content, and K6r beside K6 and K5, in turns.
 
+The WebRTC sender and its signaling server (``apps/sender.py``,
+``io/signaling.py``, ``io/webrtc_controller.py``) launch no kernel, and the
+card's machine has no websockets: no phase runs them here, and the CPU
+tests (``tests/test_torch_webrtc.py``) alone hold them to the JAX package.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports no JAX
 and nothing of the JAX package: the oracles on the card are the plain
@@ -255,7 +273,8 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from opencv_opencl_tpu_torch import native
-from opencv_opencl_tpu_torch.apps import multi_relay, relay
+from opencv_opencl_tpu_torch.apps import (
+    clahe_image, clahe_video, histeq_image, m2_bench, multi_relay, parity_bench, relay)
 from opencv_opencl_tpu_torch.io import encoder as encoder_io
 from opencv_opencl_tpu_torch.io import rtp_h26x
 from opencv_opencl_tpu_torch.io.h264_cavlc import CavlcH264Encoder, CudaCavlcEncoder
@@ -264,7 +283,8 @@ from opencv_opencl_tpu_torch.core import color as color_oracle
 from opencv_opencl_tpu_torch.core import golden
 from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
 from opencv_opencl_tpu_torch.io.rtp import RtpUdpReceiver, RtpUdpSink
-from opencv_opencl_tpu_torch.io.videofile import TestSource
+from opencv_opencl_tpu_torch.io.videofile import RawSink, TestSource
+from opencv_opencl_tpu_torch.metrics.timing import TimingStats
 from opencv_opencl_tpu_torch.models import fused_encode
 from opencv_opencl_tpu_torch.models.enhancer import (
     Enhancer,
@@ -379,9 +399,9 @@ OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
 K2_LAUNCHES = 200
 # batches per configuration on the spawned 2x2 and 1x4 meshes
 SHARDED_BATCHES = 4
-# frames of relays (a)-(f): 48 since the device encoder's checks came in
-# (64 before), each relay reads TestSource's ~3-5 fps
-RELAY_FRAMES = 48
+# frames of relays (a)-(f): 32 since the apps' phase came in (48 since the
+# device encoder's checks, 64 before), each relay reads TestSource's ~3-5 fps
+RELAY_FRAMES = 32
 MULTI_STREAMS, MULTI_FRAMES = 4, 32
 # the raw RTP receiver's socket buffer: a 4K frame leaves the C++ sender
 # as one burst of ~13,000 datagrams (~30 MB of kernel buffers on loopback)
@@ -468,6 +488,12 @@ BANDED_CASES = (("search4", dict(search=4)),
                 ("search2_quarterpel_parts", dict(search=2, quarterpel=True, parts=True)))
 MESH_RELAY_GOP, MESH_RELAY_FRAMES = 4, 16
 MESH_RELAY_SPEC = f"tpu:qp=30:gop={MESH_RELAY_GOP}:search={P_SEARCH}:fastsub:deblock"
+# the image and video apps' compute parts: clahe_image's defaults (clip 3.0,
+# 4x4 tiles) at 4K and on an odd frame, parity_bench's (clip 2.0, 8x8, 256
+# chained calls), and clahe_video's loop over TestSource 4K frames (its
+# defaults: CLAHE clip 2.0, 8x8, chroma passthrough)
+APP_CLAHE_CLIP, APP_CLAHE_TILE, APP_ODD_SHAPE = 3.0, 4, (1079, 1919)
+APP_PARITY_REPEAT, APP_VIDEO_FRAMES = 256, 16
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1941,6 +1967,143 @@ def phase_slice3_paths(device, rng, h=HEIGHT, w=WIDTH) -> dict[str, dict[str, in
         check(c["tile_histograms"] > 0 and c["build_luts"] > 0
               and c["clahe_interpolate_cells"] > 0 and c["clahe_interpolate"] == 0,
               f"{label} path did not run K1, K2 and K6 alone: {c}")
+    return per_path
+
+
+def golden_bgr(bgr: np.ndarray, enhance_y) -> np.ndarray:
+    """The image apps' flow on the numpy oracles: BGR -> YUV, ``enhance_y``
+    on Y, back to BGR."""
+    yuv = color_oracle.bgr2yuv(bgr)
+    y = enhance_y(np.ascontiguousarray(yuv[..., 0]))
+    return color_oracle.yuv2bgr(np.stack([y, yuv[..., 1], yuv[..., 2]], axis=-1))
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 before and read after."""
+    cuda_ops.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, cuda_ops.launch_counts()
+
+
+def check_only(label: str, counts: dict[str, int], wrappers: tuple[str, ...]) -> None:
+    check(all(counts[w] > 0 for w in wrappers)
+          and all(n == 0 for w, n in counts.items() if w not in wrappers),
+          f"{label} did not launch {wrappers} alone: {counts}")
+
+
+def phase_app_paths(device, rng, card: str, tmp: str, h=HEIGHT,
+                    w=WIDTH) -> dict[str, dict[str, int]]:
+    """The image and video apps' compute parts on the card (their ``run``
+    reads and writes through cv2, which the card's machine lacks): each
+    path's launches counted around the app's own function, its output held
+    at 0 LSB to the same function on the CPU (the kernels' plain versions)
+    and to ``core/golden.py``, and its own times printed with the card.
+    ``histeq_image.enhance_bgr`` (K1 on a 1x1 grid, K4) and
+    ``clahe_image.clahe_bgr`` (K1, K2, K3; at clip 3.0 and 4x4 tiles, at 4K
+    and 1919x1079) on BGR images; ``m2_bench``'s two methods, equal to each
+    other and to golden; ``parity_bench.device_parity`` for histeq and CLAHE
+    (clip 2.0, 8x8) with golden as the reference, no pixel off;
+    ``clahe_video.enhance_frames`` over 16 ``TestSource`` 4K frames into a
+    ``RawSink``, every frame the plain versions'."""
+    cpu = torch.device("cpu")
+    per_path = {}
+    bgr = color_oracle.nv12_to_bgr(nv12_batch(rng, 1, h, w)[0])
+
+    (out, stage_us), per_path["app histeq_image"] = counted(
+        lambda: histeq_image.enhance_bgr(bgr, device))
+    _, warm_us = histeq_image.enhance_bgr(bgr, device)
+    check_only("histeq_image", per_path["app histeq_image"],
+               ("tile_histograms", "apply_lut"))
+    want = golden_bgr(bgr, golden.equalize_hist)
+    check(np.array_equal(out, histeq_image.enhance_bgr(bgr, cpu)[0])
+          and np.array_equal(out, want), "histeq_image differs from plain or golden")
+    print(f"time app histeq_image {w}x{h}: stage us, first call "
+          f"{ {k: round(v, 1) for k, v in stage_us.items()} }, second "
+          f"{ {k: round(v, 1) for k, v in warm_us.items()} } [{card}]", flush=True)
+
+    counts = []
+    for ah, aw in ((h, w), APP_ODD_SHAPE):
+        image = bgr if (ah, aw) == (h, w) else color_oracle.nv12_to_bgr(
+            nv12_batch(rng, 1, ah + 1, aw + 1)[0])[:ah, :aw]
+        (out, ms), c = counted(lambda: clahe_image.clahe_bgr(
+            image, APP_CLAHE_CLIP, APP_CLAHE_TILE, device))
+        counts.append(c)
+        want = golden_bgr(image, lambda y: golden.clahe(
+            y, APP_CLAHE_CLIP, (APP_CLAHE_TILE, APP_CLAHE_TILE)))
+        plain, _ = clahe_image.clahe_bgr(image, APP_CLAHE_CLIP, APP_CLAHE_TILE, cpu)
+        check(np.array_equal(out, plain) and np.array_equal(out, want),
+              f"clahe_image {aw}x{ah} differs from plain or golden")
+        # the app's one call beside the same compute's medians of 30, from an
+        # idle card and device alone (outside the path's counts)
+        y = color.bgr2yuv(image, device)[..., 0].contiguous()
+        plan = clahe_ops.make_clahe_plan(ah, aw, APP_CLAHE_CLIP,
+                                         (APP_CLAHE_TILE, APP_CLAHE_TILE))
+        idle = time_ms(lambda: clahe_ops.clahe_apply(y, plan, "onehot"))
+        alone = device_ms(lambda: clahe_ops.clahe_apply(y, plan, "onehot"))
+        print(f"time app clahe_image {aw}x{ah}: CLAHE_apply_time_ms={ms:.4f} "
+              f"(clipLimit={APP_CLAHE_CLIP:g}, tileGridSize={APP_CLAHE_TILE}x"
+              f"{APP_CLAHE_TILE}), CUDA events around K1, K2, K3 after a warm-up; "
+              f"the same compute, median of 30: idle card {idle:.4f} ms, device "
+              f"alone {alone:.4f} ms [{card}]", flush=True)
+    per_path["app clahe_image"] = sum_counts(counts)
+    check_only("clahe_image", per_path["app clahe_image"],
+               ("tile_histograms", "build_luts", "clahe_interpolate"))
+
+    yuv = m2_bench.to_yuv(bgr, device)
+    ((m1, m1_us), (m2, m2_us)), per_path["app m2_bench"] = counted(
+        lambda: (m2_bench.method1(yuv, device), m2_bench.method2(yuv, device)))
+    check_only("m2_bench", per_path["app m2_bench"], ("tile_histograms", "apply_lut"))
+    check(torch.equal(m1, m2), "m2_bench's methods differ")
+    check(np.array_equal(color.yuv2bgr(m1, device).cpu().numpy(),
+                         golden_bgr(bgr, golden.equalize_hist)),
+          "m2_bench differs from golden")
+    print(f"time app m2_bench {w}x{h}: Method 1 (staged) {m1_us:.1f} us, Method 2 "
+          f"(one function) {m2_us:.1f} us [{card}]", flush=True)
+
+    y = color_oracle.bgr2yuv_i420(bgr)[:h]
+    counts = []
+    for op, want in (("histeq", golden.equalize_hist(y)),
+                     ("clahe", golden.clahe(y, CLIP, GRID))):
+        (out, ms, err), c = counted(lambda: parity_bench.device_parity(
+            y, want, op, device, CLIP, GRID[0], 0, APP_PARITY_REPEAT))
+        counts.append(c)
+        check(err == 0.0 and np.array_equal(out, want),
+              f"parity_bench {op}: {err}% of pixels off golden")
+        print(f"time app parity_bench {w}x{h} {op}: GPU {op} time {ms:.4f} ms "
+              f"(chained avg of {APP_PARITY_REPEAT}, median of 3), 0% of pixels "
+              f"off golden [{card}]", flush=True)
+    per_path["app parity_bench"] = sum_counts(counts)
+    check_only("parity_bench", per_path["app parity_bench"],
+               ("tile_histograms", "build_luts", "clahe_interpolate", "apply_lut"))
+
+    spec, cfg = clahe_config(h, w)
+    frames = list(TestSource(spec, num_frames=APP_VIDEO_FRAMES))
+    path = os.path.join(tmp, "clahe_video.nv12")
+    sink = RawSink(path)
+    timing = TimingStats(window=APP_VIDEO_FRAMES, label="clahe_video")
+    enhancer = Enhancer(cfg, spec, device)
+    n, per_path["app clahe_video"] = counted(lambda: clahe_video.enhance_frames(
+        iter(frames), enhancer, [sink], timing))
+    sink.close()
+    check(n == sink.frames == APP_VIDEO_FRAMES, f"clahe_video wrote {sink.frames}")
+    check_only("clahe_video", per_path["app clahe_video"],
+               ("tile_histograms", "build_luts", "clahe_interpolate"))
+    got = np.fromfile(path, np.uint8).reshape(APP_VIDEO_FRAMES, h * 3 // 2, w)
+    batch = torch.from_numpy(np.stack(frames)).to(device)
+    plan = clahe_ops.make_clahe_plan(h, w, CLIP, GRID)
+    want = torch.cat([plain_step(batch[:, :h], plan), batch[:, h:]], dim=1)
+    bad = int((torch.from_numpy(got).to(device) != want).flatten(1).any(1).sum())
+    check(bad == 0, f"clahe_video: {bad} of {APP_VIDEO_FRAMES} frames differ from plain")
+    per = max(timing.frame_count, 1)
+    print(f"time app clahe_video {w}x{h} CLAHE: {APP_VIDEO_FRAMES} TestSource frames "
+          f"into a RawSink, per frame compute {timing.sum_compute / per:.3f} ms, "
+          f"memory {timing.sum_memory / per:.3f} ms, total "
+          f"{timing.sum_total / per:.3f} ms, p50 {timing.percentile_total_ms(50):.3f} "
+          f"[{card}]", flush=True)
+    print(f"app paths: launches "
+          f"{ {k: {w: n for w, n in c.items() if n} for k, c in per_path.items()} }",
+          flush=True)
     return per_path
 
 
@@ -3843,6 +4006,8 @@ def main() -> int:
     phase_golden_sharded(device, rng)
     per_path = phase_main_paths(device, rng)               # phase 5
     per_path.update(phase_slice3_paths(device, rng))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as tmp:
+        per_path.update(phase_app_paths(device, rng, card, tmp))
     # the relay apps first: their --mesh=1x1 starts and ends a group of its own
     paths_of_relays, relay_rates = phase_relay_paths(device, card)
     per_path.update(paths_of_relays)
@@ -3907,8 +4072,8 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
-    check("jax" not in sys.modules and "cv2" not in sys.modules,
-          "jax or cv2 was imported")
+    check(not {"jax", "cv2", "websockets"} & set(sys.modules),
+          "jax, cv2 or websockets was imported")
     check(not any(m == "opencv_opencl_tpu" or m.startswith("opencv_opencl_tpu.")
                   for m in sys.modules), "the JAX package was imported")
     kernels = [

@@ -10,7 +10,14 @@ def main() -> None:
     print_env_report()
     print("\nApps (python -m opencv_opencl_tpu_torch.apps.<name>):")
     for name, ref in [
+        ("histeq_image", "singlecolor.cpp"),
+        ("clahe_image", "clahe1frame.cpp"),
+        ("m2_bench", "m2.cpp"),
+        ("parity_bench", "1frameMeasure.cpp"),
+        ("clahe_video", "CLAHECompare.cpp / clahevideo.cpp"),
+        ("airplan_mp4", "AirplanMP4.cpp"),
         ("relay", "OpenCVequalHist family / OpenCLequalHist / improvement"),
+        ("sender", "webrtc/sender.cpp family (+ --audio, --test-source)"),
         ("rtp_receiver", "PC-side RTP player/recorder (extension)"),
         ("multi_relay", "N streams / one card serving (extension)"),
         ("h26x_stream", "replay recorded H.26x ES over RTP (extension)"),

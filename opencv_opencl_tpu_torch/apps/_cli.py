@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import sys
 
-__all__ = ["parse_kv_args", "get_arg", "install_sigterm_handler"]
+__all__ = ["parse_kv_args", "get_arg", "install_sigterm_handler",
+           "pop_device_flag", "resolve_device"]
 
 
 def parse_kv_args(argv: list[str], keys: dict[str, type]) -> tuple[dict, list[str]]:
@@ -61,6 +62,37 @@ def parse_kv_args(argv: list[str], keys: dict[str, type]) -> tuple[dict, list[st
 
 def get_arg(opts: dict, key: str, default):
     return opts.get(key, default)
+
+
+# The port's own two helpers: the apps that launch kernels run on the card
+# unless ``--device=cpu`` names the plain versions (for tests).
+
+
+def resolve_device(name: str):
+    """``--device`` as a torch device, or None (with a line on stderr) when
+    it names the card and there is none."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device: this app runs on the card "
+              "(torch.cuda.is_available() is false); --device=cpu runs the "
+              "kernels' plain versions for tests", file=sys.stderr)
+        return None
+    return device
+
+
+def pop_device_flag(argv: list[str], default: str = "cuda") -> tuple[list[str], str]:
+    """Take every ``--device=NAME`` out of ``argv`` (the last one wins), for
+    the apps whose other arguments are positional; returns the rest of
+    ``argv`` and the device name."""
+    rest, name = [], default
+    for a in argv:
+        if a.startswith("--device="):
+            name = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, name
 
 
 def install_sigterm_handler() -> None:

@@ -56,9 +56,8 @@ import time
 import contextlib
 
 from opencv_opencl_tpu_torch.apps._cli import (
-    install_sigterm_handler, parse_kv_args)
-from opencv_opencl_tpu_torch.apps.relay import (
-    group_rank_and_size, mesh_for_app, resolve_device)
+    install_sigterm_handler, parse_kv_args, resolve_device)
+from opencv_opencl_tpu_torch.apps.relay import group_rank_and_size, mesh_for_app
 
 
 def run(argv: list[str]) -> int:

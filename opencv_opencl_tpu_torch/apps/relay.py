@@ -114,20 +114,7 @@ import time
 import numpy as np
 
 from opencv_opencl_tpu_torch.apps._cli import (
-    install_sigterm_handler, parse_kv_args)
-
-def resolve_device(name: str):
-    """``--device`` as a torch device, or None (with a line on stderr) when
-    it names the card and there is none."""
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("no CUDA device: this app runs on the card "
-              "(torch.cuda.is_available() is false); --device=cpu runs the "
-              "kernels' plain versions for tests", file=sys.stderr)
-        return None
-    return device
+    install_sigterm_handler, parse_kv_args, resolve_device)
 
 
 def mesh_for_app(spec: str, device, stack: contextlib.ExitStack):

@@ -300,7 +300,11 @@ def test_import_scan_tells_module_level_from_lazy_imports(tmp_path):
                    "ops/cuda/h264_levels.py", "ops/h264_deblock.py",
                    "ops/cuda/h264_inter.py", "ops/cuda/h264_deblock.py",
                    "ops/h264_bitpack.py", "ops/cuda/h264_bitpack.py",
-                   "models/fused_encode.py", "parallel/sharded_encode.py"):
+                   "models/fused_encode.py", "parallel/sharded_encode.py",
+                   "io/signaling.py", "io/webrtc_controller.py", "apps/sender.py",
+                   "apps/histeq_image.py", "apps/clahe_image.py", "apps/m2_bench.py",
+                   "apps/parity_bench.py", "apps/clahe_video.py",
+                   "apps/airplan_mp4.py"):
         assert needed in paths, needed
 
 
