@@ -203,7 +203,17 @@ Phases, each of which raises (exit code != 0) when it fails:
             stream; each rank's ms a 4K block through the fused step, the
             gather's ms and the banded encoder's ms a P frame are printed
             with the card (processes sharing one card: no multi-card
-            speed-up);
+            speed-up); (d) the dry run, ``entry.dryrun_multichip(4)``: four
+            processes on a 2x2 mesh sharing the card, each holding its
+            sharded CLAHE, histeq and odd 131x67 outputs to the
+            single-card steps and rank 0 the GOP-per-rank, partition and
+            banded streams to the single-card encoder's, and
+            ``entry.entry()``'s step against its plain version on the CPU
+            and golden; (e) relay (o), ``multi_relay --mesh=2x1`` in a
+            group of two processes (``launch.run_multi_relay``), 2 streams
+            of 1080p CLAHE passthrough to ``rtp+raw://``, 16 rounds, every
+            frame of every stream received and equal to the single-card
+            ``Enhancer``'s, emitted equal to submitted for each stream;
 6. timings  CUDA-event medians of the five 4K batch-4 steps and of each
             kernel beside its plain version and, where one exists, the one
             PyTorch call that computes the same function; K2 also as a run
@@ -272,7 +282,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from opencv_opencl_tpu_torch import native
+from opencv_opencl_tpu_torch import entry, native
 from opencv_opencl_tpu_torch.apps import (
     clahe_image, clahe_video, histeq_image, m2_bench, multi_relay, parity_bench, relay)
 from opencv_opencl_tpu_torch.io import encoder as encoder_io
@@ -488,6 +498,11 @@ BANDED_CASES = (("search4", dict(search=4)),
                 ("search2_quarterpel_parts", dict(search=2, quarterpel=True, parts=True)))
 MESH_RELAY_GOP, MESH_RELAY_FRAMES = 4, 16
 MESH_RELAY_SPEC = f"tpu:qp=30:gop={MESH_RELAY_GOP}:search={P_SEARCH}:fastsub:deblock"
+# the dry run (entry.py): its processes, four on a 2x2 mesh sharing the
+# card; relay (o): multi_relay --mesh=2x1, its streams of 1080p CLAHE
+# passthrough to rtp+raw:// and its rounds (a frame a stream each)
+DRYRUN_PROCESSES = 4
+GROUP_RELAY_STREAMS, GROUP_RELAY_ROUNDS = 2, 16
 # the image and video apps' compute parts: clahe_image's defaults (clip 3.0,
 # 4x4 tiles) at 4K and on an odd frame, parity_bench's (clip 2.0, 8x8, 256
 # chained calls), and clahe_video's loop over TestSource 4K frames (its
@@ -2333,7 +2348,156 @@ def phase_sharded_encode(device, rng, card: str, tmp: str) -> dict[str, dict[str
     print(f"main path sharded_encode banded: {elapsed:.1f} s, spawn and references "
           f"included", flush=True)
     mesh_relay(device, card, tmp)
+    per_path.update(phase_dryrun(device, card))
+    per_path.update(group_multi_relay(device, card))
     return per_path
+
+
+def phase_dryrun(device, card: str) -> dict[str, dict[str, int]]:
+    """The dry run (``entry.py``): ``entry.dryrun_multichip(4)``, four
+    processes on a 2x2 mesh that share the card (gloo), each holding its
+    sharded CLAHE, histeq and odd 131x67 outputs to the single-card steps
+    bit for bit and rank 0 holding the GOP-per-rank, partition and banded
+    streams to the single-card encoder's byte for byte (rank 0 prints the
+    JAX dry run's line); then ``entry.entry()``'s step (720p b2 CLAHE) on
+    the card, held to its plain version on the CPU and to
+    ``core/golden.py``.  Returns each path's launch counts."""
+    t0 = time.perf_counter()
+    ranks = entry.dryrun_multichip(DRYRUN_PROCESSES, device_type="cuda")
+    elapsed = time.perf_counter() - t0
+    for rank, res in enumerate(ranks):
+        check(res["backend"] == "gloo" and not res["loaded"],
+              f"dry run rank {rank}: backend {res['backend']}, loaded {res['loaded']}")
+        check(all(res["checks"].values()), f"dry run rank {rank}: {res['checks']}")
+    check(ranks[0]["geometry"][:2] == (2, 2), f"dry run mesh {ranks[0]['geometry']}")
+    dry = sum_counts([c for res in ranks for c in res["launches"].values()])
+    for rank, res in enumerate(ranks):
+        band = res["launches"]["sharded CLAHE passthrough"]
+        gop = res["launches"]["GOP-per-rank stream"]
+        check(all(band[k] > 0 for k in ("tile_histograms", "build_luts",
+                                        "clahe_interpolate_band"))
+              and res["launches"]["sharded histeq gray"]["apply_lut"] > 0
+              and all(gop[k] > 0 for k in ("clahe_interpolate", "encode_levels",
+                                           "subpel_planes", "motion_search",
+                                           "encode_p_levels"))
+              and res["launches"]["GOP-per-rank parts refs=2 stream"][
+                  "motion_search_parts"] > 0,
+              f"dry run rank {rank}: launches {res['launches']}")
+    print(f"main path dryrun_multichip({DRYRUN_PROCESSES}) (gloo, 4 processes on the "
+          f"card, mesh 2x2): every rank's sharded outputs equal the single-card "
+          f"steps', rank 0's streams the single-card encoder's; launches {dry}",
+          flush=True)
+    print(f"time dryrun_multichip({DRYRUN_PROCESSES}): {elapsed:.1f} s wall, spawn, "
+          f"kernel load and single-card references included [{card}]", flush=True)
+
+    fn, (batch,) = entry.entry()
+    cuda_ops.reset_launch_counts()
+    out = fn(batch)
+    torch.cuda.synchronize()
+    step = cuda_ops.launch_counts()
+    plain_fn, (plain_batch,) = entry.entry(device="cpu")
+    check(torch.equal(batch.cpu(), plain_batch), "entry(): the batches differ")
+    check(torch.equal(out.cpu(), plain_fn(plain_batch)),
+          "entry(): the card's step differs from its plain version on the CPU")
+    for i, f in enumerate(plain_batch.numpy()):
+        check(np.array_equal(out[i, :720].cpu().numpy(), golden.clahe(f[:720], CLIP, GRID)),
+              f"entry(): frame {i} differs from core.golden.clahe")
+    check(all(step[k] == 1 for k in ("tile_histograms", "build_luts", "clahe_interpolate")),
+          f"entry(): launches {step}")
+    print(f"main path entry() 720p b2 CLAHE: equal to its plain version on the CPU "
+          f"and to core.golden.clahe; launches {step}", flush=True)
+    return {"dryrun_2x2": dry, "entry_720p": step}
+
+
+def group_multi_relay_rank(mesh, device, argv: list[str]):
+    """A rank of relay (o): ``launch.run_multi_relay`` with the launch
+    counts at 0 and the app's output captured; returns (return code,
+    output, launch counts)."""
+    captured = io.StringIO()
+    cuda_ops.reset_launch_counts()
+    with contextlib.redirect_stdout(captured):
+        rc = launch.run_multi_relay(mesh, device, argv)
+    return rc, captured.getvalue(), cuda_ops.launch_counts()
+
+
+def stride_two_catchers(n: int, rows: int, width: int, keep: int):
+    """``(base, catchers)``: a started ``RawFrameCatcher`` a stream on
+    127.0.0.1 at ``base + 2*i``, each keeping ``keep`` frames."""
+    for _ in range(20):
+        base, catchers = free_udp_port(), []
+        try:
+            for i in range(n):
+                catchers.append(RawFrameCatcher(rows, width, keep, port=base + 2 * i))
+        except OSError:          # a port of the stride was taken
+            for c in catchers:
+                c.rx.close()
+            continue
+        for c in catchers:
+            c.start()
+        return base, catchers
+    check(False, "no free UDP ports at a stride of two")
+
+
+def group_multi_relay(device, card: str) -> dict[str, dict[str, int]]:
+    """Relay (o): ``multi_relay --mesh=2x1`` on a group of two processes
+    that share the card (``launch.run_multi_relay``, gloo), 2 streams of
+    1080p CLAHE passthrough from ``TestSource`` to ``rtp+raw://`` (stream i
+    at port + 2i), 16 rounds.  Both ranks must return 0, each must launch
+    the sharded CLAHE kernels, a receiver a stream must get every frame,
+    equal to the single-card ``Enhancer``'s output of the ``TestSource``
+    frames, and the Shutdown line must read emitted == submitted for each
+    stream.  Returns the path's launch counts."""
+    w, h, n, rounds = 1920, 1080, GROUP_RELAY_STREAMS, GROUP_RELAY_ROUNDS
+    base, catchers = stride_two_catchers(n, h * 3 // 2, w, rounds)
+    argv = [f"--streams={n}", f"--width={w}", f"--height={h}", "--op=clahe",
+            "--chroma=passthrough", f"--batch={BATCH}", f"--max-frames={rounds}",
+            "--fps=1000", f"--sink=rtp+raw://127.0.0.1:{base}", "--mesh=2x1",
+            "--status-interval=60"]
+    try:
+        t0 = time.perf_counter()
+        ranks = launch.run_on_mesh((2, 1), group_multi_relay_rank, (argv,),
+                                   device_type="cuda", timeout=SPAWN_TIMEOUT)
+        elapsed = time.perf_counter() - t0
+        for c in catchers:
+            c.join(timeout=30)   # each stops once it holds every frame
+    finally:
+        for c in catchers:
+            c.finish()
+    for line in ranks[0][1].splitlines():
+        if line.strip():
+            print(f"relay_o | {line}", flush=True)
+    check([r[0] for r in ranks] == [0, 0], f"relay (o): return codes {[r[0] for r in ranks]}")
+    check(ranks[1][1] == "", f"relay (o): rank 1 printed {ranks[1][1]!r}")
+    for rank, (_, _, counts) in enumerate(ranks):
+        check(all(counts[k] > 0 for k in ("tile_histograms", "build_luts",
+                                          "clahe_interpolate_band")),
+              f"relay (o) rank {rank} launched no K1, K2 or K5: {counts}")
+    text = ranks[0][1]
+    m = re.search(r"Shutdown: (\d+) frames across (\d+) streams in [\d.]+s "
+                  r"\(([\d.]+) fps aggregate\)", text)
+    check(m is not None, "relay (o): no Shutdown line")
+    per_stream = re.findall(r"#\d+=(\d+)/(\d+)", text)
+    check(int(m.group(1)) == n * rounds and per_stream == [(str(rounds),) * 2] * n,
+          f"relay (o): {m.group(0)}; per stream {per_stream}")
+    spec, cfg = clahe_config(h, w)
+    src = np.stack(list(TestSource(FrameSpec(width=w, height=h), num_frames=rounds)))
+    enhancer = Enhancer(cfg, spec, device)
+    want = np.concatenate([np.asarray(enhancer.process_batch(src[k:k + BATCH]))
+                           for k in range(0, rounds, BATCH)])
+    for i, c in enumerate(catchers):
+        check(len(c.kept) == rounds and all(np.array_equal(f, want[k])
+                                            for k, f in enumerate(c.kept)),
+              f"relay (o): stream {i} received {len(c.kept)} of {rounds} frames, or "
+              f"a frame differs from the single-card Enhancer's")
+    print(f"relay (o) multi_relay --mesh=2x1, {n} streams of {w}x{h} CLAHE to rtp+raw: "
+          f"every frame of every stream received, equal to the single-card "
+          f"Enhancer's; {m.group(0)}", flush=True)
+    print(f"time relay (o) multi_relay --mesh=2x1 {n}x1080p: the app's own Shutdown "
+          f"rate {float(m.group(3)):.1f} fps aggregate (TestSource on the host, two "
+          f"processes sharing the card, the bands' gather through the host, the raw "
+          f"RTP sink); {elapsed:.1f} s wall with spawn and kernel load [{card}]",
+          flush=True)
+    return {"relay_o_multi_relay_2x1": sum_counts([r[2] for r in ranks])}
 
 
 def mesh_relay(device, card: str, tmp: str) -> None:
@@ -2439,12 +2603,12 @@ class RawFrameCatcher(threading.Thread):
     leaves the wire alone: what the sender goes on to send is dropped by the
     socket, which a UDP sender does not notice."""
 
-    def __init__(self, rows: int, width: int, keep: int = 3):
+    def __init__(self, rows: int, width: int, keep: int = 3, port: int = 0):
         super().__init__(daemon=True, name="rtp-raw-catcher")
         # a stream frame the relay's queue dropped never reaches the wire, so
         # the kept frames are matched to the expected ones in order, not by
         # position
-        self.rx = RtpUdpReceiver(host="127.0.0.1", port=0, kind="raw",
+        self.rx = RtpUdpReceiver(host="127.0.0.1", port=port, kind="raw",
                                  frame_shape=(rows, width), timeout=0.5,
                                  rtcp=False, buffer_size=RECEIVER_BUFFER)
         # past the host's rmem_max where the process may (CAP_NET_ADMIN)

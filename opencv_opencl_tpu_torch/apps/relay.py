@@ -56,9 +56,13 @@ card it fails, it does not carry on on the CPU.
 a one-rank group itself.  Inside a group started by
 ``parallel/launch.run_on_mesh`` every rank calls :func:`run` with the same
 arguments and reads the same source; only rank 0 owns the sink and prints.
-The frames are then cut into whole batches whatever the timing, so that
-every rank makes the same collective calls; the time-driven flags
-(``--duration``, ``--max-rate``, ``--adaptive-rate``) are refused there.
+Rank 0 alone opens the sink and checks its flags (``--rtcp-schedule``,
+``--sdp-file``, ``--encoder``); its return code reaches every rank before
+any collective (:func:`lead_verdict`), so a refusal ends every rank with
+rank 0's code, printed once.  The frames are then cut into whole batches
+whatever the timing, so that every rank makes the same collective calls;
+the time-driven flags (``--duration``, ``--max-rate``, ``--adaptive-rate``)
+are refused there, on every rank.
 
 ``--native`` stages the frames through the C++ ring of the port's
 ``native`` package (built with g++ at first use; where it cannot be built
@@ -151,6 +155,39 @@ def group_rank_and_size() -> tuple[int, int]:
     return 0, 1
 
 
+def timed_flags_refusal(opts: dict, world: int, extra: tuple[str, ...] = ()) -> str | None:
+    """The refusal of the flags that cut batches apart by rank, in a group
+    of ``world`` ranks (None where there is none): the clock's
+    (``--duration``, ``--max-rate``, ``--adaptive-rate``) and ``extra``."""
+    timed = [f"--{k}" for k in ("duration", "max-rate", "adaptive-rate")
+             if opts.get(k)] + list(extra)
+    if world < 2 or not timed:
+        return None
+    return (f"{', '.join(timed)} not supported in a process group of "
+            f"{world} ranks: every rank must see the same frames")
+
+
+def lead_verdict(lead: bool, world: int, device, open_on_lead):
+    """``open_on_lead()`` on rank 0 alone, ``(value, rc)`` (rc 0, or the
+    return code of a refusal it has printed), and ``(None, 0)`` on the other
+    ranks; in a group of several ranks rank 0's rc is then broadcast, before
+    any other collective, and returned on every rank.  Where rank 0 raises,
+    the other ranks get rc 1."""
+    from opencv_opencl_tpu_torch.parallel.collectives import broadcast_int
+
+    value, rc = None, 0
+    if lead:
+        try:
+            value, rc = open_on_lead()
+        except BaseException:
+            if world > 1:
+                broadcast_int(1, device)
+            raise
+    if world > 1:
+        rc = broadcast_int(rc, device)
+    return value, rc
+
+
 def run(argv: list[str]) -> int:
     install_sigterm_handler()
     opts, _ = parse_kv_args(
@@ -218,9 +255,7 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         return 1
 
     from opencv_opencl_tpu_torch.core.frames import ChromaPolicy, FrameSpec
-    from opencv_opencl_tpu_torch.io.videofile import (
-        FileSink, FileSource, NullSink, RawSink, TestSource,
-    )
+    from opencv_opencl_tpu_torch.io.videofile import FileSource, NullSink, TestSource
     from opencv_opencl_tpu_torch.metrics.counters import (
         FrameRateCounters, StatusReporter)
     from opencv_opencl_tpu_torch.models.enhancer import (
@@ -234,15 +269,11 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
     lead = rank == 0
     say = print if lead else (lambda *args, **kwargs: None)
     gst_mode = opts.get("io") == "gst"
-    if world > 1:
-        # live capture and the clock cut batches apart by rank
-        timed = [f"--{k}" for k in ("duration", "max-rate", "adaptive-rate")
-                 if opts.get(k)] + (["--io=gst"] if gst_mode else [])
-        if timed:
-            print(f"{', '.join(timed)} not supported in a process group of "
-                  f"{world} ranks: every rank must see the same frames",
-                  file=sys.stderr)
-            return 2
+    # live capture and the clock cut batches apart by rank
+    refusal = timed_flags_refusal(opts, world, ("--io=gst",) if gst_mode else ())
+    if refusal:
+        say(refusal, file=sys.stderr)
+        return 2
     if "preset" in opts:
         say(f"Preset '{opts['preset']}' ({p.reference}): {p.description}")
 
@@ -263,79 +294,21 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         spec = FrameSpec(width=src.spec.width, height=src.spec.height, fps=fps)
 
     fused = bool(opts.get("fused-encode"))
+    # rank 0 owns the sink; the other ranks get rank 0's verdict on its
+    # flags before any collective
+    sink, rc = (None, 0) if gst_mode else lead_verdict(
+        lead, world, device,
+        lambda: _open_sink(sink_path, opts, spec, fps, bitrate, device))
+    if rc:
+        return rc
     rank_enc = None
-    if gst_mode:
-        pass
-    elif not lead:
+    if not lead:
         sink = NullSink()
         if fused and sink_path.startswith(("rtp+h264://", "rtp+h265://")):
-            # rank 0 owns the encoded sink; the other ranks build its
-            # encoder from the same flags, for its GOP configuration, and
-            # refuse the flags where rank 0 does, before any collective
-            try:
-                rank_enc = _rank_encoder(sink_path, opts, spec, fps, bitrate, device)
-            except ValueError:
-                return 2
+            # the other ranks build rank 0's encoder from the same flags,
+            # for its GOP configuration
+            rank_enc = _rank_encoder(sink_path, opts, spec, fps, bitrate, device)
             stack.callback(rank_enc.close)
-    elif sink_path == "null":
-        sink = NullSink()
-    elif sink_path.startswith(("rtp://", "rtp+raw://")):
-        # native RTP/UDP data plane (no GStreamer needed): JPEG/RTP
-        # (RFC 2435, interoperable with rtpjpegdepay) or raw NV12 lines
-        from opencv_opencl_tpu_torch.io.rtp import RtpUdpSink
-
-        kind = "raw" if sink_path.startswith("rtp+raw://") else "jpeg"
-        hostport = sink_path.split("://", 1)[1]
-        rtp_host, rtp_port = hostport.rsplit(":", 1)
-        schedule = opts.get("rtcp-schedule", "tick")
-        if schedule not in ("tick", "rfc3550"):
-            print(f"--rtcp-schedule={schedule!r} invalid: tick|rfc3550",
-                  file=sys.stderr)
-            return 2
-        sink = RtpUdpSink(rtp_host, int(rtp_port), kind=kind, fps=fps,
-                          rtcp_schedule=schedule)
-        if "sdp-file" in opts:
-            # a stock player (ffplay/VLC) opens this file to receive the
-            # stream — the in-repo equivalent of handing the lab PC the
-            # udpsink coordinates
-            from opencv_opencl_tpu_torch.io.sdp import build_rtp_session_sdp
-
-            with open(opts["sdp-file"], "w") as f:
-                f.write(build_rtp_session_sdp(
-                    rtp_host, int(rtp_port), kind,
-                    width=spec.width, height=spec.height))
-            print(f"SDP written: {opts['sdp-file']}")
-    elif sink_path.startswith(("rtp+h264://", "rtp+h265://")):
-        # full reference emit chain: encode -> RFC 6184/7798 payload ->
-        # UDP (OpenCVequalHist.cpp:308-332), behind the pluggable
-        # encoder boundary (io.encoder: pcm | cavlc | tpu | ffmpeg | gi |
-        # auto)
-        from opencv_opencl_tpu_torch.io.encoder import encoded_rtp_sink_from_url
-
-        es_codec = "h264" if sink_path.startswith("rtp+h264://") else "h265"
-        try:
-            sink = encoded_rtp_sink_from_url(
-                sink_path, spec.width, spec.height, fps=fps,
-                bitrate_kbps=bitrate, backend=opts.get("encoder", "auto"),
-                rtcp_schedule=opts.get("rtcp-schedule", "tick"), device=device)
-        except ValueError as e:
-            print(str(e), file=sys.stderr)
-            return 2
-        rtp_host, rtp_port = sink.rtp.addr[0], sink.rtp.addr[1]
-        print(f"Encoder: {type(sink.encoder).__name__} ({es_codec})")
-        if "sdp-file" in opts:
-            # hand stock players (ffplay/VLC) the session description
-            from opencv_opencl_tpu_torch.io.sdp import build_rtp_session_sdp
-
-            with open(opts["sdp-file"], "w") as f:
-                f.write(build_rtp_session_sdp(
-                    rtp_host, int(rtp_port), es_codec,
-                    width=spec.width, height=spec.height))
-            print(f"SDP written: {opts['sdp-file']}")
-    elif sink_path.endswith(".nv12") or sink_path.endswith(".raw"):
-        sink = RawSink(sink_path)
-    else:
-        sink = FileSink(sink_path, spec)
     sink_open = [True]
 
     def close_sink() -> None:
@@ -354,12 +327,12 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             hist_downsample=opts.get("hist-downsample", 1),
         )
     except ValueError as e:
-        print(str(e), file=sys.stderr)
+        say(str(e), file=sys.stderr)
         return 2
     if cfg.hist_downsample > 1:
         if "mesh" in opts or cfg.use_ref_frame:
-            print("--hist-downsample is not supported with --mesh or "
-                  "--ref-frame (exact-only paths)", file=sys.stderr)
+            say("--hist-downsample is not supported with --mesh or "
+                "--ref-frame (exact-only paths)", file=sys.stderr)
             return 2
         say(f"APPROXIMATE histogram mode: every "
             f"{cfg.hist_downsample}th row (not bit-exact vs cv2)")
@@ -370,7 +343,7 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
             # the sharded step raises is a real config error
             mesh = mesh_for_app(opts["mesh"], device, stack)
         except ValueError as e:
-            print(str(e), file=sys.stderr)
+            say(str(e), file=sys.stderr)
             return 2
     if mesh is not None and fused:
         # the enhancement runs inside the mesh encode step
@@ -384,8 +357,8 @@ def _run(opts: dict, stack: contextlib.ExitStack) -> int:
         enhancer = ShardedEnhancer(cfg, spec, mesh=mesh, device=device)
         ndata, nspace = enhancer.part.ndata, enhancer.part.nspace
         if batch < 1 or batch % ndata:
-            print(f"--batch={batch} must be a positive multiple of the "
-                  f"mesh data axis ({ndata})", file=sys.stderr)
+            say(f"--batch={batch} must be a positive multiple of the "
+                f"mesh data axis ({ndata})", file=sys.stderr)
             return 2
         say(f"Sharded over mesh {{'data': {ndata}, 'space': {nspace}}} "
             f"({ndata * nspace} devices)")
@@ -636,6 +609,73 @@ def _run_gst(feeder, reporter, spec, fps, codec, bitrate, source, sink_path,
           f"errors={stats['processing_errors']}")
     feeder.timing.final_report()
     return 0
+
+
+def _open_sink(sink_path: str, opts: dict, spec, fps: float, bitrate: int, device):
+    """Rank 0's sink of ``--sink``: ``(sink, 0)``, or ``(None, 2)`` where its
+    flags are refused (the refusal printed)."""
+    from opencv_opencl_tpu_torch.io.videofile import FileSink, NullSink, RawSink
+
+    if sink_path == "null":
+        return NullSink(), 0
+    if sink_path.startswith(("rtp://", "rtp+raw://")):
+        # native RTP/UDP data plane (no GStreamer needed): JPEG/RTP
+        # (RFC 2435, interoperable with rtpjpegdepay) or raw NV12 lines
+        from opencv_opencl_tpu_torch.io.rtp import RtpUdpSink
+
+        kind = "raw" if sink_path.startswith("rtp+raw://") else "jpeg"
+        hostport = sink_path.split("://", 1)[1]
+        rtp_host, rtp_port = hostport.rsplit(":", 1)
+        schedule = opts.get("rtcp-schedule", "tick")
+        if schedule not in ("tick", "rfc3550"):
+            print(f"--rtcp-schedule={schedule!r} invalid: tick|rfc3550",
+                  file=sys.stderr)
+            return None, 2
+        sink = RtpUdpSink(rtp_host, int(rtp_port), kind=kind, fps=fps,
+                          rtcp_schedule=schedule)
+        if "sdp-file" in opts:
+            # a stock player (ffplay/VLC) opens this file to receive the
+            # stream — the in-repo equivalent of handing the lab PC the
+            # udpsink coordinates
+            from opencv_opencl_tpu_torch.io.sdp import build_rtp_session_sdp
+
+            with open(opts["sdp-file"], "w") as f:
+                f.write(build_rtp_session_sdp(
+                    rtp_host, int(rtp_port), kind,
+                    width=spec.width, height=spec.height))
+            print(f"SDP written: {opts['sdp-file']}")
+        return sink, 0
+    if sink_path.startswith(("rtp+h264://", "rtp+h265://")):
+        # full reference emit chain: encode -> RFC 6184/7798 payload ->
+        # UDP (OpenCVequalHist.cpp:308-332), behind the pluggable
+        # encoder boundary (io.encoder: pcm | cavlc | tpu | ffmpeg | gi |
+        # auto)
+        from opencv_opencl_tpu_torch.io.encoder import encoded_rtp_sink_from_url
+
+        es_codec = "h264" if sink_path.startswith("rtp+h264://") else "h265"
+        try:
+            sink = encoded_rtp_sink_from_url(
+                sink_path, spec.width, spec.height, fps=fps,
+                bitrate_kbps=bitrate, backend=opts.get("encoder", "auto"),
+                rtcp_schedule=opts.get("rtcp-schedule", "tick"), device=device)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return None, 2
+        rtp_host, rtp_port = sink.rtp.addr[0], sink.rtp.addr[1]
+        print(f"Encoder: {type(sink.encoder).__name__} ({es_codec})")
+        if "sdp-file" in opts:
+            # hand stock players (ffplay/VLC) the session description
+            from opencv_opencl_tpu_torch.io.sdp import build_rtp_session_sdp
+
+            with open(opts["sdp-file"], "w") as f:
+                f.write(build_rtp_session_sdp(
+                    rtp_host, int(rtp_port), es_codec,
+                    width=spec.width, height=spec.height))
+            print(f"SDP written: {opts['sdp-file']}")
+        return sink, 0
+    if sink_path.endswith(".nv12") or sink_path.endswith(".raw"):
+        return RawSink(sink_path), 0
+    return FileSink(sink_path, spec), 0
 
 
 def _rank_encoder(sink_path, opts, spec, fps, bitrate, device):

@@ -19,6 +19,7 @@ Example
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -282,3 +283,13 @@ class Enhancer:
         """Single frame (H*3/2, W) convenience (batch of 1 under the hood)."""
         return DeviceBatch(self._fn(_to_device(nv12, self.device)[None])[0],
                            self._d2h)
+
+    @functools.cached_property
+    def compiled_cost(self):
+        """The step, after one run on a zero frame on the device (which
+        loads the kernels there): the warm-up, as the JAX ``Enhancer``'s
+        ``compiled_cost`` compiles its program.  It takes a uint8 (N,
+        H*3/2, W) tensor on the device and writes the result into it."""
+        self._fn(torch.zeros((1, self.spec.buffer_rows, self.spec.width),
+                             dtype=torch.uint8, device=self.device))
+        return self._fn

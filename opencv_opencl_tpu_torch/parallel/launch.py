@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_process_group", "run_on_mesh", "compare_with_enhancer",
-           "compare_with_encoder", "run_relay"]
+           "compare_with_encoder", "run_relay", "run_multi_relay"]
 
 
 def init_process_group(rank: int, world_size: int, rendezvous_file: str,
@@ -341,3 +341,14 @@ def run_relay(mesh, device, argv: list[str]) -> int:
 
     del mesh, device  # the app takes both from its flags and the group
     return relay.run(list(argv))
+
+
+def run_multi_relay(mesh, device, argv: list[str]) -> int:
+    """A position's call of the multi-stream relay app, as
+    :func:`run_relay`: every rank runs ``apps.multi_relay.run(argv)`` with
+    the same arguments (``--mesh=DxS`` of the group's shape among them) and
+    returns its return code.  Rank 0 owns the sinks and prints."""
+    from opencv_opencl_tpu_torch.apps import multi_relay
+
+    del mesh, device  # the app takes both from its flags and the group
+    return multi_relay.run(list(argv))

@@ -1,8 +1,29 @@
-"""Rank functions of ``tests/test_torch_sharded_encode.py`` that inject a
-failure on one rank of a gloo group.  They live apart from the test module
-so that the spawned ranks import torch and the port, not JAX."""
+"""Rank functions of the tests that spawn gloo groups: one that injects a
+failure on one rank (``tests/test_torch_sharded_encode.py``) and one that
+runs the relay apps with their output captured
+(``tests/test_torch_apps.py``).  They live apart from the test modules so
+that the spawned ranks import torch and the port, not JAX."""
+
+import contextlib
+import importlib
+import io
 
 import torch.distributed as dist
+
+
+def run_apps(mesh, device, calls: list[tuple[str, list[str]]]) -> list[tuple]:
+    """On every rank: each ``(app, argv)`` of ``calls`` in turn, ``app`` a
+    module name under ``opencv_opencl_tpu_torch.apps``; returns ``(return
+    code, standard output, standard error)`` of each call."""
+    del mesh, device  # the apps take both from their flags and the group
+    results = []
+    for app, argv in calls:
+        module = importlib.import_module(f"opencv_opencl_tpu_torch.apps.{app}")
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = module.run(list(argv))
+        results.append((rc, out.getvalue(), err.getvalue()))
+    return results
 
 
 def fail_on_rank_1(mesh, device, argv: list[str]) -> dict:

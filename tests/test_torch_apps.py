@@ -21,6 +21,11 @@
   on ``tests/fake_gst.FakeGst`` they build the same capture and emit
   pipelines for each source and sink kind and push the same NV12 buffers.
 - ``StreamMux`` on the cases of tests/test_mux.py and ``multi_relay.run``.
+- The apps in a process group: ``multi_relay --mesh=2x2`` on four gloo
+  processes (``launch.run_multi_relay``) sends every frame of both streams
+  to ``rtp+raw://``, equal to golden and to the single-card run; and a flag
+  that rank 0 refuses (the sink's, checked on rank 0 alone, or the
+  time-driven ones) ends every rank of a 2x1 group with rc 2, printed once.
 
 Sockets stay on 127.0.0.1 with ports from the OS and short timeouts.
 """
@@ -810,10 +815,9 @@ def test_multi_relay_two_streams_like_jax(capsys):
     assert _shutdown_counts(want)[1] == 2
 
 
-def test_multi_relay_rtp_raw_streams_at_port_stride_two(capsys):
-    """Stream i goes to port + 2*i; each receiver reassembles its own
-    stream's first frame, which is the enhanced TestSource frame."""
-    w, h, n = 64, 48, 2
+def _stride_two_receivers(n, w, h):
+    """``(base, receivers)``: raw RTP receivers on 127.0.0.1 at ports
+    ``base + 2*i``, one a stream, ``base`` from ports the OS handed out."""
     probe = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in range(8)]
     try:
         for s in probe:
@@ -823,9 +827,17 @@ def test_multi_relay_rtp_raw_streams_at_port_stride_two(capsys):
         for s in probe:
             s.close()
     base = next((p for p in ports if p % 2 == 0), ports[0])
-    rxs = [rtp.RtpUdpReceiver(port=base + 2 * i, kind="raw",
-                              frame_shape=(h * 3 // 2, w), timeout=5.0, rtcp=False)
-           for i in range(n)]
+    return base, [rtp.RtpUdpReceiver(port=base + 2 * i, kind="raw",
+                                     frame_shape=(h * 3 // 2, w), timeout=5.0,
+                                     rtcp=False)
+                  for i in range(n)]
+
+
+def test_multi_relay_rtp_raw_streams_at_port_stride_two(capsys):
+    """Stream i goes to port + 2*i; each receiver reassembles its own
+    stream's first frame, which is the enhanced TestSource frame."""
+    w, h, n = 64, 48, 2
+    base, rxs = _stride_two_receivers(n, w, h)
     try:
         rc = multi_relay.run([
             f"--streams={n}", f"--width={w}", f"--height={h}", "--op=histeq",
@@ -862,3 +874,89 @@ def test_multi_relay_mesh_1x1_and_refusals(capsys):
                               "--device=cpu"] + extra)
         assert rc == 2, extra
         assert msg in capsys.readouterr().err
+
+
+# ------------------------------------------------- the apps in a group ----
+
+
+@pytest.mark.parametrize("name", ["histeq_gray", "clahe_passthrough"])
+def test_multi_relay_on_a_gloo_2x2_group_sends_every_frame(name, capfd):
+    """``multi_relay --mesh=2x2`` on a group of four processes
+    (``launch.run_multi_relay``): every rank returns 0, rank 0 sends every
+    frame of both streams to ``rtp+raw://`` (stride two), each equal to
+    golden and to the single-card ``multi_relay --device=cpu``'s, and every
+    stream emits what it submitted."""
+    w, h, n, rounds = 64, 48, 2, 4
+    base, rxs = _stride_two_receivers(n, w, h)
+    args = [f"--streams={n}", f"--width={w}", f"--height={h}", "--batch=2",
+            f"--max-frames={rounds}", "--fps=200", "--status-interval=60",
+            "--device=cpu", f"--sink=rtp+raw://127.0.0.1:{base}"] + CONFIGS[name]
+    try:
+        rcs = launch.run_on_mesh((2, 2), launch.run_multi_relay,
+                                 (args + ["--mesh=2x2"],), device_type="cpu",
+                                 timeout=110.0)
+        out = capfd.readouterr().out
+        got = [np.stack([rx.recv_frame() for _ in range(rounds)]) for rx in rxs]
+        assert multi_relay.run(args) == 0
+        single = [np.stack([rx.recv_frame() for _ in range(rounds)]) for rx in rxs]
+    finally:
+        for rx in rxs:
+            rx.close()
+    assert rcs == [0, 0, 0, 0]
+    assert out.count("Sharded over mesh {'data': 2, 'space': 2} (4 devices)") == 1
+    total, streams, per = _shutdown_counts(out)
+    assert (total, streams, per) == (n * rounds, n, [(rounds, rounds)] * n)
+    src = np.stack(list(videofile.TestSource(FrameSpec(width=w, height=h), rounds)))
+    want = _golden_outputs(name, src, w, h)
+    for stream in range(n):
+        assert np.array_equal(got[stream], want)
+        assert np.array_equal(got[stream], single[stream])
+
+
+# (app, flags, the refusal): each refused by rank 0, which alone opens the
+# sinks, or by every rank for the flags that cut batches apart by rank
+GROUP_REFUSALS = {
+    "relay_rtcp_schedule": ("relay", ["--sink=rtp://127.0.0.1:47000",
+                                      "--rtcp-schedule=bad"],
+                            "--rtcp-schedule='bad' invalid: tick|rfc3550"),
+    "relay_encoder": ("relay", ["--sink=rtp+h264://127.0.0.1:47000", "--encoder=bogus"],
+                      "unknown encoder backend 'bogus'"),
+    "multi_relay_rtcp_schedule": ("multi_relay", ["--sink=rtp://127.0.0.1:47000",
+                                                  "--rtcp-schedule=bad"],
+                                  "--rtcp-schedule='bad' invalid: tick|rfc3550"),
+    "multi_relay_encoder": ("multi_relay", ["--sink=rtp+h264://127.0.0.1:47000",
+                                            "--encoder=bogus"],
+                            "unknown encoder backend 'bogus'"),
+    **{f"multi_relay_{flag}": ("multi_relay", [f"--{flag}{value}"],
+                               f"--{flag} not supported in a process group of 2 ranks")
+       for flag, value in (("duration", "=5"), ("max-rate", "=3"),
+                           ("adaptive-rate", ""))},
+}
+
+
+@pytest.fixture(scope="module")
+def group_refusals():
+    """Every case of ``GROUP_REFUSALS`` in turn, in one 2x1 gloo group:
+    each rank's (return code, output, errors) by case."""
+    from tests import mesh_faults
+
+    common = ["--source=test", "--width=64", "--height=32", "--max-frames=2",
+              "--mesh=2x1", "--batch=2", "--device=cpu", "--status-interval=60"]
+    calls = [(app, common + flags) for app, flags, _ in GROUP_REFUSALS.values()]
+    ranks = launch.run_on_mesh((2, 1), mesh_faults.run_apps, (calls,),
+                               device_type="cpu", timeout=110.0)
+    return {name: [r[i] for r in ranks] for i, name in enumerate(GROUP_REFUSALS)}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_REFUSALS))
+def test_apps_in_a_group_refuse_on_every_rank_and_print_once(case, group_refusals):
+    """A flag that rank 0 refuses ends every rank with its return code
+    before any collective (the sink's flags are checked on rank 0 alone and
+    its verdict broadcast); rank 0 prints the refusal once, the other rank
+    nothing."""
+    (rc0, out0, err0), (rc1, out1, err1) = group_refusals[case]
+    line = GROUP_REFUSALS[case][2]
+    assert (rc0, rc1) == (2, 2)
+    assert err0.count(line) == 1, err0
+    assert out1 == err1 == ""
+    assert "Serving" not in out0 and "frames emitted" not in out0

@@ -189,6 +189,19 @@ def test_enhancer_keeps_the_host_batch():
     assert np.array_equal(frame, out[1])
 
 
+def test_enhancer_compiled_cost_is_the_warmed_step():
+    """``Enhancer.compiled_cost`` (the JAX ``Enhancer``'s warm-up) runs the
+    step once on a zero frame and returns it, once: what it returns gives
+    ``process_batch``'s output."""
+    enh = torch_enhancer.Enhancer(_cfg(torch_enhancer), PAD_SPEC, device="cpu")
+    step = enh.compiled_cost
+    assert enh.compiled_cost is step
+    src = _nv12(15, 3, PAD_SPEC)
+    out = step(torch.from_numpy(src.copy())).numpy()
+    assert np.array_equal(out, np.asarray(enh.process_batch(src)))
+    assert not np.array_equal(out, src)
+
+
 def test_device_batch_array_protocol():
     t = torch.arange(12, dtype=torch.uint8).reshape(2, 2, 3)
     b = DeviceBatch(t)
@@ -304,7 +317,7 @@ def test_import_scan_tells_module_level_from_lazy_imports(tmp_path):
                    "io/signaling.py", "io/webrtc_controller.py", "apps/sender.py",
                    "apps/histeq_image.py", "apps/clahe_image.py", "apps/m2_bench.py",
                    "apps/parity_bench.py", "apps/clahe_video.py",
-                   "apps/airplan_mp4.py"):
+                   "apps/airplan_mp4.py", "entry.py"):
         assert needed in paths, needed
 
 
