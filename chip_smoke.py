@@ -456,6 +456,11 @@ CPU_STREAM_SHAPE, CPU_STREAM_FRAMES = (1088, 1920), 3
 CPU_STREAM = dict(qp=30, gop=3, search=P_SEARCH, fastsub=True, deblock=True)
 GOP_SPEC = f"tpu:gop=30:search={P_SEARCH}:fastsub:deblock"
 P_TIMED_QPEL_SEARCH = 4
+# geometries whose MB rows or columns are no multiple of H5's band (16 MB
+# rows a block) or of H4's MBs a block (5 for fastsub at search 8, 6 for the
+# quarter-pel lattice at search 4): 68 MB rows, 640x368, one MB row, one MB
+# column, 48x32
+EDGE_SHAPES = ((1088, 1920), (368, 640), (16, 640), (368, 16), (32, 48))
 # H6-H8's checks: the partition searches at 4K (search, sub-pel mode,
 # references), the bit packers' cap of the stream that must overflow it,
 # and relay (k)'s spec (the partition modes with the in-loop filter and the
@@ -1210,15 +1215,15 @@ def p_planes(device, frame: np.ndarray) -> tuple[torch.Tensor, ...]:
 
 def p_content(device, rng, kind: str, h: int, w: int):
     """A source picture and two references on the card: ``moving`` content
-    (the references the two frames before), ``random`` (the references the
-    source moved and with noise), or ``constant``."""
+    (the references the two frames before), ``random`` or ``structured``
+    (the references the source moved and with noise), or ``constant``."""
     if kind == "moving":
         f = moving_nv12(rng, h, w, 3)
         return p_planes(device, f[2]), p_planes(device, f[1]), p_planes(device, f[0])
     if kind == "constant":
         f = content_nv12(rng, "constant", h, w)
         return (p_planes(device, f),) * 3
-    src = content_nv12(rng, "random", h, w)
+    src = content_nv12(rng, "structured" if kind == "structured" else "random", h, w)
     noise = rng.integers(-3, 4, src.shape)
     ref1 = np.clip(np.roll(src, (2, -6), (0, 1)).astype(np.int32) + noise, 0, 255)
     ref2 = np.roll(src, (-4, 2), (0, 1))
@@ -1251,7 +1256,11 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     30, with and without motion and with a GDR band; H5 at 4K on an IDR
     (all intra) and on a P frame's own metadata, with and without
     ``slice_local`` (not on the constant frame, where it changes nothing).
-    Returns the largest absolute difference by kernel."""
+    Then at each of ``EDGE_SHAPES`` on structured content: H4 ``fastsub`` at
+    search 8 with one and two references and under the GDR clean-row rule,
+    and the quarter-pel lattice at search 4; H5 on an IDR and on the own
+    metadata of a two-reference ``fastsub`` P frame, with and without
+    ``slice_local``.  Returns the largest absolute difference by kernel."""
     for module in (levels_kernel, inter_kernel, deblock_kernel):
         module.reset_launch_counts()
     errs = dict.fromkeys(("p_levels_kernel", "subpel_planes_kernel",
@@ -1339,6 +1348,34 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
                     f"{'half' if subpel == 1 else 'quarter'}-pel search "
                     f"{P_EXHAUSTIVE_SEARCH} {len(refs)} ref(s)", levels_ops.motion_search(
                         src[0], refs, P_EXHAUSTIVE_SEARCH, subpel), want, secs)
+    # H4 and H5 where their bands and blocks do not divide the picture
+    for eh, ew in EDGE_SHAPES:
+        emb_h, emb_w = eh // 16, ew // 16
+        src, ref1, ref2 = p_content(device, rng, "structured", eh, ew)
+        clean = max(1, emb_h // 2)
+        for search, subpel, refs, cl in ((P_SEARCH, 3, [ref1], None),
+                                         (P_SEARCH, 3, [ref1, ref2], None),
+                                         (P_SEARCH, 3, [ref1], clean),
+                                         (P_TIMED_QPEL_SEARCH, 2, [ref1], None)):
+            label = (f"{ew}x{eh} structured "
+                     f"{'fastsub' if subpel == 3 else 'quarter-pel'} search {search} "
+                     f"{len(refs)} ref{'s' if len(refs) > 1 else ''}"
+                     + (f" clean rows {cl}" if cl else ""))
+            want, secs = timed(lambda: levels_ops.motion_search_plain(
+                src[0], refs, search, subpel, cl))
+            compare("motion_search_kernel", label, levels_ops.motion_search(
+                src[0], refs, search, subpel, cl), want, secs)
+        plv = levels_ops.encode_p_levels(*src, *ref1, 30, P_SEARCH, 3, *ref2)
+        recon = (plv.recon_y, plv.recon_cb, plv.recon_cr)
+        for label, meta_of, slice_local in (("IDR", None, False), ("P", plv, False),
+                                            ("P slice_local", plv, True)):
+            meta = deblock_meta(meta_of, emb_h, emb_w, device)
+            want, secs = timed(lambda: deblock_ops.deblock_planes_plain(
+                *recon, 30, *meta, slice_local=slice_local))
+            got = deblock_ops.deblock_planes(*recon, 30, *meta, slice_local=slice_local)
+            changed = int((got[0] != recon[0]).sum())
+            compare("deblock_kernel", f"{ew}x{eh} structured {label}, fastsub two refs "
+                    f"({changed} luma samples filtered)", got, want, secs)
     counts = {**levels_kernel.launch_counts(), **inter_kernel.launch_counts(),
               **deblock_kernel.launch_counts()}
     check(all(counts[k] > 0 for k in ("encode_p_levels", "subpel_planes",
@@ -1384,8 +1421,9 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
     ``CAP_NW_MB``; H8 on H2's levels: zero motion, ``fastsub`` at search 8
     with one and two references, and both partitioned frames, at 64 words
     and one at ``CAP_NW_MB``.  For a packer, equal words over every word
-    and equal bit counts.  Returns the largest absolute difference by
-    kernel."""
+    and equal bit counts.  Then H5 on the quadrant fields of a partitioned
+    two-reference quarter-pel P frame at each of ``EDGE_SHAPES``.  Returns
+    the largest absolute difference by kernel."""
     for module in (levels_kernel, inter_kernel, deblock_kernel, bitpack_kernel):
         module.reset_launch_counts()
     errs = dict.fromkeys(("parts_search_kernel", "p_levels_kernel", "deblock_kernel",
@@ -1438,6 +1476,15 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
         want, secs = timed(lambda: deblock_ops.deblock_planes_plain(*recon, 30, *meta))
         compare("deblock_kernel", f"{label}, its quadrant fields",
                 deblock_ops.deblock_planes(*recon, 30, *meta), want, secs)
+    for eh, ew in EDGE_SHAPES:
+        esrc, eref1, eref2 = p_content(device, rng, "structured", eh, ew)
+        got = levels_ops.encode_p_levels(*esrc, *eref1, 30, 3, 2, *eref2, parts=1)
+        recon = (got.recon_y, got.recon_cb, got.recon_cr)
+        meta = quad_meta(got, eh // 16, ew // 16, device)
+        want, secs = timed(lambda: deblock_ops.deblock_planes_plain(*recon, 30, *meta))
+        compare("deblock_kernel", f"{ew}x{eh} structured qp 30 parts search 3 sub-pel 2 "
+                f"2 refs, its quadrant fields", deblock_ops.deblock_planes(*recon, 30, *meta),
+                want, secs)
     for qp, search, subpel, nrefs in ((30, 0, 0, 1), (30, P_SEARCH, 3, 1),
                                       (30, P_SEARCH, 3, 2)):
         second = ref2 if nrefs > 1 else (None,) * 3
@@ -3801,8 +3848,11 @@ def deblock_ops_count(mb_h: int, mb_w: int) -> int:
 def gop_timings(device, rng, card: str) -> dict[str, dict]:
     """Per 4K P frame (moving content, QP 30), device alone: H3 (16 planes at
     margin 9), H4 (``fastsub`` at search 8, relay (j)'s, and the exhaustive
-    quarter-pel lattice at search 4), H2 and H5, each beside its plain
-    version and its bound; the P levels' copy to pinned host memory; the
+    quarter-pel lattice at search 4; right after H3 has written the stack, as
+    the encoder finds it: H3 + H4 less H3, and beside it H4 alone), H2 and H5
+    (on the planes H2 has just written; beside it the wavefront's floor, the
+    same launch without the edge arithmetic, and an IDR's metadata), each
+    beside its plain version and its bound; the P levels' copy to pinned host memory; the
     host entropy coding of a P frame on the native rows; and
     ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
     ``overlap``.  No single PyTorch call computes any of these functions:
@@ -3837,17 +3887,29 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     pred = (torch.empty((h, w), dtype=torch.uint8, device=device),
             torch.empty((h // 2, w // 2), dtype=torch.uint8, device=device),
             torch.empty((h // 2, w // 2), dtype=torch.uint8, device=device))
+    # H4 as the encoder finds the stack: right after H3 has written it (more
+    # than the L2 holds), the pair's time less H3's; beside it H4 alone,
+    # call after call on the same stack
     for search, subpel in ((P_SEARCH, 3), (P_TIMED_QPEL_SEARCH, 2)):
         P, margin = levels_ops.search_plan(search, subpel)
         stack = levels_ops.subpel_planes(ref1[0], margin, P)
-        ms = device_ms(lambda: inter_kernel.search_stack_into(
+        alone = device_ms(lambda: inter_kernel.search_stack_into(
             src[0], stack, [ref1], search, subpel, None, mv, None, *pred))
+        planes = device_ms(lambda: inter_kernel.planes_into(ref1[0], margin, P, stack))
+        pair = device_ms(lambda: (inter_kernel.planes_into(ref1[0], margin, P, stack),
+                                  inter_kernel.search_stack_into(
+                                      src[0], stack, [ref1], search, subpel, None, mv,
+                                      None, *pred)))
+        ms = pair - planes
         plain = time_ms(lambda: levels_ops.search_stack_plain(
             src[0], stack, [ref1], search, subpel), reps=1, warmup=1)
         n = len(levels_ops.search_candidates(search, subpel)) + (49 if subpel == 3 else 0)
         moved = nbytes(src[0], stack, ref1[1], ref1[2], mv, *pred)
         what = (f"(fastsub, search {search}, {n} candidates)" if subpel == 3 else
                 f"(exhaustive quarter-pel, search {search}, {n} candidates)")
+        print(f"time motion_search_kernel 4K P frame {what}: after H3 {ms:.4f} ms (H3 + "
+              f"H4 {pair:.4f} less H3 {planes:.4f}), alone on the same stack "
+              f"{alone:.4f} ms [{card}]", flush=True)
         if subpel == 3:
             record("motion_search_kernel", ms, plain, moved, 3 * n * h * w, what)
         else:
@@ -3878,6 +3940,17 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     moved = 2 * nbytes(*recon) + nbytes(*meta)
     record("deblock_kernel", ms, plain, moved, deblock_ops_count(mb_h, mb_w),
            "(its own metadata)")
+    # the wavefront's own floor (the same launch without the edge
+    # arithmetic), and an IDR's metadata (every edge intra)
+    floor = device_ms(lambda: deblock_kernel.deblock_floor_into(*work, 30, *meta))
+    idr = deblock_meta(None, mb_h, mb_w, device)
+    idr_ms = device_ms(lambda: deblock_kernel.deblock_into(*work, 30, *idr))
+    idr_floor = device_ms(lambda: deblock_kernel.deblock_floor_into(*work, 30, *idr))
+    steps = mb_w + mb_h - 1        # a row one MB behind the row above
+    print(f"time deblock_kernel 4K P frame: {ms:.4f} ms, the wavefront's floor "
+          f"{floor:.4f} ms ({1e3 * floor / steps:.3f} us a step of {steps}); on an IDR's "
+          f"metadata {idr_ms:.4f} ms, floor {idr_floor:.4f} ms; bound "
+          f"{times['deblock_kernel']['bound_ms']:.4f} ms by bytes [{card}]", flush=True)
 
     # the levels down, and the host entropy coding
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -4124,6 +4197,7 @@ def main() -> int:
                                      "tile_hist_kernel", "intra_levels_kernel",
                                      "p_levels_kernel", "subpel_planes_kernel",
                                      "motion_search_kernel", "deblock_kernel",
+                                     "deblock_bs_kernel",
                                      "parts_search_kernel", "pack_i_kernel",
                                      "pack_p_kernel")):
         print(f"ptxas {line}", flush=True)

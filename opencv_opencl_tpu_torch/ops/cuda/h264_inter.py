@@ -17,6 +17,13 @@ motion_search  ``ops.h264_levels.motion_search_parts_plain``  h264_levels.py:119
 _parts         (``parts_search_kernel``, H6)
 =============  =============================================  ==================
 
+``motion_search_kernel`` takes several MBs of one MB row a block and cuts
+its candidates into tiles of one sub-sample plane, one integer dx and up
+to 8 integer dy; :func:`search_plan_of` lays the launch out,
+:func:`search_tiles` and :func:`refine_tiles` make the tiles and
+:func:`candidate_index` / :func:`refine_index` their candidates' indices
+(all on the host, once a configuration).
+
 As in ``ops/cuda/natural.py``: each wrapper takes its plain version only
 for tensors on the CPU; for CUDA tensors it launches its kernel on the
 current stream or raises, and counts its launches in ``<wrapper>.launches``.
@@ -29,6 +36,7 @@ the partition modes and the quadrant fields there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from opencv_opencl_tpu_torch.ops import h264_levels as levels
@@ -37,9 +45,23 @@ from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _strea
 
 __all__ = ["subpel_planes", "motion_search", "search_into", "search_stack_into",
            "planes_into", "motion_search_parts", "parts_search_into",
-           "parts_stack_into", "launch_counts", "reset_launch_counts"]
+           "parts_stack_into", "search_tiles", "refine_tiles", "candidate_index",
+           "refine_index", "search_shared_bytes", "search_plan_of",
+           "launch_counts", "reset_launch_counts"]
 
-# candidate tables on the card, by (device, search, subpel)
+# motion_search_kernel's layout (csrc/h264_inter.cu): the dy a first-stage
+# tile holds at most, threads a block, MBs a block at most, a MB's bytes
+# besides the window (its 256 samples, keys and winner), fastsub's window
+# a MB (16 planes x 17 rows of 48 bytes)
+TILE_ROWS = 8
+SEARCH_THREADS = 256
+SEARCH_MBS = 8
+_MB_BYTES = 256 + 32
+_REFINE_MB = 16 * 17 * 48
+# the shared memory a block may take so that two blocks fit an SM
+SEARCH_SHARED_BUDGET = 232448 // 2
+
+# candidate and tile tables on the card, by (device, search, subpel, nrefs)
 _TABLES: dict = {}
 
 
@@ -88,15 +110,124 @@ def subpel_planes(ry: torch.Tensor, margin: int, nplanes: int) -> torch.Tensor:
     return out
 
 
-def _tables(device: torch.device, search: int, subpel: int):
-    """(candidates (n, 2) int32, fastsub offsets (49, 2) int32 or None) on
-    the card, made once a configuration."""
-    key = (str(device), search, subpel)
+def _fractions(subpel: int) -> list[int]:
+    """The sub-sample fractions (in quarter samples) a side of the first
+    stage's lattice: full-pel (and fastsub's first stage) 0; half-pel 0, 2;
+    quarter-pel 0..3."""
+    return {0: [0], 3: [0], 1: [0, 2], 2: [0, 1, 2, 3]}[subpel]
+
+
+def search_tiles(search: int, subpel: int, nrefs: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first stage's window slots and tiles.  A slot is one (reference,
+    fraction fy, fraction fx) the lattice uses; ``slot_planes`` (int32) its
+    plane in the stacked reference planes.  A tile, a row (slot, fy * 4 +
+    fx, ay0, ax * 16 + cnt) of ``tiles`` (T, 4) int32, is the candidates
+    (4 * (ay0 + d) + fy, 4 * ax + fx) for d < cnt (cnt <= ``TILE_ROWS``):
+    every candidate of ``search_candidates(search, subpel)`` of every
+    reference in exactly one tile.  Integer offsets run -search..search, to
+    search - 1 where the fraction is not 0; a column of dy is cut into the
+    fewest tiles of at most TILE_ROWS, evenly; dx is the fastest axis."""
+    fracs = _fractions(subpel)
+    P, _ = levels.search_plan(search, subpel)
+    slots, tiles = [], []
+    for r in range(nrefs):
+        for fy in fracs:
+            for fx in fracs:
+                slot = len(slots)
+                slots.append(r * P + int(levels._plane_of(fy, fx, P)))
+                cy = 2 * search + 1 - (fy > 0)
+                nt = -(-cy // TILE_ROWS)
+                for t in range(nt):
+                    a0 = -search + t * cy // nt
+                    a1 = -search + (t + 1) * cy // nt
+                    for ax in range(-search, search + 1 - (fx > 0)):
+                        tiles.append((slot, fy * 4 + fx, a0, ax * 16 + a1 - a0))
+    return np.asarray(slots, np.int32), np.asarray(tiles, np.int32).reshape(-1, 4)
+
+
+def refine_tiles() -> np.ndarray:
+    """fastsub's tiles, (28, 4) int32 rows (plane, fy * 4 + fx, ay0, ax * 16
+    + cnt) in integer samples relative to the full-pel winner: the offsets
+    (4 * (ay0 + d) + fy, 4 * ax + fx), d < cnt, are the 49 of
+    ``fastsub_offsets()``, each once; the plane is the fraction's of 16."""
+    tiles = []
+    for fy in range(4):
+        a0, cnt = (0, 1) if fy == 0 else (-1, 2)
+        for fx in range(4):
+            for ax in ((0,) if fx == 0 else (-1, 0)):
+                tiles.append((fy * 4 + fx, fy * 4 + fx, a0, ax * 16 + cnt))
+    return np.asarray(tiles, np.int32)
+
+
+def candidate_index(search: int, subpel: int) -> np.ndarray:
+    """The first stage's candidate index by quarter-pel offset: entry
+    (qy + 4 search) * (8 search + 1) + qx + 4 search, int16, -1 where there
+    is no candidate."""
+    side = 8 * search + 1
+    inv = np.full(side * side, -1, np.int16)
+    for i, (qy, qx) in enumerate(levels.search_candidates(search, subpel).tolist()):
+        inv[(qy + 4 * search) * side + qx + 4 * search] = i
+    return inv
+
+
+def refine_index() -> np.ndarray:
+    """fastsub's offset index by offset: entry (oy + 3) * 7 + ox + 3, int16."""
+    inv = np.full(49, -1, np.int16)
+    for j, (oy, ox) in enumerate(levels.fastsub_offsets().tolist()):
+        inv[(oy + 3) * 7 + ox + 3] = j
+    return inv
+
+
+def search_shared_bytes(mbs: int, search: int, nslots: int, refine: bool) -> int:
+    """``motion_search_kernel``'s dynamic shared memory (the launcher
+    refuses any other count): ``mbs`` MBs' samples, keys and winners, then
+    the larger of the first stage's window (every slot's 2 search + 16 rows
+    of the stack's 16-byte units holding 16 mbs + 2 search columns, with
+    room for a row's lead into its first unit and 5 words read anywhere)
+    and fastsub's (16 planes x 17 rows of 48 bytes a MB)."""
+    pitch = (16 * mbs + 2 * search + 34 + 15) // 16 * 16
+    return _MB_BYTES * mbs + max(nslots * (2 * search + 16) * pitch,
+                                 _REFINE_MB * mbs if refine else 0)
+
+
+def search_plan_of(mb_w: int, search: int, subpel: int, nrefs: int) -> dict:
+    """The launch of ``motion_search_kernel``: ``mbs`` MBs of one MB row a
+    block (1..``SEARCH_MBS``, at most mb_w), chosen so that the first
+    stage's tiles fill the block's threads best in whole rounds (ties to
+    more MBs, which share more of the window), within
+    ``SEARCH_SHARED_BUDGET``; then blocks along a row, threads, shared bytes,
+    tiles and window slots."""
+    slots, tiles = search_tiles(search, subpel, nrefs)
+    refine = subpel == 3
+    best = None
+    for mbs in range(1, min(SEARCH_MBS, mb_w) + 1):
+        shared = search_shared_bytes(mbs, search, len(slots), refine)
+        if shared > SEARCH_SHARED_BUDGET and mbs > 1:
+            continue
+        items = mbs * len(tiles)
+        fill = items / (-(-items // SEARCH_THREADS) * SEARCH_THREADS)
+        if best is None or fill >= best[0]:
+            best = (fill, mbs, shared)
+    _, mbs, shared = best
+    return {"mbs": mbs, "blocks_x": -(-mb_w // mbs), "threads": SEARCH_THREADS,
+            "shared": shared, "tiles": len(tiles), "slots": len(slots),
+            "refine_tiles": len(refine_tiles()) if refine else 0}
+
+
+def _tables(device: torch.device, search: int, subpel: int, nrefs: int = 1) -> dict:
+    """The search's tables on the card, made once a configuration:
+    candidates (n, 2) and fastsub offsets (49, 2) int32, the first stage's
+    slots, tiles and candidate index, fastsub's tiles and offset index."""
+    key = (str(device), search, subpel, nrefs)
     if key not in _TABLES:
-        cands = torch.from_numpy(levels.search_candidates(search, subpel)).to(device)
-        offs = (torch.from_numpy(levels.fastsub_offsets()).to(device)
-                if subpel == 3 else None)
-        _TABLES[key] = (cands.contiguous(), offs)
+        slots, tiles = search_tiles(search, subpel, nrefs)
+        host = {"cands": levels.search_candidates(search, subpel),
+                "slots": slots, "tiles": tiles, "inv": candidate_index(search, subpel)}
+        if subpel == 3:
+            host.update(offs=levels.fastsub_offsets(), rtiles=refine_tiles(),
+                        rinv=refine_index())
+        _TABLES[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                        for k, v in host.items()}
     return _TABLES[key]
 
 
@@ -159,14 +290,19 @@ def search_stack_into(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
                 or tuple(ref.shape) != (mb_h, mb_w) or not ref.is_contiguous()):
         raise ValueError("ref must be a contiguous int16 (mb_h, mb_w) tensor "
                          "with two references")
-    cands, offs = _tables(y.device, search, subpel)
+    tab = _tables(y.device, search, subpel, len(refs))
+    plan = search_plan_of(mb_w, search, subpel, len(refs))
+    refine = subpel == 3
     lib = _build.load()
     second = refs[1] if two else refs[0]
     with torch.cuda.device(y.device):
         err = lib.motion_search_launch(
-            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin,
-            len(refs), cands.data_ptr(), cands.shape[0],
-            None if offs is None else offs.data_ptr(),
+            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin, search,
+            tab["slots"].data_ptr(), plan["slots"], tab["tiles"].data_ptr(), plan["tiles"],
+            tab["inv"].data_ptr(), tab["cands"].data_ptr(),
+            tab["rtiles"].data_ptr() if refine else None, plan["refine_tiles"],
+            tab["rinv"].data_ptr() if refine else None,
+            tab["offs"].data_ptr() if refine else None, plan["mbs"], plan["shared"],
             -1 if clean_rows is None else int(clean_rows),
             refs[0][1].data_ptr(), refs[0][2].data_ptr(), second[1].data_ptr(),
             second[2].data_ptr(), mv.data_ptr(), ref.data_ptr() if two else None,
@@ -257,7 +393,7 @@ def parts_stack_into(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
                 or not t.is_contiguous() or t.device != y.device):
             raise ValueError(f"{name} must be a contiguous int16 {shape} tensor "
                              f"on {y.device}")
-    cands, _ = _tables(y.device, search, subpel)
+    cands = _tables(y.device, search, subpel)["cands"]
     lam = levels.PART_LAMBDA[min(max(int(qp), 0), 51)]
     lib = _build.load()
     second = refs[1] if two else refs[0]

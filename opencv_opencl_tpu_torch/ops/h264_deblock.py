@@ -19,8 +19,9 @@ runs the picture in ``2*(mb_h-1) + mb_w`` steps with each anti-diagonal's
 MBs filtered together.
 
 :func:`deblock_planes` is the entry point.  On CUDA tensors it launches
-``deblock_kernel`` (``csrc/h264_deblock.cu``: one block per MB row, the
-wavefront kept by progress counters; wrapper ``ops/cuda/h264_deblock.py``);
+``deblock_kernel`` (``csrc/h264_deblock.cu``: the boundary strengths first,
+:func:`bs_words`, then a band of MB rows a block, two rows a warp; wrapper
+``ops/cuda/h264_deblock.py``);
 on CPU tensors it runs :func:`deblock_planes_plain`, the JAX function's
 scan over the anti-diagonals as a Python loop, each step gathering one
 20x20 luma and two 10x10 chroma patches a MB row, filtering the MB's four
@@ -36,8 +37,8 @@ import torch
 
 from opencv_opencl_tpu_torch.io.h264_deblock import ALPHA, BETA, TC0
 
-__all__ = ["block_grid", "bs_grids", "deblock_planes", "deblock_planes_plain",
-           "filter_params", "nnz4_grid"]
+__all__ = ["block_grid", "bs_grids", "bs_words", "deblock_planes",
+           "deblock_planes_plain", "filter_params", "nnz4_grid"]
 
 _QPC_TAB = np.array(
     list(range(30)) + [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36,
@@ -110,6 +111,30 @@ def bs_grids(intra: torch.Tensor, nnz4: torch.Tensor, mv: torch.Tensor,
             bs[0, :] = 0
         out.append(bs)
     return out[0], out[1]
+
+
+def bs_words(intra: torch.Tensor, nnz4: torch.Tensor, mv: torch.Tensor,
+             ref: torch.Tensor, slice_local: bool = False) -> torch.Tensor:
+    """Every MB's 32 boundary strengths as 4-bit fields of four 32-bit words,
+    (mb_h, mb_w, 4) int64: the plain version of ``deblock_bs_kernel``
+    (``csrc/h264_deblock.cu``), from :func:`bs_grids`.  Words 0-1 hold the
+    vertical edges, field s * 4 + e (bits 4 * (f % 8) of word f // 8) the
+    edge left of the MB's 4x4 block column e in block row s; words 2-3 the
+    horizontal ones, field s * 4 + e the edge above block row e in block
+    column s.  ``slice_local`` zeroes the horizontal MB edges."""
+    bs_v, bs_h = bs_grids(intra, nnz4, mv, ref)
+    if slice_local:
+        bs_h[::4, :] = 0
+    mb_h, mb_w = intra.shape
+    shifts = 4 * (torch.arange(16, device=intra.device) % 8)
+
+    def words(grid: torch.Tensor) -> torch.Tensor:
+        f = grid.reshape(mb_h, mb_w, 16).to(torch.int64) << shifts
+        return torch.stack([f[..., :8].sum(-1), f[..., 8:].sum(-1)], -1)
+
+    return torch.cat([
+        words(bs_v.reshape(mb_h, 4, mb_w, 4).permute(0, 2, 1, 3)),
+        words(bs_h.reshape(mb_h, 4, mb_w, 4).permute(0, 2, 3, 1))], -1)
 
 
 def _edge_filter(slab: torch.Tensor, bs: torch.Tensor, alpha: int, beta: int,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's K1, K2, K3 (with K5 and K3v1), K6, K7, K8, K10 and K6r
-kernels (and the steps around them) of two or more trees in turns on one
-CUDA card.
+kernels (and the steps around them), or with ``--h264`` its H2-H6, of two
+or more trees in turns on one CUDA card.
 
 Each tree is a checkout of this repository (for example the parent commit,
 unpacked with ``git archive`` into the git-ignored ``_checkout/``).  For each
@@ -25,13 +25,26 @@ card, with the profiler's device time per step by kernel:
 
     python3 scripts/torch_kernel_turns.py _checkout/parent .
 
+With ``--h264`` the children time the device GOP encoder's kernels instead,
+on one 4K P frame of structured content moving by (1, 2) pixels a frame:
+H3 (16 planes at margin 9), H4 (``fastsub`` at search 8 and the exhaustive
+quarter-pel lattice at search 4, each alone on a built stack and right
+after H3 has written it: the pair less H3), H2 (QP 30), H5 on the P frame's
+own metadata and on an IDR's (each beside the wavefront's floor where the
+tree has ``deblock_floor_into``) and H6 (full-pel search 8), with checksums
+of their outputs, so that the trees are seen to compute the same thing.
+
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
 also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
 ``interp_rows_per_block`` at each of those rows per block, ``--fused-rows
-8,16,32`` K7 of the trees with ``fused_rows_per_block`` and ``--cells-rows
-8,16,32`` K6 of the trees with ``lut.cells_rows_per_block``; ``--ptxas``
+8,16,32`` K7 of the trees with ``fused_rows_per_block``, ``--cells-rows
+8,16,32`` K6 of the trees with ``lut.cells_rows_per_block`` and, with
+``--h264``, ``--deblock-rows 2,4,8,16`` H5 of the trees with
+``deblock_rows_per_block`` (each reading also held equal to the default's
+output); ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
-(registers, shared memory, spills) for K1 (each instance of
+(registers, shared memory, spills) for H4, H5 (and its bS pass) and H6, and
+for K1 (each instance of
 ``tile_hist_kernel<R>``: 4 for K1, 2, 4 and 8 for K10), K2, K3, K6, K7, and
 in older trees ``interp_pack_kernel`` (K5), ``tile_hist_batched_kernel``
 (K10), ``interp_cells_radix_kernel`` (K6r) and ``tile_hist_private_kernel``
@@ -54,7 +67,8 @@ WIDTH, HEIGHT, BATCH = 3840, 2160, 4
 KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
                 "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel",
                 "tile_hist_batched_kernel", "interp_cells_radix_kernel",
-                "tile_hist_private_kernel")
+                "tile_hist_private_kernel", "motion_search_kernel", "deblock_kernel",
+                "deblock_bs_kernel", "parts_search_kernel")
 # K2 launches a timed run queues behind one spin of the card
 K2_LAUNCHES = 200
 
@@ -404,6 +418,115 @@ def ptxas(tree: str) -> list[str]:
         KERNEL_NAMES, os.path.join(tree, "opencv_opencl_tpu_torch", "csrc"))
 
 
+def moving_planes(dev, n: int = 3, seed: int = 2024):
+    """``n`` 4K frames (y, cb, cr planes, contiguous, on ``dev``) of one
+    structured picture moving by (1, 2) luma pixels a frame, its left
+    quarter still and a block of noise jumping from frame to frame."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, w = HEIGHT, WIDTH
+    base = (np.linspace(0, 200, w + 2 * n, dtype=np.float32)[None, :]
+            + np.linspace(0, 55, h + 2 * n, dtype=np.float32)[:, None])
+    ycan = np.clip(base + rng.normal(0, 18, base.shape), 0, 255).astype(np.uint8)
+    uvcan = rng.integers(96, 160, (h // 2 + n, w + 2 * n), dtype=np.uint8)
+    out = []
+    for i in range(n):
+        y = ycan[i:i + h, 2 * i:2 * i + w].copy()
+        uv = uvcan[i // 2:i // 2 + h // 2, 2 * i:2 * i + w].copy()
+        y[:, :w // 4] = ycan[:h, :w // 4]
+        uv[:, :w // 4] = uvcan[:h // 2, :w // 4]
+        r0, c0 = (37 * i) % (h - 32), (101 * i) % (w - 64)
+        y[r0:r0 + 32, c0:c0 + 64] = rng.integers(0, 256, (32, 64), dtype=np.uint8)
+        uvt = torch.from_numpy(uv).to(dev).view(h // 2, w // 2, 2)
+        out.append((torch.from_numpy(y).to(dev), uvt[..., 0].contiguous(),
+                    uvt[..., 1].contiguous()))
+    return out
+
+
+def h264_readings(dev=None, deblock_rows=()) -> dict:
+    """The device GOP encoder's kernels on one 4K P frame (see --h264); with
+    ``deblock_rows``, H5 again at each of those MB rows a block, in trees
+    that have ``deblock_rows_per_block``."""
+    import torch
+
+    from opencv_opencl_tpu_torch.ops import h264_deblock as deblock_ops
+    from opencv_opencl_tpu_torch.ops import h264_levels as levels_ops
+    from opencv_opencl_tpu_torch.ops.cuda import h264_deblock as kd
+    from opencv_opencl_tpu_torch.ops.cuda import h264_inter as ki
+    from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kl
+
+    dev = dev or torch.device("cuda", 0)
+    h, w = HEIGHT, WIDTH
+    mb_h, mb_w = h // 16, w // 16
+    _, ref, src = moving_planes(dev)
+    mv = torch.empty((mb_h, mb_w, 2), dtype=torch.int16, device=dev)
+    pred = (torch.empty((h, w), dtype=torch.uint8, device=dev),
+            torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev),
+            torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev))
+    res = {}
+    for name, search, subpel in (("fastsub_s8", 8, 3), ("qpel_s4", 4, 2)):
+        P, margin = levels_ops.search_plan(search, subpel)
+        stack = torch.empty((P, h + 2 * margin, w + 2 * margin), dtype=torch.uint8,
+                            device=dev)
+        h3 = lambda: ki.planes_into(ref[0], margin, P, stack)  # noqa: E731
+        h4 = lambda: ki.search_stack_into(  # noqa: E731
+            src[0], stack, [ref], search, subpel, None, mv, None, *pred)
+        h3()
+        h4()
+        res[f"h4_{name}_checksum"] = int(mv.to(torch.int64).abs().sum()
+                                         + pred[0].to(torch.int64).sum())
+        res[f"subpel_planes_{name}"] = device_ms(h3)
+        res[f"motion_search_{name}_alone"] = device_ms(h4)
+        res[f"motion_search_{name}_after_h3"] = (
+            device_ms(lambda: (h3(), h4())) - res[f"subpel_planes_{name}"])
+    out = torch.empty(kl.p_level_words(mb_h, mb_w), dtype=torch.int16, device=dev)
+    fields = kl.split_p_levels(out, mb_h, mb_w)
+    ki.search_into(src[0], [ref], 8, 3, None, fields["mv"], None, *pred)
+    res["p_levels"] = device_ms(lambda: kl.p_levels_into(*src, *pred, 30, out, motion=True))
+    recon = kl.p_levels_into(*src, *pred, 30, out, motion=True)
+    zero_ref = torch.zeros((mb_h, mb_w), dtype=torch.int16, device=dev)
+    metas = {"p": (fields["mode"] >= 2, deblock_ops.nnz4_grid(fields["acz"]),
+                   fields["mv"], zero_ref),
+             "idr": (torch.ones((mb_h, mb_w), dtype=torch.bool, device=dev),
+                     torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.bool, device=dev),
+                     torch.zeros((mb_h, mb_w, 2), dtype=torch.int16, device=dev), zero_ref)}
+    for name, meta in metas.items():
+        work = tuple(p.clone() for p in recon)
+        kd.deblock_into(*work, 30, *meta)
+        work_once = tuple(p.clone() for p in work)
+        res[f"h5_{name}_checksum"] = int(sum(p.to(torch.int64).sum() for p in work))
+        res[f"deblock_{name}"] = device_ms(lambda: kd.deblock_into(*work, 30, *meta))
+        if hasattr(kd, "deblock_floor_into"):
+            res[f"deblock_{name}_floor"] = device_ms(
+                lambda: kd.deblock_floor_into(*work, 30, *meta))
+        if deblock_rows and hasattr(kd, "deblock_rows_per_block"):
+            chosen = kd.deblock_rows_per_block
+            for rows in deblock_rows:
+                kd.deblock_rows_per_block = lambda mb_h, mb_w, r=rows: min(r, mb_h)
+                again = tuple(p.clone() for p in recon)
+                kd.deblock_into(*again, 30, *meta)
+                res[f"h5_{name}_equal_rows_{rows}"] = all(
+                    torch.equal(a, b) for a, b in zip(again, work_once))
+                res[f"deblock_{name}_rows_{rows}"] = device_ms(
+                    lambda: kd.deblock_into(*again, 30, *meta))
+                res[f"deblock_{name}_floor_rows_{rows}"] = device_ms(
+                    lambda: kd.deblock_floor_into(*again, 30, *meta))
+            kd.deblock_rows_per_block = chosen
+    pout = torch.empty(kl.p_level_words(mb_h, mb_w, True), dtype=torch.int16, device=dev)
+    pf = kl.split_p_levels(pout, mb_h, mb_w, True)
+    P, margin = levels_ops.search_plan(8, 0)
+    stack = levels_ops.subpel_planes(ref[0], margin, P)
+    h6 = lambda: ki.parts_stack_into(  # noqa: E731
+        src[0], stack, [ref], 8, 0, 30, pf["pmode"], pf["mv"], None, *pred)
+    h6()
+    res["h6_checksum"] = int(pf["mv"].to(torch.int64).abs().sum()
+                             + pf["pmode"].to(torch.int64).sum())
+    res["parts_search_s8"] = device_ms(h6)
+    return res
+
+
 def card() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -418,12 +541,17 @@ def main() -> int:
     ap.add_argument("--fused-rows", default="")
     ap.add_argument("--cells-rows", default="")
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--h264", action="store_true",
+                    help="time the device GOP encoder's kernels instead")
+    ap.add_argument("--deblock-rows", default="")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sweeps = [[int(r) for r in arg.split(",") if r]
               for arg in (args.interp_rows, args.fused_rows, args.cells_rows)]
     if args.child is not None:
-        print(json.dumps(child(args.child, *sweeps)), flush=True)
+        res = (h264_readings(deblock_rows=[int(r) for r in args.deblock_rows.split(",") if r])
+               if args.child == "h264" else child(args.child, *sweeps))
+        print(json.dumps(res), flush=True)
         return 0
 
     import torch
@@ -441,14 +569,14 @@ def main() -> int:
             for line in report["ptxas"][tree]:
                 print(f"ptxas {tree} {line}", flush=True)
     order = args.trees + args.trees[::-1]
-    for content in args.contents.split(","):
+    for content in ["h264"] if args.h264 else args.contents.split(","):
         readings: dict = {tree: [] for tree in args.trees}
         for tree in order:
             env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--child", content,
                  "--interp-rows", args.interp_rows, "--fused-rows", args.fused_rows,
-                 "--cells-rows", args.cells_rows],
+                 "--cells-rows", args.cells_rows, "--deblock-rows", args.deblock_rows],
                 cwd=os.path.abspath(tree), env=env, capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stdout, res.stderr, file=sys.stderr)

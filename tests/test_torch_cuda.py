@@ -7,7 +7,8 @@ machine with a card and no JAX, run it without the JAX test configuration:
 
 The same cases as ``chip_smoke.py`` phase 3, at small sizes: the wrappers'
 outputs (H1's levels, modes and reconstructions, H2-H5's levels, modes,
-motion fields, predictions, planes and filtered pictures, and the device
+motion fields, predictions, planes and filtered pictures (H4 and H5 also at
+geometries that their bands and blocks do not divide), and the device
 encoders' access units against the host oracles'; K1, K8 and K10 histograms, K2 LUTs
 with one clip or one per frame,
 K3, K4, K6 and K6r frames, K7 frames and histograms (both on their 16-byte
@@ -769,6 +770,61 @@ def test_p_frame_kernels_equal_plain(device, h, w, content):
     counts = kernels.launch_counts()
     assert counts["encode_p_levels"] == 3 and counts["deblock_planes"] == 6
     assert counts["motion_search"] == 12 + 2 and counts["subpel_planes"] > 14
+
+
+# geometries whose MB rows or columns are no multiple of H5's band (16 MB
+# rows a block) or of H4's MBs a block (5 for fastsub at search 8, 6 for the
+# quarter-pel lattice at search 4): 1920x1088 (68 MB rows), 640x368, one MB
+# row, one MB column, 48x32
+EDGE_GEOMETRIES = [(1088, 1920), (368, 640), (16, 640), (368, 16), (32, 48)]
+
+
+def _random_deblock_meta(rng, mb_h, mb_w, device, g=1):
+    """Adversarial deblocking metadata (intra, coded blocks, motion on both
+    sides of the |dmv| >= 4 threshold, two references), g = 2: quadrant
+    fields."""
+    return (torch.from_numpy(rng.random((mb_h, mb_w)) < 0.3).to(device),
+            torch.from_numpy(rng.random((4 * mb_h, 4 * mb_w)) < 0.4).to(device),
+            torch.from_numpy(rng.integers(-20, 21, (g * mb_h, g * mb_w, 2))
+                             .astype(np.int16)).to(device),
+            torch.from_numpy(rng.integers(0, 2, (g * mb_h, g * mb_w))
+                             .astype(np.int16)).to(device))
+
+
+@pytest.mark.parametrize("h,w", EDGE_GEOMETRIES)
+def test_search_and_deblock_at_the_tilings_edges(device, h, w):
+    """H4 (fastsub at search 8 with one and two references and under the GDR
+    clean-row rule, the quarter-pel lattice at search 4) and H5 (an IDR,
+    random P metadata with and without slice_local, random quadrant fields)
+    against their plain versions, every output, at geometries that the
+    kernels' bands and blocks do not divide."""
+    from opencv_opencl_tpu_torch.ops import cuda as kernels
+    from opencv_opencl_tpu_torch.ops import h264_deblock as torch_deblock
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+
+    kernels.reset_launch_counts()
+    mb_h, mb_w = h // 16, w // 16
+    src, r1, r2 = _p_inputs(device, 80, h, w, "structured")
+    for search, subpel, refs, clean in ((8, 3, [r1], None), (8, 3, [r1, r2], None),
+                                        (8, 3, [r1], max(1, mb_h // 2)), (4, 2, [r1], None)):
+        got = torch_levels.motion_search(src[0], refs, search, subpel, clean)
+        want = torch_levels.motion_search_plain(src[0], refs, search, subpel, clean)
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    rng = np.random.default_rng(h + w)
+    planes = tuple(p.contiguous() for p in src)
+    idr = (torch.ones((mb_h, mb_w), dtype=torch.bool, device=device),
+           torch.zeros((4 * mb_h, 4 * mb_w), dtype=torch.bool, device=device),
+           torch.zeros((mb_h, mb_w, 2), dtype=torch.int16, device=device),
+           torch.zeros((mb_h, mb_w), dtype=torch.int16, device=device))
+    for qp, meta, slice_local in ((30, idr, False),
+                                  (35, _random_deblock_meta(rng, mb_h, mb_w, device), False),
+                                  (44, _random_deblock_meta(rng, mb_h, mb_w, device), True),
+                                  (38, _random_deblock_meta(rng, mb_h, mb_w, device, 2), False)):
+        a = torch_deblock.deblock_planes(*planes, qp, *meta, slice_local=slice_local)
+        b = torch_deblock.deblock_planes_plain(*planes, qp, *meta, slice_local=slice_local)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    counts = kernels.launch_counts()
+    assert counts["motion_search"] == 4 and counts["deblock_planes"] == 4
 
 
 def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):

@@ -10,6 +10,9 @@ two references), with and without ``slice_local``, at one shape (one
 ``io.h264_deblock.deblock_picture`` at every geometry of those cases, one
 MB row and one MB column included, and on an all-intra IDR picture.  On
 the CPU the wrapper runs the plain version and counts no launch.
+``bs_words`` (the plain version of ``deblock_bs_kernel``, every MB's bS
+as 4-bit fields) unpacks, field by field, to the JAX ``bs_grids`` on the
+same cases, with MB and quadrant fields, with and without ``slice_local``.
 """
 
 import jax
@@ -113,3 +116,38 @@ def test_all_intra_idr_picture_and_no_launch_on_the_cpu():
     with pytest.raises(ValueError, match="nnz4"):
         h264_deblock.deblock_planes(t(y), t(cb), t(cr), 40, t(info.intra),
                                     t(info.nnz4[:4]), t(info.mv), t(info.ref))
+
+
+def _unpack_words(words: np.ndarray):
+    """(mb_h, mb_w, 4) words -> (bs_v, bs_h) grids: field f of word f // 8 at
+    bits 4 (f % 8); vertical field s * 4 + e at block (4i + s, 4j + e),
+    horizontal field s * 4 + e at block (4i + e, 4j + s)."""
+    mb_h, mb_w = words.shape[:2]
+    v = np.stack([(words[..., f // 8] >> 4 * (f % 8)) & 15 for f in range(16)], -1)
+    h = np.stack([(words[..., 2 + f // 8] >> 4 * (f % 8)) & 15 for f in range(16)], -1)
+    bs_v = v.reshape(mb_h, mb_w, 4, 4).transpose(0, 2, 1, 3).reshape(4 * mb_h, 4 * mb_w)
+    bs_h = h.reshape(mb_h, mb_w, 4, 4).transpose(0, 3, 1, 2).reshape(4 * mb_h, 4 * mb_w)
+    return bs_v, bs_h
+
+
+@pytest.mark.parametrize("slice_local", [False, True], ids=["idc0", "slice_local"])
+def test_bs_words_unpack_to_jax_bs_grids(jax_fns, slice_local):
+    _, bs_fn = jax_fns
+    for seed, quad in ((0, False), (3, False), (4, True), (9, False)):
+        rng = np.random.default_rng(seed)
+        _, _, _, info = rand_case(rng, 3, 4)
+        mv, ref = info.mv, info.ref
+        if quad:        # one vector and reference an 8x8 block
+            mv = rng.integers(-20, 21, (6, 8, 2)).astype(mv.dtype)
+            ref = rng.integers(0, 2, (6, 8)).astype(ref.dtype)
+        words = h264_deblock.bs_words(t(info.intra), t(info.nnz4), t(mv), t(ref),
+                                      slice_local=slice_local).numpy()
+        assert words.shape == (3, 4, 4) and (words >= 0).all() and (words < 2 ** 32).all()
+        want_v, want_h = (np.asarray(g).copy() for g in bs_fn(
+            *(jnp.asarray(a) for a in (info.intra, info.nnz4, mv, ref))))
+        if slice_local:
+            want_h[::4] = 0
+        got_v, got_h = _unpack_words(words)
+        assert np.array_equal(got_v, want_v), f"seed {seed}"
+        assert np.array_equal(got_h, want_h), f"seed {seed}"
+        assert set(np.unique(got_v)) >= {0, 3, 4}
