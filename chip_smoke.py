@@ -11,8 +11,10 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. build    the CUDA kernels from ``opencv_opencl_tpu_torch/csrc``, and
             what ``nvcc -Xptxas -v`` says of K3 (also K5 and K3v1), K2 and
             K1's three instances (``tile_hist_kernel<4>``, also K8's, and
-            ``<2>``, ``<8>`` for K10), H1 ``intra_levels_kernel`` and the
-            GOP encoder's H2 ``p_levels_kernel``, H3
+            ``<2>``, ``<8>`` for K10), H1 and the GOP encoder's H2 (the
+            split design's ``levels_split_kernel``, ``levels_chain_kernel``
+            and ``levels_intra_kernel``, each for H1 and H2, and H1's
+            ``intra_levels_kernel`` for ``i4``), H3
             ``subpel_planes_kernel``, H4 ``motion_search_kernel``, H5
             ``deblock_kernel``, H6 ``parts_search_kernel``, H7
             ``pack_i_kernel`` and H8 ``pack_p_kernel`` (registers, shared
@@ -59,7 +61,12 @@ Phases, each of which raises (exit code != 0) when it fails:
             default, ``chromah`` and ``full_recon`` at QP 0 and 30 on
             structured and random content, the default on a constant frame,
             and Intra_4x4 (with ``full_recon``) and Intra_4x4 + chroma
-            HORIZONTAL at 1920x1088 on all three; then the device encoder's streams: ``tpu`` at 4K equal
+            HORIZONTAL at 1920x1088 on all three; at 640x368, one MB row,
+            one MB column and 48x32 the default, ``chromah``,
+            ``full_recon`` and both at QP 0, 30 and 51 on those and on mixed
+            content (runs of 8-12 MBs of noise or of horizontal stripes
+            between runs of a moving picture), and the default on mixed
+            content at 4K and 1920x1088; then the device encoder's streams: ``tpu`` at 4K equal
             to ``CavlcH264Encoder(slices=135)`` on the native rows, with and
             without ``overlap``, and ``tpu:i4:chromah`` at 4K equal to the
             plain version's levels entropy-coded on the native rows and at
@@ -71,7 +78,12 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``fastsub`` at search 8 with one and two references and under
             the GDR clean-row rule, and at 1920x1088 the exhaustive half-
             and quarter-pel lattices at search 2; H2 (after the search) at
-            4K at QP 0 and 30, with and without motion and with a GDR band;
+            4K at QP 0 and 30, with and without motion and with a GDR band,
+            and at the five edge geometries on mixed content (the P frame
+            of runs of noise between runs of the moving reference) and,
+            below 1920x1088, random and constant content, at QP 0, 30 and
+            51: zero motion, ``fastsub`` with a GDR band, the quarter-pel
+            lattice with two references and the ``parts`` layout;
             H5 at 4K on an IDR and on a P frame's own metadata, with and
             without ``slice_local``; then the GOP encoder's streams on the
             card: at 640x368 over four frames (IDR, P, P, IDR) equal to the
@@ -228,13 +240,16 @@ Phases, each of which raises (exit code != 0) when it fails:
             kernel for each step; the relay's and the multi-stream relay's
             own ``Shutdown`` rates (and, in phase 5, the encoded relays'
             host encode ms a 4K frame, and the native CAVLC rows' and the
-            Python oracle's); H1 per 4K frame, default and ``i4:chromah``,
-            beside its plain version and its bound, the levels' copy to the
+            Python oracle's); H1 per 4K frame, default (also each phase of
+            the split design, its grid's time in the profiler's keys, and
+            the chain's time a step from its phase B over 240 and 120 MB
+            columns), ``full_recon`` and
+            ``i4:chromah``, beside its plain version and its bound, the levels' copy to the
             host, the host entropy coding, ``CudaCavlcEncoder.encode`` with
             and without ``overlap`` and the native ``cavlc`` encoders on the
             same frames; per 4K P frame H3 (16 planes), H4 (``fastsub`` at
             search 8 and the exhaustive quarter-pel lattice at search 4), H2
-            and H5 beside their plain versions and bounds, the P levels'
+            (also by phase, as H1) and H5 beside their plain versions and bounds, the P levels'
             copy to the host, the P entropy coding and
             ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
             ``overlap``; H6 (full-pel search 8, half-pel search 8,
@@ -372,7 +387,13 @@ KERNELS = (
      "opencv_opencl_tpu/ops/pallas/lut_kernels.py:477:radix"),
     # H1-H5: the JAX functions are XLA programs (H1's and H2's lax.scans
     # over the MB columns, H4's fori_loop over the candidates, H5's scan
-    # over the anti-diagonals), not Pallas kernels
+    # over the anti-diagonals), not Pallas kernels.  The rows named
+    # intra_levels_kernel (H1) and p_levels_kernel (H2) keep the names of
+    # the one-grid kernels they were: each stands for the split design's
+    # three grids in h264_levels.cu (levels_split_kernel<P>,
+    # levels_chain_kernel<P>, levels_intra_kernel<P>; P false for H1, true
+    # for H2), one launch of its wrapper; H1 with i4 is still the grid
+    # intra_levels_kernel
     ("intra_levels_kernel", "encode_levels",
      "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
      "opencv_opencl_tpu/ops/h264_levels.py:279"),
@@ -1077,13 +1098,17 @@ def intra_outputs(out) -> list[torch.Tensor]:
 
 
 def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
-    """H1 ``intra_levels_kernel`` against ``encode_levels_plain`` on the
-    card, every output (levels, modes, reconstructed planes): at 4K for the
-    default, ``chromah`` and ``full_recon`` at each of ``INTRA_QPS`` (on a
-    constant frame the default only), and ``i4`` (with ``full_recon``) and
-    ``i4`` + ``chromah`` at 1920x1088, on structured, random and constant
-    content.  Returns the largest absolute difference and the kernel's
-    launches."""
+    """H1 against ``encode_levels_plain`` on the card, every output (levels,
+    modes, reconstructed planes): at 4K for the default, ``chromah`` and
+    ``full_recon`` at each of ``INTRA_QPS`` (on a constant frame the default
+    only), and ``i4`` (with ``full_recon``) and ``i4`` + ``chromah`` at
+    1920x1088, on structured, random and constant content, and the default
+    on mixed content (:func:`mixed_nv12`) at 4K (each of ``INTRA_QPS``) and
+    1920x1088 (QP 30); then at the small ``EDGE_SHAPES`` (640x368, one MB
+    row, one MB column, 48x32) the default, ``chromah``, ``full_recon`` and
+    both at QP 0, 30 and 51 on structured, random, constant and mixed
+    content.  Returns the largest absolute
+    difference and the kernel's launches."""
     levels_kernel.reset_launch_counts()
     cases = [((HEIGHT, WIDTH), flags, qp)
              for flags in ({}, {"chromah": True}, {"full_recon": True})
@@ -1091,11 +1116,19 @@ def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
     cases += [(INTRA_I4_SHAPE, flags, INTRA_I4_QP)
               for flags in ({"i4": True, "full_recon": True},
                             {"i4": True, "chromah": True})]
+    small = [(shape, flags, qp) for shape in EDGE_SHAPES[1:]
+             for flags in ({}, {"chromah": True}, {"full_recon": True},
+                           {"chromah": True, "full_recon": True})
+             for qp in (0, 30, 51)]
+    # mixed content also at 4K and 1920x1088, the default flags
+    mixed = [((HEIGHT, WIDTH), {}, qp) for qp in INTRA_QPS] + [(EDGE_SHAPES[0], {}, 30)]
     err, checked = 0, 0
-    for kind in ("structured", "random", "constant"):
-        frames = {shape: torch.from_numpy(content_nv12(rng, kind, *shape)).to(device)
-                  for shape in {c[0] for c in cases}}
-        for shape, flags, qp in cases:
+    for kind in ("structured", "random", "constant", "mixed"):
+        todo = (cases if kind != "mixed" else mixed) + small
+        frames = {shape: torch.from_numpy(
+            mixed_nv12(rng, *shape)[1] if kind == "mixed" else content_nv12(rng, kind, *shape)
+        ).to(device) for shape in {c[0] for c in todo}}
+        for shape, flags, qp in todo:
             if kind == "constant" and shape == (HEIGHT, WIDTH) and flags:
                 continue
             checked += 1
@@ -1107,10 +1140,14 @@ def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
                   f"version {len(want)}")
             e = max(max_err(a, b) for a, b in zip(got, want))
             err = max(err, e)
+            if shape in EDGE_SHAPES[1:] and e == 0:
+                continue
             print(f"kernel intra_levels_kernel {shape[1]}x{shape[0]} {kind} qp {qp} "
                   f"{'+'.join(flags) or 'default'}: max abs err {e} over {len(got)} "
                   f"outputs ({time.perf_counter() - t0:.1f} s with the plain "
                   f"version)", flush=True)
+    print(f"kernel intra_levels_kernel at {', '.join(f'{w}x{h}' for h, w in EDGE_SHAPES[1:])}: "
+          f"{len(small) * 4} checks, max abs err {err} so far", flush=True)
     launches = levels_kernel.launch_counts()["encode_levels"]
     check(launches == checked, f"H1 launched {launches} times for {checked} checks")
     return err, launches
@@ -1205,6 +1242,39 @@ def moving_nv12(rng, h: int, w: int, n: int) -> list[np.ndarray]:
     return out
 
 
+def mixed_nv12(rng, h: int, w: int, runs: tuple[int, int] = (8, 12)
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """A reference NV12 frame (gradient plus noise) and a P frame that makes
+    the level kernels' chain matter: along each MB row, runs of ``runs[0]``
+    to ``runs[1]`` MBs that only intra prediction codes well (fresh noise
+    and horizontal stripes, a run each in turn) between runs of 1 to 5 MBs
+    of the reference moved by (1, 2) pixels with a little noise (inter or
+    skip); narrower frames cut the runs.  The tests' copy is in
+    ``tests/test_torch_cuda.py``: this script imports nothing from
+    ``tests/``."""
+    rows = h * 3 // 2
+    base = (np.linspace(0, 200, w, dtype=np.float32)[None, :]
+            + np.linspace(0, 55, rows, dtype=np.float32)[:, None])
+    ref = np.clip(base + rng.normal(0, 18, (rows, w)), 0, 255).astype(np.uint8)
+    moved = np.roll(ref, (1, 2), (0, 1))
+    moved[h:] = ref[h:]
+    cur = np.clip(moved + rng.integers(-1, 2, (rows, w)), 0, 255).astype(np.uint8)
+    stripes = np.clip(rng.integers(0, 256, (rows, 1)) + rng.integers(-3, 4, (rows, w)),
+                      0, 255).astype(np.uint8)
+    run = 0
+    for mby in range(h // 16):
+        x = int(rng.integers(0, 4))
+        while x < w // 16:
+            x1 = min(x + int(rng.integers(runs[0], runs[1] + 1)), w // 16)
+            for r0, r1 in ((16 * mby, 16 * mby + 16), (h + 8 * mby, h + 8 * mby + 8)):
+                cols = slice(16 * x, 16 * x1)
+                cur[r0:r1, cols] = (stripes[r0:r1, cols] if run % 2 else
+                                    rng.integers(0, 256, (r1 - r0, 16 * (x1 - x)), np.uint8))
+            run += 1
+            x = x1 + int(rng.integers(1, 6))
+    return ref, cur
+
+
 def p_planes(device, frame: np.ndarray) -> tuple[torch.Tensor, ...]:
     """The three planes of an NV12 frame on the card, each contiguous (a
     reference picture's layout)."""
@@ -1216,13 +1286,18 @@ def p_planes(device, frame: np.ndarray) -> tuple[torch.Tensor, ...]:
 def p_content(device, rng, kind: str, h: int, w: int):
     """A source picture and two references on the card: ``moving`` content
     (the references the two frames before), ``random`` or ``structured``
-    (the references the source moved and with noise), or ``constant``."""
+    (the references the source moved and with noise), ``constant``, or
+    ``mixed`` (:func:`mixed_nv12`; the second reference the first moved)."""
     if kind == "moving":
         f = moving_nv12(rng, h, w, 3)
         return p_planes(device, f[2]), p_planes(device, f[1]), p_planes(device, f[0])
     if kind == "constant":
         f = content_nv12(rng, "constant", h, w)
         return (p_planes(device, f),) * 3
+    if kind == "mixed":
+        ref, cur = mixed_nv12(rng, h, w)
+        return (p_planes(device, cur), p_planes(device, ref),
+                p_planes(device, np.roll(ref, (-2, 4), (0, 1))))
     src = content_nv12(rng, "structured" if kind == "structured" else "random", h, w)
     noise = rng.integers(-3, 4, src.shape)
     ref1 = np.clip(np.roll(src, (2, -6), (0, 1)).astype(np.int32) + noise, 0, 255)
@@ -1258,9 +1333,10 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     ``slice_local`` (not on the constant frame, where it changes nothing).
     Then at each of ``EDGE_SHAPES`` on structured content: H4 ``fastsub`` at
     search 8 with one and two references and under the GDR clean-row rule,
-    and the quarter-pel lattice at search 4; H5 on an IDR and on the own
-    metadata of a two-reference ``fastsub`` P frame, with and without
-    ``slice_local``.  Returns the largest absolute difference by kernel."""
+    and the quarter-pel lattice at search 4; H2 as :func:`p_edge_checks`
+    says; H5 on an IDR and on the own metadata of a two-reference
+    ``fastsub`` P frame, with and without ``slice_local``.  Returns the
+    largest absolute difference by kernel."""
     for module in (levels_kernel, inter_kernel, deblock_kernel):
         module.reset_launch_counts()
     errs = dict.fromkeys(("p_levels_kernel", "subpel_planes_kernel",
@@ -1366,6 +1442,7 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
             compare("motion_search_kernel", label, levels_ops.motion_search(
                 src[0], refs, search, subpel, cl), want, secs)
         plv = levels_ops.encode_p_levels(*src, *ref1, 30, P_SEARCH, 3, *ref2)
+        p_edge_checks(eh, ew, device, rng, compare, timed)
         recon = (plv.recon_y, plv.recon_cb, plv.recon_cr)
         for label, meta_of, slice_local in (("IDR", None, False), ("P", plv, False),
                                             ("P slice_local", plv, True)):
@@ -1383,6 +1460,39 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
           f"a P-frame kernel was not launched by its checks: {counts}")
     print(f"kernels H2-H5 checked: launches {counts}", flush=True)
     return errs
+
+
+def p_edge_checks(h: int, w: int, device, rng, compare, timed) -> None:
+    """H2 (through ``encode_p_levels``, the search's kernels before it) at
+    one of ``EDGE_SHAPES``: on mixed content (:func:`mixed_nv12`) and, below
+    1920x1088, also on random and constant content, at QP 0, 30 and 51 (at
+    1920x1088 QP 30): zero motion, ``fastsub`` at search 8 with a GDR band,
+    the quarter-pel lattice at search 2 with two references, and the
+    ``parts`` layout (half-pel search 2)."""
+    big = h * w >= 1920 * 1088
+    for kind in ("mixed",) if big else ("mixed", "random", "constant"):
+        src, ref1, ref2 = p_content(device, rng, kind, h, w)
+        band = (max(0, h // 32 - 1), max(1, h // 32 + 1))
+        modes = torch.zeros(4, dtype=torch.int64, device=device)
+        for qp in (30,) if big else (0, 30, 51):
+            for search, subpel, refs, gdr, parts in (
+                    (0, 0, (), None, 0), (P_SEARCH, 3, (), band, 0),
+                    (2, 2, ref2, None, 0), (2, 1, (), None, 1)):
+                args = (*src, *ref1, qp, search, subpel, *(refs or (None,) * 3))
+                want, secs = timed(lambda: levels_ops.encode_p_levels_plain(
+                    *args, gdr_band=gdr, parts=parts))
+                got = levels_ops.encode_p_levels(*args, gdr_band=gdr, parts=parts)
+                label = (f"{w}x{h} {kind} qp {qp} search {search} subpel {subpel}"
+                         + (" two refs" if refs else "") + (f" GDR band {gdr}" if gdr else "")
+                         + (" parts" if parts else ""))
+                if big or kind == "mixed" and qp == 30 and not search:
+                    compare("p_levels_kernel", label, tuple(got), tuple(want), secs)
+                else:
+                    e = max(max_err(a, b) for a, b in zip(got, want) if a is not None)
+                    check(e == 0, f"p_levels_kernel {label}: max abs err {e}")
+                modes += torch.bincount(got.mode.flatten().to(torch.int64), minlength=4)
+        print(f"kernel p_levels_kernel {w}x{h} {kind}: every case exact; modes "
+              f"skip/inter/intra DC/intra H {modes.tolist()}", flush=True)
 
 
 def quad_meta(plv, mb_h: int, mb_w: int, device) -> tuple[torch.Tensor, ...]:
@@ -3441,16 +3551,20 @@ def per_launch_ms(fn, launches: int = K2_LAUNCHES, reps: int = 7) -> float:
     return statistics.median(runs)
 
 
-def profile_us(fn, kernel: str, calls: int = 20) -> float:
-    """torch.profiler's device time of ``kernel`` per call of ``fn``, in us."""
+def profile_keys(fn, calls: int = 20) -> dict[str, float]:
+    """torch.profiler's device time per call of ``fn``, in us, by key."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(evt.device_time_total for evt in prof.key_averages()
-               if kernel in evt.key) / calls
+    return {evt.key: evt.device_time_total / calls for evt in prof.key_averages()}
+
+
+def profile_us(fn, kernel: str, calls: int = 20) -> float:
+    """torch.profiler's device time of ``kernel`` per call of ``fn``, in us."""
+    return sum(us for key, us in profile_keys(fn, calls).items() if kernel in key)
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -3743,9 +3857,29 @@ def intra_ops(mb_h: int, mb_w: int, i4: bool = False, chromah: bool = False) -> 
     return mb_h * mb_w * (luma + chroma + recon + trial)
 
 
+SPLIT_GRIDS = ("levels_split_kernel", "levels_chain_kernel", "levels_intra_kernel")
+
+
+def split_phases(label: str, call, half_call, cols: int, card: str) -> None:
+    """The split design's phases, each its grid's device time in
+    torch.profiler's keys of an ordinary ``call``, and the chain's floor:
+    phase B of ``call`` over the frame's ``cols`` MB columns and of
+    ``half_call`` over its left half, whose difference over the columns
+    between is the time a step of the chain takes."""
+    whole = profile_keys(call)
+    ms = [sum(us for key, us in whole.items() if grid in key) / 1e3 for grid in SPLIT_GRIDS]
+    b_half = profile_us(half_call, SPLIT_GRIDS[1]) / 1e3
+    step = (ms[1] - b_half) / (cols - cols // 2)
+    print(f"time {label} by phase (profiler): A {ms[0]:.4f}, B {ms[1]:.4f}, C {ms[2]:.4f} "
+          f"ms; the chain's floor: B {ms[1]:.4f} ms over {cols} MB columns, {b_half:.4f} "
+          f"over {cols // 2}: {1e3 * step:.3f} us a step, {cols} x step "
+          f"{cols * step:.4f} ms [{card}]", flush=True)
+
+
 def intra_timings(device, rng, card: str) -> dict[str, dict]:
-    """H1 per 4K frame (device alone), default and ``i4:chromah``, beside
-    the plain version and the bound; the levels' copy to pinned host
+    """H1 per 4K frame (device alone), default (also by phase, with the
+    chain's floor: :func:`split_phases`), ``full_recon`` and
+    ``i4:chromah``, beside the plain version and the bound; the levels' copy to pinned host
     memory; the host entropy coding on the native rows (every host thread);
     ``CudaCavlcEncoder.encode`` with and without ``overlap``; and the native
     ``cavlc`` encoder on the same frames, on one core (relay (g)'s) and on
@@ -3769,6 +3903,16 @@ def intra_timings(device, rng, card: str) -> dict[str, dict]:
               f"(bound {bound_ms:.4f} ms by {bound_by}: {moved} bytes, "
               f"{intra_ops(mb_h, mb_w, **flags)} operations) [{card}]", flush=True)
         if not flags:
+            half = tuple(p[:, :p.shape[1] // 2] for p in planes)
+            half_out = torch.empty(levels_kernel.level_words(mb_h, mb_w // 2),
+                                   dtype=torch.int16, device=device)
+            split_phases("intra_levels_kernel 4K default",
+                         lambda: levels_kernel.intra_levels(*planes, 30, out),
+                         lambda: levels_kernel.intra_levels(*half, 30, half_out), mb_w, card)
+            full = device_ms(lambda: levels_kernel.intra_levels(*planes, 30, out,
+                                                                full_recon=True))
+            print(f"time intra_levels_kernel 4K full_recon (an IDR's): {full:.4f} ms on "
+                  f"the device [{card}]", flush=True)
             plain_ms = time_ms(lambda: levels_ops.encode_levels_plain(*planes, 30),
                                reps=3, warmup=1)
             times["intra_levels_kernel"] = {"ms": ms, "plain_ms": plain_ms,
@@ -3852,7 +3996,8 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     the encoder finds it: H3 + H4 less H3, and beside it H4 alone), H2 and H5
     (on the planes H2 has just written; beside it the wavefront's floor, the
     same launch without the edge arithmetic, and an IDR's metadata), each
-    beside its plain version and its bound; the P levels' copy to pinned host memory; the
+    beside its plain version and its bound (H2 also by phase, with the
+    chain's floor: :func:`split_phases`); the P levels' copy to pinned host memory; the
     host entropy coding of a P frame on the native rows; and
     ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
     ``overlap``.  No single PyTorch call computes any of these functions:
@@ -3929,6 +4074,18 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
                     warmup=0)
     moved = nbytes(*src, *pred, out) + nbytes(*pred)
     record("p_levels_kernel", ms, plain, moved, p_ops(mb_h, mb_w), "(QP 30, fastsub)")
+    # the left half: the source's views, the predictions' contiguous
+    # copies, and a levels buffer holding the frame's search fields
+    half = (tuple(p[:, :p.shape[1] // 2] for p in src)
+            + tuple(p[:, :p.shape[1] // 2].contiguous() for p in pred))
+    half_out = torch.empty(levels_kernel.p_level_words(mb_h, mb_w // 2), dtype=torch.int16,
+                           device=device)
+    levels_kernel.split_p_levels(half_out, mb_h, mb_w // 2)["mv"].copy_(
+        parts["mv"][:, :mb_w // 2])
+    split_phases("p_levels_kernel 4K P frame (QP 30, fastsub)",
+                 lambda: levels_kernel.p_levels_into(*src, *pred, 30, out, motion=True),
+                 lambda: levels_kernel.p_levels_into(*half, 30, half_out, motion=True),
+                 mb_w, card)
     recon = levels_kernel.p_levels_into(*src, *pred, 30, out, motion=True)
     plv = levels_ops.PLevelArrays(parts["mode"], parts["zdc"], parts["acz"],
                                   parts["czdc"], parts["cacz"], *recon, parts["mv"])
@@ -4195,7 +4352,8 @@ def main() -> int:
           flush=True)
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
                                      "tile_hist_kernel", "intra_levels_kernel",
-                                     "p_levels_kernel", "subpel_planes_kernel",
+                                     "levels_split_kernel", "levels_chain_kernel",
+                                     "levels_intra_kernel", "subpel_planes_kernel",
                                      "motion_search_kernel", "deblock_kernel",
                                      "deblock_bs_kernel",
                                      "parts_search_kernel", "pack_i_kernel",

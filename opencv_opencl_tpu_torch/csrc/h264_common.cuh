@@ -91,14 +91,11 @@ __device__ __forceinline__ int level_cost(int l) {
 __device__ __forceinline__ int clamp255(int x) { return max(0, min(255, x)); }
 
 // entry (i, r) of the Hadamard H4: rows (1,1,1,1), (1,1,-1,-1),
-// (1,-1,-1,1), (1,-1,1,-1)
+// (1,-1,-1,1), (1,-1,1,-1): -1 where the bits of r under row i's mask
+// (0, 2, 3, 1) have odd parity; no branch, so lanes with different rows
+// do not diverge
 __device__ __forceinline__ int h4(int i, int r) {
-    switch (i) {
-        case 0: return 1;
-        case 1: return r < 2 ? 1 : -1;
-        case 2: return (r == 0 || r == 3) ? 1 : -1;
-        default: return (r == 0 || r == 2) ? 1 : -1;
-    }
+    return 1 - 2 * (__popc(r & ((0x1320 >> (4 * i)) & 3)) & 1);
 }
 
 // entry (i, j) of H4 @ x @ H4 for the 4x4 raster x

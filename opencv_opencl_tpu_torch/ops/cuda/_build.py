@@ -48,9 +48,9 @@ _SIGNATURES = {
     "interp_cells_launch": (_P, _LL, _LL, _P, _I, _I, _P, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P, _I, _P, _LL, _LL, _I, _P),
     "intra_levels_launch": (_P, _LL, _P, _LL, _LL, _P, _LL, _LL, _I, _I, _P,
-                            _I, _I, _P, _P, _P, _P, _P),
+                            _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "p_levels_launch": (_P, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _I,
-                        _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+                        _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "subpel_planes_launch": (_P, _I, _I, _I, _I, _P, _P),
     "motion_search_launch": (_P, _LL, _I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P,
                              _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,

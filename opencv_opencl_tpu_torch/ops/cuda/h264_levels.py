@@ -10,9 +10,9 @@ and ``:1487 encode_p_levels``, which are no Pallas kernels but XLA
 wrapper          plain version                             replaces
 ===============  ========================================  ====================
 encode_levels    ``ops.h264_levels.encode_levels_plain``   h264_levels.py:279
-                 (``intra_levels_kernel``)                 (H1)
+                 (the split grids below)                   (H1)
 encode_p_levels  ``ops.h264_levels.encode_p_levels_plain`` h264_levels.py:1487
-                 (``p_levels_kernel``, after the search)   (H2)
+                 (the split grids, after the search)       (H2)
 ===============  ========================================  ====================
 
 As in ``ops/cuda/natural.py``: the wrapper takes its plain version only for
@@ -25,6 +25,19 @@ a P frame's buffer (:func:`p_level_layout`) adds the search's MV field and
 reference index, which ``motion_search_kernel`` writes there (with
 ``parts`` the quadrant fields and the partition modes, which
 ``parts_search_kernel`` writes).
+
+A call of either wrapper (H1 without ``i4``, H2) launches three grids on
+the current stream, laid out by :func:`levels_plan`: ``levels_split_kernel``
+(a warp an MB: what the left neighbour cannot change, and H2's inter
+candidate whole), ``levels_chain_kernel`` (a warp an MB row: the decisions
+and the carried edge) and ``levels_intra_kernel`` (a warp an MB: the intra
+MBs' levels and reconstruction), through a scratch of
+``LEVEL_RECORD_WORDS`` int32 a MB that the wrapper allocates for the call
+(from PyTorch's caching allocator: one scratch shared between calls would
+be overwritten by a second call in flight on another stream or thread).
+``launches`` counts one a call.  H1 with ``i4`` is one grid,
+``intra_levels_kernel``.  A phase's device time is its kernel's own name in
+``torch.profiler``'s keys of an ordinary call.
 """
 
 from __future__ import annotations
@@ -41,7 +54,14 @@ from opencv_opencl_tpu_torch.ops.h264_levels import (
 __all__ = ["encode_levels", "intra_levels", "level_layout", "level_words",
            "split_levels", "plan_words", "encode_p_levels", "p_levels_into",
            "p_level_layout", "p_level_words", "split_p_levels",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "levels_plan",
+           "LEVEL_RECORD_WORDS"]
+
+# the split design's scratch, int32 words a MB (csrc/h264_levels.cu
+# kRecWords; the launcher refuses another count), and the MBs (a warp each)
+# a block of its A and C grids (kSplitWarps)
+LEVEL_RECORD_WORDS = 188
+SPLIT_WARPS = 4
 
 # the kernel's int32 plan: the order of csrc/h264_levels.cu's Plan
 _PLAN_KEYS = ("qp", "qpc", "qbits", "qbits_c", "f_y", "f_c", "mf_y", "mf_c",
@@ -109,14 +129,32 @@ def _check_strides(t: torch.Tensor, name: str) -> None:
                          f"stride, got strides {t.stride()}")
 
 
+def levels_plan(mb_h: int, mb_w: int) -> dict:
+    """The split design's launches for an (mb_h, mb_w) MB grid: the
+    scratch (int32 words and bytes), and the (blocks, threads) of phase A
+    (a warp an MB, ``SPLIT_WARPS`` a block), B (a warp an MB row, one a
+    block) and C (as A)."""
+    n = mb_h * mb_w
+    blocks = -(-n // SPLIT_WARPS)
+    return {"record_words": LEVEL_RECORD_WORDS, "scratch_words": LEVEL_RECORD_WORDS * n,
+            "scratch_bytes": 4 * LEVEL_RECORD_WORDS * n, "split": (blocks, 32 * SPLIT_WARPS),
+            "chain": (mb_h, 32), "intra": (blocks, 32 * SPLIT_WARPS)}
+
+
+def _scratch(device, mb_h: int, mb_w: int) -> torch.Tensor:
+    return torch.empty(levels_plan(mb_h, mb_w)["scratch_words"], dtype=torch.int32,
+                       device=device)
+
+
 def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                  qp: int, out: torch.Tensor, full_recon: bool = False,
                  i4: bool = False, chromah: bool = False):
-    """Launch ``intra_levels_kernel`` over CUDA planes into ``out``, a
-    contiguous int16 buffer of :func:`level_words` elements.  Returns the
-    reconstructed planes ``(ry, rcb, rcr)`` with ``full_recon``, else None.
-    ``y`` has unit pixel stride; ``cb``/``cr`` may be the interleaved
-    views of an NV12 chroma plane (pixel stride 2)."""
+    """Launch H1 over CUDA planes into ``out``, a contiguous int16 buffer of
+    :func:`level_words` elements: the split design's three grids, or
+    ``intra_levels_kernel`` with ``i4``.  Returns the reconstructed planes
+    ``(ry, rcb, rcr)`` with ``full_recon``, else None.  ``y`` has unit
+    pixel stride; ``cb``/``cr`` may be the interleaved views of an NV12
+    chroma plane (pixel stride 2)."""
     mb_h, mb_w = _check_planes(y, cb, cr)
     if not _on_card(y):
         raise ValueError(f"intra_levels launches on a CUDA device, got {y.device}")
@@ -135,6 +173,7 @@ def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         recon = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
                  torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
                  torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
+    scratch = None if i4 else _scratch(y.device, mb_h, mb_w)
     plan = plan_words(qp)
     lib = _build.load()
     with torch.cuda.device(y.device):
@@ -143,8 +182,9 @@ def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             cr.data_ptr(), cr.stride(0), cr.stride(1), mb_h, mb_w,
             plan.ctypes.data, int(i4), int(chromah), out.data_ptr(),
             *((t.data_ptr() for t in recon) if recon else (None, None, None)),
+            None if scratch is None else scratch.data_ptr(), LEVEL_RECORD_WORDS,
             _stream(y.device))
-    _raise_on(err, "intra_levels_kernel")
+    _raise_on(err, "intra_levels_kernel" if i4 else "levels_split/chain/intra_kernel")
     encode_levels.launches += 1
     return recon
 
@@ -204,16 +244,16 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                   pred_cr: torch.Tensor, qp: int, out: torch.Tensor,
                   motion: bool = False, two_refs: bool = False,
                   band: tuple[int, int] | None = None, parts: bool = False):
-    """Launch ``p_levels_kernel`` over CUDA planes into ``out``, a contiguous
-    int16 buffer of :func:`p_level_words` elements (of the ``parts``
-    layout with ``parts``) whose ``mv`` (with ``motion``), ``ref`` (with
-    ``two_refs``) and ``pmode`` (with ``parts``) segments already hold the
-    search's fields: an MB may skip only where its (quadrant 0's) vector
-    and reference are zero and, with ``parts``, its partition is 16x16.
-    ``pred_*``
-    are the motion-compensated planes (the reference at zero motion),
-    contiguous; ``band`` the GDR intra rows [lo, hi).  Returns the new
-    reconstructed planes ``(ry, rcb, rcr)``; the predictions are only read."""
+    """Launch H2 (the split design's three grids) over CUDA planes into
+    ``out``, a contiguous int16 buffer of :func:`p_level_words` elements (of
+    the ``parts`` layout with ``parts``) whose ``mv`` (with ``motion``),
+    ``ref`` (with ``two_refs``) and ``pmode`` (with ``parts``) segments
+    already hold the search's fields: an MB may skip only where its
+    (quadrant 0's) vector and reference are zero and, with ``parts``, its
+    partition is 16x16.  ``pred_*`` are the motion-compensated planes (the
+    reference at zero motion), contiguous; ``band`` the GDR intra rows [lo,
+    hi).  Returns the new reconstructed planes ``(ry, rcb, rcr)``; the
+    predictions are only read."""
     mb_h, mb_w = _check_planes(y, cb, cr)
     if not _on_card(y):
         raise ValueError(f"p_levels_into launches on a CUDA device, got {y.device}")
@@ -239,6 +279,7 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     recon = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
              torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
              torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
+    scratch = _scratch(y.device, mb_h, mb_w)
     lo, hi = (0, 0) if band is None else (int(band[0]), int(band[1]))
     plan = plan_words(qp)
     lib = _build.load()
@@ -248,8 +289,9 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             cr.data_ptr(), cr.stride(0), cr.stride(1), pred_y.data_ptr(),
             pred_cb.data_ptr(), pred_cr.data_ptr(), mb_h, mb_w, plan.ctypes.data,
             int(motion), int(two_refs), int(parts), lo, hi, out.data_ptr(),
-            *(t.data_ptr() for t in recon), _stream(y.device))
-    _raise_on(err, "p_levels_kernel")
+            *(t.data_ptr() for t in recon), scratch.data_ptr(), LEVEL_RECORD_WORDS,
+            _stream(y.device))
+    _raise_on(err, "levels_split/chain/intra_kernel")
     encode_p_levels.launches += 1
     return recon
 
@@ -258,7 +300,7 @@ def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
                     subpel: int = 0, ry2=None, rcb2=None, rcr2=None,
                     gdr_band: tuple | None = None, parts: int = 0) -> PLevelArrays:
     """:func:`ops.h264_levels.encode_p_levels`: the kernels for CUDA planes
-    (the search's two, then ``p_levels_kernel``), the plain version for CPU
+    (the search's two, then H2's three grids), the plain version for CPU
     ones."""
     mb_h, mb_w = _check_p_call(y, cb, cr, ry, rcb, rcr, ry2, gdr_band, parts,
                                search, subpel)

@@ -25,14 +25,17 @@ card, with the profiler's device time per step by kernel:
 
     python3 scripts/torch_kernel_turns.py _checkout/parent .
 
-With ``--h264`` the children time the device GOP encoder's kernels instead,
+With ``--h264`` the children time the device encoders' kernels instead,
 on one 4K P frame of structured content moving by (1, 2) pixels a frame:
 H3 (16 planes at margin 9), H4 (``fastsub`` at search 8 and the exhaustive
 quarter-pel lattice at search 4, each alone on a built stack and right
-after H3 has written it: the pair less H3), H2 (QP 30), H5 on the P frame's
+after H3 has written it: the pair less H3), H2 (QP 30), H1 on the same
+frame (the default, and ``full_recon`` as on an IDR), H5 on the P frame's
 own metadata and on an IDR's (each beside the wavefront's floor where the
 tree has ``deblock_floor_into``) and H6 (full-pel search 8), with checksums
-of their outputs, so that the trees are seen to compute the same thing.
+of their outputs, so that the trees are seen to compute the same thing;
+in a tree with the split H1/H2 (``levels_plan``), each of their phases
+as torch.profiler's device time of its grid in an ordinary call.
 
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
 also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
@@ -486,6 +489,25 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
     ki.search_into(src[0], [ref], 8, 3, None, fields["mv"], None, *pred)
     res["p_levels"] = device_ms(lambda: kl.p_levels_into(*src, *pred, 30, out, motion=True))
     recon = kl.p_levels_into(*src, *pred, 30, out, motion=True)
+    res["h2_checksum"] = int(out.to(torch.int64).abs().sum()
+                             + sum(p.to(torch.int64).sum() for p in recon))
+    iout = torch.empty(kl.level_words(mb_h, mb_w), dtype=torch.int16, device=dev)
+    res["intra_levels"] = device_ms(lambda: kl.intra_levels(*src, 30, iout))
+    res["intra_levels_full_recon"] = device_ms(
+        lambda: kl.intra_levels(*src, 30, iout, full_recon=True))
+    irec = kl.intra_levels(*src, 30, iout, full_recon=True)
+    res["h1_checksum"] = int(iout.to(torch.int64).abs().sum()
+                             + sum(p.to(torch.int64).sum() for p in irec))
+    if hasattr(kl, "levels_plan"):
+        # the split design's phases: each grid's device time in the
+        # profiler's keys of an ordinary call
+        for name, call in (
+                ("p_levels", lambda: kl.p_levels_into(*src, *pred, 30, out, motion=True)),
+                ("intra_levels", lambda: kl.intra_levels(*src, 30, iout))):
+            us = profile_us(call)
+            for grid, phase in (("levels_split_kernel", "a"), ("levels_chain_kernel", "b"),
+                                ("levels_intra_kernel", "c")):
+                res[f"{name}_{phase}_profiler_ms"] = pick(us, grid) / 1e3
     zero_ref = torch.zeros((mb_h, mb_w), dtype=torch.int16, device=dev)
     metas = {"p": (fields["mode"] >= 2, deblock_ops.nnz4_grid(fields["acz"]),
                    fields["mv"], zero_ref),

@@ -58,6 +58,39 @@ def _frames(seed, n, h, w, content="random"):
     return y
 
 
+def mixed_nv12(rng, h: int, w: int, runs: tuple[int, int] = (8, 12)
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """A reference NV12 frame (gradient plus noise) and a P frame that makes
+    the level kernels' chain matter: along each MB row, runs of ``runs[0]``
+    to ``runs[1]`` MBs that only intra prediction codes well (fresh noise
+    and horizontal stripes, a run each in turn) between runs of 1 to 5 MBs
+    of the reference moved by (1, 2) pixels with a little noise (inter or
+    skip); narrower frames cut the runs.  The level kernels' CPU model test
+    takes it from here; ``chip_smoke.py`` carries a copy, since it imports
+    nothing from ``tests/``."""
+    rows = h * 3 // 2
+    base = (np.linspace(0, 200, w, dtype=np.float32)[None, :]
+            + np.linspace(0, 55, rows, dtype=np.float32)[:, None])
+    ref = np.clip(base + rng.normal(0, 18, (rows, w)), 0, 255).astype(np.uint8)
+    moved = np.roll(ref, (1, 2), (0, 1))
+    moved[h:] = ref[h:]
+    cur = np.clip(moved + rng.integers(-1, 2, (rows, w)), 0, 255).astype(np.uint8)
+    stripes = np.clip(rng.integers(0, 256, (rows, 1)) + rng.integers(-3, 4, (rows, w)),
+                      0, 255).astype(np.uint8)
+    run = 0
+    for mby in range(h // 16):
+        x = int(rng.integers(0, 4))
+        while x < w // 16:
+            x1 = min(x + int(rng.integers(runs[0], runs[1] + 1)), w // 16)
+            for r0, r1 in ((16 * mby, 16 * mby + 16), (h + 8 * mby, h + 8 * mby + 8)):
+                cols = slice(16 * x, 16 * x1)
+                cur[r0:r1, cols] = (stripes[r0:r1, cols] if run % 2 else
+                                    rng.integers(0, 256, (r1 - r0, 16 * (x1 - x)), np.uint8))
+            run += 1
+            x = x1 + int(rng.integers(1, 6))
+    return ref, cur
+
+
 CASES = [
     # (n, h, w, clip, grid, rowstep, content)
     (2, 96, 128, 2.0, (8, 8), 1, "nv12"),      # strided Y rows of NV12
@@ -825,6 +858,46 @@ def test_search_and_deblock_at_the_tilings_edges(device, h, w):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     counts = kernels.launch_counts()
     assert counts["motion_search"] == 4 and counts["deblock_planes"] == 4
+
+
+@pytest.mark.parametrize("h,w", EDGE_GEOMETRIES)
+def test_split_level_kernels_on_mixed_content(device, h, w):
+    """H1 (default, ``chromah``, ``full_recon``) and H2 (zero motion,
+    ``fastsub`` with a GDR band, the quarter-pel lattice with two
+    references, the ``parts`` layout) against their plain versions, every
+    output, at QP 0, 30 and 51 (1920x1088: 30) on mixed content, at
+    geometries whose MBs the split design's blocks of four do not divide."""
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
+
+    ref, cur = mixed_nv12(np.random.default_rng(60 + h + w), h, w)
+    planes = []
+    for k, frame in enumerate((cur, ref, np.roll(ref, (-2, 4), (0, 1)))):
+        f = torch.from_numpy(frame).to(device)
+        uv = f[h:].view(h // 2, w // 2, 2)
+        p = (f[:h], uv[:, :, 0], uv[:, :, 1])
+        planes.append(p if k == 0 else tuple(t.contiguous() for t in p))
+    src, r1, r2 = planes
+    band = (max(0, h // 32 - 1), max(1, h // 32 + 1))
+    levels_kernel.reset_launch_counts()
+    qps = (30,) if h * w >= 1088 * 1920 else (0, 30, 51)
+    for qp in qps:
+        for flags in ({}, {"chromah": True}, {"full_recon": True}):
+            got = torch_levels.encode_levels(*src, qp, **flags)
+            want = torch_levels.encode_levels_plain(*src, qp, **flags)
+            flat_got = [a for o in got for a in (o if isinstance(o, tuple) else (o,))]
+            flat_want = [a for o in want for a in (o if isinstance(o, tuple) else (o,))]
+            assert all(torch.equal(a, b) for a, b in zip(flat_got, flat_want)), (qp, flags)
+        for search, subpel, second, gdr, parts in ((0, 0, None, None, 0),
+                                                   (8, 3, None, band, 0),
+                                                   (2, 2, r2, None, 0), (2, 1, None, None, 1)):
+            args = (*src, *r1, qp, search, subpel, *(second or (None,) * 3))
+            got = torch_levels.encode_p_levels(*args, gdr_band=gdr, parts=parts)
+            want = torch_levels.encode_p_levels_plain(*args, gdr_band=gdr, parts=parts)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b), (qp, search, subpel)
+    counts = levels_kernel.launch_counts()
+    assert counts["encode_levels"] == 3 * len(qps) and counts["encode_p_levels"] == 4 * len(qps)
 
 
 def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):

@@ -22,14 +22,36 @@
 
 At 4K, 1920x1088, 640x368, one MB row, one MB column and 48x32; the card
 runs the kernels at the same geometries in ``tests/test_torch_cuda.py``.
+
+H1 and H2's split design (``csrc/h264_levels.cu``): its scratch record's
+size and the offsets of its fields against the wrapper's
+``LEVEL_RECORD_WORDS`` and ``levels_plan``'s grids at the same six
+geometries; and a numpy model of its phases (A: what the left edge cannot
+change, per MB; B: the chain along each MB row, the changed coefficients
+as T(src) - T(pred) requantized, the costs of the unchanged levels
+precomputed, the next edge from the right blocks' column-3 inverse only;
+C: the intra MBs from their stored edges) equal to the JAX package's
+``encode_p_levels`` and ``encode_levels`` (mode, levels, reconstruction;
+tolerance 0) at 48x32 and 64x48, QPs 0, 30 and 51, on random, constant and
+mixed content (runs of noise and of horizontal stripes between runs of the
+moved reference), with and without a GDR band.  The JAX functions are compiled once a
+shape (QP and band traced).
 """
 
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from opencv_opencl_tpu.ops import h264_levels as jax_levels
 from opencv_opencl_tpu_torch.ops import h264_levels as levels
 from opencv_opencl_tpu_torch.ops.cuda import h264_deblock as kd
 from opencv_opencl_tpu_torch.ops.cuda import h264_inter as ki
+from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kl
+from tests.test_torch_cuda import mixed_nv12
 
 GEOMETRIES = [(2160, 3840), (1088, 1920), (368, 640), (16, 640), (368, 16), (32, 48)]
 SEARCHES = [(8, 3, 1), (8, 3, 2), (8, 0, 1), (8, 1, 1), (4, 2, 1), (3, 2, 2), (2, 2, 2),
@@ -158,3 +180,392 @@ def test_packed_tile_sads_equal_direct_sads(col):
                 sads[d] += _sad4(cw[R - d], b).sum()
     want = [np.abs(cur.astype(np.int64) - win[d:d + 16, col:col + 16]).sum() for d in range(8)]
     assert sads.tolist() == want
+
+
+# ---------------------------------------------------- H1 / H2 split design --
+
+# the record's fields (csrc/h264_levels.cu) and their int32 words
+RECORD_FIELDS = {"kQ": 64, "kQc": 32, "kE": 64, "kU": 8, "kP": 2, "kEdgeP": 8, "kUsed": 8}
+LEVELS_CU = Path(kl.__file__).resolve().parents[2] / "csrc" / "h264_levels.cu"
+
+
+def test_split_record_fields_fit_the_wrappers_scratch():
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", LEVELS_CU.read_text())}
+    assert consts["kRecWords"] == kl.LEVEL_RECORD_WORDS
+    assert consts["kSplitWarps"] == kl.SPLIT_WARPS
+    spans = sorted((consts[name], consts[name] + n) for name, n in RECORD_FIELDS.items())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))      # disjoint
+    assert spans[-1][1] <= kl.LEVEL_RECORD_WORDS
+    # every field is read with 16-byte loads (the edges as words) from
+    # records that start 16-byte aligned
+    assert all(consts[name] % 4 == 0 for name in RECORD_FIELDS)
+    assert (4 * kl.LEVEL_RECORD_WORDS) % 16 == 0
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_levels_plan(h, w):
+    mb_h, mb_w = h // 16, w // 16
+    n = mb_h * mb_w
+    plan = kl.levels_plan(mb_h, mb_w)
+    assert plan["scratch_words"] == kl.LEVEL_RECORD_WORDS * n
+    assert plan["scratch_bytes"] == 4 * plan["scratch_words"]
+    for phase in ("split", "intra"):
+        blocks, threads = plan[phase]
+        assert threads == 32 * kl.SPLIT_WARPS <= 1024
+        assert (blocks - 1) * kl.SPLIT_WARPS < n <= blocks * kl.SPLIT_WARPS
+    assert plan["chain"] == (mb_h, 32)
+
+
+CF = np.array([[1, 1, 1, 1], [2, 1, -1, -2], [1, -1, -1, 1], [1, -2, 2, -1]], np.int64)
+H4 = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]], np.int64)
+H2 = np.array([[1, 1], [1, -1]], np.int64)
+AC = np.ones((4, 4), bool)
+AC[0, 0] = False
+SGN = np.array([1, -1], np.int64)
+
+
+def fwd(b):
+    """The forward core transform of (..., 4, 4) rasters [y][x] -> [u][v]."""
+    return np.einsum("uy,...yx,vx->...uv", CF, b, CF)
+
+
+def quant(w, mf, f, qbits):
+    q = (np.abs(w) * mf + f) >> qbits
+    return np.clip(np.sign(w) * q, -levels._LEVEL_CLAMP, levels._LEVEL_CLAMP)
+
+
+def cost(lv):
+    a = np.abs(lv)
+    return 2 * a + (a != 0)
+
+
+def inv1d(d, axis):
+    d0, d1, d2, d3 = np.moveaxis(d, axis, 0)
+    e0, e1, e2, e3 = d0 + d2, d0 - d2, (d1 >> 1) - d3, d1 + (d3 >> 1)
+    return np.moveaxis(np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3]), 0, axis)
+
+
+def inv(d):
+    return (inv1d(inv1d(d, -1), -2) + 32) >> 6
+
+
+def had4(x):
+    return np.einsum("ir,jc,...rc->...ij", H4, H4, x)
+
+
+def had2(x):
+    return np.einsum("ir,jc,...rc->...ij", H2, H2, x)
+
+
+def blocks(plane, n):
+    """(mh*n, mw*n) -> (mh, mw, n/4, n/4, 4, 4): MB, block row, column, y, x."""
+    H, W = plane.shape
+    k = n // 4
+    return (plane.reshape(H // n, k, 4, W // n, k, 4).transpose(0, 3, 1, 4, 2, 5)
+            .astype(np.int64))
+
+
+def unblocks(b):
+    mh, mw, k = b.shape[:3]
+    return b.transpose(0, 2, 4, 1, 3, 5).reshape(mh * k * 4, mw * k * 4)
+
+
+class Quant:
+    """level_plan(qp) as numpy tables by coefficient position."""
+
+    def __init__(self, qp):
+        p = levels.level_plan(qp)
+        pos = np.asarray(levels._POS_CLASS)
+        self.qp, self.qpc, self.qb, self.qbc = p["qp"], p["qpc"], p["qbits"], p["qbits_c"]
+        self.fy, self.fc = p["f_y"], p["f_c"]
+        self.fyp, self.fcp = (1 << self.qb) // 6, (1 << self.qbc) // 6
+        self.mfy, self.mfc = np.array(p["mf_y"])[pos], np.array(p["mf_c"])[pos]
+        self.vy = np.array(p["v_y"])[pos] * (1 << (self.qp // 6))
+        self.vc = np.array(p["v_c"])[pos] * (1 << (self.qpc // 6))
+
+    def zdc(self, s):
+        return quant(s, self.mfy[0, 0], 2 * self.fy, self.qb + 1)
+
+    def czdc(self, s, f=None):
+        return quant(s, self.mfc[0, 0], 2 * (self.fc if f is None else f), self.qbc + 1)
+
+    def luma_dc(self, c):
+        ls, k = 16 * self.vy[0, 0] // (1 << (self.qp // 6)), self.qp // 6
+        if self.qp >= 36:
+            return (c * ls) * (1 << (k - 6))
+        return (c * ls + (1 << (5 - k))) >> (6 - k)
+
+    def chroma_dc(self, c):
+        return (c * (16 * self.vc[0, 0])) >> 5
+
+
+def phase_a(q, y, cb, cr, pred=None):
+    """The record: every number of an MB that its left edge cannot change."""
+    Ys = blocks(y, 16)
+    C = np.stack([blocks(cb, 8), blocks(cr, 8)], 2)     # (mh, mw, comp, by, bx, 4, 4)
+    Ts = fwd(Ys)
+    qs = quant(Ts, q.mfy, q.fy, q.qb)
+    HT = had4(Ts[..., 0, 0])
+    Zs = q.zdc(HT >> 1)
+    cs, cz = cost(qs), cost(Zs)
+    r = {"fixed_d": (cs * AC).sum((2, 3, 4, 5)) + cz.sum((2, 3)) - cz[..., 0, 0],
+         "fixed_h": cs[..., 1:].sum((2, 3, 4, 5)) + cz[..., 1:].sum((2, 3)),
+         "Zd": Zs[..., :, 0], "T0": Ts[..., 1:, 0], "HT0": HT[..., :, 0]}
+    d3 = (qs * q.vy)[:, :, :, 3]                          # the right blocks: (.., by, u, v)
+    r["K"] = d3[..., 2] - d3[..., 1] - (d3[..., 3] >> 1)
+    r["Dd"] = d3[..., 1:, 0]
+    r["IH"] = np.einsum("br,...r->...b", H4, np.einsum("c,...rc->...r", H4[3, 1:], Zs[..., 1:]))
+    Tc = fwd(C)
+    qc = quant(Tc, q.mfc, q.fc, q.qbc)
+    HTc = had2(Tc[..., 0, 0])
+    r["czfix"] = q.czdc(HTc[..., 1])
+    cc, cf = cost(qc), cost(r["czfix"]).sum((2, 3))
+    r["fixed_cdc"] = (cc * AC).sum((2, 3, 4, 5, 6)) + cf
+    r["fixed_chh"] = cc[..., 1:].sum((2, 3, 4, 5, 6)) + cf
+    d1 = (qc * q.vc)[:, :, :, :, 1]
+    r["Kc"] = d1[..., 2] - d1[..., 1] - (d1[..., 3] >> 1)
+    r["Ddc"] = d1[..., 1:, 0]
+    r["Tc0"], r["HTc0"] = Tc[..., 1:, 0], HTc[..., 0]
+    if pred is not None:
+        Ps = blocks(pred[0], 16)
+        Pc = np.stack([blocks(pred[1], 8), blocks(pred[2], 8)], 2)
+        lz = quant(fwd(Ys - Ps), q.mfy, q.fyp, q.qb)
+        Tpc = fwd(C - Pc)
+        lzc = quant(Tpc, q.mfc, q.fcp, q.qbc) * AC
+        czp = q.czdc(had2(Tpc[..., 0, 0]), q.fcp)
+        r["cost_p"] = (cost(lz).sum((2, 3, 4, 5)) + cost(lzc).sum((2, 3, 4, 5, 6))
+                       + cost(czp).sum((2, 3, 4)))
+        ry = np.clip(inv(lz * q.vy) + Ps, 0, 255)
+        dc = lzc * q.vc
+        dc[..., 0, 0] = q.chroma_dc(had2(czp))
+        rc = np.clip(inv(dc) + Pc, 0, 255)
+        r["inter"] = (lz, czp, lzc, ry, rc)
+        r["edge_y"] = ry[:, :, :, 3, :, 3].reshape(*ry.shape[:2], 16)
+        r["edge_c"] = rc[:, :, :, :, 1, :, 3].reshape(*rc.shape[:3], 8)
+    return r
+
+
+def phase_b(q, r, mh, mw, chromah=False, mvz=None, inband=None):
+    """The chain along every row: the decisions and the left edge each MB
+    was decided with; an intra MB's next edge from its right blocks' column
+    3 alone."""
+    p_frame = mvz is not None
+    e, c = np.zeros((mh, 16), np.int64), np.zeros((mh, 2, 8), np.int64)
+    out = {k: np.zeros((mh, mw), bool) for k in ("use_h", "use_ch", "intra", "skip")}
+    edges = np.zeros((mh, mw, 32), np.int64)
+    for x in range(mw):
+        left = x > 0
+        edges[:, x, :16], edges[:, x, 16:] = e, c.reshape(mh, 16)
+        eg, cg = e.reshape(mh, 4, 4), c.reshape(mh, 2, 2, 4)
+        a, ac = eg @ CF.T, cg @ CF.T                      # CF of each block row's edge
+        pd = (e.sum(1) + 8) >> 4 if left else np.full(mh, 128)
+        vh = (cg.sum(-1) + 2) >> 2 if left else np.full((mh, 2, 2), 128)
+        # the changed coefficients: T(src) - T(pred), requantized
+        qh = quant(r["T0"][:, x] - 4 * a[:, :, None, 1:], q.mfy[1:, 0], q.fy, q.qb)
+        zh = q.zdc((r["HT0"][:, x] - 16 * (a[:, :, 0] @ H4.T)) >> 1)
+        zd0 = q.zdc((r["HT0"][:, x, 0] - 256 * pd) >> 1)
+        cost_h = r["fixed_h"][:, x] + cost(qh).sum((1, 2, 3)) + cost(zh).sum(1)
+        cost_d = r["fixed_d"][:, x] + cost(zd0)
+        czd = q.czdc(r["HTc0"][:, x] - 32 * (vh[..., :1] + SGN * vh[..., 1:]))
+        cost_cdc = r["fixed_cdc"][:, x] + cost(czd).sum((1, 2))
+        qch = quant(r["Tc0"][:, x] - 4 * ac[:, :, :, None, 1:], q.mfc[1:, 0], q.fc, q.qbc)
+        czh = q.czdc(r["HTc0"][:, x] - 8 * (ac[:, :, 0, :1] + SGN * ac[:, :, 1, :1]))
+        cost_chh = r["fixed_chh"][:, x] + cost(qch).sum((1, 2, 3, 4)) + cost(czh).sum((1, 2))
+        use_h = left & (cost_h < cost_d)
+        use_ch = left & (cost_chh + 2 < cost_cdc) & chromah
+        skip, intra = np.zeros(mh, bool), np.ones(mh, bool)
+        if p_frame:
+            cost_i = np.where(use_h, cost_h, cost_d) + cost_cdc + levels.INTRA_BIAS
+            skip = (r["cost_p"][:, x] == 0) & mvz[:, x] & ~inband
+            intra = (~skip & (cost_i < r["cost_p"][:, x])) | inband
+        # the next edge of an intra MB
+        zc = np.where(use_h[:, None], zh, np.concatenate([zd0[:, None], r["Zd"][:, x, 1:]], 1))
+        hy = r["K"][:, x].copy()
+        hy[..., 0] += q.luma_dc(r["IH"][:, x] + zc @ H4.T)
+        hy[..., 1:] += np.where(use_h[:, None, None], qh[:, :, 3] * q.vy[1:, 0], r["Dd"][:, x])
+        ey = np.clip(((inv1d(hy, -1) + 32) >> 6)
+                     + np.where(use_h[:, None, None], eg, pd[:, None, None]), 0, 255)
+        z0 = np.where(use_ch[:, None, None], czh, czd) - r["czfix"][:, x]
+        hc = r["Kc"][:, x].copy()
+        hc[..., 0] += q.chroma_dc(np.stack([z0[..., 0] + z0[..., 1], z0[..., 0] - z0[..., 1]], -1))
+        hc[..., 1:] += np.where(use_ch[:, None, None, None], qch[:, :, :, 1] * q.vc[1:, 0],
+                                r["Ddc"][:, x])
+        ec = np.clip(((inv1d(hc, -1) + 32) >> 6)
+                     + np.where(use_ch[:, None, None, None], cg, vh[..., None]), 0, 255)
+        e, c = ey.reshape(mh, 16), ec.reshape(mh, 2, 8)
+        if p_frame:
+            e = np.where(intra[:, None], e, r["edge_y"][:, x])
+            c = np.where(intra[:, None, None], c, r["edge_c"][:, x])
+        for k, v in (("use_h", use_h), ("use_ch", use_ch), ("intra", intra), ("skip", skip)):
+            out[k][:, x] = v
+    return out, edges
+
+
+def phase_c(q, y, cb, cr, use_h, use_ch, edges):
+    """Every MB's intra levels and reconstruction from its stored edge."""
+    mh, mw = use_h.shape
+    left = (np.arange(mw) > 0)[None, :]
+    e, c = edges[..., :16], edges[..., 16:].reshape(mh, mw, 2, 8)
+    pd = np.where(left, (e.sum(-1) + 8) >> 4, 128)
+    py = np.where(use_h[..., None], e, pd[..., None]).reshape(mh, mw, 4, 1, 4, 1)
+    t = fwd(blocks(y, 16) - py)
+    acz = quant(t, q.mfy, q.fy, q.qb) * AC
+    zdc = q.zdc(had4(t[..., 0, 0]) >> 1)
+    d = acz * q.vy
+    d[..., 0, 0] = q.luma_dc(had4(zdc))
+    ry = np.clip(inv(d) + py, 0, 255)
+    vh = np.where(left[..., None, None], (c.reshape(mh, mw, 2, 2, 4).sum(-1) + 2) >> 2, 128)
+    pc = np.where(use_ch[..., None, None], c, np.repeat(vh, 4, -1)).reshape(mh, mw, 2, 2, 1, 4, 1)
+    tc = fwd(np.stack([blocks(cb, 8), blocks(cr, 8)], 2) - pc)
+    cacz = quant(tc, q.mfc, q.fc, q.qbc) * AC
+    czdc = q.czdc(had2(tc[..., 0, 0]))
+    dc = cacz * q.vc
+    dc[..., 0, 0] = q.chroma_dc(had2(czdc))
+    return zdc, acz, czdc, cacz, ry, np.clip(inv(dc) + pc, 0, 255)
+
+
+def kernel_layout(zdc, acz, czdc, cacz, ry, rc):
+    """The outputs in the wrappers' layouts: levels (mb_h, mb_w, ...), planes."""
+    mh, mw = zdc.shape[:2]
+    return (zdc.reshape(mh, mw, 16), acz.reshape(mh, mw, 16, 16), czdc.reshape(mh, mw, 2, 4),
+            cacz.reshape(mh, mw, 2, 4, 16), unblocks(ry), unblocks(rc[:, :, 0]),
+            unblocks(rc[:, :, 1]))
+
+
+def split_model_levels(y, cb, cr, qp, chromah=False):
+    """encode_levels(full_recon=True[, chromah]) by the three phases."""
+    q, (mh, mw) = Quant(qp), (y.shape[0] // 16, y.shape[1] // 16)
+    dec, edges = phase_b(q, phase_a(q, y, cb, cr), mh, mw, chromah)
+    return (kernel_layout(*phase_c(q, y, cb, cr, dec["use_h"], dec["use_ch"], edges)),
+            np.where(dec["use_h"], 1, 2), dec["use_ch"].astype(np.int64))
+
+
+def split_model_p_levels(y, cb, cr, ref, qp, band):
+    """encode_p_levels at zero motion (every MB's (mv, ref) zero) by the
+    three phases: mode, the levels and the reconstruction."""
+    q, (mh, mw) = Quant(qp), (y.shape[0] // 16, y.shape[1] // 16)
+    rows = np.arange(mh)
+    r = phase_a(q, y, cb, cr, ref)
+    dec, edges = phase_b(q, r, mh, mw, mvz=np.ones((mh, mw), bool),
+                         inband=(rows >= band[0]) & (rows < band[1]))
+    intra = kernel_layout(*phase_c(q, y, cb, cr, dec["use_h"], dec["use_ch"], edges))
+    lz, czp, lzc, ryp, rcp = r["inter"]
+    inter = kernel_layout(np.zeros_like(lz[..., 0, 0]), lz, czp, lzc, ryp, rcp)
+    I = dec["intra"]
+    mode = np.where(dec["skip"], 0, np.where(I, np.where(dec["use_h"], 3, 2), 1))
+    lv = [np.where(I.reshape(mh, mw, *[1] * (a.ndim - 2)), a, b)
+          for a, b in zip(intra[:4], inter[:4])]
+    grid = lambda m, n: np.repeat(np.repeat(m, n, 0), n, 1)  # noqa: E731
+    planes = [np.where(grid(I, n), a, b) for a, b, n in zip(intra[4:], inter[4:], (16, 8, 8))]
+    return mode, *lv, *planes
+
+
+def model_content(kind, h, w, seed):
+    """An NV12 frame and the reference it is predicted from at zero motion:
+    random, constant, or mixed (:func:`tests.test_torch_cuda.mixed_nv12` at
+    runs of 2-3 MBs, predicted from its reference moved as its inter MBs
+    are)."""
+    rng = np.random.default_rng(seed)
+    rows = h * 3 // 2
+    if kind == "constant":
+        f = np.full((rows, w), 77, np.uint8)
+        return f, f.copy()
+    if kind == "random":
+        ref = rng.integers(0, 256, (rows, w), dtype=np.uint8)
+        return rng.integers(0, 256, (rows, w), dtype=np.uint8), ref
+    ref, cur = mixed_nv12(rng, h, w, runs=(2, 3))
+    moved = np.roll(ref, (1, 2), (0, 1))
+    moved[h:] = ref[h:]
+    return cur, moved
+
+
+def nv12_planes(frame, h):
+    uv = frame[h:].reshape(h // 2, -1, 2)
+    return frame[:h], np.ascontiguousarray(uv[..., 0]), np.ascontiguousarray(uv[..., 1])
+
+
+MODEL_SHAPES = [(32, 48), (48, 64)]
+MODEL_CONTENTS = ["random", "constant", "mixed"]
+
+
+@pytest.fixture(scope="module")
+def jax_programs():
+    """encode_p_levels (the GDR band traced) and encode_levels with the full
+    reconstruction (chromah static), compiled at first use a shape."""
+    cache = {}
+
+    def get(kind, shape):
+        if (kind, shape) not in cache:
+            if kind == "p":
+                fn = (lambda y, cb, cr, ref, qp, band:
+                      jax_levels.encode_p_levels(y, cb, cr, *ref, qp, gdr_band=band))
+            else:
+                fn = (lambda y, cb, cr, qp, ch=kind == "chromah":
+                      jax_levels.encode_levels(y, cb, cr, qp, full_recon=True, chromah=ch))
+            cache[(kind, shape)] = jax.jit(fn)
+        return cache[(kind, shape)]
+
+    return get
+
+
+@pytest.mark.parametrize("content", MODEL_CONTENTS)
+@pytest.mark.parametrize("h,w", MODEL_SHAPES)
+def test_split_model_equals_jax_encode_p_levels(jax_programs, h, w, content):
+    cur, ref = model_content(content, h, w, seed=h + w)
+    y, cb, cr = nv12_planes(cur, h)
+    refp = nv12_planes(ref, h)
+    modes = set()
+    for qp in (0, 30, 51):
+        for band in ((0, 0), (1, 2)):
+            got = split_model_p_levels(y, cb, cr, refp, qp, band)
+            want = jax_programs("p", (h, w))(*map(jnp.asarray, (y, cb, cr)),
+                                              tuple(map(jnp.asarray, refp)), jnp.int32(qp),
+                                              tuple(jnp.int32(b) for b in band))
+            names = ("mode", "zdc", "acz", "czdc", "cacz", "recon_y", "recon_cb", "recon_cr")
+            for name, a in zip(names, got):
+                b = np.asarray(getattr(want, name)).astype(np.int64)
+                assert a.shape == b.shape and np.array_equal(a, b), (name, qp, band)
+            modes |= set(got[0].ravel().tolist())
+    if content == "mixed":
+        assert modes == {0, 1, 2, 3}
+    if content == "constant":
+        assert 0 in modes
+
+
+@pytest.mark.parametrize("content", MODEL_CONTENTS)
+@pytest.mark.parametrize("h,w", MODEL_SHAPES)
+def test_split_model_equals_jax_encode_levels(jax_programs, h, w, content):
+    cur, _ = model_content(content, h, w, seed=h * w)
+    y, cb, cr = nv12_planes(cur, h)
+    for qp in (0, 30, 51):
+        # chromah at the smaller shape: one more compile
+        for chromah in (False, True) if (h, w) == MODEL_SHAPES[0] else (False,):
+            got, imode, cmode = split_model_levels(y, cb, cr, qp, chromah)
+            want = jax_programs("chromah" if chromah else "intra", (h, w))(
+                *map(jnp.asarray, (y, cb, cr)), jnp.int32(qp))
+            lv, ry, rcb, rcr, jimode = want[:5]
+            for a, b in zip(got, (*lv, ry, rcb, rcr)):
+                assert np.array_equal(a, np.asarray(b).astype(np.int64)), (qp, chromah)
+            assert np.array_equal(imode, np.asarray(jimode))
+            if chromah:
+                assert np.array_equal(cmode, np.asarray(want[5]))
+
+
+def test_level_wrappers_launch_only_on_the_card():
+    """intra_levels and p_levels_into refuse CPU planes; encode_levels and
+    encode_p_levels take the plain version for them: no launch is
+    counted."""
+    import torch
+
+    kl.reset_launch_counts()
+    y = torch.zeros((32, 48), dtype=torch.uint8)
+    c = torch.zeros((16, 24), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kl.intra_levels(y, c, c, 30, torch.zeros(kl.level_words(2, 3), dtype=torch.int16))
+    with pytest.raises(ValueError, match="CUDA"):
+        kl.p_levels_into(y, c, c, y, c, c, 30,
+                         torch.zeros(kl.p_level_words(2, 3), dtype=torch.int16))
+    kl.encode_levels(y, c, c, 30)
+    kl.encode_p_levels(y, c, c, y, c, c, 30)
+    assert kl.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0}

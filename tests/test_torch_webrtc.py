@@ -22,6 +22,7 @@ import re
 import socket
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -301,6 +302,20 @@ def _patch_registered_event(monkeypatch, module):
     return event
 
 
+def _patch_set_up_event(monkeypatch, app):
+    """Make ``app`` set ``event`` when it first reads the monotonic clock,
+    which it does once set up, as its run's timer starts."""
+    event = threading.Event()
+
+    def monotonic():
+        event.set()
+        return time.monotonic()
+
+    monkeypatch.setattr(app, "time", types.SimpleNamespace(monotonic=monotonic,
+                                                           sleep=time.sleep))
+    return event
+
+
 def _fake_sessions(monkeypatch, controller_mod):
     sessions = []
 
@@ -321,6 +336,7 @@ def _drive_sender(app, sig_mod, controller_mod, extra, monkeypatch, capsys, gi):
     code, the printed lines with the port masked, and the fake sessions."""
     registered = _patch_registered_event(monkeypatch, sig_mod)
     sessions = _fake_sessions(monkeypatch, controller_mod) if gi else None
+    set_up = _patch_set_up_event(monkeypatch, app)
     port = free_port()
     url = f"ws://127.0.0.1:{port}"
     rc = {}
@@ -335,7 +351,9 @@ def _drive_sender(app, sig_mod, controller_mod, extra, monkeypatch, capsys, gi):
         answered.set()
 
     try:
-        assert registered.wait(WAIT)
+        # the viewer joins once the sender is in its room and has finished
+        # setting up (its signaling client bound, its media plane built)
+        assert registered.wait(WAIT) and set_up.wait(WAIT)
         # a short backoff: once the sender's server is gone the viewer
         # retries, and stop() waits for the retry's sleep
         viewer = signaling.SignalingClient(url, room="s", client_type="viewer",
