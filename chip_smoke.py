@@ -15,7 +15,9 @@ Phases, each of which raises (exit code != 0) when it fails:
             split design's ``levels_split_kernel``, ``levels_chain_kernel``
             and ``levels_intra_kernel``, each for H1 and H2, and H1's
             ``intra_levels_kernel`` for ``i4``), H3
-            ``subpel_planes_kernel``, H4 ``motion_search_kernel``, H5
+            ``subpel_planes_kernel`` (and its write floor
+            ``subpel_floor_kernel``, each for 1, 4 and 16 planes), H4
+            ``motion_search_kernel``, H5
             ``deblock_kernel``, H6 ``parts_search_kernel``, H7
             ``pack_i_kernel`` and H8 ``pack_p_kernel`` (registers, shared
             memory, spills);
@@ -74,7 +76,8 @@ Phases, each of which raises (exit code != 0) when it fails:
             H3, H4, H2 and H5 (the GOP encoder's P frames) against their
             plain versions, every output, 0 difference, on moving
             structured, random and constant content: H3 at 4K with margins
-            9 (16 planes) and 5 (4 planes); H4 at 4K full-pel and
+            9 (16 planes), 5 (4 planes) and 8 (1 plane), and with each at
+            the five edge geometries; H4 at 4K full-pel and
             ``fastsub`` at search 8 with one and two references and under
             the GDR clean-row rule, and at 1920x1088 the exhaustive half-
             and quarter-pel lattices at search 2; H2 (after the search) at
@@ -94,7 +97,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             oracles in child processes while the card works; H6
             (``parts_search_kernel``) at 4K at full- and half-pel search 8,
             quarter-pel search 4 and two references at quarter-pel search
-            3, H2 on the ``parts`` layout and H5 on quadrant fields, H7
+            3 on moving, random and constant content (constant content
+            ties everywhere: the index in the key decides), and at the five
+            edge geometries with each sub-pel mode and one and two
+            references, H2 on the ``parts`` layout and H5 on quadrant fields, H7
             (``pack_i_kernel``) on H1's levels and H8 (``pack_p_kernel``) on
             H2's (P_16x16 and parts, one and two references), at 64 words an
             MB and at a cap of 3, against their plain versions; the streams
@@ -247,15 +253,19 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``i4:chromah``, beside its plain version and its bound, the levels' copy to the
             host, the host entropy coding, ``CudaCavlcEncoder.encode`` with
             and without ``overlap`` and the native ``cavlc`` encoders on the
-            same frames; per 4K P frame H3 (16 planes), H4 (``fastsub`` at
+            same frames; per 4K P frame H3 (16 planes at margin 9; 4 at 5
+            and 1 at 8 and the write floor beside it), H4 (``fastsub`` at
             search 8 and the exhaustive quarter-pel lattice at search 4), H2
             (also by phase, as H1) and H5 beside their plain versions and bounds, the P levels'
             copy to the host, the P entropy coding and
             ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
             ``overlap``; H6 (full-pel search 8, half-pel search 8,
-            quarter-pel search 4), H8 on a parts P frame and H7 on an IDR
+            quarter-pel search 4, two references at full-pel search 8), H8
+            on a parts P frame and H7 on an IDR
             beside their plain versions and bounds, the packed bits' copy to
-            the host beside the levels', and ``encode`` of relay (k)'s spec
+            the host beside the levels', the kernels of a whole P frame
+            back to back (``fastsub``: H3, H4, H2, H5; ``parts``: H3, H6,
+            H2, H5, H8), and ``encode`` of relay (k)'s spec
             without the packer, with it, and with it and ``overlap``; the
             fused step of (l) on 4 P frames and of (m) on a 4K batch, from
             an idle card and device alone, the packed lanes' copy to the
@@ -487,6 +497,11 @@ EDGE_SHAPES = ((1088, 1920), (368, 640), (16, 640), (368, 16), (32, 48))
 # and relay (k)'s spec (the partition modes with the in-loop filter and the
 # device bit packer)
 PARTS_CASES = ((P_SEARCH, 0, 1), (P_SEARCH, 1, 1), (P_TIMED_QPEL_SEARCH, 2, 1), (3, 2, 2))
+# H6 at each of EDGE_SHAPES: (search, sub-pel mode), each with one and two
+# references; H3's (margin, planes): quarter-pel (and fastsub), half-pel and
+# relay (k)'s full-pel stack
+PARTS_EDGE_CASES = ((P_SEARCH, 0), (P_SEARCH, 1), (P_TIMED_QPEL_SEARCH, 2))
+H3_MODES = ((P_SEARCH + 1, 16), (5, 4), (P_SEARCH, 1))
 CAP_NW_MB = 3
 PARTS_SPEC = f"tpu:gop=30:search={P_SEARCH}:parts:deblock:bitpack"
 # the fused enhance + encode step's checks: the configurations (name, the
@@ -1323,7 +1338,8 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     """H3, H4, H2 and H5 against their plain versions on the card, every
     output, with 0 difference, on moving structured, random and constant
     content (fewer cases on the last two): H3 at 4K with margins 9 (16
-    planes, quarter-pel at search 8) and 5 (4 planes, half-pel); H4 at 4K,
+    planes, quarter-pel at search 8), 5 (4 planes, half-pel) and 8 (1
+    plane, relay (k)'s full-pel stack: ``H3_MODES``); H4 at 4K,
     full-pel and ``fastsub`` at search 8, one reference, two references and
     one reference under the GDR clean-row rule, and at 1920x1088 the
     exhaustive half-pel and quarter-pel lattices at search 2; H2 (through
@@ -1331,7 +1347,9 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     30, with and without motion and with a GDR band; H5 at 4K on an IDR
     (all intra) and on a P frame's own metadata, with and without
     ``slice_local`` (not on the constant frame, where it changes nothing).
-    Then at each of ``EDGE_SHAPES`` on structured content: H4 ``fastsub`` at
+    Then at each of ``EDGE_SHAPES`` on structured content: H3 with each
+    of ``H3_MODES`` (plane rows of no multiple of 4 or of the kernel's 496
+    columns a block, one MB row and column); H4 ``fastsub`` at
     search 8 with one and two references and under the GDR clean-row rule,
     and the quarter-pel lattice at search 4; H2 as :func:`p_edge_checks`
     says; H5 on an IDR and on the own metadata of a two-reference
@@ -1363,7 +1381,7 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     for kind in ("moving", "random", "constant"):
         src, ref1, ref2 = p_content(device, rng, kind, h, w)
         full = kind == "moving"
-        for margin, n in ((P_SEARCH + 1, 16), (5, 4))[:2 if kind != "constant" else 1]:
+        for margin, n in H3_MODES:
             want, secs = timed(lambda: levels_ops.subpel_planes_plain(ref1[0], margin, n))
             compare("subpel_planes_kernel", f"4K {kind} margin {margin} {n} planes",
                     levels_ops.subpel_planes(ref1[0], margin, n), want, secs)
@@ -1428,6 +1446,10 @@ def phase_p_kernels(device, rng) -> dict[str, int]:
     for eh, ew in EDGE_SHAPES:
         emb_h, emb_w = eh // 16, ew // 16
         src, ref1, ref2 = p_content(device, rng, "structured", eh, ew)
+        for margin, n in H3_MODES:
+            want, secs = timed(lambda: levels_ops.subpel_planes_plain(ref1[0], margin, n))
+            compare("subpel_planes_kernel", f"{ew}x{eh} structured margin {margin} {n} planes",
+                    levels_ops.subpel_planes(ref1[0], margin, n), want, secs)
         clean = max(1, emb_h // 2)
         for search, subpel, refs, cl in ((P_SEARCH, 3, [ref1], None),
                                          (P_SEARCH, 3, [ref1, ref2], None),
@@ -1524,7 +1546,10 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
     against their plain versions on the card, every output, 0 difference,
     at 4K on moving structured content: H6 at full-pel and half-pel search
     8, quarter-pel search 4, and with two references at quarter-pel search
-    3 (``PARTS_CASES``); H2 (through ``encode_p_levels(parts=1)``, H3 and H6
+    3 (``PARTS_CASES``), also on random and constant content (where every
+    candidate ties and the index in the key decides), and at each of
+    ``EDGE_SHAPES`` on structured content with each of ``PARTS_EDGE_CASES``
+    and one and two references; H2 (through ``encode_p_levels(parts=1)``, H3 and H6
     before it) at QP 30 at full-pel search 8 and with two references at
     quarter-pel search 3, and H5 on the second frame's own quadrant fields; H7 on
     H1's levels (default, and ``i4`` + ``chromah``) at 64 words an MB and at
@@ -1557,11 +1582,9 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    src, ref1, ref2 = p_content(device, rng, "moving", h, w)
-    for search, subpel, nrefs in PARTS_CASES:
-        refs = [ref1, ref2][:nrefs]
-        label = (f"4K moving {('full', 'half', 'quarter')[subpel]}-pel search {search} "
-                 f"{nrefs} ref{'s' if nrefs > 1 else ''}")
+    def parts_case(where: str, src, refs, search: int, subpel: int) -> None:
+        label = (f"{where} {('full', 'half', 'quarter')[subpel]}-pel search {search} "
+                 f"{len(refs)} ref{'s' if len(refs) > 1 else ''}")
         want, secs = timed(lambda: levels_ops.motion_search_parts_plain(
             src[0], refs, search, subpel, 30))
         got = levels_ops.motion_search_parts(src[0], refs, search, subpel, 30)
@@ -1569,6 +1592,19 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
         modes = torch.bincount(got[0].flatten().to(torch.int64), minlength=4)
         print(f"kernel parts_search_kernel {label}: partition modes 16x16/16x8/8x16/8x8 "
               f"{modes.tolist()}", flush=True)
+
+    src, ref1, ref2 = p_content(device, rng, "moving", h, w)
+    for search, subpel, nrefs in PARTS_CASES:
+        parts_case("4K moving", src, [ref1, ref2][:nrefs], search, subpel)
+    for kind in ("random", "constant"):
+        ksrc, kref1, kref2 = p_content(device, rng, kind, h, w)
+        for search, subpel, nrefs in PARTS_CASES:
+            parts_case(f"4K {kind}", ksrc, [kref1, kref2][:nrefs], search, subpel)
+    for eh, ew in EDGE_SHAPES:
+        esrc, eref1, eref2 = p_content(device, rng, "structured", eh, ew)
+        for search, subpel in PARTS_EDGE_CASES:
+            for refs in ([eref1], [eref1, eref2]):
+                parts_case(f"{ew}x{eh} structured", esrc, refs, search, subpel)
 
     # H2 on the parts layout, H5 on its quadrant fields, H8 on its levels
     frames = []
@@ -3978,7 +4014,10 @@ def p_ops(mb_h: int, mb_w: int) -> int:
 def planes_ops(oh: int, ow: int, nplanes: int) -> int:
     """H3's operations: per output position a horizontal and a vertical
     6-tap (11 each), their rounding and clipping (4 each), j's 6-tap of the
-    vertical sums (15), and 3 for each average of the quarter planes."""
+    vertical sums (15), and 3 for each average of the quarter planes; one
+    plane is a clamped copy, no arithmetic."""
+    if nplanes == 1:
+        return 0
     return oh * ow * (15 * 2 + 15 + (12 * 3 if nplanes == 16 else 0))
 
 
@@ -3998,14 +4037,17 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     same launch without the edge arithmetic, and an IDR's metadata), each
     beside its plain version and its bound (H2 also by phase, with the
     chain's floor: :func:`split_phases`); the P levels' copy to pinned host memory; the
-    host entropy coding of a P frame on the native rows; and
+    host entropy coding of a P frame on the native rows; H3's write floor
+    and its half-pel and full-pel stacks; H6 at full-pel, half-pel and
+    quarter-pel and with two references; a whole P frame's device work
+    back to back (fastsub, and parts with the bit packer); and
     ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
     ``overlap``.  No single PyTorch call computes any of these functions:
     library ms is none."""
     h, w = HEIGHT, WIDTH
     mb_h, mb_w = h // 16, w // 16
     threads = os.cpu_count() or 1
-    src, ref1, _ = p_content(device, rng, "moving", h, w)
+    src, ref1, ref2 = p_content(device, rng, "moving", h, w)
     times = {}
 
     def record(name: str, ms: float, plain_ms: float, moved: int, ops: int,
@@ -4026,6 +4068,19 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
                     warmup=1)
     record("subpel_planes_kernel", ms, plain, nbytes(ref1[0], stack),
            planes_ops(*stack.shape[1:], P), f"(16 planes, margin {margin})")
+    # its write floor (the same grid and stores, every plane from G), and
+    # the half-pel and full-pel stacks
+    floor = device_ms(lambda: inter_kernel.planes_floor_into(ref1[0], margin, P, stack))
+    print(f"time subpel_planes_kernel 4K P frame: the write floor (16 planes, margin "
+          f"{margin}) {floor:.4f} ms [{card}]", flush=True)
+    for m, n in H3_MODES[1:]:
+        other = torch.empty((n, h + 2 * m, w + 2 * m), dtype=torch.uint8, device=device)
+        t = device_ms(lambda: inter_kernel.planes_into(ref1[0], m, n, other))
+        t_floor = device_ms(lambda: inter_kernel.planes_floor_into(ref1[0], m, n, other))
+        bound_ms, bound_by = bound(nbytes(ref1[0], other), planes_ops(*other.shape[1:], n))
+        print(f"time subpel_planes_kernel 4K P frame ({n} plane{'s' if n > 1 else ''}, "
+              f"margin {m}): {t:.4f} ms on the device, write floor {t_floor:.4f} ms (bound "
+              f"{bound_ms:.4f} ms by {bound_by}) [{card}]", flush=True)
 
     # H4: relay (j)'s fastsub, then the exhaustive quarter-pel lattice
     mv = torch.empty((mb_h, mb_w, 2), dtype=torch.int16, device=device)
@@ -4133,20 +4188,24 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     pout = torch.empty(levels_kernel.p_level_words(mb_h, mb_w, True), dtype=torch.int16,
                        device=device)
     fields = levels_kernel.split_p_levels(pout, mb_h, mb_w, True)
-    for search, subpel in ((P_SEARCH, 0), (P_SEARCH, 1), (P_TIMED_QPEL_SEARCH, 2)):
+    ref4 = torch.empty((mb_h, mb_w, 4), dtype=torch.int16, device=device)
+    for search, subpel, nrefs in ((P_SEARCH, 0, 1), (P_SEARCH, 1, 1),
+                                  (P_TIMED_QPEL_SEARCH, 2, 1), (P_SEARCH, 0, 2)):
+        refs = [ref1, ref2][:nrefs]
         P, margin = levels_ops.search_plan(search, subpel)
-        stack = levels_ops.subpel_planes(ref1[0], margin, P)
+        stack = torch.cat([levels_ops.subpel_planes(r[0], margin, P) for r in refs])
+        two = ref4 if nrefs > 1 else None
         ms = device_ms(lambda: inter_kernel.parts_stack_into(
-            src[0], stack, [ref1], search, subpel, 30, fields["pmode"], fields["mv"],
-            None, *pred))
+            src[0], stack, refs, search, subpel, 30, fields["pmode"], fields["mv"],
+            two, *pred))
         plain = time_ms(lambda: levels_ops.parts_stack_plain(
-            src[0], stack, [ref1], search, subpel, 30), reps=1, warmup=1)
-        n = len(levels_ops.search_candidates(search, subpel))
-        moved = nbytes(src[0], stack, ref1[1], ref1[2], fields["pmode"], fields["mv"],
-                       *pred)
+            src[0], stack, refs, search, subpel, 30), reps=1, warmup=1)
+        n = nrefs * len(levels_ops.search_candidates(search, subpel))
+        moved = nbytes(src[0], stack, fields["pmode"], fields["mv"], *pred,
+                       *(t for r in refs for t in r[1:]), *((ref4,) if nrefs > 1 else ()))
         what = (f"({('full', 'half', 'quarter')[subpel]}-pel, search {search}, "
-                f"{n} candidates)")
-        if subpel == 0:
+                f"{nrefs} ref{'s' if nrefs > 1 else ''}, {n} candidates)")
+        if (subpel, nrefs) == (0, 1):
             record("parts_search_kernel", ms, plain, moved, 3 * n * h * w, what)
         else:
             bound_ms, bound_by = bound(moved, 3 * n * h * w)
@@ -4195,6 +4254,34 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
           f"{nbytes(words, nbits, fields['mode'])} bytes in {d2h_bits:.4f} ms, the "
           f"levels {nbytes(pout)} bytes in {d2h_levels:.4f} ms, into pinned memory "
           f"[{card}]", flush=True)
+
+    # a whole P frame's device work back to back, as CudaGopEncoder launches
+    # it (the torch ops between the kernels included): relay (j)'s fastsub
+    # (H3, H4, H2, H5) and relay (k)'s parts with the bit packer (H3, H6,
+    # H2, H5, H8)
+    def p_frame(partitioned: bool) -> None:
+        f, o = (fields, pout) if partitioned else (parts, out)
+        if partitioned:
+            inter_kernel.parts_search_into(src[0], [ref1], P_SEARCH, 0, 30, f["pmode"],
+                                           f["mv"], None, *pred)
+        else:
+            inter_kernel.search_into(src[0], [ref1], P_SEARCH, 3, None, f["mv"], None, *pred)
+        rec = levels_kernel.p_levels_into(*src, *pred, 30, o, motion=True,
+                                          parts=partitioned)
+        mv = deblock_ops.block_grid(f["mv"]) if partitioned else f["mv"]
+        deblock_kernel.deblock_into(*rec, 30, f["mode"] >= 2, deblock_ops.nnz4_grid(f["acz"]),
+                                    mv, None)
+        if partitioned:
+            bitpack_kernel.pack_p_into(f["mode"], f["zdc"], f["acz"], f["czdc"], f["cacz"],
+                                       None, None, 1, words, nbits, pmode=f["pmode"],
+                                       mv4=f["mv"])
+
+    for partitioned in (False, True):
+        ms = device_ms(lambda: p_frame(partitioned))
+        what = ("parts:deblock:bitpack at search 8: H3, H6, H2, H5, H8" if partitioned
+                else "fastsub:deblock at search 8: H3, H4, H2, H5")
+        print(f"time P frame device work 4K ({what}), back to back as the encoder "
+              f"launches it: {ms:.4f} ms [{card}]", flush=True)
 
     # the encoder, a frame at a time, P frames after one IDR
     frames = moving_nv12(rng, h, w, 9)
@@ -4354,6 +4441,7 @@ def main() -> int:
                                      "tile_hist_kernel", "intra_levels_kernel",
                                      "levels_split_kernel", "levels_chain_kernel",
                                      "levels_intra_kernel", "subpel_planes_kernel",
+                                     "subpel_floor_kernel",
                                      "motion_search_kernel", "deblock_kernel",
                                      "deblock_bs_kernel",
                                      "parts_search_kernel", "pack_i_kernel",

@@ -1487,9 +1487,11 @@ class CudaCavlcEncoder(CavlcH264Encoder):
     package's ``TpuCavlcEncoder``).
 
     The compute stage (prediction, 4x4 transforms, DC Hadamards,
-    quantization, edge reconstruction) is one launch of
-    ``intra_levels_kernel`` (ops/h264_levels.py: one thread block per MB
-    row walking its columns); the host does entropy coding only (native
+    quantization, edge reconstruction) is one launch of H1
+    (ops/h264_levels.py: the grids ``levels_split_kernel``, a warp an MB,
+    ``levels_chain_kernel``, a warp an MB row along the left edges, and
+    ``levels_intra_kernel``; with ``i4`` ``intra_levels_kernel``, a block an
+    MB row); the host does entropy coding only (native
     ``fp_cavlc_entropy_rows`` on every host thread, or the Python fallback
     where the library does not build).  Streams are byte-identical to
     ``CavlcH264Encoder(slices=mb_h)``: one IDR slice per MB row, the

@@ -2219,10 +2219,12 @@ class CudaGopEncoder:
     ``--encoder=tpu:gop=N`` / ``tpu:gdr=N``; the JAX package's
     ``TpuGopEncoder``).
 
-    Per frame: at a GOP start ``intra_levels_kernel`` with the full
-    reconstruction (ops/h264_levels.encode_levels); otherwise, with
+    Per frame: at a GOP start H1 with the full reconstruction
+    (ops/h264_levels.encode_levels: the split grids ``levels_split_kernel``,
+    ``levels_chain_kernel`` and ``levels_intra_kernel``); otherwise, with
     ``search``, ``subpel_planes_kernel`` and ``motion_search_kernel``, then
-    ``p_levels_kernel`` (the per-MB skip / inter / intra decision);
+    H2 (the same three grids with the inter candidate: the per-MB skip /
+    inter / intra decision);
     ``deblock_kernel`` then filters the new reference in place.  Only the
     levels (one int16 buffer a frame, with the mode, MV and reference
     fields) come down to the host, which does the entropy coding (the

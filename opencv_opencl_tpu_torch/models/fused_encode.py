@@ -16,14 +16,15 @@ that the feeder retires like a frame batch.
   chroma are edge-replicated on the card, as the host encoder's ``_pad``
   does;
 - one slice per MB row makes MB rows independent, so the N frames of an
-  intra batch stack on the MB-row axis and one ``intra_levels_kernel``
-  launch covers the batch (a 4K frame needs no padding, 2160 = 135 x 16);
+  intra batch stack on the MB-row axis and one launch of H1 (the split
+  grids of ``csrc/h264_levels.cu``) covers the batch (a 4K frame needs no
+  padding, 2160 = 135 x 16);
 - the GOP step runs its frames one after another (the JAX package's
-  ``lax.scan``), each an IDR (``intra_levels_kernel`` with the full
-  reconstruction) or a P frame (the search, ``p_levels_kernel``), with
-  the in-loop filter (``deblock_kernel``) and the bit packers
-  (``pack_i_kernel``, ``pack_p_kernel``) as configured; the reference
-  pictures stay on the card between batches.
+  ``lax.scan``), each an IDR (H1 with the full reconstruction) or a P
+  frame (``subpel_planes_kernel``, the search, then H2: the split grids
+  with the inter candidate), with the in-loop filter (``deblock_kernel``)
+  and the bit packers (``pack_i_kernel``, ``pack_p_kernel``) as
+  configured; the reference pictures stay on the card between batches.
 
 The packed tensor has the JAX package's lane layout (MB-major: the 408
 levels, the qp, the mode lane, the motion lanes, then the bits lanes), not
@@ -136,8 +137,8 @@ def build_enhance_levels_fn(cfg: EnhancerConfig, spec: FrameSpec,
                             bitpack: int = 0, device=None):
     """Returns ``fn(nv12_batch: uint8 (N, H*3/2, W), qp: int) -> int16
     (N, mb_h, mb_w, 410)`` on ``device`` (None: the card): enhancement,
-    then the quantized CAVLC levels of the whole batch in one
-    ``intra_levels_kernel`` launch, packed MB-major with the in-band qp
+    then the quantized CAVLC levels of the whole batch in one launch of
+    H1 (the split grids), packed MB-major with the in-band qp
     (``ops.h264_levels.pack_levels``) and the intra pred-mode lane.
     ``bitpack=nw`` appends each MB's CAVLC bit string packed on the card
     (``pack_i_kernel``) as 1 + 2*nw lanes; the stacked frames' MB rows stay

@@ -52,11 +52,13 @@ _SIGNATURES = {
     "p_levels_launch": (_P, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _I,
                         _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P),
     "subpel_planes_launch": (_P, _I, _I, _I, _I, _P, _P),
+    "subpel_floor_launch": (_P, _I, _I, _I, _I, _P, _P),
     "motion_search_launch": (_P, _LL, _I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P,
                              _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _P),
-    "parts_search_launch": (_P, _LL, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "parts_search_launch": (_P, _LL, _I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P),
     "pack_i_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P),
     "pack_p_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P),
     "deblock_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,

@@ -17,9 +17,13 @@ motion_search  ``ops.h264_levels.motion_search_parts_plain``  h264_levels.py:119
 _parts         (``parts_search_kernel``, H6)
 =============  =============================================  ==================
 
-``motion_search_kernel`` takes several MBs of one MB row a block and cuts
-its candidates into tiles of one sub-sample plane, one integer dx and up
-to 8 integer dy; :func:`search_plan_of` lays the launch out,
+``subpel_planes_kernel`` computes the base planes of 8 x 512 positions a
+block and stores each plane row's 16-byte units of the flat plane, a warp
+a row; :func:`planes_plan` lays the launch out.  ``motion_search_kernel``
+and ``parts_search_kernel`` take several MBs of one MB row a block and cut
+their candidates into tiles of one sub-sample plane, one integer dx and up
+to 8 integer dy; :func:`search_plan_of` and :func:`parts_plan_of` lay the
+launches out,
 :func:`search_tiles` and :func:`refine_tiles` make the tiles and
 :func:`candidate_index` / :func:`refine_index` their candidates' indices
 (all on the host, once a configuration).
@@ -47,6 +51,7 @@ __all__ = ["subpel_planes", "motion_search", "search_into", "search_stack_into",
            "planes_into", "motion_search_parts", "parts_search_into",
            "parts_stack_into", "search_tiles", "refine_tiles", "candidate_index",
            "refine_index", "search_shared_bytes", "search_plan_of",
+           "parts_shared_bytes", "parts_plan_of", "planes_plan", "planes_floor_into",
            "launch_counts", "reset_launch_counts"]
 
 # motion_search_kernel's layout (csrc/h264_inter.cu): the dy a first-stage
@@ -60,6 +65,16 @@ _MB_BYTES = 256 + 32
 _REFINE_MB = 16 * 17 * 48
 # the shared memory a block may take so that two blocks fit an SM
 SEARCH_SHARED_BUDGET = 232448 // 2
+# parts_search_kernel's layout (H4's tiles, four quadrant sums a
+# candidate): a MB's bytes besides the window (its 256 samples, nine keys
+# and four winners)
+_PARTS_MB_BYTES = 256 + 4 * 24
+# subpel_planes_kernel's layout: the rows and columns of positions whose
+# base planes a block computes, the columns whose 16-byte units it stores
+# (a warp stores a row's 31), threads a block
+PLANE_BASE_ROWS, PLANE_BASE_COLS = 8, 512
+PLANE_COLS = PLANE_BASE_COLS - 16
+PLANE_THREADS = 256
 
 # candidate and tile tables on the card, by (device, search, subpel, nrefs)
 _TABLES: dict = {}
@@ -71,14 +86,23 @@ def _check_plane(t: torch.Tensor, name: str) -> None:
                          f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
 
 
-def planes_into(ry: torch.Tensor, margin: int, nplanes: int,
-                out: torch.Tensor) -> None:
-    """Launch ``subpel_planes_kernel``: the ``nplanes`` (1, 4 or 16)
-    planes of the CUDA luma plane ``ry`` into ``out``, a contiguous uint8
-    (nplanes, H + 2*margin, W + 2*margin) tensor (or a slice of a larger
-    stack of that shape)."""
+def planes_plan(H: int, W: int, margin: int, nplanes: int) -> dict:
+    """The launch of ``subpel_planes_kernel`` (and its write floor) for an
+    H x W reference: a block computes the base planes of ``PLANE_BASE_ROWS``
+    x ``PLANE_BASE_COLS`` positions and owns ``rows`` of them (one fewer
+    with 16 planes, whose averages read the row below) and ``cols``
+    (``PLANE_COLS``: a 16-byte unit that starts in them ends inside the
+    computed columns); the blocks cover the (H + 2m, W + 2m) planes."""
+    rows = PLANE_BASE_ROWS - (nplanes == 16)
+    oh, ow = H + 2 * margin, W + 2 * margin
+    return {"rows": rows, "cols": PLANE_COLS, "blocks_x": -(-ow // PLANE_COLS),
+            "blocks_y": -(-oh // rows), "threads": PLANE_THREADS}
+
+
+def _check_planes_call(ry: torch.Tensor, margin: int, nplanes: int, out: torch.Tensor,
+                       name: str) -> None:
     if not _on_card(ry):
-        raise ValueError(f"planes_into launches on a CUDA device, got {ry.device}")
+        raise ValueError(f"{name} launches on a CUDA device, got {ry.device}")
     _check_plane(ry, "ry")
     if nplanes not in (1, 4, 16) or margin < 0:
         raise ValueError(f"nplanes must be 1, 4 or 16 and margin >= 0, got "
@@ -88,12 +112,37 @@ def planes_into(ry: torch.Tensor, margin: int, nplanes: int,
     if (tuple(out.shape) != shape or out.dtype != torch.uint8
             or not out.is_contiguous() or out.device != ry.device):
         raise ValueError(f"out must be a contiguous uint8 {shape} tensor on {ry.device}")
+
+
+def planes_into(ry: torch.Tensor, margin: int, nplanes: int,
+                out: torch.Tensor) -> None:
+    """Launch ``subpel_planes_kernel``: the ``nplanes`` (1, 4 or 16)
+    planes of the CUDA luma plane ``ry`` into ``out``, a contiguous uint8
+    (nplanes, H + 2*margin, W + 2*margin) tensor (or a slice of a larger
+    stack of that shape; any byte alignment)."""
+    _check_planes_call(ry, margin, nplanes, out, "planes_into")
+    H, W = ry.shape
     lib = _build.load()
     with torch.cuda.device(ry.device):
         err = lib.subpel_planes_launch(ry.data_ptr(), H, W, margin, nplanes,
                                        out.data_ptr(), _stream(ry.device))
     _raise_on(err, "subpel_planes_kernel")
     subpel_planes.launches += 1
+
+
+def planes_floor_into(ry: torch.Tensor, margin: int, nplanes: int,
+                      out: torch.Tensor) -> None:
+    """``subpel_floor_kernel``: :func:`planes_into`'s grid and stores with
+    every plane written from G and no filter arithmetic, what the stores
+    alone cost.  For timing; no encoder calls it, and it is not counted in
+    :func:`launch_counts`."""
+    _check_planes_call(ry, margin, nplanes, out, "planes_floor_into")
+    H, W = ry.shape
+    lib = _build.load()
+    with torch.cuda.device(ry.device):
+        err = lib.subpel_floor_launch(ry.data_ptr(), H, W, margin, nplanes,
+                                      out.data_ptr(), _stream(ry.device))
+    _raise_on(err, "subpel_floor_kernel")
 
 
 def subpel_planes(ry: torch.Tensor, margin: int, nplanes: int) -> torch.Tensor:
@@ -178,40 +227,69 @@ def refine_index() -> np.ndarray:
     return inv
 
 
+def _window_bytes(mbs: int, search: int, nslots: int) -> int:
+    """The first stage's windows: every slot's 2 search + 16 rows of the
+    stack's 16-byte units holding 16 mbs + 2 search columns, with room for a
+    row's lead into its first unit and 5 words read anywhere."""
+    pitch = (16 * mbs + 2 * search + 34 + 15) // 16 * 16
+    return nslots * (2 * search + 16) * pitch
+
+
 def search_shared_bytes(mbs: int, search: int, nslots: int, refine: bool) -> int:
     """``motion_search_kernel``'s dynamic shared memory (the launcher
     refuses any other count): ``mbs`` MBs' samples, keys and winners, then
-    the larger of the first stage's window (every slot's 2 search + 16 rows
-    of the stack's 16-byte units holding 16 mbs + 2 search columns, with
-    room for a row's lead into its first unit and 5 words read anywhere)
-    and fastsub's (16 planes x 17 rows of 48 bytes a MB)."""
-    pitch = (16 * mbs + 2 * search + 34 + 15) // 16 * 16
-    return _MB_BYTES * mbs + max(nslots * (2 * search + 16) * pitch,
+    the larger of the first stage's windows (:func:`_window_bytes`) and
+    fastsub's (16 planes x 17 rows of 48 bytes a MB)."""
+    return _MB_BYTES * mbs + max(_window_bytes(mbs, search, nslots),
                                  _REFINE_MB * mbs if refine else 0)
+
+
+def _fill_mbs(mb_w: int, ntiles: int, shared_of) -> tuple[int, int]:
+    """(mbs, shared bytes): the MBs of one row a block (1..``SEARCH_MBS``,
+    at most mb_w) whose tiles fill the block's threads best in whole rounds
+    (ties to more MBs, which share more of the window), within
+    ``SEARCH_SHARED_BUDGET``."""
+    best = None
+    for mbs in range(1, min(SEARCH_MBS, mb_w) + 1):
+        shared = shared_of(mbs)
+        if shared > SEARCH_SHARED_BUDGET and mbs > 1:
+            continue
+        items = mbs * ntiles
+        fill = items / (-(-items // SEARCH_THREADS) * SEARCH_THREADS)
+        if best is None or fill >= best[0]:
+            best = (fill, mbs, shared)
+    return best[1], best[2]
 
 
 def search_plan_of(mb_w: int, search: int, subpel: int, nrefs: int) -> dict:
     """The launch of ``motion_search_kernel``: ``mbs`` MBs of one MB row a
-    block (1..``SEARCH_MBS``, at most mb_w), chosen so that the first
-    stage's tiles fill the block's threads best in whole rounds (ties to
-    more MBs, which share more of the window), within
-    ``SEARCH_SHARED_BUDGET``; then blocks along a row, threads, shared bytes,
-    tiles and window slots."""
+    block (:func:`_fill_mbs`); then blocks along a row, threads, shared
+    bytes, tiles and window slots."""
     slots, tiles = search_tiles(search, subpel, nrefs)
     refine = subpel == 3
-    best = None
-    for mbs in range(1, min(SEARCH_MBS, mb_w) + 1):
-        shared = search_shared_bytes(mbs, search, len(slots), refine)
-        if shared > SEARCH_SHARED_BUDGET and mbs > 1:
-            continue
-        items = mbs * len(tiles)
-        fill = items / (-(-items // SEARCH_THREADS) * SEARCH_THREADS)
-        if best is None or fill >= best[0]:
-            best = (fill, mbs, shared)
-    _, mbs, shared = best
+    mbs, shared = _fill_mbs(mb_w, len(tiles), lambda mbs: search_shared_bytes(
+        mbs, search, len(slots), refine))
     return {"mbs": mbs, "blocks_x": -(-mb_w // mbs), "threads": SEARCH_THREADS,
             "shared": shared, "tiles": len(tiles), "slots": len(slots),
             "refine_tiles": len(refine_tiles()) if refine else 0}
+
+
+def parts_shared_bytes(mbs: int, search: int, nslots: int) -> int:
+    """``parts_search_kernel``'s dynamic shared memory (the launcher
+    refuses any other count): ``mbs`` MBs' samples, nine keys and four
+    winners, then the first stage's windows (:func:`_window_bytes`)."""
+    return _PARTS_MB_BYTES * mbs + _window_bytes(mbs, search, nslots)
+
+
+def parts_plan_of(mb_w: int, search: int, subpel: int, nrefs: int) -> dict:
+    """The launch of ``parts_search_kernel``: H4's tiles for the sub-pel
+    modes 0-2, ``mbs`` MBs of one row a block (:func:`_fill_mbs`); blocks
+    along a row, threads, shared bytes, tiles and window slots."""
+    slots, tiles = search_tiles(search, subpel, nrefs)
+    mbs, shared = _fill_mbs(mb_w, len(tiles), lambda mbs: parts_shared_bytes(
+        mbs, search, len(slots)))
+    return {"mbs": mbs, "blocks_x": -(-mb_w // mbs), "threads": SEARCH_THREADS,
+            "shared": shared, "tiles": len(tiles), "slots": len(slots)}
 
 
 def _tables(device: torch.device, search: int, subpel: int, nrefs: int = 1) -> dict:
@@ -393,14 +471,17 @@ def parts_stack_into(y: torch.Tensor, stack: torch.Tensor, refs, search: int,
                 or not t.is_contiguous() or t.device != y.device):
             raise ValueError(f"{name} must be a contiguous int16 {shape} tensor "
                              f"on {y.device}")
-    cands = _tables(y.device, search, subpel)["cands"]
+    plan = parts_plan_of(mb_w, search, subpel, len(refs))
+    tab = _tables(y.device, search, subpel, len(refs))
     lam = levels.PART_LAMBDA[min(max(int(qp), 0), 51)]
     lib = _build.load()
     second = refs[1] if two else refs[0]
     with torch.cuda.device(y.device):
         err = lib.parts_search_launch(
-            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin,
-            len(refs), cands.data_ptr(), n, lam,
+            y.data_ptr(), y.stride(0), mb_h, mb_w, stack.data_ptr(), P, margin, search,
+            tab["slots"].data_ptr(), plan["slots"], tab["tiles"].data_ptr(), plan["tiles"],
+            tab["inv"].data_ptr(), tab["cands"].data_ptr(), n, plan["mbs"],
+            plan["shared"], lam,
             refs[0][1].data_ptr(), refs[0][2].data_ptr(), second[1].data_ptr(),
             second[2].data_ptr(), pmode.data_ptr(), mv.data_ptr(),
             ref.data_ptr() if two else None,

@@ -10,8 +10,11 @@ the left.  The host keeps the entropy coding
 (``native.cavlc_entropy_rows`` or ``io.h264_cavlc.encode_frame_from_levels``).
 
 :func:`encode_levels` is the intra entry point.  On a CUDA tensor it launches
-``intra_levels_kernel`` (``csrc/h264_levels.cu``, one thread block per MB
-row walking its columns; wrapper ``ops/cuda/h264_levels.py``) or raises; on
+H1's three grids (``csrc/h264_levels.cu``: ``levels_split_kernel``, a warp
+an MB for what the left edge cannot change; ``levels_chain_kernel``, a warp
+an MB row walking its columns along the left edges; ``levels_intra_kernel``,
+a warp an MB; with ``i4`` the one grid ``intra_levels_kernel``, a block an
+MB row; wrapper ``ops/cuda/h264_levels.py``) or raises; on
 a CPU tensor it runs :func:`encode_levels_plain`, a port of the JAX
 function's ``lax.scan`` step as a Python loop over the MB columns,
 vectorised over the MB rows, line by line but for the Intra_4x4 trial,
@@ -25,10 +28,12 @@ for byte.
 The P part (the device GOP encoder's frames between IDRs):
 :func:`subpel_planes` (the spec 8.4.2.2.1 sub-sample planes,
 ``subpel_planes_kernel``), :func:`motion_search` (per-MB SAD search and
-motion compensation, ``motion_search_kernel`` after the planes) and
+motion compensation, ``motion_search_kernel`` after the planes; with
+partitions :func:`motion_search_parts`, ``parts_search_kernel``) and
 :func:`encode_p_levels` (the per-MB skip / inter / intra decision, the
-chosen levels and the reconstruction, ``p_levels_kernel`` after the
-search), each beside its plain version (``*_plain``), which the wrappers
+chosen levels and the reconstruction, H2: H1's three grids with the inter
+candidate, after the search), each beside its plain version (``*_plain``),
+which the wrappers
 of ``ops/cuda/h264_inter.py`` and ``ops/cuda/h264_levels.py`` run for CPU
 tensors only.  Their streams equal ``GopCavlcEncoder(slices=mb_h)``'s.
 
@@ -1138,7 +1143,8 @@ def p_levels_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                    pred_y: torch.Tensor, pred_cb: torch.Tensor,
                    pred_cr: torch.Tensor, mv_zero: torch.Tensor, qp: int,
                    band: tuple[int, int] | None = None) -> tuple:
-    """Plain version of ``p_levels_kernel``: the JAX ``encode_p_levels``
+    """Plain version of H2 (the split grids of ``csrc/h264_levels.cu``
+    for a P frame): the JAX ``encode_p_levels``
     scan step as a Python loop over MB columns, vectorised over MB rows.
     ``pred_*`` are the motion-compensated planes (the reference itself at
     zero motion), ``mv_zero`` (mb_h, mb_w) bool marks the MBs whose
@@ -1379,8 +1385,9 @@ def encode_p_levels(y, cb, cr, ry, rcb, rcr, qp: int, search: int = 0,
     ``pmode`` the partition modes.  The references are read, never written.
 
     On CUDA tensors: ``subpel_planes_kernel`` and ``motion_search_kernel``
-    (``parts_search_kernel`` with ``parts``) with ``search``, then
-    ``p_levels_kernel``; on CPU tensors :func:`encode_p_levels_plain`."""
+    (``parts_search_kernel`` with ``parts``) with ``search``, then H2's
+    three grids (``levels_split_kernel``, ``levels_chain_kernel``,
+    ``levels_intra_kernel``); on CPU tensors :func:`encode_p_levels_plain`."""
     from opencv_opencl_tpu_torch.ops.cuda import h264_levels as kernel
 
     return kernel.encode_p_levels(y, cb, cr, ry, rcb, rcr, qp, search, subpel,

@@ -223,15 +223,15 @@ class BandedCudaGopEncoder:
     card).
 
     Every rank is given every frame.  A rank codes an IDR from its band of
-    MB rows (``intra_levels_kernel``).  For a P frame it windows its band
-    plus ``halo_rows`` rows above and below, of the frame and of the
-    reference pictures, edge-replicated at the picture's borders as the
-    full-frame kernels read them; the halo covers the motion search's reach
-    and the interpolation filter's support.  It runs the single-card
-    kernels on the window (``subpel_planes_kernel`` and
-    ``motion_search_kernel``, or ``parts_search_kernel``, then
-    ``p_levels_kernel``) and crops the levels and the reconstruction to its
-    band.  One slice per MB row makes every per-row computation (the intra
+    MB rows (H1, the split grids of ``csrc/h264_levels.cu``).  For a P
+    frame it windows its band plus ``halo_rows`` rows above and below, of
+    the frame and of the reference pictures, edge-replicated at the
+    picture's borders as the full-frame kernels read them; the halo covers
+    the motion search's reach and the interpolation filter's support.  It
+    runs the single-card kernels on the window (``subpel_planes_kernel``
+    and ``motion_search_kernel``, or ``parts_search_kernel``, then H2, the
+    split grids with the inter candidate) and crops the levels and the
+    reconstruction to its band.  One slice per MB row makes every per-row computation (the intra
     left edge, the skip predictor, the entropy contexts) band-local, so the
     crop is exact.  The band's levels go to rank 0 (the packed lanes of
     ``models/fused_encode.make_gop_levels``), and every rank all-gathers the

@@ -27,12 +27,15 @@ card, with the profiler's device time per step by kernel:
 
 With ``--h264`` the children time the device encoders' kernels instead,
 on one 4K P frame of structured content moving by (1, 2) pixels a frame:
-H3 (16 planes at margin 9), H4 (``fastsub`` at search 8 and the exhaustive
+H3 (16 planes at margin 9; also 4 planes at margin 5, 1 plane at margin 8
+and, where the tree has ``planes_floor_into``, each one's write floor), H4
+(``fastsub`` at search 8 and the exhaustive
 quarter-pel lattice at search 4, each alone on a built stack and right
 after H3 has written it: the pair less H3), H2 (QP 30), H1 on the same
 frame (the default, and ``full_recon`` as on an IDR), H5 on the P frame's
 own metadata and on an IDR's (each beside the wavefront's floor where the
-tree has ``deblock_floor_into``) and H6 (full-pel search 8), with checksums
+tree has ``deblock_floor_into``) and H6 (full-pel, half-pel search 8,
+quarter-pel search 4 and two references at full-pel search 8), with checksums
 of their outputs, so that the trees are seen to compute the same thing;
 in a tree with the split H1/H2 (``levels_plan``), each of their phases
 as torch.profiler's device time of its grid in an ordinary call.
@@ -46,7 +49,9 @@ also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
 ``deblock_rows_per_block`` (each reading also held equal to the default's
 output); ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
-(registers, shared memory, spills) for H4, H5 (and its bS pass) and H6, and
+(registers, shared memory, spills) for H3 (each instance of
+``subpel_planes_kernel<NP>`` and ``subpel_floor_kernel<NP>``), H4, H5 (and
+its bS pass) and H6, and
 for K1 (each instance of
 ``tile_hist_kernel<R>``: 4 for K1, 2, 4 and 8 for K10), K2, K3, K6, K7, and
 in older trees ``interp_pack_kernel`` (K5), ``tile_hist_batched_kernel``
@@ -71,7 +76,8 @@ KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
                 "interp_pack_kernel", "interp_hist_kernel", "interp_cells_kernel",
                 "tile_hist_batched_kernel", "interp_cells_radix_kernel",
                 "tile_hist_private_kernel", "motion_search_kernel", "deblock_kernel",
-                "deblock_bs_kernel", "parts_search_kernel")
+                "deblock_bs_kernel", "parts_search_kernel", "subpel_planes_kernel",
+                "subpel_floor_kernel")
 # K2 launches a timed run queues behind one spin of the card
 K2_LAUNCHES = 200
 
@@ -463,7 +469,7 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
     dev = dev or torch.device("cuda", 0)
     h, w = HEIGHT, WIDTH
     mb_h, mb_w = h // 16, w // 16
-    _, ref, src = moving_planes(dev)
+    ref2, ref, src = moving_planes(dev)
     mv = torch.empty((mb_h, mb_w, 2), dtype=torch.int16, device=dev)
     pred = (torch.empty((h, w), dtype=torch.uint8, device=dev),
             torch.empty((h // 2, w // 2), dtype=torch.uint8, device=dev),
@@ -484,7 +490,20 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
         res[f"motion_search_{name}_alone"] = device_ms(h4)
         res[f"motion_search_{name}_after_h3"] = (
             device_ms(lambda: (h3(), h4())) - res[f"subpel_planes_{name}"])
-    out = torch.empty(kl.p_level_words(mb_h, mb_w), dtype=torch.int16, device=dev)
+    # H3's half-pel and full-pel stacks, and each one's write floor
+    for m, n in ((9, 16), (5, 4), (8, 1)):
+        stack = torch.empty((n, h + 2 * m, w + 2 * m), dtype=torch.uint8, device=dev)
+        ki.planes_into(ref[0], m, n, stack)
+        res[f"h3_{n}p_checksum"] = int(stack.to(torch.int64).sum())
+        if n != 16:
+            res[f"subpel_planes_{n}p_m{m}"] = device_ms(
+                lambda: ki.planes_into(ref[0], m, n, stack))
+        if hasattr(ki, "planes_floor_into"):
+            res[f"subpel_planes_{n}p_m{m}_floor"] = device_ms(
+                lambda: ki.planes_floor_into(ref[0], m, n, stack))
+    # zeros: with one reference no kernel writes the buffer's ref field, so
+    # the checksum reads only what the kernels write
+    out = torch.zeros(kl.p_level_words(mb_h, mb_w), dtype=torch.int16, device=dev)
     fields = kl.split_p_levels(out, mb_h, mb_w)
     ki.search_into(src[0], [ref], 8, 3, None, fields["mv"], None, *pred)
     res["p_levels"] = device_ms(lambda: kl.p_levels_into(*src, *pred, 30, out, motion=True))
@@ -538,14 +557,20 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
             kd.deblock_rows_per_block = chosen
     pout = torch.empty(kl.p_level_words(mb_h, mb_w, True), dtype=torch.int16, device=dev)
     pf = kl.split_p_levels(pout, mb_h, mb_w, True)
-    P, margin = levels_ops.search_plan(8, 0)
-    stack = levels_ops.subpel_planes(ref[0], margin, P)
-    h6 = lambda: ki.parts_stack_into(  # noqa: E731
-        src[0], stack, [ref], 8, 0, 30, pf["pmode"], pf["mv"], None, *pred)
-    h6()
-    res["h6_checksum"] = int(pf["mv"].to(torch.int64).abs().sum()
-                             + pf["pmode"].to(torch.int64).sum())
-    res["parts_search_s8"] = device_ms(h6)
+    ref4 = torch.empty((mb_h, mb_w, 4), dtype=torch.int16, device=dev)
+    for name, search, subpel, refs in (("s8", 8, 0, [ref]), ("halfpel_s8", 8, 1, [ref]),
+                                       ("qpel_s4", 4, 2, [ref]), ("refs2_s8", 8, 0, [ref, ref2])):
+        P, margin = levels_ops.search_plan(search, subpel)
+        stack = torch.cat([levels_ops.subpel_planes(r[0], margin, P) for r in refs])
+        two = ref4 if len(refs) > 1 else None
+        h6 = lambda: ki.parts_stack_into(  # noqa: E731
+            src[0], stack, refs, search, subpel, 30, pf["pmode"], pf["mv"], two, *pred)
+        h6()
+        res[f"h6_{name}_checksum"] = int(
+            pf["mv"].to(torch.int64).abs().sum() + pf["pmode"].to(torch.int64).sum()
+            + pred[0].to(torch.int64).sum() + pred[1].to(torch.int64).sum()
+            + (0 if two is None else int(two.to(torch.int64).sum())))
+        res[f"parts_search_{name}"] = device_ms(h6)
     return res
 
 

@@ -761,7 +761,9 @@ def _p_inputs(device, seed, h, w, content):
     return out
 
 
-@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16)])
+# 208 = 13 MBs: no multiple of a search plan's MBs a block; 208 + 2m is
+# no multiple of the sub-pel planes' 112 columns a block
+@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16), (32, 208)])
 @pytest.mark.parametrize("content", ["random", "structured", "constant"])
 def test_p_frame_kernels_equal_plain(device, h, w, content):
     """H3, H4, H2 and H5 against their plain versions on the card, every
@@ -920,7 +922,7 @@ def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):
             assert [au for f in frames for au in enc.encode(f)] + enc.flush() == want
 
 
-@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16)])
+@pytest.mark.parametrize("h,w", [(48, 64), (16, 96), (64, 16), (32, 208)])
 @pytest.mark.parametrize("content", ["random", "structured", "constant"])
 def test_parts_kernels_equal_plain(device, h, w, content):
     """H6 against its plain version on the card (full-, half- and

@@ -1,5 +1,6 @@
-"""The launch planning of H4 ``motion_search_kernel`` and H5
-``deblock_kernel`` in pure Python (no kernel runs here).
+"""The launch planning of H3 ``subpel_planes_kernel``, H4
+``motion_search_kernel``, H5 ``deblock_kernel`` and H6
+``parts_search_kernel`` in pure Python (no kernel runs here).
 
 - H5 (``ops/cuda/h264_deblock.deblock_plan``): a band of MB rows (4 at
   4K, at most 16) a block, the bands cover the picture's rows once, a warp
@@ -18,7 +19,21 @@
   the index tables inverting the candidate lists;
 - a numpy model of a tile's packed SADs (5 aligned little-endian words a
   window row, shifted into 4 by a funnel shift, per-byte absolute
-  differences summed) equals the direct SADs at every byte alignment.
+  differences summed) equals the direct SADs at every byte alignment, and
+  its quadrant variant (H6: four sums a candidate) the direct 8x8 SADs;
+- H6 (``ops/cuda/h264_inter.parts_plan_of``): tiles of up to 8 dy holding
+  every candidate of every reference once at full- and half-pel search 8
+  and quarter-pel search 4 with one and two references, the key packing
+  below 2^31, MBs a block within the row, the shared bytes the kernel's
+  layout gives and within budget;
+- H3 (``planes_plan``): a numpy model of the kernel block by block (the
+  clamped reference tile, the vertical sums once, runs of 16 positions,
+  a warp a plane row storing the 16-byte units of the flat plane that lie
+  wholly in the row and start in its columns, head and tail bytes singly,
+  the plane table read from the ``.cu``) writes every byte of every plane
+  once and equals ``subpel_planes_plain`` at 1, 4 and 16 planes, at plane
+  rows of no multiple of 4, one MB row and column, one-row and one-column
+  pictures and two byte alignments of the stack, and JAX's planes.
 
 At 4K, 1920x1088, 640x368, one MB row, one MB column and 48x32; the card
 runs the kernels at the same geometries in ``tests/test_torch_cuda.py``.
@@ -57,6 +72,7 @@ GEOMETRIES = [(2160, 3840), (1088, 1920), (368, 640), (16, 640), (368, 16), (32,
 SEARCHES = [(8, 3, 1), (8, 3, 2), (8, 0, 1), (8, 1, 1), (4, 2, 1), (3, 2, 2), (2, 2, 2),
             (2, 0, 1), (11, 2, 2), (15, 0, 2)]
 SHARED_LIMIT = 232448
+INTER_CU = Path(ki.__file__).resolve().parents[2] / "csrc" / "h264_inter.cu"
 
 
 @pytest.mark.parametrize("h,w", GEOMETRIES)
@@ -180,6 +196,220 @@ def test_packed_tile_sads_equal_direct_sads(col):
                 sads[d] += _sad4(cw[R - d], b).sum()
     want = [np.abs(cur.astype(np.int64) - win[d:d + 16, col:col + 16]).sum() for d in range(8)]
     assert sads.tolist() == want
+
+
+@pytest.mark.parametrize("col", [0, 1, 2, 3, 13])
+def test_packed_tile_quadrant_sads_equal_direct_sads(col):
+    """H6's tile_sads<8, true>: each window row read once as 5 words
+    shifted into 4, its per-byte differences summed into four quadrant sums
+    a candidate (rows 0-7 / 8-15 x words 0-1 / 2-3), equals the four direct
+    8x8 quadrant SADs of every candidate."""
+    rng = np.random.default_rng(100 + col)
+    win = rng.integers(0, 256, (23, 40), dtype=np.uint8)
+    cur = rng.integers(0, 256, (16, 16), dtype=np.uint8)
+    cw = _words(cur)                                   # (16, 4)
+    ww = _words(win)                                   # (23, 10)
+    sh = (col & 3) * 8
+    sads = np.zeros((8, 4), np.int64)
+    for R in range(23):
+        a = ww[R, col >> 2:(col >> 2) + 5]
+        b = ((a[:4] | (a[1:] << 32)) >> sh) & 0xFFFFFFFF   # __funnelshift_r
+        for d in range(8):
+            r = R - d
+            if 0 <= r < 16:
+                sads[d, 2 * (r >> 3)] += _sad4(cw[r, :2], b[:2]).sum()
+                sads[d, 2 * (r >> 3) + 1] += _sad4(cw[r, 2:], b[2:]).sum()
+    for d in range(8):
+        diff = np.abs(cur.astype(np.int64) - win[d:d + 16, col:col + 16])
+        want = [diff[:8, :8].sum(), diff[:8, 8:].sum(), diff[8:, :8].sum(), diff[8:, 8:].sum()]
+        assert sads[d].tolist() == want
+
+
+# H6's searches: (search, sub-pel mode, references)
+PARTS_SEARCHES = [(8, 0, 1), (8, 1, 1), (4, 2, 1), (8, 0, 2), (8, 1, 2), (4, 2, 2)]
+
+
+@pytest.mark.parametrize("search,subpel,nrefs", PARTS_SEARCHES)
+def test_parts_tiles_hold_every_candidate_once(search, subpel, nrefs):
+    P, _ = levels.search_plan(search, subpel)
+    slots, tiles = ki.search_tiles(search, subpel, nrefs)
+    got = []
+    for slot, frac, a0, axc in tiles.tolist():
+        cnt = axc & 15
+        ax, fy, fx = (axc - cnt) // 16, frac >> 2, frac & 3
+        r, plane = divmod(int(slots[slot]), P)
+        assert plane == levels._plane_of(fy, fx, P) and 1 <= cnt <= ki.TILE_ROWS
+        assert 0 <= a0 + search and a0 + search + cnt - 1 + 16 <= 2 * search + 16
+        got += [(r, 4 * (a0 + d) + fy, 4 * ax + fx) for d in range(cnt)]
+    cands = [tuple(c) for c in levels.search_candidates(search, subpel).tolist()]
+    assert sorted(got) == sorted((r, qy, qx) for r in range(nrefs) for qy, qx in cands)
+    # the key sad * 8192 + r * n + idx stays below 2^31
+    assert nrefs * len(cands) <= 8192
+    assert 65280 * 8192 + nrefs * len(cands) - 1 < 2 ** 31
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+@pytest.mark.parametrize("search,subpel,nrefs", PARTS_SEARCHES)
+def test_parts_plan(h, w, search, subpel, nrefs):
+    mb_w = w // 16
+    plan = ki.parts_plan_of(mb_w, search, subpel, nrefs)
+    mbs = plan["mbs"]
+    assert 1 <= mbs <= min(ki.SEARCH_MBS, mb_w)
+    assert (plan["blocks_x"] - 1) * mbs < mb_w <= plan["blocks_x"] * mbs
+    assert plan["threads"] == ki.SEARCH_THREADS
+    # the kernel's layout: each MB's samples, nine keys and four winners
+    # (24 ints), then every slot's window as H4 stages it
+    pitch = (16 * mbs + 2 * search + 34 + 15) // 16 * 16
+    assert plan["shared"] == ki.parts_shared_bytes(mbs, search, plan["slots"]) == \
+        (256 + 96) * mbs + plan["slots"] * (2 * search + 16) * pitch
+    assert plan["shared"] % 16 == 0 and (256 + 96) * mbs % 16 == 0
+    assert plan["shared"] <= SHARED_LIMIT
+    assert mbs == 1 or plan["shared"] <= ki.SEARCH_SHARED_BUDGET
+    assert plan["slots"] == nrefs * len(ki._fractions(subpel)) ** 2
+    # a tile's words stay inside its window row
+    assert 16 * (mbs - 1) + 2 * search + 15 + 19 < pitch
+    if (search, subpel, nrefs) == (8, 0, 1) and mb_w == 240:
+        assert mbs == 5                    # 51 tiles a MB fill 255 of 256 threads
+
+
+def test_parts_shared_layout_is_the_kernels():
+    """The wrapper's byte count of a MB's keys and winners is the .cu's."""
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", INTER_CU.read_text())}
+    assert 256 + 4 * consts["kPartsInfo"] == ki.parts_shared_bytes(1, 0, 0)
+    assert consts["kPartsInfo"] >= 9 + 3 * 4
+
+
+# ------------------------------------------------------- H3 sub-pel planes --
+
+TAPS = np.array([1, -5, 20, 20, -5, 1], np.int64)
+
+
+def _kernel_plane_ops() -> np.ndarray:
+    """kPlaneOps of csrc/h264_inter.cu: plane e = the rounding average of
+    operands (a, b)."""
+    body = re.search(r"kPlaneOps\[16\]\[2\] = \{(.*?)\};", INTER_CU.read_text(), re.S)
+    pairs = re.findall(r"\{(\d+), (\d+)\}", body.group(1))
+    return np.array(pairs, np.int64).reshape(16, 2)
+
+
+def model_planes(ry: np.ndarray, margin: int, nplanes: int, addr0: int = 0):
+    """A numpy model of subpel_planes_kernel, block by block: the clamped
+    reference tile of 13 x 517 samples, the vertical sums once a sample,
+    b, h and j by runs of 16 positions from 21 samples and 21 sums, then a
+    warp a (plane, row): lane u the u-th 16-byte unit of the flat plane
+    (planes laid out from byte address ``addr0``) that lies wholly in the
+    row and starts in the block's 496 columns, the head and tail bytes
+    singly.  Returns the planes and how often each byte was written."""
+    H, W = ry.shape
+    plan = ki.planes_plan(H, W, margin, nplanes)
+    rows, cols = plan["rows"], plan["cols"]
+    BR, BC, run = ki.PLANE_BASE_ROWS, ki.PLANE_BASE_COLS, 16
+    oh, ow = H + 2 * margin, W + 2 * margin
+    plane_bytes = oh * ow
+    ops = _kernel_plane_ops()
+    entry = {1: [0], 4: [0, 2, 8, 10], 16: list(range(16))}[nplanes]
+    out = np.zeros((nplanes, oh, ow), np.uint8)
+    writes = np.zeros((nplanes, oh, ow), np.int64)
+    lanes = np.arange(32)
+    for by in range(plan["blocks_y"]):
+        for bx in range(plan["blocks_x"]):
+            r0, c0 = by * rows, bx * cols
+            ty = np.clip(r0 - margin - 2 + np.arange(BR + 5), 0, H - 1)
+            tx = np.clip(c0 - margin - 2 + np.arange(BC + 5), 0, W - 1)
+            stage = ry[ty][:, tx].astype(np.int64)                 # (13, 517)
+            vsum = sum(TAPS[k] * stage[k:k + BR] for k in range(6))  # (8, 517), once
+            # runs: x0 = 16 k, 21 samples and 21 sums each
+            idx = run * np.arange(BC // run)[:, None] + np.arange(run + 5)[None]
+            g = stage[2:2 + BR][:, idx]                            # (8, 32, 21)
+            v = vsum[:, idx]
+            bb = np.clip((sum(TAPS[k] * g[..., k:k + run] for k in range(6)) + 16) >> 5, 0, 255)
+            hh = np.clip((v[..., 2:2 + run] + 16) >> 5, 0, 255)
+            jj = np.clip((sum(TAPS[k] * v[..., k:k + run] for k in range(6)) + 512) >> 10,
+                         0, 255)
+            b, h, j = (x.reshape(BR, BC) for x in (bb, hh, jj))
+            # the operands at block position (y, x): G, b, h, j, Gr, m, Gd, s
+            operand = [lambda y, x: stage[y + 2, x + 2], lambda y, x: b[y, x],
+                       lambda y, x: h[y, x], lambda y, x: j[y, x],
+                       lambda y, x: stage[y + 2, x + 3], lambda y, x: h[y, x + 1],
+                       lambda y, x: stage[y + 3, x + 2], lambda y, x: b[y + 1, x]]
+
+            def value(p, y, x):
+                a, c = ops[entry[p]]
+                return ((operand[a](y, x) + operand[c](y, x) + 1) >> 1).astype(np.uint8)
+
+            for p in range(nplanes):
+                for y in range(rows):
+                    r = r0 + y
+                    if r >= oh:
+                        continue
+                    hb = min(-(addr0 + p * plane_bytes + r * ow) % 16, ow)
+                    nu = (ow - hb) // 16
+                    tail = hb + 16 * nu
+                    u = ((c0 - hb + 15) // 16 if c0 > hb else 0) + lanes
+                    c = hb + 16 * u
+                    ok = (lanes < cols // 16) & (u < nu) & (c < c0 + cols)
+                    cc = c[ok][:, None] + np.arange(16)[None]
+                    out[p, r, cc] = value(p, y, cc - c0)
+                    np.add.at(writes[p, r], cc.ravel(), 1)
+                    single = []
+                    if c0 == 0:
+                        single += list(range(hb))
+                    if c0 <= tail < c0 + cols:
+                        single += list(range(tail, ow))
+                    if single:
+                        cs = np.array(single)
+                        out[p, r, cs] = value(p, y, cs - c0)
+                        np.add.at(writes[p, r], cs, 1)
+    return out, writes
+
+
+# (H, W): a width whose plane rows are no multiple of 4 (and of the 496
+# columns a block), one MB row, one MB column, a one-row and a one-column
+# picture; (margin, planes): relay (k)'s full-pel stack, half-pel, quarter-pel
+PLANE_SHAPES = [(40, 1919), (16, 640), (64, 16), (1, 37), (29, 1)]
+PLANE_MODES = [(8, 1), (5, 4), (9, 16)]
+
+
+@pytest.mark.parametrize("addr0", [0, 5])
+@pytest.mark.parametrize("margin,nplanes", PLANE_MODES)
+@pytest.mark.parametrize("h,w", PLANE_SHAPES)
+def test_planes_model_writes_every_byte_once_and_equals_plain(h, w, margin, nplanes, addr0):
+    import torch
+
+    rng = np.random.default_rng(h * 7919 + w + nplanes)
+    ry = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    got, writes = model_planes(ry, margin, nplanes, addr0)
+    assert (writes == 1).all()
+    want = levels.subpel_planes_plain(torch.from_numpy(ry), margin, nplanes).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("margin,nplanes", PLANE_MODES)
+def test_planes_model_equals_jax(margin, nplanes):
+    rng = np.random.default_rng(nplanes)
+    ry = rng.integers(0, 256, (24, 531), dtype=np.uint8)
+    got, _ = model_planes(ry, margin, nplanes, 11)
+    if nplanes == 1:
+        want = jnp.pad(jnp.asarray(ry), margin, mode="edge")[None]
+    else:
+        want = (jax_levels.halfpel_planes_jax if nplanes == 4
+                else jax_levels.quarterpel_planes_jax)(jnp.asarray(ry), margin)
+    assert np.array_equal(got, np.asarray(want))
+
+
+def test_planes_plan_is_the_kernels():
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+)[,;]", INTER_CU.read_text())}
+    assert consts["kBaseRows"] == ki.PLANE_BASE_ROWS
+    assert consts["kPlaneThreads"] == ki.PLANE_THREADS
+    assert ki.PLANE_BASE_COLS == 32 * 16 and ki.PLANE_COLS == ki.PLANE_BASE_COLS - 16
+    # a warp a row of 32 runs, a lane a unit
+    assert ki.PLANE_THREADS == 32 * ki.PLANE_BASE_ROWS
+    for n in (1, 4, 16):
+        plan = ki.planes_plan(2160, 3840, 9, n)
+        assert plan["rows"] == ki.PLANE_BASE_ROWS - (n == 16)
+        assert plan["blocks_x"] == 8 and plan["blocks_y"] == -(-2178 // plan["rows"])
 
 
 # ---------------------------------------------------- H1 / H2 split design --
@@ -569,3 +799,28 @@ def test_level_wrappers_launch_only_on_the_card():
     kl.encode_levels(y, c, c, 30)
     kl.encode_p_levels(y, c, c, y, c, c, 30)
     assert kl.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0}
+
+
+def test_inter_wrappers_launch_only_on_the_card():
+    """planes_into, planes_floor_into and parts_stack_into refuse CPU
+    planes; subpel_planes and motion_search_parts take the plain version
+    for them: no launch is counted."""
+    import torch
+
+    ki.reset_launch_counts()
+    y = torch.zeros((32, 48), dtype=torch.uint8)
+    c = torch.zeros((16, 24), dtype=torch.uint8)
+    for fn in (ki.planes_into, ki.planes_floor_into):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(y, 3, 16, torch.empty((16, 38, 54), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ki.parts_stack_into(y, torch.empty((1, 36, 52), dtype=torch.uint8), [(y, c, c)], 2, 0,
+                            30, torch.empty((2, 3), dtype=torch.int16),
+                            torch.empty((2, 3, 4, 2), dtype=torch.int16), None,
+                            torch.empty_like(y), torch.empty_like(c), torch.empty_like(c))
+    assert torch.equal(ki.subpel_planes(y, 3, 16), levels.subpel_planes_plain(y, 3, 16))
+    got = ki.motion_search_parts(y, [(y, c, c)], 2, 1, 30)
+    want = levels.motion_search_parts_plain(y, [(y, c, c)], 2, 1, 30)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
+    assert ki.launch_counts() == {"subpel_planes": 0, "motion_search": 0,
+                                  "motion_search_parts": 0}

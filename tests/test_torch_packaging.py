@@ -7,8 +7,13 @@ script) reaches an installed package only where a
 patterns of a package ``p`` match paths relative to ``p``'s directory, one
 ``*`` a path segment (setuptools globs).  Without them the installed port
 would find no ``framepipe.cpp``, and ``native.available()`` would be false.
+
+Every app of the port with a ``main()`` is installed as a ``gpu-*`` console
+script beside the JAX package's ``tpu-*`` one, and the metadata names
+``torch`` as an optional extra while ``jax`` stays a dependency.
 """
 
+import ast
 import fnmatch
 import os
 import subprocess
@@ -73,3 +78,43 @@ def test_the_glob_of_a_pattern_keeps_to_one_path_segment():
                     {"opencv_opencl_tpu_torch": ["csrc/*.cu"]})
     assert not _shipped("opencv_opencl_tpu_torch/native/framepipe.cpp",
                         {"opencv_opencl_tpu_torch": ["csrc/*.cu"]})
+
+
+def _pyproject() -> dict:
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        return tomllib.load(f)
+
+
+def _apps_with_main(package: str) -> list[str]:
+    """The modules of ``package``'s ``apps/`` that define a top-level
+    ``main()``."""
+    apps = os.path.join(ROOT, package, "apps")
+    found = []
+    for name in sorted(os.listdir(apps)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(apps, name)) as f:
+            tree = ast.parse(f.read())
+        if any(isinstance(n, ast.FunctionDef) and n.name == "main" for n in tree.body):
+            found.append(name[:-3])
+    return found
+
+
+def test_every_port_app_with_a_main_is_a_gpu_script():
+    scripts = _pyproject()["project"]["scripts"]
+    apps = _apps_with_main(PORT)
+    assert len(apps) == 11
+    for app in apps:
+        name = "gpu-" + app.replace("_", "-")
+        assert scripts.get(name) == f"{PORT}.apps.{app}:main", name
+        # beside the JAX package's script of the same app
+        assert scripts.get("tpu-" + app.replace("_", "-")) == \
+            f"opencv_opencl_tpu.apps.{app}:main"
+    gpu = {k: v for k, v in scripts.items() if k.startswith("gpu-")}
+    assert sorted(v.split(".")[-1].split(":")[0] for v in gpu.values()) == apps
+
+
+def test_jax_stays_a_dependency_and_torch_is_an_extra():
+    project = _pyproject()["project"]
+    assert "jax" in project["dependencies"]
+    assert project["optional-dependencies"]["torch"] == ["torch"]
