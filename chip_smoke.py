@@ -13,8 +13,8 @@ Phases, each of which raises (exit code != 0) when it fails:
             K1's three instances (``tile_hist_kernel<4>``, also K8's, and
             ``<2>``, ``<8>`` for K10), H1 and the GOP encoder's H2 (the
             split design's ``levels_split_kernel``, ``levels_chain_kernel``
-            and ``levels_intra_kernel``, each for H1 and H2, and H1's
-            ``intra_levels_kernel`` for ``i4``), H3
+            and ``levels_intra_kernel``, each for H1, H1 with ``i4`` and
+            H2), H3
             ``subpel_planes_kernel`` (and its write floor
             ``subpel_floor_kernel``, each for 1, 4 and 16 planes), H4
             ``motion_search_kernel``, H5
@@ -61,14 +61,17 @@ Phases, each of which raises (exit code != 0) when it fails:
             stage of the H.264 device encoder) against its plain version,
             every output (levels, modes, reconstructed planes): at 4K for the
             default, ``chromah`` and ``full_recon`` at QP 0 and 30 on
-            structured and random content, the default on a constant frame,
-            and Intra_4x4 (with ``full_recon``) and Intra_4x4 + chroma
-            HORIZONTAL at 1920x1088 on all three; at 640x368, one MB row,
-            one MB column and 48x32 the default, ``chromah``,
-            ``full_recon`` and both at QP 0, 30 and 51 on those and on mixed
-            content (runs of 8-12 MBs of noise or of horizontal stripes
-            between runs of a moving picture), and the default on mixed
-            content at 4K and 1920x1088; then the device encoder's streams: ``tpu`` at 4K equal
+            structured and random content, the default on a constant frame;
+            Intra_4x4 with ``chromah`` and ``full_recon`` at 4K at QP 0, 26
+            and 51 on mixed content and at one of them on structured, random
+            and constant content (with ``full_recon`` alone on structured),
+            and at 1920x1088 on mixed content; at 640x368, one MB row, one MB column and 48x32
+            the default, ``chromah``, ``full_recon``, both, and Intra_4x4
+            with ``full_recon`` and with ``chromah`` at QP 0, 26 (the
+            default: 30) and 51 on those and on mixed content (runs of 8-12
+            MBs of noise or of horizontal stripes between runs of a moving
+            picture), and the default on mixed content at 4K and 1920x1088;
+            then the device encoder's streams: ``tpu`` at 4K equal
             to ``CavlcH264Encoder(slices=135)`` on the native rows, with and
             without ``overlap``, and ``tpu:i4:chromah`` at 4K equal to the
             plain version's levels entropy-coded on the native rows and at
@@ -101,9 +104,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             ties everywhere: the index in the key decides), and at the five
             edge geometries with each sub-pel mode and one and two
             references, H2 on the ``parts`` layout and H5 on quadrant fields, H7
-            (``pack_i_kernel``) on H1's levels and H8 (``pack_p_kernel``) on
-            H2's (P_16x16 and parts, one and two references), at 64 words an
-            MB and at a cap of 3, against their plain versions; the streams
+            (``pack_i_kernel``) on H1's levels (default, and Intra_4x4 with
+            chroma HORIZONTAL; at 4K and the five edge geometries) and H8
+            (``pack_p_kernel``) on H2's (P_16x16 and parts, one and two
+            references), at 64 words an MB and at a cap of 3, against their
+            plain versions; the streams
             ``gop=3:search=4:parts:deblock:bitpack`` (also at ``nw_mb=3``,
             where frames overflow the cap and take the host entropy path)
             and ``gop=3:search=2:quarterpel:refs=2:parts`` against the
@@ -189,7 +194,10 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``--encoder=tpu:gop=30:search=8:parts:deblock:bitpack`` (H1 and
             H7 on the IDR; H3, H6, H2, H5 and H8 on each P frame; the host
             assembles the packed bits), checked as (j), no frame over the
-            cap; (l) relay (j)'s spec and (m) ``--encoder=tpu:bitpack``,
+            cap; (p) ``--encoder=tpu:i4:chromah:bitpack`` (H1 with ``i4``
+            and H7 a frame), every access unit equal to a new
+            ``tpu:i4:chromah`` encoder's (H1 with ``i4``, entropy coding on
+            the native rows); (l) relay (j)'s spec and (m) ``--encoder=tpu:bitpack``,
             each with ``--fused-encode`` (the frames stay on the card, the
             packed levels come down; every frame the fused step takes must
             be a source frame, in order, after the warm-up batch, and every
@@ -250,7 +258,8 @@ Phases, each of which raises (exit code != 0) when it fails:
             the split design, its grid's time in the profiler's keys, and
             the chain's time a step from its phase B over 240 and 120 MB
             columns), ``full_recon`` and
-            ``i4:chromah``, beside its plain version and its bound, the levels' copy to the
+            ``i4:chromah`` (also by phase, with the chain's floor: 3,840
+            Intra_4x4 steps a row), beside its plain version and its bound, the levels' copy to the
             host, the host entropy coding, ``CudaCavlcEncoder.encode`` with
             and without ``overlap`` and the native ``cavlc`` encoders on the
             same frames; per 4K P frame H3 (16 planes at margin 9; 4 at 5
@@ -261,7 +270,8 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
             ``overlap``; H6 (full-pel search 8, half-pel search 8,
             quarter-pel search 4, two references at full-pel search 8), H8
-            on a parts P frame and H7 on an IDR
+            on a parts P frame and H7 on an IDR (and its read-and-store
+            floor; on an ``i4:chromah`` IDR too)
             beside their plain versions and bounds, the packed bits' copy to
             the host beside the levels', the kernels of a whole P frame
             back to back (``fastsub``: H3, H4, H2, H5; ``parts``: H3, H6,
@@ -398,15 +408,17 @@ KERNELS = (
     # H1-H5: the JAX functions are XLA programs (H1's and H2's lax.scans
     # over the MB columns, H4's fori_loop over the candidates, H5's scan
     # over the anti-diagonals), not Pallas kernels.  The rows named
-    # intra_levels_kernel (H1) and p_levels_kernel (H2) keep the names of
-    # the one-grid kernels they were: each stands for the split design's
-    # three grids in h264_levels.cu (levels_split_kernel<P>,
-    # levels_chain_kernel<P>, levels_intra_kernel<P>; P false for H1, true
-    # for H2), one launch of its wrapper; H1 with i4 is still the grid
-    # intra_levels_kernel
+    # intra_levels_kernel (H1, and H1 with i4) and p_levels_kernel (H2) keep
+    # the names of the one-grid kernels they were: each stands for the split
+    # design's three grids in h264_levels.cu (levels_split_kernel<P, I4>,
+    # levels_chain_kernel<P, I4>, levels_intra_kernel<P, I4>), one launch
+    # of its wrapper
     ("intra_levels_kernel", "encode_levels",
      "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
      "opencv_opencl_tpu/ops/h264_levels.py:279"),
+    ("intra_levels_kernel:i4", "encode_levels_i4",
+     "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
+     "opencv_opencl_tpu/ops/h264_levels.py:279:i4"),
     ("p_levels_kernel", "encode_p_levels",
      "opencv_opencl_tpu_torch/csrc/h264_levels.cu",
      "opencv_opencl_tpu/ops/h264_levels.py:1487"),
@@ -440,9 +452,10 @@ OFF_PATH = ("tile_histograms_extended", "clahe_interpolate_pack",
 K2_LAUNCHES = 200
 # batches per configuration on the spawned 2x2 and 1x4 meshes
 SHARDED_BATCHES = 4
-# frames of relays (a)-(f): 32 since the apps' phase came in (48 since the
-# device encoder's checks, 64 before), each relay reads TestSource's ~3-5 fps
-RELAY_FRAMES = 32
+# frames of relays (a)-(f): 24 since the Intra_4x4 checks at 4K (32 since
+# the apps' phase came in, 48 since the device encoder's checks, 64 before),
+# each relay reads TestSource's ~3-5 fps
+RELAY_FRAMES = 24
 MULTI_STREAMS, MULTI_FRAMES = 4, 32
 # the raw RTP receiver's socket buffer: a 4K frame leaves the C++ sender
 # as one burst of ~13,000 datagrams (~30 MB of kernel buffers on loopback)
@@ -458,13 +471,13 @@ ENCODED_FPS, ENCODED_KBPS = 60.0, 20000
 ENCODED_BUFFER = 1 << 27
 ORACLE_FRAMES = 2
 ORACLE_TIMEOUT = 600.0
-# H1's check: the QPs at 4K (0 reaches the level clamp), the QP and the
-# geometry of its Intra_4x4 cases (the plain Intra_4x4 version launches
-# thousands of small ops a MB column: seconds at 1080p), the frames each
-# encoder stream check encodes, and the geometry where the Python oracle
-# holds the Intra_4x4 + chroma HORIZONTAL stream
+# H1's check: the QPs at 4K (0 reaches the level clamp), the QPs of its
+# Intra_4x4 cases (the plain Intra_4x4 version launches thousands of small
+# ops a MB column: seconds a 4K frame), the frames each encoder stream
+# check encodes, and the geometry where the Python oracle holds the
+# Intra_4x4 + chroma HORIZONTAL stream
 INTRA_QPS = (0, 30)
-INTRA_I4_QP, INTRA_I4_SHAPE = 26, (1088, 1920)
+INTRA_I4_QPS = (0, 26, 51)
 INTRA_FRAMES = 2
 INTRA_ORACLE_SHAPE = (144, 256)
 # H2-H5's checks: the search radius of relay (j) and of the 4K checks, the
@@ -1116,37 +1129,53 @@ def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
     """H1 against ``encode_levels_plain`` on the card, every output (levels,
     modes, reconstructed planes): at 4K for the default, ``chromah`` and
     ``full_recon`` at each of ``INTRA_QPS`` (on a constant frame the default
-    only), and ``i4`` (with ``full_recon``) and ``i4`` + ``chromah`` at
-    1920x1088, on structured, random and constant content, and the default
-    on mixed content (:func:`mixed_nv12`) at 4K (each of ``INTRA_QPS``) and
-    1920x1088 (QP 30); then at the small ``EDGE_SHAPES`` (640x368, one MB
-    row, one MB column, 48x32) the default, ``chromah``, ``full_recon`` and
-    both at QP 0, 30 and 51 on structured, random, constant and mixed
-    content.  Returns the largest absolute
-    difference and the kernel's launches."""
+    only) on structured, random and constant content, and the default on
+    mixed content (:func:`mixed_nv12`) at 4K (each of ``INTRA_QPS``) and
+    1920x1088 (QP 30); H1 with ``i4`` (``chromah`` and ``full_recon``) at
+    4K on mixed content at each of ``INTRA_I4_QPS``, on structured (also
+    with ``full_recon`` alone at QP 0), random and constant content at one
+    of them each, and at 1920x1088 on mixed content at QP 26; then at
+    the small ``EDGE_SHAPES`` (640x368, one MB row, one MB column, 48x32)
+    the default, ``chromah``, ``full_recon`` and both at QP 0, 30 and 51,
+    and ``i4`` with ``full_recon`` and with ``chromah`` at each of
+    ``INTRA_I4_QPS``, on the four contents.  Returns the largest absolute
+    difference of H1 and of H1 with ``i4``."""
     levels_kernel.reset_launch_counts()
+    i4_all = {"i4": True, "chromah": True, "full_recon": True}
+    i4_recon = {"i4": True, "full_recon": True}
     cases = [((HEIGHT, WIDTH), flags, qp)
              for flags in ({}, {"chromah": True}, {"full_recon": True})
              for qp in INTRA_QPS]
-    cases += [(INTRA_I4_SHAPE, flags, INTRA_I4_QP)
-              for flags in ({"i4": True, "full_recon": True},
-                            {"i4": True, "chromah": True})]
+    # i4 at 4K (the plain Intra_4x4 version takes ~7 s a frame): each
+    # content at one of INTRA_I4_QPS, mixed content at each
+    i4_4k = {"structured": [(i4_all, 26), (i4_recon, 0)], "random": [(i4_all, 0)],
+             "constant": [(i4_all, 51)]}
     small = [(shape, flags, qp) for shape in EDGE_SHAPES[1:]
              for flags in ({}, {"chromah": True}, {"full_recon": True},
                            {"chromah": True, "full_recon": True})
              for qp in (0, 30, 51)]
-    # mixed content also at 4K and 1920x1088, the default flags
-    mixed = [((HEIGHT, WIDTH), {}, qp) for qp in INTRA_QPS] + [(EDGE_SHAPES[0], {}, 30)]
-    err, checked = 0, 0
+    small += [(shape, flags, qp) for shape in EDGE_SHAPES[1:]
+              for flags in (i4_recon, {"i4": True, "chromah": True})
+              for qp in INTRA_I4_QPS]
+    # mixed content also at 4K and 1920x1088, the default flags and i4
+    mixed = ([((HEIGHT, WIDTH), {}, qp) for qp in INTRA_QPS] + [(EDGE_SHAPES[0], {}, 30)]
+             + [((HEIGHT, WIDTH), i4_all, qp) for qp in INTRA_I4_QPS]
+             + [(EDGE_SHAPES[0], i4_all, 26)])
+    err, err_i4, checked, checked_i4 = 0, 0, 0, 0
     for kind in ("structured", "random", "constant", "mixed"):
-        todo = (cases if kind != "mixed" else mixed) + small
+        todo = ((cases + [((HEIGHT, WIDTH), f, qp) for f, qp in i4_4k[kind]])
+                if kind != "mixed" else mixed) + small
         frames = {shape: torch.from_numpy(
             mixed_nv12(rng, *shape)[1] if kind == "mixed" else content_nv12(rng, kind, *shape)
         ).to(device) for shape in {c[0] for c in todo}}
         for shape, flags, qp in todo:
-            if kind == "constant" and shape == (HEIGHT, WIDTH) and flags:
+            if (kind == "constant" and shape == (HEIGHT, WIDTH) and flags
+                    and "i4" not in flags):
                 continue
-            checked += 1
+            if "i4" in flags:
+                checked_i4 += 1
+            else:
+                checked += 1
             planes = intra_planes(frames[shape], shape[0])
             t0 = time.perf_counter()
             got = intra_outputs(levels_ops.encode_levels(*planes, qp, **flags))
@@ -1154,18 +1183,25 @@ def phase_intra_levels_kernel(device, rng) -> tuple[int, int]:
             check(len(got) == len(want), f"H1 gave {len(got)} outputs, the plain "
                   f"version {len(want)}")
             e = max(max_err(a, b) for a, b in zip(got, want))
-            err = max(err, e)
+            if "i4" in flags:
+                err_i4 = max(err_i4, e)
+            else:
+                err = max(err, e)
             if shape in EDGE_SHAPES[1:] and e == 0:
                 continue
+            imode = got[7 if "full_recon" in flags else 4]
+            i4_mbs = f", {int((imode == 0).sum())} Intra_4x4 MBs" if "i4" in flags else ""
             print(f"kernel intra_levels_kernel {shape[1]}x{shape[0]} {kind} qp {qp} "
                   f"{'+'.join(flags) or 'default'}: max abs err {e} over {len(got)} "
-                  f"outputs ({time.perf_counter() - t0:.1f} s with the plain "
+                  f"outputs{i4_mbs} ({time.perf_counter() - t0:.1f} s with the plain "
                   f"version)", flush=True)
     print(f"kernel intra_levels_kernel at {', '.join(f'{w}x{h}' for h, w in EDGE_SHAPES[1:])}: "
-          f"{len(small) * 4} checks, max abs err {err} so far", flush=True)
-    launches = levels_kernel.launch_counts()["encode_levels"]
-    check(launches == checked, f"H1 launched {launches} times for {checked} checks")
-    return err, launches
+          f"{len(small) * 4} checks, max abs err {max(err, err_i4)} so far", flush=True)
+    counts = levels_kernel.launch_counts()
+    check(counts["encode_levels"] == checked and counts["encode_levels_i4"] == checked_i4,
+          f"H1 launched {counts['encode_levels']} times for {checked} checks, with i4 "
+          f"{counts['encode_levels_i4']} for {checked_i4}")
+    return err, err_i4
 
 
 def au_of(nals: list[bytes], parameter_sets: CavlcH264Encoder) -> bytes:
@@ -1553,7 +1589,7 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
     before it) at QP 30 at full-pel search 8 and with two references at
     quarter-pel search 3, and H5 on the second frame's own quadrant fields; H7 on
     H1's levels (default, and ``i4`` + ``chromah``) at 64 words an MB and at
-    ``CAP_NW_MB``; H8 on H2's levels: zero motion, ``fastsub`` at search 8
+    ``CAP_NW_MB``, at 4K and at each of ``EDGE_SHAPES`` on mixed content; H8 on H2's levels: zero motion, ``fastsub`` at search 8
     with one and two references, and both partitioned frames, at 64 words
     and one at ``CAP_NW_MB``.  For a packer, equal words over every word
     and equal bit counts.  Then H5 on the quadrant fields of a partitioned
@@ -1658,6 +1694,20 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
             want, secs = timed(lambda: bitpack_ops.pack_i_mbs_plain(*lv, imode, nw, **ex))
             got = bitpack_ops.pack_i_mbs(*lv, imode, nw, **ex)
             compare("pack_i_kernel", label, packed(got), packed(want), secs)
+    # H7 at the edge geometries: rows of one MB, of 40 (runs of 16, 16 and
+    # 8), one MB row, one MB column
+    for eh, ew in EDGE_SHAPES:
+        eframe = torch.from_numpy(mixed_nv12(rng, eh, ew)[1]).to(device)
+        for flags in ({}, {"i4": True, "chromah": True}):
+            lv, imode, *extra = levels_kernel.encode_levels(*intra_planes(eframe, eh), 30,
+                                                            **flags)
+            ex = dict(zip(["i4modes"] * ("i4" in flags) + ["cmode"] * ("chromah" in flags),
+                          extra))
+            for nw in (64, CAP_NW_MB):
+                label = f"{ew}x{eh} mixed {'+'.join(flags) or 'default'} {nw} words"
+                want, secs = timed(lambda: bitpack_ops.pack_i_mbs_plain(*lv, imode, nw, **ex))
+                got = bitpack_ops.pack_i_mbs(*lv, imode, nw, **ex)
+                compare("pack_i_kernel", label, packed(got), packed(want), secs)
     counts = {**levels_kernel.launch_counts(), **inter_kernel.launch_counts(),
               **deblock_kernel.launch_counts(), **bitpack_kernel.launch_counts()}
     check(all(counts[k] > 0 for k in ("motion_search_parts", "encode_p_levels",
@@ -3038,7 +3088,7 @@ def free_udp_port() -> int:
 
 def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
                   tmp: str, sources: dict | None = None) -> tuple[float, dict]:
-    """Configurations (g) to (k): CLAHE passthrough to
+    """Configurations (g) to (k) and (p): CLAHE passthrough to
     ``rtp+h264://127.0.0.1:<port>`` with ``--encoder=<spec>``, at 4K batch 4,
     each frame enhanced by K1, K2 and K3 on the card, then encoded on the
     host ((g) ``cavlc``, (h) ``pcm``), by H1 on the card and entropy-coded
@@ -3047,7 +3097,8 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     host), or by the GOP encoder with the partition modes and the bit packer
     ((k) ``tpu:gop=30:...:parts:deblock:bitpack``: H1 and H7 on the IDR,
     H3, H6, H2, H5 and H8 on each P frame, the host assembling the packed
-    bits).  (g), (i), (j) and (k) are received by the port's ``rtp_receiver`` app
+    bits), or by H1 with ``i4`` and H7 on the card ((p)
+    ``tpu:i4:chromah:bitpack``).  (g) and (i)-(k), (p) are received by the port's ``rtp_receiver`` app
     in a child process, which must record every access unit; (h) by an
     ``H26xRtpReceiver`` thread, which counts what it loses.  The sink's
     encoder is watched: each frame it takes must be one of the expected
@@ -3055,6 +3106,7 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     encoder of the same spec makes from those expected frames ((i): a new
     ``CavlcH264Encoder(slices=mb_h)`` on the native rows, the host oracle of
     the device encoder; (j), (k): a new ``CudaGopEncoder`` of the same spec;
+    (p): a new ``tpu:i4:chromah`` encoder, without the packer;
     rate control is the same).
 
     With ``sources`` (the ``TestSource`` frames' fingerprints, by index)
@@ -3190,8 +3242,11 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     if by_app:
         check(native.available() and native.has_cavlc(),
               f"{label}: the native CAVLC rows did not build: {native.build_error()}")
-        check(getattr(enc, "_intra", enc)._native and not enc.i4 and not enc.chromah,
-              f"{label}: the sink's encoder is not on the native CAVLC rows")
+        intra4 = ":i4" in spec
+        check(getattr(enc, "_intra", enc)._native and enc.i4 == intra4
+              and enc.chromah == intra4,
+              f"{label}: the sink's encoder is not on the native CAVLC rows, or not "
+              f"with the spec's i4 and chromah")
     if fused:
         # the warm-up batch of zero frames first, then the source frames
         check(len(steps) > 1 and all(k == -1 for k in steps[0][1]),
@@ -3242,13 +3297,15 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     elif device_encoder:
         check(isinstance(enc, CudaCavlcEncoder) and enc.device.type == "cuda",
               f"{label}: the sink's encoder {type(enc).__name__} is not on the card")
-        # fused: H1 (and H7) once a batch, warm-up included
+        # fused: H1 (and H7) once a batch, warm-up included; i4: H1 with i4
         launched = len(steps) if fused else len(encode_s)
-        check(counts["encode_levels"] == launched > 0
+        h1, other = (("encode_levels_i4", "encode_levels") if enc.i4
+                     else ("encode_levels", "encode_levels_i4"))
+        check(counts[h1] == launched > 0 and counts[other] == 0
               and counts["pack_i_mbs"] == (launched if enc._bitpack else 0),
-              f"{label}: H1 launched {counts['encode_levels']} times, H7 "
+              f"{label}: H1 launched {counts[h1]} times ({other} {counts[other]}), H7 "
               f"{counts['pack_i_mbs']}, for {launched} {'batches' if fused else 'frames'}")
-        print(f"{label}: launches H1 {counts['encode_levels']}, H7 "
+        print(f"{label}: launches H1{' with i4' if enc.i4 else ''} {counts[h1]}, H7 "
               f"{counts['pack_i_mbs']} for {len(encode_s)} frames in {launched} "
               f"{'batches' if fused else 'frames'}; frames over the bit packer's cap "
               f"{enc._bits_overflows}", flush=True)
@@ -3273,6 +3330,13 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
         ref = encoder_io.make_encoder(kwargs["backend"], w, h, fps=kwargs["fps"],
                                       bitrate_kbps=kwargs["bitrate_kbps"],
                                       device="cuda")
+    elif device_encoder and enc.i4:
+        # the device encoder without the packer: H1 with i4 on the card,
+        # entropy coding on the native rows (its host oracle is the Python
+        # encoder, minutes a 4K frame: phase 3 holds it)
+        ref = encoder_io.make_encoder(kwargs["backend"].replace(":bitpack", ""), w, h,
+                                      fps=kwargs["fps"],
+                                      bitrate_kbps=kwargs["bitrate_kbps"], device="cuda")
     elif device_encoder:
         ref = CavlcH264Encoder(w, h, qp=30, bitrate_kbps=kwargs["bitrate_kbps"],
                                fps=kwargs["fps"], slices=-(-h // 16),
@@ -3328,7 +3392,7 @@ def phase_relay_paths(device, card: str, h=HEIGHT, w=WIDTH):
 
 
 def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
-    """Relays (a) to (h) and the two multi-stream runs; ``want`` holds the
+    """Relays (a) to (m) and (p), and the two multi-stream runs; ``want`` holds the
     frames the CLAHE configurations must give, ``oracle`` is the Python
     CAVLC oracle's child process, which writes ``oracle_out``."""
     base = ["--source=test", f"--width={w}", f"--height={h}", f"--batch={BATCH}",
@@ -3388,19 +3452,23 @@ def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
                   ("tile_histograms", "build_luts", "clahe_interpolate")),
               f"{name} launched no K1, K2 or K3: {per_path[name]}")
 
-    # (g) to (k): the encoded RTP sinks, CAVLC on the native C++ rows
-    # and lossless I_PCM, encoded on the host after K1, K2 and K3 on the
-    # card, the device intra encoder (H1 on the card, entropy coding on the
-    # native rows), the device GOP encoder (H1 on the IDR; H3, H4, H2
-    # and H5 on the P frames), and the GOP encoder with the partition modes
+    # (g) to (k) and (p): the encoded RTP sinks, CAVLC on the native C++
+    # rows and lossless I_PCM, encoded on the host after K1, K2 and K3 on
+    # the card, the device intra encoder (H1 on the card, entropy coding on
+    # the native rows), the device GOP encoder (H1 on the IDR; H3, H4, H2
+    # and H5 on the P frames), the GOP encoder with the partition modes
     # and the bit packer (H1 and H7 on the IDR; H3, H6, H2, H5 and H8 on the
-    # P frames; the host assembles the packed bits)
+    # P frames; the host assembles the packed bits), and the intra encoder
+    # with Intra_4x4, chroma HORIZONTAL and the bit packer (H1 with i4 and
+    # H7 a frame)
     encoded = {}
     for name, spec in (("relay_g_clahe_rtp_h264_cavlc", "cavlc"),
                        ("relay_h_clahe_rtp_h264_pcm", "pcm"),
                        ("relay_i_clahe_rtp_h264_tpu", "tpu"),
                        ("relay_j_clahe_rtp_h264_tpu_gop", GOP_SPEC),
-                       ("relay_k_clahe_rtp_h264_tpu_gop_parts_bitpack", PARTS_SPEC)):
+                       ("relay_k_clahe_rtp_h264_tpu_gop_parts_bitpack", PARTS_SPEC),
+                       ("relay_p_clahe_rtp_h264_tpu_i4_chromah_bitpack",
+                        "tpu:i4:chromah:bitpack")):
         rates[name], encoded[name] = encoded_relay(w, h, want, spec, name, tmp)
         per_path[name] = encoded[name]["counts"]
         print(f"time {name} 4K b{BATCH}: Shutdown {rates[name]:.1f} fps, "
@@ -3896,26 +3964,28 @@ def intra_ops(mb_h: int, mb_w: int, i4: bool = False, chromah: bool = False) -> 
 SPLIT_GRIDS = ("levels_split_kernel", "levels_chain_kernel", "levels_intra_kernel")
 
 
-def split_phases(label: str, call, half_call, cols: int, card: str) -> None:
+def split_phases(label: str, call, half_call, cols: int, card: str, steps: int = 1) -> None:
     """The split design's phases, each its grid's device time in
     torch.profiler's keys of an ordinary ``call``, and the chain's floor:
     phase B of ``call`` over the frame's ``cols`` MB columns and of
     ``half_call`` over its left half, whose difference over the columns
-    between is the time a step of the chain takes."""
+    between is the time an MB of the chain takes; with ``i4`` an MB is
+    ``steps`` (16) dependent Intra_4x4 steps after the I_16x16 one."""
     whole = profile_keys(call)
     ms = [sum(us for key, us in whole.items() if grid in key) / 1e3 for grid in SPLIT_GRIDS]
     b_half = profile_us(half_call, SPLIT_GRIDS[1]) / 1e3
     step = (ms[1] - b_half) / (cols - cols // 2)
+    per = f" an MB, {1e3 * step / steps:.3f} us a sub-block step" if steps > 1 else " a step"
     print(f"time {label} by phase (profiler): A {ms[0]:.4f}, B {ms[1]:.4f}, C {ms[2]:.4f} "
           f"ms; the chain's floor: B {ms[1]:.4f} ms over {cols} MB columns, {b_half:.4f} "
-          f"over {cols // 2}: {1e3 * step:.3f} us a step, {cols} x step "
+          f"over {cols // 2}: {1e3 * step:.3f} us{per}, {cols} x step "
           f"{cols * step:.4f} ms [{card}]", flush=True)
 
 
 def intra_timings(device, rng, card: str) -> dict[str, dict]:
-    """H1 per 4K frame (device alone), default (also by phase, with the
-    chain's floor: :func:`split_phases`), ``full_recon`` and
-    ``i4:chromah``, beside the plain version and the bound; the levels' copy to pinned host
+    """H1 per 4K frame (device alone), default and ``i4:chromah`` (also by
+    phase, with the chain's floor: :func:`split_phases`), ``full_recon``,
+    beside the plain version and the bound; the levels' copy to pinned host
     memory; the host entropy coding on the native rows (every host thread);
     ``CudaCavlcEncoder.encode`` with and without ``overlap``; and the native
     ``cavlc`` encoder on the same frames, on one core (relay (g)'s) and on
@@ -3938,7 +4008,23 @@ def intra_timings(device, rng, card: str) -> dict[str, dict]:
         print(f"time intra_levels_kernel 4K {label}: {ms:.4f} ms on the device "
               f"(bound {bound_ms:.4f} ms by {bound_by}: {moved} bytes, "
               f"{intra_ops(mb_h, mb_w, **flags)} operations) [{card}]", flush=True)
-        if not flags:
+        if flags:
+            # the chain with the Intra_4x4 trial: 16 sub-blocks an MB
+            half = tuple(p[:, :p.shape[1] // 2] for p in planes)
+            half_out = torch.empty(levels_kernel.level_words(mb_h, mb_w // 2, **flags),
+                                   dtype=torch.int16, device=device)
+            split_phases(f"intra_levels_kernel 4K {label}",
+                         lambda: levels_kernel.intra_levels(*planes, 30, out, **flags),
+                         lambda: levels_kernel.intra_levels(*half, 30, half_out, **flags),
+                         mb_w, card, steps=16)
+            plain_ms = time_ms(lambda: levels_ops.encode_levels_plain(*planes, 30, **flags),
+                               reps=1, warmup=0)
+            times["intra_levels_kernel:i4"] = {"ms": ms, "plain_ms": plain_ms,
+                                               "library_ms": None, "bound_ms": bound_ms,
+                                               "bound_by": bound_by}
+            print(f"time intra_levels_kernel plain version 4K {label}: {plain_ms:.1f} ms "
+                  f"[{card}]", flush=True)
+        else:
             half = tuple(p[:, :p.shape[1] // 2] for p in planes)
             half_out = torch.empty(levels_kernel.level_words(mb_h, mb_w // 2),
                                    dtype=torch.int16, device=device)
@@ -4233,11 +4319,29 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     levels_kernel.intra_levels(*src, 30, iout)
     iv = levels_kernel.split_levels(iout, mb_h, mb_w)
     ilv = (iv["zdc"], iv["acz"], iv["czdc"], iv["cacz"], iv["imode"])
+    floor = device_ms(lambda: bitpack_kernel.pack_i_floor_into(*ilv, words, nbits))
     ms = device_ms(lambda: bitpack_kernel.pack_i_into(*ilv, words, nbits))
     plain = time_ms(lambda: bitpack_ops.pack_i_mbs_plain(*ilv, 64), reps=1, warmup=1)
     record("pack_i_kernel", ms, plain, nbytes(iout, words, nbits),
            pack_ops(iout.numel()), f"(an IDR of the moving content, "
-           f"{int(nbits.sum())} bits)")
+           f"{int(nbits.sum())} bits; {bitpack_kernel.pack_plan(mb_h, mb_w)['run']} MBs "
+           f"a warp)")
+    print(f"time pack_i_kernel 4K read-and-store floor (the same loads and stores, no "
+          f"tokens): {floor:.4f} ms on the device [{card}]", flush=True)
+    # H7 on an i4:chromah IDR of the same frame
+    iout4 = torch.empty(levels_kernel.level_words(mb_h, mb_w, True, True),
+                        dtype=torch.int16, device=device)
+    levels_kernel.intra_levels(*src, 30, iout4, i4=True, chromah=True)
+    iv4 = levels_kernel.split_levels(iout4, mb_h, mb_w, True, True)
+    ilv4 = (iv4["zdc"], iv4["acz"], iv4["czdc"], iv4["cacz"], iv4["imode"])
+    ex4 = dict(i4modes=iv4["i4modes"], cmode=iv4["cmode"])
+    floor4 = device_ms(lambda: bitpack_kernel.pack_i_floor_into(*ilv4, words, nbits, **ex4))
+    ms4 = device_ms(lambda: bitpack_kernel.pack_i_into(*ilv4, words, nbits, **ex4))
+    bound4, by4 = bound(nbytes(iout4, words, nbits), pack_ops(iout4.numel()))
+    print(f"time pack_i_kernel 4K i4:chromah IDR of the moving content "
+          f"({int(nbits.sum())} bits, {int((iv4['imode'] == 0).sum())} Intra_4x4 MBs): "
+          f"{ms4:.4f} ms on the device, read-and-store floor {floor4:.4f} ms (bound "
+          f"{bound4:.4f} ms by {by4}) [{card}]", flush=True)
     host_words = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
     host_nbits = torch.empty(nbits.shape, dtype=nbits.dtype, pin_memory=True)
     host_mode = torch.empty(fields["mode"].shape, dtype=torch.int16, pin_memory=True)
@@ -4438,8 +4542,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}",
           flush=True)
     for line in _build.ptxas_report(("interp_kernel", "build_luts_kernel",
-                                     "tile_hist_kernel", "intra_levels_kernel",
-                                     "levels_split_kernel", "levels_chain_kernel",
+                                     "tile_hist_kernel", "levels_split_kernel", "levels_chain_kernel",
                                      "levels_intra_kernel", "subpel_planes_kernel",
                                      "subpel_floor_kernel",
                                      "motion_search_kernel", "deblock_kernel",
@@ -4474,7 +4577,8 @@ def main() -> int:
     errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
                                    band_errs.pop("tile_hist_kernel"))
     errs.update(band_errs)
-    errs["intra_levels_kernel"], _ = phase_intra_levels_kernel(device, rng)
+    errs["intra_levels_kernel"], errs["intra_levels_kernel:i4"] = \
+        phase_intra_levels_kernel(device, rng)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gop_") as tmp, \
             gop_oracles(tmp) as oracles:
         errs.update(phase_p_kernels(device, rng))

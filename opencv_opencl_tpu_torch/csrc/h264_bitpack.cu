@@ -30,21 +30,38 @@
 // int16 levels (26.5 MB) and writes 64 words and a count a MB (8.3 MB):
 // about 35 MB, 0.0104 ms at 3.35 TB/s; H8 reads H2's 824 bytes a MB (844
 // with the partition fields, ~27.5 MB) and writes the same, 0.0107 ms.
-// What really bounds this simple design is the serial token loop of a
-// lane (up to 34 tokens a block, data-dependent branches) and the
-// divergence between the lanes of a warp.  Design: one warp per MB, four
-// MBs a block of 128 threads.  The lanes first count the nonzero levels of
-// the MB's 16 luma and 8 chroma blocks and of the left MB's blocks that
-// border it (shared memory), from which every lane derives the cbp and
-// its block's nC; then lane k writes piece k (0 the header, 1 the luma DC,
-// 2..17 the luma blocks, 18..19 chroma DC, 20..27 chroma AC) into its own
-// bit buffer in shared memory; an exclusive warp scan of the piece lengths
-// places the pieces, and the lanes OR their words, shifted, into the MB's
-// output words in shared memory (atomicOr: two pieces may share a word),
-// which the warp then stores.  The VLC tables come once a launch from the
-// device table the wrapper uploads (built on the host from the port's
-// io/h264_cavlc.py dicts) into shared memory.  Several MBs a warp and
-// fewer branches are for a later change.
+// Both are a warp per MB that counts the nonzero levels of the MB's 16 luma
+// and 8 chroma blocks and of the left MB's blocks beside it, from which
+// every lane derives the cbp and its block's nC; then lane k writes piece k
+// (0 the header, 1 the luma DC, 2..17 the luma blocks in bitstream order,
+// 18..19 chroma DC, 20..27 chroma AC); an exclusive warp scan of the piece
+// lengths places the pieces.
+//
+// H7 (pack_i_kernel): a warp walks a run of MBs of one row (the wrapper's
+// pack_plan: 16 at 4K), four warps a block, the VLC table staged into
+// shared memory once a block.  An MB's levels are loaded once, in 16-byte
+// units (a lane a unit of acz; 16 lanes cacz, the rest zdc and czdc), into
+// a per-warp copy in shared memory; the counts come from the registers
+// (the halves of a block on two lanes, a shuffle), the left MB's from the
+// previous MB of the run (the run starts one MB early, counting only).  The
+// 16 Intra_4x4 mode tokens are a lane's each (lanes 0-15, against the
+// predicted mode from shuffles), placed by a scan of their lengths and
+// OR-reduced into 64 bits for lane 0's header.  A residual lane reads its
+// block (two 16-byte loads), orders it by the zigzag in registers and
+// codes it in three unrolled passes over the 16 positions (the trailing
+// ones, the levels with their suffixLength, total_zeros and the runs),
+// writing tokens through a 64-bit register that stores each full word into
+// its piece in shared memory: no zeroed buffer, no read-modify-write.  Each
+// lane then builds output words lane, lane + 32, ... from the pieces that
+// cover them (the first by a binary search over the starts) and stores
+// them: no atomics.  pack_i_kernel<true> is its read-and-store floor (the
+// same loads and stores, no tokens).
+//
+// H8 (pack_p_kernel), not yet redesigned: four MBs a block of 128 threads,
+// the VLC table staged a block; each lane reads its block's levels from
+// device memory in residual_piece, writes piece k into a zeroed bit buffer
+// in shared memory, and the lanes OR their words into the MB's output words
+// (atomicOr: two pieces may share a word), which the warp then stores.
 //
 // All arithmetic is int32 / uint32 and exact; `>>` of a signed int is
 // arithmetic.  The launchers are extern "C", launch on the stream they are
@@ -68,9 +85,6 @@ constexpr int kVlcSize = 1328;
 __constant__ int kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
 // the luma blocks' bitstream order as raster indices by * 4 + bx
 __constant__ int kLumaScan[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
-// the z-scan index of raster block [by * 4 + bx], and the reverse (the
-// same permutation)
-__constant__ int kZOfRaster[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};
 
 // an MSB-first bit writer over zeroed words
 struct Bits {
@@ -291,71 +305,404 @@ __device__ __forceinline__ void stage_vlc(int* dst, const int* __restrict__ vlc)
     for (int i = threadIdx.x; i < kVlcSize; i += kThreads) dst[i] = vlc[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// H7's design: a warp walks a run of MBs of one row (ops/cuda/h264_bitpack
+// .pack_plan), kPackWarps warps a block, the VLC table staged once a block.
+constexpr int kPackWarps = 4;
+constexpr int kPackThreads = 32 * kPackWarps;
+constexpr int kPieceStride = 23;   // words of a lane's piece (21) and the reader's spill, odd
+// a warp's MB in shared memory, in 16-byte units: acz (32), cacz (16), zdc
+// (2), czdc (1)
+constexpr int kUnitCacz = 32, kUnitZdc = 48, kUnitCzdc = 50, kUnits = 51;
+constexpr unsigned kFull = 0xffffffffu;
+// the zigzag scan (kZigzag) as nibbles, folded at compile time in unrolled loops
+__host__ __device__ constexpr int zig(int k) { return (int)((0xfeb7adc963258410ull >> (4 * k)) & 15); }
+// the z-scan index of luma block (bx, by)
+__device__ __forceinline__ int z_index(int bx, int by) {
+    return (bx & 1) | ((by & 1) << 1) | ((bx & 2) << 1) | ((by & 2) << 2);
+}
+
+// an MSB-first bit writer in a register that stores each full word to `w`
+struct RegBits {
+    uint32_t* w;
+    unsigned long long acc;
+    int n, pos, wi;
+    __device__ void put(uint32_t v, int len) {
+        v &= len >= 32 ? 0xffffffffu : ((1u << len) - 1u);
+        acc = (acc << len) | v;
+        n += len;
+        pos += len;
+        if (n >= 32) {
+            n -= 32;
+            w[wi++] = (uint32_t)(acc >> n);
+        }
+    }
+    __device__ void ue(int v) {
+        const unsigned code = (unsigned)v + 1u;
+        const int nbits = 32 - __clz(code);
+        put(code, 2 * nbits - 1);
+    }
+    __device__ void flush() {
+        if (n > 0) w[wi++] = (uint32_t)(acc << (32 - n));
+    }
+};
+
+// one residual block (spec 9.2), block_bits's tokens: `lv` its levels in
+// scan order (zeros past its C coefficients) in registers, `src` the same
+// levels in shared memory, position p at src[raster(p)]; the trailing ones
+// from the top three bits of the nonzero mask, then the other levels and
+// the runs by walking the mask's bits down, each token's value and length
+// chosen without a branch
+template <class Raster>
+__device__ void block_regs(RegBits& b, const int (&lv)[16], const int16_t* src, Raster raster,
+                           int nc, bool cdc, int max_coeffs, const int* vlc) {
+    unsigned nzm = 0, ones = 0, neg = 0;
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+        nzm |= (unsigned)(lv[p] != 0) << p;
+        ones |= (unsigned)(abs(lv[p]) == 1) << p;
+        neg |= (unsigned)(lv[p] < 0) << p;
+    }
+    const int total = __popc(nzm);
+    // the trailing ones and their signs, high frequency first
+    int t1s = 0;
+    unsigned signs = 0, rest = nzm;
+    bool run1 = true;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const int p = 31 - __clz(rest);
+        run1 = run1 && rest != 0 && ((ones >> p) & 1);
+        if (run1) {
+            ++t1s;
+            signs = (signs << 1) | ((neg >> p) & 1);
+            rest ^= 1u << p;
+        }
+    }
+    if (cdc) {
+        b.put(vlc[kCdcCode + total * 4 + t1s], vlc[kCdcLen + total * 4 + t1s]);
+    } else if (nc >= 8) {
+        b.put(total == 0 ? 3 : ((total - 1) << 2) | t1s, 6);
+    } else {
+        const int k = ((nc < 2 ? 0 : nc < 4 ? 1 : 2) * 17 + total) * 4 + t1s;
+        b.put(vlc[kCtCode + k], vlc[kCtLen + k]);
+    }
+    b.put(signs, t1s);
+    // the other levels, r their index among the nonzero ones
+    int sl = (total > 10 && t1s < 3) ? 1 : 0;
+    for (int r = t1s; rest != 0; ++r) {
+        const int p = 31 - __clz(rest);
+        rest ^= 1u << p;
+        const int c = src[raster(p)];
+        int lc = c > 0 ? 2 * c - 2 : -2 * c - 1;
+        if (r == t1s && t1s < 3) lc -= 2;
+        const int prefix = lc >> sl;
+        const bool esc = sl == 0 ? lc >= 30 : prefix >= 15;
+        const unsigned plain0 = lc >= 14 ? (1u << 4) | (unsigned)(lc - 14) : 1u;
+        const unsigned plain = sl == 0 ? plain0 : (1u << sl) | (unsigned)(lc & ((1 << sl) - 1));
+        const int len0 = lc >= 14 ? 19 : lc + 1;
+        b.put(esc ? (1u << 12) | (unsigned)(lc - (sl == 0 ? 30 : 15 << sl)) : plain,
+              esc ? 28 : sl == 0 ? len0 : prefix + 1 + sl);
+        int sl2 = sl == 0 ? 1 : sl;
+        if (abs(c) > (3 << (sl2 - 1)) && sl2 < 6) ++sl2;
+        sl = sl2;
+    }
+    // total_zeros, then run_before below each nonzero level but the last
+    if (total > 0 && total < max_coeffs) {
+        const int top = 31 - __clz(nzm);
+        const int tz = top + 1 - total;
+        if (cdc) {
+            const int k = min(total, 3) * 4 + min(max(tz, 0), 3);
+            b.put(vlc[kTzcCode + k], vlc[kTzcLen + k]);
+        } else {
+            const int k = min(total, 15) * 16 + min(max(tz, 0), 15);
+            b.put(vlc[kTzCode + k], vlc[kTzLen + k]);
+        }
+        int zl = tz, prev = top;
+        rest = nzm ^ (1u << top);
+        for (int r = 0; rest != 0 && zl > 0 && r < 14; ++r) {
+            const int p = 31 - __clz(rest);
+            rest ^= 1u << p;
+            const int run = min(max(prev - p - 1, 0), 14);
+            const int k = min(zl, 7) * 15 + run;
+            b.put(vlc[kRbCode + k], vlc[kRbLen + k]);
+            zl -= run;
+            prev = p;
+        }
+    }
+}
+
+// 16 int16 of two 16-byte units
+__device__ __forceinline__ void unpack16(uint4 a, uint4 c, int* r) {
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        r[2 * k] = (int)(short)(w[k] & 0xffffu);
+        r[2 * k + 1] = (int)(w[k]) >> 16;
+    }
+}
+
+// a unit of 8 int16 levels from device memory (16-byte loads where `vec`)
+__device__ __forceinline__ uint4 load_unit(const int16_t* __restrict__ p, bool vec) {
+    if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        w[k] = ((uint32_t)(uint16_t)p[2 * k]) | ((uint32_t)(uint16_t)p[2 * k + 1] << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ int nz8(uint4 u) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c += ((w[k] & 0xffffu) != 0) + ((w[k] >> 16) != 0);
+    return c;
+}
+
+// a lane's piece (0 the header, 1 the luma DC, 2..17 the luma blocks in
+// bitstream order, 18..19 chroma DC, 20..27 chroma AC, 28..31 none) and
+// its block's place: the units it reads, its grid (4 luma, 2 chroma), its
+// (bx, by), the index of its block, the left MB's block beside it and the
+// block above in their grids' count lanes
+struct PieceRole {
+    int kind, u0, u1, bx, by, quad, left, above, comp;
+    __device__ explicit PieceRole(int lane) {
+        kind = lane == 0 ? 0 : lane == 1 ? 1 : lane < 18 ? 2 : lane < 20 ? 3 : lane < 28 ? 4 : 5;
+        bx = by = comp = 0;
+        int blk = 0;
+        if (kind == 2) {
+            // kLumaScan: bitstream order -> raster
+            const int i = lane - 2;
+            bx = (i & 1) | ((i >> 1) & 2);
+            by = ((i >> 1) & 1) | ((i >> 2) & 2);
+            blk = by * 4 + bx;
+            u0 = 2 * blk;
+            left = bx > 0 ? blk - 1 : by * 4 + 3;
+            above = blk - 4;
+        } else if (kind == 4) {
+            comp = (lane - 20) >> 2;
+            const int cb = (lane - 20) & 3;
+            bx = cb & 1;
+            by = cb >> 1;
+            blk = comp * 4 + cb;
+            u0 = kUnitCacz + 2 * blk;
+            left = bx > 0 ? blk - 1 : comp * 4 + by * 2 + 1;
+            above = blk - 2;
+        } else if (kind == 1) {
+            u0 = kUnitZdc;
+            left = 3;          // the left MB's block (0, 3)
+            above = 0;
+        } else {
+            u0 = kind == 3 ? kUnitCzdc : 0;
+            left = above = 0;
+            comp = lane - 18;
+        }
+        u1 = kind == 3 ? u0 : u0 + 1;
+        quad = (bx >> 1) + 2 * (by >> 1);
+    }
+};
+
+// H7.  With kFloor the same loads and stores and no tokens (zero words and
+// counts): the kernel's read-and-store floor
+template <bool kFloor>
+__global__ void __launch_bounds__(kPackThreads)
 pack_i_kernel(Levels L, const int16_t* __restrict__ imode,
               const int16_t* __restrict__ i4modes, const int16_t* __restrict__ cmode,
-              int mb_h, int mb_w, const int* __restrict__ vlc_g, int nw,
+              int mb_h, int mb_w, int run, const int* __restrict__ vlc_g, int nw, int vec,
               uint32_t* __restrict__ words, int* __restrict__ nbits) {
     __shared__ int vlc[kVlcSize];
-    __shared__ Mb ms[kWarps];
-    __shared__ uint32_t piece[kWarps][32][kPieceWords];
-    extern __shared__ uint32_t outs[];
-    stage_vlc(vlc, vlc_g);
+    __shared__ uint4 mbl[kPackWarps][kUnits];
+    __shared__ uint32_t piece[kPackWarps][32 * kPieceStride];
+    __shared__ int starts[kPackWarps][32];
+    for (int i = threadIdx.x; i < kVlcSize; i += kPackThreads) vlc[i] = vlc_g[i];
     __syncthreads();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const long long mb = (long long)blockIdx.x * kWarps + warp;
-    if (mb >= (long long)mb_h * mb_w) return;
-    const int mbx = (int)(mb % mb_w);
-    Mb& s = ms[warp];
-    count_blocks(s, lane, mb, mbx > 0, L, true, true);
-    __syncwarp();
-    int quad[4], any_luma, cbp_chroma;
-    summary(s, quad, any_luma, cbp_chroma);
-    const bool i4 = i4modes != nullptr && imode[mb] == 0;
-
-    uint32_t* buf = piece[warp][lane];
-    for (int j = 0; j < kPieceWords; ++j) buf[j] = 0u;
-    Bits b{buf, 0};
-    if (lane == 0) {
+    const int runs = (mb_w + run - 1) / run;
+    const long long gw = (long long)blockIdx.x * kPackWarps + warp;
+    if (gw >= (long long)mb_h * runs) return;        // the whole warp
+    const int mby = (int)(gw / runs), x0 = (int)(gw % runs) * run;
+    const int x1 = min(mb_w, x0 + run);
+    const PieceRole role(lane);
+    uint4* sm = mbl[warp];
+    uint32_t* mine = piece[warp] + lane * kPieceStride;
+    int* st = starts[warp];
+    // the previous MB's counts (lane 2b: luma block b in bits 0-7, chroma
+    // block b in 8-15), Intra_4x4 modes (lane z: mode z) and its type
+    int prevc = 0, prevm = 2;
+    bool prev_i4 = false;
+    // from the MB left of the run: its counts and modes, no tokens
+    for (int mbx = x0 > 0 ? x0 - 1 : 0; mbx < x1; ++mbx) {
+        const long long mb = (long long)mby * mb_w + mbx;
+        const bool warm = mbx < x0;
+        // ---- the MB's levels, loaded once: 16-byte units into shared memory
+        const uint4 ua = load_unit(L.acz + mb * 256 + 8 * lane, vec);
+        const uint4 uc = lane < 16 ? load_unit(L.cacz + mb * 128 + 8 * lane, vec)
+                                   : lane < 18 ? load_unit(L.zdc + mb * 16 + 8 * (lane - 16), vec)
+                                   : lane == 18 ? load_unit(L.czdc + mb * 8, vec)
+                                                : make_uint4(0, 0, 0, 0);
+        const int md = imode[mb];
+        const bool i4 = i4modes != nullptr && md == 0;
+        const int zmode = i4modes != nullptr ? i4modes[mb * 16 + (lane & 15)] : 2;
         const int cm = cmode != nullptr ? cmode[mb] : 0;
-        if (i4) {
-            const int16_t* zm = i4modes + mb * 16;
-            const bool left_i4 = mbx > 0 && imode[mb - 1] == 0;
-            b.put(1u, 1);                              // mb_type I_NxN, ue(0)
-            for (int z = 0; z < 16; ++z) {
-                const int r = kZOfRaster[z], bx = r & 3, by = r >> 2;   // z -> raster
-                int predm = 2;
-                if (by > 0) {
-                    const int top = zm[kZOfRaster[(by - 1) * 4 + bx]];
-                    if (bx > 0) {
-                        predm = min(zm[kZOfRaster[by * 4 + bx - 1]], top);
-                    } else if (mbx > 0) {
-                        const int la = left_i4 ? i4modes[(mb - 1) * 16 + kZOfRaster[by * 4 + 3]]
-                                               : 2;
-                        predm = min(la, top);
-                    }
+        sm[lane] = ua;
+        if (lane < 19) sm[lane < 16 ? kUnitCacz + lane : kUnitZdc + lane - 16] = uc;
+        __syncwarp();
+        if (kFloor) {
+            if (!warm) {
+                for (int j = lane; j < nw; j += 32) {
+                    const uint4 u = sm[j % kUnits];
+                    words[mb * nw + j] = u.x ^ u.y ^ u.z ^ u.w ^ (uint32_t)(md + zmode + cm);
                 }
-                const int m = zm[z];
-                if (m == predm) b.put(1u, 1);
-                else b.put((unsigned)(m < predm ? m : m - 1), 4);
+                if (lane == 0) nbits[mb] = 0;
             }
-            b.ue(cm);
-            const int cbp4 = quad[0] | (quad[1] << 1) | (quad[2] << 2) | (quad[3] << 3)
-                             | (cbp_chroma << 4);
-            b.ue(vlc[kCbpIntra + cbp4]);
-            if (cbp4 != 0) b.put(1u, 1);               // mb_qp_delta se(0)
-        } else {
-            b.ue(1 + imode[mb] + 4 * cbp_chroma + 12 * any_luma);
-            b.ue(cm);
-            b.put(1u, 1);
+            __syncwarp();
+            continue;
         }
-    } else {
-        const int g_i16[4] = {any_luma, any_luma, any_luma, any_luma};
-        residual_piece(b, lane, mb, L, s, !i4, !i4, i4 ? quad : g_i16, cbp_chroma, mbx == 0,
-                       vlc);
+        // ---- the nonzero counts of the MB's blocks from the registers
+        int cl = nz8(ua), cc = lane < 16 ? nz8(uc) : 0;
+        cl += __shfl_xor_sync(kFull, cl, 1);
+        cc += __shfl_xor_sync(kFull, cc, 1);
+        const int cnt = cl | (cc << 8);
+        const unsigned lmask = __ballot_sync(kFull, cl > 0) & 0x55555555u;   // bit 2b: block b
+        const unsigned cmask = __ballot_sync(kFull, lane < 16 && cc > 0);
+        const bool cdc_any = __ballot_sync(kFull, lane == 18 && nz8(uc) > 0) != 0;
+        const int cbp_chroma = cmask ? 2 : cdc_any ? 1 : 0;
+        const int any_luma = lmask != 0;
+        int q4 = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int b0 = (q >> 1) * 8 + (q & 1) * 2;
+            const unsigned qm = (1u << (2 * b0)) | (1u << (2 * b0 + 2)) | (1u << (2 * b0 + 8))
+                                | (1u << (2 * b0 + 10));
+            q4 |= ((lmask & qm) != 0) << q;
+        }
+        // ---- the Intra_4x4 mode tokens, lane z of 0-15 sub-block z's
+        // against the one-row-slice predicted mode
+        const int z = lane & 15;
+        const int zbx = (z & 1) | ((z >> 1) & 2), zby = ((z >> 1) & 1) | ((z >> 2) & 2);
+        const int top = __shfl_sync(kFull, zmode, z_index(zbx, zby - 1));
+        const int lft = __shfl_sync(kFull, zmode, z_index(zbx - 1, zby));
+        const int lft_mb = __shfl_sync(kFull, prevm, z_index(3, zby));
+        int predm = 2;
+        if (zby > 0) {
+            if (zbx > 0) predm = min(lft, top);
+            else if (mbx > 0) predm = min(prev_i4 ? lft_mb : 2, top);
+        }
+        const bool hit = zmode == predm;
+        const int tlen = lane < 16 ? (hit ? 1 : 4) : 0;
+        const unsigned tval = hit ? 1u : (unsigned)(zmode < predm ? zmode : zmode - 1);
+        int tend = tlen;
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) {
+            const int t = __shfl_up_sync(kFull, tend, o);
+            if ((lane & 15) >= o) tend += t;
+        }
+        const int mlen = __shfl_sync(kFull, tend, 15);
+        const unsigned long long tok =
+            tlen ? (unsigned long long)tval << (64 - tend) : 0ull;
+        const unsigned mhi = __reduce_or_sync(kFull, (unsigned)(tok >> 32));
+        const unsigned mlo = __reduce_or_sync(kFull, (unsigned)tok);
+        if (warm) {
+            prevc = cnt;
+            prevm = zmode;
+            prev_i4 = i4;
+            __syncwarp();
+            continue;
+        }
+        // ---- the lane's neighbours' counts: nC
+        const int left_c = __shfl_sync(kFull, cnt, 2 * role.left);
+        const int above_c = __shfl_sync(kFull, cnt, 2 * max(role.above, 0));
+        const int leftmb_c = __shfl_sync(kFull, prevc, 2 * role.left);
+        const int sh = role.kind == 4 ? 8 : 0;
+        const bool at_edge = mbx == 0;
+        const int lcount = (role.bx > 0 ? left_c : at_edge ? 0 : leftmb_c) >> sh & 255;
+        const int tcount = (above_c >> sh) & 255;
+        const int nc = role.by == 0 ? lcount
+                       : (role.bx == 0 && at_edge) ? tcount : (lcount + tcount + 1) >> 1;
+        // ---- the piece
+        RegBits b{mine, 0ull, 0, 0, 0};
+        if (role.kind == 0) {
+            if (i4) {
+                b.put(1u, 1);                              // mb_type I_NxN, ue(0)
+                if (mlen > 32) {
+                    b.put(mhi, 32);
+                    b.put(mlo >> (64 - mlen), mlen - 32);
+                } else {
+                    b.put(mhi >> (32 - mlen), mlen);
+                }
+                b.ue(cm);
+                const int cbp4 = q4 | (cbp_chroma << 4);
+                b.ue(vlc[kCbpIntra + cbp4]);
+                if (cbp4 != 0) b.put(1u, 1);               // mb_qp_delta se(0)
+            } else {
+                b.ue(1 + md + 4 * cbp_chroma + 12 * any_luma);
+                b.ue(cm);
+                b.put(1u, 1);
+            }
+        } else if (role.kind < 5) {
+            const bool on = role.kind == 1 ? !i4
+                            : role.kind == 2 ? (i4 ? (q4 >> role.quad) & 1 : any_luma)
+                            : role.kind == 3 ? cbp_chroma >= 1 : cbp_chroma == 2;
+            if (on) {
+                int r[16], lv[16];
+                unpack16(sm[role.u0], sm[role.u1], r);
+                const bool full = role.kind == 1 || (role.kind == 2 && i4);
+                const bool cdc = role.kind == 3;
+#pragma unroll
+                for (int k = 0; k < 16; ++k) {
+                    const int ac = k < 15 ? r[zig(k + 1)] : 0;
+                    const int dc = k < 4 ? (role.comp ? r[4 + k] : r[k]) : 0;
+                    lv[k] = cdc ? dc : full ? r[zig(k)] : ac;
+                }
+                // scan position p's raster index in the lane's units
+                const int first = cdc ? 4 * role.comp : full ? 0 : 1;
+                const auto raster = [cdc, first](int p) { return cdc ? first + p : zig(p + first); };
+                block_regs(b, lv, reinterpret_cast<const int16_t*>(sm + role.u0), raster, nc, cdc,
+                           cdc ? 4 : full ? 16 : 15, vlc);
+            }
+        }
+        b.flush();
+        // ---- the pieces' places: a warp scan of their lengths; each lane
+        // then builds output words lane, lane + 32, ... from the pieces
+        // that cover them
+        int incl = b.pos;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += t;
+        }
+        const int total = __shfl_sync(kFull, incl, 31);
+        st[lane] = incl - b.pos;
+        __syncwarp();
+        for (int j = lane; j < nw; j += 32) {
+            const int lo = 32 * j, hi = lo + 32;
+            uint32_t out = 0;
+            if (lo < total) {
+                // the last piece that starts at or before bit lo
+                int k = 0;
+#pragma unroll
+                for (int step = 16; step > 0; step >>= 1)
+                    if (k + step < 32 && st[k + step] <= lo) k += step;
+                for (; k < 28 && st[k] < hi; ++k) {
+                    const int end = k < 31 ? st[k + 1] : total;
+                    const int a = max(lo, st[k]), e = min(hi, end);
+                    if (e <= a) continue;
+                    const uint32_t* pb = piece[warp] + k * kPieceStride;
+                    const int off = a - st[k], n = e - a;
+                    const unsigned long long two =
+                        ((unsigned long long)pb[off >> 5] << 32) | pb[(off >> 5) + 1];
+                    const uint32_t v = (uint32_t)((two << (off & 31)) >> 32) >> (32 - n);
+                    out |= v << (hi - e);
+                }
+            }
+            words[mb * nw + j] = out;
+        }
+        if (lane == 0) nbits[mb] = total;
+        prevc = cnt;
+        prevm = zmode;
+        prev_i4 = i4;
+        __syncwarp();
     }
-    __syncwarp();
-    place(piece[warp], outs + warp * nw, lane, lane < 28 ? b.pos : 0, nw, mb, words, nbits);
 }
 
 // spec 8.4.1.3.1's general process as the JAX _mvp_general_vec collapses it
@@ -508,19 +855,26 @@ pack_p_kernel(Levels L, const int16_t* __restrict__ mode, const int16_t* __restr
 
 }  // namespace
 
+// `run`: the MBs of a row a warp walks (ops/cuda/h264_bitpack.pack_plan);
+// `floor`: launch the read-and-store floor instead (no tokens, zero counts)
 extern "C" int pack_i_launch(const int16_t* zdc, const int16_t* acz, const int16_t* czdc,
                              const int16_t* cacz, const int16_t* imode,
                              const int16_t* i4modes, const int16_t* cmode, int mb_h,
-                             int mb_w, const int* vlc, int nw, uint32_t* words, int* nbits,
-                             void* stream) {
+                             int mb_w, const int* vlc, int nw, int run, int floor,
+                             uint32_t* words, int* nbits, void* stream) {
     const long long n = (long long)mb_h * mb_w;
-    if (n > 0) {
-        const Levels L{zdc, acz, czdc, cacz};
-        const size_t smem = sizeof(uint32_t) * kWarps * nw;
-        pack_i_kernel<<<(unsigned)((n + kWarps - 1) / kWarps), kThreads, smem,
-                        (cudaStream_t)stream>>>(L, imode, i4modes, cmode, mb_h, mb_w, vlc,
-                                                nw, words, nbits);
-    }
+    if (n <= 0) return (int)cudaGetLastError();
+    if (run < 1) return (int)cudaErrorInvalidValue;
+    const Levels L{zdc, acz, czdc, cacz};
+    const long long warps = (long long)mb_h * ((mb_w + run - 1) / run);
+    const unsigned blocks = (unsigned)((warps + kPackWarps - 1) / kPackWarps);
+    const int vec = (((uintptr_t)zdc | (uintptr_t)acz | (uintptr_t)czdc | (uintptr_t)cacz) & 15) == 0;
+    if (floor)
+        pack_i_kernel<true><<<blocks, kPackThreads, 0, (cudaStream_t)stream>>>(
+            L, imode, i4modes, cmode, mb_h, mb_w, run, vlc, nw, vec, words, nbits);
+    else
+        pack_i_kernel<false><<<blocks, kPackThreads, 0, (cudaStream_t)stream>>>(
+            L, imode, i4modes, cmode, mb_h, mb_w, run, vlc, nw, vec, words, nbits);
     return (int)cudaGetLastError();
 }
 

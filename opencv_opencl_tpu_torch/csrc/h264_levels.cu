@@ -37,8 +37,10 @@
 // Bound: bytes.  At 4K (3840x2160, 135 x 240 MBs) H1 reads 12,441,600 bytes
 // of NV12 and writes 818 bytes a MB of int16 levels and imode (26.5 MB):
 // about 39 MB, 0.012 ms at 3.35 TB/s; H2 also reads the prediction (12.4 MB)
-// and writes the reconstruction (12.4 MB): about 64 MB, 0.019 ms.  What
-// bounds a direct design is the dependent chain of 240 MBs along a row.
+// and writes the reconstruction (12.4 MB): about 64 MB, 0.019 ms; H1 with
+// `i4` is bound by its operations (the nine modes of 16 sub-blocks an MB:
+// 0.0285 ms at 67 TOP/s).  What bounds a direct design is the dependent
+// chain of 240 MBs along a row (with `i4`, 3,840 sub-blocks).
 //
 // Design (the default and `chromah` H1, and H2): three launches on one
 // stream, with a scratch of kRecWords int32 a MB that the wrapper allocates.
@@ -80,9 +82,29 @@
 //   C  levels_intra_kernel, a warp an MB again: each intra MB's levels and
 //      reconstruction (H1: with full_recon) recomputed from its source and
 //      the edge B stored, written over A's.
-// `i4` keeps the direct design, intra_levels_kernel: one block of 256
-// threads per MB row walking its columns with the carried edges, `lm4` and
-// `lis4` in shared memory, threads over pixels and coefficients.
+// H1 with `i4` is the same three grids (the I4 instances) over a longer
+// record: A also stores each luma block's T(src) (int16) and the cost of
+// its quantized coefficients but the DC, which are the Intra_4x4 DC mode's
+// (its prediction is constant: T(pred) is 16 dc at (0, 0) alone).  B runs,
+// after each MB's I_16x16 and chroma step, the Intra_4x4 trial along the
+// chain: 16 sub-blocks in z-order, 3,840 dependent steps a 4K MB row.  A
+// step is a warp, no barrier: lane (g, r), g = lane / 4, holds mode
+// kI4Modes[g] (0, 1, 3..8; the DC mode is every group's second candidate)
+// and coefficient row r.  It predicts its pixel row r from the neighbours
+// in a per-warp shared copy of the MB's reconstruction so far (column 0
+// the left MB's right column, row 0 zeros for the top, which is another
+// slice), by a table of up to three taps a pixel (kI4Pred, the spec's
+// 8.3.1.2 as the plain version's _I4_TABLES); transforms the row (CF), and
+// the columns by 16 shuffles in its group of four; requantizes T(src) -
+// T(pred) in its row; the group's cost by two shuffles; the winner is the
+// warp's least cost * 16 + mode (__reduce_min_sync: the first least in mode
+// order, the strict `<` of the oracle's loop).  The winner's group
+// reconstructs its block (the inverse row pass in a lane, the column pass
+// by 16 shuffles) into the shared copy, and stores its levels (and, with
+// full_recon, pixels) straight into the outputs; after the 16th the MB's
+// decision (cost_i4 < the I_16x16 cost, strict), its modes, and the next
+// left edge, lm4 and the left MB's Intra_4x4 flag, carried in registers.
+// C leaves the luma of an Intra_4x4 MB as B wrote it (zdc 0).
 //
 // The launchers are extern "C", launch on the stream they are given, do not
 // synchronise, allocate nothing, and return cudaGetLastError().  The device
@@ -96,303 +118,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBig = 1 << 30;     // the cost of a mode that is not available
 constexpr int kIntraBias = 8;     // io.h264_inter._INTRA_BIAS
 constexpr unsigned kFull = 0xffffffffu;
-
-// The direct design, kept for `i4` (the Intra_4x4 trial chains through
-// its sub-blocks as well as along the row): one block of 256 threads per MB
-// row walking its columns, the stages between __syncthreads.
-__global__ void __launch_bounds__(kThreads)
-intra_levels_kernel(const uint8_t* __restrict__ y, long long y_rs,
-                    const uint8_t* __restrict__ cb, long long cb_rs,
-                    long long cb_cs, const uint8_t* __restrict__ cr,
-                    long long cr_rs, long long cr_cs, int mb_w, Plan p,
-                    int chromah, int16_t* __restrict__ zdc_out,
-                    int16_t* __restrict__ acz_out, int16_t* __restrict__ czdc_out,
-                    int16_t* __restrict__ cacz_out, int16_t* __restrict__ imode_out,
-                    int16_t* __restrict__ i4m_out, int16_t* __restrict__ cmode_out,
-                    uint8_t* __restrict__ ry, uint8_t* __restrict__ rcb,
-                    uint8_t* __restrict__ rcr) {
-    // the MB's sources: luma 16x16 raster, chroma cb then cr 8x8 rasters
-    __shared__ int ys[256];
-    __shared__ int cs[128];
-    // the carry: the left MB's reconstructed right columns (cb 0..7, cr
-    // 8..15), its bx=3 Intra_4x4 modes and whether it was Intra_4x4
-    __shared__ int yedge[16], cedge[16], lm4[4], lis4;
-    // residuals of the DC [0] and HORIZONTAL [1] predictions
-    __shared__ int res[2][256], cres[2][128];
-    // the blocks' DC coefficients and the quantized DC levels
-    __shared__ int wdc[2][16], cwdc[2][2][4], zdcs[2][16], czdcs[2][2][4];
-    __shared__ int red[kWarps][3];
-    // the chosen I_16x16 and chroma levels, dequantized, and the recon
-    __shared__ int acs[256], cacs[128], dq[256], cdq[128], yrec[256], crec[128];
-    // Intra_4x4: the MB's recon so far, per mode the prediction, residual
-    // and levels of the current sub-block, the costs, the chosen levels
-    // (block raster, coefficient raster) and modes (z-order)
-    __shared__ int mbrec[256], i4pred[9][16], i4res[9][16], i4q[9][16];
-    __shared__ int i4cost[9], i4lev[256], zmode[16], cost_i4;
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int mby = blockIdx.x;
-    // luma roles: pixel (py, px) and block b = py, coefficient k = px
-    const int py = tid >> 4, px = tid & 15;
-    const int b = tid >> 4, k = tid & 15, u = k >> 2, v = k & 3;
-    const int bby = b >> 2, bbx = b & 3;
-    // chroma roles: candidate, comp, pixel (cpr, cpc); block and coefficient
-    const int ccand = tid >> 7, ct = tid & 127, comp = ct >> 6;
-    const int cpr = (ct & 63) >> 3, cpc = ct & 7;
-    const int cblk = (ct >> 4) & 3, ck = ct & 15;
-    const int qsh = 1 << (p.qp / 6), qsh_c = 1 << (p.qpc / 6);
-    const long long row0 = (long long)mby * 16, crow0 = (long long)mby * 8;
-
-    if (tid < 16) {
-        yedge[tid] = 0;
-        cedge[tid] = 0;
-    }
-    if (tid < 4) lm4[tid] = 2;
-    if (tid == 0) lis4 = 0;
-
-    for (int mbx = 0; mbx < mb_w; ++mbx) {
-        const bool left_ok = mbx > 0;
-        ys[tid] = y[(row0 + py) * y_rs + mbx * 16 + px];
-        if (tid < 128) {
-            const uint8_t* src = comp ? cr : cb;
-            const long long rs = comp ? cr_rs : cb_rs, cs_ = comp ? cr_cs : cb_cs;
-            cs[tid] = src[(crow0 + cpr) * rs + (long long)(mbx * 8 + cpc) * cs_];
-        }
-        __syncthreads();
-
-        // ---- residuals of the candidates (the edges are the left MB's)
-        int ysum = 0;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) ysum += yedge[i];
-        const int pd = left_ok ? (ysum + 8) >> 4 : 128;
-        res[0][tid] = ys[tid] - pd;
-        res[1][tid] = ys[tid] - yedge[py];
-        const int* ce = cedge + comp * 8;
-        const int half = cpr >> 2;
-        const int cdc = left_ok
-            ? (ce[4 * half] + ce[4 * half + 1] + ce[4 * half + 2] + ce[4 * half + 3] + 2) >> 2
-            : 128;
-        if (tid < 128) {
-            cres[0][tid] = cs[tid] - cdc;
-            cres[1][tid] = cs[tid] - ce[cpr];
-        }
-        __syncthreads();
-
-        // ---- forward transforms and AC quantization
-        const int cls = pos_class(u, v);
-        const int t_d = fwd_coef(res[0] + bby * 64 + bbx * 4, 16, u, v);
-        const int t_h = fwd_coef(res[1] + bby * 64 + bbx * 4, 16, u, v);
-        const int q_d = k ? quant(t_d, p.mf_y[cls], p.f_y, p.qbits) : 0;
-        const int q_h = k ? quant(t_h, p.mf_y[cls], p.f_y, p.qbits) : 0;
-        if (k == 0) {
-            wdc[0][b] = t_d;
-            wdc[1][b] = t_h;
-        }
-        const bool cact = ccand == 0 || chromah;
-        int cq = 0;
-        if (cact) {
-            const int* o = cres[ccand] + comp * 64 + (cblk >> 1) * 32 + (cblk & 1) * 4;
-            const int cu = ck >> 2, cv = ck & 3;
-            const int tc = fwd_coef(o, 8, cu, cv);
-            cq = ck ? quant(tc, p.mf_c[pos_class(cu, cv)], p.f_c, p.qbits_c) : 0;
-            if (ck == 0) cwdc[ccand][comp][cblk] = tc;
-        }
-        __syncthreads();
-
-        // ---- the DC Hadamards and their quantization
-        if (tid < 32) {
-            const int cand = tid >> 4, idx = tid & 15;
-            const int s = hadamard4(wdc[cand], idx >> 2, idx & 3) >> 1;
-            zdcs[cand][idx] = quant(s, p.mf_y[0], 2 * p.f_y, p.qbits + 1);
-        } else if (tid < 48) {
-            const int q = tid - 32, cand = q >> 3, cc = (q >> 2) & 1, idx = q & 3;
-            const int s = hadamard2(cwdc[cand][cc], idx >> 1, idx & 1);
-            czdcs[cand][cc][idx] = quant(s, p.mf_c[0], 2 * p.f_c, p.qbits_c + 1);
-        }
-        __syncthreads();
-
-        // ---- the costs of the candidates, summed over the block
-        int c_d = level_cost(q_d), c_h = level_cost(q_h), c_c = level_cost(cq);
-        if (tid < 16) {
-            c_d += level_cost(zdcs[0][tid]);
-            c_h += level_cost(zdcs[1][tid]);
-        }
-        if (ct < 8 && cact) c_c += level_cost(czdcs[ccand][ct >> 2][ct & 3]);
-        c_d = warp_sum(c_d);
-        c_h = warp_sum(c_h);
-        c_c = warp_sum(c_c);
-        if (lane == 0) {
-            red[warp][0] = c_d;
-            red[warp][1] = c_h;
-            red[warp][2] = c_c;
-        }
-        __syncthreads();
-        int cost_d = 0, cost_h = 0, cost_cdc = 0, cost_chh = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-            cost_d += red[w][0];
-            cost_h += red[w][1];
-            if (w < kWarps / 2) cost_cdc += red[w][2];
-            else cost_chh += red[w][2];
-        }
-        const bool use_h = left_ok && cost_h < cost_d;
-        const bool use_ch = chromah && left_ok && cost_chh + 2 < cost_cdc;
-
-        // ---- Intra_4x4: the sub-blocks in z-order, the modes of each in
-        // parallel (mode m on threads 16m..16m+15)
-        bool use_i4;
-        {
-            if (tid == 0) cost_i4 = 0;
-            const int m = tid >> 4, pp = tid & 15, yy = pp >> 2, xx = pp & 3;
-            for (int z = 0; z < 16; ++z) {
-                const int zbx = scan_bx(z), zby = scan_by(z);
-                const bool cand = tid < 144 && (zby > 0 || m == 1 || m == 2 || m == 8);
-                if (cand) {
-                    int l4[4], t8[8], c0 = 0;
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-                        l4[i] = zbx > 0 ? mbrec[(zby * 4 + i) * 16 + zbx * 4 - 1]
-                                        : yedge[zby * 4 + i];
-                    if (zby > 0) {
-                        const int* top = mbrec + (zby * 4 - 1) * 16 + zbx * 4;
-                        // the above-right block is not decoded yet: p[3, -1]
-                        const bool tr = !(zbx == 3 || (zbx == 1 && (zby == 1 || zby == 3)));
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) t8[i] = top[i];
-#pragma unroll
-                        for (int i = 4; i < 8; ++i) t8[i] = tr ? top[i] : top[3];
-                        c0 = zbx > 0 ? top[-1] : yedge[zby * 4 - 1];
-                    } else {
-#pragma unroll
-                        for (int i = 0; i < 8; ++i) t8[i] = 0;
-                    }
-                    int pr;
-                    if (m == 2) {
-                        const int ls = l4[0] + l4[1] + l4[2] + l4[3];
-                        const int ts = t8[0] + t8[1] + t8[2] + t8[3];
-                        if (zby == 0)
-                            pr = (zbx == 0 && !left_ok) ? 128 : (ls + 2) >> 2;
-                        else
-                            pr = (zbx == 0 && !left_ok) ? (ts + 2) >> 2 : (ts + ls + 4) >> 3;
-                    } else {
-                        pr = i4_pred(m, yy, xx, t8, l4, c0);
-                    }
-                    i4pred[m][pp] = pr;
-                    i4res[m][pp] = ys[(zby * 4 + yy) * 16 + zbx * 4 + xx] - pr;
-                }
-                __syncthreads();
-                int lc = 0;
-                if (cand) {
-                    const int q = quant(fwd_coef(i4res[m], 4, yy, xx),
-                                        p.mf_y[pos_class(yy, xx)], p.f_y, p.qbits);
-                    i4q[m][pp] = q;
-                    lc = level_cost(q);
-                }
-                // the sum over each mode's 16 lanes
-#pragma unroll
-                for (int o = 8; o > 0; o >>= 1) lc += __shfl_xor_sync(0xffffffffu, lc, o);
-                if (tid < 144 && pp == 0) {
-                    // predicted mode (spec 8.3.1.1; the top MB row is
-                    // another slice)
-                    int predm = 2;
-                    if (zby > 0) {
-                        const int mB = zmode[z_of(zbx, zby - 1)];
-                        if (zbx > 0) predm = min(zmode[z_of(zbx - 1, zby)], mB);
-                        else if (left_ok) predm = min(lis4 ? lm4[zby] : 2, mB);
-                    }
-                    const bool valid = !(zbx == 0 && !left_ok
-                                         && (m == 1 || m == 8 || m == 4 || m == 5 || m == 6));
-                    i4cost[m] = (cand && valid) ? lc + (predm == m ? 1 : 4) : kBig;
-                }
-                __syncthreads();
-                if (tid < 16) {
-                    // the first minimum in mode order, then this pixel of
-                    // the sub-block's reconstruction
-                    int best = 0, bc = kBig;
-                    for (int mm = 0; mm < 9; ++mm)
-                        if (i4cost[mm] < bc) {
-                            bc = i4cost[mm];
-                            best = mm;
-                        }
-                    i4lev[(zby * 4 + zbx) * 16 + tid] = i4q[best][tid];
-                    int d[16];
-#pragma unroll
-                    for (int kk = 0; kk < 16; ++kk)
-                        d[kk] = i4q[best][kk] * p.v_y[pos_class(kk >> 2, kk & 3)] * qsh;
-                    mbrec[(zby * 4 + yy) * 16 + zbx * 4 + xx] =
-                        clamp255(inv_pixel(d, yy, xx) + i4pred[best][tid]);
-                    if (tid == 0) {
-                        zmode[z] = best;
-                        cost_i4 += bc;
-                    }
-                }
-                __syncthreads();
-            }
-            use_i4 = cost_i4 < (use_h ? cost_h : cost_d);
-        }
-
-        // ---- the chosen levels, dequantized; the DC dequantizations
-        const int lq = use_h ? q_h : q_d;
-        acs[tid] = lq;
-        if (k) dq[tid] = lq * p.v_y[cls] * qsh;
-        if (tid < 16) {
-            dq[tid * 16] = luma_dc_dequant(hadamard4(zdcs[use_h], tid >> 2, tid & 3), p);
-        } else if (tid < 24) {
-            const int q = tid - 16, cc = q >> 2, idx = q & 3;
-            cdq[cc * 64 + idx * 16] =
-                chroma_dc_dequant(hadamard2(czdcs[use_ch][cc], idx >> 1, idx & 1), p);
-        }
-        if (ccand == (use_ch ? 1 : 0)) {
-            cacs[ct] = cq;
-            if (ck) cdq[ct] = cq * p.v_c[pos_class(ck >> 2, ck & 3)] * qsh_c;
-        }
-        __syncthreads();
-
-        // ---- the reconstruction, a pixel a thread
-        const int lpred = use_h ? yedge[py] : pd;
-        const int lrec = clamp255(
-            inv_pixel(dq + ((py >> 2) * 4 + (px >> 2)) * 16, py & 3, px & 3) + lpred);
-        yrec[tid] = use_i4 ? mbrec[tid] : lrec;
-        if (tid < 128) {
-            const int cpred = use_ch ? ce[cpr] : cdc;
-            crec[tid] = clamp255(
-                inv_pixel(cdq + comp * 64 + ((cpr >> 2) * 2 + (cpc >> 2)) * 16,
-                          cpr & 3, cpc & 3) + cpred);
-        }
-        __syncthreads();
-
-        // ---- the outputs, in their (mb_h, mb_w, ...) layouts, and the carry
-        const long long mb = (long long)mby * mb_w + mbx;
-        if (tid < 16) zdc_out[mb * 16 + tid] = (int16_t)(use_i4 ? 0 : zdcs[use_h][tid]);
-        acz_out[mb * 256 + tid] = (int16_t)(use_i4 ? i4lev[tid] : acs[tid]);
-        if (tid < 8) czdc_out[mb * 8 + tid] = (int16_t)czdcs[use_ch][tid >> 2][tid & 3];
-        if (tid < 128) cacz_out[mb * 128 + tid] = (int16_t)cacs[tid];
-        if (tid == 0) imode_out[mb] = (int16_t)(use_i4 ? 0 : (use_h ? 1 : 2));
-        if (tid < 16) i4m_out[mb * 16 + tid] = (int16_t)(use_i4 ? zmode[tid] : 2);
-        if (chromah && tid == 0) cmode_out[mb] = (int16_t)(use_ch ? 1 : 0);
-        if (ry != nullptr) {
-            ry[(row0 + py) * ((long long)mb_w * 16) + mbx * 16 + px] = (uint8_t)yrec[tid];
-            if (tid < 128)
-                (comp ? rcr : rcb)[(crow0 + cpr) * ((long long)mb_w * 8) + mbx * 8 + cpc] =
-                    (uint8_t)crec[tid];
-        }
-        if (tid < 16) {
-            yedge[tid] = yrec[tid * 16 + 15];
-        } else if (tid < 32) {
-            const int q = tid - 16;
-            cedge[q] = crec[(q >> 3) * 64 + (q & 7) * 8 + 7];
-        }
-        if (tid < 4) lm4[tid] = use_i4 ? zmode[z_of(3, tid)] : 2;
-        if (tid == 0) lis4 = use_i4;
-    }
-}
-
-
 
 // ---------------------------------------------------------------------------
 // The split design (H1 without i4, H2).  The scratch record of an MB, in
@@ -422,6 +149,54 @@ constexpr int kP = 168;       // H2: the inter cost, P_Skip
 constexpr int kEdgeP = 172;   // H2: the inter (or skip) MB's right column, 32 bytes
 constexpr int kUsed = 180;    // the left edge an intra MB was decided with, 32 bytes
 constexpr int kSplitWarps = 4;   // MBs (a warp each) a block of A and C
+// the I4 record's words after kRecWords: each luma block's (raster by * 4 +
+// bx) T(src)[u][v] as int16 pairs, 8 words a block; then each block's
+// summed level costs of its quantized coefficients but the DC
+constexpr int kI4T = kRecWords;
+constexpr int kI4Cost = kI4T + 128;
+constexpr int kRecWordsI4 = kI4Cost + 16;    // ops/cuda/h264_levels.I4_RECORD_WORDS
+template <bool I4>
+constexpr int kStride = I4 ? kRecWordsI4 : kRecWords;
+
+// The Intra_4x4 trial (B with I4).  The modes of the lanes' groups (the DC
+// mode, 2, is every group's second candidate)
+__constant__ int kI4Modes[8] = {0, 1, 3, 4, 5, 6, 7, 8};
+// the predictor of mode m at pixel y * 4 + x: three taps (bits 6k..6k+3 the
+// neighbour, 0 the corner, 1-8 the top row t8 with the top-right, 9-12 the
+// left column; bits 6k+4, 6k+5 its weight), the rounding (bits 18, 19) and
+// the shift (20, 21): ops/h264_levels._I4_TABLES; mode 2 is not in it
+__constant__ int kI4Pred[9][16] = {
+    {0x11, 0x12, 0x13, 0x14, 0x11, 0x12, 0x13, 0x14, 0x11, 0x12, 0x13, 0x14, 0x11, 0x12,
+     0x13, 0x14},
+    {0x19, 0x19, 0x19, 0x19, 0x1a, 0x1a, 0x1a, 0x1a, 0x1b, 0x1b, 0x1b, 0x1b, 0x1c, 0x1c,
+     0x1c, 0x1c},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0x293891, 0x2948d2, 0x295913, 0x296954, 0x2948d2, 0x295913, 0x296954, 0x297995,
+     0x295913, 0x296954, 0x297995, 0x2989d6, 0x296954, 0x297995, 0x2989d6, 0x280e17},
+    {0x299811, 0x292850, 0x293891, 0x2948d2, 0x29aa50, 0x299811, 0x292850, 0x293891,
+     0x29ba99, 0x29aa50, 0x299811, 0x292850, 0x29cada, 0x29ba99, 0x29aa50, 0x299811},
+    {0x140450, 0x140491, 0x1404d2, 0x140513, 0x291819, 0x292850, 0x293891, 0x2948d2,
+     0x290a5a, 0x140450, 0x140491, 0x1404d2, 0x299a9b, 0x291819, 0x292850, 0x293891},
+    {0x140650, 0x291819, 0x290852, 0x291893, 0x140699, 0x29aa50, 0x140650, 0x291819,
+     0x1406da, 0x29ba99, 0x140699, 0x29aa50, 0x14071b, 0x29cada, 0x1406da, 0x29ba99},
+    {0x140491, 0x1404d2, 0x140513, 0x140554, 0x293891, 0x2948d2, 0x295913, 0x296954,
+     0x1404d2, 0x140513, 0x140554, 0x140595, 0x2948d2, 0x295913, 0x296954, 0x297995},
+    {0x140699, 0x29ba99, 0x1406da, 0x29cada, 0x1406da, 0x29cada, 0x14071b, 0x280f1b,
+     0x14071b, 0x280f1b, 0x1c, 0x1c, 0x1c, 0x1c, 0x1c, 0x1c},
+};
+// the Intra_4x4 trial's wavefront: sub-block (bx, by) needs (bx - 1, by),
+// (bx, by - 1), (bx + 1, by - 1) and (bx - 1, by - 1), so step t = bx + 2 by
+// holds one or two of them; the z indices step by step
+// (0 | 1 | 4 2 | 5 3 | 6 8 | 7 9 | 12 10 | 13 11 | 14 | 15) as nibbles
+__host__ __device__ constexpr int wave_size(int t) { return t >= 2 && t < 8 ? 2 : 1; }
+__host__ __device__ constexpr int wave_z(int t, int i) {
+    return (int)((0xfebdac9786352410ull >> (4 * ((t < 2 ? t : t < 8 ? 2 * t - 2 : t + 6) + i)))
+                 & 15);
+}
+// the per-warp copy of the MB's luma reconstruction: pixel (y, x) at
+// (y + 1) * kBufS + x + 1; row 0 zeros (no top), column 0 the left edge
+constexpr int kBufS = 17;
+constexpr int kNoMode = 0x7fffffff;   // the key of a mode that is not available
 
 // the forward core transform CF in place
 __device__ __forceinline__ void cf4(int& a, int& b, int& c, int& d) {
@@ -593,8 +368,9 @@ __device__ __forceinline__ void store_levels(const BlockRole& b, long long mb, i
     }
 }
 
-// A: a warp an MB (BlockRole's lanes)
-template <bool P>
+// A: a warp an MB (BlockRole's lanes); with I4 (H1 with i4) also the
+// Intra_4x4 words of the record
+template <bool P, bool I4 = false>
 __global__ void __launch_bounds__(32 * kSplitWarps)
 levels_split_kernel(const uint8_t* __restrict__ y, long long y_rs,
                     const uint8_t* __restrict__ cb, long long cb_rs, long long cb_cs,
@@ -612,7 +388,7 @@ levels_split_kernel(const uint8_t* __restrict__ y, long long y_rs,
     const long long mb = (long long)blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
     if (mb >= (long long)mb_h * mb_w) return;     // the whole warp
     const int mby = (int)(mb / mb_w), mbx = (int)(mb % mb_w);
-    int* R = rec + mb * kRecWords;
+    int* R = rec + mb * kStride<I4>;
     const BlockRole b(lane, p);
 
     int s[16], t[16];
@@ -691,6 +467,18 @@ levels_split_kernel(const uint8_t* __restrict__ y, long long y_rs,
         R[kU + 6] = fcd;
         R[kU + 7] = fch;
     }
+    if (I4 && b.luma) {
+        // the block's T(src) and the cost of its levels but the DC: the
+        // i4 quantizer is the AC one at every position
+        uint32_t wt[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+            wt[k] = ((uint32_t)t[2 * k] & 0xffffu) | ((uint32_t)t[2 * k + 1] << 16);
+        int4* T4 = reinterpret_cast<int4*>(R + kI4T + lane * 8);
+        T4[0] = make_int4((int)wt[0], (int)wt[1], (int)wt[2], (int)wt[3]);
+        T4[1] = make_int4((int)wt[4], (int)wt[5], (int)wt[6], (int)wt[7]);
+        R[kI4Cost + lane] = cost_all;
+    }
     if (!P) return;
 
     // ---- H2: the inter candidate whole
@@ -750,14 +538,21 @@ levels_split_kernel(const uint8_t* __restrict__ y, long long y_rs,
     }
 }
 
-// B's ring: the records it reads (the words before kUsed) are copied into
-// shared memory with cp.async kRing - 1 MBs ahead of the chain
+// B's ring: the records it reads (the words before kUsed; with I4 then the
+// Intra_4x4 words, from kI4T) are copied into shared memory with cp.async
+// kRing - 1 MBs ahead of the chain
 constexpr int kChainWords = kUsed;
 constexpr int kRing = 4;
+template <bool I4>
+constexpr int kSlot = I4 ? kChainWords + (kRecWordsI4 - kI4T) : kChainWords;
 
+template <bool I4>
 __device__ __forceinline__ void chain_fetch(int* slot, const int* __restrict__ R, int lane) {
-    for (int c = lane; c < kChainWords / 4; c += 32)
-        __pipeline_memcpy_async(slot + 4 * c, R + 4 * c, 16);
+    for (int c = lane; c < kSlot<I4> / 4; c += 32) {
+        const int w = 4 * c;
+        __pipeline_memcpy_async(slot + w, R + (w < kChainWords ? w : w - kChainWords + kI4T),
+                                16);
+    }
 }
 
 // what a lane of B reads of an MB's record
@@ -793,11 +588,12 @@ __device__ __forceinline__ void chain_load(const int* __restrict__ R, int lane, 
 // requantizes (u = 0: the DC Hadamard's column j = 0) and the row of the
 // next edge it computes.  Every lane runs one path: four quantizations
 // with its own constants, the sums by warp reductions.
-template <bool P>
+template <bool P, bool I4 = false>
 __global__ void __launch_bounds__(32)
 levels_chain_kernel(int mb_w, Plan p, int chromah, int band_lo, int band_hi,
                     int* __restrict__ rec, int16_t* __restrict__ mode_out,
-                    int16_t* __restrict__ cmode_out) {
+                    int16_t* __restrict__ cmode_out, int16_t* __restrict__ acz_out,
+                    int16_t* __restrict__ i4m_out, uint8_t* __restrict__ ry, int vec) {
     const int lane = threadIdx.x, mby = blockIdx.x;
     const bool luma = lane < 16;
     const int u = lane & 3, by = (lane >> 2) & 3, cby = (lane >> 2) & 1;
@@ -823,20 +619,50 @@ levels_chain_kernel(int mb_w, Plan p, int chromah, int band_lo, int band_hi,
 #pragma unroll
     for (int r = 0; r < 4; ++r) hs[r] = h4(by, r);
 
-    __shared__ __align__(16) int ring[kRing][kChainWords];
+    __shared__ __align__(16) int ring[kRing][kSlot<I4>];
     int edge = 0;
     const long long row = (long long)mby * mb_w;
     for (int i = 0; i < kRing - 1; ++i) {
-        if (i < mb_w) chain_fetch(ring[i], rec + (row + i) * kRecWords, lane);
+        if (i < mb_w) chain_fetch<I4>(ring[i], rec + (row + i) * kStride<I4>, lane);
         __pipeline_commit();
+    }
+    // the Intra_4x4 trial's lane: the group's mode and its pixel and
+    // coefficient row r = u; the taps of its four pixels as offsets in ybuf
+    // from the sub-block's origin (with the top-right, and with p[3, -1]
+    // in its place), weights, roundings, shifts; its row's quantizer
+    __shared__ int ybuf[I4 ? 17 * kBufS : 1];
+    const int pm = I4 ? kI4Modes[lane >> 2] : 0;
+    int tap[4][3], tapn[4][3], tw[4][3], trnd[4], tshf[4], mfr[4], vqr[4];
+    uint64_t lm4 = 0x2222;       // the left MB's bx = 3 modes (by = 0..3), 2 if I_16x16
+    if (I4) {
+        for (int i = lane; i < 17 * kBufS; i += 32) ybuf[i] = 0;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+            const int word = kI4Pred[pm][u * 4 + x];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const int nb = (word >> (6 * k)) & 15;
+                tw[x][k] = (word >> (6 * k + 4)) & 3;
+                tap[x][k] = nb == 0 ? -kBufS - 1 : nb <= 8 ? -kBufS + nb - 1 : (nb - 9) * kBufS - 1;
+                tapn[x][k] = (nb >= 5 && nb <= 8) ? -kBufS + 3 : tap[x][k];
+            }
+            trnd[x] = (word >> 18) & 3;
+            tshf[x] = (word >> 20) & 3;
+            // (selects: a run-time index into the plan would copy it to the stack)
+            const int cls = pos_class(u, x);
+            mfr[x] = cls == 0 ? p.mf_y[0] : cls == 1 ? p.mf_y[1] : p.mf_y[2];
+            vqr[x] = (cls == 0 ? p.v_y[0] : cls == 1 ? p.v_y[1] : p.v_y[2]) * (1 << (p.qp / 6));
+        }
+        __syncwarp();
     }
     for (int mbx = 0; mbx < mb_w; ++mbx) {
         const long long mb = row + mbx;
-        int* R = rec + mb * kRecWords;
+        int* R = rec + mb * kStride<I4>;
         // the slot of MB mbx - 1, whose words every lane holds by now
         __syncwarp();
         if (mbx + kRing - 1 < mb_w)
-            chain_fetch(ring[(mbx + kRing - 1) % kRing], R + (kRing - 1) * kRecWords, lane);
+            chain_fetch<I4>(ring[(mbx + kRing - 1) % kRing], R + (kRing - 1) * kStride<I4>,
+                            lane);
         __pipeline_commit();
         __pipeline_wait_prior(kRing - 1);
         __syncwarp();
@@ -902,7 +728,7 @@ levels_chain_kernel(int mb_w, Plan p, int chromah, int band_lo, int band_hi,
             intra = cost_i < w.cp || inband;
             mode = intra ? (use_h ? 3 : 2) : 1;
         }
-        if (lane == 0) {
+        if (lane == 0 && !I4) {
             mode_out[mb] = (int16_t)mode;
             if (chromah) cmode_out[mb] = (int16_t)use_ch;
         }
@@ -927,12 +753,179 @@ levels_chain_kernel(int mb_w, Plan p, int chromah, int band_lo, int band_hi,
         const int res = (e_a + isgn * e_b + 32) >> 6;
         const int pred = hor ? edge : luma ? pd : (cby ? v1 : v0);
         edge = intra ? clamp255(res + pred) : w.ep;
+        if (!I4) continue;
+
+        // ---- the Intra_4x4 trial: the 16 sub-blocks in 10 wavefront steps
+        // (wave_z), two at once where neither is the other's neighbour
+        const int* S = ring[mbx % kRing] + kChainWords;   // the slot's Intra_4x4 words
+        const int grp = lane >> 2;
+        uint64_t zm = 0;         // the chosen modes, 4 bits a sub-block (z-order)
+        int cost_i4 = 0;
+#pragma unroll
+        for (int t = 0; t < 10; ++t) {
+            const int nz = wave_size(t);
+            int zs[2], base[2], blk[2], dc[2], pr[2][4], q[2][4], qa[2][4], lc[2], qd[2];
+            bool tr[2], noleft[2];
+            // the DC mode's prediction, the lane's mode's pixel row u, the
+            // source's row u: T(src)[u][0..3]
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                if (i >= nz) continue;
+                const int z = wave_z(t, i), zbx = scan_bx(z), zby = scan_by(z);
+                zs[i] = z;
+                blk[i] = zby * 4 + zbx;
+                base[i] = (zby * 4 + 1) * kBufS + zbx * 4 + 1;
+                // the above-right block is not decoded yet: p[3, -1] for t8[4..7]
+                tr[i] = !(zbx == 3 || (zbx == 1 && (zby == 1 || zby == 3)));
+                noleft[i] = zbx == 0 && !left_ok;
+                int ls = 0, ts = 0;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    ls += ybuf[base[i] + k * kBufS - 1];
+                    ts += ybuf[base[i] - kBufS + k];
+                }
+                dc[i] = zby == 0 ? (noleft[i] ? 128 : (ls + 2) >> 2)
+                                 : (noleft[i] ? (ts + 2) >> 2 : (ts + ls + 4) >> 3);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    int acc = trnd[j];
+#pragma unroll
+                    for (int k = 0; k < 3; ++k)
+                        acc += tw[j][k] * ybuf[base[i] + (tr[i] ? tap[j][k] : tapn[j][k])];
+                    pr[i][j] = acc >> tshf[j];
+                }
+                const int2 tw2 = *reinterpret_cast<const int2*>(S + blk[i] * 8 + u * 2);
+                const int ts4[4] = {(int)(short)(tw2.x & 0xffff), tw2.x >> 16,
+                                    (int)(short)(tw2.y & 0xffff), tw2.y >> 16};
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    q[i][v] = ts4[v];
+                    qa[i][v] = quant(ts4[v], mfr[v], p.f_y, p.qbits);
+                }
+                qd[i] = quant((int)(short)(S[blk[i] * 8] & 0xffff) - 16 * dc[i], p.mf_y[0],
+                              p.f_y, p.qbits);
+            }
+            // the row's CF, the column CF over the group's four rows, the
+            // levels of T(src) - T(pred) and the group's cost
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                if (i >= nz) continue;
+                int pc[4] = {pr[i][0], pr[i][1], pr[i][2], pr[i][3]};
+                cf4(pc[0], pc[1], pc[2], pc[3]);
+                lc[i] = 0;
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    int tp = 0;
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const int cfk = k == 0 ? cf0 : k == 1 ? cf1 : k == 2 ? cf2 : cf3;
+                        tp += cfk * __shfl_sync(kFull, pc[v], (lane & ~3) + k);
+                    }
+                    q[i][v] = quant(q[i][v] - tp, mfr[v], p.f_y, p.qbits);
+                    lc[i] += level_cost(q[i][v]);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                if (i >= nz) continue;
+                lc[i] += __shfl_xor_sync(kFull, lc[i], 1);
+                lc[i] += __shfl_xor_sync(kFull, lc[i], 2);
+            }
+            // the predicted mode (spec 8.3.1.1; the top MB row is another
+            // slice) from the modes chosen so far and the left MB's; the
+            // winner: the warp's least key, the DC mode the groups' second
+            // candidate (T(src) less 16 dc at (0, 0), A's cost of the rest)
+            int bm[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                if (i >= nz) continue;
+                const int z = zs[i], zbx = scan_bx(z), zby = scan_by(z);
+                int predm = 2;
+                if (zby > 0) {
+                    const int mB = (int)(zm >> (4 * z_of(zbx, zby - 1))) & 15;
+                    if (zbx > 0) predm = min((int)(zm >> (4 * z_of(zbx - 1, zby))) & 15, mB);
+                    else if (left_ok) predm = min((int)(lm4 >> (4 * zby)) & 15, mB);
+                }
+                const bool valid = (zby > 0 || pm == 1 || pm == 8)
+                                   && !(noleft[i] && (pm == 1 || pm == 8 || pm == 4 || pm == 5
+                                                      || pm == 6));
+                const int key_p = valid ? (lc[i] + (predm == pm ? 1 : 4)) * 16 + pm : kNoMode;
+                const int key_d = (S[kI4Cost - kI4T + blk[i]] + level_cost(qd[i])
+                                   + (predm == 2 ? 1 : 4)) * 16 + 2;
+                const int best = __reduce_min_sync(kFull, min(key_p, key_d));
+                bm[i] = best & 15;
+                cost_i4 += best >> 4;
+                zm |= (uint64_t)bm[i] << (4 * z);
+            }
+            // the winner's group (the DC mode: group 0's second candidate)
+            // reconstructs the block: the row pass in a lane, the column
+            // pass over the group; stores its levels and pixels
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                if (i >= nz) continue;
+                const int z = zs[i], zbx = scan_bx(z), zby = scan_by(z);
+                const bool dcw = bm[i] == 2;
+                const int gs = dcw ? 0 : bm[i] < 2 ? bm[i] : bm[i] - 1;
+                int d[4];
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    q[i][v] = dcw ? ((u == 0 && v == 0) ? qd[i] : qa[i][v]) : q[i][v];
+                    d[v] = q[i][v] * vqr[v];
+                }
+                inv4(d[0], d[1], d[2], d[3]);
+                int rc[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int g0 = __shfl_sync(kFull, d[j], gs * 4);
+                    const int g1 = __shfl_sync(kFull, d[j], gs * 4 + 1);
+                    const int g2 = __shfl_sync(kFull, d[j], gs * 4 + 2);
+                    const int g3 = __shfl_sync(kFull, d[j], gs * 4 + 3);
+                    const int e0 = g0 + g2, e1 = g0 - g2, e2 = (g1 >> 1) - g3, e3 = g1 + (g3 >> 1);
+                    const int val = (outer ? e0 : e1) + isgn * (outer ? e3 : e2);
+                    rc[j] = clamp255(((val + 32) >> 6) + (dcw ? dc[i] : pr[i][j]));
+                }
+                if (grp == gs) {
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) ybuf[base[i] + u * kBufS + j] = rc[j];
+                    int16_t* lv = acz_out + mb * 256 + blk[i] * 16 + u * 4;
+                    if (vec) {
+                        *reinterpret_cast<uint2*>(lv) = make_uint2(
+                            ((uint32_t)q[i][0] & 0xffffu) | ((uint32_t)q[i][1] << 16),
+                            ((uint32_t)q[i][2] & 0xffffu) | ((uint32_t)q[i][3] << 16));
+                    } else {
+#pragma unroll
+                        for (int v = 0; v < 4; ++v) lv[v] = (int16_t)q[i][v];
+                    }
+                    if (ry != nullptr)
+                        store4(ry + ((long long)mby * 16 + zby * 4 + u) * ((long long)mb_w * 16)
+                               + mbx * 16 + zbx * 4, rc);
+                }
+            }
+            __syncwarp();
+        }
+        // the MB's decision (strict), its outputs; the next left edge, the
+        // left MB's bx = 3 modes (2 for an I_16x16 MB)
+        const bool use_i4 = cost_i4 < (use_h ? cost_h : cost_d);
+        if (lane == 0) {
+            mode_out[mb] = (int16_t)(use_i4 ? 0 : use_h ? 1 : 2);
+            if (chromah) cmode_out[mb] = (int16_t)use_ch;
+        }
+        if (lane < 16) {
+            i4m_out[mb * 16 + lane] = (int16_t)(use_i4 ? (int)(zm >> (4 * lane)) & 15 : 2);
+            if (use_i4) edge = ybuf[(lane + 1) * kBufS + 16];
+            ybuf[(lane + 1) * kBufS] = edge;
+        }
+        lm4 = use_i4 ? ((zm >> 20) & 15) | ((zm >> 28) & 15) << 4 | ((zm >> 52) & 15) << 8
+                           | ((zm >> 60) & 15) << 12
+                     : 0x2222;
+        __syncwarp();
     }
 }
 
 // C: a warp an MB, BlockRole's lanes: each intra MB's levels and, where
-// `ry` is given, its reconstruction, from its source and the edge B stored
-template <bool P>
+// `ry` is given, its reconstruction, from its source and the edge B stored;
+// with I4 an Intra_4x4 MB's luma is B's (its zdc zeros)
+template <bool P, bool I4 = false>
 __global__ void __launch_bounds__(32 * kSplitWarps)
 levels_intra_kernel(const uint8_t* __restrict__ y, long long y_rs,
                     const uint8_t* __restrict__ cb, long long cb_rs, long long cb_cs,
@@ -951,7 +944,8 @@ levels_intra_kernel(const uint8_t* __restrict__ y, long long y_rs,
     const int mby = (int)(mb / mb_w), mbx = (int)(mb % mb_w);
     const BlockRole b(lane, p);
     // the prediction from the left edge this MB was decided with
-    const uint32_t* E = reinterpret_cast<const uint32_t*>(rec + mb * kRecWords + kUsed);
+    const uint32_t* E = reinterpret_cast<const uint32_t*>(rec + mb * kStride<I4> + kUsed);
+    const bool keep = I4 && m == 0 && b.luma;    // an Intra_4x4 MB's luma lane
     const bool hor = b.luma ? (P ? m == 3 : m == 1)
                             : (!P && cmode_in != nullptr && cmode_in[mb] != 0);
     const uint32_t rows = E[b.luma ? b.by : 4 + b.comp * 2 + b.cby];
@@ -974,7 +968,8 @@ levels_intra_kernel(const uint8_t* __restrict__ y, long long y_rs,
     const int zl = quant(had4_lanes(t[0], lane) >> 1, b.mf0, 2 * b.f, b.qb + 1);
     const int zc = quant(had2_lanes(t[0], lane), b.mf0, 2 * b.f, b.qb + 1);
     const int z = b.luma ? zl : zc;
-    store_levels(b, mb, lane, z, lev, vec, zdc_out, acz_out, czdc_out, cacz_out);
+    if (keep) zdc_out[mb * 16 + lane] = 0;
+    else store_levels(b, mb, lane, z, lev, vec, zdc_out, acz_out, czdc_out, cacz_out);
     if (ry == nullptr) return;                     // the whole grid
     const int dl = luma_dc_dequant(had4_lanes(z, lane), p);
     const int dcc = chroma_dc_dequant(had2_lanes(z, lane), p);
@@ -987,7 +982,7 @@ levels_intra_kernel(const uint8_t* __restrict__ y, long long y_rs,
     for (int i = 0; i < 16; ++i) d[i] = clamp255(d[i] + pr[i]);
     long long rs;
     uint8_t* dst = plane_at(b, ry, rcb, rcr, mb_w, mby, mbx, rs);
-    if (b.luma || b.chroma) {
+    if ((b.luma && !keep) || b.chroma) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) store4(dst + r * rs, d + 4 * r);
     }
@@ -1020,8 +1015,8 @@ bool word_aligned(const void* p, long long rs) {
 
 }  // namespace
 
-// `scratch`: record_words (kRecWords, else cudaErrorInvalidValue) int32 a MB
-// for the split design (unused with i4)
+// `scratch`: record_words int32 a MB (kRecWords, with i4 kRecWordsI4; else
+// cudaErrorInvalidValue)
 extern "C" int intra_levels_launch(const uint8_t* y, long long y_rs,
                                    const uint8_t* cb, long long cb_rs,
                                    long long cb_cs, const uint8_t* cr,
@@ -1037,22 +1032,30 @@ extern "C" int intra_levels_launch(const uint8_t* y, long long y_rs,
     int16_t* i4m = i4 ? out + 409 * n : nullptr;
     int16_t* cmode = chromah ? out + (i4 ? 425 : 409) * n : nullptr;
     if (mb_h <= 0 || mb_w <= 0) return (int)cudaGetLastError();
-    if (i4) {
-        intra_levels_kernel<<<mb_h, kThreads, 0, s>>>(
-            y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, mb_w, p, chromah,
-            out, out + 16 * n, out + 272 * n, out + 280 * n, out + 408 * n, i4m,
-            cmode, ry, rcb, rcr);
-        return (int)cudaGetLastError();
-    }
-    if (scratch == nullptr || record_words != kRecWords) return (int)cudaErrorInvalidValue;
+    if (scratch == nullptr || record_words != (i4 ? kRecWordsI4 : kRecWords))
+        return (int)cudaErrorInvalidValue;
     const int blocks = (int)((n + kSplitWarps - 1) / kSplitWarps);
     const int word_y = word_aligned(y, y_rs), vec = ((uintptr_t)out & 15) == 0;
+    if (i4) {
+        levels_split_kernel<false, true><<<blocks, 32 * kSplitWarps, 0, s>>>(
+            y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, nullptr, nullptr, nullptr, mb_h,
+            mb_w, p, word_y, 0, vec, nullptr, nullptr, nullptr, 0, 0, scratch, nullptr,
+            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
+        levels_chain_kernel<false, true><<<mb_h, 32, 0, s>>>(
+            mb_w, p, chromah, 0, 0, scratch, out + 408 * n, cmode, out + 16 * n, i4m, ry, vec);
+        levels_intra_kernel<false, true><<<blocks, 32 * kSplitWarps, 0, s>>>(
+            y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, mb_h, mb_w, p, word_y, vec,
+            scratch, out + 408 * n, cmode, out, out + 16 * n, out + 272 * n, out + 280 * n,
+            ry, rcb, rcr);
+        return (int)cudaGetLastError();
+    }
     levels_split_kernel<false><<<blocks, 32 * kSplitWarps, 0, s>>>(
         y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, nullptr, nullptr, nullptr, mb_h,
         mb_w, p, word_y, 0, vec, nullptr, nullptr, nullptr, 0, 0, scratch, nullptr,
         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
     levels_chain_kernel<false><<<mb_h, 32, 0, s>>>(mb_w, p, chromah, 0, 0, scratch,
-                                                    out + 408 * n, cmode);
+                                                    out + 408 * n, cmode, nullptr, nullptr,
+                                                    nullptr, 0);
     levels_intra_kernel<false><<<blocks, 32 * kSplitWarps, 0, s>>>(
         y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, mb_h, mb_w, p, word_y, vec,
         scratch, out + 408 * n, cmode, out, out + 16 * n, out + 272 * n, out + 280 * n,
@@ -1086,7 +1089,8 @@ extern "C" int p_levels_launch(const uint8_t* y, long long y_rs, const uint8_t* 
         word_y, word_p, vec, mv, ref, pmode, band_lo, band_hi, scratch, out,
         out + 16 * n, out + 272 * n, out + 280 * n, ry, rcb, rcr);
     levels_chain_kernel<true><<<mb_h, 32, 0, s>>>(mb_w, p, 0, band_lo, band_hi,
-                                                   scratch, out + 408 * n, nullptr);
+                                                   scratch, out + 408 * n, nullptr, nullptr,
+                                                   nullptr, nullptr, 0);
     levels_intra_kernel<true><<<blocks, 32 * kSplitWarps, 0, s>>>(
         y, y_rs, cb, cb_rs, cb_cs, cr, cr_rs, cr_cs, mb_h, mb_w, p, word_y, vec,
         scratch, out + 408 * n, nullptr, out, out + 16 * n, out + 272 * n,

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "parts_search_launch": (_P, _LL, _I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P),
-    "pack_i_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P),
+    "pack_i_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P),
     "pack_p_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P),
     "deblock_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
                        _P, _I, _P),

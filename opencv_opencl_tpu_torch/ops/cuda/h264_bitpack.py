@@ -20,6 +20,11 @@ current stream or raises, and counts its launches in ``<wrapper>.launches``.
 The kernels read the level tensors where they lie (the segments of a level
 buffer of ``ops/cuda/h264_levels.py``, int16, contiguous); :func:`pack_i_into`
 and :func:`pack_p_into` write into words and counts the caller owns.
+
+H7 is laid out by :func:`pack_plan`: a warp walks a run of ``run`` MBs of
+one MB row (first counting the MB left of its run), four warps a block.
+:func:`pack_i_floor_into` launches its read-and-store floor, the same loads
+and stores without tokens (not counted).
 """
 
 from __future__ import annotations
@@ -30,11 +35,14 @@ from opencv_opencl_tpu_torch.ops import h264_bitpack as bitpack
 from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _stream
 
-__all__ = ["pack_i_mbs", "pack_p_mbs", "pack_i_into", "pack_p_into", "MAX_NW_MB",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["pack_i_mbs", "pack_p_mbs", "pack_i_into", "pack_p_into", "pack_i_floor_into",
+           "pack_plan", "MAX_NW_MB", "PACK_RUN", "launch_counts", "reset_launch_counts"]
 
-# the output words of the block's four MBs live in dynamic shared memory
+# H8's output words of a block's four MBs live in dynamic shared memory
 MAX_NW_MB = 1024
+# H7: the MBs of a row a warp walks, and the warps a block (kPackWarps)
+PACK_RUN = 16
+PACK_WARPS = 4
 # csrc/h264_bitpack.cu's table layout
 _VLC_LAYOUT = {"ct_len": 0, "ct_code": 204, "cdc_len": 408, "cdc_code": 428,
                "tz_len": 448, "tz_code": 704, "tzc_len": 960, "tzc_code": 976,
@@ -87,10 +95,34 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def pack_plan(mb_h: int, mb_w: int, run: int = PACK_RUN) -> dict:
+    """H7's launch for an (mb_h, mb_w) MB grid: the MBs a warp walks along
+    a row (fewer where the row is shorter), the runs a row, the warps, and
+    the (blocks, threads)."""
+    run = max(1, min(run, mb_w))
+    runs = -(-mb_w // run)
+    warps = mb_h * runs
+    return {"run": run, "runs": runs, "warps": warps,
+            "grid": (-(-warps // PACK_WARPS), 32 * PACK_WARPS)}
+
+
 def pack_i_into(zdc, acz, czdc, cacz, imode, words: torch.Tensor, nbits: torch.Tensor,
                 i4modes=None, cmode=None) -> None:
     """Launch ``pack_i_kernel`` over CUDA level tensors into ``words``
     (mb_h, mb_w, nw_mb) uint32 and ``nbits`` (mb_h, mb_w) int32."""
+    _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor=False)
+    pack_i_mbs.launches += 1
+
+
+def pack_i_floor_into(zdc, acz, czdc, cacz, imode, words: torch.Tensor, nbits: torch.Tensor,
+                      i4modes=None, cmode=None) -> None:
+    """H7's read-and-store floor: :func:`pack_i_into`'s loads and stores
+    with no tokens (the words are no bit string; the counts zero); not
+    counted."""
+    _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor=True)
+
+
+def _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor: bool) -> None:
     mb_h, mb_w = zdc.shape[:2]
     dev = zdc.device
     if not _on_card(zdc):
@@ -107,10 +139,9 @@ def pack_i_into(zdc, acz, czdc, cacz, imode, words: torch.Tensor, nbits: torch.T
         err = lib.pack_i_launch(
             *(_ptr(lv[k]) for k in ("zdc", "acz", "czdc", "cacz", "imode", "i4modes",
                                     "cmode")),
-            mb_h, mb_w, _vlc(dev).data_ptr(), nw, words.data_ptr(), nbits.data_ptr(),
-            _stream(dev))
+            mb_h, mb_w, _vlc(dev).data_ptr(), nw, pack_plan(mb_h, mb_w)["run"], int(floor),
+            words.data_ptr(), nbits.data_ptr(), _stream(dev))
     _raise_on(err, "pack_i_kernel")
-    pack_i_mbs.launches += 1
 
 
 def pack_i_mbs(zdc, acz, czdc, cacz, imode, nw_mb: int = 64, i4modes=None, cmode=None):

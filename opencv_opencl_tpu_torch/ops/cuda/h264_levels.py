@@ -26,18 +26,20 @@ reference index, which ``motion_search_kernel`` writes there (with
 ``parts`` the quadrant fields and the partition modes, which
 ``parts_search_kernel`` writes).
 
-A call of either wrapper (H1 without ``i4``, H2) launches three grids on
-the current stream, laid out by :func:`levels_plan`: ``levels_split_kernel``
-(a warp an MB: what the left neighbour cannot change, and H2's inter
-candidate whole), ``levels_chain_kernel`` (a warp an MB row: the decisions
-and the carried edge) and ``levels_intra_kernel`` (a warp an MB: the intra
-MBs' levels and reconstruction), through a scratch of
-``LEVEL_RECORD_WORDS`` int32 a MB that the wrapper allocates for the call
+A call of either wrapper launches three grids on the current stream, laid
+out by :func:`levels_plan`: ``levels_split_kernel`` (a warp an MB: what the
+left neighbour cannot change, and H2's inter candidate whole),
+``levels_chain_kernel`` (a warp an MB row: the decisions and the carried
+edge; with ``i4`` also the Intra_4x4 trial, 16 sub-blocks an MB) and
+``levels_intra_kernel`` (a warp an MB: the intra MBs' levels and
+reconstruction), through a scratch of ``LEVEL_RECORD_WORDS`` int32 a MB
+(``I4_RECORD_WORDS`` with ``i4``) that the wrapper allocates for the call
 (from PyTorch's caching allocator: one scratch shared between calls would
 be overwritten by a second call in flight on another stream or thread).
-``launches`` counts one a call.  H1 with ``i4`` is one grid,
-``intra_levels_kernel``.  A phase's device time is its kernel's own name in
-``torch.profiler``'s keys of an ordinary call.
+``launches`` counts one a call, H1 with ``i4`` in
+``encode_levels.i4_launches`` (``launch_counts()["encode_levels_i4"]``).  A
+phase's device time is its kernel's own name in ``torch.profiler``'s keys
+of an ordinary call.
 """
 
 from __future__ import annotations
@@ -55,12 +57,14 @@ __all__ = ["encode_levels", "intra_levels", "level_layout", "level_words",
            "split_levels", "plan_words", "encode_p_levels", "p_levels_into",
            "p_level_layout", "p_level_words", "split_p_levels",
            "launch_counts", "reset_launch_counts", "levels_plan",
-           "LEVEL_RECORD_WORDS"]
+           "LEVEL_RECORD_WORDS", "I4_RECORD_WORDS"]
 
 # the split design's scratch, int32 words a MB (csrc/h264_levels.cu
-# kRecWords; the launcher refuses another count), and the MBs (a warp each)
-# a block of its A and C grids (kSplitWarps)
+# kRecWords; with i4 kRecWordsI4, which adds each luma block's T(src) as 8
+# words and its cost; the launcher refuses another count), and the MBs (a
+# warp each) a block of its A and C grids (kSplitWarps)
 LEVEL_RECORD_WORDS = 188
+I4_RECORD_WORDS = LEVEL_RECORD_WORDS + 16 * 8 + 16
 SPLIT_WARPS = 4
 
 # the kernel's int32 plan: the order of csrc/h264_levels.cu's Plan
@@ -129,29 +133,29 @@ def _check_strides(t: torch.Tensor, name: str) -> None:
                          f"stride, got strides {t.stride()}")
 
 
-def levels_plan(mb_h: int, mb_w: int) -> dict:
+def levels_plan(mb_h: int, mb_w: int, i4: bool = False) -> dict:
     """The split design's launches for an (mb_h, mb_w) MB grid: the
-    scratch (int32 words and bytes), and the (blocks, threads) of phase A
-    (a warp an MB, ``SPLIT_WARPS`` a block), B (a warp an MB row, one a
-    block) and C (as A)."""
+    scratch (int32 words a MB, words and bytes), and the (blocks, threads)
+    of phase A (a warp an MB, ``SPLIT_WARPS`` a block), B (a warp an MB row,
+    one a block) and C (as A)."""
     n = mb_h * mb_w
     blocks = -(-n // SPLIT_WARPS)
-    return {"record_words": LEVEL_RECORD_WORDS, "scratch_words": LEVEL_RECORD_WORDS * n,
-            "scratch_bytes": 4 * LEVEL_RECORD_WORDS * n, "split": (blocks, 32 * SPLIT_WARPS),
+    words = I4_RECORD_WORDS if i4 else LEVEL_RECORD_WORDS
+    return {"record_words": words, "scratch_words": words * n,
+            "scratch_bytes": 4 * words * n, "split": (blocks, 32 * SPLIT_WARPS),
             "chain": (mb_h, 32), "intra": (blocks, 32 * SPLIT_WARPS)}
 
 
-def _scratch(device, mb_h: int, mb_w: int) -> torch.Tensor:
-    return torch.empty(levels_plan(mb_h, mb_w)["scratch_words"], dtype=torch.int32,
-                       device=device)
+def _scratch(device, plan: dict) -> torch.Tensor:
+    return torch.empty(plan["scratch_words"], dtype=torch.int32, device=device)
 
 
 def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                  qp: int, out: torch.Tensor, full_recon: bool = False,
                  i4: bool = False, chromah: bool = False):
     """Launch H1 over CUDA planes into ``out``, a contiguous int16 buffer of
-    :func:`level_words` elements: the split design's three grids, or
-    ``intra_levels_kernel`` with ``i4``.  Returns the reconstructed planes
+    :func:`level_words` elements: the split design's three grids (their
+    ``i4`` instances with ``i4``).  Returns the reconstructed planes
     ``(ry, rcb, rcr)`` with ``full_recon``, else None.  ``y`` has unit
     pixel stride; ``cb``/``cr`` may be the interleaved views of an NV12
     chroma plane (pixel stride 2)."""
@@ -173,7 +177,8 @@ def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         recon = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
                  torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
                  torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
-    scratch = None if i4 else _scratch(y.device, mb_h, mb_w)
+    layout = levels_plan(mb_h, mb_w, i4)
+    scratch = _scratch(y.device, layout)
     plan = plan_words(qp)
     lib = _build.load()
     with torch.cuda.device(y.device):
@@ -182,10 +187,12 @@ def intra_levels(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             cr.data_ptr(), cr.stride(0), cr.stride(1), mb_h, mb_w,
             plan.ctypes.data, int(i4), int(chromah), out.data_ptr(),
             *((t.data_ptr() for t in recon) if recon else (None, None, None)),
-            None if scratch is None else scratch.data_ptr(), LEVEL_RECORD_WORDS,
-            _stream(y.device))
-    _raise_on(err, "intra_levels_kernel" if i4 else "levels_split/chain/intra_kernel")
-    encode_levels.launches += 1
+            scratch.data_ptr(), layout["record_words"], _stream(y.device))
+    _raise_on(err, "levels_split/chain/intra_kernel")
+    if i4:
+        encode_levels.i4_launches += 1
+    else:
+        encode_levels.launches += 1
     return recon
 
 
@@ -279,7 +286,7 @@ def p_levels_into(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     recon = (torch.empty((H, W), dtype=torch.uint8, device=y.device),
              torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device),
              torch.empty((H // 2, W // 2), dtype=torch.uint8, device=y.device))
-    scratch = _scratch(y.device, mb_h, mb_w)
+    scratch = _scratch(y.device, levels_plan(mb_h, mb_w))
     lo, hi = (0, 0) if band is None else (int(band[0]), int(band[1]))
     plan = plan_words(qp)
     lib = _build.load()
@@ -347,10 +354,15 @@ _WRAPPERS = (encode_levels, encode_p_levels)
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    encode_levels.i4_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
+    """Launches by wrapper name; H1's with ``i4`` under
+    ``encode_levels_i4``."""
+    counts = {fn.__name__: fn.launches for fn in _WRAPPERS}
+    counts["encode_levels_i4"] = encode_levels.i4_launches
+    return counts
 
 
 reset_launch_counts()

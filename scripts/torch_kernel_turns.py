@@ -35,10 +35,14 @@ after H3 has written it: the pair less H3), H2 (QP 30), H1 on the same
 frame (the default, and ``full_recon`` as on an IDR), H5 on the P frame's
 own metadata and on an IDR's (each beside the wavefront's floor where the
 tree has ``deblock_floor_into``) and H6 (full-pel, half-pel search 8,
-quarter-pel search 4 and two references at full-pel search 8), with checksums
-of their outputs, so that the trees are seen to compute the same thing;
-in a tree with the split H1/H2 (``levels_plan``), each of their phases
-as torch.profiler's device time of its grid in an ordinary call.
+quarter-pel search 4 and two references at full-pel search 8), H1 with
+``i4`` and ``chromah``, H7 on the frame's default and ``i4:chromah`` IDR
+levels (where the tree has ``pack_i_floor_into``, each beside its
+read-and-store floor) and H8 on its parts P frame (full-pel search 8), with
+checksums of their outputs, so that the trees are seen to compute the same
+thing; in a tree with the split H1/H2 (``levels_plan``), each of their
+phases as torch.profiler's device time of its grid in an ordinary call (H1
+with ``i4`` where the tree has ``I4_RECORD_WORDS``).
 
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
 also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
@@ -51,7 +55,8 @@ output); ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
 (registers, shared memory, spills) for H3 (each instance of
 ``subpel_planes_kernel<NP>`` and ``subpel_floor_kernel<NP>``), H4, H5 (and
-its bS pass) and H6, and
+its bS pass), H6, H1 and H2 (the split design's grids, and the direct
+``intra_levels_kernel`` of trees that have it), H7 and H8, and
 for K1 (each instance of
 ``tile_hist_kernel<R>``: 4 for K1, 2, 4 and 8 for K10), K2, K3, K6, K7, and
 in older trees ``interp_pack_kernel`` (K5), ``tile_hist_batched_kernel``
@@ -77,7 +82,9 @@ KERNEL_NAMES = ("tile_hist_kernel", "build_luts_kernel", "interp_kernel",
                 "tile_hist_batched_kernel", "interp_cells_radix_kernel",
                 "tile_hist_private_kernel", "motion_search_kernel", "deblock_kernel",
                 "deblock_bs_kernel", "parts_search_kernel", "subpel_planes_kernel",
-                "subpel_floor_kernel")
+                "subpel_floor_kernel", "intra_levels_kernel", "levels_split_kernel",
+                "levels_chain_kernel", "levels_intra_kernel", "pack_i_kernel",
+                "pack_p_kernel")
 # K2 launches a timed run queues behind one spin of the card
 K2_LAUNCHES = 200
 
@@ -571,6 +578,47 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
             + pred[0].to(torch.int64).sum() + pred[1].to(torch.int64).sum()
             + (0 if two is None else int(two.to(torch.int64).sum())))
         res[f"parts_search_{name}"] = device_ms(h6)
+    # H1 with i4 (and chroma HORIZONTAL) on the same frame; in a tree with
+    # the split i4 design its phases too
+    i4out = torch.empty(kl.level_words(mb_h, mb_w, True, True), dtype=torch.int16,
+                        device=dev)
+    h1_i4 = lambda: kl.intra_levels(*src, 30, i4out, i4=True, chromah=True)  # noqa: E731
+    res["intra_levels_i4_chromah"] = device_ms(h1_i4)
+    res["h1_i4_checksum"] = int(i4out.to(torch.int64).abs().sum())
+    if hasattr(kl, "I4_RECORD_WORDS"):
+        us = profile_us(h1_i4)
+        for grid, phase in (("levels_split_kernel", "a"), ("levels_chain_kernel", "b"),
+                            ("levels_intra_kernel", "c")):
+            res[f"intra_levels_i4_chromah_{phase}_profiler_ms"] = pick(us, grid) / 1e3
+    # H7 on the default and the i4:chromah IDR of the frame, and where the
+    # tree has it its read-and-store floor; H8 on a parts P frame
+    from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as kb
+
+    words = torch.empty((mb_h, mb_w, 64), dtype=torch.uint32, device=dev)
+    nbits = torch.empty((mb_h, mb_w), dtype=torch.int32, device=dev)
+    for name, buf, i4 in (("default", iout, False), ("i4_chromah", i4out, True)):
+        iv = kl.split_levels(buf, mb_h, mb_w, i4, i4)
+        ilv = (iv["zdc"], iv["acz"], iv["czdc"], iv["cacz"], iv["imode"])
+        ex = {k: iv[k] for k in ("i4modes", "cmode") if k in iv}
+        h7 = lambda: kb.pack_i_into(*ilv, words, nbits, **ex)  # noqa: E731
+        h7()
+        res[f"h7_{name}_checksum"] = int(words.view(torch.int32).to(torch.int64).abs().sum()
+                                         + nbits.to(torch.int64).sum())
+        res[f"pack_i_{name}"] = device_ms(h7)
+        if hasattr(kb, "pack_i_floor_into"):
+            res[f"pack_i_{name}_floor"] = device_ms(
+                lambda: kb.pack_i_floor_into(*ilv, words, nbits, **ex))
+    P, margin = levels_ops.search_plan(8, 0)
+    stack = levels_ops.subpel_planes(ref[0], margin, P)
+    ki.parts_stack_into(src[0], stack, [ref], 8, 0, 30, pf["pmode"], pf["mv"], None, *pred)
+    kl.p_levels_into(*src, *pred, 30, pout, motion=True, parts=True)
+    plv = (pf["mode"], pf["zdc"], pf["acz"], pf["czdc"], pf["cacz"])
+    h8 = lambda: kb.pack_p_into(*plv, None, None, 1, words, nbits,  # noqa: E731
+                                pmode=pf["pmode"], mv4=pf["mv"])
+    h8()
+    res["h8_checksum"] = int(words.view(torch.int32).to(torch.int64).abs().sum()
+                             + nbits.to(torch.int64).sum())
+    res["pack_p_parts_s8"] = device_ms(h8)
     return res
 
 

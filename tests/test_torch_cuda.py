@@ -728,7 +728,8 @@ def test_intra_levels_kernel_equals_plain(device, flags, h, w):
         assert len(flat_got) == len(flat_want)
         for a, b in zip(flat_got, flat_want):
             assert a.dtype == b.dtype and torch.equal(a, b)
-    assert levels_kernel.launch_counts()["encode_levels"] == 3
+    assert levels_kernel.launch_counts()["encode_levels_i4" if "i4" in flags
+                                         else "encode_levels"] == 3
 
 
 def test_cuda_cavlc_encoder_on_card_equals_the_host_oracle(device):
@@ -900,6 +901,100 @@ def test_split_level_kernels_on_mixed_content(device, h, w):
                 assert (a is None and b is None) or torch.equal(a, b), (qp, search, subpel)
     counts = levels_kernel.launch_counts()
     assert counts["encode_levels"] == 3 * len(qps) and counts["encode_p_levels"] == 4 * len(qps)
+
+
+def _intra_planes(device, frame, h, w):
+    f = torch.from_numpy(frame).to(device)
+    uv = f[h:].view(h // 2, w // 2, 2)
+    return f[:h], uv[:, :, 0], uv[:, :, 1]
+
+
+def _intra_contents(seed, h, w):
+    rng = np.random.default_rng(seed)
+    return {"mixed": mixed_nv12(rng, h, w)[1],
+            **{c: _frames(seed + k, 1, h * 3 // 2, w, c)[0]
+               for k, c in enumerate(("structured", "random", "constant"))}}
+
+
+@pytest.mark.parametrize("h,w", EDGE_GEOMETRIES)
+def test_intra_4x4_levels_at_the_tilings_edges(device, h, w):
+    """H1 with ``i4`` (with ``full_recon``, with ``chromah``, with both)
+    against its plain version, every output, on mixed, structured, random
+    and constant content at QP 0, 26 and 51 (1920x1088: mixed content at QP
+    26), at geometries whose MBs the split design's blocks of four do not
+    divide and with one MB row or column."""
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_levels as levels_kernel
+
+    big = h * w >= 1088 * 1920
+    contents = _intra_contents(90 + h + w, h, w)
+    levels_kernel.reset_launch_counts()
+    checked = 0
+    for kind, frame in contents.items():
+        if big and kind != "mixed":
+            continue
+        planes = _intra_planes(device, frame, h, w)
+        for qp in ((26,) if big else (0, 26, 51)):
+            for flags in ({"i4": True, "full_recon": True}, {"i4": True, "chromah": True},
+                          {"i4": True, "chromah": True, "full_recon": True}):
+                got = torch_levels.encode_levels(*planes, qp, **flags)
+                want = torch_levels.encode_levels_plain(*planes, qp, **flags)
+                flat_got = [a for o in got for a in (o if isinstance(o, tuple) else (o,))]
+                flat_want = [a for o in want for a in (o if isinstance(o, tuple) else (o,))]
+                assert len(flat_got) == len(flat_want)
+                assert all(torch.equal(a, b) for a, b in zip(flat_got, flat_want)), \
+                    (kind, qp, flags)
+                checked += 1
+    counts = levels_kernel.launch_counts()
+    assert counts["encode_levels_i4"] == checked and counts["encode_levels"] == 0
+
+
+@pytest.mark.parametrize("content", ["mixed", "structured", "random", "constant"])
+def test_intra_4x4_levels_at_4k(device, content):
+    """H1 with ``i4``, ``chromah`` and ``full_recon`` against its plain
+    version at 4K, every output, at QP 0, 26 and 51 (the plain version
+    takes ~7 s a 4K frame on the card)."""
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+
+    h, w = 2160, 3840
+    planes = _intra_planes(device, _intra_contents(99, h, w)[content], h, w)
+    flags = {"i4": True, "chromah": True, "full_recon": True}
+    for qp in (0, 26, 51):
+        got = torch_levels.encode_levels(*planes, qp, **flags)
+        want = torch_levels.encode_levels_plain(*planes, qp, **flags)
+        flat_got = [a for o in got for a in (o if isinstance(o, tuple) else (o,))]
+        flat_want = [a for o in want for a in (o if isinstance(o, tuple) else (o,))]
+        assert len(flat_got) == len(flat_want)
+        assert all(torch.equal(a, b) for a, b in zip(flat_got, flat_want)), qp
+
+
+@pytest.mark.parametrize("h,w", EDGE_GEOMETRIES)
+def test_pack_i_at_the_tilings_edges(device, h, w):
+    """H7 on H1's levels (default, and ``i4`` + ``chromah``) of mixed and
+    random content at QP 0 and 30, words and bit counts, at 64 words an MB
+    and at a cap of 3, where a row's MBs split into runs of several lengths
+    (one MB row of 40, one MB column)."""
+    from opencv_opencl_tpu_torch.ops import h264_bitpack as torch_bitpack
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as packers
+
+    contents = _intra_contents(95 + h + w, h, w)
+    packers.reset_launch_counts()
+    checked = 0
+    for kind in ("mixed", "random"):
+        planes = _intra_planes(device, contents[kind], h, w)
+        for qp in (0, 30):
+            for flags in ({}, {"i4": True, "chromah": True}):
+                lv, imode, *extra = torch_levels.encode_levels(*planes, qp, **flags)
+                ex = dict(zip(["i4modes"] * ("i4" in flags) + ["cmode"] * ("chromah" in flags),
+                              extra))
+                for nw_mb in (64, 3):
+                    assert _packed_equal(torch_bitpack.pack_i_mbs(*lv, imode, nw_mb, **ex),
+                                         torch_bitpack.pack_i_mbs_plain(*lv, imode, nw_mb,
+                                                                        **ex)), \
+                        (kind, qp, flags, nw_mb)
+                    checked += 1
+    assert packers.launch_counts() == {"pack_i_mbs": checked, "pack_p_mbs": 0}
 
 
 def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):

@@ -433,12 +433,34 @@ def test_split_record_fields_fit_the_wrappers_scratch():
     assert (4 * kl.LEVEL_RECORD_WORDS) % 16 == 0
 
 
+def test_i4_record_extends_the_split_record():
+    """With i4 the record adds each luma block's T(src) as 8 words of int16
+    pairs and its cost: the wrapper's I4_RECORD_WORDS, 16-byte aligned."""
+    text = LEVELS_CU.read_text()
+    expr = dict(re.findall(r"constexpr int (kI4\w+|kRecWordsI4) = ([^;]+);", text))
+    assert expr == {"kI4T": "kRecWords", "kI4Cost": "kI4T + 128",
+                    "kRecWordsI4": "kI4Cost + 16"}
+    assert kl.I4_RECORD_WORDS == kl.LEVEL_RECORD_WORDS + 16 * 8 + 16
+    assert (4 * kl.I4_RECORD_WORDS) % 16 == 0 and (4 * kl.LEVEL_RECORD_WORDS) % 16 == 0
+
+
 @pytest.mark.parametrize("h,w", GEOMETRIES)
 def test_levels_plan(h, w):
+    check_levels_plan(h, w, False)
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_levels_plan_i4(h, w):
+    check_levels_plan(h, w, True)
+
+
+def check_levels_plan(h, w, i4):
     mb_h, mb_w = h // 16, w // 16
     n = mb_h * mb_w
-    plan = kl.levels_plan(mb_h, mb_w)
-    assert plan["scratch_words"] == kl.LEVEL_RECORD_WORDS * n
+    plan = kl.levels_plan(mb_h, mb_w, i4)
+    words = kl.I4_RECORD_WORDS if i4 else kl.LEVEL_RECORD_WORDS
+    assert plan["record_words"] == words
+    assert plan["scratch_words"] == words * n
     assert plan["scratch_bytes"] == 4 * plan["scratch_words"]
     for phase in ("split", "intra"):
         blocks, threads = plan[phase]
@@ -576,13 +598,14 @@ def phase_a(q, y, cb, cr, pred=None):
     return r
 
 
-def phase_b(q, r, mh, mw, chromah=False, mvz=None, inband=None):
+def phase_b(q, r, mh, mw, chromah=False, mvz=None, inband=None, i4=None):
     """The chain along every row: the decisions and the left edge each MB
     was decided with; an intra MB's next edge from its right blocks' column
-    3 alone."""
+    3 alone.  With ``i4`` (an :class:`I4Chain`) each MB's Intra_4x4 trial
+    after its I_16x16 step, and its luma edge where Intra_4x4 wins."""
     p_frame = mvz is not None
     e, c = np.zeros((mh, 16), np.int64), np.zeros((mh, 2, 8), np.int64)
-    out = {k: np.zeros((mh, mw), bool) for k in ("use_h", "use_ch", "intra", "skip")}
+    out = {k: np.zeros((mh, mw), bool) for k in ("use_h", "use_ch", "intra", "skip", "use_i4")}
     edges = np.zeros((mh, mw, 32), np.int64)
     for x in range(mw):
         left = x > 0
@@ -623,11 +646,16 @@ def phase_b(q, r, mh, mw, chromah=False, mvz=None, inband=None):
                                 r["Ddc"][:, x])
         ec = np.clip(((inv1d(hc, -1) + 32) >> 6)
                      + np.where(use_ch[:, None, None, None], cg, vh[..., None]), 0, 255)
+        use_i4 = np.zeros(mh, bool)
+        if i4 is not None:
+            use_i4, e_i4 = i4.mb(x, e, left, np.where(use_h, cost_h, cost_d))
+            ey = np.where(use_i4[:, None, None], e_i4.reshape(mh, 4, 4), ey)
         e, c = ey.reshape(mh, 16), ec.reshape(mh, 2, 8)
         if p_frame:
             e = np.where(intra[:, None], e, r["edge_y"][:, x])
             c = np.where(intra[:, None, None], c, r["edge_c"][:, x])
-        for k, v in (("use_h", use_h), ("use_ch", use_ch), ("intra", intra), ("skip", skip)):
+        for k, v in (("use_h", use_h), ("use_ch", use_ch), ("intra", intra), ("skip", skip),
+                     ("use_i4", use_i4)):
             out[k][:, x] = v
     return out, edges
 
@@ -669,6 +697,163 @@ def split_model_levels(y, cb, cr, qp, chromah=False):
     dec, edges = phase_b(q, phase_a(q, y, cb, cr), mh, mw, chromah)
     return (kernel_layout(*phase_c(q, y, cb, cr, dec["use_h"], dec["use_ch"], edges)),
             np.where(dec["use_h"], 1, 2), dec["use_ch"].astype(np.int64))
+
+
+def kernel_i4_tables():
+    """The ``.cu``'s Intra_4x4 lane tables: the groups' modes (kI4Modes) and
+    the predictors (kI4Pred) as (neighbour, weight) taps, rounding, shift."""
+    text = LEVELS_CU.read_text()
+    modes = [int(v) for v in re.search(r"kI4Modes\[8\] = \{([^}]*)\}", text).group(1).split(",")]
+    body = re.search(r"kI4Pred\[9\]\[16\] = \{(.*?)\};", text, re.S).group(1)
+    words = np.array([int(v, 0) for v in re.findall(r"0x[0-9a-f]+|\b\d+\b", body)],
+                     np.int64).reshape(9, 16)
+    taps = np.stack([(words >> (6 * k)) & 15 for k in range(3)], -1)
+    wgt = np.stack([(words >> (6 * k + 4)) & 3 for k in range(3)], -1)
+    return modes, taps, wgt, (words >> 18) & 3, (words >> 20) & 3
+
+
+def test_kernel_i4_tables_are_the_plain_predictors():
+    modes, taps, wgt, rnd, shf = kernel_i4_tables()
+    idx, w, r, sh = levels._I4_TABLES
+    assert modes == [0, 1, 3, 4, 5, 6, 7, 8]
+    assert np.array_equal(wgt, w) and np.array_equal(rnd, r) and np.array_equal(shf, sh)
+    assert np.array_equal(np.where(wgt > 0, taps, 0), np.where(w > 0, idx, 0))
+
+
+BUF_S = 17          # the chain's per-warp copy of the MB: (y + 1) * 17 + x + 1
+Z_SCAN = [((z & 1) | ((z >> 1) & 2), ((z >> 1) & 1) | ((z >> 2) & 2)) for z in range(16)]
+# the trial's wavefront steps (bx + 2 by), their sub-blocks in z indices
+WAVE = [[0], [1], [4, 2], [5, 3], [6, 8], [7, 9], [12, 10], [13, 11], [14], [15]]
+
+
+def test_i4_wave_is_the_kernels_and_decodes_each_block_after_its_neighbours():
+    """The ``.cu``'s packed wave order equals WAVE; every sub-block comes
+    after its left, top, top-left and (where available) top-right
+    neighbours, and the two of a step are not neighbours."""
+    text = LEVELS_CU.read_text()
+    packed = int(re.search(r"\((0x[0-9a-f]+)ull >> \(4 \* \(\(t < 2", text).group(1), 16)
+    seq = [(packed >> (4 * k)) & 15 for k in range(16)]
+    assert seq == [z for step in WAVE for z in step]
+    step_of = {z: t for t, step in enumerate(WAVE) for z in step}
+    for z, (bx, by) in enumerate(Z_SCAN):
+        tr = not (bx == 3 or (bx == 1 and by in (1, 3)))
+        for nx, ny, need in ((bx - 1, by, True), (bx, by - 1, True), (bx - 1, by - 1, True),
+                             (bx + 1, by - 1, tr)):
+            if 0 <= nx < 4 and 0 <= ny < 4 and need:
+                assert step_of[z_of(nx, ny)] < step_of[z], (z, nx, ny)
+
+
+def z_of(bx, by):
+    return (bx & 1) | ((by & 1) << 1) | ((bx & 2) << 1) | ((by & 2) << 2)
+
+
+class I4Chain:
+    """B's Intra_4x4 trial as the kernel runs it, every MB row at once, the
+    sub-blocks in the wavefront's order (WAVE): 32 lanes, lane (g, u) of group g = lane // 4 holding mode kI4Modes[g] and
+    pixel and coefficient row u; the prediction of its row from taps into
+    the copy of the MB's reconstruction (row 0 zeros, column 0 the left
+    edge), the row's CF, the column CF over the group, T(src) - T(pred)
+    requantized, the group's cost; the DC mode every group's second
+    candidate from A's T(src)[0][0] and cost of the rest; the warp's least
+    key cost * 16 + mode; the winner's group reconstructing the block."""
+
+    def __init__(self, q, Ts, mh, mw):
+        modes, taps, wgt, rnd, shf = kernel_i4_tables()
+        self.q, self.Ts, self.mh = q, Ts, mh
+        self.pm = np.repeat(np.array(modes), 4).reshape(8, 4)          # [g][u]
+        nb = taps[modes]                                                # (8, 16, 3)
+        off = np.where(nb == 0, -BUF_S - 1, np.where(nb <= 8, -BUF_S + nb - 1,
+                                                     (nb - 9) * BUF_S - 1))
+        self.off = off.reshape(8, 4, 4, 3)
+        self.offn = np.where((nb >= 5) & (nb <= 8), -BUF_S + 3, off).reshape(8, 4, 4, 3)
+        self.w = wgt[modes].reshape(8, 4, 4, 3)
+        self.rnd, self.shf = rnd[modes].reshape(8, 4, 4), shf[modes].reshape(8, 4, 4)
+        qs = quant(Ts, q.mfy, q.fy, q.qb)
+        self.cost_ac = (cost(qs) * AC).sum((-1, -2))                   # A's, (mh, mw, 4, 4)
+        self.qs = qs
+        self.buf = np.zeros((mh, 17 * BUF_S), np.int64)
+        self.lm4 = np.full((mh, 4), 2, np.int64)
+        self.acz = np.zeros((mh, mw, 4, 4, 4, 4), np.int64)             # by, bx, u, v
+        self.modes = np.full((mh, mw, 16), 2, np.int64)
+        self.recon = np.zeros((mh, mw, 16, 16), np.int64)
+
+    def mb(self, x, e, left, cost16):
+        q, mh, rows = self.q, self.mh, np.arange(self.mh)
+        buf = self.buf
+        buf[:, BUF_S::BUF_S][:, :16] = e                 # column 0: the left edge
+        zm = np.zeros((mh, 16), np.int64)
+        cost_i4 = np.zeros(mh, np.int64)
+        levels_mb = np.zeros((mh, 4, 4, 4, 4), np.int64)
+        for z in (z for step in WAVE for z in step):
+            bx, by = Z_SCAN[z]
+            base = (by * 4 + 1) * BUF_S + bx * 4 + 1
+            tr = not (bx == 3 or (bx == 1 and by in (1, 3)))
+            noleft = bx == 0 and not left
+            ls = sum(buf[:, base + i * BUF_S - 1] for i in range(4))
+            ts = sum(buf[:, base - BUF_S + i] for i in range(4))
+            if by == 0:
+                dc = np.full(mh, 128) if noleft else (ls + 2) >> 2
+            else:
+                dc = (ts + 2) >> 2 if noleft else (ts + ls + 4) >> 3
+            off = self.off if tr else self.offn
+            pr = ((buf[:, base + off] * self.w).sum(-1) + self.rnd) >> self.shf   # (mh, g, u, x)
+            rowcf = pr @ CF.T                                   # the row's CF: [.., u=y][v]
+            tp = np.einsum("uy,mgyv->mguv", CF, rowcf)          # the column CF over the group
+            ts4 = self.Ts[:, x, by, bx]                         # (mh, u, v)
+            mf = q.mfy
+            lev = quant(ts4[:, None] - tp, mf, q.fy, q.qb)      # (mh, g, u, v)
+            lc = cost(lev).sum((2, 3))                          # the group's cost
+            if by == 0:
+                predm = np.full(mh, 2)
+            else:
+                mB = zm[:, z_of(bx, by - 1)]
+                predm = (np.minimum(zm[:, z_of(bx - 1, by)], mB) if bx > 0
+                         else np.minimum(self.lm4[:, by], mB) if left else np.full(mh, 2))
+            pm = self.pm[:, 0]
+            valid = ((by > 0) | (pm == 1) | (pm == 8)) & ~(noleft & np.isin(pm, (1, 8, 4, 5, 6)))
+            key_p = np.where(valid, (lc + np.where(predm[:, None] == pm, 1, 4)) * 16 + pm,
+                             2 ** 31 - 1)
+            qd = quant(ts4[:, 0, 0] - 16 * dc, q.mfy[0, 0], q.fy, q.qb)
+            key_d = (self.cost_ac[:, x, by, bx] + cost(qd) + np.where(predm == 2, 1, 4)) * 16 + 2
+            best = np.minimum(key_p.min(1), key_d)
+            bm = best & 15
+            cost_i4 += best >> 4
+            zm[:, z] = bm
+            dcw = bm == 2
+            gs = np.where(dcw, 0, np.where(bm < 2, bm, bm - 1))
+            qdc = self.qs[:, x, by, bx].copy()
+            qdc[:, 0, 0] = qd
+            sel = np.where(dcw[:, None, None], qdc, lev[rows, gs])
+            pred = np.where(dcw[:, None, None], dc[:, None, None], pr[rows, gs])
+            rec = np.clip(inv(sel * q.vy) + pred, 0, 255)
+            for u in range(4):
+                buf[:, base + u * BUF_S: base + u * BUF_S + 4] = rec[:, u]
+            levels_mb[:, by, bx] = sel
+        use_i4 = cost_i4 < cost16
+        self.acz[:, x] = levels_mb
+        self.modes[:, x] = np.where(use_i4[:, None], zm, 2)
+        self.recon[:, x] = buf.reshape(mh, 17, BUF_S)[:, 1:, 1:]
+        self.lm4 = np.where(use_i4[:, None], zm[:, [z_of(3, b) for b in range(4)]], 2)
+        return use_i4, buf.reshape(mh, 17, BUF_S)[:, 1:, 16]
+
+
+def i4_model_levels(y, cb, cr, qp, chromah=False):
+    """encode_levels(i4=True, full_recon=True[, chromah]) by the three
+    phases, B with the Intra_4x4 trial: (zdc, acz, czdc, cacz, ry, rcb, rcr),
+    imode, i4modes (z-order), cmode."""
+    q, (mh, mw) = Quant(qp), (y.shape[0] // 16, y.shape[1] // 16)
+    r = phase_a(q, y, cb, cr)
+    chain = I4Chain(q, fwd(blocks(y, 16)), mh, mw)
+    dec, edges = phase_b(q, r, mh, mw, chromah, i4=chain)
+    zdc, acz, czdc, cacz, ry, rc = phase_c(q, y, cb, cr, dec["use_h"], dec["use_ch"], edges)
+    out = list(kernel_layout(zdc, acz, czdc, cacz, ry, rc))
+    i4 = dec["use_i4"]
+    out[0] = np.where(i4[..., None], 0, out[0])
+    out[1] = np.where(i4[..., None, None], chain.acz.reshape(mh, mw, 16, 16), out[1])
+    ry4 = chain.recon.transpose(0, 2, 1, 3).reshape(mh * 16, mw * 16)
+    out[4] = np.where(np.repeat(np.repeat(i4, 16, 0), 16, 1), ry4, out[4])
+    imode = np.where(i4, 0, np.where(dec["use_h"], 1, 2))
+    return out, imode, chain.modes, dec["use_ch"].astype(np.int64)
 
 
 def split_model_p_levels(y, cb, cr, ref, qp, band):
@@ -797,8 +982,10 @@ def test_level_wrappers_launch_only_on_the_card():
         kl.p_levels_into(y, c, c, y, c, c, 30,
                          torch.zeros(kl.p_level_words(2, 3), dtype=torch.int16))
     kl.encode_levels(y, c, c, 30)
+    kl.encode_levels(y, c, c, 30, i4=True, chromah=True)
     kl.encode_p_levels(y, c, c, y, c, c, 30)
-    assert kl.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0}
+    assert kl.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0,
+                                  "encode_levels_i4": 0}
 
 
 def test_inter_wrappers_launch_only_on_the_card():
@@ -824,3 +1011,75 @@ def test_inter_wrappers_launch_only_on_the_card():
     assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, want))
     assert ki.launch_counts() == {"subpel_planes": 0, "motion_search": 0,
                                   "motion_search_parts": 0}
+
+
+# ------------------------------------------------ H1 with i4: the chain --
+
+I4_SHAPES = [(32, 48), (16, 64), (48, 16)]
+I4_CONTENTS = ["structured", "random", "constant", "mixed"]
+
+
+def i4_content(kind, h, w, seed):
+    """An NV12 frame: a gradient with noise, noise, a constant, or mixed
+    (:func:`tests.test_torch_cuda.mixed_nv12`)."""
+    rng = np.random.default_rng(seed)
+    if kind in ("random", "constant", "mixed"):
+        return model_content(kind, h, w, seed)[0]
+    yy, xx = np.mgrid[0:h * 3 // 2, 0:w]
+    return ((xx * 2 + yy * 3 + rng.integers(0, 24, xx.shape)) % 256).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def jax_i4():
+    """encode_levels(i4=True, chromah=True, full_recon=True), QP traced:
+    one compile (~30 s on the CPU)."""
+    return jax.jit(lambda y, cb, cr, qp: jax_levels.encode_levels(
+        y, cb, cr, qp, full_recon=True, i4=True, chromah=True))
+
+
+@pytest.mark.parametrize("content", I4_CONTENTS)
+def test_i4_model_equals_jax_encode_levels(jax_i4, content):
+    h, w = I4_SHAPES[0]
+    y, cb, cr = nv12_planes(i4_content(content, h, w, seed=7 + len(content)), h)
+    for qp in (0, 26, 51):
+        got, imode, i4modes, cmode = i4_model_levels(y, cb, cr, qp, chromah=True)
+        want = jax_i4(*map(jnp.asarray, (y, cb, cr)), jnp.int32(qp))
+        lv, ry, rcb, rcr, jimode, ji4, jcm = want
+        for a, b in zip(got, (*lv, ry, rcb, rcr)):
+            assert np.array_equal(a, np.asarray(b).astype(np.int64)), qp
+        assert np.array_equal(imode, np.asarray(jimode))
+        assert np.array_equal(i4modes, np.asarray(ji4))
+        assert np.array_equal(cmode, np.asarray(jcm))
+
+
+@pytest.mark.parametrize("content", I4_CONTENTS)
+@pytest.mark.parametrize("h,w", I4_SHAPES)
+def test_i4_model_equals_plain(h, w, content):
+    """The model against ``encode_levels_plain(i4=True)`` with and without
+    ``chromah`` and ``full_recon`` at QP 0, 26 and 51, at 48x32, one MB row
+    and one MB column; mixed and structured content reach Intra_4x4 MBs and
+    I_16x16 ones in one frame."""
+    import torch
+
+    y, cb, cr = nv12_planes(i4_content(content, h, w, seed=h * w + len(content)), h)
+    kinds = set()
+    for qp in (0, 26, 51):
+        for chromah in (False, True):
+            got, imode, i4modes, cmode = i4_model_levels(y, cb, cr, qp, chromah)
+            for full_recon in (False, True):
+                want = levels.encode_levels_plain(*map(torch.from_numpy, (y, cb, cr)), qp,
+                                                  full_recon=full_recon, i4=True,
+                                                  chromah=chromah)
+                lv, rest = want[0], want[1:]
+                model = list(got[:4]) + (list(got[4:]) if full_recon else [])
+                plain = [t.numpy().astype(np.int64) for t in (*lv, *rest[:3 * full_recon])]
+                rest = rest[3 * full_recon:]
+                for a, b in zip(model, plain):
+                    assert np.array_equal(a, b), (qp, chromah, full_recon)
+                assert np.array_equal(imode, rest[0].numpy())
+                assert np.array_equal(i4modes, rest[1].numpy())
+                if chromah:
+                    assert np.array_equal(cmode, rest[2].numpy())
+            kinds |= set(imode.ravel().tolist())
+    if content in ("mixed", "structured") and h * w > 16 * 16:
+        assert 0 in kinds and kinds - {0}

@@ -208,7 +208,8 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu_only():
     kernel.reset_launch_counts()
     assert_same(kernel.encode_levels(y, cb, cr, 20, chromah=True),
                 h264_levels.encode_levels_plain(y, cb, cr, 20, chromah=True))
-    assert kernel.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0}
+    assert kernel.launch_counts() == {"encode_levels": 0, "encode_p_levels": 0,
+                                      "encode_levels_i4": 0}
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.intra_levels(y, cb, cr, 20, torch.empty(kernel.level_words(2, 2),
                                                         dtype=torch.int16))

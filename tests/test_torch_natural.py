@@ -243,7 +243,7 @@ def test_wrappers_launch_nothing_on_cpu():
         "clahe_interpolate_cells": 0, "tile_histograms_extended": 0,
         "clahe_interpolate_cells_band": 0, "tile_histograms_batched": 0,
         "clahe_interpolate_cells_radix": 0, "encode_levels": 0,
-        "encode_p_levels": 0, "subpel_planes": 0, "motion_search": 0,
+        "encode_p_levels": 0, "encode_levels_i4": 0, "subpel_planes": 0, "motion_search": 0,
         "motion_search_parts": 0, "deblock_planes": 0, "pack_i_mbs": 0,
         "pack_p_mbs": 0}
 
