@@ -107,8 +107,11 @@ Phases, each of which raises (exit code != 0) when it fails:
             (``pack_i_kernel``) on H1's levels (default, and Intra_4x4 with
             chroma HORIZONTAL; at 4K and the five edge geometries) and H8
             (``pack_p_kernel``) on H2's (P_16x16 and parts, one and two
-            references), at 64 words an MB and at a cap of 3, against their
-            plain versions; the streams
+            references; at 4K and the five edge geometries) and on a 4K
+            frame of synthetic fields (long skip runs, skipped rows,
+            levels under skipped MBs), at 64 words an MB and at a cap of 3
+            (at the edge geometries also at 1100), against their plain
+            versions; the streams
             ``gop=3:search=4:parts:deblock:bitpack`` (also at ``nw_mb=3``,
             where frames overflow the cap and take the host entropy path)
             and ``gop=3:search=2:quarterpel:refs=2:parts`` against the
@@ -204,7 +207,7 @@ Phases, each of which raises (exit code != 0) when it fails:
             access unit must equal a new encoder's on the expected frame at
             the in-band qp, the frame's launches counted from its index);
             the Python CAVLC oracle, in a child
-            process started before (a), encodes the first two expected
+            process started before phase 3, encodes the first two expected
             frames, which must give the native rows' access units (and (g)'s
             first two); and ``apps.multi_relay.run`` with 4 streams of
             1080p, 32 frames each, on the Python queue and with ``--native
@@ -270,8 +273,9 @@ Phases, each of which raises (exit code != 0) when it fails:
             ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
             ``overlap``; H6 (full-pel search 8, half-pel search 8,
             quarter-pel search 4, two references at full-pel search 8), H8
-            on a parts P frame and H7 on an IDR (and its read-and-store
-            floor; on an ``i4:chromah`` IDR too)
+            on a parts P frame (and its read-and-store floor; on a
+            P_16x16 and a constant P frame too) and H7 on an IDR (and its
+            read-and-store floor; on an ``i4:chromah`` IDR too)
             beside their plain versions and bounds, the packed bits' copy to
             the host beside the levels', the kernels of a whole P frame
             back to back (``fastsub``: H3, H4, H2, H5; ``parts``: H3, H6,
@@ -465,7 +469,7 @@ SPAWN_TIMEOUT = 420.0
 # rate and bitrate (the relay's defaults, given as flags), the receive
 # buffer (a 4K I_PCM access unit is ~12.4 MB, ~10,400 datagrams), and the
 # frames the Python CAVLC oracle encodes (~90 s a 4K frame on one host core,
-# in a child process while the relays run)
+# in a child process from before phase 3 to the relays)
 ENCODED_FRAMES = 16
 ENCODED_FPS, ENCODED_KBPS = 60.0, 20000
 ENCODED_BUFFER = 1 << 27
@@ -516,6 +520,12 @@ PARTS_CASES = ((P_SEARCH, 0, 1), (P_SEARCH, 1, 1), (P_TIMED_QPEL_SEARCH, 2, 1), 
 PARTS_EDGE_CASES = ((P_SEARCH, 0), (P_SEARCH, 1), (P_TIMED_QPEL_SEARCH, 2))
 H3_MODES = ((P_SEARCH + 1, 16), (5, 4), (P_SEARCH, 1))
 CAP_NW_MB = 3
+# the packers' checks at more words an MB than a block's shared memory
+# could hold for four MBs (the cap neither packer has any longer)
+LONG_NW_MB = 1100
+# H8 at each of EDGE_SHAPES: (search, sub-pel mode, two references, parts)
+# of the P frames whose levels it packs
+PACK_P_EDGE_CASES = ((2, 3, False, False), (2, 2, True, False), (2, 1, True, True))
 PARTS_SPEC = f"tpu:gop=30:search={P_SEARCH}:parts:deblock:bitpack"
 # the fused enhance + encode step's checks: the configurations (name, the
 # enhancement, the step's options; with "gop" the GOP step), run at 4K over
@@ -1591,8 +1601,12 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
     H1's levels (default, and ``i4`` + ``chromah``) at 64 words an MB and at
     ``CAP_NW_MB``, at 4K and at each of ``EDGE_SHAPES`` on mixed content; H8 on H2's levels: zero motion, ``fastsub`` at search 8
     with one and two references, and both partitioned frames, at 64 words
-    and one at ``CAP_NW_MB``.  For a packer, equal words over every word
-    and equal bit counts.  Then H5 on the quadrant fields of a partitioned
+    and one at ``CAP_NW_MB``; H8 at each of ``EDGE_SHAPES`` on H2's levels
+    of mixed content (``PACK_P_EDGE_CASES``) at 64 words, ``CAP_NW_MB`` and
+    ``LONG_NW_MB`` (H7 too), and on a 4K frame of the port's
+    ``synthetic_p_fields`` in both layouts with two references at 64 words
+    and ``CAP_NW_MB``.  For a packer, equal words over every word and equal
+    bit counts.  Then H5 on the quadrant fields of a partitioned
     two-reference quarter-pel P frame at each of ``EDGE_SHAPES``.  Returns
     the largest absolute difference by kernel."""
     for module in (levels_kernel, inter_kernel, deblock_kernel, bitpack_kernel):
@@ -1602,15 +1616,17 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
     h, w = HEIGHT, WIDTH
     mb_h, mb_w = h // 16, w // 16
 
-    def compare(kernel: str, label: str, got, want, secs: float) -> None:
+    def compare(kernel: str, label: str, got, want, secs: float, quiet: bool = False) -> int:
         got = [g for g in got if g is not None]
         want = [g for g in want if g is not None]
         check(len(got) == len(want), f"{kernel} {label}: {len(got)} outputs, the "
               f"plain version {len(want)}")
         e = max(max_err(a, b) for a, b in zip(got, want))
         errs[kernel] = max(errs[kernel], e)
-        print(f"kernel {kernel} {label}: max abs err {e} over {len(got)} outputs "
-              f"({secs:.1f} s in the plain version)", flush=True)
+        if not quiet:
+            print(f"kernel {kernel} {label}: max abs err {e} over {len(got)} outputs "
+                  f"({secs:.1f} s in the plain version)", flush=True)
+        return e
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -1683,6 +1699,49 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
             print(f"kernel pack_p_kernel {label}: {int(got[1].sum())} bits, "
                   f"{int((got[1] > 32 * nw).sum())} MBs over the cap", flush=True)
 
+    lv0 = frames[0][0]
+    vec = all(t.data_ptr() % 16 == 0 for t in (lv0.zdc, lv0.acz, lv0.czdc, lv0.cacz))
+    print(f"kernel pack_p_kernel 4K: the levels' 16-byte loads taken (vec) {vec}", flush=True)
+    check(vec, "pack_p_kernel: H2's level segments are not 16-byte aligned")
+
+    # H8 at the edge geometries on mixed content (random and constant content
+    # there are tests/test_torch_cuda.py's test_pack_p_at_the_tilings_edges):
+    # rows of one MB, of 40 (runs of 3 and of 1), one MB row, one MB column
+    for eh, ew in EDGE_SHAPES:
+        e, n, bits, t0 = 0, 0, 0, time.perf_counter()
+        esrc, eref1, eref2 = p_content(device, rng, "mixed", eh, ew)
+        for search, subpel, two, partitioned in PACK_P_EDGE_CASES:
+            plv = levels_ops.encode_p_levels(*esrc, *eref1, 30, search, subpel,
+                                             *(eref2 if two else (None,) * 3),
+                                             parts=int(partitioned))
+            a, kw = pack_p_args(plv, 2 if two else 1)
+            for nw in (64, CAP_NW_MB, LONG_NW_MB):
+                got = bitpack_ops.pack_p_mbs(*a, nw, **kw)
+                e = max(e, compare("pack_p_kernel", f"{ew}x{eh}", packed(got), packed(
+                    bitpack_ops.pack_p_mbs_plain(*a, nw, **kw)), 0.0, quiet=True))
+                n += 1
+                bits += int(got[1].sum())
+        print(f"kernel pack_p_kernel {ew}x{eh} mixed: max abs err {e} over {n} cases "
+              f"({bits} bits; {time.perf_counter() - t0:.1f} s)", flush=True)
+    # H8 on a 4K frame of synthetic fields, both layouts
+    syn = {k: torch.from_numpy(v).to(device)
+           for k, v in bitpack_ops.synthetic_p_fields(rng, mb_h, mb_w).items()}
+    coded = syn["mode"] != 0
+    row_coded = coded.any(1)
+    print(f"kernel pack_p_kernel 4K synthetic fields: {int(coded.sum())} coded MBs of "
+          f"{mb_h * mb_w}, {int((~row_coded).sum())} rows with none", flush=True)
+    slv = tuple(syn[k] for k in ("mode", "zdc", "acz", "czdc", "cacz"))
+    for label, a, kw in (("P_16x16", (*slv, syn["mv"], syn["ref"], 2), {}),
+                         ("parts", (*slv, None, None, 2),
+                          dict(pmode=syn["pmode"], mv4=syn["mv4"], ref4=syn["ref4"]))):
+        for nw in (64, CAP_NW_MB):
+            full = f"4K synthetic fields {label} 2 active refs {nw} words"
+            want, secs = timed(lambda: bitpack_ops.pack_p_mbs_plain(*a, nw, **kw))
+            got = bitpack_ops.pack_p_mbs(*a, nw, **kw)
+            compare("pack_p_kernel", full, packed(got), packed(want), secs)
+            print(f"kernel pack_p_kernel {full}: {int(got[1].sum())} bits, "
+                  f"{int((got[1] > 32 * nw).sum())} MBs over the cap", flush=True)
+
     # H7 on H1's levels
     frame = torch.from_numpy(content_nv12(rng, "structured", h, w)).to(device)
     for flags in ({}, {"i4": True, "chromah": True}):
@@ -1703,7 +1762,7 @@ def phase_parts_kernels(device, rng) -> dict[str, int]:
                                                             **flags)
             ex = dict(zip(["i4modes"] * ("i4" in flags) + ["cmode"] * ("chromah" in flags),
                           extra))
-            for nw in (64, CAP_NW_MB):
+            for nw in (64, CAP_NW_MB, LONG_NW_MB):
                 label = f"{ew}x{eh} mixed {'+'.join(flags) or 'default'} {nw} words"
                 want, secs = timed(lambda: bitpack_ops.pack_i_mbs_plain(*lv, imode, nw, **ex))
                 got = bitpack_ops.pack_i_mbs(*lv, imode, nw, **ex)
@@ -3374,21 +3433,30 @@ def encoded_relay(w: int, h: int, want: np.ndarray, spec: str, label: str,
     return fps, info
 
 
-def phase_relay_paths(device, card: str, h=HEIGHT, w=WIDTH):
-    """This slice's path: the relay apps as a user starts them, at 4K batch
-    4 on ``TestSource`` frames.  Returns each configuration's launch counts
-    and the apps' own rates."""
-    check(not dist.is_initialized(), "the relay's --mesh=1x1 starts its own group")
+@contextlib.contextmanager
+def relay_oracle(device, h=HEIGHT, w=WIDTH):
+    """The relays' expected frames and their folder, and the Python CAVLC
+    oracle's child process on the first ``ORACLE_FRAMES`` of them with the
+    file it writes: the oracle takes minutes at 4K on one host core, so it
+    starts before phase 3 and is read after relay (g)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_relay_") as tmp:
         want = expected_relay_frames(device, w, h)
-        # the Python CAVLC oracle takes minutes at 4K: it starts now, on the
-        # frames relay (g) encodes first, and is read after (g)
         oracle_in = os.path.join(tmp, "oracle_in.npy")
         oracle_out = os.path.join(tmp, "oracle_out.npz")
         np.save(oracle_in, want[:ORACLE_FRAMES])
         with child(ORACLE_CHILD, [oracle_in, oracle_out, f"{ENCODED_FPS:g}",
                                   str(ENCODED_KBPS)]) as oracle:
-            return relay_paths(device, card, want, oracle, oracle_out, tmp, h, w)
+            yield want, oracle, oracle_out, tmp
+
+
+def phase_relay_paths(device, card: str, want, oracle, oracle_out, tmp, h=HEIGHT,
+                      w=WIDTH):
+    """This slice's path: the relay apps as a user starts them, at 4K batch
+    4 on ``TestSource`` frames (``want``, ``oracle``, ``oracle_out`` and
+    ``tmp`` from :func:`relay_oracle`).  Returns each configuration's
+    launch counts and the apps' own rates."""
+    check(not dist.is_initialized(), "the relay's --mesh=1x1 starts its own group")
+    return relay_paths(device, card, want, oracle, oracle_out, tmp, h, w)
 
 
 def relay_paths(device, card, want, oracle, oracle_out, tmp, h, w):
@@ -4035,8 +4103,9 @@ def intra_timings(device, rng, card: str) -> dict[str, dict]:
                                                                 full_recon=True))
             print(f"time intra_levels_kernel 4K full_recon (an IDR's): {full:.4f} ms on "
                   f"the device [{card}]", flush=True)
+            # one call: phase 3 ran the plain version at 4K already
             plain_ms = time_ms(lambda: levels_ops.encode_levels_plain(*planes, 30),
-                               reps=3, warmup=1)
+                               reps=1, warmup=0)
             times["intra_levels_kernel"] = {"ms": ms, "plain_ms": plain_ms,
                                             "library_ms": None, "bound_ms": bound_ms,
                                             "bound_by": bound_by}
@@ -4125,8 +4194,10 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
     chain's floor: :func:`split_phases`); the P levels' copy to pinned host memory; the
     host entropy coding of a P frame on the native rows; H3's write floor
     and its half-pel and full-pel stacks; H6 at full-pel, half-pel and
-    quarter-pel and with two references; a whole P frame's device work
-    back to back (fastsub, and parts with the bit packer); and
+    quarter-pel and with two references; H8 on the parts frame beside its
+    read-and-store floor, and on relay (j)'s P_16x16 frame and a constant
+    one, each beside its floor; a whole P frame's device work back to back
+    (fastsub, and parts with the bit packer); and
     ``CudaGopEncoder.encode`` of relay (j)'s spec with and without
     ``overlap``.  No single PyTorch call computes any of these functions:
     library ms is none."""
@@ -4311,9 +4382,35 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
                                                       **pkw))
     plain = time_ms(lambda: bitpack_ops.pack_p_mbs_plain(*lv, None, None, 1, 64, **pkw),
                     reps=1, warmup=1)
-    moved = nbytes(pout, words, nbits)
-    record("pack_p_kernel", ms, plain, moved, pack_ops(pout.numel()),
-           f"(parts, search {P_SEARCH}, {int(nbits.sum())} bits)")
+    moved, coded = pack_p_bytes(fields["mode"], words, nbits, fields["pmode"], fields["mv"])
+    record("pack_p_kernel", ms, plain, moved, pack_ops(coded * P_MB_LEVELS),
+           f"(parts, search {P_SEARCH}, {int(nbits.sum())} bits; "
+           f"{bitpack_kernel.pack_plan(mb_h, mb_w, bitpack_kernel.PACK_P_RUN)['run']} "
+           f"MBs a warp)")
+    floor = device_ms(lambda: bitpack_kernel.pack_p_floor_into(*lv, None, None, 1, words, nbits,
+                                                               **pkw))
+    print(f"time pack_p_kernel 4K parts P frame read-and-store floor (the same loads and "
+          f"stores, no tokens): {floor:.4f} ms on the device [{card}]", flush=True)
+    # H8 on relay (j)'s P_16x16 frame (fastsub; its levels in `out`), and on
+    # a P_16x16 frame of constant content
+    cst, cref, _ = p_content(device, rng, "constant", h, w)
+    cout = torch.empty(levels_kernel.p_level_words(mb_h, mb_w), dtype=torch.int16,
+                       device=device)
+    cf = levels_kernel.split_p_levels(cout, mb_h, mb_w)
+    inter_kernel.search_into(cst[0], [cref], P_SEARCH, 3, None, cf["mv"], None, *pred)
+    levels_kernel.p_levels_into(*cst, *pred, 30, cout, motion=True)
+    for what, f in (("P_16x16, fastsub search 8", parts),
+                    ("P_16x16 of constant content", cf)):
+        flv = (f["mode"], f["zdc"], f["acz"], f["czdc"], f["cacz"], f["mv"], None, 1)
+        t = device_ms(lambda: bitpack_kernel.pack_p_into(*flv, words, nbits))
+        t_floor = device_ms(lambda: bitpack_kernel.pack_p_floor_into(*flv, words, nbits))
+        bitpack_kernel.pack_p_into(*flv, words, nbits)
+        moved, coded = pack_p_bytes(f["mode"], words, nbits, f["mv"])
+        bound_ms, bound_by = bound(moved, pack_ops(coded * P_MB_LEVELS))
+        print(f"time pack_p_kernel 4K {what} ({int(nbits.sum())} bits, "
+              f"{coded} coded MBs): {t:.4f} ms on the device, "
+              f"read-and-store floor {t_floor:.4f} ms (bound {bound_ms:.4f} ms by "
+              f"{bound_by}) [{card}]", flush=True)
     iout = torch.empty(levels_kernel.level_words(mb_h, mb_w), dtype=torch.int16,
                        device=device)
     levels_kernel.intra_levels(*src, 30, iout)
@@ -4407,6 +4504,21 @@ def gop_timings(device, rng, card: str) -> dict[str, dict]:
           f"packer's cap): " + ", ".join(f"{name} {ms:.1f} ({over})" for name, (ms, over)
                                          in encode.items()) + f" [{card}]", flush=True)
     return times
+
+
+# the int16 levels of one P MB: zdc, acz, czdc, cacz
+P_MB_LEVELS = 16 + 256 + 8 + 128
+
+
+def pack_p_bytes(mode, words, nbits, *fields) -> tuple[int, int]:
+    """H8's bytes and its coded MBs: the mode row, the levels of the coded
+    MBs only (a skipped MB's are never needed: its counts are zero by the
+    contract), the given per-MB ``fields`` (vectors, references, partition
+    modes) of the inter MBs only, and the words and counts it writes."""
+    coded, inter = int((mode != 0).sum()), int((mode == 1).sum())
+    per_mb = sum(f[0, 0].numel() * f.element_size() for f in fields)
+    return (nbytes(mode, words, nbits) + 2 * P_MB_LEVELS * coded + per_mb * inter,
+            coded)
 
 
 def pack_ops(levels: int) -> int:
@@ -4528,6 +4640,16 @@ def main() -> int:
         return 1
 
     # phase 1: device
+    started = last = time.perf_counter()
+
+    def lap(what: str) -> None:
+        """The wall seconds of the phase just ended, and of the run so far:
+        the script has a time limit, and a machine's host sets much of it."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"wall {what}: {now - last:.1f} s (run {now - started:.1f} s)", flush=True)
+        last = now
+
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi_name_power()
@@ -4555,50 +4677,63 @@ def main() -> int:
           f"{native.build_error()}")
     print(f"build native runtime: {time.perf_counter() - t0:.1f} s -> "
           f"{native.loaded_path()}", flush=True)
+    lap("build")
 
-    # phase 3: kernels
-    rng = np.random.default_rng(2024)
-    errs = phase_clahe_kernels(device, kernel_cases(rng))
-    errs["apply_lut_kernel"] = phase_lut_kernel(device, rng)
-    errs["interp_hist_kernel"] = phase_fused_kernel(device, rng)
-    errs["build_luts_kernel"] = max(errs["build_luts_kernel"],
-                                    phase_clip_tensor(device, rng))
-    errs["interp_cells_kernel"] = phase_cell_kernel(device, rng)
-    errs["tile_hist_kernel:extended"], k8_launches = \
-        phase_extended_hist_kernel(device, rng)
-    band_errs, off_path_launches = phase_band_kernels(device, rng)
-    off_path_launches["tile_histograms_extended"] = k8_launches
-    errs["tile_hist_kernel:batched"], \
-        off_path_launches["tile_histograms_batched"] = \
-        phase_batched_hist_kernel(device, rng)
-    errs["interp_cells_kernel:radix"], \
-        off_path_launches["clahe_interpolate_cells_radix"] = \
-        phase_radix_cell_kernel(device, rng)
-    errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
-                                   band_errs.pop("tile_hist_kernel"))
-    errs.update(band_errs)
-    errs["intra_levels_kernel"], errs["intra_levels_kernel:i4"] = \
-        phase_intra_levels_kernel(device, rng)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gop_") as tmp, \
-            gop_oracles(tmp) as oracles:
-        errs.update(phase_p_kernels(device, rng))
-        for name, e in phase_parts_kernels(device, rng).items():
-            errs[name] = max(errs.get(name, 0), e)
-        check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
-        phase_intra_streams(device, rng)
-        phase_p_streams(oracles)
-        phase_fused_encode(device, rng, oracles["fused"])
+    # the relays' expected frames, and the Python CAVLC oracle on two of them
+    # in a child process from here on (it is read after relay (g))
+    with relay_oracle(device) as early:
+        # phase 3: kernels
+        rng = np.random.default_rng(2024)
+        errs = phase_clahe_kernels(device, kernel_cases(rng))
+        errs["apply_lut_kernel"] = phase_lut_kernel(device, rng)
+        errs["interp_hist_kernel"] = phase_fused_kernel(device, rng)
+        errs["build_luts_kernel"] = max(errs["build_luts_kernel"],
+                                        phase_clip_tensor(device, rng))
+        errs["interp_cells_kernel"] = phase_cell_kernel(device, rng)
+        errs["tile_hist_kernel:extended"], k8_launches = \
+            phase_extended_hist_kernel(device, rng)
+        band_errs, off_path_launches = phase_band_kernels(device, rng)
+        off_path_launches["tile_histograms_extended"] = k8_launches
+        errs["tile_hist_kernel:batched"], \
+            off_path_launches["tile_histograms_batched"] = \
+            phase_batched_hist_kernel(device, rng)
+        errs["interp_cells_kernel:radix"], \
+            off_path_launches["clahe_interpolate_cells_radix"] = \
+            phase_radix_cell_kernel(device, rng)
+        errs["tile_hist_kernel"] = max(errs["tile_hist_kernel"],
+                                       band_errs.pop("tile_hist_kernel"))
+        errs.update(band_errs)
+        lap("phase 3, K1-K10")
+        errs["intra_levels_kernel"], errs["intra_levels_kernel:i4"] = \
+            phase_intra_levels_kernel(device, rng)
+        lap("phase 3, H1")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_gop_") as tmp, \
+                gop_oracles(tmp) as oracles:
+            errs.update(phase_p_kernels(device, rng))
+            lap("phase 3, H2-H5")
+            for name, e in phase_parts_kernels(device, rng).items():
+                errs[name] = max(errs.get(name, 0), e)
+            check(all(e == 0 for e in errs.values()), f"kernel mismatch {errs}")
+            lap("phase 3, H6-H8")
+            phase_intra_streams(device, rng)
+            phase_p_streams(oracles)
+            lap("phase 3, the encoders' streams")
+            phase_fused_encode(device, rng, oracles["fused"])
+            lap("phase 3, the fused step")
 
-    phase_golden(device, rng)                              # phase 4
-    phase_golden_slice3(device, rng)
-    phase_golden_sharded(device, rng)
-    per_path = phase_main_paths(device, rng)               # phase 5
-    per_path.update(phase_slice3_paths(device, rng))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as tmp:
-        per_path.update(phase_app_paths(device, rng, card, tmp))
-    # the relay apps first: their --mesh=1x1 starts and ends a group of its own
-    paths_of_relays, relay_rates = phase_relay_paths(device, card)
-    per_path.update(paths_of_relays)
+        phase_golden(device, rng)                              # phase 4
+        phase_golden_slice3(device, rng)
+        phase_golden_sharded(device, rng)
+        lap("phase 4")
+        per_path = phase_main_paths(device, rng)               # phase 5
+        per_path.update(phase_slice3_paths(device, rng))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as tmp:
+            per_path.update(phase_app_paths(device, rng, card, tmp))
+        lap("phase 5, the paths and apps")
+        # the relay apps first: their --mesh=1x1 starts and ends a group of its own
+        paths_of_relays, relay_rates = phase_relay_paths(device, card, *early)
+        per_path.update(paths_of_relays)
+        lap("phase 5, the relays")
     # the 1x1 mesh of the sharded path lives in this process: a process
     # group of one rank on NCCL, until the script ends
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as rendezvous:
@@ -4607,8 +4742,10 @@ def main() -> int:
             check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
             sharded_paths, rank_ms = phase_sharded_paths(device, rng)
             per_path.update(sharded_paths)
+            lap("phase 5, the sharded paths")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
                 per_path.update(phase_sharded_encode(device, rng, card, tmp))
+            lap("phase 5, the sharded encoder, the dry run, relay (o)")
             launches = {wrapper: sum(c[wrapper] for c in per_path.values())
                         for _, wrapper, _, _ in KERNELS}
             check(all(n > 0 for w, n in launches.items() if w not in OFF_PATH),
@@ -4620,8 +4757,10 @@ def main() -> int:
                 launches[wrapper] = off_path_launches[wrapper]
 
             times = phase_timings(device, rng, card)       # phase 6
+            lap("phase 6, K1-K10")
             times.update(intra_timings(device, rng, card))
             times.update(gop_timings(device, rng, card))
+            lap("phase 6, H1-H8")
             fused_timings(device, rng, card)
             for name, ms in rank_ms.items():
                 print(f"time {name} 4K b{BATCH}: each rank's own part of the step, "
@@ -4657,6 +4796,7 @@ def main() -> int:
                       f"D2H), {names}: {' / '.join(f'{x:.1f}' for x in fps)} fps "
                       f"over {FEEDER_FRAMES} frames [{card}]", flush=True)
             phase_profile(device, rng)
+            lap("phase 6, the fused step, the feeders, the profile")
         finally:
             dist.destroy_process_group()
 

@@ -60,7 +60,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P),
     "pack_i_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P),
-    "pack_p_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P),
+    "pack_p_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                      _P),
     "deblock_launch": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
                        _P, _I, _P),
 }

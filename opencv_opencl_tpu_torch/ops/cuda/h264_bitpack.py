@@ -21,10 +21,13 @@ The kernels read the level tensors where they lie (the segments of a level
 buffer of ``ops/cuda/h264_levels.py``, int16, contiguous); :func:`pack_i_into`
 and :func:`pack_p_into` write into words and counts the caller owns.
 
-H7 is laid out by :func:`pack_plan`: a warp walks a run of ``run`` MBs of
-one MB row (first counting the MB left of its run), four warps a block.
-:func:`pack_i_floor_into` launches its read-and-store floor, the same loads
-and stores without tokens (not counted).
+Both kernels are laid out by :func:`pack_plan`: a warp walks a run of
+``run`` MBs of one MB row (first reading the MB left of its run for the
+left context), four warps a block.  :func:`pack_i_floor_into` and
+:func:`pack_p_floor_into` launch their read-and-store floors, the same
+loads and stores without tokens (not counted).  Neither kernel keeps an
+MB's words in shared memory, so ``nw_mb`` takes any value from 1, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ from opencv_opencl_tpu_torch.ops.cuda import _build
 from opencv_opencl_tpu_torch.ops.cuda.natural import _on_card, _raise_on, _stream
 
 __all__ = ["pack_i_mbs", "pack_p_mbs", "pack_i_into", "pack_p_into", "pack_i_floor_into",
-           "pack_plan", "MAX_NW_MB", "PACK_RUN", "launch_counts", "reset_launch_counts"]
+           "pack_p_floor_into", "pack_plan", "PACK_RUN", "PACK_P_RUN", "launch_counts",
+           "reset_launch_counts"]
 
-# H8's output words of a block's four MBs live in dynamic shared memory
-MAX_NW_MB = 1024
-# H7: the MBs of a row a warp walks, and the warps a block (kPackWarps)
+# the MBs of a row a warp walks, H7 and H8 (a P frame's MBs are lighter, so
+# H8 needs more warps in flight to hide each MB's chain: runs of 3 were the
+# fastest of 1-16 at 4K, scripts/torch_kernel_turns.py --h264 --pack-runs),
+# and the warps a block (kPackWarps)
 PACK_RUN = 16
+PACK_P_RUN = 3
 PACK_WARPS = 4
 # csrc/h264_bitpack.cu's table layout
 _VLC_LAYOUT = {"ct_len": 0, "ct_code": 204, "cdc_len": 408, "cdc_code": 428,
@@ -80,8 +86,8 @@ def _levels(device, mb_h: int, mb_w: int, **fields) -> dict:
 
 def _outputs(words: torch.Tensor, nbits: torch.Tensor, mb_h: int, mb_w: int, nw_mb: int,
              device) -> None:
-    if not 1 <= nw_mb <= MAX_NW_MB:
-        raise ValueError(f"nw_mb must be 1..{MAX_NW_MB}, got {nw_mb}")
+    if nw_mb < 1:
+        raise ValueError(f"nw_mb must be at least 1, got {nw_mb}")
     if (words.dtype != torch.uint32 or tuple(words.shape) != (mb_h, mb_w, nw_mb)
             or not words.is_contiguous() or words.device != device):
         raise ValueError(f"words must be a contiguous uint32 {(mb_h, mb_w, nw_mb)} tensor "
@@ -96,9 +102,9 @@ def _ptr(t: torch.Tensor | None):
 
 
 def pack_plan(mb_h: int, mb_w: int, run: int = PACK_RUN) -> dict:
-    """H7's launch for an (mb_h, mb_w) MB grid: the MBs a warp walks along
-    a row (fewer where the row is shorter), the runs a row, the warps, and
-    the (blocks, threads)."""
+    """H7's and H8's launch for an (mb_h, mb_w) MB grid: the MBs a warp
+    walks along a row (fewer where the row is shorter), the runs a row, the
+    warps, and the (blocks, threads)."""
     run = max(1, min(run, mb_w))
     runs = -(-mb_w // run)
     warps = mb_h * runs
@@ -122,7 +128,8 @@ def pack_i_floor_into(zdc, acz, czdc, cacz, imode, words: torch.Tensor, nbits: t
     _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor=True)
 
 
-def _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor: bool) -> None:
+def _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor: bool,
+            run: int = PACK_RUN) -> None:
     mb_h, mb_w = zdc.shape[:2]
     dev = zdc.device
     if not _on_card(zdc):
@@ -139,8 +146,8 @@ def _pack_i(zdc, acz, czdc, cacz, imode, words, nbits, i4modes, cmode, floor: bo
         err = lib.pack_i_launch(
             *(_ptr(lv[k]) for k in ("zdc", "acz", "czdc", "cacz", "imode", "i4modes",
                                     "cmode")),
-            mb_h, mb_w, _vlc(dev).data_ptr(), nw, pack_plan(mb_h, mb_w)["run"], int(floor),
-            words.data_ptr(), nbits.data_ptr(), _stream(dev))
+            mb_h, mb_w, _vlc(dev).data_ptr(), nw, pack_plan(mb_h, mb_w, run)["run"],
+            int(floor), words.data_ptr(), nbits.data_ptr(), _stream(dev))
     _raise_on(err, "pack_i_kernel")
 
 
@@ -160,6 +167,23 @@ def pack_p_into(mode, zdc, acz, czdc, cacz, mv, ref, active_refs: int, words: to
                 nbits: torch.Tensor, pmode=None, mv4=None, ref4=None) -> None:
     """Launch ``pack_p_kernel`` over CUDA level tensors into ``words`` and
     ``nbits`` (as :func:`pack_i_into`)."""
+    _pack_p(mode, zdc, acz, czdc, cacz, mv, ref, active_refs, words, nbits, pmode, mv4, ref4,
+            floor=False)
+    pack_p_mbs.launches += 1
+
+
+def pack_p_floor_into(mode, zdc, acz, czdc, cacz, mv, ref, active_refs: int,
+                      words: torch.Tensor, nbits: torch.Tensor, pmode=None, mv4=None,
+                      ref4=None) -> None:
+    """H8's read-and-store floor: :func:`pack_p_into`'s loads and stores
+    with no tokens (a coded MB's words are no bit string; the counts zero);
+    not counted."""
+    _pack_p(mode, zdc, acz, czdc, cacz, mv, ref, active_refs, words, nbits, pmode, mv4, ref4,
+            floor=True)
+
+
+def _pack_p(mode, zdc, acz, czdc, cacz, mv, ref, active_refs, words, nbits, pmode, mv4, ref4,
+            floor: bool, run: int = PACK_P_RUN) -> None:
     mb_h, mb_w = mode.shape[:2]
     dev = mode.device
     if not _on_card(mode):
@@ -181,10 +205,10 @@ def pack_p_into(mode, zdc, acz, czdc, cacz, mv, ref, active_refs: int, words: to
         err = lib.pack_p_launch(
             *(_ptr(lv[k]) for k in ("mode", "zdc", "acz", "czdc", "cacz", "mv", "ref",
                                     "pmode")),
-            int(active_refs), mb_h, mb_w, _vlc(dev).data_ptr(), nw, words.data_ptr(),
+            int(active_refs), mb_h, mb_w, _vlc(dev).data_ptr(), nw,
+            pack_plan(mb_h, mb_w, run)["run"], int(floor), words.data_ptr(),
             nbits.data_ptr(), _stream(dev))
     _raise_on(err, "pack_p_kernel")
-    pack_p_mbs.launches += 1
 
 
 def pack_p_mbs(mode, zdc, acz, czdc, cacz, mv, ref, active_refs: int, nw_mb: int = 64,

@@ -16,7 +16,7 @@ headers, the concatenation, the trailing bits and emulation prevention
 (:func:`assemble_slices_from_bits`, numpy bit moves, no VLC work).
 
 On CUDA tensors the packers launch ``pack_i_kernel`` / ``pack_p_kernel``
-(``csrc/h264_bitpack.cu``, one warp per MB; wrappers in
+(``csrc/h264_bitpack.cu``, a warp per run of MBs of a row; wrappers in
 ``ops/cuda/h264_bitpack.py``) or raise; on CPU tensors they run
 :func:`pack_i_mbs_plain` / :func:`pack_p_mbs_plain`, twins of the JAX
 functions' vectorised programs (the token slots of :func:`block_tokens`,
@@ -40,7 +40,7 @@ from opencv_opencl_tpu_torch.io.h264_inter import _CBP_INTER_CODENUM
 
 __all__ = ["NT_BLOCK", "NW_BLOCK", "block_tokens", "pack_tokens", "concat_pieces",
            "pack_i_mbs", "pack_i_mbs_plain", "pack_p_mbs", "pack_p_mbs_plain",
-           "assemble_slices_from_bits", "vlc_table", "VLC_OFFSETS"]
+           "synthetic_p_fields", "assemble_slices_from_bits", "vlc_table", "VLC_OFFSETS"]
 
 # ---------------------------------------------------------------- tables ----
 
@@ -687,6 +687,52 @@ def pack_p_mbs(mode, zdc, acz, czdc, cacz, mv, ref, active_refs: int, nw_mb: int
 
     return kernel.pack_p_mbs(mode, zdc, acz, czdc, cacz, mv, ref, active_refs, nw_mb,
                              pmode, mv4, ref4)
+
+
+def synthetic_p_fields(rng: np.random.Generator, mb_h: int, mb_w: int, mode=None,
+                       max_skip: int = 60) -> dict:
+    """A P frame's fields for checking a P packer, made to reach its every
+    path rather than by an encoder (numpy int16, both layouts' fields).
+    Random levels up to the 12-bit escape, whole blocks empty, nonzero
+    under skipped MBs too; an intra MB's luma AC blocks and every chroma AC
+    block hold nothing at their DC position, as H2 leaves them.  ``mode``
+    (mb_h, mb_w) where given, else rows of coded MBs (inter, intra DC,
+    intra HORIZONTAL) between skip runs of 0 to ``max_skip`` MBs (most 0, a
+    twentieth 9 or more), about every tenth row skipped whole.  Vectors
+    within +-512 quarter pels, references 0 and 1, every partition mode."""
+    def draw(shape, p_zero: float):
+        mag = rng.choice(np.array([1, 2, 3, 40, 2063], np.int16), size=shape,
+                         p=[0.5, 0.2, 0.15, 0.1, 0.05])
+        a = np.where(rng.random(shape) < 0.5, mag, -mag).astype(np.int16)
+        a[rng.random(shape) < p_zero] = 0
+        a[rng.random(shape[:3]) < 0.3] = 0
+        return a
+
+    def skip_run() -> int:
+        r = rng.random()
+        return (0 if r < 0.7 else int(rng.integers(1, 9)) if r < 0.95
+                else int(rng.integers(9, max(10, max_skip + 1))))
+
+    if mode is None:
+        mode = np.zeros((mb_h, mb_w), np.int16)
+        for y in range(mb_h):
+            if rng.random() < 0.1:
+                continue
+            x = skip_run()
+            while x < mb_w:
+                mode[y, x] = rng.choice([1, 1, 1, 2, 3])
+                x += 1 + skip_run()
+    mode = np.asarray(mode, np.int16)
+    acz, cacz = draw((mb_h, mb_w, 16, 16), 0.7), draw((mb_h, mb_w, 2, 4, 16), 0.8)
+    acz[mode >= 2] *= (np.arange(16) > 0).astype(np.int16)
+    cacz[..., 0] = 0
+    return dict(mode=mode, zdc=draw((mb_h, mb_w, 16), 0.7), acz=acz,
+                czdc=draw((mb_h, mb_w, 2, 4), 0.7), cacz=cacz,
+                mv=rng.integers(-512, 513, (mb_h, mb_w, 2)).astype(np.int16),
+                ref=rng.integers(0, 2, (mb_h, mb_w)).astype(np.int16),
+                mv4=rng.integers(-512, 513, (mb_h, mb_w, 4, 2)).astype(np.int16),
+                ref4=rng.integers(0, 2, (mb_h, mb_w, 4)).astype(np.int16),
+                pmode=rng.integers(0, 4, (mb_h, mb_w)).astype(np.int16))
 
 
 # --------------------------------------------------------- host assembly ----

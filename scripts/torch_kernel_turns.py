@@ -38,11 +38,13 @@ tree has ``deblock_floor_into``) and H6 (full-pel, half-pel search 8,
 quarter-pel search 4 and two references at full-pel search 8), H1 with
 ``i4`` and ``chromah``, H7 on the frame's default and ``i4:chromah`` IDR
 levels (where the tree has ``pack_i_floor_into``, each beside its
-read-and-store floor) and H8 on its parts P frame (full-pel search 8), with
-checksums of their outputs, so that the trees are seen to compute the same
-thing; in a tree with the split H1/H2 (``levels_plan``), each of their
-phases as torch.profiler's device time of its grid in an ordinary call (H1
-with ``i4`` where the tree has ``I4_RECORD_WORDS``).
+read-and-store floor) and H8 on its parts P frame (full-pel search 8) and
+on the P_16x16 frame of H2 (each beside its read-and-store floor where the
+tree has ``pack_p_floor_into``), with checksums of their outputs, so that
+the trees are seen to compute the same thing; in a tree with the split
+H1/H2 (``levels_plan``), each of their phases as torch.profiler's device
+time of its grid in an ordinary call (H1 with ``i4`` where the tree has
+``I4_RECORD_WORDS``).
 
 Options: ``--contents structured,random,constant``; ``--interp-rows 4,8,16``
 also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
@@ -50,8 +52,10 @@ also times K3 (and K5 on the 2x2 band) of the trees whose wrapper has
 8,16,32`` K7 of the trees with ``fused_rows_per_block``, ``--cells-rows
 8,16,32`` K6 of the trees with ``lut.cells_rows_per_block`` and, with
 ``--h264``, ``--deblock-rows 2,4,8,16`` H5 of the trees with
-``deblock_rows_per_block`` (each reading also held equal to the default's
-output); ``--ptxas``
+``deblock_rows_per_block`` and ``--pack-runs 1,4,16`` H8 (and H7 on the
+default IDR) of the trees with ``PACK_P_RUN`` at each of those MBs a warp,
+through the launchers' ``run`` argument
+(each reading also held equal to the default's output); ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's ``csrc/*.cu``
 (registers, shared memory, spills) for H3 (each instance of
 ``subpel_planes_kernel<NP>`` and ``subpel_floor_kernel<NP>``), H4, H5 (and
@@ -461,10 +465,11 @@ def moving_planes(dev, n: int = 3, seed: int = 2024):
     return out
 
 
-def h264_readings(dev=None, deblock_rows=()) -> dict:
+def h264_readings(dev=None, deblock_rows=(), pack_runs=()) -> dict:
     """The device GOP encoder's kernels on one 4K P frame (see --h264); with
     ``deblock_rows``, H5 again at each of those MB rows a block, in trees
-    that have ``deblock_rows_per_block``."""
+    that have ``deblock_rows_per_block``; with ``pack_runs``, H8 again at
+    each of those MBs a warp, in trees that have ``PACK_P_RUN``."""
     import torch
 
     from opencv_opencl_tpu_torch.ops import h264_deblock as deblock_ops
@@ -619,6 +624,41 @@ def h264_readings(dev=None, deblock_rows=()) -> dict:
     res["h8_checksum"] = int(words.view(torch.int32).to(torch.int64).abs().sum()
                              + nbits.to(torch.int64).sum())
     res["pack_p_parts_s8"] = device_ms(h8)
+    if hasattr(kb, "pack_p_floor_into"):
+        res["pack_p_parts_s8_floor"] = device_ms(lambda: kb.pack_p_floor_into(
+            *plv, None, None, 1, words, nbits, pmode=pf["pmode"], mv4=pf["mv"]))
+    # H8 on the P_16x16 frame of H2 above (fastsub at search 8)
+    h8_16 = lambda: kb.pack_p_into(  # noqa: E731
+        fields["mode"], fields["zdc"], fields["acz"], fields["czdc"], fields["cacz"],
+        fields["mv"], None, 1, words, nbits)
+    h8_16()
+    res["h8_p16_checksum"] = int(words.view(torch.int32).to(torch.int64).abs().sum()
+                                 + nbits.to(torch.int64).sum())
+    res["pack_p_p16_fastsub_s8"] = device_ms(h8_16)
+    if hasattr(kb, "pack_p_floor_into"):
+        res["pack_p_p16_fastsub_s8_floor"] = device_ms(lambda: kb.pack_p_floor_into(
+            fields["mode"], fields["zdc"], fields["acz"], fields["czdc"], fields["cacz"],
+            fields["mv"], None, 1, words, nbits))
+    if pack_runs and hasattr(kb, "PACK_P_RUN"):
+        # the launchers' run argument; the wrappers keep their own runs
+        p16 = (fields["mode"], fields["zdc"], fields["acz"], fields["czdc"], fields["cacz"],
+               fields["mv"], None, 1, words, nbits, None, None, None)
+        parts = (*plv, None, None, 1, words, nbits, pf["pmode"], pf["mv"], None)
+        iv = kl.split_levels(iout, mb_h, mb_w)
+        ilv = (iv["zdc"], iv["acz"], iv["czdc"], iv["cacz"], iv["imode"], words, nbits,
+               None, None)
+        for run in pack_runs:
+            for name, launch, a, key in (("pack_p_parts_s8", kb._pack_p, parts, "h8_checksum"),
+                                         ("pack_p_p16_fastsub_s8", kb._pack_p, p16,
+                                          "h8_p16_checksum"),
+                                         ("pack_i_default", kb._pack_i, ilv,
+                                          "h7_default_checksum")):
+                fn = lambda: launch(*a, floor=False, run=run)  # noqa: E731
+                fn()
+                res[f"{name}_equal_run_{run}"] = res[key] == int(
+                    words.view(torch.int32).to(torch.int64).abs().sum()
+                    + nbits.to(torch.int64).sum())
+                res[f"{name}_run_{run}"] = device_ms(fn)
     return res
 
 
@@ -639,12 +679,14 @@ def main() -> int:
     ap.add_argument("--h264", action="store_true",
                     help="time the device GOP encoder's kernels instead")
     ap.add_argument("--deblock-rows", default="")
+    ap.add_argument("--pack-runs", default="")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sweeps = [[int(r) for r in arg.split(",") if r]
               for arg in (args.interp_rows, args.fused_rows, args.cells_rows)]
     if args.child is not None:
-        res = (h264_readings(deblock_rows=[int(r) for r in args.deblock_rows.split(",") if r])
+        res = (h264_readings(deblock_rows=[int(r) for r in args.deblock_rows.split(",") if r],
+                             pack_runs=[int(r) for r in args.pack_runs.split(",") if r])
                if args.child == "h264" else child(args.child, *sweeps))
         print(json.dumps(res), flush=True)
         return 0
@@ -671,7 +713,8 @@ def main() -> int:
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--child", content,
                  "--interp-rows", args.interp_rows, "--fused-rows", args.fused_rows,
-                 "--cells-rows", args.cells_rows, "--deblock-rows", args.deblock_rows],
+                 "--cells-rows", args.cells_rows, "--deblock-rows", args.deblock_rows,
+                 "--pack-runs", args.pack_runs],
                 cwd=os.path.abspath(tree), env=env, capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stdout, res.stderr, file=sys.stderr)

@@ -997,6 +997,50 @@ def test_pack_i_at_the_tilings_edges(device, h, w):
     assert packers.launch_counts() == {"pack_i_mbs": checked, "pack_p_mbs": 0}
 
 
+@pytest.mark.parametrize("h,w", EDGE_GEOMETRIES)
+def test_pack_p_at_the_tilings_edges(device, h, w):
+    """H8 on H2's levels of mixed, random and constant content (P_16x16 at
+    ``fastsub`` with one reference and at the quarter-pel lattice with two,
+    the ``parts`` layout with two), words and bit counts, at 64 words an MB
+    and at a cap of 3, where a row's MBs split into runs of several lengths
+    (one MB row of 40, one MB column)."""
+    from opencv_opencl_tpu_torch.ops import h264_bitpack as torch_bitpack
+    from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
+    from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as packers
+
+    ref, cur = mixed_nv12(np.random.default_rng(97 + h + w), h, w)
+    contents = {"mixed": [np.ascontiguousarray(f) for f in (cur, ref, np.roll(ref, (-2, 4),
+                                                                               (0, 1)))]}
+    packers.reset_launch_counts()
+    checked = 0
+    for kind in ("mixed", "random", "constant"):
+        if kind in contents:
+            planes = []
+            for k, frame in enumerate(contents[kind]):
+                p = _intra_planes(device, frame, h, w)
+                planes.append(p if k == 0 else tuple(t.contiguous() for t in p))
+            src, r1, r2 = planes
+        else:
+            src, r1, r2 = _p_inputs(device, 98 + h, h, w, kind)
+        for search, subpel, two, parts in ((2, 3, False, False), (2, 2, True, False),
+                                           (2, 1, True, True)):
+            plv = torch_levels.encode_p_levels(*src, *r1, 30, search, subpel,
+                                               *(r2 if two else (None,) * 3), parts=int(parts))
+            lv = (plv.mode, plv.zdc, plv.acz, plv.czdc, plv.cacz)
+            active = 2 if two else 1
+            if parts:
+                args, kw = (*lv, None, None, active), dict(pmode=plv.pmode, mv4=plv.mv,
+                                                           ref4=plv.ref)
+            else:
+                args, kw = (*lv, plv.mv, plv.ref, active), {}
+            for nw_mb in (64, 3):
+                assert _packed_equal(torch_bitpack.pack_p_mbs(*args, nw_mb, **kw),
+                                     torch_bitpack.pack_p_mbs_plain(*args, nw_mb, **kw)), \
+                    (kind, search, subpel, two, parts, nw_mb)
+                checked += 1
+    assert packers.launch_counts() == {"pack_i_mbs": 0, "pack_p_mbs": checked}
+
+
 def test_cuda_gop_encoder_on_card_equals_the_host_oracle(device):
     """The GOP encoder's access units on the card equal
     GopCavlcEncoder(slices=mb_h)'s: search with each sub-pel mode, two
@@ -1060,13 +1104,14 @@ def _packed_equal(got, want):
             and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)))
 
 
-@pytest.mark.parametrize("nw_mb", [64, 3])
+@pytest.mark.parametrize("nw_mb", [64, 3, 1100])
 @pytest.mark.parametrize("content", ["random", "structured", "constant"])
 def test_bit_packers_equal_plain(device, content, nw_mb):
     """H7 on H1's levels (default, and Intra_4x4 with chroma HORIZONTAL) and
     H8 on H2's (zero motion, a search with one and two references, and the
     partition modes with one and two), words and bit counts, at 64 words
-    an MB and at a cap of 3."""
+    an MB, at a cap of 3 and at 1100 words (more than four MBs' words in
+    a block's shared memory: no packer keeps them there)."""
     from opencv_opencl_tpu_torch.ops import h264_bitpack as torch_bitpack
     from opencv_opencl_tpu_torch.ops import h264_levels as torch_levels
     from opencv_opencl_tpu_torch.ops.cuda import h264_bitpack as packers

@@ -1,22 +1,34 @@
-"""A model of H7 ``pack_i_kernel``'s design (``csrc/h264_bitpack.cu``) in
-Python, held to the JAX package's ``pack_i_mbs`` (words and bit counts,
-tolerance 0).
+"""Models of H7 ``pack_i_kernel``'s and H8 ``pack_p_kernel``'s design
+(``csrc/h264_bitpack.cu``) in Python, held to the JAX package's
+``pack_i_mbs`` and ``pack_p_mbs`` (words and bit counts, tolerance 0).
 
-The model does what a warp of the kernel does, in the same order: it walks
+The models do what a warp of the kernels does, in the same order: each walks
 a run of MBs of one row (``ops/cuda/h264_bitpack.pack_plan``), first
-counting the MB left of its run; carries the left MB's nonzero counts, its
-Intra_4x4 modes and type; gives lane k piece k (0 the header, 1 the luma
-DC, 2-17 the luma blocks in bitstream order, 18-19 chroma DC, 20-27 chroma
-AC); builds the 16 mode tokens on lanes 0-15 and places them by a scan of
-their lengths; codes a residual block from its nonzero mask (the trailing
-ones from its top three bits, then the levels and the runs by walking its
-bits down, each token chosen without a branch); places
-the pieces by an exclusive scan of their lengths; and builds each output
-word from the pieces that cover it, the first found by a binary search over
-the starts.  Random dense and sparse levels (up to the 12-bit escape),
-Intra_4x4 MBs with chroma HORIZONTAL among I_16x16 ones, runs of 1, 3 and
-16 MBs, and caps of 3 and 64 words (MBs over the cap keep their true bit
-count).  The JAX packer runs op by op (no ``jax.jit``), at 3 x 7 MBs.
+reading the MB left of its run for the left context (its nonzero counts;
+H7 its Intra_4x4 modes and type; H8 its mode and fields); gives lane k
+piece k (0 the header, 1 the luma DC, 2-17 the luma blocks in bitstream
+order, 18-19 chroma DC, 20-27 chroma AC); codes a residual block from its
+nonzero mask (the trailing ones from its top three bits, then the levels
+and the runs by walking its bits down, each token chosen without a
+branch); places the pieces by an exclusive scan of their lengths; and
+builds each output word from the pieces that cover it, the first found by
+a binary search over the starts.  H7 builds the 16 mode tokens on lanes
+0-15 and places them by a scan of their lengths.  H8 finds the last coded
+MB left of its run by ballots of 32 columns moving left and carries it;
+neither reads nor codes a skipped MB; builds lane 0's header from the
+MB's fields and the left MB's (the left vector for P_16x16, the
+reference-aware predictors of the partitions); and gates inter luma
+blocks by quadrant, 16 coefficients, intra-in-P ones by any luma, 15 and
+the DC piece.  Random dense and sparse levels (up to the 12-bit escape,
+also under skipped MBs), Intra_4x4 MBs with chroma HORIZONTAL among
+I_16x16 ones, P frames with every mode, partition mode and reference, skip
+runs across runs' starts and a row with no coded MB, runs of 1, 3 and 16
+MBs, and caps of 3 and 64 words (MBs over the cap keep their true bit
+count).  The JAX packers run op by op (no ``jax.jit``), at 3 x 7 MBs, so
+that the P packer reuses the I packer's compiled ops; H8's model also runs
+on rows of 40 MBs (runs of 16, 16 and 8; a skip run of 35 that takes two
+ballots), held there to the port's plain P packer, which
+``tests/test_torch_h264_bitpack.py`` holds to the JAX one.
 """
 
 import jax.numpy as jnp
@@ -145,6 +157,34 @@ def lane_role(lane):
     return (0 if lane == 0 else 3 if lane < 20 else 5), 0, 0, 0, 0, lane - 18
 
 
+def residual(b, lane, levels, counts, left_counts, at_edge, full):
+    """Lane ``lane``'s residual piece (1-27) of one MB into ``b``: its
+    block's nC from the MB's counts and the left MB's beside it, then its
+    tokens; ``full`` luma blocks carry 16 coefficients (else 15 and the DC
+    piece)."""
+    zdc, acz, czdc, cacz = levels
+    kind, bx, by, own, lft, comp = lane_role(lane)
+    cnt, ccnt = counts
+    lcnt, lccnt = left_counts
+    counts, lcounts, w = (ccnt, lccnt, 2) if kind == 4 else (cnt, lcnt, 4)
+    if kind in (1, 3):
+        nc = 0 if at_edge else lcnt[3]
+    else:
+        l = counts[own - 1] if bx > 0 else (0 if at_edge else lcounts[lft])
+        t = counts[own - w] if by > 0 else 0
+        nc = l if by == 0 else t if (bx == 0 and at_edge) else (l + t + 1) >> 1
+    if kind == 1:
+        seq, cdc, mx = [int(zdc[ZIG[k]]) for k in range(16)], False, 16
+    elif kind == 2 and full:
+        seq, cdc, mx = [int(acz[own][ZIG[k]]) for k in range(16)], False, 16
+    elif kind == 3:
+        seq, cdc, mx = [int(v) for v in czdc[comp]] + [0] * 12, True, 4
+    else:
+        src = acz[own] if kind == 2 else cacz[comp][own - 4 * comp]
+        seq, cdc, mx = [int(src[ZIG[k + 1]]) for k in range(15)] + [0], False, 15
+    block(b, seq, nc, cdc, mx)
+
+
 def mb_pieces(lv, mb, left, at_edge, i4sel, i4modes, cmode, imode):
     """The 32 lanes' pieces of one MB; ``left`` the left MB's (counts,
     modes, Intra_4x4)."""
@@ -193,27 +233,11 @@ def mb_pieces(lv, mb, left, at_edge, i4sel, i4modes, cmode, imode):
                 b.ue(cm)
                 b.put(1, 1)
         elif kind < 5:
-            counts, lcounts, w = (ccnt, lccnt, 2) if kind == 4 else (cnt, lcnt, 4)
-            if kind in (1, 3):
-                l = 0 if at_edge else lcnt[3]
-                nc = l
-            else:
-                l = counts[own - 1] if bx > 0 else (0 if at_edge else lcounts[lft])
-                t = counts[own - w] if by > 0 else 0
-                nc = l if by == 0 else t if (bx == 0 and at_edge) else (l + t + 1) >> 1
             on = {1: not i4, 2: quad[(bx >> 1) + 2 * (by >> 1)] if i4 else any_luma,
                   3: cbp_chroma >= 1, 4: cbp_chroma == 2}[kind]
             if on:
-                if kind == 1:
-                    seq, cdc, mx = [int(zdc[ZIG[k]]) for k in range(16)], False, 16
-                elif kind == 2 and i4:
-                    seq, cdc, mx = [int(acz[own][ZIG[k]]) for k in range(16)], False, 16
-                elif kind == 3:
-                    seq, cdc, mx = [int(v) for v in czdc[comp]] + [0] * 12, True, 4
-                else:
-                    src = acz[own] if kind == 2 else cacz[comp][own - 4 * comp]
-                    seq, cdc, mx = [int(src[ZIG[k + 1]]) for k in range(15)] + [0], False, 15
-                block(b, seq, nc, cdc, mx)
+                residual(b, lane, (zdc, acz, czdc, cacz), (cnt, ccnt), (lcnt, lccnt), at_edge,
+                         full=i4)
         b.flush()
         pieces.append(b)
     return pieces, (cnt, ccnt, zm, i4)
@@ -350,3 +374,294 @@ def test_pack_i_entries_launch_only_on_the_card():
     want = bitpack.pack_i_mbs_plain(zdc, acz, czdc, cacz, imode, 8, i4modes, cmode)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert packer.launch_counts() == {"pack_i_mbs": 0, "pack_p_mbs": 0}
+
+
+# ------------------------------------------------------------------ H8 ----
+
+def se(b, v):
+    b.ue(2 * v - 1 if v > 0 else -2 * v)
+
+
+def mvp_general(amv, aref, aav, bmv, bref, bav, cmv, cref, cav, myref):
+    """The kernel's mvp_general: the copy rule, the exactly-one-refIdx-match
+    rule, else the component median."""
+    ea, eb, ec = ((m if av else (0, 0)) for m, av in ((amv, aav), (bmv, bav), (cmv, cav)))
+    ear, ebr, ecr = (r if av else -1 for r, av in ((aref, aav), (bref, bav), (cref, cav)))
+    ma, mb, mc = ear == myref, ebr == myref, ecr == myref
+    if not bav and not cav and aav:
+        return tuple(ea)
+    if ma + mb + mc == 1:
+        return tuple(ea if ma else eb if mb else ec)
+    return tuple(max(min(a, b), min(max(a, b), c)) for a, b, c in zip(ea, eb, ec))
+
+
+def p_fields(md, mb, mv, ref, pmode):
+    """The int16 a lane of an inter MB's fields: quadrant q's vector on lanes
+    2q, 2q + 1 and its reference on 8 + q, pmode on 12 (P_16x16: the vector
+    on 0-1, the reference on 8); an intra MB's none."""
+    f = [0] * 32
+    if md != 1:
+        return f
+    if pmode is not None:
+        f[:8] = [int(v) for v in mv[mb].reshape(8)]
+        f[8:12] = [int(v) for v in ref[mb]] if ref is not None else [0] * 4
+        f[12] = int(pmode[mb])
+    else:
+        f[:2] = [int(v) for v in mv[mb]] if mv is not None else [0, 0]
+        f[8] = int(ref[mb]) if ref is not None else 0
+    return f
+
+
+def p_header(b, md, skip_run, cbp, any_luma, cbp_chroma, f, prev_md, pf, at_edge, parts,
+             active):
+    """Lane 0's piece: the skip run, then the intra-in-P or the inter
+    header from the MB's fields ``f`` and the left MB's ``pf``."""
+    b.ue(skip_run)
+    if md >= 2:
+        b.ue(5 + 1 + (1 if md == 3 else 2) + 4 * cbp_chroma + 12 * any_luma)
+        b.put(1, 1)
+        b.put(1, 1)
+        return
+    own = [(f[2 * q], f[2 * q + 1]) for q in range(4)]
+    ownr = f[8:12]
+    if not parts:
+        li = prev_md == 1 and not at_edge
+        b.put(1, 1)
+        if active == 2:
+            b.put(1 - ownr[0], 1)
+        se(b, own[0][1] - (pf[1] if li else 0))
+        se(b, own[0][0] - (pf[0] if li else 0))
+    else:
+        left_ok = not at_edge
+        li = left_ok and prev_md <= 1
+        a1, a3 = (pf[2], pf[3]), (pf[6], pf[7])
+        a1r, a3r = (pf[9], pf[11]) if li else (-1, -1)
+        pm = f[12]
+        nparts = 1 if pm == 0 else 4 if pm == 3 else 2
+        rep = [0, 2 if pm == 1 else 1, 2, 3]
+        z2 = (0, 0)
+        b.ue(pm)
+        if pm == 3:
+            b.put(15, 4)
+        if active == 2:
+            for p in range(nparts):
+                b.put(1 - ownr[rep[p]], 1)
+        for p in range(nparts):
+            q = rep[p]
+            myref = ownr[q]
+            if p == 0:
+                mvp = mvp_general(a1, a1r, left_ok, z2, -1, False, z2, -1, False, myref)
+            elif p == 1:
+                if pm == 1:
+                    mvp = (a3 if left_ok and a3r == myref else
+                           mvp_general(a3, a3r, left_ok, own[0], ownr[0], True, a1, a1r,
+                                       left_ok, myref))
+                else:
+                    mvp = own[0]
+            elif p == 2:
+                mvp = mvp_general(a3, a3r, left_ok, own[0], ownr[0], True, own[1], ownr[1],
+                                  True, myref)
+            else:
+                mvp = mvp_general(own[2], ownr[2], True, own[1], ownr[1], True, own[0],
+                                  ownr[0], True, myref)
+            se(b, own[q][1] - mvp[1])
+            se(b, own[q][0] - mvp[0])
+    b.ue(VLC[OFF["cbp_inter"] + cbp])
+    if cbp:
+        b.put(1, 1)
+
+
+def model_pack_p(mode, zdc, acz, czdc, cacz, mv, ref, active, nw, pmode=None, run=16):
+    """H8's warp: a run of MBs of a row from the MB left of it (which only
+    gives the left context); the last coded MB left of the run by ballots of
+    mode != 0 over 32 columns moving left, then carried; a skipped MB
+    neither read nor coded."""
+    mb_h, mb_w = mode.shape
+    plan = packer.pack_plan(mb_h, mb_w, run)
+    words = np.zeros((mb_h, mb_w, nw), np.int64)
+    nbits = np.zeros((mb_h, mb_w), np.int64)
+    zero = (np.zeros(16, int), np.zeros(8, int))
+    for gw in range(plan["warps"]):
+        y, x0 = divmod(gw, plan["runs"])
+        x0 *= plan["run"]
+        last, c = -1, x0 - 1
+        while c >= 0:
+            ballot = [c - lane >= 0 and mode[y, c - lane] != 0 for lane in range(32)]
+            if any(ballot):
+                last = c - ballot.index(True)
+                break
+            c -= 32
+        prev_counts, prev_md, pf = zero, 0, [0] * 32
+        for x in range(max(x0 - 1, 0), min(mb_w, x0 + plan["run"])):
+            md = int(mode[y, x])
+            if md == 0:
+                prev_counts, prev_md, pf = zero, 0, [0] * 32
+                continue                      # zero words, no bits
+            f = p_fields(md, (y, x), mv, ref, pmode)
+            levels = tuple(a[y, x] for a in (zdc, acz, czdc, cacz))
+            cnt = (levels[1] != 0).sum(-1)
+            ccnt = (levels[3] != 0).sum(-1).reshape(8)
+            if x < x0:
+                prev_counts, prev_md, pf = (cnt, ccnt), md, f
+                continue
+            quad = [int((cnt.reshape(4, 4)[2 * (q >> 1):2 * (q >> 1) + 2,
+                                           2 * (q & 1):2 * (q & 1) + 2] > 0).any())
+                    for q in range(4)]
+            any_luma = int(cnt.sum() > 0)
+            cbp_chroma = 2 if ccnt.sum() else 1 if (levels[2] != 0).any() else 0
+            cbp = quad[0] | quad[1] << 1 | quad[2] << 2 | quad[3] << 3 | cbp_chroma << 4
+            intra = md >= 2
+            pieces = []
+            for lane in range(32):
+                b = Writer()
+                kind, bx, by = lane_role(lane)[:3]
+                if kind == 0:
+                    p_header(b, md, x - 1 - last, cbp, any_luma, cbp_chroma, f, prev_md, pf,
+                             x == 0, pmode is not None, active)
+                elif kind < 5:
+                    on = {1: intra, 2: any_luma if intra else quad[(bx >> 1) + 2 * (by >> 1)],
+                          3: cbp_chroma >= 1, 4: cbp_chroma == 2}[kind]
+                    if on:
+                        residual(b, lane, levels, (cnt, ccnt), prev_counts, x == 0,
+                                 full=not intra)
+                b.flush()
+                pieces.append(b)
+            words[y, x], nbits[y, x] = place(pieces, nw)
+            last, prev_counts, prev_md, pf = x, (cnt, ccnt), md, f
+    return words, nbits
+
+
+def p_frame(seed, mb_w=MB_W):
+    """A P frame's fields at 3 x ``mb_w`` MBs from the port's
+    ``synthetic_p_fields`` (levels nonzero under skipped MBs too): row 0 of
+    random modes (skip, inter, intra DC and HORIZONTAL), row 1 coded MBs
+    at its start and its last two columns and a skip run between them
+    across the start of a run, row 2 no coded MB; the inter MBs' partition
+    modes in turn 0, 1, 2, 3."""
+    rng = np.random.default_rng(seed)
+    lead = 3 if mb_w >= 40 else 1
+    mode = np.zeros((3, mb_w), np.int16)
+    mode[0] = rng.choice([0, 0, 1, 1, 1, 2, 3], mb_w)
+    mode[1, :lead] = rng.choice([1, 2, 3], lead)
+    mode[1, -2:] = (1, 3)
+    f = bitpack.synthetic_p_fields(rng, 3, mb_w, mode=mode)
+    f["pmode"][mode == 1] = np.arange(int((mode == 1).sum())) % 4
+    return tuple(f[k] for k in ("mode", "zdc", "acz", "czdc", "cacz")), f
+
+
+# (mv, ref, active references) of P_16x16; (ref4, active references) of parts
+P_LAYOUTS = {"p16_zero_motion": (False, False, 1), "p16_mv": (True, False, 1),
+             "p16_two_refs": (True, True, 2), "parts_one_ref": (False, 1),
+             "parts_two_refs": (True, 2)}
+
+
+def p_args(layout, mb_w=MB_W):
+    """pack_p_mbs's arguments and keywords for one of P_LAYOUTS."""
+    lv, f = p_frame(11, mb_w)
+    if layout.startswith("parts"):
+        with_ref, active = P_LAYOUTS[layout]
+        return (*lv, None, None, active), dict(pmode=f["pmode"], mv4=f["mv4"],
+                                               ref4=f["ref4"] if with_ref else None)
+    with_mv, with_ref, active = P_LAYOUTS[layout]
+    return (*lv, f["mv"] if with_mv else None, f["ref"] if with_ref else None, active), {}
+
+
+def jax_packed_p(layout, nw):
+    """The JAX P packer's words and counts at a cap of ``nw`` words: its
+    output at 64 words, once a layout, cut to the cap (an MB's words are
+    the first 32 * cap bits of its string at any cap; its count is its
+    true count)."""
+    if layout not in _JAX:
+        args, kw = p_args(layout)
+        j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+        _JAX[layout] = tuple(np.asarray(a) for a in jax_bitpack.pack_p_mbs(
+            *map(j, args[:7]), args[7], nw_mb=64, **{k: j(v) for k, v in kw.items()}))
+    words, nbits = _JAX[layout]
+    return words[..., :nw], nbits
+
+
+def plain_packed_p(layout, nw):
+    """The port's plain P packer's words and counts on rows of 40 MBs."""
+    import torch
+
+    if (layout, 40) not in _JAX:
+        args, kw = p_args(layout, 40)
+        t = lambda a: a if a is None or isinstance(a, int) else torch.from_numpy(a)  # noqa: E731
+        _JAX[layout, 40] = tuple(a.numpy() for a in bitpack.pack_p_mbs_plain(
+            *map(t, args), 64, **{k: t(v) for k, v in kw.items()}))
+    words, nbits = _JAX[layout, 40]
+    return words[..., :nw], nbits
+
+
+@pytest.mark.parametrize("mb_w", [MB_W, 40])
+def test_p_frame_holds_the_runs_the_design_must_meet(mb_w):
+    """The fields above: every mode, a skip run across a run's start, a row
+    with no coded MB, levels under skipped MBs, every partition mode; on
+    rows of 40 a skip run of 35 whose last coded MB lies two ballots back."""
+    (mode, _, acz, *_), f = p_frame(11, mb_w)
+    assert set(np.unique(mode)) == {0, 1, 2, 3}
+    lead = 3 if mb_w >= 40 else 1
+    assert (mode[2] == 0).all() and (mode[1, lead:-2] == 0).all()
+    assert (acz[mode == 0] != 0).any()
+    assert set(np.unique(f["pmode"][mode == 1])) == {0, 1, 2, 3}
+    if mb_w == 40:
+        assert packer.pack_plan(3, 40, 16)["runs"] == 3 and mb_w - 2 - lead > 32
+
+
+def check_model_p(layout, run, mb_w, want):
+    args, kw = p_args(layout, mb_w)
+    if kw:
+        args = (*args[:5], kw["mv4"], kw["ref4"], args[7])    # the quadrant fields
+    for nw in (64, 3):
+        got_w, got_n = model_pack_p(*args, nw, pmode=kw.get("pmode"), run=run)
+        want_w, want_n = want(layout, nw)
+        assert np.array_equal(got_n, np.asarray(want_n)), nw
+        assert np.array_equal(got_w, np.asarray(want_w).astype(np.int64)), nw
+        if nw == 3:
+            assert (got_n > 96).any()        # MBs over the cap keep their true count
+
+
+@pytest.mark.parametrize("run", [1, 3, 16])
+@pytest.mark.parametrize("layout", list(P_LAYOUTS))
+def test_pack_p_model_equals_jax(layout, run):
+    check_model_p(layout, run, MB_W, jax_packed_p)
+
+
+@pytest.mark.parametrize("run", [1, 3, 16])
+@pytest.mark.parametrize("layout", list(P_LAYOUTS))
+def test_pack_p_model_on_rows_of_40_equals_plain(layout, run):
+    check_model_p(layout, run, 40, plain_packed_p)
+
+
+def test_pack_p_entries_launch_only_on_the_card():
+    """pack_p_into and its floor refuse CPU levels; pack_p_mbs takes the
+    plain version for them: no launch is counted."""
+    import torch
+
+    args, kw = p_args("parts_two_refs")
+    t = lambda a: a if a is None or isinstance(a, int) else torch.from_numpy(a)  # noqa: E731
+    args, kw = [t(a) for a in args], {k: t(v) for k, v in kw.items()}
+    words = torch.zeros((MB_H, MB_W, 8), dtype=torch.uint32)
+    nbits = torch.zeros((MB_H, MB_W), dtype=torch.int32)
+    packer.reset_launch_counts()
+    for fn in (packer.pack_p_into, packer.pack_p_floor_into):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args, words, nbits, **kw)
+    got = packer.pack_p_mbs(*args, 8, **kw)
+    want = bitpack.pack_p_mbs_plain(*args, 8, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert packer.launch_counts() == {"pack_i_mbs": 0, "pack_p_mbs": 0}
+
+
+def test_outputs_take_any_word_count():
+    """No packer keeps an MB's words in shared memory: the wrappers take any
+    nw_mb from 1, as the JAX package does."""
+    import torch
+
+    for nw in (1, 64, 2048):
+        packer._outputs(torch.zeros((2, 3, nw), dtype=torch.uint32),
+                        torch.zeros((2, 3), dtype=torch.int32), 2, 3, nw,
+                        torch.device("cpu"))
+    with pytest.raises(ValueError, match="at least 1"):
+        packer._outputs(torch.zeros((2, 3, 0), dtype=torch.uint32),
+                        torch.zeros((2, 3), dtype=torch.int32), 2, 3, 0, torch.device("cpu"))
